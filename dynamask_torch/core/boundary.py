@@ -1,0 +1,82 @@
+"""Boundary block targets and bilinear resize (port of
+``generate_block_target`` and ``interpolate_bilinear`` in
+``dynamask_tpu/core/boundary.py``)."""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _laplacian_conv(x: torch.Tensor, boundary_width: int,
+                    padding: int) -> torch.Tensor:
+    """Stride-1 conv of ``(N, H, W)`` maps with the all -1 / centre k²-1
+    kernel, written as k²·centre − box sum."""
+    k = 2 * boundary_width + 1
+    x = x.float()
+    n, h, w = x.shape
+    xp = F.pad(x, (padding,) * 4)
+    oh = h + 2 * padding - k + 1
+    ow = w + 2 * padding - k + 1
+    box = None
+    for i in range(k):
+        for j in range(k):
+            sl = xp[:, i:i + oh, j:j + ow]
+            box = sl if box is None else box + sl
+    bw = boundary_width
+    center = xp[:, bw:bw + oh, bw:bw + ow]
+    return (k * k) * center - box
+
+
+def generate_block_target(mask: torch.Tensor,
+                          boundary_width: int = 3) -> torch.Tensor:
+    """``(N, H, W)`` binary masks -> int32 block map: 0 background,
+    1 boundary, 2 interior. The complement is taken of the zero-padded mask,
+    so its padding ring is 1 (as in the reference)."""
+    mask = mask.float()
+    k = 2 * boundary_width + 1
+    bw = boundary_width
+    pos = _laplacian_conv(mask, bw, padding=bw).clamp(min=0.0) / float(k * k)
+    pos = (pos > 0.1).float()
+    comp = 1.0 - F.pad(mask, (bw,) * 4)
+    neg = _laplacian_conv(comp, bw, padding=0).clamp(min=0.0) / float(k * k)
+    neg = (neg > 0.1).float()
+    block = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
+    block = torch.where((pos + neg) > 0, 1, block)
+    block = torch.where((mask - pos) > 0, 2, block)
+    return block.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_matrix(out_size: int, in_size: int,
+                   align_corners: bool) -> np.ndarray:
+    """``(out, in)`` dense bilinear interpolation matrix (float32)."""
+    if align_corners:
+        coords = (np.zeros(1, np.float64) if out_size == 1 else
+                  np.linspace(0.0, in_size - 1.0, out_size))
+    else:
+        coords = (np.arange(out_size) + 0.5) * (in_size / out_size) - 0.5
+        coords = np.clip(coords, 0, in_size - 1)
+    c0 = np.clip(np.floor(coords), 0, in_size - 1).astype(np.int64)
+    c1 = np.minimum(c0 + 1, in_size - 1)
+    frac = coords - c0
+    m = np.zeros((out_size, in_size), np.float32)
+    m[np.arange(out_size), c0] += 1.0 - frac
+    m[np.arange(out_size), c1] += frac
+    m.flags.writeable = False
+    return m
+
+
+def interpolate_bilinear(x: torch.Tensor, out_h: int, out_w: int,
+                         align_corners: bool = True) -> torch.Tensor:
+    """Bilinear resize of ``(..., H, W)`` with ``F.interpolate`` semantics,
+    as two matmuls against constant interpolation matrices."""
+    h, w = x.shape[-2], x.shape[-1]
+    a = torch.tensor(_interp_matrix(out_h, h, align_corners), device=x.device)
+    bt = torch.tensor(_interp_matrix(out_w, w, align_corners),
+                      device=x.device).t()
+    y = torch.matmul(a, x.float())
+    return torch.matmul(y, bt).to(x.dtype)

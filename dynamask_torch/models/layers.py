@@ -1,0 +1,101 @@
+"""Small building blocks of the port's models (NCHW tensors, ``channels_last``
+memory). Counterparts of ``dynamask_tpu/models/layers.py``."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from ..core.boundary import interpolate_bilinear
+
+
+class ConvModule(nn.Module):
+    """A conv under the ``.conv`` attribute, so state-dict keys read
+    ``<name>.conv.weight`` as mmcv's ``ConvModule`` writes them."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, padding: int = 0, bias: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
+                              padding=padding, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+def resize_bilinear_2x(x: torch.Tensor,
+                       align_corners: bool = False) -> torch.Tensor:
+    """Bilinear ×2 upsample of NCHW. The SFM feature upsample is
+    ``nn.Upsample(bilinear)`` (align_corners False); the final logits use
+    ``align_corners=True`` (``dynamask_tpu/models/layers.py:206``)."""
+    h, w = x.shape[-2:]
+    return interpolate_bilinear(x, 2 * h, 2 * w, align_corners)
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> contiguous NHWC; free for a ``channels_last`` tensor."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous NHWC -> NCHW view in ``channels_last`` memory (no copy)."""
+    return x.permute(0, 3, 1, 2)
+
+
+# default initialisers of the JAX package's modules, by parameter name
+# (first match wins): xavier-uniform FPN and shared fcs, N(0, 0.01) RPN and
+# class scores, N(0, 0.001) box deltas, zero DCN offset convs; every other
+# conv or linear weight is He-normal over fan-out
+_INIT_RULES = (('neck.', 'xavier'), ('rpn_head.', 0.01),
+               ('bbox_head.shared_fcs', 'xavier'), ('bbox_head.fc_cls', 0.01),
+               ('bbox_head.fc_reg', 0.001), ('conv_offset', 0.0))
+
+
+def _default_init(name: str, p: torch.Tensor, generator: torch.Generator):
+    rule = next((r for key, r in _INIT_RULES if key in name), 'he')
+    if rule == 'xavier':
+        fan_in = p[0].numel()
+        fan_out = p.shape[0] * (p[0, 0].numel() if p.dim() > 2 else 1)
+        bound = (6.0 / (fan_in + fan_out)) ** 0.5
+        p.uniform_(-bound, bound, generator=generator)
+    elif rule == 'he':
+        fan_out = p.shape[0] * (p[0, 0].numel() if p.dim() > 2 else 1)
+        p.normal_(0.0, (2.0 / fan_out) ** 0.5, generator=generator)
+    elif rule:
+        p.normal_(0.0, rule, generator=generator)
+    else:
+        p.zero_()
+
+
+def init_weights(model: nn.Module, generator: torch.Generator,
+                 std: Optional[float] = None) -> nn.Module:
+    """Fill every parameter and BN statistic from ``generator``.
+
+    ``std=None``: the JAX package's initialisers (``_INIT_RULES``), zero
+    biases, unit BN. ``std=s``: every float parameter ~ N(0, s) and BN
+    statistics |N(0, s)| + 0.5 (the random-weight protocol of the JAX
+    bench)."""
+    with torch.no_grad():
+        for mod_name, m in model.named_modules():
+            is_bn = isinstance(m, nn.modules.batchnorm._BatchNorm)
+            for name, p in m.named_parameters(recurse=False):
+                if std is not None:
+                    p.normal_(0.0, std, generator=generator)
+                elif is_bn:
+                    p.fill_(1.0 if name == 'weight' else 0.0)
+                elif p.dim() >= 2:
+                    _default_init(f'{mod_name}.{name}', p, generator)
+                else:
+                    p.zero_()
+            if is_bn:
+                if std is not None:
+                    for buf in (m.running_mean, m.running_var):
+                        buf.normal_(0.0, std, generator=generator)
+                        buf.abs_().add_(0.5)
+                else:
+                    m.running_mean.zero_()
+                    m.running_var.fill_(1.0)
+                m.num_batches_tracked.zero_()
+    return model

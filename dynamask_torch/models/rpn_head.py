@@ -1,0 +1,82 @@
+"""RPN head and static-shape proposals (port of
+``dynamask_tpu/models/rpn_head.py``: ``RPNHead`` and ``rpn_get_proposals``
+:155-218)."""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..core.bbox_transforms import clip_boxes, delta2bbox
+from ..ops.nms import batched_nms
+from ..utils.registry import HEADS
+
+
+class Proposals(NamedTuple):
+    boxes: torch.Tensor   # (B, max_num, 4)
+    scores: torch.Tensor  # (B, max_num)
+    valid: torch.Tensor   # (B, max_num) bool
+
+
+@HEADS.register_module()
+class RPNHead(nn.Module):
+    """3×3 shared conv + 1×1 objectness / box-delta convs."""
+
+    def __init__(self, in_channels: int = 256, feat_channels: int = 256,
+                 num_anchors: int = 3):
+        super().__init__()
+        self.num_anchors = num_anchors
+        self.rpn_conv = nn.Conv2d(in_channels, feat_channels, 3, padding=1)
+        self.rpn_cls = nn.Conv2d(feat_channels, num_anchors, 1)
+        self.rpn_reg = nn.Conv2d(feat_channels, num_anchors * 4, 1)
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        """NCHW levels -> per-level (B, A, H, W) scores, (B, 4A, H, W)
+        deltas."""
+        cls_scores, bbox_preds = [], []
+        for x in feats:
+            t = F.relu(self.rpn_conv(x))
+            cls_scores.append(self.rpn_cls(t))
+            bbox_preds.append(self.rpn_reg(t))
+        return cls_scores, bbox_preds
+
+
+def rpn_get_proposals(cls_scores: List[torch.Tensor],
+                      bbox_preds: List[torch.Tensor],
+                      mlvl_anchors: List[torch.Tensor],
+                      img_shapes: torch.Tensor,
+                      nms_pre: int = 2000, max_num: int = 1000,
+                      nms_thr: float = 0.7,
+                      target_means=(0., 0., 0., 0.),
+                      target_stds=(1., 1., 1., 1.),
+                      pre_top_k: int = 3072) -> Proposals:
+    """Per-level sigmoid scores -> top ``nms_pre`` -> decode and clip ->
+    level-aware NMS -> ``max_num`` slots. Scores and deltas are NCHW conv
+    maps; they are read location-major, anchor-minor (the anchor layout)."""
+    b = cls_scores[0].shape[0]
+    lvl_boxes, lvl_scores, lvl_ids = [], [], []
+    for lvl, (cs, bp, anc) in enumerate(zip(cls_scores, bbox_preds,
+                                            mlvl_anchors)):
+        scores = torch.sigmoid(cs.float().permute(0, 2, 3, 1).reshape(b, -1))
+        k = min(nms_pre, scores.shape[1])
+        top_s, top_i = torch.topk(scores, k, dim=1)
+        deltas = bp.float().permute(0, 2, 3, 1).reshape(b, -1, 4)  # (B, HWA, 4)
+        top_d = torch.gather(deltas, 1, top_i[..., None].expand(b, k, 4))
+        boxes = delta2bbox(anc[top_i], top_d, target_means, target_stds)
+        boxes = clip_boxes(boxes, img_shapes[:, None, :])
+        lvl_boxes.append(boxes)
+        lvl_scores.append(top_s)
+        lvl_ids.append(torch.full((b, k), lvl, dtype=torch.int64,
+                                  device=scores.device))
+    all_boxes = torch.cat(lvl_boxes, 1)
+    all_scores = torch.cat(lvl_scores, 1)
+    all_ids = torch.cat(lvl_ids, 1)
+    outs = [batched_nms(all_boxes[i], all_scores[i], all_ids[i],
+                        all_scores[i] > 0, nms_thr, max_num, pre_top_k)
+            for i in range(b)]
+    return Proposals(torch.stack([o[0] for o in outs]),
+                     torch.stack([o[1] for o in outs]),
+                     torch.stack([o[3] for o in outs]))

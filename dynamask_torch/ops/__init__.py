@@ -1,0 +1,32 @@
+"""Ops of the port. K1 (:func:`deform_im2col_windowed`) and K2
+(:func:`roi_align_fwd`) are hand-written CUDA kernels, each beside its plain
+PyTorch version; the rest is plain PyTorch on the device."""
+
+from .deform_conv import (deform_conv2d, deform_im2col_windowed,
+                          deform_im2col_windowed_plain)
+from .nms import batched_nms, multiclass_nms
+from .paste import paste_masks
+# ``nms`` and ``roi_align`` are not re-exported: the names stay the modules'
+from .roi_align import (map_roi_levels, multilevel_roi_align, roi_align_fwd,
+                        roi_align_fwd_plain, simple_roi_align)
+
+KERNELS = {'deform_im2col_windowed': deform_im2col_windowed,
+           'roi_align_fwd': roi_align_fwd}
+
+
+def kernel_launches() -> dict:
+    """Launch count of each hand-written kernel wrapper."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_kernel_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = ['deform_conv2d', 'deform_im2col_windowed',
+           'deform_im2col_windowed_plain', 'batched_nms', 'multiclass_nms',
+           'paste_masks', 'map_roi_levels', 'multilevel_roi_align',
+           'roi_align_fwd', 'roi_align_fwd_plain',
+           'simple_roi_align', 'KERNELS', 'kernel_launches',
+           'reset_kernel_launches']

@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's flagship inference on one GPU.
+
+    python3 tools/profile_torch_port.py [--iters 5]
+
+Builds DynaMask R50-FPN (``configs/dynamask/coco/r50_dynamask_1x.py``) with
+random N(0, 0.05) weights from seed 0, as ``chip_smoke.py`` does, and runs
+one 800x1344 fp32 image through ``simple_test`` + mask paste in the faithful
+and the MSM-routed mode. For each mode it reports
+
+* from a ``torch.profiler`` trace of whole ``inference_detector`` calls:
+  each stage's host time and the device time of the kernels it launched,
+  read from the ``record_function`` ranges that ``MaskRCNN.simple_test``,
+  the RoI head and ``inference_detector`` open (backbone, fpn,
+  rpn_and_proposals, box_head_and_nms, mask_branch, paste);
+* device time per kernel name, the number of kernel launches, and the
+  device's busy share (kernel time over wall time).
+
+Prints a summary and writes ``chiprun_out/profile_torch_port.json``.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+STAGES = ('backbone', 'fpn', 'rpn_and_proposals', 'box_head_and_nms',
+          'mask_branch', 'paste')
+
+
+def _device_us(e) -> float:
+    """Device time of the kernels launched under a host event."""
+    if hasattr(e, 'device_time_total'):
+        return e.device_time_total
+    return e.cuda_time_total        # PyTorch before 2.4
+
+
+def _stage_times(prof):
+    """{stage: {'host_ms', 'device_ms'}} medians over the trace's
+    iterations, from the host-side record_function ranges."""
+    per = {k: {'host_ms': [], 'device_ms': []} for k in STAGES}
+    for e in prof.events():
+        if e.name in per and e.device_type.name == 'CPU':
+            per[e.name]['host_ms'].append(e.cpu_time_total / 1e3)
+            per[e.name]['device_ms'].append(_device_us(e) / 1e3)
+    return {k: {m: statistics.median(v) for m, v in d.items()}
+            for k, d in per.items() if d['host_ms']}
+
+
+def _profile(model, batch, iters):
+    """Kernel table and device busy share over ``iters`` whole iterations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dynamask_torch.apis import inference_detector
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(iters):
+            inference_detector(model, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t) / iters
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, 'self_device_time_total',
+                         getattr(e, 'self_cuda_time_total', 0))
+        # the stage ranges' device-side spans are not kernels
+        if (dev_us > 0 and e.device_type.name == 'CUDA' and
+                e.key not in STAGES):
+            rows.append({'name': e.key, 'ms_per_iter': dev_us / 1e3 / iters,
+                         'launches_per_iter': e.count / iters})
+    rows.sort(key=lambda r: -r['ms_per_iter'])
+    busy = sum(r['ms_per_iter'] for r in rows)
+    return {'wall_ms_per_iter': wall_ms, 'device_ms_per_iter': busy,
+            'device_busy_share': busy / wall_ms,
+            'kernel_launches_per_iter': sum(r['launches_per_iter']
+                                            for r in rows),
+            'stages': _stage_times(prof), 'kernels': rows[:30]}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--iters', type=int, default=5)
+    args = ap.parse_args()
+    import torch
+    from dynamask_torch.apis import inference_detector, init_detector
+    if not torch.cuda.is_available():
+        sys.exit('profile_torch_port: needs a CUDA device')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    model = init_detector(os.path.join(
+        ROOT, 'configs/dynamask/coco/r50_dynamask_1x.py'), seed=0,
+        init_std=0.05)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    h, w = 800, 1344
+    batch = {'image': torch.randn(1, h, w, 3, generator=gen, device='cuda'),
+             'img_shape': torch.tensor([[h, w]], dtype=torch.float32,
+                                       device='cuda'),
+             'scale_factor': torch.ones(1, 4, device='cuda')}
+    report = {'card': card, 'modes': {}}
+    for mode, dynamic in (('faithful', False), ('dynamic', True)):
+        model.roi_head.dynamic_inference = dynamic
+        for _ in range(2):
+            inference_detector(model, batch)
+        prof = _profile(model, batch, args.iters)
+        report['modes'][mode] = prof
+        print(f'{mode} [{card}]: wall {prof["wall_ms_per_iter"]:.2f} ms/img '
+              f'(profiled), device busy {prof["device_ms_per_iter"]:.2f} ms '
+              f'({100 * prof["device_busy_share"]:.1f}%), '
+              f'{prof["kernel_launches_per_iter"]:.0f} kernel launches/img')
+        print('  stages, median ms host / device: ' + ', '.join(
+            f'{k} {v["host_ms"]:.3f} / {v["device_ms"]:.3f}'
+            for k, v in prof['stages'].items()))
+        for r in prof['kernels'][:12]:
+            print(f'  {r["ms_per_iter"]:8.3f} ms x{r["launches_per_iter"]:5.0f}'
+                  f'  {r["name"][:100]}')
+    os.makedirs(os.path.join(ROOT, 'chiprun_out'), exist_ok=True)
+    with open(os.path.join(ROOT, 'chiprun_out', 'profile_torch_port.json'),
+              'w') as f:
+        json.dump(report, f, indent=1)
+
+
+if __name__ == '__main__':
+    main()
