@@ -1,5 +1,5 @@
-"""Grid anchors (port of ``AnchorGenerator.grid_anchors`` in
-``dynamask_tpu/core/anchors.py``).
+"""Grid anchors and their validity (port of ``AnchorGenerator.grid_anchors``
+and ``valid_flags`` in ``dynamask_tpu/core/anchors.py``, :108-131).
 
 Base anchors and grids are computed in numpy from static feature-map sizes,
 then moved to the device once per call.
@@ -50,3 +50,22 @@ class AnchorGenerator:
         assert len(featmap_sizes) == len(self.strides)
         return [torch.from_numpy(self.single_level_grid_anchors(fs, i)).to(
                     device) for i, fs in enumerate(featmap_sizes)]
+
+    def valid_flags(self, featmap_sizes: Sequence[Tuple[int, int]],
+                    img_shape: torch.Tensor) -> List[torch.Tensor]:
+        """Per level, (B, H*W*A) bool: an anchor location is valid when it
+        lies inside the un-padded image extent ``img_shape`` (B, 2) = (h, w)
+        on that level, ``ceil(extent / stride)`` cells."""
+        flags = []
+        num_base = len(self.scales) * len(self.ratios)
+        for level, (feat_h, feat_w) in enumerate(featmap_sizes):
+            sw, sh = self.strides[level]
+            h = torch.ceil(img_shape[:, 0] / sh).long().clamp(max=feat_h)
+            w = torch.ceil(img_shape[:, 1] / sw).long().clamp(max=feat_w)
+            ys = torch.arange(feat_h, device=img_shape.device)
+            xs = torch.arange(feat_w, device=img_shape.device)
+            valid = ((ys[None, :, None] < h[:, None, None]) &
+                     (xs[None, None, :] < w[:, None, None]))
+            flags.append(valid.reshape(img_shape.shape[0], -1)
+                         .repeat_interleave(num_base, dim=1))
+        return flags

@@ -1,6 +1,6 @@
-"""Boundary block targets and bilinear resize (port of
-``generate_block_target`` and ``interpolate_bilinear`` in
-``dynamask_tpu/core/boundary.py``)."""
+"""Boundary block targets, detail targets and bilinear resize (port of
+``generate_block_target``, ``detail_target`` (:85-117) and
+``interpolate_bilinear`` in ``dynamask_tpu/core/boundary.py``)."""
 
 from __future__ import annotations
 
@@ -12,22 +12,23 @@ import torch.nn.functional as F
 
 
 def _laplacian_conv(x: torch.Tensor, boundary_width: int,
-                    padding: int) -> torch.Tensor:
-    """Stride-1 conv of ``(N, H, W)`` maps with the all -1 / centre k²-1
-    kernel, written as k²·centre − box sum."""
+                    padding: int, stride: int = 1) -> torch.Tensor:
+    """Conv of ``(N, H, W)`` maps with the all -1 / centre k²-1 kernel,
+    written as k²·centre − box sum."""
     k = 2 * boundary_width + 1
     x = x.float()
     n, h, w = x.shape
     xp = F.pad(x, (padding,) * 4)
-    oh = h + 2 * padding - k + 1
-    ow = w + 2 * padding - k + 1
+    oh = (h + 2 * padding - k) // stride + 1
+    ow = (w + 2 * padding - k) // stride + 1
+    ey, ex = (oh - 1) * stride + 1, (ow - 1) * stride + 1
     box = None
     for i in range(k):
         for j in range(k):
-            sl = xp[:, i:i + oh, j:j + ow]
+            sl = xp[:, i:i + ey:stride, j:j + ex:stride]
             box = sl if box is None else box + sl
     bw = boundary_width
-    center = xp[:, bw:bw + oh, bw:bw + ow]
+    center = xp[:, bw:bw + ey:stride, bw:bw + ex:stride]
     return (k * k) * center - box
 
 
@@ -48,6 +49,22 @@ def generate_block_target(mask: torch.Tensor,
     block = torch.where((pos + neg) > 0, 1, block)
     block = torch.where((mask - pos) > 0, 2, block)
     return block.to(torch.int32)
+
+
+def detail_target(gt_masks: torch.Tensor,
+                  fuse_weights: torch.Tensor) -> torch.Tensor:
+    """``(N, H, W)`` binary masks -> ``(N, H, W)`` binary boundary targets:
+    3×3 Laplacian at stride 1 and at stride 2 (nearest ×2 back), each
+    binarised at 0.1, fused by the two ``fuse_weights``, binarised at 0.1.
+    The thresholds pass no gradient to the fuse weights."""
+    m = gt_masks.float()
+    h, w = m.shape[-2:]
+    b1 = (_laplacian_conv(m, 1, padding=1).clamp(min=0.0) > 0.1).float()
+    b2 = _laplacian_conv(m, 1, padding=1, stride=2).clamp(min=0.0)
+    b2 = b2.repeat_interleave(2, 1).repeat_interleave(2, 2)[:, :h, :w]
+    b2 = (b2 > 0.1).float()
+    fw = fuse_weights.reshape(-1)
+    return (fw[0] * b1 + fw[1] * b2 > 0.1).float()
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,17 +1,23 @@
-"""Shared-2FC box head and test-time decode (port of
-``dynamask_tpu/models/bbox_head.py``: ``Shared2FCBBoxHead`` and
-``bbox_head_get_dets`` :190-226). ``num_classes`` foreground classes, softmax
-over ``num_classes + 1`` with background last."""
+"""Shared-2FC box head, its training targets and loss, and test-time decode
+(port of ``dynamask_tpu/models/bbox_head.py``: ``Shared2FCBBoxHead``,
+``bbox_targets_from_sample`` :107, ``bbox_head_loss`` :127-188 with the
+flagship's L1 regression, ``bbox_head_get_dets`` :190-226). ``num_classes``
+foreground classes, softmax over ``num_classes + 1`` with background
+last."""
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..core.bbox_transforms import clip_boxes, delta2bbox
+from ..core.bbox_transforms import bbox2delta, clip_boxes, delta2bbox
+from ..core.samplers import SamplingResult
 from ..ops.nms import multiclass_nms
 from ..utils.registry import HEADS
+from .losses import accuracy, l1_loss, softmax_cross_entropy
 
 
 @HEADS.register_module()
@@ -36,6 +42,45 @@ class Shared2FCBBoxHead(nn.Module):
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
         return self.fc_cls(x), self.fc_reg(x)
+
+
+class BBoxTargets(NamedTuple):
+    labels: torch.Tensor         # (N,) int64, num_classes = background
+    label_weights: torch.Tensor  # (N,)
+    bbox_targets: torch.Tensor   # (N, 4) encoded deltas
+    bbox_weights: torch.Tensor   # (N,)
+
+
+def bbox_targets_from_sample(sample: SamplingResult, num_classes: int,
+                             target_means, target_stds) -> BBoxTargets:
+    """Box targets over the fixed sample slots (any leading shape)."""
+    pos = sample.is_pos & sample.valid
+    labels = torch.where(pos, sample.labels, num_classes)
+    deltas = bbox2delta(sample.boxes, sample.target_boxes, target_means,
+                        target_stds)
+    bbox_weights = pos.float()
+    return BBoxTargets(labels, sample.valid.float(),
+                       deltas * bbox_weights[..., None], bbox_weights)
+
+
+def bbox_head_loss(cls_logits: torch.Tensor, bbox_deltas: torch.Tensor,
+                   targets: BBoxTargets, num_classes: int,
+                   loss_cls_weight: float = 1.0,
+                   loss_bbox_weight: float = 1.0):
+    """CE averaged over the sampled RoIs; L1 on each positive RoI's
+    class-specific deltas, averaged by the same count."""
+    avg = targets.label_weights.sum()
+    loss_cls = softmax_cross_entropy(cls_logits, targets.labels,
+                                     targets.label_weights, avg)
+    acc = accuracy(cls_logits, targets.labels, targets.label_weights)
+    n = bbox_deltas.shape[0]
+    safe = targets.labels.clamp(0, num_classes - 1)
+    pred = bbox_deltas.reshape(n, num_classes, 4)[torch.arange(
+        n, device=safe.device), safe]
+    loss_bbox = l1_loss(pred, targets.bbox_targets,
+                        targets.bbox_weights[:, None], avg)
+    return {'loss_cls': loss_cls_weight * loss_cls,
+            'loss_bbox': loss_bbox_weight * loss_bbox, 'acc': acc}
 
 
 def bbox_head_get_dets(rois: torch.Tensor, cls_logits: torch.Tensor,

@@ -1,21 +1,35 @@
-"""Two-stage detector at inference (port of ``MaskRCNN.simple_test``,
-``dynamask_tpu/models/detectors.py:131-145``): backbone -> FPN -> RPN
-proposals -> RoI head. Each stage of ``simple_test`` is a named
-``torch.profiler.record_function`` range (``backbone``, ``fpn``,
-``rpn_and_proposals``, then the RoI head's ``box_head_and_nms`` and
-``mask_branch``), so a profiler trace of the real entry splits its time."""
+"""Two-stage detector (port of ``MaskRCNN.forward_train``,
+``simple_test`` and ``parse_losses``, ``dynamask_tpu/models/detectors.py``
+:84-145 and :380): backbone -> FPN -> RPN proposals -> RoI head.
+
+Each stage is a named ``torch.profiler.record_function`` range, so a
+profiler trace of the real entry splits its time: ``backbone``, ``fpn``,
+then ``rpn_and_proposals``, ``box_head_and_nms`` and ``mask_branch`` at
+inference, and ``rpn_loss``, ``proposals``, ``box_branch`` and
+``mask_branch`` in ``forward_train``."""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
 from ..core.anchors import AnchorGenerator
+from ..core.assigners import MaxIoUAssigner
+from ..core.samplers import RandomSampler
 from ..utils.registry import DETECTORS
-from .rpn_head import rpn_get_proposals
+from .rpn_head import rpn_get_proposals, rpn_loss
+
+
+def parse_losses(losses: Dict[str, torch.Tensor]):
+    """total = the sum of every value whose key contains 'loss'; the log
+    holds every value and the total."""
+    total = sum(v for k, v in losses.items() if 'loss' in k)
+    log = dict(losses)
+    log['loss'] = total
+    return total, log
 
 
 @DETECTORS.register_module()
@@ -28,7 +42,11 @@ class MaskRCNN(nn.Module):
                  rpn_target_means=(0., 0., 0., 0.),
                  rpn_target_stds=(1., 1., 1., 1.),
                  rpn_nms_pre_test: int = 1000, rpn_max_num: int = 1000,
-                 rpn_nms_thr: float = 0.7):
+                 rpn_nms_thr: float = 0.7, rpn_nms_pre_train: int = 2000,
+                 rpn_pos_iou_thr: float = 0.7, rpn_neg_iou_thr: float = 0.3,
+                 rpn_min_pos_iou: float = 0.3, rpn_num_samples: int = 256,
+                 rpn_pos_fraction: float = 0.5, rpn_cls_weight: float = 1.0,
+                 rpn_bbox_weight: float = 1.0):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
@@ -41,6 +59,13 @@ class MaskRCNN(nn.Module):
         self.rpn_nms_pre_test = rpn_nms_pre_test
         self.rpn_max_num = rpn_max_num
         self.rpn_nms_thr = rpn_nms_thr
+        self.rpn_nms_pre_train = rpn_nms_pre_train
+        self.rpn_assigner = MaxIoUAssigner(rpn_pos_iou_thr, rpn_neg_iou_thr,
+                                           rpn_min_pos_iou,
+                                           match_low_quality=True)
+        self.rpn_sampler = RandomSampler(rpn_num_samples, rpn_pos_fraction)
+        self.rpn_cls_weight = rpn_cls_weight
+        self.rpn_bbox_weight = rpn_bbox_weight
 
     @property
     def device(self) -> torch.device:
@@ -53,6 +78,52 @@ class MaskRCNN(nn.Module):
         with record_function('fpn'):
             return self.neck(c)
 
+    @staticmethod
+    def images(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """NHWC ``batch['image']`` -> NCHW in ``channels_last`` memory."""
+        return batch['image'].permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+
+    def forward_train(self, batch: Dict[str, torch.Tensor],
+                      noise: Optional[dict] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """The training losses of one padded batch (the JAX batch contract:
+        ``image``, ``img_shape``, ``gt_boxes``, ``gt_labels``,
+        ``gt_valid``, ``gt_crops``, ``gt_windows``). The random draws come
+        from ``noise`` where it holds them ('rpn' (B, anchors) and 'rcnn'
+        (B, candidates) sampler priorities, 'gumbel' (B * max_pos, stages)
+        uniforms), else from ``generator``."""
+        noise = noise or {}
+        images = self.images(batch)
+        feats = self.extract_feat(images)
+        with record_function('rpn_loss'):
+            cls_scores, bbox_preds = self.rpn_head(feats)
+            sizes = [tuple(f.shape[-2:]) for f in feats]
+            mlvl_anchors = self.anchor_generator.grid_anchors(sizes,
+                                                              images.device)
+            # anchors over the canvas padding take no part in the RPN
+            # targets: validity from each image's un-padded extent
+            anchor_valid = torch.cat(self.anchor_generator.valid_flags(
+                sizes, batch['img_shape']), 1)
+            losses = rpn_loss(
+                cls_scores, bbox_preds, torch.cat(mlvl_anchors), anchor_valid,
+                batch['gt_boxes'], batch['gt_valid'], self.rpn_assigner,
+                self.rpn_sampler, self.rpn_target_means, self.rpn_target_stds,
+                self.rpn_cls_weight, self.rpn_bbox_weight,
+                priorities=noise.get('rpn'), generator=generator)
+        with record_function('proposals'), torch.no_grad():
+            proposals = rpn_get_proposals(
+                [c.detach() for c in cls_scores],
+                [p.detach() for p in bbox_preds], mlvl_anchors,
+                batch['img_shape'], nms_pre=self.rpn_nms_pre_train,
+                max_num=self.rpn_max_num, nms_thr=self.rpn_nms_thr,
+                target_means=self.rpn_target_means,
+                target_stds=self.rpn_target_stds)
+        losses.update(self.roi_head.forward_train(
+            feats, proposals.boxes, proposals.valid, batch, noise, generator))
+        return losses
+
     @torch.no_grad()
     def simple_test(self, batch: Dict[str, torch.Tensor],
                     rescale: bool = True) -> Dict[str, torch.Tensor]:
@@ -60,8 +131,7 @@ class MaskRCNN(nn.Module):
         ``img_shape`` (B, 2), ``scale_factor`` (B, 4). Returns dets
         (B, 100, 5), labels, det_valid and mask_probs (B, 100, 112, 112)
         in fixed slots."""
-        images = batch['image'].permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last)
+        images = self.images(batch)
         feats = self.extract_feat(images)
         with record_function('rpn_and_proposals'):
             cls_scores, bbox_preds = self.rpn_head(feats)

@@ -1,6 +1,13 @@
 """DynaMask mask cascade and Mask Switch Module (port of
 ``dynamask_tpu/models/dynamask_head.py``: ``DCNPack``, ``SFMStage``,
-``ClassSelectConv1x1``, ``DynaMaskHead``, ``MaskPre``, :37-364).
+``ClassSelectConv1x1``, ``DynaMaskHead``, ``MaskPre``, :37-364, and
+``gumbel_softmax`` :367-384).
+
+Training runs the same modules: ``DCNPack`` through the DCN's autograd
+function (K1 and K3), which keeps only its inputs for the backward, as the
+JAX package rematerialises the DCN under training
+(``dynamask_head.py:79-80``); ``MaskPre``'s two BatchNorms use batch
+statistics in training mode.
 
 Two instance convs at 14×14, then three ``SFMStage``s 14→28→56 halving the
 channels, then class-agnostic final logits upsampled ×2 to 112. Each stage
@@ -114,9 +121,10 @@ class SFMStage(nn.Module):
 
 class DetailTarget(nn.Module):
     """Holds the trainable detail-target fuse kernel of the reference loss
-    (cross_entropy_loss.py:371, shape (1, 2, 1, 1)). Inference does not read
-    it; it is carried so the weights round-trip with the JAX tree's
-    ``detail_fuse_weights``."""
+    (cross_entropy_loss.py:371, shape (1, 2, 1, 1)), the JAX tree's
+    ``detail_fuse_weights``. Training reads it in ``dyna_mask_loss``; its
+    thresholded targets give it zero gradient, so only weight decay moves
+    it."""
 
     def __init__(self):
         super().__init__()
@@ -209,6 +217,25 @@ class DynaMaskHead(nn.Module):
         return inst_preds, det_preds
 
 
+class BatchNorm2dBiasedVar(nn.BatchNorm2d):
+    """BatchNorm2d whose training mode updates the running variance with
+    the biased batch variance, as the JAX package's flax BatchNorm does
+    (torch's own update uses the unbiased one). Momentum 0.1 here is flax's
+    0.9."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 class MaskPre(nn.Module):
     """The Mask Switch Module CNN (reference base_roi_head.py:10-27):
     56×56 crop -> 1×1 conv to 128 + BN + ReLU + pool -> 3×3 conv to 16 + BN
@@ -222,9 +249,9 @@ class MaskPre(nn.Module):
     def __init__(self, num_choices: int = 4, in_channels: int = 256):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, 128, 1)
-        self.bn1 = nn.BatchNorm2d(128, eps=1e-5)
+        self.bn1 = BatchNorm2dBiasedVar(128, eps=1e-5)
         self.conv2 = nn.Conv2d(128, 16, 3, padding=1)
-        self.bn2 = nn.BatchNorm2d(16, eps=1e-5)
+        self.bn2 = BatchNorm2dBiasedVar(16, eps=1e-5)
         self.fc1 = nn.Linear(16 * 14 * 14, 512)
         self.fc2 = nn.Linear(512, num_choices)
 
@@ -240,3 +267,23 @@ class MaskPre(nn.Module):
         x = F.max_pool2d(F.relu(self.bn2(self.conv2(x))), 3, 2, 1)
         x = x.reshape(x.shape[0], -1)                # CHW order, 3136
         return self.fc2(F.relu(self.fc1(x)))
+
+
+def gumbel_softmax(logits: torch.Tensor, temperature: float = 0.5,
+                   hard: bool = True, eps: float = 1e-20,
+                   u: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """Straight-through Gumbel-softmax. ``u`` injects the uniform noise
+    (the tests give both sides the same draws); otherwise it is drawn from
+    ``generator``."""
+    if u is None:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
+    u = u.to(logits.device, logits.dtype)
+    g = -torch.log((-torch.log(u.clamp(min=eps))).clamp(min=eps))
+    y = F.softmax((logits + g) / temperature, dim=-1)
+    if not hard:
+        return y
+    y_hard = F.one_hot(y.argmax(-1), logits.shape[-1]).to(y.dtype)
+    return (y_hard - y).detach() + y

@@ -5,8 +5,11 @@ the state dict reads ``backbone.layer1.0.conv1.weight``.
 
 The JAX stem is ``S2DStemConv`` (``resnet.py:45``), an exact TPU layout
 rewrite of the 7×7 stride-2 conv; the port runs the plain conv.
-``frozen_stages`` and ``norm_eval`` concern training and change nothing in
-this inference port.
+In training (the JAX package's ``resnet.py:197,243,321,347-388``):
+``frozen_stages = n`` freezes the stem and the first n stages (no gradient,
+no update, no weight decay: their parameters stop requiring a gradient), and
+``norm_eval`` keeps every BatchNorm on its running statistics when the model
+is put in training mode.
 """
 
 from __future__ import annotations
@@ -90,6 +93,8 @@ class ResNet(nn.Module):
             raise NotImplementedError(f'ResNet style {style!r}')
         block, stage_blocks = ARCH_SETTINGS[depth]
         self.out_indices = tuple(out_indices)
+        self.frozen_stages = frozen_stages
+        self.norm_eval = norm_eval
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
         inplanes, planes = 64, 64
@@ -107,6 +112,27 @@ class ResNet(nn.Module):
                 inplanes = planes * block.expansion
             setattr(self, f'layer{i + 1}', nn.Sequential(*blocks))
             planes *= 2
+
+    def frozen_modules(self):
+        """The stem and the first ``frozen_stages`` stages."""
+        if self.frozen_stages < 0:
+            return []
+        return [self.conv1, self.bn1] + [
+            getattr(self, f'layer{i}') for i in range(1, self.frozen_stages
+                                                      + 1)]
+
+    def freeze_stages(self) -> None:
+        for m in self.frozen_modules():
+            for p in m.parameters():
+                p.requires_grad_(False)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if mode and self.norm_eval:
+            for m in self.modules():
+                if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                    m.eval()
+        return self
 
     def forward(self, x: torch.Tensor):
         x = F.relu(self.bn1(self.conv1(x)))

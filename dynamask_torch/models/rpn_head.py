@@ -1,18 +1,21 @@
-"""RPN head and static-shape proposals (port of
-``dynamask_tpu/models/rpn_head.py``: ``RPNHead`` and ``rpn_get_proposals``
-:155-218)."""
+"""RPN head, its training loss and static-shape proposals (port of
+``dynamask_tpu/models/rpn_head.py``: ``RPNHead``, ``rpn_loss`` :85-153 and
+``rpn_get_proposals`` :155-218)."""
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..core.bbox_transforms import clip_boxes, delta2bbox
+from ..core.assigners import MaxIoUAssigner
+from ..core.bbox_transforms import bbox2delta, clip_boxes, delta2bbox
+from ..core.samplers import RandomSampler
 from ..ops.nms import batched_nms
 from ..utils.registry import HEADS
+from .losses import binary_cross_entropy_with_logits
 
 
 class Proposals(NamedTuple):
@@ -42,6 +45,56 @@ class RPNHead(nn.Module):
             cls_scores.append(self.rpn_cls(t))
             bbox_preds.append(self.rpn_reg(t))
         return cls_scores, bbox_preds
+
+
+def _flatten_levels(cls_scores, bbox_preds):
+    """Per-level (B, A, H, W) / (B, 4A, H, W) maps -> (B, K) scores and
+    (B, K, 4) deltas, location-major and anchor-minor like the anchors."""
+    b = cls_scores[0].shape[0]
+    flat_cls = torch.cat([c.permute(0, 2, 3, 1).reshape(b, -1)
+                          for c in cls_scores], 1)
+    flat_reg = torch.cat([r.permute(0, 2, 3, 1).reshape(b, -1, 4)
+                          for r in bbox_preds], 1)
+    return flat_cls, flat_reg
+
+
+def rpn_loss(cls_scores: List[torch.Tensor], bbox_preds: List[torch.Tensor],
+             anchors: torch.Tensor, anchor_valid: torch.Tensor,
+             gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+             assigner: MaxIoUAssigner, sampler: RandomSampler,
+             target_means=(0., 0., 0., 0.), target_stds=(1., 1., 1., 1.),
+             loss_cls_weight: float = 1.0, loss_bbox_weight: float = 1.0,
+             priorities: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None):
+    """Sigmoid BCE over the sampled anchors and L1 over the positive ones,
+    both divided by the batch's total sampled count. ``anchors`` (K, 4),
+    ``anchor_valid`` (B, K); ``priorities`` (B, K) sampler draws, else drawn
+    from ``generator``."""
+    flat_cls, flat_reg = _flatten_levels(cls_scores, bbox_preds)
+    b, k = flat_cls.shape
+    cls_sum = reg_sum = count = 0.0
+    for i in range(b):
+        assign = assigner(anchors, anchor_valid[i], gt_boxes[i], gt_valid[i])
+        sample = sampler(assign, anchors, gt_boxes[i],
+                         None if priorities is None else priorities[i],
+                         generator)
+        pos = (sample.is_pos & sample.valid).float()
+        w = torch.zeros(k, device=anchors.device).index_add(
+            0, sample.inds, sample.valid.float())
+        target = torch.zeros(k, device=anchors.device).index_add(
+            0, sample.inds, pos)
+        deltas = bbox2delta(sample.boxes, sample.target_boxes, target_means,
+                            target_stds)
+        reg_t = torch.zeros_like(anchors).index_add(
+            0, sample.inds, deltas * pos[:, None])
+        cls_sum = cls_sum + (binary_cross_entropy_with_logits(
+            flat_cls[i], target) * w).sum()
+        reg_sum = reg_sum + ((flat_reg[i] - reg_t).abs() *
+                             target[:, None]).sum()
+        count = count + w.sum()
+    avg = count.clamp(min=1.0)
+    return {'loss_rpn_cls': loss_cls_weight * cls_sum / avg,
+            'loss_rpn_bbox': loss_bbox_weight * reg_sum / avg}
 
 
 def rpn_get_proposals(cls_scores: List[torch.Tensor],

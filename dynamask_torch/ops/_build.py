@@ -25,7 +25,9 @@ _BUILD_DIR = os.path.join(
 
 KERNEL_SOURCES = {
     'deform_im2col': 'deform_im2col.cu',
+    'deform_col2im': 'deform_col2im.cu',
     'roi_align': 'roi_align.cu',
+    'roi_align_bwd': 'roi_align_bwd.cu',
 }
 
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',

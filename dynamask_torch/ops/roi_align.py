@@ -8,13 +8,18 @@ crops), not mmcv's adaptive 0 (``roi_align.py:14-18``): samples outside
 ``[-1, extent]`` add zero, inside ones clamp to the edge
 (``_bilinear_gather``, :46-128).
 
-Every form reduces to :func:`roi_align_fwd` over one flat NHWC buffer with
-per-RoI ``(base, h, w, scale)``, as the XLA multilevel form does
-(``roi_align.py:261-300``). On a CUDA tensor that is the hand-written kernel
-K2 (``csrc/roi_align.cu``); on a CPU tensor it is the plain PyTorch version
-:func:`roi_align_fwd_plain` beside it. Features are NHWC at these public
-functions, as in the JAX package; a ``channels_last`` NCHW map viewed with
-``permute(0, 2, 3, 1)`` is contiguous NHWC and costs no copy.
+Every form reduces to one crop of a flat NHWC buffer with per-RoI
+``(base, h, w, scale)``, as the XLA multilevel form does
+(``roi_align.py:261-300``): :func:`roi_align_flat`, a
+``torch.autograd.Function`` whose forward is :func:`roi_align_fwd` (kernel
+K2, ``csrc/roi_align.cu``) and whose backward is :func:`roi_align_bwd`
+(kernel K4, ``csrc/roi_align_bwd.cu``), the gradient of the flat features.
+RoIs carry no gradient: the JAX training step detaches proposals
+(``dynamask_tpu/models/detectors.py:116-118``) and mask-target RoIs. On a
+CPU tensor the plain PyTorch versions beside the kernels run. Features are
+NHWC at these public functions, as in the JAX package; a ``channels_last``
+NCHW map viewed with ``permute(0, 2, 3, 1)`` is contiguous NHWC and costs no
+copy.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from . import _build
+from .deform_conv import _refuse_grad
 
 
 def map_roi_levels(rois: torch.Tensor, num_levels: int,
@@ -90,16 +96,9 @@ def roi_align_fwd_plain(flat: torch.Tensor, rois: torch.Tensor,
     return v.reshape(n, p, s, p, s, c).mean(dim=(2, 4))
 
 
-def roi_align_fwd(flat: torch.Tensor, rois: torch.Tensor, base: torch.Tensor,
-                  hs: torch.Tensor, ws: torch.Tensor, scales: torch.Tensor,
-                  out_size: int, sampling_ratio: int) -> torch.Tensor:
-    """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Arguments as :func:`roi_align_fwd_plain`."""
-    if flat.device.type == 'cpu':
-        return roi_align_fwd_plain(flat, rois, base, hs, ws, scales,
-                                   out_size, sampling_ratio)
-    n, c = rois.shape[0], flat.shape[1]
-    for name, t, dt, shape in (
+def _check_crop(name, flat, rois, base, hs, ws, scales):
+    n = rois.shape[0]
+    for arg, t, dt, shape in (
             ('flat', flat, torch.float32, None),
             ('rois', rois, torch.float32, (n, 4)),
             ('base', base, torch.int64, (n,)),
@@ -107,39 +106,134 @@ def roi_align_fwd(flat: torch.Tensor, rois: torch.Tensor, base: torch.Tensor,
             ('ws', ws, torch.int32, (n,)),
             ('scales', scales, torch.float32, (n,))):
         if t.device != flat.device or t.device.type != 'cuda':
-            raise ValueError(f'roi_align_fwd: {name} must be on the CUDA '
-                             f'device of flat, got {t.device}')
+            raise ValueError(f'{name}: {arg} must be on the CUDA device of '
+                             f'the features, got {t.device}')
         if t.dtype != dt:
-            raise TypeError(f'roi_align_fwd: {name} must be {dt}, '
-                            f'got {t.dtype}')
+            raise TypeError(f'{name}: {arg} must be {dt}, got {t.dtype}')
         if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f'roi_align_fwd: {name} shape {tuple(t.shape)}'
-                             f', expected {shape}')
+            raise ValueError(f'{name}: {arg} shape {tuple(t.shape)}, '
+                             f'expected {shape}')
         if not t.is_contiguous():
-            raise ValueError(f'roi_align_fwd: {name} must be contiguous')
+            raise ValueError(f'{name}: {arg} must be contiguous')
     if flat.dim() != 2:
-        raise ValueError('roi_align_fwd: flat must be (rows, C)')
+        raise ValueError(f'{name}: features must be (rows, C)')
+
+
+def _launch(lib, fn_name, args, ints, stream, name):
+    fn = getattr(_build.load(lib), fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * len(args) + [ctypes.c_int] * len(
+        ints) + [ctypes.c_void_p]
+    rc = fn(*[t.data_ptr() for t in args], *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
+                           f'{rc}')
+
+
+def roi_align_fwd(flat: torch.Tensor, rois: torch.Tensor, base: torch.Tensor,
+                  hs: torch.Tensor, ws: torch.Tensor, scales: torch.Tensor,
+                  out_size: int, sampling_ratio: int) -> torch.Tensor:
+    """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Arguments as :func:`roi_align_fwd_plain`. Carries no
+    gradient: :func:`roi_align_flat` is the differentiable entry."""
+    _refuse_grad('roi_align_fwd', flat)
+    if flat.device.type == 'cpu':
+        return roi_align_fwd_plain(flat, rois, base, hs, ws, scales,
+                                   out_size, sampling_ratio)
+    _check_crop('roi_align_fwd', flat, rois, base, hs, ws, scales)
+    n, c = rois.shape[0], flat.shape[1]
     out = torch.empty((n, out_size, out_size, c), dtype=torch.float32,
                       device=flat.device)
     if out.numel() == 0:
         return out
-    lib = _build.load('roi_align')
-    fn = lib.roi_align_fwd_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    stream = torch.cuda.current_stream(flat.device).cuda_stream
-    rc = fn(flat.data_ptr(), rois.data_ptr(), base.data_ptr(), hs.data_ptr(),
-            ws.data_ptr(), scales.data_ptr(), out.data_ptr(), n, c, out_size,
-            sampling_ratio, stream)
-    if rc != 0:
-        raise RuntimeError(f'roi_align_fwd: kernel launch failed with CUDA '
-                           f'error {rc}')
+    _launch('roi_align', 'roi_align_fwd_f32',
+            (flat, rois, base, hs, ws, scales, out),
+            (n, c, out_size, sampling_ratio),
+            torch.cuda.current_stream(flat.device).cuda_stream,
+            'roi_align_fwd')
     roi_align_fwd.launches += 1
     return out
 
 
 roi_align_fwd.launches = 0
+
+
+def roi_align_bwd_plain(d_out: torch.Tensor, rows: int, rois: torch.Tensor,
+                        base: torch.Tensor, hs: torch.Tensor,
+                        ws: torch.Tensor, scales: torch.Tensor,
+                        out_size: int, sampling_ratio: int) -> torch.Tensor:
+    """Plain PyTorch form of K4: the gradient (rows, C) of the flat
+    features from ``d_out`` (N, P, P, C), as autograd of
+    :func:`roi_align_fwd_plain` (the crop is linear in the features)."""
+    flat = torch.zeros(rows, d_out.shape[-1], device=d_out.device,
+                       requires_grad=True)
+    with torch.enable_grad():
+        out = roi_align_fwd_plain(flat, rois, base, hs, ws, scales, out_size,
+                                  sampling_ratio)
+    return torch.autograd.grad(out, flat, d_out)[0]
+
+
+def roi_align_bwd(d_out: torch.Tensor, rows: int, rois: torch.Tensor,
+                  base: torch.Tensor, hs: torch.Tensor, ws: torch.Tensor,
+                  scales: torch.Tensor, out_size: int,
+                  sampling_ratio: int) -> torch.Tensor:
+    """K4 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Arguments as :func:`roi_align_bwd_plain`. The result is
+    summed with fp32 atomics, so its last bits vary from run to run."""
+    if d_out.device.type == 'cpu':
+        return roi_align_bwd_plain(d_out, rows, rois, base, hs, ws, scales,
+                                   out_size, sampling_ratio)
+    n, c = rois.shape[0], d_out.shape[-1]
+    d_flat = torch.zeros((rows, c), dtype=torch.float32, device=d_out.device)
+    _check_crop('roi_align_bwd', d_flat, rois, base, hs, ws, scales)
+    if (d_out.dtype != torch.float32 or not d_out.is_contiguous() or
+            tuple(d_out.shape) != (n, out_size, out_size, c)):
+        raise ValueError(f'roi_align_bwd: d_out must be a contiguous float32 '
+                         f'{(n, out_size, out_size, c)} tensor, got '
+                         f'{tuple(d_out.shape)} {d_out.dtype}')
+    if d_out.numel() == 0:
+        return d_flat
+    _launch('roi_align_bwd', 'roi_align_bwd_f32',
+            (d_out, rois, base, hs, ws, scales, d_flat),
+            (n, c, out_size, sampling_ratio),
+            torch.cuda.current_stream(d_out.device).cuda_stream,
+            'roi_align_bwd')
+    roi_align_bwd.launches += 1
+    return d_flat
+
+
+roi_align_bwd.launches = 0
+
+
+class _RoIAlignFlat(torch.autograd.Function):
+    """K2 forward, K4 backward; the gradient of the features only."""
+
+    @staticmethod
+    def forward(ctx, flat, rois, base, hs, ws, scales, out_size,
+                sampling_ratio):
+        ctx.save_for_backward(rois, base, hs, ws, scales)
+        ctx.conf = (flat.shape[0], out_size, sampling_ratio)
+        return roi_align_fwd(flat, rois, base, hs, ws, scales, out_size,
+                             sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        rows, p, s = ctx.conf
+        d_flat = roi_align_bwd(d_out.contiguous().float(), rows,
+                               *ctx.saved_tensors, p, s)
+        return d_flat, None, None, None, None, None, None, None
+
+
+def roi_align_flat(flat: torch.Tensor, rois: torch.Tensor,
+                   base: torch.Tensor, hs: torch.Tensor, ws: torch.Tensor,
+                   scales: torch.Tensor, out_size: int,
+                   sampling_ratio: int) -> torch.Tensor:
+    """Differentiable crop of the flat features (arguments as
+    :func:`roi_align_fwd_plain`); ``rois`` are taken as constants."""
+    return _RoIAlignFlat.apply(flat, rois.detach().float().contiguous(),
+                               base.contiguous(), hs.contiguous(),
+                               ws.contiguous(), scales.contiguous(), out_size,
+                               sampling_ratio)
 
 
 def _flat_planes(features: Sequence[torch.Tensor]
@@ -172,8 +266,8 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
     hs = torch.full((n,), h, dtype=torch.int32, device=dev)
     ws = torch.full((n,), w, dtype=torch.int32, device=dev)
     scales = torch.full((n,), spatial_scale, dtype=torch.float32, device=dev)
-    return roi_align_fwd(flat, rois.float().contiguous(), base.contiguous(),
-                         hs, ws, scales, out_size, sampling_ratio)
+    return roi_align_flat(flat, rois, base, hs, ws, scales, out_size,
+                          sampling_ratio)
 
 
 def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -197,9 +291,8 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
             roi_batch.long() * h_per.long() * w_per.long())
     scales = (1.0 / torch.tensor(featmap_strides, dtype=torch.float32,
                                  device=dev))[lvl]
-    return roi_align_fwd(flat, rois.float().contiguous(), base.contiguous(),
-                         h_per.contiguous(), w_per.contiguous(),
-                         scales.contiguous(), out_size, sampling_ratio)
+    return roi_align_flat(flat, rois, base, h_per, w_per, scales, out_size,
+                          sampling_ratio)
 
 
 def simple_roi_align(features: torch.Tensor, rois: torch.Tensor,

@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's flagship inference on one GPU.
+"""Where the time goes in the PyTorch port's flagship on one GPU.
 
-    python3 tools/profile_torch_port.py [--iters 5]
+    python3 tools/profile_torch_port.py [--iters 5] [--train]
 
-Builds DynaMask R50-FPN (``configs/dynamask/coco/r50_dynamask_1x.py``) with
-random N(0, 0.05) weights from seed 0, as ``chip_smoke.py`` does, and runs
-one 800x1344 fp32 image through ``simple_test`` + mask paste in the faithful
-and the MSM-routed mode. For each mode it reports
+Without ``--train``: builds DynaMask R50-FPN (``configs/dynamask/coco/
+r50_dynamask_1x.py``) with random N(0, 0.05) weights from seed 0, as
+``chip_smoke.py`` does, and runs one 800x1344 fp32 image through
+``simple_test`` + mask paste in the faithful and the MSM-routed mode. With
+``--train``: builds the trainer from the same config (its own seeded
+initialisation) and runs training steps on a seeded synthetic batch of 4
+images at 800x1344 with 20 GTs each, as ``chip_smoke.py`` phase 5 does.
+For each mode it reports
 
-* from a ``torch.profiler`` trace of whole ``inference_detector`` calls:
-  each stage's host time and the device time of the kernels it launched,
-  read from the ``record_function`` ranges that ``MaskRCNN.simple_test``,
-  the RoI head and ``inference_detector`` open (backbone, fpn,
-  rpn_and_proposals, box_head_and_nms, mask_branch, paste);
+* from a ``torch.profiler`` trace of whole iterations: each stage's host
+  time and the device time of the kernels it launched, read from the
+  ``record_function`` ranges that the real entry points open: at inference
+  ``MaskRCNN.simple_test``, the RoI head and ``inference_detector``
+  (backbone, fpn, rpn_and_proposals, box_head_and_nms, mask_branch, paste);
+  in training ``make_train_step`` (forward_train, backward, optimizer),
+  ``MaskRCNN.forward_train`` (backbone, fpn, rpn_loss, proposals) and the
+  RoI head (box_branch, mask_branch). The backward pass runs its kernels
+  from autograd's own thread, so its device time is also given as the
+  step's kernel time less that of forward_train and optimizer;
 * device time per kernel name, the number of kernel launches, and the
   device's busy share (kernel time over wall time).
 
@@ -32,6 +41,8 @@ sys.path.insert(0, ROOT)
 
 STAGES = ('backbone', 'fpn', 'rpn_and_proposals', 'box_head_and_nms',
           'mask_branch', 'paste')
+TRAIN_STAGES = ('forward_train', 'backbone', 'fpn', 'rpn_loss', 'proposals',
+                'box_branch', 'mask_branch', 'backward', 'optimizer')
 
 
 def _device_us(e) -> float:
@@ -41,10 +52,10 @@ def _device_us(e) -> float:
     return e.cuda_time_total        # PyTorch before 2.4
 
 
-def _stage_times(prof):
+def _stage_times(prof, stages):
     """{stage: {'host_ms', 'device_ms'}} medians over the trace's
     iterations, from the host-side record_function ranges."""
-    per = {k: {'host_ms': [], 'device_ms': []} for k in STAGES}
+    per = {k: {'host_ms': [], 'device_ms': []} for k in stages}
     for e in prof.events():
         if e.name in per and e.device_type.name == 'CPU':
             per[e.name]['host_ms'].append(e.cpu_time_total / 1e3)
@@ -53,17 +64,16 @@ def _stage_times(prof):
             for k, d in per.items() if d['host_ms']}
 
 
-def _profile(model, batch, iters):
-    """Kernel table and device busy share over ``iters`` whole iterations."""
+def _profile(run, iters, stages):
+    """Kernel table and device busy share over ``iters`` calls of ``run``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from dynamask_torch.apis import inference_detector
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(iters):
-            inference_detector(model, batch)
+            run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t) / iters
     rows = []
@@ -72,7 +82,7 @@ def _profile(model, batch, iters):
                          getattr(e, 'self_cuda_time_total', 0))
         # the stage ranges' device-side spans are not kernels
         if (dev_us > 0 and e.device_type.name == 'CUDA' and
-                e.key not in STAGES):
+                e.key not in stages):
             rows.append({'name': e.key, 'ms_per_iter': dev_us / 1e3 / iters,
                          'launches_per_iter': e.count / iters})
     rows.sort(key=lambda r: -r['ms_per_iter'])
@@ -81,15 +91,75 @@ def _profile(model, batch, iters):
             'device_busy_share': busy / wall_ms,
             'kernel_launches_per_iter': sum(r['launches_per_iter']
                                             for r in rows),
-            'stages': _stage_times(prof), 'kernels': rows[:30]}
+            'stages': _stage_times(prof, stages), 'kernels': rows[:30]}
+
+
+def _summary(mode, prof, card, unit):
+    print(f'{mode} [{card}]: wall {prof["wall_ms_per_iter"]:.2f} ms/{unit} '
+          f'(profiled), device busy {prof["device_ms_per_iter"]:.2f} ms '
+          f'({100 * prof["device_busy_share"]:.1f}%), '
+          f'{prof["kernel_launches_per_iter"]:.0f} kernel launches/{unit}')
+    print('  stages, median ms host / device: ' + ', '.join(
+        f'{k} {v["host_ms"]:.3f} / {v["device_ms"]:.3f}'
+        for k, v in prof['stages'].items()))
+    for r in prof['kernels'][:12]:
+        print(f'  {r["ms_per_iter"]:8.3f} ms x{r["launches_per_iter"]:5.0f}'
+              f'  {r["name"][:100]}')
+
+
+def _inference(config, card, iters):
+    import torch
+    from dynamask_torch.apis import inference_detector, init_detector
+    model = init_detector(config, seed=0, init_std=0.05)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    h, w = 800, 1344
+    batch = {'image': torch.randn(1, h, w, 3, generator=gen, device='cuda'),
+             'img_shape': torch.tensor([[h, w]], dtype=torch.float32,
+                                       device='cuda'),
+             'scale_factor': torch.ones(1, 4, device='cuda')}
+    modes = {}
+    for mode, dynamic in (('faithful', False), ('dynamic', True)):
+        model.roi_head.dynamic_inference = dynamic
+        for _ in range(2):
+            inference_detector(model, batch)
+        modes[mode] = _profile(lambda: inference_detector(model, batch),
+                               iters, STAGES)
+        _summary(mode, modes[mode], card, 'img')
+    return modes
+
+
+def _train(config, card, iters):
+    import torch
+    from dynamask_torch.apis import init_trainer, synthetic_batch
+    from dynamask_torch.engine import make_train_step
+    # an epoch of COCO train2017 (117266 annotated images) at 4 per step
+    model, opt = init_trainer(config, steps_per_epoch=117266 // 4, seed=0)
+    batch = synthetic_batch(0, b=4, h=800, w=1344, num_gts=20,
+                            crop_size=128,
+                            num_classes=model.roi_head.num_classes,
+                            device='cuda')
+    step = make_train_step(model, opt)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    for _ in range(2):
+        step(batch, generator=gen)
+    prof = _profile(lambda: step(batch, generator=gen), iters, TRAIN_STAGES)
+    st = prof['stages']
+    prof['backward_device_ms_by_difference'] = (
+        prof['device_ms_per_iter'] - st['forward_train']['device_ms'] -
+        st['optimizer']['device_ms'])
+    _summary('train', prof, card, 'step')
+    print(f'  backward: {prof["backward_device_ms_by_difference"]:.3f} ms of '
+          'device time (the step less forward_train and optimizer)')
+    return {'train': prof}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--iters', type=int, default=5)
+    ap.add_argument('--train', action='store_true',
+                    help='profile training steps instead of inference')
     args = ap.parse_args()
     import torch
-    from dynamask_torch.apis import inference_detector, init_detector
     if not torch.cuda.is_available():
         sys.exit('profile_torch_port: needs a CUDA device')
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -97,32 +167,9 @@ def main():
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
-    model = init_detector(os.path.join(
-        ROOT, 'configs/dynamask/coco/r50_dynamask_1x.py'), seed=0,
-        init_std=0.05)
-    gen = torch.Generator(device='cuda').manual_seed(0)
-    h, w = 800, 1344
-    batch = {'image': torch.randn(1, h, w, 3, generator=gen, device='cuda'),
-             'img_shape': torch.tensor([[h, w]], dtype=torch.float32,
-                                       device='cuda'),
-             'scale_factor': torch.ones(1, 4, device='cuda')}
-    report = {'card': card, 'modes': {}}
-    for mode, dynamic in (('faithful', False), ('dynamic', True)):
-        model.roi_head.dynamic_inference = dynamic
-        for _ in range(2):
-            inference_detector(model, batch)
-        prof = _profile(model, batch, args.iters)
-        report['modes'][mode] = prof
-        print(f'{mode} [{card}]: wall {prof["wall_ms_per_iter"]:.2f} ms/img '
-              f'(profiled), device busy {prof["device_ms_per_iter"]:.2f} ms '
-              f'({100 * prof["device_busy_share"]:.1f}%), '
-              f'{prof["kernel_launches_per_iter"]:.0f} kernel launches/img')
-        print('  stages, median ms host / device: ' + ', '.join(
-            f'{k} {v["host_ms"]:.3f} / {v["device_ms"]:.3f}'
-            for k, v in prof['stages'].items()))
-        for r in prof['kernels'][:12]:
-            print(f'  {r["ms_per_iter"]:8.3f} ms x{r["launches_per_iter"]:5.0f}'
-                  f'  {r["name"][:100]}')
+    config = os.path.join(ROOT, 'configs/dynamask/coco/r50_dynamask_1x.py')
+    run = _train if args.train else _inference
+    report = {'card': card, 'modes': run(config, card, args.iters)}
     os.makedirs(os.path.join(ROOT, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(ROOT, 'chiprun_out', 'profile_torch_port.json'),
               'w') as f:
