@@ -8,12 +8,16 @@ toolkit (``nvcc``) and PyTorch. Phases, in order; any failure exits non-zero
 before the last line is printed:
 
 1. build the hand-written kernels K1 (``deform_im2col_windowed``), K2
-   (``roi_align_fwd``), K3 (``deform_col2im_windowed``, K1's backward) and K4
-   (``roi_align_bwd``, K2's backward) from ``dynamask_torch/ops/csrc`` (one
-   ``nvcc`` per source, started together);
+   (``roi_align_fwd``), K3 (``deform_col2im_windowed``, K1's backward), K4
+   (``roi_align_bwd``, K2's backward) and K5 (``deform_conv_fused``, the
+   whole windowed-DCN forward behind the entry points
+   ``deform_conv2d_windowed_fused`` and ``deform_conv2d_frame``) from
+   ``dynamask_torch/ops/csrc`` (one ``nvcc`` per source, started together);
 2. hold each kernel against its plain PyTorch version at the shapes the
    flagship's inference and training paths give it, and time both with CUDA
-   events;
+   events; K5 at the SFM shapes in fp32 (n = 100 and 512) and bf16
+   (n = 100), through each entry point with its rounding rule, timed beside
+   the port's own form of the same function (K1 + ``torch.matmul``);
 3. check the port end to end on a small input: a toy DynaMask model on the
    GPU (kernels) against the same model on the CPU (plain versions), at
    inference and for one training step (losses and per-parameter
@@ -21,17 +25,20 @@ before the last line is printed:
 4. drive the inference path: DynaMask R50-FPN (``configs/dynamask/coco/
    r50_dynamask_1x.py``) at full width, random weights N(0, 0.05) from a
    seeded generator, one 800x1344 image in fp32, ``simple_test`` + mask paste
-   in the faithful and the MSM-routed mode;
+   in the faithful and the MSM-routed mode; then the three SFM
+   ``fuse_conv_1`` inputs of a faithful drive go through both K5 entry
+   points, each result held against the main path's DCN output;
 5. drive the training path: the same config at full width with its own
    seeded initialisation (zero DCN offsets, as the JAX package), a seeded
    synthetic batch of 4 images at 800x1344 with 20 GTs each, fp32, on the
    host; one warm-up and three timed SGD steps, each a call of
    ``train_detector`` on the trainer from ``init_trainer``.
 
-For each of the three drives (faithful, dynamic, train) the kernels' launch
-counters are zeroed just before it and read just after, and every kernel of
-that path must have launched in it: K1 and K2 at inference, K1-K4 in
-training.
+For each of the four drives (faithful, dynamic, the K5 check on the
+captured DCN inputs, train) the kernels' launch counters are zeroed just
+before it and read just after, and every kernel of that path must have
+launched in it: K1 and K2 at inference, K5 through both entry points in its
+check, K1-K4 in training.
 
 Standard output ends with the ``kernels`` JSON line, the card's name and
 power limit as ``nvidia-smi`` reports them, and the ``{"ok": true, ...}``
@@ -39,7 +46,9 @@ line. Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 import contextlib
+import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -60,7 +69,10 @@ N_DETS = 100                     # inference: max_per_img dets reach the mask
 N_BOX_TRAIN = TRAIN_IMAGES * 512  # training: sampled RoIs of the box branch
 N_POS_TRAIN = TRAIN_IMAGES * 128  # training: max_pos slots of the mask branch
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
-FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32, outside the tensor cores
+# H100 SXM peak operation rates (data sheet, dense), by the type the
+# operations run in: fp32 outside the tensor cores, and bf16 x bf16 products
+# summed in fp32 on the tensor cores
+PEAK_OPS_PER_S = {'fp32': 67e12, 'bf16': 989e12}
 # Tolerances, each against the kernel's plain version on the same inputs:
 K1_TOL = 1e-4   # absolute; same arithmetic as the plain form, fma only
 K2_TOL = 1e-4   # absolute; same samples; summation order and fma only
@@ -68,6 +80,16 @@ K2_TOL = 1e-4   # absolute; same samples; summation order and fma only
 # in another order than the plain versions: relative to the largest value
 K3_RTOL = 1e-5
 K4_RTOL = 1e-5
+# K5 sums 9*C products per output in another order than cuBLAS's GEMM in the
+# plain version and the main path (~1e-6 of the largest output on the CPU
+# emulation): in fp32, relative to the largest value; in bf16 both sides
+# round an fp32 result that may straddle a rounding boundary, so one bf16
+# ulp of the largest value
+K5_RTOL = 1e-5
+INFER_KERNELS = ('deform_im2col_windowed', 'roi_align_fwd')
+K5_KERNELS = ('deform_conv2d_windowed_fused', 'deform_conv2d_frame')
+TRAIN_KERNELS = ('deform_im2col_windowed', 'roi_align_fwd',
+                 'deform_col2im_windowed', 'roi_align_bwd')
 
 
 def card_line() -> str:
@@ -186,6 +208,44 @@ def _crops(gen, dev, images, n_box, n_mask):
                                                    1)
 
 
+def k5_cases(gen, dev):
+    """K5 at the three SFM stages (C_out = C, HWIO weights N(0, 1/(9C))),
+    offsets as K1's: fp32 at n = 100 and 512, bf16 at n = 100."""
+    import torch
+    for path, n, dtype in (('infer', N_DETS, torch.float32),
+                           ('train', N_POS_TRAIN, torch.float32),
+                           ('infer bf16', N_DETS, torch.bfloat16)):
+        for s, c in SFM_STAGES:
+            x = torch.randn(n, s, s, c, generator=gen, device=dev).to(dtype)
+            off = (torch.rand(n, s, s, 36, generator=gen, device=dev) - 0.5) \
+                * 10
+            w = torch.randn(3, 3, c, c, generator=gen, device=dev) / \
+                math.sqrt(9 * c)
+            yield f'{path} {n}x{s}x{s}x{c}', (x, off, w), dict(
+                kernel_size=3, padding=1, dilation=1, deform_groups=2,
+                window=3)
+            del x, off, w
+
+
+def abs_limit(tol):
+    """A tolerance in absolute terms: (scale, got) -> (limit, how set)."""
+    return lambda scale, got: (tol, f'{tol}')
+
+
+def rel_limit(tol):
+    """A tolerance relative to the largest reference value."""
+    return lambda scale, got: (tol * scale, f'{tol} x max|ref| {scale:.3e}')
+
+
+def k5_limit(scale, got):
+    """K5's tolerance: (limit, how it was set)."""
+    import torch
+    if got.dtype == torch.bfloat16:
+        return (2.0 ** (math.floor(math.log2(scale)) - 7),
+                'one bf16 ulp of max|ref|')
+    return K5_RTOL * scale, f'{K5_RTOL} x max|ref| {scale:.3e}'
+
+
 def k2_cases(gen, dev):
     """K2 at the inference crops (one image, 1000 proposals, 100 dets) and
     at the training crops (4 images, 2048 sampled RoIs, 512 positive
@@ -212,14 +272,45 @@ def k4_cases(gen, dev):
 
 
 # -- bounds: bytes each function must move, operations it must do ------------
+# Each bound function gives (bytes, {type: operations}), the types keys of
+# PEAK_OPS_PER_S.
 
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def bound_of(nbytes, ops):
+    """(least ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over their type's peak rate. Types run on
+    different units, which can overlap, so the operations take the longest
+    of their types' times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(n / PEAK_OPS_PER_S[t] for t, n in ops.items())
+    return 1e3 * max(t_bytes, t_ops), (
+        'bytes' if t_bytes >= t_ops else 'operations')
+
+
 def k1_bound(args, kw, out):
     x, off = args
-    return _nbytes(x, off, out), 13 * out.numel()  # 4 tents + 9 for 2x2 blend
+    # 4 tents + 9 for the 2x2 blend
+    return _nbytes(x, off, out), {'fp32': 13 * out.numel()}
+
+
+def k5_bound(args, kw, out, round_to_input):
+    import torch
+    x, off, w = args
+    # the contraction, plus K1's 13 fp32 operations per sampled column
+    # element. The frame rule on a bf16 x rounds the sample and the weight
+    # to bf16 before the product and sums in fp32: a bf16 tensor-core
+    # product. Otherwise its operands are fp32.
+    n, s, _, c = x.shape
+    cols = n * s * s * 9 * c
+    mma = 2 * cols * w.shape[-1]
+    if round_to_input and x.dtype == torch.bfloat16:
+        ops = {'fp32': 13 * cols, 'bf16': mma}
+    else:
+        ops = {'fp32': 13 * cols + mma}
+    return _nbytes(x, off, w, out), ops
 
 
 def k3_bound(args, kw, out):
@@ -227,20 +318,20 @@ def k3_bound(args, kw, out):
     d_x, d_off = out
     # per column element: two 7-op channel terms, four corner weights times
     # the gradient and four adds into d_x
-    return _nbytes(x, off, d_col, d_x, d_off), 22 * d_col.numel()
+    return _nbytes(x, off, d_col, d_x, d_off), {'fp32': 22 * d_col.numel()}
 
 
 def k2_bound(args, kw, out):
     flat, rois, base, hs, ws, sc = args
     return (_nbytes(flat, rois, base, hs, ws, sc, out),
-            out.numel() * (kw['sampling_ratio'] ** 2 * 16 + 1))
+            {'fp32': out.numel() * (kw['sampling_ratio'] ** 2 * 16 + 1)})
 
 
 def k4_bound(args, kw, out):
     d_out, _, rois, base, hs, ws, sc = args
     # per sample: four weights, four products with the gradient, four adds
     return (_nbytes(d_out, rois, base, hs, ws, sc, out),
-            d_out.numel() * (kw['sampling_ratio'] ** 2 * 12 + 1))
+            {'fp32': d_out.numel() * (kw['sampling_ratio'] ** 2 * 12 + 1)})
 
 
 def _compare(got, ref):
@@ -249,42 +340,102 @@ def _compare(got, ref):
     import torch
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
-    err = max((a - b).abs().max().item() for a, b in zip(got, ref))
-    scale = max(b.abs().max().item() for b in ref)
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, ref))
+    scale = max(b.float().abs().max().item() for b in ref)
     return err, scale, all(torch.isfinite(a).all().item() for a in got)
 
 
 def kernel_specs():
-    from dynamask_torch.ops import deform_conv as dc, roi_align as ra
+    from dynamask_torch.ops import (deform_conv as dc, deform_conv_fused as
+                                    dcf, roi_align as ra)
     no_lib = ('no PyTorch call computes this function (no DCN or RoIAlign '
               'op in PyTorch without torchvision)')
+    k5 = dict(cases=k5_cases, limit=k5_limit, yardstick=dc.deform_conv2d,
+              source='dynamask_torch/ops/csrc/deform_conv_fused.cu',
+              library_null='no PyTorch call computes a DCN')
     return (
         dict(name='deform_im2col_windowed', kernel=dc.deform_im2col_windowed,
              plain=dc.deform_im2col_windowed_plain, cases=k1_cases,
-             bound=k1_bound, tol=K1_TOL, relative=False,
+             bound=k1_bound, limit=abs_limit(K1_TOL),
              source='dynamask_torch/ops/csrc/deform_im2col.cu',
              replaces='dynamask_tpu/ops/deform_conv_pallas.py:318',
              library_null=no_lib),
         dict(name='roi_align_fwd', kernel=ra.roi_align_fwd,
              plain=ra.roi_align_fwd_plain, cases=k2_cases, bound=k2_bound,
-             tol=K2_TOL, relative=False,
+             limit=abs_limit(K2_TOL),
              source='dynamask_torch/ops/csrc/roi_align.cu',
              replaces='dynamask_tpu/ops/roi_align_pallas.py:45',
              library_null=no_lib),
         dict(name='deform_col2im_windowed',
              kernel=dc.deform_col2im_windowed,
              plain=dc.deform_col2im_windowed_plain, cases=k3_cases,
-             bound=k3_bound, tol=K3_RTOL, relative=True,
+             bound=k3_bound, limit=rel_limit(K3_RTOL),
              source='dynamask_torch/ops/csrc/deform_col2im.cu',
              replaces='dynamask_tpu/ops/deform_conv_pallas.py:535',
              library_null='no PyTorch call computes the DCN backward'),
         dict(name='roi_align_bwd', kernel=ra.roi_align_bwd,
              plain=ra.roi_align_bwd_plain, cases=k4_cases, bound=k4_bound,
-             tol=K4_RTOL, relative=True,
+             limit=rel_limit(K4_RTOL),
              source='dynamask_torch/ops/csrc/roi_align_bwd.cu',
              # no Pallas backward: XLA autodiff of the gather form
              replaces='dynamask_tpu/ops/roi_align.py:46',
-             library_null='no PyTorch call computes the RoIAlign backward'))
+             library_null='no PyTorch call computes the RoIAlign backward'),
+        dict(name='deform_conv2d_windowed_fused',
+             kernel=dcf.deform_conv2d_windowed_fused,
+             plain=functools.partial(dcf.deform_conv2d_fused_plain,
+                                     round_to_input=False),
+             bound=functools.partial(k5_bound, round_to_input=False),
+             replaces='dynamask_tpu/ops/deform_conv_pallas.py:40', **k5),
+        dict(name='deform_conv2d_frame', kernel=dcf.deform_conv2d_frame,
+             plain=functools.partial(dcf.deform_conv2d_fused_plain,
+                                     round_to_input=True),
+             bound=functools.partial(k5_bound, round_to_input=True),
+             replaces='dynamask_tpu/ops/deform_conv_pallas.py:177', **k5))
+
+
+# K5 off the SFM shapes, as the entry points' contract allows: ragged pixel,
+# channel-chunk and output-channel tiles, one deform group, a wider padding
+# and dilation, a narrower window; (n, S, C, C_out, g, padding, dilation,
+# window)
+K5_EDGE_SHAPES = ((3, 13, 96, 70, 2, 1, 1, 3), (2, 9, 64, 130, 1, 2, 2, 2),
+                  (1, 5, 8, 3, 2, 1, 1, 3), (4, 17, 40, 24, 2, 1, 1, 1))
+
+
+def check_k5_edges(report):
+    """Phase 2, K5 at the edge shapes, both entry points, fp32 and bf16,
+    against the plain version (untimed)."""
+    import torch
+    from dynamask_torch.ops import deform_conv_fused as dcf
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    worst = {}
+    for n, s, c, c_out, g, pad, dil, win in K5_EDGE_SHAPES:
+        x = torch.randn(n, s, s, c, generator=gen, device=DEVICE)
+        off = (torch.rand(n, s, s, 18 * g, generator=gen, device=DEVICE) -
+               0.5) * 10
+        w = torch.randn(3, 3, c, c_out, generator=gen, device=DEVICE) / \
+            math.sqrt(9 * c)
+        for dtype in (torch.float32, torch.bfloat16):
+            for fn, rule in ((dcf.deform_conv2d_windowed_fused, False),
+                             (dcf.deform_conv2d_frame, True)):
+                args = (x.to(dtype), off, w, 3, pad, dil, g, win)
+                got = fn(*args)
+                torch.cuda.synchronize(DEVICE)
+                err, scale, finite = _compare(
+                    got, dcf.deform_conv2d_fused_plain(
+                        *args, round_to_input=rule))
+                limit, tol = k5_limit(scale, got)
+                key = f'{fn.__name__} {dtype}'.replace('torch.', '')
+                worst[key] = max(worst.get(key, 0.0), err / limit)
+                if not (err <= limit and finite):
+                    raise RuntimeError(
+                        f'{fn.__name__} disagrees with its plain version at '
+                        f'n {n}, S {s}, C {c}, C_out {c_out}, g {g}, pad '
+                        f'{pad}, dil {dil}, window {win}, {dtype}: max abs '
+                        f'err {err} (limit {limit}, {tol})')
+    print(f'  K5 at {len(K5_EDGE_SHAPES)} edge shapes: largest error over '
+          f'its tolerance per entry point and type {worst}')
+    report['k5_edges'] = worst
 
 
 def check_kernels(report):
@@ -294,7 +445,8 @@ def check_kernels(report):
     rows = []
     for spec in kernel_specs():
         name, kernel, plain = spec['name'], spec['kernel'], spec['plain']
-        agg = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0, flops=0)
+        agg = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, yardstick_ms=0.0,
+                   bound_ms={'bytes': 0.0, 'operations': 0.0})
         for case, args, kw in spec['cases'](gen, DEVICE):
             launches = kernel.launches
             got = kernel(*args, **kw)
@@ -303,7 +455,7 @@ def check_kernels(report):
                 raise RuntimeError(f'{name} did not launch its kernel')
             ref = plain(*args, **kw)
             err, scale, finite = _compare(got, ref)
-            limit = spec['tol'] * (scale if spec['relative'] else 1.0)
+            limit, tol = spec['limit'](scale, got)
             if not (err <= limit and finite):
                 raise RuntimeError(f'{name} [{case}] disagrees with its '
                                    f'plain version: max abs err {err} '
@@ -311,34 +463,43 @@ def check_kernels(report):
             del ref
             ms = cuda_ms(lambda: kernel(*args, **kw))
             plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=5)
-            nbytes, flops = spec['bound'](args, kw, got)
-            b_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                             flops / FP32_FLOPS_PER_S)
-            tol = (f'{spec["tol"]} x max|ref| {scale:.3e}' if spec['relative']
-                   else f'{spec["tol"]}')
-            print(f'  {name} [{case}]: max_abs_err {err:.3e} (tol {tol}) '
-                  f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
-                  f'{b_ms:.4f} ms ({nbytes / 1e9:.4f} GB)')
-            report['kernel_cases'].append(dict(
+            nbytes, ops = spec['bound'](args, kw, got)
+            b_ms, by = bound_of(nbytes, ops)
+            gflop = ', '.join(f'{n / 1e9:.2f} GFLOP {t}'
+                              for t, n in ops.items())
+            line = (f'  {name} [{case}]: max_abs_err {err:.3e} (tol {limit:.3e}'
+                    f', {tol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+                    f'bound {b_ms:.4f} ms by {by} ({nbytes / 1e9:.4f} GB, '
+                    f'{gflop})')
+            case_rec = dict(
                 name=name, case=case, max_abs_err=err, max_abs_ref=scale,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bytes=nbytes,
-                flops=flops))
+                tol=limit, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, bytes=nbytes, ops=ops)
+            if 'yardstick' in spec:   # the main path's form: K1 + matmul
+                y_ms = cuda_ms(lambda: spec['yardstick'](*args, **kw))
+                line += f', K1 + GEMM {y_ms:.4f} ms'
+                case_rec['k1_gemm_ms'] = y_ms
+                agg['yardstick_ms'] += y_ms
+            print(line)
+            report['kernel_cases'].append(case_rec)
             agg['max_abs_err'] = max(agg['max_abs_err'], err)
             agg['ms'] += ms
             agg['plain_ms'] += plain_ms
-            agg['nbytes'] += nbytes
-            agg['flops'] += flops
+            agg['bound_ms'][by] += b_ms
             del got, args
             torch.cuda.empty_cache()
-        t_bytes = agg['nbytes'] / HBM_BYTES_PER_S
-        t_ops = agg['flops'] / FP32_FLOPS_PER_S
+        # the cases run one after another: their bounds add up, and the row
+        # is bound by what bounds the larger part of the sum
+        bound = agg['bound_ms']
         rows.append(dict(
             name=name, route='cuda', source=spec['source'],
             replaces=spec['replaces'], launches=None,
             max_abs_err=agg['max_abs_err'], ms=agg['ms'],
-            plain_ms=agg['plain_ms'], bound_ms=1e3 * max(t_bytes, t_ops),
-            bound_by='bytes' if t_bytes >= t_ops else 'operations',
+            plain_ms=agg['plain_ms'], bound_ms=sum(bound.values()),
+            bound_by=max(bound, key=bound.get),
             library_ms=None, library_ms_null=spec['library_null']))
+        if 'yardstick' in spec:
+            rows[-1]['k1_gemm_ms'] = agg['yardstick_ms']
     return rows
 
 
@@ -666,8 +827,7 @@ def run_inference_path(report, card):
         ops.reset_kernel_launches()
         outs[mode] = drive(dyn)
         launches[mode] = ops.kernel_launches()
-        check_launches(mode, launches[mode],
-                       ('deform_im2col_windowed', 'roi_align_fwd'))
+        check_launches(mode, launches[mode], INFER_KERNELS)
 
     for name, dyn in modes:
         out = outs[name]
@@ -699,7 +859,56 @@ def run_inference_path(report, card):
             rec['routing'] = r
         print(line)
         report['main_path'].append(rec)
+    launches['k5_check'] = check_k5_on_flagship(report, drive)
     del model, outs
+    return launches
+
+
+def check_k5_on_flagship(report, drive):
+    """Phase 4, K5: capture the three SFM ``fuse_conv_1`` inputs of a
+    faithful drive (NHWC features, offsets, weight, n = 100) and the main
+    path's DCN output on them (K1 + GEMM); run both K5 entry points on them
+    in fp32, counters zeroed just before and read just after, and hold each
+    result against that output."""
+    import torch
+    import dynamask_torch.models.dynamask_head as head
+    import dynamask_torch.ops as ops
+    dcn, taken = head.deform_conv2d_nhwc, []
+
+    def capture(x, offsets, weight, *conf):
+        out = dcn(x, offsets, weight, *conf)
+        taken.append((x.detach().clone(), offsets.detach().clone(),
+                      weight.detach().clone(), conf, out.detach().clone()))
+        return out
+
+    head.deform_conv2d_nhwc = capture
+    try:
+        drive(False)
+    finally:
+        head.deform_conv2d_nhwc = dcn
+    if len(taken) != len(SFM_STAGES):
+        raise RuntimeError(f'faithful drive ran {len(taken)} DCNs, expected '
+                           f'{len(SFM_STAGES)}')
+    ops.reset_kernel_launches()
+    outs = [[ops.KERNELS[name](x, off, w.permute(2, 3, 1, 0), *conf)
+             for name in K5_KERNELS] for x, off, w, conf, _ in taken]
+    torch.cuda.synchronize(DEVICE)
+    launches = ops.kernel_launches()
+    check_launches('k5_check', launches, K5_KERNELS)
+    for (x, _, _, _, ref), got in zip(taken, outs):
+        for name, out in zip(K5_KERNELS, got):
+            err, scale, finite = _compare(out, ref)
+            limit = K5_RTOL * scale
+            shape = 'x'.join(str(d) for d in x.shape)
+            print(f'  {name} on the captured fuse_conv_1 input {shape}: max '
+                  f'abs err {err:.3e} against the main path\'s DCN output '
+                  f'(tol {limit:.3e}, {K5_RTOL} x max|ref| {scale:.3e})')
+            report['k5_flagship'].append(dict(
+                name=name, shape=list(x.shape), max_abs_err=err,
+                max_abs_ref=scale, tol=limit))
+            if not (err <= limit and finite and out.shape == ref.shape):
+                raise RuntimeError(f'{name} disagrees with the main path\'s '
+                                   f'DCN on the {shape} input')
     return launches
 
 
@@ -755,7 +964,7 @@ def run_train_path(report, card):
               f'{times[-1]:.1f} ms [{card}], ' + ', '.join(
                   f'{k} {v:.5g}' for k, v in log.items()))
     launches = ops.kernel_launches()
-    check_launches('train', launches, ops.KERNELS)
+    check_launches('train', launches, TRAIN_KERNELS)
     peak = torch.cuda.max_memory_allocated(DEVICE)
     ms = statistics.median(times[1:])
     still_zero = all(p.abs().max() == 0 for p in offsets.values())
@@ -786,20 +995,24 @@ def main() -> int:
     card = card_line()
     print(f'device: {torch.cuda.get_device_name(0)} | torch '
           f'{torch.__version__} cuda {torch.version.cuda} | {card}')
-    report = {'card': card, 'kernel_cases': [], 'toy': [], 'main_path': []}
+    report = {'card': card, 'kernel_cases': [], 'toy': [], 'main_path': [],
+              'k5_flagship': []}
 
     print('phase 1: build kernels')
     t0 = time.perf_counter()
     built = _build.build()
     print(f'  built {sorted(built)} in {time.perf_counter() - t0:.1f} s')
+    report['build'] = {}
     for name, info in built.items():
-        for ln in info['log'].splitlines():
-            if 'registers' in ln or 'spill' in ln:
-                print(f'  {name}: {ln.strip()}')
-    report['build'] = {k: v['seconds'] for k, v in built.items()}
+        ptxas = [ln.strip() for ln in info['log'].splitlines()
+                 if 'registers' in ln or 'spill' in ln]
+        for ln in ptxas:
+            print(f'  {name}: {ln}')
+        report['build'][name] = dict(seconds=info['seconds'], ptxas=ptxas)
 
     print(f'phase 2: kernels against their plain versions [{card}]')
     rows = check_kernels(report)
+    check_k5_edges(report)
     print('phase 3: toy model, GPU against CPU')
     check_toy_against_cpu(report)
     check_toy_train_against_cpu(report)

@@ -28,6 +28,7 @@ KERNEL_SOURCES = {
     'deform_col2im': 'deform_col2im.cu',
     'roi_align': 'roi_align.cu',
     'roi_align_bwd': 'roi_align_bwd.cu',
+    'deform_conv_fused': 'deform_conv_fused.cu',
 }
 
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
