@@ -17,7 +17,11 @@ before the last line is printed:
    flagship's inference and training paths give it, and time both with CUDA
    events; K5 at the SFM shapes in fp32 (n = 100 and 512) and bf16
    (n = 100), through each entry point with its rounding rule, timed beside
-   the port's own form of the same function (K1 + ``torch.matmul``);
+   the port's own form of the same function (K1 + ``torch.matmul``); K1
+   and K3 also at edge shapes (ragged bands, one deform group, channels per
+   group not a multiple of 4, padding and dilation 2, windows 1 and 2, one
+   RoI, a misaligned base) with random, zero and exact-edge offsets, and K5
+   at its own edge shapes, untimed;
 3. check the port end to end on a small input: a toy DynaMask model on the
    GPU (kernels) against the same model on the CPU (plain versions), at
    inference and for one training step (losses and per-parameter
@@ -436,6 +440,95 @@ def check_k5_edges(report):
     print(f'  K5 at {len(K5_EDGE_SHAPES)} edge shapes: largest error over '
           f'its tolerance per entry point and type {worst}')
     report['k5_edges'] = worst
+
+
+# K1 and K3 off the SFM shapes: ragged bands (S = 13, 17), one deform group,
+# channels per group not a multiple of 4 (the scalar instance), padding 2
+# with dilation 2, windows 1 and 2, one RoI, and a base off 16-byte
+# alignment (the scalar instance at cg = 32); (n, S, C, g, padding,
+# dilation, window, misaligned)
+DCN_EDGE_SHAPES = ((2, 13, 64, 2, 1, 1, 3, False),
+                   (2, 17, 64, 2, 1, 1, 3, False),
+                   (2, 14, 64, 1, 1, 1, 3, False),
+                   (2, 9, 6, 2, 1, 1, 3, False),
+                   (2, 12, 20, 2, 1, 1, 3, False),
+                   (2, 14, 64, 2, 2, 2, 3, False),
+                   (2, 14, 64, 2, 1, 1, 1, False),
+                   (2, 14, 64, 2, 1, 1, 2, False),
+                   (1, 28, 128, 2, 1, 1, 3, False),
+                   (2, 14, 64, 2, 1, 1, 3, True))
+
+
+def dcn_edge_offsets(gen, kind, n, s, g, window):
+    """Offsets of one edge case: ``random`` up to ±10 px, ``zero`` (every
+    DCN's init: K3 must give exactly 0 offset gradient), ``exact``
+    displacements of exactly ±window and integers, and a quarter inside and
+    outside the window's edge."""
+    import torch
+    shape = (n, s, s, g, 3, 3, 2)
+    if kind == 'random':
+        off = (torch.rand(shape, generator=gen, device=DEVICE) - 0.5) * 20
+    elif kind == 'zero':
+        off = torch.zeros(shape, device=DEVICE)
+    else:
+        vals = torch.tensor([-window, window, 0., 1., -1., 2., -2.,
+                             window - 0.25, -window - 0.25], device=DEVICE)
+        rel = vals[torch.randint(0, len(vals), shape, generator=gen,
+                                 device=DEVICE)]
+        base = torch.arange(3, device=DEVICE, dtype=torch.float32) - 1.0
+        # offsets that put the displacement itself on those values at
+        # padding 1, dilation 1 (rel = tap base + offset)
+        off = rel - torch.stack(torch.meshgrid(base, base, indexing='ij'),
+                                -1)
+    return off.reshape(n, s, s, -1).contiguous()
+
+
+def check_dcn_edges(report):
+    """Phase 2, K1 and K3 at the edge shapes with three kinds of offsets,
+    against their plain versions (untimed). K3's offset gradient must be
+    exactly 0 wherever the plain version's is (the tent and clip rules)."""
+    import torch
+    from dynamask_torch.ops import deform_conv as dc
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    worst = {'deform_im2col_windowed': 0.0, 'deform_col2im_windowed': 0.0}
+    for n, s, c, g, pad, dil, win, misaligned in DCN_EDGE_SHAPES:
+        for kind in ('random', 'zero', 'exact'):
+            x = torch.randn(n * s * s * c + misaligned, generator=gen,
+                            device=DEVICE)[int(misaligned):].view(n, s, s, c)
+            off = dcn_edge_offsets(gen, kind, n, s, g, win)
+            kw = dict(kernel_size=3, padding=pad, dilation=dil,
+                      deform_groups=g, window=win)
+            d_col = torch.randn(n, s, s, g, 9, c // g, generator=gen,
+                                device=DEVICE)
+            where = (f'n {n}, S {s}, C {c}, g {g}, pad {pad}, dil {dil}, '
+                     f'window {win}, {kind} offsets'
+                     f'{", misaligned x" if misaligned else ""}')
+            for name, args, limit in (
+                    ('deform_im2col_windowed', (x, off), abs_limit(K1_TOL)),
+                    ('deform_col2im_windowed', (x, off, d_col),
+                     rel_limit(K3_RTOL))):
+                kernel = getattr(dc, name)
+                launches = kernel.launches
+                got = kernel(*args, **kw)
+                torch.cuda.synchronize(DEVICE)
+                if kernel.launches != launches + 1:
+                    raise RuntimeError(f'{name} did not launch its kernel')
+                ref = getattr(dc, name + '_plain')(*args, **kw)
+                err, scale, finite = _compare(got, ref)
+                lim, tol = limit(scale, got)
+                worst[name] = max(worst[name], err / lim)
+                if not (err <= lim and finite):
+                    raise RuntimeError(
+                        f'{name} disagrees with its plain version at '
+                        f'{where}: max abs err {err} (limit {lim}, {tol})')
+                if name == 'deform_col2im_windowed' and (
+                        got[1][ref[1] == 0] != 0).any():
+                    raise RuntimeError(
+                        f'{name} gives an offset gradient where the plain '
+                        f'version gives exactly 0, at {where}')
+    print(f'  K1 and K3 at {len(DCN_EDGE_SHAPES)} edge shapes x 3 offset '
+          f'kinds: largest error over its tolerance {worst}')
+    report['dcn_edges'] = worst
 
 
 def check_kernels(report):
@@ -1012,6 +1105,7 @@ def main() -> int:
 
     print(f'phase 2: kernels against their plain versions [{card}]')
     rows = check_kernels(report)
+    check_dcn_edges(report)
     check_k5_edges(report)
     print('phase 3: toy model, GPU against CPU')
     check_toy_against_cpu(report)

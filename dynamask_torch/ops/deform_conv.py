@@ -163,6 +163,47 @@ def deform_col2im_windowed_plain(x: torch.Tensor, offsets: torch.Tensor,
     return d_x.contiguous(), d_off
 
 
+# Launch configuration of K1 and K3. The constants mirror the kernels'
+# (csrc/deform_im2col.cu, csrc/deform_col2im.cu), which check what they are
+# given and refuse a configuration they cannot run.
+K1_ENTRY_BYTES, K3_ENTRY_BYTES = 36, 40     # shared bytes per table entry
+TABLE_CAP = 1024             # geometry table entries per chunk
+BLOCK_ELEMS = 32768          # column elements a block covers, about
+MIN_BLOCKS = 2 * 132         # two blocks for each of the H100's SMs
+
+
+def dcn_launch_config(kernel: str, n: int, h: int, w: int, c: int, g: int,
+                      k: int = 3, aligned: bool = True) -> dict:
+    """How K1 (``kernel='k1'``) or K3 (``'k3'``) is launched on an
+    (n, h, w, c) input with ``g`` deform groups and a k x k kernel: one
+    block per (RoI, group, band of ``band_rows`` output rows; ``n_bands``
+    bands), about ``BLOCK_ELEMS`` column elements a block, narrowed until
+    there are ``MIN_BLOCKS`` blocks where it can; the geometry table
+    ``table_entries`` (pixel, tap) entries a chunk, in ``smem_bytes`` of
+    shared memory; ``2 ** lanes_log2`` threads per entry, each lane ``vec``
+    channels at a time: 4 where the group's channels come in quads and the
+    bases are 16-byte ``aligned``, else 1."""
+    if kernel not in ('k1', 'k3'):
+        raise ValueError(f'dcn_launch_config: kernel k1 or k3, got {kernel}')
+    cg, taps = c // g, k * k
+    vec = 4 if aligned and cg % 4 == 0 else 1
+    lanes_log2 = 0
+    while (1 << lanes_log2) < min(32, cg // vec):
+        lanes_log2 += 1
+    band = max(1, min(h, BLOCK_ELEMS // max(1, w * taps * cg)))
+    while band > 1 and n * g * -(-h // band) < MIN_BLOCKS:
+        band = (band + 1) // 2
+    n_bands = -(-h // band)
+    table = min(band * w * taps, TABLE_CAP)
+    entry = K1_ENTRY_BYTES if kernel == 'k1' else K3_ENTRY_BYTES
+    return dict(band_rows=band, n_bands=n_bands, table_entries=table,
+                smem_bytes=table * entry, vec=vec, lanes_log2=lanes_log2)
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _check_nhwc(name, x, offsets, k, g):
     n, h, w, c = x.shape
     expect = (n, h, w, 2 * g * k * k)
@@ -199,13 +240,17 @@ def deform_im2col_windowed(x: torch.Tensor, offsets: torch.Tensor,
                       device=x.device)
     if col.numel() == 0:
         return col
+    cfg = dcn_launch_config('k1', n, h, w, c, g, k,
+                            aligned=_aligned(x, col))
     fn = _build.load('deform_im2col').deform_im2col_windowed_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [
         ctypes.c_void_p]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), offsets.data_ptr(), col.data_ptr(), n, h, w, c, g,
-            k, padding, dilation, window, stream)
+            k, padding, dilation, window, cfg['band_rows'],
+            cfg['table_entries'], cfg['vec'], cfg['lanes_log2'],
+            cfg['smem_bytes'], stream)
     if rc != 0:
         raise RuntimeError('deform_im2col_windowed: kernel launch failed '
                            f'with CUDA error {rc}')
@@ -244,14 +289,17 @@ def deform_col2im_windowed(x: torch.Tensor, offsets: torch.Tensor,
     d_off = torch.empty_like(offsets)
     if d_col.numel() == 0:
         return d_x, d_off.zero_()
+    cfg = dcn_launch_config('k3', n, h, w, c, g, k,
+                            aligned=_aligned(x, d_col, d_x))
     fn = _build.load('deform_col2im').deform_col2im_windowed_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [
         ctypes.c_void_p]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), offsets.data_ptr(), d_col.data_ptr(),
             d_x.data_ptr(), d_off.data_ptr(), n, h, w, c, g, k, padding,
-            dilation, window, stream)
+            dilation, window, cfg['band_rows'], cfg['table_entries'],
+            cfg['vec'], cfg['lanes_log2'], cfg['smem_bytes'], stream)
     if rc != 0:
         raise RuntimeError('deform_col2im_windowed: kernel launch failed '
                            f'with CUDA error {rc}')
