@@ -17,10 +17,14 @@ before the last line is printed:
    flagship's inference and training paths give it, and time both with CUDA
    events; K5 at the SFM shapes in fp32 (n = 100 and 512) and bf16
    (n = 100), through each entry point with its rounding rule, timed beside
-   the port's own form of the same function (K1 + ``torch.matmul``); K1
-   and K3 also at edge shapes (ragged bands, one deform group, channels per
-   group not a multiple of 4, padding and dilation 2, windows 1 and 2, one
-   RoI, a misaligned base) with random, zero and exact-edge offsets, and K5
+   the port's own form of the same function (K1 + ``torch.matmul``); K2
+   and K4 also at the training crops with RoIs clustered as the training
+   step makes them, on lines of their own; K1 and K3 also at edge shapes
+   (ragged bands, one deform group, channels per group not a multiple of
+   4, padding and dilation 2, windows 1 and 2, one RoI, a misaligned base)
+   with random, zero and exact-edge offsets, K2 and K4 at theirs (C not a
+   multiple of 4, one bin, three samples a bin, one RoI, a 1x1 plane, a
+   misaligned base) with zero-area, off-plane and exact-edge RoIs, and K5
    at its own edge shapes, untimed;
 3. check the port end to end on a small input: a toy DynaMask model on the
    GPU (kernels) against the same model on the CPU (plain versions), at
@@ -149,13 +153,15 @@ def k3_cases(gen, dev):
             del x, off, d_col
 
 
-def _crops(gen, dev, images, n_box, n_mask):
+def _crops(gen, dev, images, n_box, n_mask, place=None):
     """The crops of the main path, as (name, K2 arguments, options): the 7x7
     box extract (ratio 2) and the 14x14 mask extract (ratio 2) over P2-P5,
     the SFM crops ({14, 28, 56}^2 of P4/P3/P2 at scale 1/4 with 256/128/64
     channels, ratio 1) and the MSM 56x56x128 crop of P2 (ratio 1), over
     ``images`` images. RoIs include boxes partly off the image, zero-area and
-    very wide ones."""
+    very wide ones; ``place(n, synthetic)``, given, returns the (RoIs, image
+    indices) of a crop of n RoIs in their place (``synthetic(k)`` draws k of
+    the default ones)."""
     import torch
     from dynamask_torch.ops import roi_align as ra
     h, w = IMAGE_HW
@@ -176,17 +182,23 @@ def _crops(gen, dev, images, n_box, n_mask):
     def batch_of(n):
         return torch.randint(0, images, (n,), generator=gen, device=dev)
 
+    def synthetic(n):
+        return rois(n), batch_of(n)
+
+    def placed(n):
+        return place(n, synthetic) if place else synthetic(n)
+
     def multilevel(n, p, c, ratio):
         feats = [torch.randn(images, a, b, c, generator=gen, device=dev)
                  for a, b in shapes]
-        r = rois(n)
+        r, b = placed(n)
         flat, offsets = ra._flat_planes(feats)
         lvl = ra.map_roi_levels(r, 4)
         hs = torch.tensor([a for a, _ in shapes], device=dev,
                           dtype=torch.int32)[lvl]
         ws = torch.tensor([b for _, b in shapes], device=dev,
                           dtype=torch.int32)[lvl]
-        base = torch.tensor(offsets, device=dev)[lvl] + batch_of(n) * (
+        base = torch.tensor(offsets, device=dev)[lvl] + b * (
             hs.long() * ws.long())
         sc = (1.0 / torch.tensor([4., 8., 16., 32.], device=dev))[lvl]
         return (flat, r, base.contiguous(), hs.contiguous(), ws.contiguous(),
@@ -196,7 +208,8 @@ def _crops(gen, dev, images, n_box, n_mask):
         a, b = plane
         feat = torch.randn(images, a, b, c, generator=gen, device=dev)
         flat, _ = ra._flat_planes([feat])
-        return (flat, rois(n), batch_of(n) * (a * b),
+        r, bi = placed(n)
+        return (flat, r, bi * (a * b),
                 torch.full((n,), a, dtype=torch.int32, device=dev),
                 torch.full((n,), b, dtype=torch.int32, device=dev),
                 torch.full((n,), 0.25, device=dev)), dict(
@@ -210,6 +223,36 @@ def _crops(gen, dev, images, n_box, n_mask):
                                                             plane, 1)
     yield f'msm P2 {n_mask}x56x56x128 r1', *single(n_mask, 56, 128, shapes[0],
                                                    1)
+
+
+def clustered_place(gen, dev, images, n_pos):
+    """RoIs as the flagship's training step makes them, for
+    :func:`_crops`: ``n_pos`` positives jittered (each corner by up to ±10%
+    of the box's side, IoU ~0.7-1 with it) around ``TRAIN_GTS`` GT boxes per
+    image of 96-160 px (~128), all clipped to the image, about 6 positives
+    per GT; a crop of more RoIs (the box extract) fills the rest with the
+    default RoIs."""
+    import torch
+    h, w = IMAGE_HW
+    n_gt = images * TRAIN_GTS
+    side = 96 + 64 * torch.rand(n_gt, 2, generator=gen, device=dev)
+    ctr = torch.rand(n_gt, 2, generator=gen, device=dev) * torch.tensor(
+        [w, h], device=dev)
+    lim = torch.tensor([w, h, w, h], dtype=torch.float32, device=dev)
+    gt = torch.minimum(torch.cat([ctr - side / 2, ctr + side / 2], 1).clamp(
+        min=0), lim)
+    pick = torch.arange(n_pos, device=dev) % n_gt
+    jitter = (torch.rand(n_pos, 4, generator=gen, device=dev) - 0.5) * 0.2
+    pos = torch.minimum((gt[pick] + jitter * side[pick].repeat(1, 2)).clamp(
+        min=0), lim).contiguous()
+    pos_img = pick // TRAIN_GTS
+
+    def place(n, synthetic):
+        if n <= n_pos:
+            return pos[:n].contiguous(), pos_img[:n]
+        r, b = synthetic(n - n_pos)
+        return torch.cat([pos, r]).contiguous(), torch.cat([pos_img, b])
+    return place
 
 
 def k5_cases(gen, dev):
@@ -250,29 +293,56 @@ def k5_limit(scale, got):
     return K5_RTOL * scale, f'{K5_RTOL} x max|ref| {scale:.3e}'
 
 
+CLUSTERED = 'clustered'   # cases kept out of the table row's sum
+
+
+def clustered_crops(dev):
+    """The training crops with the training path's RoIs
+    (:func:`clustered_place`), from a generator of their own so the other
+    cases keep their inputs."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(3)
+    place = clustered_place(gen, dev, TRAIN_IMAGES, N_POS_TRAIN)
+    for case, args, kw in _crops(gen, dev, TRAIN_IMAGES, N_BOX_TRAIN,
+                                 N_POS_TRAIN, place):
+        yield f'{CLUSTERED} {case}', args, kw
+
+
 def k2_cases(gen, dev):
     """K2 at the inference crops (one image, 1000 proposals, 100 dets) and
     at the training crops (4 images, 2048 sampled RoIs, 512 positive
-    slots)."""
+    slots), then at the training crops with clustered RoIs."""
     for case, args, kw in _crops(gen, dev, 1, 1000, N_DETS):
         yield 'infer ' + case, args, kw
     for case, args, kw in _crops(gen, dev, TRAIN_IMAGES, N_BOX_TRAIN,
                                  N_POS_TRAIN):
         yield 'train ' + case, args, kw
+    yield from clustered_crops(dev)
+
+
+def k4_args(gen, args, kw):
+    """K4's arguments on the crop of K2's ``args``: a random crop
+    gradient, the flat buffer's row count and the RoI arguments."""
+    import torch
+    flat, rois = args[:2]
+    p = kw['out_size']
+    d_out = torch.randn(rois.shape[0], p, p, flat.shape[1], generator=gen,
+                        device=flat.device)
+    return (d_out, flat.shape[0], *args[1:])
 
 
 def k4_cases(gen, dev):
     """K4 at the training crops (4 images, 2048 sampled RoIs, 512 positive
-    slots), with a random crop gradient."""
+    slots), with a random crop gradient, then with clustered RoIs."""
     import torch
     for case, args, kw in _crops(gen, dev, TRAIN_IMAGES, N_BOX_TRAIN,
                                  N_POS_TRAIN):
-        flat, rois = args[:2]
-        p = kw['out_size']
-        d_out = torch.randn(rois.shape[0], p, p, flat.shape[1], generator=gen,
-                            device=dev)
-        yield 'train ' + case, (d_out, flat.shape[0], *args[1:]), kw
-        del flat, args, d_out
+        yield 'train ' + case, k4_args(gen, args, kw), kw
+        del args
+    cgen = torch.Generator(device=dev).manual_seed(4)
+    for case, args, kw in clustered_crops(dev):
+        yield case, k4_args(cgen, args, kw), kw
+        del args
 
 
 # -- bounds: bytes each function must move, operations it must do ------------
@@ -325,16 +395,69 @@ def k3_bound(args, kw, out):
     return _nbytes(x, off, d_col, d_x, d_off), {'fp32': 22 * d_col.numel()}
 
 
-def k2_bound(args, kw, out):
+def _sample_axes(rois, base, hs, ws, sc, kw):
+    """Per RoI and axis, each sample's two clamped corners and its inside
+    flag: ((y0, y1, in_y), (x0, x1, in_x)), each (N, P*s). The samples are
+    the plain version's (``roi_align_fwd_plain``), written out here so that
+    the bounds need nothing of the checkout under test."""
+    import torch
+    p, s = kw['out_size'], kw['sampling_ratio']
+    k = torch.arange(p * s, device=rois.device)
+    grid = (k // s).float() + ((k % s).float() + 0.5) / s
+
+    def axis(lo, hi, extent):
+        lo, hi = lo * sc - 0.5, hi * sc - 0.5
+        v = lo[:, None] + ((hi - lo) / torch.full_like(lo, float(p)))[
+            :, None] * grid[None, :]
+        ef = extent.float()[:, None]
+        v0 = torch.floor(torch.minimum(v.clamp(min=0.0), ef - 1)).long()
+        v1 = torch.minimum(v0 + 1, extent.long()[:, None] - 1)
+        return v0, v1, (v >= -1.0) & (v <= ef)
+
+    return (axis(rois[:, 1], rois[:, 3], hs), axis(rois[:, 0], rois[:, 2], ws))
+
+
+def rows_read(args, kw):
+    """How many rows of the flat features a K2 crop must read: those that
+    hold a corner of an inside sample, each once."""
+    import torch
     flat, rois, base, hs, ws, sc = args
-    return (_nbytes(flat, rois, base, hs, ws, sc, out),
+    (y0, y1, in_y), (x0, x1, in_x) = _sample_axes(rois, base, hs, ws, sc, kw)
+    inside = in_y[:, :, None] & in_x[:, None, :]
+    read = torch.zeros(flat.shape[0], dtype=torch.bool, device=flat.device)
+    w = ws.long()[:, None, None]
+    for yy in (y0, y1):
+        for xx in (x0, x1):
+            at = base[:, None, None] + yy[:, :, None] * w + xx[:, None, :]
+            read[at[inside]] = True
+    return int(read.sum())
+
+
+def bins_read(args, kw):
+    """How many bins of d_out a K4 crop must read: those with an inside
+    sample (the others pass nothing)."""
+    _, _, rois, base, hs, ws, sc = args
+    p, s = kw['out_size'], kw['sampling_ratio']
+    (_, _, in_y), (_, _, in_x) = _sample_axes(rois, base, hs, ws, sc, kw)
+    return int((in_y.reshape(-1, p, s).any(2).sum(1) *
+                in_x.reshape(-1, p, s).any(2).sum(1)).sum())
+
+
+def k2_bound(args, kw, out):
+    # the features each crop reads (not the whole pyramid), once
+    flat, rois, base, hs, ws, sc = args
+    feat_bytes = rows_read(args, kw) * flat.shape[1] * flat.element_size()
+    return (feat_bytes + _nbytes(rois, base, hs, ws, sc, out),
             {'fp32': out.numel() * (kw['sampling_ratio'] ** 2 * 16 + 1)})
 
 
 def k4_bound(args, kw, out):
+    # the d_out bins with an inside sample, read once; all of d_flat, the
+    # wrapper's output, written once
     d_out, _, rois, base, hs, ws, sc = args
+    d_out_bytes = bins_read(args, kw) * d_out.shape[-1] * d_out.element_size()
     # per sample: four weights, four products with the gradient, four adds
-    return (_nbytes(d_out, rois, base, hs, ws, sc, out),
+    return (d_out_bytes + _nbytes(rois, base, hs, ws, sc, out),
             {'fp32': d_out.numel() * (kw['sampling_ratio'] ** 2 * 12 + 1)})
 
 
@@ -531,6 +654,96 @@ def check_dcn_edges(report):
     report['dcn_edges'] = worst
 
 
+# K2 and K4 off the main path's crops: channels not a multiple of 4 (the
+# scalar instance), one bin, three samples a bin, one RoI, a 1x1 plane, bins
+# far narrower than a pixel, and a base off 16-byte alignment (the scalar
+# instance at C = 32); (n, P, s, C, plane height, plane width, misaligned)
+ROI_EDGE_SHAPES = ((9, 7, 2, 3, 20, 24, False), (9, 14, 1, 10, 20, 24, False),
+                   (9, 1, 2, 16, 20, 24, False), (9, 7, 3, 16, 20, 24, False),
+                   (1, 7, 2, 16, 20, 24, False), (9, 7, 2, 16, 1, 1, False),
+                   (9, 56, 1, 8, 12, 10, False), (9, 14, 2, 32, 20, 24, True))
+
+
+def roi_edge_rois(gen, n, p, s, h, w):
+    """``n`` RoIs on an h x w plane at scale 1 for a P x P crop with s x s
+    samples a bin, cycling through kinds: random boxes up to twice the
+    plane, zero-area, wholly off the plane, partly off it, the whole plane,
+    and exact-edge boxes of bin 1 whose first sample falls exactly on -1,
+    or whose last falls exactly on the extent (in binary, for s = 1 and 2),
+    each also moved 2^-8 past that edge: the inclusion test's two sides."""
+    import torch
+
+    def box(x1, y1, x2, y2):
+        return torch.tensor([x1, y1, x2, y2], dtype=torch.float32,
+                            device=DEVICE)
+
+    low = -0.5 - 0.5 / s                   # first sample at -1
+    high_x, high_y = w - p + 0.5 / s + 0.5, h - p + 0.5 / s + 0.5
+    eps = 2.0 ** -8
+    kinds = [
+        lambda: torch.sort(torch.rand(2, 2, generator=gen, device=DEVICE) *
+                           torch.tensor([2 * w, 2 * h], device=DEVICE) -
+                           torch.tensor([w / 2, h / 2], device=DEVICE),
+                           dim=0)[0].reshape(-1),
+        lambda: box(w / 3, h / 2, w / 3, h / 2),
+        lambda: box(w + 3, h + 2, w + 9, h + 7),
+        lambda: box(-5, -4, w / 2, h / 2),
+        lambda: box(0, 0, w, h),
+        lambda: box(low, low, low + p, low + p),
+        lambda: box(low - eps, low - eps, low - eps + p, low - eps + p),
+        lambda: box(high_x, high_y, high_x + p, high_y + p),
+        lambda: box(high_x + eps, high_y + eps, high_x + eps + p,
+                    high_y + eps + p)]
+    return torch.stack([kinds[i % len(kinds)]() for i in range(n)])
+
+
+def check_roi_edges(report):
+    """Phase 2, K2 and K4 at the edge shapes against their plain versions
+    (untimed). Where the plain crop is exactly 0 (every sample outside) K2's
+    must be too: the kernels make the same inside and outside decisions."""
+    import torch
+    from dynamask_torch.ops import roi_align as ra
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    worst = {'roi_align_fwd': 0.0, 'roi_align_bwd': 0.0}
+    for n, p, s, c, h, w, misaligned in ROI_EDGE_SHAPES:
+        images = 2
+        rows = images * h * w
+        flat = torch.randn(rows * c + misaligned, generator=gen,
+                           device=DEVICE)[int(misaligned):].view(rows, c)
+        rois = roi_edge_rois(gen, n, p, s, h, w)
+        crop = (rois, (torch.arange(n, device=DEVICE) % images) * (h * w),
+                torch.full((n,), h, dtype=torch.int32, device=DEVICE),
+                torch.full((n,), w, dtype=torch.int32, device=DEVICE),
+                torch.ones(n, device=DEVICE))
+        d_out = torch.randn(n * p * p * c + misaligned, generator=gen,
+                            device=DEVICE)[int(misaligned):].view(n, p, p, c)
+        where = (f'n {n}, P {p}, s {s}, C {c}, plane {h}x{w}'
+                 f'{", misaligned" if misaligned else ""}')
+        for name, args, limit in (
+                ('roi_align_fwd', (flat, *crop), abs_limit(K2_TOL)),
+                ('roi_align_bwd', (d_out, rows, *crop), rel_limit(K4_RTOL))):
+            kernel = getattr(ra, name)
+            launches = kernel.launches
+            got = kernel(*args, p, s)
+            torch.cuda.synchronize(DEVICE)
+            if kernel.launches != launches + 1:
+                raise RuntimeError(f'{name} did not launch its kernel')
+            ref = getattr(ra, name + '_plain')(*args, p, s)
+            err, scale, finite = _compare(got, ref)
+            lim, tol = limit(scale, got)
+            worst[name] = max(worst[name], err / lim)
+            if not (err <= lim and finite):
+                raise RuntimeError(f'{name} disagrees with its plain version '
+                                   f'at {where}: max abs err {err} (limit '
+                                   f'{lim}, {tol})')
+            if name == 'roi_align_fwd' and (got[ref == 0] != 0).any():
+                raise RuntimeError(f'{name} samples where its plain version '
+                                   f'has no inside sample, at {where}')
+    print(f'  K2 and K4 at {len(ROI_EDGE_SHAPES)} edge shapes: largest error '
+          f'over its tolerance {worst}')
+    report['roi_edges'] = worst
+
+
 def check_kernels(report):
     """Phase 2: each kernel against its plain version, timed."""
     import torch
@@ -575,6 +788,9 @@ def check_kernels(report):
                 agg['yardstick_ms'] += y_ms
             print(line)
             report['kernel_cases'].append(case_rec)
+            if case.startswith(CLUSTERED):   # on lines of their own only
+                del got, args
+                continue
             agg['max_abs_err'] = max(agg['max_abs_err'], err)
             agg['ms'] += ms
             agg['plain_ms'] += plain_ms
@@ -1106,6 +1322,7 @@ def main() -> int:
     print(f'phase 2: kernels against their plain versions [{card}]')
     rows = check_kernels(report)
     check_dcn_edges(report)
+    check_roi_edges(report)
     check_k5_edges(report)
     print('phase 3: toy model, GPU against CPU')
     check_toy_against_cpu(report)

@@ -30,7 +30,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from . import _build
-from .deform_conv import _refuse_grad
+from .deform_conv import MIN_BLOCKS, _aligned, _refuse_grad
 
 
 def map_roi_levels(rois: torch.Tensor, num_levels: int,
@@ -41,6 +41,44 @@ def map_roi_levels(rois: torch.Tensor, num_levels: int,
                        (rois[:, 3] - rois[:, 1]).clamp(min=0))
     lvl = torch.floor(torch.log2(scale / finest_scale + 1e-6))
     return lvl.clamp(0, num_levels - 1).long()
+
+
+def _roi_axes(rois: torch.Tensor, scales: torch.Tensor, out_size: int):
+    """Per RoI, the first coordinate and the bin size of each axis, aligned
+    (the half-pixel shift): ((y1, bin_h), (x1, bin_w))."""
+    x1 = rois[:, 0] * scales - 0.5
+    y1 = rois[:, 1] * scales - 0.5
+    x2 = rois[:, 2] * scales - 0.5
+    y2 = rois[:, 3] * scales - 0.5
+    # a tensor divisor keeps ATen's division exact (a scalar one becomes a
+    # multiply by its reciprocal), so sample points match K2's bit for bit
+    div = torch.full_like(y1, float(out_size))
+    return (y1, (y2 - y1) / div), (x1, (x2 - x1) / div)
+
+
+def roi_axis_samples(lo: torch.Tensor, bin_size: torch.Tensor,
+                     extent: torch.Tensor, out_size: int,
+                     sampling_ratio: int):
+    """The per-axis sample table K2 and K4 build in shared memory, for each
+    RoI and each of the P*s samples of one axis (sample p*s + i at
+    ``lo + bin * (p + (i + 0.5) / s)``): its two clamped corners ``v0``,
+    ``v1`` (int64), its two weights ``h = 1 - l`` and ``l``, and its inside
+    flag (the coordinate in [-1, extent]). ``lo``, ``bin_size`` (N,)
+    float32, ``extent`` (N,) int; each result (N, P*s). A sample of the
+    grid is inside when both of its axes' samples are."""
+    p, s = out_size, sampling_ratio
+    sub = (torch.arange(s, dtype=torch.float32, device=lo.device) + 0.5) / s
+    grid = (torch.arange(p, dtype=torch.float32, device=lo.device)[:, None] +
+            sub[None, :]).reshape(-1)
+    v = lo[:, None] + bin_size[:, None] * grid[None, :]
+    ef = extent.float()[:, None]
+    inside = (v >= -1.0) & (v <= ef)
+    vc = torch.minimum(v.clamp(min=0.0), ef - 1)
+    v0 = torch.floor(vc)
+    l = vc - v0
+    v0i = v0.long()
+    v1i = torch.minimum(v0i + 1, extent.long()[:, None] - 1)
+    return v0i, v1i, 1.0 - l, l, inside
 
 
 def roi_align_fwd_plain(flat: torch.Tensor, rois: torch.Tensor,
@@ -54,50 +92,69 @@ def roi_align_fwd_plain(flat: torch.Tensor, rois: torch.Tensor,
     float32 coordinate scale. Returns (N, P, P, C)."""
     n, c = rois.shape[0], flat.shape[1]
     p, s = out_size, sampling_ratio
-    dev = flat.device
-    x1 = rois[:, 0] * scales - 0.5
-    y1 = rois[:, 1] * scales - 0.5
-    x2 = rois[:, 2] * scales - 0.5
-    y2 = rois[:, 3] * scales - 0.5
-    roi_w, roi_h = x2 - x1, y2 - y1
-    sub = (torch.arange(s, dtype=torch.float32, device=dev) + 0.5) / s
-    grid = (torch.arange(p, dtype=torch.float32, device=dev)[:, None] +
-            sub[None, :]).reshape(-1)
-    # a tensor divisor keeps ATen's division exact (a scalar one becomes a
-    # multiply by its reciprocal), so sample points match K2's bit for bit
-    div = torch.full_like(roi_h, float(p))
-    ys = y1[:, None] + (roi_h / div)[:, None] * grid[None, :]   # (N, P*s)
-    xs = x1[:, None] + (roi_w / div)[:, None] * grid[None, :]
-    ps = p * s
-    yy = ys[:, :, None].expand(n, ps, ps)
-    xx = xs[:, None, :].expand(n, ps, ps)
-    hf = hs.float()[:, None, None]
-    wf = ws.float()[:, None, None]
-    inside = ((yy >= -1.0) & (yy <= hf) & (xx >= -1.0) & (xx <= wf)).float()
-    yc = torch.minimum(yy.clamp(min=0.0), hf - 1)
-    xc = torch.minimum(xx.clamp(min=0.0), wf - 1)
-    y0, x0 = torch.floor(yc), torch.floor(xc)
-    ly, lx = yc - y0, xc - x0
-    hy, hx = 1.0 - ly, 1.0 - lx
-    y0i, x0i = y0.long(), x0.long()
-    hl = hs.long()[:, None, None]
+    (y1, bin_h), (x1, bin_w) = _roi_axes(rois, scales, p)
+    y0i, y1i, hy, ly, in_y = roi_axis_samples(y1, bin_h, hs, p, s)
+    x0i, x1i, hx, lx, in_x = roi_axis_samples(x1, bin_w, ws, p, s)
+    inside = (in_y[:, :, None] & in_x[:, None, :]).float()
+    e_y = (lambda t: t[:, :, None])
+    e_x = (lambda t: t[:, None, :])
     wl = ws.long()[:, None, None]
-    y1i = torch.minimum(y0i + 1, hl - 1)
-    x1i = torch.minimum(x0i + 1, wl - 1)
     b = base.long()[:, None, None]
 
     def take(yi, xi):
-        return flat[(b + yi * wl + xi).reshape(-1)]
+        return flat[(b + e_y(yi) * wl + e_x(xi)).reshape(-1)]
 
-    v = (take(y0i, x0i) * (hy * hx * inside).reshape(-1, 1) +
-         take(y0i, x1i) * (hy * lx * inside).reshape(-1, 1) +
-         take(y1i, x0i) * (ly * hx * inside).reshape(-1, 1) +
-         take(y1i, x1i) * (ly * lx * inside).reshape(-1, 1))
+    v = (take(y0i, x0i) * (e_y(hy) * e_x(hx) * inside).reshape(-1, 1) +
+         take(y0i, x1i) * (e_y(hy) * e_x(lx) * inside).reshape(-1, 1) +
+         take(y1i, x0i) * (e_y(ly) * e_x(hx) * inside).reshape(-1, 1) +
+         take(y1i, x1i) * (e_y(ly) * e_x(lx) * inside).reshape(-1, 1))
     return v.reshape(n, p, s, p, s, c).mean(dim=(2, 4))
 
 
+# Launch configuration of K2 and K4. The constants mirror the kernels'
+# (csrc/roi_align.cu, csrc/roi_align_bwd.cu), which check what they are
+# given and refuse a configuration they cannot run.
+ROI_ENTRY_BYTES = 16         # shared bytes per axis sample
+ROI_BLOCK_ELEMS = 8192       # K2: crop elements a block covers, about
+K4_BAND = 4                  # K4: output rows a block covers
+
+
+def roi_align_launch_config(kernel: str, n: int, p: int, s: int, c: int,
+                            aligned: bool = True) -> dict:
+    """How K2 (``kernel='k2'``) or K4 (``'k4'``) is launched on ``n`` RoIs
+    of P x P bins, ``s`` x ``s`` samples a bin, C channels: one block per
+    (RoI, band of ``band_rows`` output rows; ``n_bands`` bands), about
+    ``ROI_BLOCK_ELEMS`` crop elements a block in K2 and ``K4_BAND`` rows in
+    K4 (the best of both at the training crops, on the card), narrowed
+    until there are ``MIN_BLOCKS`` blocks where it can; the x table of the
+    RoI's P*s samples and the y table of the band's ``band_rows * s`` in
+    ``smem_bytes`` of shared memory; ``2 ** lanes_log2`` threads per entry
+    of the lane walk (an output column in K2, a feature column in K4), each
+    ``vec`` channels at a time: 4 where C comes in quads and the bases are
+    16-byte ``aligned``, else 1."""
+    if kernel not in ('k2', 'k4'):
+        raise ValueError(f'roi_align_launch_config: kernel k2 or k4, got '
+                         f'{kernel}')
+    vec = 4 if aligned and c % 4 == 0 else 1
+    lanes_log2 = 0
+    while (1 << lanes_log2) < min(32, c // vec):
+        lanes_log2 += 1
+    if kernel == 'k4':
+        band = min(p, K4_BAND)
+    else:
+        band = max(1, min(p, ROI_BLOCK_ELEMS // max(1, p * c)))
+    while band > 1 and n * -(-p // band) < MIN_BLOCKS:
+        band = (band + 1) // 2
+    return dict(band_rows=band, n_bands=-(-p // band), vec=vec,
+                lanes_log2=lanes_log2,
+                smem_bytes=(p + band) * s * ROI_ENTRY_BYTES)
+
+
 def _check_crop(name, flat, rois, base, hs, ws, scales):
-    n = rois.shape[0]
+    n, dev = rois.shape[0], flat.device
+    if dev.type != 'cuda':
+        raise ValueError(f'{name}: features must be on a CUDA device, got '
+                         f'{dev}')
     for arg, t, dt, shape in (
             ('flat', flat, torch.float32, None),
             ('rois', rois, torch.float32, (n, 4)),
@@ -105,7 +162,7 @@ def _check_crop(name, flat, rois, base, hs, ws, scales):
             ('hs', hs, torch.int32, (n,)),
             ('ws', ws, torch.int32, (n,)),
             ('scales', scales, torch.float32, (n,))):
-        if t.device != flat.device or t.device.type != 'cuda':
+        if t.device != dev:
             raise ValueError(f'{name}: {arg} must be on the CUDA device of '
                              f'the features, got {t.device}')
         if t.dtype != dt:
@@ -119,12 +176,27 @@ def _check_crop(name, flat, rois, base, hs, ws, scales):
         raise ValueError(f'{name}: features must be (rows, C)')
 
 
-def _launch(lib, fn_name, args, ints, stream, name):
-    fn = getattr(_build.load(lib), fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(args) + [ctypes.c_int] * len(
-        ints) + [ctypes.c_void_p]
-    rc = fn(*[t.data_ptr() for t in args], *ints, stream)
+_FNS = {}   # the kernels' C functions, their argument types set
+
+
+def _launch(kernel: str, tensors, n: int, c: int, p: int, s: int,
+            rows: int, cfg: dict, stream: int) -> None:
+    """Launch K2 (``kernel='k2'``: features, RoI arguments, output) or K4
+    (``'k4'``: d_out, RoI arguments, d_flat) with the launch configuration
+    ``cfg`` (:func:`roi_align_launch_config`)."""
+    name = 'roi_align_fwd' if kernel == 'k2' else 'roi_align_bwd'
+    fn = _FNS.get(kernel)
+    if fn is None:
+        lib = 'roi_align' if kernel == 'k2' else 'roi_align_bwd'
+        fn = getattr(_build.load(lib), name + '_f32')
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 +
+                       [ctypes.c_longlong] + [ctypes.c_int] * 4 +
+                       [ctypes.c_void_p])
+        _FNS[kernel] = fn
+    rc = fn(*[t.data_ptr() for t in tensors], n, c, p, s, rows,
+            cfg['band_rows'], cfg['vec'], cfg['lanes_log2'],
+            cfg['smem_bytes'], stream)
     if rc != 0:
         raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
                            f'{rc}')
@@ -146,11 +218,11 @@ def roi_align_fwd(flat: torch.Tensor, rois: torch.Tensor, base: torch.Tensor,
                       device=flat.device)
     if out.numel() == 0:
         return out
-    _launch('roi_align', 'roi_align_fwd_f32',
-            (flat, rois, base, hs, ws, scales, out),
-            (n, c, out_size, sampling_ratio),
-            torch.cuda.current_stream(flat.device).cuda_stream,
-            'roi_align_fwd')
+    cfg = roi_align_launch_config('k2', n, out_size, sampling_ratio, c,
+                                  aligned=_aligned(flat, out))
+    _launch('k2', (flat, rois, base, hs, ws, scales, out), n, c, out_size,
+            sampling_ratio, flat.shape[0], cfg,
+            torch.cuda.current_stream(flat.device).cuda_stream)
     roi_align_fwd.launches += 1
     return out
 
@@ -193,11 +265,11 @@ def roi_align_bwd(d_out: torch.Tensor, rows: int, rois: torch.Tensor,
                          f'{tuple(d_out.shape)} {d_out.dtype}')
     if d_out.numel() == 0:
         return d_flat
-    _launch('roi_align_bwd', 'roi_align_bwd_f32',
-            (d_out, rois, base, hs, ws, scales, d_flat),
-            (n, c, out_size, sampling_ratio),
-            torch.cuda.current_stream(d_out.device).cuda_stream,
-            'roi_align_bwd')
+    cfg = roi_align_launch_config('k4', n, out_size, sampling_ratio, c,
+                                  aligned=_aligned(d_out, d_flat))
+    _launch('k4', (d_out, rois, base, hs, ws, scales, d_flat), n, c,
+            out_size, sampling_ratio, rows, cfg,
+            torch.cuda.current_stream(d_out.device).cuda_stream)
     roi_align_bwd.launches += 1
     return d_flat
 

@@ -22,7 +22,8 @@ For each mode it reports
   RoI head (box_branch, mask_branch). The backward pass runs its kernels
   from autograd's own thread, so its device time is also given as the
   step's kernel time less that of forward_train and optimizer;
-* device time per kernel name, the number of kernel launches, and the
+* device time per kernel name (the 30 largest, and every one of the
+  port's own kernels K1-K5), the number of kernel launches, and the
   device's busy share (kernel time over wall time).
 
 Prints a summary and writes ``chiprun_out/profile_torch_port.json``.
@@ -91,7 +92,14 @@ def _profile(run, iters, stages):
             'device_busy_share': busy / wall_ms,
             'kernel_launches_per_iter': sum(r['launches_per_iter']
                                             for r in rows),
-            'stages': _stage_times(prof, stages), 'kernels': rows[:30]}
+            'stages': _stage_times(prof, stages), 'kernels': rows[:30],
+            'port_kernels': [r for r in rows if _is_port_kernel(r['name'])]}
+
+
+def _is_port_kernel(name: str) -> bool:
+    """Whether a kernel is one of the port's own (csrc/*.cu)."""
+    return any(k in name for k in ('deform_im2col', 'deform_col2im',
+                                   'roi_align', 'deform_conv_fused'))
 
 
 def _summary(mode, prof, card, unit):
@@ -103,6 +111,10 @@ def _summary(mode, prof, card, unit):
         f'{k} {v["host_ms"]:.3f} / {v["device_ms"]:.3f}'
         for k, v in prof['stages'].items()))
     for r in prof['kernels'][:12]:
+        print(f'  {r["ms_per_iter"]:8.3f} ms x{r["launches_per_iter"]:5.0f}'
+              f'  {r["name"][:100]}')
+    print('  the port\'s own kernels:')
+    for r in prof['port_kernels']:
         print(f'  {r["ms_per_iter"]:8.3f} ms x{r["launches_per_iter"]:5.0f}'
               f'  {r["name"][:100]}')
 
