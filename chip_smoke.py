@@ -19,7 +19,9 @@ before the last line is printed:
    (n = 100), through each entry point with its rounding rule, timed beside
    the port's own form of the same function (K1 + ``torch.matmul``); K2
    and K4 also at the training crops with RoIs clustered as the training
-   step makes them, on lines of their own; K1 and K3 also at edge shapes
+   step makes them, and K2 at the inference crops on the 1344x800 portrait
+   canvas that phase 6's portrait images use, on lines of their own kept
+   out of the ``kernels`` line's sums; K1 and K3 also at edge shapes
    (ragged bands, one deform group, channels per group not a multiple of
    4, padding and dilation 2, windows 1 and 2, one RoI, a misaligned base)
    with random, zero and exact-edge offsets, K2 and K4 at theirs (C not a
@@ -40,13 +42,31 @@ before the last line is printed:
    seeded initialisation (zero DCN offsets, as the JAX package), a seeded
    synthetic batch of 4 images at 800x1344 with 20 GTs each, fp32, on the
    host; one warm-up and three timed SGD steps, each a call of
-   ``train_detector`` on the trainer from ``init_trainer``.
+   ``train_detector`` on the trainer from ``init_trainer``;
+6. drive the COCO evaluation path: a seeded COCO-format set written to
+   ``build/chip_smoke_coco/`` (8 noise JPEGs at COCO sizes, 3-10 polygon
+   GTs each over 2-5 categories; the file lists all 80 ``COCO_CLASSES``)
+   goes through
+   ``build_dataset`` with the config's test pipeline, ``single_device_test``
+   (the config's loader workers; ``simple_test`` + the paste on the
+   dataset's mask canvas in original-image coordinates, on the card; one
+   copy of each image's masks to the host) and ``CocoDataset.evaluate``
+   (RLE by the C codec of ``dynamask_torch/native``, built with ``cc``
+   into ``build/dynamask_torch_native/``), after one untimed pass: the
+   flagship at random weights N(0, 0.05). It prints img/s end to end and
+   its split (loader start-up, host pipeline + collate, device, copy, RLE,
+   evaluate), checks one finite result per image, each valid det's mask
+   through ``encode_mask`` -> ``decode_rle`` bit for bit, the C codec
+   against the numpy codec byte for byte on every mask, and that the GTs
+   given as predictions score bbox and segm mAP of exactly 1.0; then one
+   ``train_detector`` step from a ``build_dataloader`` batch of 4 images of
+   the set through the config's train pipeline, whose losses must be finite.
 
-For each of the four drives (faithful, dynamic, the K5 check on the
-captured DCN inputs, train) the kernels' launch counters are zeroed just
-before it and read just after, and every kernel of that path must have
-launched in it: K1 and K2 at inference, K5 through both entry points in its
-check, K1-K4 in training.
+For each of the six drives (faithful, dynamic, the K5 check on the captured
+DCN inputs, train, eval, loader_train) the kernels' launch counters are
+zeroed just before it and read just after, and every kernel of that path
+must have launched in it: K1 and K2 at inference and in the eval loop, K5
+through both entry points in its check, K1-K4 in training.
 
 Standard output ends with the ``kernels`` JSON line, the card's name and
 power limit as ``nvidia-smi`` reports them, and the ``{"ok": true, ...}``
@@ -67,6 +87,7 @@ DEVICE = 'cuda'
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, 'configs/dynamask/coco/r50_dynamask_1x.py')
 IMAGE_HW = (800, 1344)           # the flagship's test canvas
+PORTRAIT_HW = (1344, 800)        # its canvas for portrait images (phase 6)
 TRAIN_IMAGES = 4                 # the config's samples_per_gpu
 TRAIN_GTS = 20
 TIMED_STEPS = 3                  # after one warm-up step
@@ -153,18 +174,18 @@ def k3_cases(gen, dev):
             del x, off, d_col
 
 
-def _crops(gen, dev, images, n_box, n_mask, place=None):
+def _crops(gen, dev, images, n_box, n_mask, place=None, canvas=IMAGE_HW):
     """The crops of the main path, as (name, K2 arguments, options): the 7x7
     box extract (ratio 2) and the 14x14 mask extract (ratio 2) over P2-P5,
     the SFM crops ({14, 28, 56}^2 of P4/P3/P2 at scale 1/4 with 256/128/64
     channels, ratio 1) and the MSM 56x56x128 crop of P2 (ratio 1), over
-    ``images`` images. RoIs include boxes partly off the image, zero-area and
-    very wide ones; ``place(n, synthetic)``, given, returns the (RoIs, image
-    indices) of a crop of n RoIs in their place (``synthetic(k)`` draws k of
-    the default ones)."""
+    ``images`` images of the (h, w) ``canvas``. RoIs include boxes partly
+    off the image, zero-area and very wide ones; ``place(n, synthetic)``,
+    given, returns the (RoIs, image indices) of a crop of n RoIs in their
+    place (``synthetic(k)`` draws k of the default ones)."""
     import torch
     from dynamask_torch.ops import roi_align as ra
-    h, w = IMAGE_HW
+    h, w = canvas
     shapes = [(h // s, w // s) for s in (4, 8, 16, 32)]
 
     def rois(n):
@@ -293,7 +314,9 @@ def k5_limit(scale, got):
     return K5_RTOL * scale, f'{K5_RTOL} x max|ref| {scale:.3e}'
 
 
-CLUSTERED = 'clustered'   # cases kept out of the table row's sum
+CLUSTERED = 'clustered'
+PORTRAIT = 'portrait'
+OFF_ROW = (CLUSTERED, PORTRAIT)   # cases kept out of the table row's sum
 
 
 def clustered_crops(dev):
@@ -311,13 +334,20 @@ def clustered_crops(dev):
 def k2_cases(gen, dev):
     """K2 at the inference crops (one image, 1000 proposals, 100 dets) and
     at the training crops (4 images, 2048 sampled RoIs, 512 positive
-    slots), then at the training crops with clustered RoIs."""
+    slots), then at the training crops with clustered RoIs and at the
+    inference crops on the portrait canvas, each from a generator of its
+    own so the other cases keep their inputs."""
+    import torch
     for case, args, kw in _crops(gen, dev, 1, 1000, N_DETS):
         yield 'infer ' + case, args, kw
     for case, args, kw in _crops(gen, dev, TRAIN_IMAGES, N_BOX_TRAIN,
                                  N_POS_TRAIN):
         yield 'train ' + case, args, kw
     yield from clustered_crops(dev)
+    pgen = torch.Generator(device=dev).manual_seed(5)
+    for case, args, kw in _crops(pgen, dev, 1, 1000, N_DETS,
+                                 canvas=PORTRAIT_HW):
+        yield f'{PORTRAIT} infer {case}', args, kw
 
 
 def k4_args(gen, args, kw):
@@ -788,7 +818,7 @@ def check_kernels(report):
                 agg['yardstick_ms'] += y_ms
             print(line)
             report['kernel_cases'].append(case_rec)
-            if case.startswith(CLUSTERED):   # on lines of their own only
+            if case.startswith(OFF_ROW):   # on lines of their own only
                 del got, args
                 continue
             agg['max_abs_err'] = max(agg['max_abs_err'], err)
@@ -1291,6 +1321,207 @@ def run_train_path(report, card):
     return launches
 
 
+# -- phase 6: the COCO evaluation path ------------------------------------------
+
+COCO_SET = os.path.join(ROOT, 'build', 'chip_smoke_coco')
+COCO_SIZES = ((640, 480), (480, 640), (640, 427), (500, 375))   # w x h
+
+
+def write_coco_set(root, seed=0):
+    """A seeded COCO-format set in ``root``: two noise JPEGs at each COCO
+    size, each with 3-10 rectangle-polygon GTs (inset 2 px in their boxes,
+    as ``tests/test_data.py:make_synthetic_coco`` draws them, 1/16-1/3 of
+    the image side) over 2-5 of five categories. The file lists all 80
+    ``COCO_CLASSES`` as categories, as COCO's does: the model's 80 labels
+    map onto them. Returns (annotation file, image directory, GT count)."""
+    import cv2
+    import numpy as np
+    from dynamask_torch.data import COCO_CLASSES
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, 'images')
+    os.makedirs(img_dir, exist_ok=True)
+    cats = [{'id': k + 1, 'name': n} for k, n in enumerate(COCO_CLASSES)]
+    used = np.sort(rng.choice(len(cats), 5, False)) + 1
+    images, anns = [], []
+    for i in range(2 * len(COCO_SIZES)):
+        w, h = COCO_SIZES[i // 2]
+        name = f'{i:012d}.jpg'
+        cv2.imwrite(os.path.join(img_dir, name),
+                    rng.uniform(0, 255, (h, w, 3)).astype(np.uint8))
+        images.append({'id': i + 1, 'file_name': name, 'width': w,
+                       'height': h})
+        here = rng.choice(used, rng.randint(2, 6), False)
+        for _ in range(rng.randint(3, 11)):
+            bw = int(rng.randint(w // 16, w // 3))
+            bh = int(rng.randint(h // 16, h // 3))
+            x, y = int(rng.randint(0, w - bw)), int(rng.randint(0, h - bh))
+            poly = [x + 2, y + 2, x + bw - 2, y + 2, x + bw - 2, y + bh - 2,
+                    x + 2, y + bh - 2]
+            anns.append({'id': len(anns) + 1, 'image_id': i + 1,
+                         'category_id': int(rng.choice(here)),
+                         'bbox': [float(x), float(y), float(bw), float(bh)],
+                         'area': float(bw * bh), 'iscrowd': 0,
+                         'segmentation': [[float(v) for v in poly]]})
+    ann_file = os.path.join(root, 'instances.json')
+    with open(ann_file, 'w') as f:
+        json.dump({'images': images, 'annotations': anns,
+                   'categories': cats}, f)
+    return ann_file, img_dir, len(anns)
+
+
+def check_eval_outputs(dataset, results, det_json, segm_json):
+    """One finite result per image; every valid det's mask survives
+    encode_mask -> decode_rle bit for bit; the C codec and the numpy codec
+    give the same RLE bytes on every mask of the drive (valid or not)."""
+    import numpy as np
+    from dynamask_torch.data import decode_rle, encode_mask, encode_mask_plain
+    ids = sorted(r['img_id'] for r in results)
+    if ids != sorted(dataset.sample_id(i) for i in range(len(dataset))):
+        raise RuntimeError(f'eval: results for images {ids}')
+    n_masks = n_valid = 0
+    segm = iter(segm_json)
+    for res in results:
+        valid = np.asarray(res['valid'], bool)
+        if not np.isfinite(res['dets'][valid]).all():
+            raise RuntimeError(f'eval: non-finite dets, image {res["img_id"]}')
+        for d, mask in enumerate(res['masks']):
+            rle = encode_mask(mask)
+            if rle != encode_mask_plain(mask):
+                raise RuntimeError(f'eval: C and numpy RLE differ, image '
+                                   f'{res["img_id"]} det {d}')
+            n_masks += 1
+            if valid[d]:
+                entry = next(segm)
+                if entry['segmentation'] != rle or not np.array_equal(
+                        decode_rle(entry['segmentation']), mask):
+                    raise RuntimeError(f'eval: RLE round trip differs, image '
+                                       f'{res["img_id"]} det {d}')
+                n_valid += 1
+    return n_masks, n_valid
+
+
+def gt_as_predictions(dataset):
+    """The set's GTs as results: boxes at score 0.9, masks rasterized from
+    the polygons at original resolution."""
+    import numpy as np
+    from dynamask_torch.data import polygons_to_mask
+    results = []
+    for i, info in enumerate(dataset.img_infos):
+        ann = dataset.get_ann_info(i)
+        n = len(ann['bboxes'])
+        results.append({
+            'img_id': info['id'],
+            'dets': np.concatenate([ann['bboxes'],
+                                    np.full((n, 1), 0.9, np.float32)], 1),
+            'labels': ann['labels'], 'valid': np.ones(n, bool),
+            'masks': [polygons_to_mask(m, info['height'], info['width'])
+                      for m in ann['masks']]})
+    return results
+
+
+def run_eval_path(report, card):
+    """Phase 6: the seeded COCO set through ``build_dataset``, the config's
+    test pipeline and loader, ``single_device_test`` (``simple_test`` + the
+    paste on the dataset's mask canvas, on the card) and
+    ``CocoDataset.evaluate``; counters around the timed drive. Then one
+    ``train_detector`` step on a loader batch of the train pipeline."""
+    import torch
+    import dynamask_torch.ops as ops
+    from dynamask_torch.apis import (init_detector, init_trainer,
+                                     single_device_test, train_detector)
+    from dynamask_torch.data import build_dataloader, build_dataset
+    ann_file, img_dir, n_gts = write_coco_set(COCO_SET)
+    model = init_detector(FLAGSHIP, device=DEVICE, seed=0, init_std=0.05)
+    data = model.cfg.data
+    paths = dict(ann_file=ann_file, img_prefix=img_dir, data_root=None)
+    dataset = build_dataset(dict(data['test'], **paths),
+                            default_args=dict(test_mode=True))
+    n = len(dataset)
+    print(f'  set: {n} images at COCO sizes {COCO_SIZES} (w x h), {n_gts} '
+          f'polygon GTs; the config\'s test pipeline, '
+          f'{data["workers_per_gpu"]} loader workers')
+    single_device_test(model, dataset, workers_per_gpu=0, progress=False)
+    torch.cuda.synchronize(DEVICE)
+    timings = {}
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    results = single_device_test(model, dataset, progress=False,
+                                 workers_per_gpu=data['workers_per_gpu'],
+                                 timings=timings)
+    t_test = time.perf_counter() - t0
+    launches = {'eval': ops.kernel_launches()}
+    check_launches('eval', launches['eval'], INFER_KERNELS)
+    t = time.perf_counter()
+    det_json, segm_json = dataset.results2json(results)
+    timings['rle'] = time.perf_counter() - t
+    t = time.perf_counter()
+    metrics = dataset.evaluate_json(det_json, segm_json, ['bbox', 'segm'])
+    timings['evaluate'] = time.perf_counter() - t
+    total = t_test + timings['rle'] + timings['evaluate']
+    warm = total - timings['startup']
+    ms = {k: 1e3 * v / n for k, v in timings.items()}
+    print(f'  eval: {n / total:.2f} img/s end to end ({1e3 * total / n:.1f} '
+          f'ms/img), {n / warm:.2f} img/s without the loader start-up '
+          f'[{card}]; ms/img: loader start-up {ms["startup"]:.1f}, host '
+          f'pipeline + collate {ms["pipeline"]:.1f}, device (simple_test + '
+          f'paste, synchronised) {ms["device"]:.1f}, device-to-host copy '
+          f'{ms["fetch"]:.1f} + RLE {ms["rle"]:.1f}, evaluate '
+          f'{ms["evaluate"]:.1f}')
+    n_masks, n_valid = check_eval_outputs(dataset, results, det_json,
+                                          segm_json)
+    print(f'  eval: {len(results)} results; {n_valid} valid dets, each '
+          f'mask\'s RLE round trip exact; C and numpy RLE byte-identical on '
+          f'all {n_masks} masks; bbox_mAP {metrics["bbox_mAP"]:.4f}, '
+          f'segm_mAP {metrics["segm_mAP"]:.4f} (random weights)')
+    gt = dataset.evaluate(gt_as_predictions(dataset), metric=['bbox', 'segm'])
+    print(f'  eval: GT as predictions: bbox_mAP {gt["bbox_mAP"]}, segm_mAP '
+          f'{gt["segm_mAP"]}')
+    if gt['bbox_mAP'] != 1.0 or gt['segm_mAP'] != 1.0:
+        raise RuntimeError('eval: GT as predictions must score exactly 1.0')
+    report['eval'] = dict(images=n, seconds=total, img_per_s=n / total,
+                          img_per_s_without_startup=n / warm,
+                          ms_per_img=ms, metrics=metrics,
+                          gt_as_predictions=gt, valid_dets=n_valid,
+                          masks_checked=n_masks, launches=launches['eval'])
+    del model, results
+    torch.cuda.empty_cache()
+
+    model, opt = init_trainer(FLAGSHIP, steps_per_epoch=COCO_STEPS_PER_EPOCH,
+                              device=DEVICE, seed=0)
+    train_set = build_dataset(dict(data['train'], **paths), default_args=dict(
+        max_gts=data['max_gts'], mask_crop_size=data['mask_crop_size']))
+    loader = build_dataloader(train_set, data['samples_per_gpu'],
+                              workers_per_gpu=data['workers_per_gpu'])
+    t = time.perf_counter()
+    batch = next(iter(loader))
+    t_load = time.perf_counter() - t
+    shape = tuple(batch['image'].shape)
+    if shape[0] != data['samples_per_gpu']:
+        raise RuntimeError(f'loader batch {shape}')
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    log, = train_detector(model, opt, [batch],
+                          generator=torch.Generator(device=DEVICE)
+                          .manual_seed(0))
+    torch.cuda.synchronize(DEVICE)
+    t_step = time.perf_counter() - t
+    launches['loader_train'] = ops.kernel_launches()
+    check_launches('loader_train', launches['loader_train'], TRAIN_KERNELS)
+    log = {k: float(v) for k, v in log.items()}
+    bad = [k for k, v in log.items() if not math.isfinite(v)]
+    if bad:
+        raise RuntimeError(f'loader train step: non-finite {bad}')
+    print(f'  train step from a loader batch {shape} '
+          f'({int(batch["gt_valid"].sum())} GTs, {t_load:.1f} s to the '
+          f'first batch): {1e3 * t_step:.1f} ms (first step) [{card}], ' +
+          ', '.join(f'{k} {v:.5g}' for k, v in log.items()))
+    report['loader_train'] = dict(batch=list(shape), load_s=t_load,
+                                  step_ms=1e3 * t_step, losses=log,
+                                  launches=launches['loader_train'])
+    del model, opt, batch
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1303,7 +1534,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False         # fp32 convs
     card = card_line()
     print(f'device: {torch.cuda.get_device_name(0)} | torch '
-          f'{torch.__version__} cuda {torch.version.cuda} | {card}')
+          f'{torch.__version__} cuda {torch.version.cuda} | {card} | host '
+          f'{len(os.sched_getaffinity(0))} CPUs')
     report = {'card': card, 'kernel_cases': [], 'toy': [], 'main_path': [],
               'k5_flagship': []}
 
@@ -1332,6 +1564,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f'phase 5: flagship training [{card}]')
     launches['train'] = run_train_path(report, card)
+    torch.cuda.empty_cache()
+    print(f'phase 6: COCO evaluation path [{card}]')
+    launches.update(run_eval_path(report, card))
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}
         row['launches'] = sum(by_path.values())

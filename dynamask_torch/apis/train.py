@@ -1,7 +1,7 @@
 """Training entry points: build the detector and its optimizer from a
-config and run steps on given batches, plus a seeded synthetic batch in the
-JAX package's training batch contract (the data pipeline is not ported
-yet)."""
+config and run steps on given batches (a ``build_dataloader`` batch, or the
+seeded synthetic batch here, in the same training batch contract as the
+JAX package's)."""
 
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Box geometry on tensors (port of ``dynamask_tpu/core/bbox_transforms.py``).
+"""Box geometry on tensors, and the per-class det lists on the host (port of
+``dynamask_tpu/core/bbox_transforms.py``).
 
 Boxes are ``[x1, y1, x2, y2]``; padded slots travel with validity masks, as
 in the JAX package.
@@ -7,8 +8,9 @@ in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 # dw/dh clamp ratio of the reference decoder (wh_ratio_clip=16/1000)
@@ -85,6 +87,18 @@ def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
         y1, y2 = y1.clamp(0, h), y2.clamp(0, h)
     boxes = torch.stack([x1, y1, x2, y2], dim=-1)
     return boxes.reshape(shape[:-1] + (shape[-1],))
+
+
+def bbox2result(bboxes, scores, labels, valid,
+                num_classes: int) -> List[np.ndarray]:
+    """Padded host dets -> the reference's per-class result format: a list
+    of ``num_classes`` (k, 5) float32 arrays [x1, y1, x2, y2, score]
+    (bbox/transforms.py:bbox2result), from numpy arrays."""
+    bboxes, scores, labels = map(np.asarray, (bboxes, scores, labels))
+    valid = np.asarray(valid).astype(bool)
+    return [np.concatenate([bboxes[sel], scores[sel, None]], 1)
+            .astype(np.float32)
+            for sel in (valid & (labels == c) for c in range(num_classes))]
 
 
 def clip_boxes(boxes: torch.Tensor, img_shape: torch.Tensor) -> torch.Tensor:

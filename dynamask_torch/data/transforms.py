@@ -1,0 +1,226 @@
+"""Host-side image and annotation transforms, numpy + cv2 (port of the part
+of ``dynamask_tpu/data/transforms.py`` that the COCO instance pipelines use:
+``configs/_base_/datasets/coco_instance.py``).
+
+Each transform maps a results dict to a results dict; masks stay polygon
+lists (or RLE dicts with pending ``_scale``/``_flip`` flags) until static
+formatting, since polygons transform exactly and bitmaps do not. Random
+draws come from ``results['_rng']`` (a ``numpy.random.RandomState``, one
+unseeded per sample unless the caller puts one there).
+"""
+
+from __future__ import annotations
+
+import os.path as osp
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..utils.registry import PIPELINES
+
+
+@PIPELINES.register_module()
+class LoadImageFromFile:
+    def __init__(self, to_float32: bool = False, color_type: str = 'color'):
+        self.to_float32 = to_float32
+
+    def __call__(self, results: Dict) -> Dict:
+        import cv2
+        path = osp.join(results.get('img_prefix', ''),
+                        results['img_info']['file_name'])
+        img = cv2.imread(path, cv2.IMREAD_COLOR)  # BGR
+        if img is None:
+            raise FileNotFoundError(path)
+        if self.to_float32:
+            img = img.astype(np.float32)
+        results['filename'] = path
+        results['img'] = img
+        results['img_shape'] = img.shape
+        results['ori_shape'] = img.shape
+        return results
+
+
+@PIPELINES.register_module()
+class LoadAnnotations:
+    def __init__(self, with_bbox: bool = True, with_mask: bool = False,
+                 with_label: bool = True, poly2mask: bool = False):
+        self.with_bbox = with_bbox
+        self.with_mask = with_mask
+        self.with_label = with_label
+
+    def __call__(self, results: Dict) -> Dict:
+        ann = results['ann_info']
+        if self.with_bbox:
+            results['gt_bboxes'] = ann['bboxes'].copy()
+            results['gt_bboxes_ignore'] = ann['bboxes_ignore'].copy()
+        if self.with_label:
+            results['gt_labels'] = ann['labels'].copy()
+        if self.with_mask:
+            results['gt_masks'] = ann['masks']  # polygon lists / RLE dicts
+        return results
+
+
+@PIPELINES.register_module()
+class Resize:
+    """Keep-ratio resize to fit inside img_scale (max_long, max_short), or
+    an exact (w, h) resize without keep_ratio. Several scales sample one per
+    sample: 'range' draws the long and short edge uniformly between the
+    scales', 'value' picks one of them."""
+
+    def __init__(self, img_scale=(1333, 800), keep_ratio: bool = True,
+                 multiscale_mode: str = 'range'):
+        if isinstance(img_scale[0], (list, tuple)):
+            self.scales = [tuple(s) for s in img_scale]
+        else:
+            self.scales = [tuple(img_scale)]
+        self.keep_ratio = keep_ratio
+        self.multiscale_mode = multiscale_mode
+
+    def _pick_scale(self, rng: np.random.RandomState):
+        if len(self.scales) == 1:
+            return self.scales[0]
+        if self.multiscale_mode == 'value':
+            return self.scales[rng.randint(len(self.scales))]
+        longs = [max(s) for s in self.scales]
+        shorts = [min(s) for s in self.scales]
+        long_edge = rng.randint(min(longs), max(longs) + 1)
+        short_edge = rng.randint(min(shorts), max(shorts) + 1)
+        return (long_edge, short_edge)
+
+    def __call__(self, results: Dict) -> Dict:
+        import cv2
+        rng = results.setdefault('_rng', np.random.RandomState())
+        scale = self._pick_scale(rng)
+        img = results['img']
+        h, w = img.shape[:2]
+        if self.keep_ratio:
+            max_long, max_short = max(scale), min(scale)
+            factor = min(max_long / max(h, w), max_short / min(h, w))
+            new_w = int(w * factor + 0.5)
+            new_h = int(h * factor + 0.5)
+        else:
+            # scale is (w, h), mmcv's order for a fixed-size resize
+            new_w, new_h = scale
+        if (new_w, new_h) != (w, h):
+            img = cv2.resize(img, (new_w, new_h),
+                             interpolation=cv2.INTER_LINEAR)
+        w_scale = new_w / w
+        h_scale = new_h / h
+        results['img'] = img
+        results['img_shape'] = img.shape
+        results['scale_factor'] = np.array(
+            [w_scale, h_scale, w_scale, h_scale], np.float32)
+        if 'gt_bboxes' in results:
+            for key in ('gt_bboxes', 'gt_bboxes_ignore'):
+                boxes = results[key] * results['scale_factor']
+                boxes[:, 0::2] = np.clip(boxes[:, 0::2], 0, img.shape[1])
+                boxes[:, 1::2] = np.clip(boxes[:, 1::2], 0, img.shape[0])
+                results[key] = boxes
+        if 'gt_masks' in results:
+            results['gt_masks'] = [
+                _scale_segm(m, w_scale, h_scale) for m in results['gt_masks']]
+        return results
+
+
+def _scale_segm(segm, w_scale: float, h_scale: float):
+    if isinstance(segm, dict):  # RLE: flagged, handled in bitmap space later
+        out = dict(segm)
+        out['_scale'] = (segm.get('_scale', (1.0, 1.0))[0] * w_scale,
+                         segm.get('_scale', (1.0, 1.0))[1] * h_scale)
+        return out
+    return [np.asarray(p, np.float32).reshape(-1, 2) *
+            np.array([w_scale, h_scale], np.float32) for p in segm]
+
+
+def _flip_segm(segm, img_w: float):
+    if isinstance(segm, dict):
+        out = dict(segm)
+        out['_flip'] = not segm.get('_flip', False)
+        return out
+    return [np.stack([img_w - p[:, 0], p[:, 1]], 1) for p in segm]
+
+
+@PIPELINES.register_module()
+class RandomFlip:
+    def __init__(self, flip_ratio: float = 0.5, direction: str = 'horizontal'):
+        self.flip_ratio = flip_ratio or 0.0
+        if direction != 'horizontal':
+            raise NotImplementedError(f'RandomFlip direction {direction!r}: '
+                                      'the port flips horizontally only')
+
+    def __call__(self, results: Dict) -> Dict:
+        rng = results.setdefault('_rng', np.random.RandomState())
+        flip = rng.rand() < self.flip_ratio
+        results['flip'] = flip
+        if not flip:
+            return results
+        results['img'] = np.ascontiguousarray(results['img'][:, ::-1])
+        w = results['img'].shape[1]
+        if 'gt_bboxes' in results:
+            for key in ('gt_bboxes', 'gt_bboxes_ignore'):
+                boxes = results[key].copy()
+                boxes[:, 0] = w - results[key][:, 2]
+                boxes[:, 2] = w - results[key][:, 0]
+                results[key] = boxes
+        if 'gt_masks' in results:
+            results['gt_masks'] = [_flip_segm(m, w)
+                                   for m in results['gt_masks']]
+        return results
+
+
+@PIPELINES.register_module()
+class Normalize:
+    """BGR->RGB + per-channel standardize (reference Normalize:457)."""
+
+    def __init__(self, mean, std, to_rgb: bool = True):
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+        self.to_rgb = to_rgb
+
+    def __call__(self, results: Dict) -> Dict:
+        img = results['img'].astype(np.float32)
+        if self.to_rgb:
+            img = img[..., ::-1]
+        results['img'] = (img - self.mean) / self.std
+        results['img_norm_cfg'] = dict(mean=self.mean, std=self.std,
+                                       to_rgb=self.to_rgb)
+        return results
+
+
+@PIPELINES.register_module()
+class Pad:
+    def __init__(self, size: Optional[Tuple[int, int]] = None,
+                 size_divisor: Optional[int] = None, pad_val: float = 0):
+        self.size = size
+        self.size_divisor = size_divisor
+        self.pad_val = pad_val
+
+    def __call__(self, results: Dict) -> Dict:
+        img = results['img']
+        h, w = img.shape[:2]
+        if self.size is not None:
+            th, tw = self.size
+        else:
+            d = self.size_divisor
+            th, tw = ((h + d - 1) // d) * d, ((w + d - 1) // d) * d
+        out = np.full((th, tw) + img.shape[2:], self.pad_val, img.dtype)
+        out[:h, :w] = img
+        results['img'] = out
+        results['pad_shape'] = out.shape
+        return results
+
+
+class Compose:
+    """Apply transforms (objects, or config dicts built through
+    ``PIPELINES``) in order; a transform returning None ends the chain."""
+
+    def __init__(self, transforms: Sequence):
+        self.transforms = [PIPELINES.build(t) if isinstance(t, dict) else t
+                           for t in transforms]
+
+    def __call__(self, results: Dict) -> Optional[Dict]:
+        for t in self.transforms:
+            results = t(results)
+            if results is None:
+                return None
+        return results

@@ -1,6 +1,7 @@
 from .config import Config, ConfigDict
-from .registry import Registry, BACKBONES, NECKS, HEADS, DETECTORS
+from .registry import (Registry, BACKBONES, NECKS, HEADS, DETECTORS,
+                       DATASETS, PIPELINES)
 from .device import resolve_device
 
 __all__ = ['Config', 'ConfigDict', 'Registry', 'BACKBONES', 'NECKS', 'HEADS',
-           'DETECTORS', 'resolve_device']
+           'DETECTORS', 'DATASETS', 'PIPELINES', 'resolve_device']

@@ -81,3 +81,5 @@ BACKBONES = Registry('backbone')
 NECKS = Registry('neck')
 HEADS = Registry('head')
 DETECTORS = Registry('detector')
+DATASETS = Registry('dataset')
+PIPELINES = Registry('pipeline')
