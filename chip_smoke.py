@@ -42,7 +42,7 @@ before the last line is printed:
    seeded initialisation (zero DCN offsets, as the JAX package), a seeded
    synthetic batch of 4 images at 800x1344 with 20 GTs each, fp32, on the
    host; one warm-up and three timed SGD steps, each a call of
-   ``train_detector`` on the trainer from ``init_trainer``;
+   ``train_steps`` on the trainer from ``init_trainer``;
 6. drive the COCO evaluation path: a seeded COCO-format set written to
    ``build/chip_smoke_coco/`` (8 noise JPEGs at COCO sizes, 3-10 polygon
    GTs each over 2-5 categories; the file lists all 80 ``COCO_CLASSES``)
@@ -59,14 +59,44 @@ before the last line is printed:
    through ``encode_mask`` -> ``decode_rle`` bit for bit, the C codec
    against the numpy codec byte for byte on every mask, and that the GTs
    given as predictions score bbox and segm mAP of exactly 1.0; then one
-   ``train_detector`` step from a ``build_dataloader`` batch of 4 images of
-   the set through the config's train pipeline, whose losses must be finite.
+   ``train_steps`` step from a ``build_dataloader`` batch of 4 images of
+   the set through the config's train pipeline, whose losses must be finite;
+7. drive the training loop: (a) ``python -m dynamask_torch.tools.train``
+   (its ``main``, in-process) on the flagship at full width from its own
+   seeded initialisation, over a seeded 16-image COCO-format set in
+   ``build/chip_smoke_coco_train/`` (four at each of phase 6's sizes: three
+   landscape batches of 4 and one portrait an epoch), validating on phase
+   6's set after each epoch, with ``total_epochs=2``, ``lr_config.step=
+   [1]`` and logs, checkpoints and validation every epoch. Run A trains two
+   epochs into ``build/chip_smoke_train/A``; run B resumes from A's
+   ``epoch_1.pth``. Checks: finite train rows; ``epoch_1.pth``,
+   ``epoch_2.pth`` and ``latest`` in A; a ``val`` row with finite bbox and
+   segm mAP for each epoch of each run; B just after its load holds A's
+   epoch-1 model and optimizer state bit for bit; B's epoch-2 rows carry
+   A's step and lr; B's first step's losses within LOSS_RTOL of A's (the
+   same forward on the same state, data and draws); B's final parameters
+   within RESUME_RTOL of A's (the backwards of K3, K4 and cuDNN sum in a
+   nondeterministic order). It prints each epoch's wall time with its
+   first batch (the loader's start-up in a run's first epoch), the
+   checkpoint's size with its save and load times, the validation's img/s,
+   the in-loop ms/step beside phase 5's, and the peak memory. (b) Does the
+   step train? Phase 3's toy at 2 classes with the JAX overfit proxy's
+   recipe (``tests/test_overfit.py``) on that proxy's 4-image set in
+   ``build/chip_smoke_overfit/``, 80 epochs through ``train_detector``
+   from the weights seed 0 gives on the CPU (``load_from``): the last
+   epoch's mean loss must be below half the first's; ``run_eval``
+   then reads the loop's checkpoint from its work dir, and its bbox and
+   segm mAP are printed beside the JAX package's (``ACCURACY.json``), a
+   reading and not a gate.
 
-For each of the six drives (faithful, dynamic, the K5 check on the captured
-DCN inputs, train, eval, loader_train) the kernels' launch counters are
-zeroed just before it and read just after, and every kernel of that path
-must have launched in it: K1 and K2 at inference and in the eval loop, K5
-through both entry points in its check, K1-K4 in training.
+For each of the nine drives (faithful, dynamic, the K5 check on the
+captured DCN inputs, train, eval, loader_train, and in phase 7 the loop's
+steps, its validations and the overfit loop) the kernels' launch counters
+are zeroed just before it and read just after (the loop's steps and its
+validations in turns), and every kernel of that path must have launched
+in it: K1 and K2 at inference, in the eval loop and in the loop's
+validations, K5 through both entry points in its check, K1-K4 in
+training.
 
 Standard output ends with the ``kernels`` JSON line, the card's name and
 power limit as ``nvidia-smi`` reports them, and the ``{"ok": true, ...}``
@@ -76,8 +106,10 @@ line. Details go to ``chiprun_out/chip_smoke.json``.
 import contextlib
 import functools
 import json
+import logging
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1252,17 +1284,17 @@ def check_k5_on_flagship(report, drive):
 
 
 def run_train_path(report, card):
-    """Phase 5: flagship training through ``train_detector``, one call per
+    """Phase 5: flagship training through ``train_steps``, one call per
     step on the host batch, counters around the whole drive."""
     import torch
     import dynamask_torch.ops as ops
     from dynamask_torch.apis import (init_trainer, synthetic_batch,
-                                     train_detector)
+                                     train_steps)
     t0 = time.perf_counter()
     model, opt = init_trainer(FLAGSHIP, steps_per_epoch=COCO_STEPS_PER_EPOCH,
                               device=DEVICE, seed=0)
     h, w = IMAGE_HW
-    # on the host, as a loader hands it over: train_detector moves it
+    # on the host, as a loader hands it over: train_steps moves it
     batch = synthetic_batch(0, b=TRAIN_IMAGES, h=h, w=w, num_gts=TRAIN_GTS,
                             crop_size=128,
                             num_classes=model.roi_head.num_classes,
@@ -1282,7 +1314,7 @@ def run_train_path(report, card):
     logs, times = [], []
     for i in range(1 + TIMED_STEPS):
         t = time.perf_counter()
-        log, = train_detector(model, opt, [batch], generator=gen)
+        log, = train_steps(model, opt, [batch], generator=gen)
         torch.cuda.synchronize(DEVICE)
         times.append(1e3 * (time.perf_counter() - t))
         log = {k: float(v) for k, v in log.items()}
@@ -1327,13 +1359,14 @@ COCO_SET = os.path.join(ROOT, 'build', 'chip_smoke_coco')
 COCO_SIZES = ((640, 480), (480, 640), (640, 427), (500, 375))   # w x h
 
 
-def write_coco_set(root, seed=0):
-    """A seeded COCO-format set in ``root``: two noise JPEGs at each COCO
-    size, each with 3-10 rectangle-polygon GTs (inset 2 px in their boxes,
-    as ``tests/test_data.py:make_synthetic_coco`` draws them, 1/16-1/3 of
-    the image side) over 2-5 of five categories. The file lists all 80
-    ``COCO_CLASSES`` as categories, as COCO's does: the model's 80 labels
-    map onto them. Returns (annotation file, image directory, GT count)."""
+def write_coco_set(root, seed=0, per_size=2):
+    """A seeded COCO-format set in ``root``: ``per_size`` noise JPEGs at
+    each COCO size, each with 3-10 rectangle-polygon GTs (inset 2 px in
+    their boxes, as ``tests/test_data.py:make_synthetic_coco`` draws them,
+    1/16-1/3 of the image side) over 2-5 of five categories. The file
+    lists all 80 ``COCO_CLASSES`` as categories, as COCO's does: the
+    model's 80 labels map onto them. Returns (annotation file, image
+    directory, GT count)."""
     import cv2
     import numpy as np
     from dynamask_torch.data import COCO_CLASSES
@@ -1343,8 +1376,8 @@ def write_coco_set(root, seed=0):
     cats = [{'id': k + 1, 'name': n} for k, n in enumerate(COCO_CLASSES)]
     used = np.sort(rng.choice(len(cats), 5, False)) + 1
     images, anns = [], []
-    for i in range(2 * len(COCO_SIZES)):
-        w, h = COCO_SIZES[i // 2]
+    for i in range(per_size * len(COCO_SIZES)):
+        w, h = COCO_SIZES[i // per_size]
         name = f'{i:012d}.jpg'
         cv2.imwrite(os.path.join(img_dir, name),
                     rng.uniform(0, 255, (h, w, 3)).astype(np.uint8))
@@ -1424,11 +1457,11 @@ def run_eval_path(report, card):
     test pipeline and loader, ``single_device_test`` (``simple_test`` + the
     paste on the dataset's mask canvas, on the card) and
     ``CocoDataset.evaluate``; counters around the timed drive. Then one
-    ``train_detector`` step on a loader batch of the train pipeline."""
+    ``train_steps`` step on a loader batch of the train pipeline."""
     import torch
     import dynamask_torch.ops as ops
     from dynamask_torch.apis import (init_detector, init_trainer,
-                                     single_device_test, train_detector)
+                                     single_device_test, train_steps)
     from dynamask_torch.data import build_dataloader, build_dataset
     ann_file, img_dir, n_gts = write_coco_set(COCO_SET)
     model = init_detector(FLAGSHIP, device=DEVICE, seed=0, init_std=0.05)
@@ -1500,9 +1533,9 @@ def run_eval_path(report, card):
         raise RuntimeError(f'loader batch {shape}')
     ops.reset_kernel_launches()
     t = time.perf_counter()
-    log, = train_detector(model, opt, [batch],
-                          generator=torch.Generator(device=DEVICE)
-                          .manual_seed(0))
+    log, = train_steps(model, opt, [batch],
+                       generator=torch.Generator(device=DEVICE)
+                       .manual_seed(0))
     torch.cuda.synchronize(DEVICE)
     t_step = time.perf_counter() - t
     launches['loader_train'] = ops.kernel_launches()
@@ -1519,6 +1552,367 @@ def run_eval_path(report, card):
                                   step_ms=1e3 * t_step, losses=log,
                                   launches=launches['loader_train'])
     del model, opt, batch
+    return launches
+
+
+# -- phase 7: the training loop ---------------------------------------------
+
+TRAIN_SET = os.path.join(ROOT, 'build', 'chip_smoke_coco_train')
+TRAIN_RUNS = os.path.join(ROOT, 'build', 'chip_smoke_train')
+OVERFIT_SET = os.path.join(ROOT, 'build', 'chip_smoke_overfit')
+VAL_IMAGES = 2 * len(COCO_SIZES)     # phase 6's set
+OVERFIT_EPOCHS = 80
+LOSS_RTOL = 1e-5      # B's first step against A's: the same forward
+# B's final weights against A's, relative L2 over all of them: the
+# backwards of K3, K4 and cuDNN sum in a nondeterministic order, so the
+# four steps of epoch 2 part the runs (3.3e-8 on the H100 when this was
+# set)
+RESUME_RTOL = 1e-5
+# The JAX package's overfit proxy (ACCURACY.json, all_stage variant, on the
+# CPU): seed 0, and the spread over seeds 0-1 (seed 2 collapses to 0.05)
+JAX_OVERFIT = dict(bbox_mAP=(0.4847, '0.46-0.49'),
+                   segm_mAP=(0.6199, '0.62-0.72'))
+
+
+class LoopRecords(logging.Handler):
+    """The loop's structured log records: each epoch's ``epoch_timing``
+    and the resume's ``load_s``."""
+
+    def __init__(self):
+        super().__init__()
+        self.epochs, self.load_s = [], []
+
+    def emit(self, record):
+        if hasattr(record, 'epoch_timing'):
+            self.epochs.append(record.epoch_timing)
+        if hasattr(record, 'load_s'):
+            self.load_s.append(record.load_s)
+
+
+def loop_rows(work_dir):
+    rows = []
+    for name in sorted(os.listdir(work_dir)):
+        if name.endswith('.log.json'):
+            with open(os.path.join(work_dir, name)) as f:
+                rows += [json.loads(line) for line in f]
+    return rows
+
+
+def _equal_states(a, b, where=''):
+    """Bit-for-bit equality of two nested states of tensors (``b`` may be
+    on the card)."""
+    import torch
+    if torch.is_tensor(a):
+        if not (torch.is_tensor(b) and a.dtype == b.dtype and
+                torch.equal(a, b.detach().cpu())):
+            raise RuntimeError(f'train loop: {where} differs')
+    elif isinstance(a, dict):
+        if set(a) != set(b):
+            raise RuntimeError(f'train loop: {where} keys differ')
+        for k in a:
+            _equal_states(a[k], b[k], f'{where}.{k}')
+    elif a != b:
+        raise RuntimeError(f'train loop: {where} differs: {a} != {b}')
+
+
+@contextlib.contextmanager
+def counted_loop(counts):
+    """Split the loop's kernel launches into ``counts['train_loop']`` and
+    ``counts['val_loop']``: the counters are zeroed just before each part
+    (the steps between validations, each validation) and read just after.
+    A resume's load is checked on the spot: the model and the optimizer
+    just after it must hold the checkpoint's state bit for bit."""
+    import dynamask_torch.apis.train as loop
+    import dynamask_torch.ops as ops
+    validate, load, loaded = loop._run_validation, loop.load_checkpoint, []
+
+    def read(path):
+        for k, n in ops.kernel_launches().items():
+            counts[path][k] = counts[path].get(k, 0) + n
+        ops.reset_kernel_launches()
+
+    def counted_validation(*args, **kwargs):
+        read('train_loop')
+        try:
+            return validate(*args, **kwargs)
+        finally:
+            read('val_loop')
+
+    def checked_load(path, model, optimizer):
+        import torch
+        meta = load(path, model, optimizer)
+        ckpt = torch.load(path, map_location='cpu', weights_only=True)
+        _equal_states(ckpt['state_dict'], model.state_dict(), 'model')
+        _equal_states(ckpt['optimizer'], optimizer.state_dict(), 'optimizer')
+        loaded.append(path)
+        return meta
+
+    loop._run_validation, loop.load_checkpoint = (counted_validation,
+                                                  checked_load)
+    ops.reset_kernel_launches()
+    try:
+        yield loaded
+        read('train_loop')
+    finally:
+        loop._run_validation, loop.load_checkpoint = validate, load
+
+
+def check_loop_rows(name, rows, epochs):
+    """Finite train rows; a val row with finite mAPs for each epoch."""
+    for r in rows:
+        if r['mode'] == 'train' and not all(
+                math.isfinite(v) for v in r.values()
+                if isinstance(v, float)):
+            raise RuntimeError(f'train loop {name}: non-finite row {r}')
+    vals = {r['epoch']: r for r in rows if r['mode'] == 'val'}
+    for e in epochs:
+        v = vals.get(e)
+        if v is None or not (math.isfinite(v['bbox_mAP']) and
+                             math.isfinite(v['segm_mAP'])):
+            raise RuntimeError(f'train loop {name}: epoch {e} has no val '
+                               f'row with finite mAPs')
+
+
+def run_train_loop(report, card, phase5_ms):
+    """Phase 7(a): ``python -m dynamask_torch.tools.train`` in-process on
+    the flagship at full width. Run A: two epochs of 4 steps on a 16-image
+    set, validating on phase 6's set after each; run B: resumed from A's
+    ``epoch_1.pth``. Returns the launches of the loop's steps and of its
+    validations."""
+    import torch
+    import dynamask_torch.ops as ops
+    from dynamask_torch.tools.train import main as train_main
+    train_ann, train_img, n_gts = write_coco_set(TRAIN_SET, seed=1,
+                                                 per_size=4)
+    val_ann, val_img, _ = write_coco_set(COCO_SET)
+    options = [f'data.train.ann_file={train_ann}',
+               f'data.train.img_prefix={train_img}',
+               'data.train.data_root=None', f'data.val.ann_file={val_ann}',
+               f'data.val.img_prefix={val_img}', 'data.val.data_root=None',
+               'total_epochs=2', 'lr_config.step=[1]',
+               'evaluation.interval=1', 'evaluation.classwise=False',
+               'log_config.interval=1', 'checkpoint_config.interval=1']
+    print(f'  train set: {4 * len(COCO_SIZES)} images at COCO sizes, '
+          f'{n_gts} GTs; val set: phase 6\'s; options {options[6:]}')
+    shutil.rmtree(TRAIN_RUNS, ignore_errors=True)
+    dirs = {r: os.path.join(TRAIN_RUNS, r) for r in 'AB'}
+    records = LoopRecords()
+    logger = logging.getLogger('dynamask_torch')
+    logger.addHandler(records)
+    counts = {p: dict.fromkeys(ops.KERNELS, 0)
+              for p in ('train_loop', 'val_loop')}
+    torch.cuda.synchronize(DEVICE)
+    torch.cuda.reset_peak_memory_stats(DEVICE)
+    try:
+        walls = {}
+        for run, extra in (('A', []), ('B', ['--resume-from', os.path.join(
+                dirs['A'], 'epoch_1.pth')])):
+            with counted_loop(counts) as resumed:
+                t = time.perf_counter()
+                rc = train_main([FLAGSHIP, '--device', DEVICE, '--work-dir',
+                                 dirs[run], *extra, '--options', *options])
+                walls[run] = time.perf_counter() - t
+            if rc != 0:
+                raise RuntimeError(f'train loop {run}: exit code {rc}')
+    finally:
+        logger.removeHandler(records)
+    peak = torch.cuda.max_memory_allocated(DEVICE)
+    rows = {r: loop_rows(d) for r, d in dirs.items()}
+    for f in ('epoch_1.pth', 'epoch_2.pth', 'latest'):
+        if not os.path.isfile(os.path.join(dirs['A'], f)):
+            raise RuntimeError(f'train loop A: no {f}')
+    check_loop_rows('A', rows['A'], (1, 2))
+    check_loop_rows('B', rows['B'], (2,))
+    for path, names in (('train_loop', TRAIN_KERNELS),
+                        ('val_loop', INFER_KERNELS)):
+        check_launches(path, counts[path], names)
+
+    if resumed != [os.path.join(dirs['A'], 'epoch_1.pth')]:
+        raise RuntimeError(f'train loop B: resumed from {resumed}')
+    train = {r: [x for x in rows[r] if x['mode'] == 'train'
+                 and x['epoch'] == 2] for r in 'AB'}
+    if [(x['step'], x['lr']) for x in train['A']] != \
+            [(x['step'], x['lr']) for x in train['B']]:
+        raise RuntimeError('train loop: B\'s epoch-2 steps or lr differ '
+                           'from A\'s')
+    first = {k: abs(v - train['A'][0][k]) / max(abs(train['A'][0][k]),
+                                                1e-12)
+             for k, v in train['B'][0].items()
+             if k.startswith('loss') or k == 'acc'}
+    first_diff = max(first.values())
+    print(f'  resume: B\'s loaded state equals A\'s epoch_1.pth bit for '
+          f'bit; epoch-2 steps and lr equal; first step losses max rel '
+          f'diff {first_diff:.3e} (tol {LOSS_RTOL})')
+    if first_diff > LOSS_RTOL:
+        raise RuntimeError(f'train loop: B\'s first step losses differ '
+                           f'from A\'s: {first}')
+    a2, b2 = (torch.load(os.path.join(dirs[r], 'epoch_2.pth'),
+                         map_location='cpu', weights_only=True)['state_dict']
+              for r in 'AB')
+    stats = [k for k in a2 if k.endswith(('running_mean', 'running_var'))]
+    weights = [k for k in a2 if a2[k].is_floating_point()
+               and k not in stats]
+
+    def rel_l2(keys):
+        num = sum(float(((a2[k] - b2[k]).double() ** 2).sum()) for k in keys)
+        return (num / sum(float((a2[k].double() ** 2).sum())
+                          for k in keys)) ** 0.5
+
+    final = rel_l2(weights)
+    worst = max((rel_l2([k]), k) for k in weights if a2[k].any())
+    print(f'  resume: B\'s final weights against A\'s: relative L2 '
+          f'{final:.3e} over all (tol {RESUME_RTOL}); worst tensor '
+          f'{worst[1]} {worst[0]:.3e}; BN statistics {rel_l2(stats):.3e}')
+    if not final <= RESUME_RTOL:
+        raise RuntimeError(f'train loop: B\'s final weights differ from '
+                           f'A\'s: relative L2 {final}')
+
+    epochs = records.epochs
+    for run, e in zip('AAB', epochs):
+        print(f'  epoch {e["epoch"]} of {run}: {e["train_s"]:.2f} s for its '
+              f'4 steps, first batch {e["first_batch_s"]:.2f} s (the '
+              f'loader\'s start-up in a run\'s first epoch), data wait after '
+              f'it {e["data_s"]:.3f} s; checkpoint '
+              f'{e["checkpoint_bytes"] / 1e9:.3f} GB saved in '
+              f'{e["save_s"]:.2f} s; validation {e["val_s"]:.2f} s '
+              f'({VAL_IMAGES / e["val_s"]:.2f} img/s, loader start-up '
+              f'included) [{card}]')
+    ms = {r: 1e3 * train[r][-1]['time'] for r in 'AB'}
+    print(f'  in-loop ms/step (the log\'s time over epoch 2): A {ms["A"]:.1f}'
+          f', B {ms["B"]:.1f}, against phase 5\'s {phase5_ms:.1f}; '
+          f'checkpoint load {records.load_s[0]:.2f} s; peak memory '
+          f'{peak / 2 ** 30:.2f} GiB; runs A {walls["A"]:.1f} s, B '
+          f'{walls["B"]:.1f} s [{card}]')
+    report['train_loop'] = dict(
+        epochs=epochs, load_s=records.load_s, rows=rows, walls_s=walls,
+        ms_per_step_epoch2=ms, phase5_ms_per_step=phase5_ms,
+        peak_memory_bytes=peak, first_step_max_rel_diff=first_diff,
+        final_rel_l2=final, final_worst_tensor=worst,
+        resume_rtol=RESUME_RTOL, launches=counts)
+    return counts
+
+
+def write_overfit_set(root):
+    """``tests/test_data.py:make_synthetic_coco(num_imgs=4)``'s set, the
+    one the JAX package's overfit proxy trains on: four noise images of
+    160x120 and 120x160 with three rectangle-polygon GTs each, person or
+    car, from seed 0."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(0)
+    img_dir = os.path.join(root, 'imgs')
+    os.makedirs(img_dir, exist_ok=True)
+    images, anns = [], []
+    for i in range(4):
+        h, w = (120, 160) if i % 2 == 0 else (160, 120)
+        name = f'{i:04d}.jpg'
+        cv2.imwrite(os.path.join(img_dir, name),
+                    rng.uniform(0, 255, (h, w, 3)).astype(np.uint8))
+        images.append({'id': i + 1, 'file_name': name, 'width': w,
+                       'height': h})
+        for _ in range(3):
+            x, y = rng.randint(0, w - 40), rng.randint(0, h - 40)
+            bw, bh = rng.randint(15, 40, 2)
+            poly = [x + 2, y + 2, x + bw - 2, y + 2, x + bw - 2, y + bh - 2,
+                    x + 2, y + bh - 2]
+            anns.append({'id': len(anns) + 1, 'image_id': i + 1,
+                         'category_id': int(rng.choice([1, 3])),
+                         'bbox': [float(x), float(y), float(bw), float(bh)],
+                         'area': float(bw * bh), 'iscrowd': 0,
+                         'segmentation': [[float(v) for v in poly]]})
+    ann_file = os.path.join(root, 'ann.json')
+    with open(ann_file, 'w') as f:
+        json.dump({'images': images, 'annotations': anns, 'categories': [
+            {'id': 1, 'name': 'person'}, {'id': 3, 'name': 'car'}]}, f)
+    return ann_file, img_dir
+
+
+def overfit_cfg(ann_file, img_dir):
+    """Phase 3's toy at 2 classes with the recipe of
+    ``tests/test_overfit.py:36-57``: 160x128 canvases, no flip, batch 2,
+    backbone unfrozen with batch statistics, every stage's instance loss,
+    lr 0.01 with a 10-step warmup and no decay, ``OVERFIT_EPOCHS`` (80)
+    epochs, no validation; the JAX toy's box loss weights and proposal and
+    sample counts, so that the model is the JAX proxy's in all the port
+    reads."""
+    cfg = toy_cfg()
+    m = cfg.model
+    m.backbone.frozen_stages = -1
+    m.backbone.norm_eval = False
+    m.roi_head.bbox_head.num_classes = 2
+    m.roi_head.mask_head.stage_num_classes = [2, 2, 2, 1]
+    m.roi_head.mask_head.loss_cfg.all_stage_instance_loss = True
+    m.roi_head.bbox_head.loss_cls.loss_weight = 1.0
+    m.roi_head.bbox_head.loss_bbox.loss_weight = 1.0
+    cfg.train_cfg.rpn.sampler.num = 64
+    cfg.train_cfg.rpn_proposal.nms_pre = 64
+    cfg.train_cfg.rcnn.sampler.num = 32
+    cfg.test_cfg.rpn.nms_pre = 32
+    norm = dict(type='Normalize', mean=[123.675, 116.28, 103.53],
+                std=[58.395, 57.12, 57.375], to_rgb=True)
+    load = [dict(type='LoadImageFromFile')]
+    rest = [dict(type='Resize', img_scale=(160, 128), keep_ratio=True),
+            norm, dict(type='Pad', size_divisor=32)]
+    ds = dict(type='CocoDataset', ann_file=ann_file, img_prefix=img_dir,
+              canvases=[(128, 160), (160, 128)], classes=['person', 'car'])
+    cfg.data = dict(
+        samples_per_gpu=2, workers_per_gpu=0, max_gts=8, mask_crop_size=32,
+        train=dict(ds, pipeline=load + [dict(
+            type='LoadAnnotations', with_bbox=True, with_mask=True)] + rest),
+        test=dict(ds, pipeline=load + rest, test_mode=True))
+    cfg.optimizer = dict(type='SGD', lr=0.01, momentum=0.9,
+                         weight_decay=0.0001)
+    cfg.lr_config = dict(policy='step', warmup='linear', warmup_iters=10,
+                         warmup_ratio=0.001, step=[1000])
+    cfg.total_epochs = OVERFIT_EPOCHS
+    cfg.checkpoint_config = dict(interval=OVERFIT_EPOCHS)
+    cfg.log_config = dict(interval=1)
+    return cfg
+
+
+def run_overfit(report, card):
+    """Phase 7(b): does the step train? The toy through ``train_detector``
+    on 4 images for 80 epochs, from the weights that seed 0 gives on the
+    CPU (``load_from``: the proxy is sensitive to its init, and the CPU's
+    generator draws what the CPU tests draw); the last epoch's mean loss
+    must be below half the first's. Then ``run_eval`` reads the loop's
+    checkpoint from its work dir: bbox and segm mAP, a reading beside the
+    JAX package's."""
+    import torch
+    import dynamask_torch.ops as ops
+    from dynamask_torch.apis import init_detector, run_eval, train_detector
+    cfg = overfit_cfg(*write_overfit_set(OVERFIT_SET))
+    work = os.path.join(OVERFIT_SET, 'work')
+    shutil.rmtree(work, ignore_errors=True)
+    init = os.path.join(OVERFIT_SET, 'init_seed0_cpu.pth')
+    torch.save(init_detector(cfg, device='cpu', seed=0).state_dict(), init)
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    train_detector(cfg, work_dir=work, load_from=init, seed=0, device=DEVICE,
+                   validate=False)
+    wall = time.perf_counter() - t
+    launches = ops.kernel_launches()
+    check_launches('overfit_loop', launches, TRAIN_KERNELS)
+    rows = [r for r in loop_rows(work) if r['mode'] == 'train']
+    by_epoch = {}
+    for r in rows:
+        if not math.isfinite(r['loss']):
+            raise RuntimeError(f'overfit: non-finite loss {r}')
+        by_epoch.setdefault(r['epoch'], []).append(r['loss'])
+    first, last = (statistics.mean(by_epoch[e])
+                   for e in (1, OVERFIT_EPOCHS))
+    metrics = run_eval(cfg, work, ('bbox', 'segm'), device=DEVICE)
+    print(f'  overfit: {OVERFIT_EPOCHS} epochs x {len(by_epoch[1])} steps '
+          f'in {wall:.1f} s [{card}]; mean loss epoch 1 {first:.4f} -> epoch '
+          f'{OVERFIT_EPOCHS} {last:.4f} (gate: below half); ' + ', '.join(
+              f'{k} {metrics[k]:.4f} (JAX {v[0]}, seeds {v[1]})'
+              for k, v in JAX_OVERFIT.items()))
+    report['overfit'] = dict(loss_by_epoch={e: statistics.mean(v) for e, v
+                                            in by_epoch.items()},
+                             metrics=metrics, seconds=wall,
+                             launches=launches)
+    if not last < first / 2:
+        raise RuntimeError(f'overfit: the mean loss went {first} -> {last}')
     return launches
 
 
@@ -1567,6 +1961,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f'phase 6: COCO evaluation path [{card}]')
     launches.update(run_eval_path(report, card))
+    torch.cuda.empty_cache()
+    print(f'phase 7: the training loop [{card}]')
+    t7 = time.perf_counter()
+    launches.update(run_train_loop(report, card,
+                                   report['train']['ms_per_step']))
+    torch.cuda.empty_cache()
+    launches['overfit_loop'] = run_overfit(report, card)
+    report['phase7_s'] = time.perf_counter() - t7
+    print(f'  phase 7: {report["phase7_s"]:.1f} s')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}
         row['launches'] = sum(by_path.values())

@@ -1,9 +1,11 @@
 from .inference import inference_detector, init_detector, show_result
 from .test import (dataset_mask_canvas, paste_epilogue, run_eval, run_test,
                    single_device_test)
-from .train import init_trainer, synthetic_batch, train_detector
+from .train import (get_root_logger, init_trainer, set_random_seed,
+                    synthetic_batch, train_detector, train_steps)
 
 __all__ = ['inference_detector', 'init_detector', 'show_result',
            'dataset_mask_canvas', 'paste_epilogue', 'run_eval', 'run_test',
-           'single_device_test', 'init_trainer', 'synthetic_batch',
-           'train_detector']
+           'single_device_test', 'get_root_logger', 'init_trainer',
+           'set_random_seed', 'synthetic_batch', 'train_detector',
+           'train_steps']

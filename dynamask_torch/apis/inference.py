@@ -19,6 +19,7 @@ from ..core.bbox_transforms import bbox2result
 from ..data.coco import COCO_CLASSES
 from ..data.formatting import format_sample
 from ..data.transforms import Compose
+from ..engine.checkpoint import load_params_only
 from ..models.builder import build_detector
 from ..utils.config import Config
 from .test import TEST_KEYS, paste_epilogue
@@ -33,7 +34,9 @@ def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
                   init_std: Optional[float] = None) -> torch.nn.Module:
     """Build the config's detector on ``device`` (default ``cuda``, raising
     without a GPU unless ``device='cpu'``). ``checkpoint`` is a port or
-    mmdet ``state_dict`` file; without one the weights come from ``seed``.
+    mmdet ``state_dict`` file, a training checkpoint, the training run's
+    ``latest`` pointer or its work_dir; without one the weights come from
+    ``seed``.
 
     The model carries ``cfg``, ``CLASSES`` (the checkpoint's ``meta``
     classes, else COCO's), the ``canvases`` of the image-level API and, when
@@ -46,10 +49,7 @@ def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
                            init_std=init_std)
     classes = None
     if checkpoint is not None:
-        state = torch.load(checkpoint, map_location=model.device,
-                           weights_only=True)
-        model.load_state_dict(state.get('state_dict', state))
-        classes = (state.get('meta') or {}).get('CLASSES')
+        classes = load_params_only(checkpoint, model).get('CLASSES')
     model.cfg = config
     model.CLASSES = tuple(classes or COCO_CLASSES)
     model.canvases = CANVASES

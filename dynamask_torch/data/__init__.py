@@ -8,6 +8,8 @@ from .transforms import (LoadImageFromFile, LoadAnnotations, Resize,
                          RandomFlip, Normalize, Pad, Compose)
 from .formatting import format_sample, collate, canvas_for
 from .coco import CocoDataset, CocoIndex, build_dataset, COCO_CLASSES
+from .dataset_wrappers import (ConcatDataset, RepeatDataset,
+                               ClassBalancedDataset, wrap_dataset)
 from .loader import GroupedBatchSampler, build_dataloader
 
 __all__ = [
@@ -19,5 +21,6 @@ __all__ = [
     'LoadImageFromFile', 'LoadAnnotations', 'Resize', 'RandomFlip',
     'Normalize', 'Pad', 'Compose', 'format_sample', 'collate', 'canvas_for',
     'CocoDataset', 'CocoIndex', 'build_dataset', 'COCO_CLASSES',
+    'ConcatDataset', 'RepeatDataset', 'ClassBalancedDataset', 'wrap_dataset',
     'GroupedBatchSampler', 'build_dataloader',
 ]

@@ -18,6 +18,7 @@ import numpy as np
 
 from ..utils.registry import DATASETS
 from .cocoeval import CocoEvaluator
+from .dataset_wrappers import WRAPPERS, wrap_dataset
 from .formatting import format_sample
 from .mask_codec import encode_mask
 from .transforms import Compose
@@ -163,7 +164,15 @@ class CocoDataset:
         return int(self.img_infos[idx]['id'])
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        return self.prepare(idx)
+
+    def prepare(self, idx: int, rng: Optional[np.random.RandomState] = None
+                ) -> Dict[str, np.ndarray]:
+        """Item ``idx``, the pipeline's random draws (flip, scale) taken
+        from ``rng`` (unseeded, one per sample, when None)."""
         results = self.pre_pipeline(idx)
+        if rng is not None:
+            results['_rng'] = rng
         if not self.test_mode:
             results['ann_info'] = self.get_ann_info(idx)
         results = self.pipeline(results)
@@ -263,12 +272,13 @@ class CocoDataset:
 
 
 def build_dataset(cfg: dict, default_args: Optional[dict] = None):
-    """The dataset of ``cfg`` (``type`` names a ``DATASETS`` entry), the
-    keys of ``default_args`` filling in what ``cfg`` lacks."""
+    """The dataset of ``cfg`` (``type`` names a ``DATASETS`` entry or a
+    wrapper of ``dataset_wrappers``), the keys of ``default_args`` filling
+    in what ``cfg`` (each inner dataset's, for a wrapper) lacks."""
     cfg = dict(cfg)
+    if cfg.get('type') in WRAPPERS:
+        return wrap_dataset(cfg, lambda c: build_dataset(c, default_args))
     t = cfg.pop('type')
-    if t in ('RepeatDataset', 'ClassBalancedDataset', 'ConcatDataset'):
-        raise NotImplementedError(f'dataset wrapper {t}: {NOT_PORTED}')
     for k, v in (default_args or {}).items():
         cfg.setdefault(k, v)
     return DATASETS.build(dict(type=t, **cfg))

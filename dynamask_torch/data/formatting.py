@@ -11,7 +11,7 @@ The host emits fixed-shape arrays once per image:
     (``core/mask_targets.py``).
 
 ``collate`` stacks same-canvas samples into a batch of torch tensors, which
-``train_detector`` and ``single_device_test`` move to the device.
+``train_steps`` and ``single_device_test`` move to the device.
 """
 
 from __future__ import annotations

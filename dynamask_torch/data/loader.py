@@ -5,15 +5,18 @@
 shuffles within each orientation group (one static canvas per group), so
 with the same seed the two packages visit the same batches in the same
 order. ``build_dataloader`` puts it behind ``torch.utils.data.DataLoader``,
-whose worker processes take the place of the JAX loader's thread pool.
+whose worker processes take the place of the JAX loader's thread pool, and
+seeds each sample's pipeline draws from the seed, the epoch and the index
+(the JAX loader leaves them unseeded), so that a resumed run loads what
+the straight run loaded.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
-from torch.utils.data import DataLoader
+from torch.utils.data import DataLoader, Dataset
 
 from .formatting import collate
 
@@ -81,20 +84,68 @@ def _worker_init(worker_id: int) -> None:
     cv2.setNumThreads(0)
 
 
+def sample_seed(seed: int, epoch: int, index: int) -> int:
+    """The seed of one sample's pipeline draws (flip, scale) in an epoch."""
+    return int(np.random.SeedSequence([seed, epoch, index])
+               .generate_state(1)[0])
+
+
+class SeededBatches:
+    """``sampler``'s batches, each index paired with the seed of its
+    sample's pipeline draws, from the sampler's seed, its epoch and the
+    index. An epoch then loads the same batches however the run got there,
+    so a resumed run loads what the straight run loaded. ``set_epoch`` and
+    ``len`` are the sampler's."""
+
+    def __init__(self, sampler: GroupedBatchSampler):
+        self.sampler = sampler
+
+    def set_epoch(self, epoch: int) -> None:
+        self.sampler.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.sampler)
+
+    def __iter__(self) -> Iterator[List[Tuple[int, int]]]:
+        s = self.sampler
+        for batch in s:
+            yield [(int(i), sample_seed(s.seed, s.epoch, int(i)))
+                   for i in batch]
+
+
+class SeededItems(Dataset):
+    """``dataset`` indexed by ``(index, seed)``: the item, its pipeline's
+    draws from ``RandomState(seed)``."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def __getitem__(self, key: Tuple[int, int]):
+        idx, seed = key
+        return self.dataset.prepare(idx, np.random.RandomState(seed))
+
+
 def build_dataloader(dataset, samples_per_gpu: int, workers_per_gpu: int = 4,
                      shuffle: bool = True, seed: int = 0,
                      drop_last: Optional[bool] = None) -> DataLoader:
     """A ``DataLoader`` over ``dataset`` in ``GroupedBatchSampler`` batches,
     collated into torch tensors by ``workers_per_gpu`` worker processes
-    (started with ``spawn``; 0 loads in the calling process). The sampler
-    is ``loader.batch_sampler``: ``loader.batch_sampler.set_epoch(e)``
-    reseeds the shuffle."""
+    (started with ``spawn`` at the first epoch and kept for the next ones;
+    0 loads in the calling process). Each sample's pipeline draws are
+    seeded from ``seed``, the epoch and its index (:class:`SeededBatches`).
+    ``loader.batch_sampler.set_epoch(e)`` reseeds the shuffle and the
+    draws."""
     if drop_last is None:
         drop_last = shuffle  # train drops ragged tails; eval keeps all
     flags = getattr(dataset, 'flags', np.zeros(len(dataset), np.int64))
     sampler = GroupedBatchSampler(flags, samples_per_gpu, shuffle=shuffle,
                                   seed=seed, drop_last=drop_last)
     workers = dict(num_workers=workers_per_gpu, worker_init_fn=_worker_init,
-                   multiprocessing_context='spawn') if workers_per_gpu else {}
-    return DataLoader(dataset, batch_sampler=sampler, collate_fn=collate,
-                      **workers)
+                   multiprocessing_context='spawn',
+                   persistent_workers=True) if workers_per_gpu else {}
+    return DataLoader(SeededItems(dataset),
+                      batch_sampler=SeededBatches(sampler),
+                      collate_fn=collate, **workers)

@@ -82,6 +82,19 @@ class DetectorSGD:
         self.steps += 1
         return norm
 
+    def state_dict(self) -> dict:
+        """The step count and the SGD state (momentum buffers, the
+        groups' hyperparameters): what a resumed run needs to continue the
+        schedule and the momentum exactly, as the optax state and
+        ``TrainState.step`` do in the JAX package."""
+        return {'steps': self.steps, 'sgd': self.sgd.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`; buffers move to the parameters'
+        device."""
+        self.steps = int(state['steps'])
+        self.sgd.load_state_dict(state['sgd'])
+
 
 def build_optimizer(model: torch.nn.Module, optimizer_cfg: dict,
                     optimizer_config: Optional[dict] = None,

@@ -1,0 +1,94 @@
+"""``pretrained=`` weights for training (port of
+``dynamask_tpu/engine/pretrained.py``: ``resolve_pretrained_path`` :43-66,
+``load_torch_state_dict`` :69-80 and ``apply_pretrained`` :366-387).
+
+The port's modules carry the mmdet ``state_dict`` names, so no layout
+conversion is needed: a torchvision ResNet's names (``conv1.weight``,
+``layer1.0.bn1.running_mean``, ...) take the ``backbone.`` prefix, and a
+detector's mmdet names (``backbone.``, ``neck.``, ``rpn_head.``,
+``roi_head.``) map one to one. Nothing is downloaded: a spec that names no
+local file leaves the model as initialised.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional
+
+import torch
+
+__all__ = ['resolve_pretrained_path', 'load_torch_state_dict',
+           'apply_pretrained']
+
+MMDET_PREFIXES = ('backbone.', 'neck.', 'rpn_head.', 'roi_head.')
+
+
+def resolve_pretrained_path(spec: Optional[str]) -> Optional[str]:
+    """A ``pretrained`` spec -> a local file, or None.
+
+    ``torchvision://resnet50`` is looked for as ``resnet50-*`` (the model
+    zoo's file names) or ``resnet50.pth`` in ``$TORCH_HOME/hub/checkpoints``
+    (``~/.cache/torch`` without ``TORCH_HOME``), ``./pretrained`` and
+    ``~/pretrained``; an ``http(s)://`` or ``open-mmlab://`` spec resolves
+    to None; a plain path is returned if it exists."""
+    if not spec:
+        return None
+    if spec.startswith('torchvision://'):
+        name = spec[len('torchvision://'):]
+        hub = os.path.join(os.environ.get(
+            'TORCH_HOME', os.path.expanduser('~/.cache/torch')), 'hub',
+            'checkpoints')
+        for d in (hub, './pretrained', os.path.expanduser('~/pretrained')):
+            if os.path.isdir(d):
+                for f in sorted(os.listdir(d)):
+                    if f.startswith(name + '-') or f == name + '.pth':
+                        return os.path.join(d, f)
+        return None
+    if spec.startswith(('http://', 'https://', 'open-mmlab://')):
+        return None
+    return spec if os.path.exists(spec) else None
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a checkpoint file (its ``state_dict`` when it has
+    one), on the CPU."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    sd = ckpt.get('state_dict', ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k: v for k, v in sd.items() if torch.is_tensor(v)}
+
+
+def apply_pretrained(model: torch.nn.Module, spec: Optional[str],
+                     logger=None) -> Dict[str, List[str]]:
+    """Load ``pretrained=`` weights into ``model`` in place. Returns the
+    report: the keys ``loaded``, ``skipped`` (no such tensor in the model)
+    and ``mismatched`` (shapes differ; left as initialised). A spec that
+    resolves to no file is logged and leaves the model as it is."""
+    log = logger.info if logger else print
+    report = {'loaded': [], 'skipped': [], 'mismatched': []}
+    path = resolve_pretrained_path(spec)
+    if path is None:
+        log(f'pretrained "{spec}" not found locally - training from scratch')
+        return report
+    sd = load_torch_state_dict(path)
+    mmdet = any(k.startswith(MMDET_PREFIXES) for k in sd)
+    own = model.state_dict()
+    with torch.no_grad():
+        for key, value in sd.items():
+            name = key if mmdet else f'backbone.{key}'
+            target = own.get(name)
+            if target is None:
+                report['skipped'].append(key)
+            elif target.shape != value.shape:
+                report['mismatched'].append(
+                    f'{key}: file {tuple(value.shape)} vs model '
+                    f'{tuple(target.shape)}')
+            else:
+                target.copy_(value)
+                report['loaded'].append(key)
+    log(f'pretrained {path}: loaded {len(report["loaded"])} tensors, '
+        f'skipped {len(report["skipped"])}, '
+        f'mismatched {len(report["mismatched"])}')
+    if logger:
+        for m in report['mismatched'][:10]:
+            logger.warning(f'  shape mismatch: {m}')
+    return report

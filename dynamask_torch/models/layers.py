@@ -46,11 +46,16 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
 
 # default initialisers of the JAX package's modules, by parameter name
 # (first match wins): xavier-uniform FPN and shared fcs, N(0, 0.01) RPN and
-# class scores, N(0, 0.001) box deltas, zero DCN offset convs; every other
-# conv or linear weight is He-normal over fan-out
+# class scores, N(0, 0.001) box deltas, zero DCN offset convs, flax's
+# default (LeCun normal over fan-in, truncated at 2 sigma) for the MSM,
+# whose JAX module names no initialiser; every other conv or linear weight
+# is He-normal over fan-out
 _INIT_RULES = (('neck.', 'xavier'), ('rpn_head.', 0.01),
                ('bbox_head.shared_fcs', 'xavier'), ('bbox_head.fc_cls', 0.01),
-               ('bbox_head.fc_reg', 0.001), ('conv_offset', 0.0))
+               ('bbox_head.fc_reg', 0.001), ('conv_offset', 0.0),
+               ('mask_predictor.', 'lecun'))
+# flax's truncated normal is rescaled to keep the asked-for variance
+_TRUNC_STD = 0.87962566103423978
 
 
 def _default_init(name: str, p: torch.Tensor, generator: torch.Generator):
@@ -63,6 +68,10 @@ def _default_init(name: str, p: torch.Tensor, generator: torch.Generator):
     elif rule == 'he':
         fan_out = p.shape[0] * (p[0, 0].numel() if p.dim() > 2 else 1)
         p.normal_(0.0, (2.0 / fan_out) ** 0.5, generator=generator)
+    elif rule == 'lecun':
+        std = (1.0 / p[0].numel()) ** 0.5 / _TRUNC_STD
+        nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
     elif rule:
         p.normal_(0.0, rule, generator=generator)
     else:
@@ -74,9 +83,10 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     """Fill every parameter and BN statistic from ``generator``.
 
     ``std=None``: the JAX package's initialisers (``_INIT_RULES``), zero
-    biases, unit BN. ``std=s``: every float parameter ~ N(0, s) and BN
-    statistics |N(0, s)| + 0.5 (the random-weight protocol of the JAX
-    bench)."""
+    biases, unit BN but for the zero scale of a BN marked ``zero_init``
+    (a residual block's last: ``zero_init_residual``). ``std=s``: every
+    float parameter ~ N(0, s) and BN statistics |N(0, s)| + 0.5 (the
+    random-weight protocol of the JAX bench)."""
     with torch.no_grad():
         for mod_name, m in model.named_modules():
             is_bn = isinstance(m, nn.modules.batchnorm._BatchNorm)
@@ -84,7 +94,8 @@ def init_weights(model: nn.Module, generator: torch.Generator,
                 if std is not None:
                     p.normal_(0.0, std, generator=generator)
                 elif is_bn:
-                    p.fill_(1.0 if name == 'weight' else 0.0)
+                    p.fill_(1.0 if name == 'weight' and not getattr(
+                        m, 'zero_init', False) else 0.0)
                 elif p.dim() >= 2:
                     _default_init(f'{mod_name}.{name}', p, generator)
                 else:

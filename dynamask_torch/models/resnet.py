@@ -23,8 +23,13 @@ import torch.nn.functional as F
 from ..utils.registry import BACKBONES
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5)
+def _bn(c: int, zero_init: bool = False) -> nn.BatchNorm2d:
+    """``zero_init``: the block's last BN, whose scale starts at 0
+    (``zero_init_residual``, the JAX package's and mmdet's default), so
+    that each residual block starts as the identity."""
+    bn = nn.BatchNorm2d(c, eps=1e-5)
+    bn.zero_init = zero_init
+    return bn
 
 
 class BasicBlock(nn.Module):
@@ -36,7 +41,7 @@ class BasicBlock(nn.Module):
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
         self.bn1 = _bn(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = _bn(planes)
+        self.bn2 = _bn(planes, zero_init=True)
         self.downsample = (nn.Sequential(
             nn.Conv2d(inplanes, planes, 1, stride, bias=False), _bn(planes))
             if downsample else None)
@@ -59,7 +64,7 @@ class Bottleneck(nn.Module):
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = _bn(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = _bn(planes * 4)
+        self.bn3 = _bn(planes * 4, zero_init=True)
         self.downsample = (nn.Sequential(
             nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
             _bn(planes * 4)) if downsample else None)

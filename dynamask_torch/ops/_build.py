@@ -37,7 +37,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     for cand in (os.path.join(os.environ.get('CUDA_HOME', ''), 'bin', 'nvcc'),
                  shutil.which('nvcc'), '/usr/local/cuda/bin/nvcc'):
         if cand and os.path.isfile(cand):
@@ -61,7 +61,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     if not todo:
         return {}
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()
     for n in todo:

@@ -408,18 +408,27 @@ def test_not_ported_parts_raise(coco_set):
         ds.fast_eval_recall([])
     with pytest.raises(KeyError, match='mAP'):
         ds.evaluate([], metric=['mAP'])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_dataset(dict(type='RepeatDataset', times=2,
-                           dataset=dict(type='CocoDataset')))
+    # the dataset wrappers are ported: build_dataset builds them
+    ann_file, img_dir = coco_set
+    inner = dict(_flagship_data()['test'], ann_file=ann_file,
+                 img_prefix=img_dir, data_root=None)
+    assert len(build_dataset(dict(type='RepeatDataset', times=2,
+                                  dataset=inner),
+                             dict(test_mode=True))) == 2 * len(ds)
 
 
 def test_imports_without_jax():
-    """No module of the port's data, apis or CLI imports jax or the JAX
-    package."""
+    """No module of the port's data, engine, apis, utils or CLIs imports
+    jax or the JAX package."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['dynamask_tpu'] = None; "
             "import dynamask_torch.data, dynamask_torch.apis, "
-            "dynamask_torch.tools.test; "
+            "dynamask_torch.tools.test, dynamask_torch.tools.train, "
+            "dynamask_torch.engine.checkpoint, "
+            "dynamask_torch.engine.pretrained, "
+            "dynamask_torch.data.dataset_wrappers, "
+            "dynamask_torch.utils.env; "
+            "dynamask_torch.utils.env.collect_env(); "
             "assert not [m for m in sys.modules if m.startswith('jax.')]")
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
                    timeout=120)

@@ -311,10 +311,10 @@ def test_cli_refuses_unported_flags(flags, item, capsys):
 
 
 def test_train_step_from_loader(coco_set):
-    """One ``train_detector`` step on the CPU from a loader batch of the
-    train pipeline (GT crops and windows from the polygons)."""
+    """One optimizer step (``train_steps``) on the CPU from a loader batch
+    of the train pipeline (GT crops and windows from the polygons)."""
     from test_dynamask import dynamask_toy_cfg
-    from dynamask_torch.apis import init_trainer, train_detector
+    from dynamask_torch.apis import init_trainer, train_steps
     from dynamask_torch.data import build_dataloader, build_dataset
     from dynamask_torch.utils import Config
     model, train_cfg, test_cfg = dynamask_toy_cfg()
@@ -333,7 +333,7 @@ def test_train_step_from_loader(coco_set):
     assert batch['image'].shape[0] == 2 and batch['gt_valid'].sum() == 6
     assert batch['gt_crops'].shape == (2, 8, 32, 32)
     net, opt = init_trainer(cfg, steps_per_epoch=len(loader), device='cpu')
-    log, = train_detector(net, opt, [batch],
+    log, = train_steps(net, opt, [batch],
                           generator=torch.Generator().manual_seed(0))
     assert {'loss', 'grad_norm', 'loss_cls', 'loss_rpn_cls'} <= set(log)
     assert all(torch.isfinite(v).all() for v in log.values())

@@ -505,14 +505,14 @@ def test_trainer_modes_and_device_guard(monkeypatch):
 
 
 def test_train_detector_steps():
-    """``train_detector`` takes one optimizer step per host batch on a toy
+    """``train_steps`` takes one optimizer step per host batch on a toy
     trainer: finite losses, no frozen parameter moves, every non-zero
     trainable one does (weight decay alone moves it), the zero DCN offset
     convs stay at zero (their gradient is exactly 0), and the lr steps
     down after the epochs of ``lr_config.step`` counted in
     ``steps_per_epoch`` steps, which has no default."""
     from dynamask_torch.apis import (init_trainer, synthetic_batch,
-                                     train_detector)
+                                     train_steps)
     from dynamask_torch.utils import Config
     from test_dynamask import dynamask_toy_cfg
     model_cfg, train_cfg, test_cfg = dynamask_toy_cfg()
@@ -529,7 +529,7 @@ def test_train_detector_steps():
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
     batches = [synthetic_batch(s, b=1, h=64, w=64, num_gts=2, max_gts=3,
                                crop_size=16, num_classes=8) for s in range(3)]
-    logs = train_detector(model, opt, batches,
+    logs = train_steps(model, opt, batches,
                           generator=torch.Generator().manual_seed(0))
     assert len(logs) == 3 and opt.steps == 3
     assert all(torch.isfinite(v).all() for log in logs for v in log.values())

@@ -274,7 +274,7 @@ def _variant_fns():
             f.write(text + extra)
         so = os.path.join(OUT, f'lib{name}.so')
         procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, '-o', so, cu],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, '-o', so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
     for name, (so, proc) in procs.items():

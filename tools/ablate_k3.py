@@ -100,7 +100,7 @@ def main():
     from dynamask_torch.ops import _build as b
     from dynamask_torch.ops.deform_conv import dcn_launch_config
     card = card_line()
-    nvcc = b._nvcc()
+    nvcc = b.nvcc_path()
     fns = _build(nvcc)
     sass = _shared_atomic_sass(nvcc)
     print(f'fp32 atomicAdd to shared memory on sm_90a: {sass}')
