@@ -20,16 +20,21 @@ before the last line is printed:
    the port's own form of the same function (K1 + ``torch.matmul``); K2
    and K4 also at the training crops with RoIs clustered as the training
    step makes them, and K2 at the inference crops on the 1344x800 portrait
-   canvas that phase 6's portrait images use, on lines of their own kept
-   out of the ``kernels`` line's sums; K1 and K3 also at edge shapes
+   canvas that phase 6's portrait images use, and at the shapes of phase
+   8's configurations (K1 at n = 300 for LVIS inference and at the 128
+   mask slots of a Cityscapes step, K3 there too; K2 at LVIS's 300-det
+   crops and on the 1024x2048 Cityscapes canvas, at inference and in
+   training, K4 there in training), on lines of their own kept out of the
+   ``kernels`` line's sums; K1 and K3 also at edge shapes
    (ragged bands, one deform group, channels per group not a multiple of
    4, padding and dilation 2, windows 1 and 2, one RoI, a misaligned base)
    with random, zero and exact-edge offsets, K2 and K4 at theirs (C not a
    multiple of 4, one bin, three samples a bin, one RoI, a 1x1 plane, a
    misaligned base) with zero-area, off-plane and exact-edge RoIs, and K5
    at its own edge shapes, untimed;
-3. check the port end to end on a small input: a toy DynaMask model on the
-   GPU (kernels) against the same model on the CPU (plain versions), at
+3. check the port end to end on a small input: a toy DynaMask model and a
+   toy Mask R-CNN (ResNet-18, 32-channel FPN, the FCN mask head) on the GPU
+   (kernels) against the same models on the CPU (plain versions), at
    inference and for one training step (losses and per-parameter
    gradients);
 4. drive the inference path: DynaMask R50-FPN (``configs/dynamask/coco/
@@ -87,16 +92,36 @@ before the last line is printed:
    epoch's mean loss must be below half the first's; ``run_eval``
    then reads the loop's checkpoint from its work dir, and its bbox and
    segm mAP are printed beside the JAX package's (``ACCURACY.json``), a
-   reading and not a gate.
+   reading and not a gate;
+8. drive the other four configurations of ``BASELINE.json``, each built
+   from its config file, unchanged, at full width: Mask R-CNN R50-FPN 1x
+   (FCN mask head), DynaMask R101-FPN 3x, DynaMask on LVIS v1 (1203
+   classes, 300 det slots) and on Cityscapes (1024x2048 canvas). Each
+   runs inference on one seeded image at its test canvas (random weights
+   N(0, 0.05) from seed 0; both modes for DynaMask; median of 5 after a
+   counted warm-up) and training at its batch and train canvas (4x800x1344;
+   1x1024x2048 for Cityscapes; its seeded initialisation, a synthetic
+   batch with 20 GTs an image; median of 3 after a warm-up), printing
+   ms/img, ms/step, peak memory, the valid det slots and the launches of
+   each path. Then the LVIS and Cityscapes evaluation paths: a seeded set
+   in each format (``build/chip_smoke_lvis/``: 8 images named by
+   ``coco_url``, 1203 categories with frequency bands, negative and
+   not-exhaustive categories; ``build/chip_smoke_cityscapes/``: 2 PNGs of
+   2048x1024) through ``run_test`` and ``dataset.evaluate``; the GTs given
+   as predictions must score exactly 1.0 (LVIS: in every band), and the
+   Cityscapes results go through ``results2txt``. It prints the phase's
+   seconds and the whole run's.
 
-For each of the nine drives (faithful, dynamic, the K5 check on the
-captured DCN inputs, train, eval, loader_train, and in phase 7 the loop's
-steps, its validations and the overfit loop) the kernels' launch counters
-are zeroed just before it and read just after (the loop's steps and its
-validations in turns), and every kernel of that path must have launched
-in it: K1 and K2 at inference, in the eval loop and in the loop's
-validations, K5 through both entry points in its check, K1-K4 in
-training.
+For each drive (faithful, dynamic, the K5 check on the captured DCN
+inputs, train, eval, loader_train, in phase 7 the loop's steps, its
+validations and the overfit loop, and in phase 8 each configuration's
+inference modes, its training and the two evaluation paths) the kernels'
+launch counters are zeroed just before it and read just after (the loop's
+steps and its validations in turns), and every kernel of that path must
+have launched in it: K1 and K2 at inference, in the eval loops and in the
+loop's validations, K5 through both entry points in its check, K1-K4 in
+training; behind Mask R-CNN's FCN head, which runs no DCN, K2 at
+inference and K2 and K4 in training.
 
 Standard output ends with the ``kernels`` JSON line, the card's name and
 power limit as ``nvidia-smi`` reports them, and the ``{"ok": true, ...}``
@@ -118,6 +143,8 @@ import time
 DEVICE = 'cuda'
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, 'configs/dynamask/coco/r50_dynamask_1x.py')
+MASK_RCNN = os.path.join(ROOT,
+                         'configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py')
 IMAGE_HW = (800, 1344)           # the flagship's test canvas
 PORTRAIT_HW = (1344, 800)        # its canvas for portrait images (phase 6)
 TRAIN_IMAGES = 4                 # the config's samples_per_gpu
@@ -129,6 +156,9 @@ COCO_STEPS_PER_EPOCH = 117266 // TRAIN_IMAGES
 N_DETS = 100                     # inference: max_per_img dets reach the mask
 N_BOX_TRAIN = TRAIN_IMAGES * 512  # training: sampled RoIs of the box branch
 N_POS_TRAIN = TRAIN_IMAGES * 128  # training: max_pos slots of the mask branch
+LVIS_DETS = 300                  # the LVIS config's max_per_img
+CITY_HW = (1024, 2048)           # the Cityscapes config's canvas
+CITY_POS = 128                   # its training step's mask slots (batch 1)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 # H100 SXM peak operation rates (data sheet, dense), by the type the
 # operations run in: fp32 outside the tensor cores, and bf16 x bf16 products
@@ -182,9 +212,13 @@ SFM_STAGES = ((14, 256), (28, 128), (56, 64))   # (S, C) of the 3 DCNs
 def k1_cases(gen, dev):
     """K1 at the three SFM stages: n = 100 dets at inference, 512 positive
     slots in training; 2 deform groups. Offsets reach ±5 px, past the ±3
-    window and off the plane."""
+    window and off the plane. Then, on lines of their own, the shapes the
+    other configurations give it: n = 300 at LVIS inference, 128 positive
+    slots in a Cityscapes training step."""
     import torch
-    for path, n in (('infer', N_DETS), ('train', N_POS_TRAIN)):
+    for path, n in (('infer', N_DETS), ('train', N_POS_TRAIN),
+                    (f'{CONFIG} lvis infer', LVIS_DETS),
+                    (f'{CONFIG} cityscapes train', CITY_POS)):
         for s, c in SFM_STAGES:
             x = torch.randn(n, s, s, c, generator=gen, device=dev)
             off = (torch.rand(n, s, s, 36, generator=gen, device=dev) - 0.5) \
@@ -198,7 +232,7 @@ def k3_cases(gen, dev):
     """K3 at the training shapes of K1, with a random column gradient."""
     import torch
     for case, (x, off), kw in k1_cases(gen, dev):
-        if case.startswith('train'):
+        if case.startswith(('train', f'{CONFIG} cityscapes train')):
             n, s, _, c = x.shape
             d_col = torch.randn(n, s, s, 2, 9, c // 2, generator=gen,
                                 device=dev)
@@ -348,7 +382,30 @@ def k5_limit(scale, got):
 
 CLUSTERED = 'clustered'
 PORTRAIT = 'portrait'
-OFF_ROW = (CLUSTERED, PORTRAIT)   # cases kept out of the table row's sum
+CONFIG = 'config'                 # the shapes of phase 8's configurations
+OFF_ROW = (CLUSTERED, PORTRAIT, CONFIG)   # kept out of the row's sums
+
+
+def config_crops(dev, train=False):
+    """The crops of the other configurations where they differ from the
+    flagship's: LVIS inference (300 dets) and Cityscapes inference on the
+    1024x2048 canvas, or (``train``) a Cityscapes training step (1 image,
+    512 sampled RoIs, 128 positive slots), each from a generator of its
+    own."""
+    import torch
+    if not train:
+        gen = torch.Generator(device=dev).manual_seed(6)
+        for case, args, kw in _crops(gen, dev, 1, 1000, LVIS_DETS):
+            yield f'{CONFIG} lvis infer {case}', args, kw
+        gen = torch.Generator(device=dev).manual_seed(7)
+        for case, args, kw in _crops(gen, dev, 1, 1000, N_DETS,
+                                     canvas=CITY_HW):
+            yield f'{CONFIG} cityscapes infer {case}', args, kw
+        return
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for case, args, kw in _crops(gen, dev, 1, 512, CITY_POS,
+                                 canvas=CITY_HW):
+        yield f'{CONFIG} cityscapes train {case}', args, kw
 
 
 def clustered_crops(dev):
@@ -380,6 +437,8 @@ def k2_cases(gen, dev):
     for case, args, kw in _crops(pgen, dev, 1, 1000, N_DETS,
                                  canvas=PORTRAIT_HW):
         yield f'{PORTRAIT} infer {case}', args, kw
+    yield from config_crops(dev)
+    yield from config_crops(dev, train=True)
 
 
 def k4_args(gen, args, kw):
@@ -403,6 +462,10 @@ def k4_cases(gen, dev):
         del args
     cgen = torch.Generator(device=dev).manual_seed(4)
     for case, args, kw in clustered_crops(dev):
+        yield case, k4_args(cgen, args, kw), kw
+        del args
+    cgen = torch.Generator(device=dev).manual_seed(9)
+    for case, args, kw in config_crops(dev, train=True):
         yield case, k4_args(cgen, args, kw), kw
         del args
 
@@ -876,10 +939,12 @@ def check_kernels(report):
 
 # -- phase 3: a toy model, GPU against CPU ------------------------------------
 
-def toy_cfg():
-    """A small DynaMask Mask R-CNN (ResNet-18, 32-channel FPN, 8 classes)."""
+def toy_cfg(mask_rcnn=False):
+    """A small DynaMask Mask R-CNN (ResNet-18, 32-channel FPN, 8 classes);
+    ``mask_rcnn``: the same from the Mask R-CNN config, its FCN mask head
+    at 2 convs of 32 channels."""
     from dynamask_torch.utils import Config
-    cfg = Config.fromfile(FLAGSHIP)
+    cfg = Config.fromfile(MASK_RCNN if mask_rcnn else FLAGSHIP)
     m = cfg.model
     m.backbone.depth = 18
     m.neck.in_channels = [64, 128, 256, 512]
@@ -892,9 +957,14 @@ def toy_cfg():
     rh.bbox_head.fc_out_channels = 64
     rh.bbox_head.num_classes = 8
     mh = rh.mask_head
-    mh.num_convs_instance = 1
-    mh.conv_out_channels_instance = mh.conv_out_channels_semantic = 32
-    mh.stage_num_classes = [8, 8, 8, 1]
+    if mask_rcnn:
+        mh.num_convs = 2
+        mh.in_channels = mh.conv_out_channels = 32
+        mh.num_classes = 8
+    else:
+        mh.num_convs_instance = 1
+        mh.conv_out_channels_instance = mh.conv_out_channels_semantic = 32
+        mh.stage_num_classes = [8, 8, 8, 1]
     cfg.test_cfg.rpn.nms_pre = 64
     cfg.train_cfg.rpn_proposal.max_num = 32
     cfg.train_cfg.rcnn.sampler.num = 64
@@ -903,15 +973,17 @@ def toy_cfg():
 
 
 def check_toy_against_cpu(report):
-    """Phase 3a: inference, the port on the GPU against itself on the CPU."""
+    """Phase 3a: inference, the port on the GPU against itself on the CPU:
+    the toy DynaMask in both modes, then the toy Mask R-CNN."""
     import torch
     from dynamask_torch.models import build_detector
-    cfg = toy_cfg()
     gen = torch.Generator().manual_seed(1)
     img = torch.randn(1, 128, 128, 3, generator=gen)
     batch = {'image': img, 'img_shape': torch.tensor([[128., 128.]]),
              'scale_factor': torch.ones(1, 4)}
-    for dynamic in (False, True):
+    for name, dynamic in (('faithful', False), ('dynamic', True),
+                          ('mask_rcnn', False)):
+        cfg = toy_cfg(mask_rcnn=name == 'mask_rcnn')
         cfg.model.roi_head.dynamic_inference = dynamic
         ref = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
                              device='cpu', seed=0)
@@ -925,12 +997,12 @@ def check_toy_against_cpu(report):
         errs = {k: (a[k].double() - b[k].double()).abs().max().item()
                 for k in ('dets', 'mask_probs')}
         same = all(torch.equal(a[k], b[k]) for k in ('labels', 'det_valid'))
-        print(f'  toy {"dynamic" if dynamic else "faithful"}: '
-              f'{int(a["det_valid"].sum())} dets, GPU vs CPU max abs err '
+        print(f'  toy {name}: {int(a["det_valid"].sum())} dets, mask_probs '
+              f'{tuple(a["mask_probs"].shape)}, GPU vs CPU max abs err '
               f'dets {errs["dets"]:.3e}, mask_probs {errs["mask_probs"]:.3e}, '
               f'labels/valid equal {same}')
-        report['toy'].append(dict(dynamic=dynamic, same_labels_valid=same,
-                                  **errs))
+        report['toy'].append(dict(model=name, dynamic=dynamic,
+                                  same_labels_valid=same, **errs))
         # fp32 on both devices (TF32 off), other summation orders: ~1e-5
         # on 128-px box coordinates and on mask probabilities
         if not (same and errs['dets'] < 1e-3 and errs['mask_probs'] < 1e-3):
@@ -1021,10 +1093,11 @@ class KinkSides:
             F.relu, head.deform_conv2d_nhwc = relu, dcn
 
 
-def toy_train_case():
-    """The toy training step's inputs: the model on the CPU in training
-    mode (one DCN offset conv off zero, so K3's offset gradient is exercised
-    too), the same weights on the GPU, a synthetic batch of 2 images at
+def toy_train_case(mask_rcnn=False):
+    """The toy training step's inputs: the model (the toy Mask R-CNN where
+    ``mask_rcnn``) on the CPU in training mode (the DynaMask toy's DCN
+    offset convs off zero, so K3's offset gradient is exercised too), the
+    same weights on the GPU, a synthetic batch of 2 images at
     128x128, the same batch with its image perturbed by INPUT_NOISE
     (relative), and the random draws (sampler priorities, Gumbel
     uniforms)."""
@@ -1032,7 +1105,7 @@ def toy_train_case():
     import torch
     from dynamask_torch.apis import synthetic_batch
     from dynamask_torch.models import build_detector
-    cfg = toy_cfg()
+    cfg = toy_cfg(mask_rcnn)
     b, hw, max_gts = 2, 128, 4
     ref = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
                          device='cpu', seed=0).train()
@@ -1097,12 +1170,14 @@ def toy_train_step(net, data, noise, proposals=None):
     return logs, grads, proposals if proposals is not None else taken[-1]
 
 
-def check_toy_train_against_cpu(report):
-    """Phase 3b: one training step of the toy model, GPU (with and without
-    cuDNN's convs) against CPU: the same weights, batch, random draws and
-    proposals (the first GPU run's)."""
+def check_toy_train_against_cpu(report, mask_rcnn=False):
+    """Phase 3b: one training step of the toy model (the DynaMask toy, or
+    the Mask R-CNN toy), GPU (with and without cuDNN's convs) against CPU:
+    the same weights, batch, random draws and proposals (the first GPU
+    run's)."""
     import torch
-    ref, model, batch, noisy, noise = toy_train_case()
+    name = 'toy_train_mask_rcnn' if mask_rcnn else 'toy_train'
+    ref, model, batch, noisy, noise = toy_train_case(mask_rcnn)
     logs, grads, moved = {}, {}, {}
     sides = KinkSides()
     with sides.patched(follow=False):
@@ -1123,10 +1198,9 @@ def check_toy_train_against_cpu(report):
         return ((a - g).norm() / g.norm()).item()
 
     tol = TOY_GRAD_RL2
-    print(f'  toy train step, CPU losses: {logs["cpu"]}; ReLU inputs and '
+    print(f'  {name} step, CPU losses: {logs["cpu"]}; ReLU inputs and '
           f'DCN offsets put on the GPU run\'s side of a kink: {moved}')
-    report['toy_train'] = {'losses_cpu': logs['cpu'],
-                           'kink_inputs_moved': moved}
+    report[name] = {'losses_cpu': logs['cpu'], 'kink_inputs_moved': moved}
     for run in ('gpu', 'gpu_no_cudnn'):
         worst_loss = max(abs(logs[run][k] - v) / max(abs(v), 1e-6)
                          for k, v in logs['cpu'].items())
@@ -1135,7 +1209,7 @@ def check_toy_train_against_cpu(report):
             a = grads[run][k]
             if not g.any():     # frozen stem and stage 1, unused parameters
                 if a.any():
-                    raise RuntimeError(f'toy train ({run}): {k} has a '
+                    raise RuntimeError(f'{name} ({run}): {k} has a '
                                        'gradient on the GPU, none on the CPU')
                 continue
             d = rel_l2(a, g)
@@ -1150,12 +1224,12 @@ def check_toy_train_against_cpu(report):
               f'{TOY_GRAD_FLOOR} x CPU noise)): ' + ', '.join(
                   f'{w["param"]} {w["rel_l2"]:.2e} (noise '
                   f'{w["cpu_noise_rel_l2"]:.1e})' for w in worst))
-        report['toy_train'][run] = dict(
+        report[name][run] = dict(
             losses=logs[run], worst_loss_rel=worst_loss, worst_grads=worst,
             params_compared=len(rows))
         if not (worst_loss <= TOY_LOSS_RTOL and rows[0][0] <= 1.0 and
                 len(rows) > 50):
-            raise RuntimeError(f'toy train step ({run}): GPU disagrees with '
+            raise RuntimeError(f'{name} step ({run}): GPU disagrees with '
                                'the CPU')
 
 
@@ -1916,7 +1990,337 @@ def run_overfit(report, card):
     return launches
 
 
+# -- phase 8: the other configurations of BASELINE.json ----------------------
+
+# (name, config, test canvas, train batch, train canvas); the DynaMask ones
+# run both inference modes, Mask R-CNN its one
+# the shapes of each come from the config (apis.config_shapes)
+CONFIG_CELLS = (
+    ('mask_rcnn', MASK_RCNN),
+    ('r101', os.path.join(ROOT, 'configs/dynamask/coco/r101_dynamask_3x.py')),
+    ('lvis', os.path.join(ROOT, 'configs/dynamask/lvis/'
+                          'r50_dynamask_lvis_1x.py')),
+    ('cityscapes', os.path.join(ROOT, 'configs/dynamask/cityscapes/'
+                                'r50_dynamask_cityscapes_1x.py')),
+)
+LVIS_SET = os.path.join(ROOT, 'build', 'chip_smoke_lvis')
+CITYSCAPES_SET = os.path.join(ROOT, 'build', 'chip_smoke_cityscapes')
+LVIS_NUM_CLASSES = 1203
+
+
+def _rect_anns(rng, img_id, w, h, cats, n, first_id, lo=16, hi=3):
+    """``n`` rectangle-polygon GTs of 1/``lo``-1/``hi`` of the image side,
+    inset 2 px in their boxes, over ``cats``."""
+    anns = []
+    for k in range(n):
+        bw = int(rng.randint(w // lo, w // hi))
+        bh = int(rng.randint(h // lo, h // hi))
+        x, y = int(rng.randint(0, w - bw)), int(rng.randint(0, h - bh))
+        poly = [x + 2, y + 2, x + bw - 2, y + 2, x + bw - 2, y + bh - 2,
+                x + 2, y + bh - 2]
+        anns.append({'id': first_id + k, 'image_id': img_id,
+                     'category_id': int(rng.choice(cats)),
+                     'bbox': [float(x), float(y), float(bw), float(bh)],
+                     'area': float(bw * bh), 'iscrowd': 0,
+                     'segmentation': [[float(v) for v in poly]]})
+    return anns
+
+
+def write_lvis_set(root, seed=0, per_size=2):
+    """A seeded LVIS v1-format set in ``root``: ``per_size`` noise JPEGs at
+    each of phase 6's COCO sizes, named by ``coco_url`` only, as LVIS names
+    them; 1203 categories with ``frequency`` r/c/f in turn; 3-10 GTs each
+    over 6 categories, two of each band; per image the first absent of the
+    6 as ``neg_category_ids`` and its first GT category as
+    ``not_exhaustive_category_ids``. Returns (annotation file, image
+    directory, GT count)."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, 'val2017')
+    os.makedirs(img_dir, exist_ok=True)
+    bands = 'rcf'
+    cats = [{'id': i + 1, 'name': f'lvis_category_{i + 1:04d}',
+             'frequency': bands[i % 3], 'image_count': 1}
+            for i in range(LVIS_NUM_CLASSES)]
+    used = [1, 4, 2, 5, 3, 6]          # r, r, c, c, f, f
+    images, anns = [], []
+    for i in range(per_size * len(COCO_SIZES)):
+        w, h = COCO_SIZES[i // per_size]
+        name = f'{397133 + i:012d}.jpg'
+        cv2.imwrite(os.path.join(img_dir, name),
+                    rng.uniform(0, 255, (h, w, 3)).astype(np.uint8))
+        new = _rect_anns(rng, i + 1, w, h, used, int(rng.randint(3, 11)),
+                         len(anns) + 1)
+        held = {a['category_id'] for a in new}
+        anns += new
+        images.append({
+            'id': i + 1, 'width': w, 'height': h,
+            'coco_url': f'http://images.cocodataset.org/val2017/{name}',
+            'neg_category_ids': [c for c in used if c not in held][:1],
+            'not_exhaustive_category_ids': [new[0]['category_id']]})
+    ann_file = os.path.join(root, 'lvis_v1_val.json')
+    with open(ann_file, 'w') as f:
+        json.dump({'images': images, 'annotations': anns,
+                   'categories': cats}, f)
+    return ann_file, img_dir, len(anns)
+
+
+def write_cityscapes_set(root, seed=0, num_images=2):
+    """A seeded Cityscapes set in ``root``: ``num_images`` noise PNGs of
+    2048x1024 with 3-10 rectangle GTs each over the 8 classes, their
+    official label ids as category ids (as
+    ``tools/convert_datasets/cityscapes.py`` writes them). Returns
+    (annotation file, image directory, GT count)."""
+    import cv2
+    import numpy as np
+    from dynamask_torch.data import CITYSCAPES_CLASSES, CITYSCAPES_LABEL_IDS
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, 'leftImg8bit', 'val')
+    os.makedirs(img_dir, exist_ok=True)
+    ids = [CITYSCAPES_LABEL_IDS[n] for n in CITYSCAPES_CLASSES]
+    images, anns = [], []
+    for i in range(num_images):
+        name = f'frankfurt_{i:06d}_000019_leftImg8bit.png'
+        cv2.imwrite(os.path.join(img_dir, name),
+                    rng.uniform(0, 255, (1024, 2048, 3)).astype(np.uint8))
+        images.append({'id': i + 1, 'file_name': name, 'width': 2048,
+                       'height': 1024})
+        anns += _rect_anns(rng, i + 1, 2048, 1024, ids,
+                           int(rng.randint(3, 11)), len(anns) + 1, lo=32,
+                           hi=6)
+    ann_file = os.path.join(root, 'instancesonly_filtered_gtFine_val.json')
+    with open(ann_file, 'w') as f:
+        json.dump({'images': images, 'annotations': anns, 'categories': [
+            {'id': CITYSCAPES_LABEL_IDS[n], 'name': n}
+            for n in CITYSCAPES_CLASSES]}, f)
+    return ann_file, img_dir, len(anns)
+
+
+def _kernels_of(name, train):
+    """The kernels a path of config ``name`` must launch: K2 (and K4 in
+    training) behind Mask R-CNN's FCN head, K1 and K2 (and K3, K4) on the
+    DynaMask paths."""
+    if name == 'mask_rcnn':
+        return (('roi_align_fwd', 'roi_align_bwd') if train
+                else ('roi_align_fwd',))
+    return TRAIN_KERNELS if train else INFER_KERNELS
+
+
+def run_config_inference(report, card, name, path, hw):
+    """Phase 8, inference: the config's detector built on the card with
+    random weights N(0, 0.05) from seed 0, one seeded image at the
+    config's test canvas; per mode a counted warm-up drive, then the median
+    of 5."""
+    import torch
+    import dynamask_torch.ops as ops
+    from dynamask_torch.apis import inference_detector, init_detector
+    t0 = time.perf_counter()
+    model = init_detector(path, device=DEVICE, seed=0, init_std=0.05)
+    build_s = time.perf_counter() - t0
+    h, w = hw
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    batch = {'image': torch.randn(1, h, w, 3, generator=gen, device=DEVICE),
+             'img_shape': torch.tensor([[h, w]], dtype=torch.float32,
+                                       device=DEVICE),
+             'scale_factor': torch.ones(1, 4, device=DEVICE)}
+    rh = model.roi_head
+    dynamask = hasattr(rh, 'dynamic_inference')
+    modes = (('faithful', False), ('dynamic', True)) if dynamask \
+        else (('fcn', None),)
+    d = rh.max_per_img
+    print(f'  {name}: built in {build_s:.1f} s, '
+          f'{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, '
+          f'{rh.num_classes} classes, {d} det slots, canvas {h}x{w}')
+    launches, recs = {}, []
+
+    def drive(dynamic):
+        if dynamic is not None:
+            rh.dynamic_inference = dynamic
+        out = inference_detector(model, batch)
+        torch.cuda.synchronize(DEVICE)
+        return out
+
+    for mode, dyn in modes:
+        torch.cuda.reset_peak_memory_stats(DEVICE)
+        ops.reset_kernel_launches()
+        out = drive(dyn)
+        key = f'{name}_{mode}'
+        launches[key] = ops.kernel_launches()
+        check_launches(key, launches[key], _kernels_of(name, False))
+        side = 28 if name == 'mask_rcnn' else 112
+        expect = {'dets': (1, d, 5), 'labels': (1, d), 'valid': (1, d),
+                  'masks': (1, d, h, w)}
+        for k, shape in expect.items():
+            if tuple(out[k].shape) != shape:
+                raise RuntimeError(f'{key}: {k} shape '
+                                   f'{tuple(out[k].shape)} != {shape}')
+        if not torch.isfinite(out['dets']).all():
+            raise RuntimeError(f'{key}: non-finite dets')
+        if int(out['labels'].max()) >= rh.num_classes:
+            raise RuntimeError(f'{key}: a label past {rh.num_classes}')
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            drive(dyn)
+            times.append(1e3 * (time.perf_counter() - t))
+        ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated(DEVICE)
+        n_valid = int(out['valid'].sum())
+        line = (f'  {key}: {ms:.1f} ms/img (median of 5, after 1 warm-up) '
+                f'[{card}]; peak memory {peak / 2 ** 30:.2f} GiB; '
+                f'{n_valid} of {d} det slots valid; mask probabilities '
+                f'{side}x{side}; launches {launches[key]}')
+        rec = dict(config=name, mode=mode, ms_per_img=ms, times_ms=times,
+                   peak_memory_bytes=peak, valid_dets=n_valid, slots=d,
+                   launches=launches[key])
+        if 'msm_routing' in out:
+            r = {k: v.tolist() for k, v in out['msm_routing'].items()
+                 if k != 'need'}
+            line += f'; routing {r}'
+            rec['routing'] = r
+        print(line)
+        recs.append(rec)
+    del model
+    torch.cuda.empty_cache()
+    return launches, recs
+
+
+def run_config_train(report, card, name, path, images, hw):
+    """Phase 8, training: ``init_trainer`` on the config (its seeded JAX
+    initialisation), a seeded synthetic batch of ``images`` at the train
+    canvas with 20 GTs each over the config's classes, one warm-up and
+    three timed ``train_steps``; counters around the four."""
+    import torch
+    import dynamask_torch.ops as ops
+    from dynamask_torch.apis import (init_trainer, synthetic_batch,
+                                     train_steps)
+    model, opt = init_trainer(path, steps_per_epoch=COCO_STEPS_PER_EPOCH,
+                              device=DEVICE, seed=0)
+    h, w = hw
+    batch = synthetic_batch(0, b=images, h=h, w=w, num_gts=TRAIN_GTS,
+                            crop_size=128,
+                            num_classes=model.roi_head.num_classes,
+                            device='cpu')
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    torch.cuda.synchronize(DEVICE)
+    torch.cuda.reset_peak_memory_stats(DEVICE)
+    ops.reset_kernel_launches()
+    times, logs = [], []
+    for i in range(1 + TIMED_STEPS):
+        t = time.perf_counter()
+        log, = train_steps(model, opt, [batch], generator=gen)
+        torch.cuda.synchronize(DEVICE)
+        times.append(1e3 * (time.perf_counter() - t))
+        log = {k: float(v) for k, v in log.items()}
+        bad = [k for k, v in log.items() if not math.isfinite(v)]
+        if bad:
+            raise RuntimeError(f'{name} train step {i}: non-finite {bad}')
+        logs.append(log)
+    key = f'{name}_train'
+    launches = {key: ops.kernel_launches()}
+    check_launches(key, launches[key], _kernels_of(name, True))
+    peak = torch.cuda.max_memory_allocated(DEVICE)
+    ms = statistics.median(times[1:])
+    print(f'  {key}: {ms:.1f} ms/step (median of {TIMED_STEPS}, after 1 '
+          f'warm-up), batch {images}x{h}x{w}, {1e3 * images / ms:.2f} img/s, '
+          f'peak memory {peak / 2 ** 30:.2f} GiB [{card}]; first losses ' +
+          ', '.join(f'{k} {v:.4g}' for k, v in logs[0].items()))
+    rec = dict(config=name, ms_per_step=ms, times_ms=times, batch=images,
+               canvas=list(hw), peak_memory_bytes=peak, losses=logs,
+               launches=launches[key])
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def run_config_eval(report, card, name, path, writer, root):
+    """Phase 8, the evaluation path of the LVIS or Cityscapes config: its
+    seeded set through ``run_test`` (the config's test pipeline and loader
+    workers, its detector at its seeded initialisation on the card) and
+    ``dataset.evaluate``, counters around ``run_test``; the GTs given as
+    predictions must score exactly 1.0 (LVIS: in every band too)."""
+    import dynamask_torch.ops as ops
+    from dynamask_torch.apis import run_test
+    from dynamask_torch.utils import Config
+    ann_file, img_dir, n_gts = writer(root)
+    cfg = Config.fromfile(path)
+    cfg.data.test.update(ann_file=ann_file, img_prefix=img_dir,
+                         data_root=None)
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    dataset, results = run_test(cfg, device=DEVICE)
+    t_test = time.perf_counter() - t
+    key = f'{name}_eval'
+    launches = {key: ops.kernel_launches()}
+    check_launches(key, launches[key], INFER_KERNELS)
+    t = time.perf_counter()
+    metrics = dataset.evaluate(results, metric=['bbox', 'segm'])
+    t_eval = time.perf_counter() - t
+    n = len(dataset)
+    det_json, segm_json = dataset.results2json(results)
+    n_masks, n_valid = check_eval_outputs(dataset, results, det_json,
+                                          segm_json)
+    gt = dataset.evaluate(gt_as_predictions(dataset),
+                          metric=['bbox', 'segm'])
+    keys = [k for k in gt if k.endswith(('_mAP', '_mAP_r', '_mAP_c',
+                                         '_mAP_f'))]
+    print(f'  {key}: {n} images, {n_gts} GTs, {len(dataset.CLASSES)} '
+          f'classes; run_test {t_test:.1f} s ({n / t_test:.2f} img/s, '
+          f'{cfg.data.workers_per_gpu} loader workers started), evaluate '
+          f'{t_eval:.1f} s [{card}]; {n_valid} valid dets, RLE exact on '
+          f'{n_masks} masks; ' + ', '.join(
+              f'{k} {metrics[k]:.4f}' for k in keys) +
+          ' (random weights); GT as predictions: ' + ', '.join(
+              f'{k} {gt[k]}' for k in keys) + f'; launches {launches[key]}')
+    if not keys or any(gt[k] != 1.0 for k in keys):
+        raise RuntimeError(f'{key}: GT as predictions must score exactly '
+                           f'1.0: {gt}')
+    extra = {}
+    if hasattr(dataset, 'results2txt'):
+        files = dataset.results2txt(results, os.path.join(root, 'txt'))
+        pngs = [f for f in os.listdir(os.path.join(root, 'txt'))
+                if f.endswith('.png')]
+        if len(files) != n or len(pngs) != n_valid:
+            raise RuntimeError(f'{key}: results2txt wrote {len(files)} txt, '
+                               f'{len(pngs)} png for {n_valid} dets')
+        extra['results2txt'] = dict(txt=len(files), png=len(pngs))
+        print(f'  {key}: results2txt: {len(files)} txt, {len(pngs)} PNGs')
+    rec = dict(config=name, images=n, gts=n_gts, run_test_s=t_test,
+               evaluate_s=t_eval, valid_dets=n_valid, metrics=metrics,
+               gt_as_predictions=gt, launches=launches[key], **extra)
+    return launches, rec
+
+
+def run_configs(report, card):
+    """Phase 8: each configuration's inference and training at its own
+    shapes, and the LVIS and Cityscapes evaluation paths."""
+    import torch
+    from dynamask_torch.apis import config_shapes
+    launches = {}
+    report['configs'] = {'inference': [], 'train': [], 'eval': []}
+    for name, path in CONFIG_CELLS:
+        test_hw, images, train_hw = config_shapes(path)
+        got, recs = run_config_inference(report, card, name, path, test_hw)
+        launches.update(got)
+        report['configs']['inference'] += recs
+        got, rec = run_config_train(report, card, name, path, images,
+                                    train_hw)
+        launches.update(got)
+        report['configs']['train'].append(rec)
+    for name, writer, root in (('lvis', write_lvis_set, LVIS_SET),
+                               ('cityscapes', write_cityscapes_set,
+                                CITYSCAPES_SET)):
+        path = dict(CONFIG_CELLS)[name]
+        got, rec = run_config_eval(report, card, name, path, writer, root)
+        launches.update(got)
+        report['configs']['eval'].append(rec)
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
+    t_run = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on a GPU',
@@ -1953,6 +2357,7 @@ def main() -> int:
     print('phase 3: toy model, GPU against CPU')
     check_toy_against_cpu(report)
     check_toy_train_against_cpu(report)
+    check_toy_train_against_cpu(report, mask_rcnn=True)
     print(f'phase 4: flagship inference [{card}]')
     launches = run_inference_path(report, card)
     torch.cuda.empty_cache()
@@ -1970,6 +2375,14 @@ def main() -> int:
     launches['overfit_loop'] = run_overfit(report, card)
     report['phase7_s'] = time.perf_counter() - t7
     print(f'  phase 7: {report["phase7_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 8: the other configurations of BASELINE.json [{card}]')
+    t8 = time.perf_counter()
+    launches.update(run_configs(report, card))
+    report['phase8_s'] = time.perf_counter() - t8
+    report['run_s'] = time.perf_counter() - t_run
+    print(f'  phase 8: {report["phase8_s"]:.1f} s; the whole run '
+          f'{report["run_s"]:.1f} s')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}
         row['launches'] = sum(by_path.values())

@@ -16,18 +16,13 @@ import torch
 from torch.profiler import record_function
 
 from ..core.bbox_transforms import bbox2result
-from ..data.coco import COCO_CLASSES
+from ..data.coco import dataset_spec
 from ..data.formatting import format_sample
 from ..data.transforms import Compose
 from ..engine.checkpoint import load_params_only
 from ..models.builder import build_detector
 from ..utils.config import Config
 from .test import TEST_KEYS, paste_epilogue
-
-# the static canvases of the image-level API (orientation buckets of the
-# 1333x800 resize), as the JAX package's Detector has them
-CANVASES = ((800, 1344), (1344, 800), (1344, 1344))
-
 
 def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
                   device=None, seed: int = 0,
@@ -39,9 +34,11 @@ def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
     ``seed``.
 
     The model carries ``cfg``, ``CLASSES`` (the checkpoint's ``meta``
-    classes, else COCO's), the ``canvases`` of the image-level API and, when
-    the config has ``data.test``, its test ``pipeline`` without the file
-    loading step."""
+    classes, else :func:`config_classes`), the ``canvases`` of the
+    image-level API (the config's test set's, COCO's without one: the JAX
+    package always takes COCO's, which no Cityscapes image fits, ROADMAP.md
+    queue 3) and, when the config has ``data.test``, its test ``pipeline``
+    without the file loading step."""
     if isinstance(config, str):
         config = Config.fromfile(config)
     model = build_detector(config.model, config.get('train_cfg'),
@@ -50,14 +47,28 @@ def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
     classes = None
     if checkpoint is not None:
         classes = load_params_only(checkpoint, model).get('CLASSES')
-    model.cfg = config
-    model.CLASSES = tuple(classes or COCO_CLASSES)
-    model.canvases = CANVASES
     test = (config.get('data') or {}).get('test')
+    names, model.canvases = dataset_spec(test or {})
+    model.cfg = config
+    model.CLASSES = tuple(classes or config_classes(
+        names, model.roi_head.num_classes))
     model.pipeline = Compose(
         [t for t in test['pipeline'] if t['type'] != 'LoadImageFromFile']
     ) if test else None
     return model
+
+
+def config_classes(names: Optional[Sequence[str]],
+                   num_classes: int) -> Tuple[str, ...]:
+    """The class names when no checkpoint carries them: the test set's
+    ``names`` (:func:`~dynamask_torch.data.coco.dataset_spec`), or
+    ``class_{i}`` where there are none or they are not ``num_classes``
+    long (an LVIS set, whose names only its json holds). The JAX package
+    falls back to COCO's 80 names whatever the head's classes, so a label
+    past 79 has no list to go in: ROADMAP.md, queue 3."""
+    if names is None or len(names) != num_classes:
+        names = [f'class_{i}' for i in range(num_classes)]
+    return tuple(names)
 
 
 def _mask_thr(model: torch.nn.Module) -> float:

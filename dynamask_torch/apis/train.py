@@ -20,7 +20,7 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..data import build_dataloader, build_dataset
+from ..data import build_dataloader, build_dataset, dataset_spec
 from ..engine.checkpoint import (load_checkpoint, load_params_only,
                                  save_checkpoint)
 from ..engine.optimizer import DetectorSGD, build_optimizer
@@ -286,6 +286,19 @@ def _run_validation(cfg: Config, model: torch.nn.Module, eval_cfg: dict,
     logger.info(f'validation ({len(results)} images): ' + ', '.join(
         f'{k}: {v:.4f}' for k, v in metrics.items()))
     return {k: float(v) for k, v in metrics.items()}
+
+
+def config_shapes(config: Union[str, Config]
+                  ) -> Tuple[Tuple[int, int], int, Tuple[int, int]]:
+    """The shapes ``config`` runs at, from what it states: the first
+    (landscape) canvas of its test set, where one image is inferred, and
+    a training step's images (``data.samples_per_gpu``) with the first
+    canvas of its train set."""
+    if isinstance(config, str):
+        config = Config.fromfile(config)
+    data = config.data
+    return (dataset_spec(data.test)[1][0], data.samples_per_gpu,
+            dataset_spec(data.train)[1][0])
 
 
 def synthetic_batch(seed: int, b: int = 1, h: int = 128, w: int = 128,

@@ -7,7 +7,11 @@ from .cocoeval import CocoEvaluator, bbox_iou_xywh
 from .transforms import (LoadImageFromFile, LoadAnnotations, Resize,
                          RandomFlip, Normalize, Pad, Compose)
 from .formatting import format_sample, collate, canvas_for
-from .coco import CocoDataset, CocoIndex, build_dataset, COCO_CLASSES
+from .coco import (CocoDataset, CocoIndex, build_dataset, dataset_spec,
+                   COCO_CLASSES)
+from .lvis import (LVISV1Dataset, LVISV05Dataset, LvisEvaluator)
+from .cityscapes import (CityscapesDataset, CITYSCAPES_CLASSES,
+                         CITYSCAPES_LABEL_IDS)
 from .dataset_wrappers import (ConcatDataset, RepeatDataset,
                                ClassBalancedDataset, wrap_dataset)
 from .loader import GroupedBatchSampler, build_dataloader
@@ -20,7 +24,10 @@ __all__ = [
     'CocoEvaluator', 'bbox_iou_xywh',
     'LoadImageFromFile', 'LoadAnnotations', 'Resize', 'RandomFlip',
     'Normalize', 'Pad', 'Compose', 'format_sample', 'collate', 'canvas_for',
-    'CocoDataset', 'CocoIndex', 'build_dataset', 'COCO_CLASSES',
+    'CocoDataset', 'CocoIndex', 'build_dataset', 'dataset_spec',
+    'COCO_CLASSES',
+    'LVISV1Dataset', 'LVISV05Dataset', 'LvisEvaluator',
+    'CityscapesDataset', 'CITYSCAPES_CLASSES', 'CITYSCAPES_LABEL_IDS',
     'ConcatDataset', 'RepeatDataset', 'ClassBalancedDataset', 'wrap_dataset',
     'GroupedBatchSampler', 'build_dataloader',
 ]

@@ -67,6 +67,8 @@ class CocoIndex:
 @DATASETS.register_module()
 class CocoDataset:
     CLASSES = COCO_CLASSES
+    # the static canvases (orientation buckets of the 1333x800 resize)
+    CANVASES = ((800, 1344), (1344, 800), (1344, 1344))
 
     def __init__(self,
                  ann_file: str,
@@ -75,9 +77,7 @@ class CocoDataset:
                  data_root: Optional[str] = None,
                  test_mode: bool = False,
                  filter_empty_gt: bool = True,
-                 canvases: Sequence[Tuple[int, int]] = ((800, 1344),
-                                                        (1344, 800),
-                                                        (1344, 1344)),
+                 canvases: Optional[Sequence[Tuple[int, int]]] = None,
                  max_gts: int = 100,
                  mask_crop_size: int = 128,
                  classes: Optional[Sequence[str]] = None):
@@ -89,7 +89,7 @@ class CocoDataset:
         self.ann_file = ann_file
         self.img_prefix = img_prefix
         self.test_mode = test_mode
-        self.canvases = [tuple(c) for c in canvases]
+        self.canvases = [tuple(c) for c in canvases or self.CANVASES]
         self.max_gts = max_gts
         self.mask_crop_size = mask_crop_size
         if classes is not None:
@@ -110,6 +110,12 @@ class CocoDataset:
             [0 if info['width'] >= info['height'] else 1
              for info in self.img_infos], np.int64)
         self.pipeline = Compose(pipeline)
+
+    @classmethod
+    def classes_for(cls, cfg: dict) -> Optional[Tuple[str, ...]]:
+        """The class names a dataset built from ``cfg`` has, without
+        reading its files: ``cfg``'s ``classes``, else the class's own."""
+        return tuple(cfg.get('classes') or cls.CLASSES)
 
     def __len__(self) -> int:
         return len(self.img_infos)
@@ -269,6 +275,19 @@ class CocoDataset:
             if classwise:
                 self._classwise_table(ev, 'segm')
         return out
+
+
+def dataset_spec(cfg: dict) -> Tuple[Optional[Tuple[str, ...]],
+                                     List[Tuple[int, int]]]:
+    """The class names (None where only the annotation file has them) and
+    the canvases of the dataset that ``cfg`` builds, or of the first one
+    its wrappers wrap, without reading its files."""
+    cfg = dict(cfg)
+    while cfg.get('type') in WRAPPERS:
+        cfg = dict(cfg['dataset'] if 'dataset' in cfg else cfg['datasets'][0])
+    cls = DATASETS.get(cfg.get('type', 'CocoDataset'))
+    return (cls.classes_for(cfg),
+            [tuple(c) for c in cfg.get('canvases') or cls.CANVASES])
 
 
 def build_dataset(cfg: dict, default_args: Optional[dict] = None):

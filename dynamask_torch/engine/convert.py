@@ -8,7 +8,9 @@ names, so the key map below is the port's own copy of the one in
 the modules the port has, and run in the other direction:
 
 * conv kernels HWIO -> OIHW (the DCN leaf is named ``weight``, and a
-  ``ClassSelectConv1x1`` is a ``(1, 1, C, ncls)`` kernel);
+  ``ClassSelectConv1x1`` is a ``(1, 1, C, ncls)`` kernel); the FCN mask
+  head's transposed conv (kh, kw, in, out) -> (in, out, kh, kw), both
+  spatial axes flipped;
 * dense ``(in, out)`` -> ``(out, in)``; the first box-head fc and
   ``MaskPre.fc1`` also reorder their input from HWC- to CHW-flattening;
 * BatchNorm ``scale``/``bias``/``mean``/``var``;
@@ -60,6 +62,14 @@ def mmdet_key(key: str) -> Optional[Tuple[List[str], str, Dict]]:
                     {'flatten_chw': 7} if m[1] == '0' else {})),
         (r'^roi_head\.bbox_head\.(fc_cls|fc_reg)\.(weight|bias)$',
          lambda m: (['roi_head', 'bbox_head', m[1]], m[2], {})),
+        # Mask R-CNN's FCN mask head (JAX pretrained.py:148-158)
+        (r'^roi_head\.mask_head\.convs\.(\d+)\.conv\.(weight|bias)$',
+         lambda m: (['roi_head', 'mask_head', f'conv_{m[1]}'], m[2], {})),
+        (r'^roi_head\.mask_head\.upsample\.(weight|bias)$',
+         lambda m: (['roi_head', 'mask_head', 'upsample'], m[1],
+                    {'deconv': True})),
+        (r'^roi_head\.mask_head\.conv_logits\.(weight|bias)$',
+         lambda m: (['roi_head', 'mask_head', 'conv_logits'], m[1], {})),
         (r'^roi_head\.mask_head\.instance_convs\.(\d+)\.conv\.(weight|bias)$',
          lambda m: (['roi_head', 'mask_head', f'instance_conv_{m[1]}'],
                     m[2], {})),
@@ -123,6 +133,12 @@ def _torch_layout(params, stats, path, leaf, hints) -> np.ndarray:
     if 'scale' in node:                                   # BatchNorm
         return np.asarray(node['scale'], np.float32)
     kernel = np.asarray(node[hints.get('flax_leaf', 'kernel')], np.float32)
+    if hints.get('deconv'):
+        # flax ConvTranspose (kh, kw, in, out) applies its kernel in
+        # convolution orientation, torch's ConvTranspose2d (in, out, kh, kw)
+        # in gradient orientation: the inverse of the JAX importer's
+        # transpose and spatial flip (pretrained.py:243-250)
+        return np.ascontiguousarray(kernel[::-1, ::-1].transpose(2, 3, 0, 1))
     if kernel.ndim == 4:                                  # HWIO -> OIHW
         return kernel.transpose(3, 2, 0, 1)
     s = hints.get('flatten_chw')

@@ -1,7 +1,7 @@
 """Build the port's detector from a reference-schema config (port of the
 parts of ``dynamask_tpu/models/builder.py`` and
 ``dynamask_tpu/models/dynamask_roi_head.py:build_dynamask_roi_head``
-(:422-464) that the DynaMask Mask R-CNN configs use).
+(:422-464) that the Mask R-CNN and DynaMask configs use).
 
 Modules are created on the ``meta`` device, materialised on the target
 device, filled from an explicit ``torch.Generator``, put in eval mode and
@@ -20,7 +20,9 @@ from ..utils.registry import BACKBONES, DETECTORS, NECKS
 from .bbox_head import Shared2FCBBoxHead
 from .dynamask_head import DynaMaskHead, MaskPre
 from .dynamask_roi_head import DynaMaskRoIHead
+from .fcn_mask_head import FCNMaskHead
 from .layers import init_weights
+from .roi_head import StandardRoIHead
 from .rpn_head import RPNHead
 
 # the registered modules must be imported for their registry entries
@@ -64,12 +66,72 @@ def build_rpn_head(cfg: dict):
     return head, anchor_cfg, _cfg(cfg.get('bbox_coder'))
 
 
+def build_fcn_mask_head(mhc: dict) -> FCNMaskHead:
+    """``FCNMaskHead`` from its config (JAX ``builder.py:366-379``)."""
+    norm = _cfg(mhc.get('norm_cfg')).get('type')
+    return FCNMaskHead(
+        num_convs=mhc.get('num_convs', 4),
+        in_channels=mhc.get('in_channels', 256),
+        conv_out_channels=mhc.get('conv_out_channels', 256),
+        num_classes=mhc.get('num_classes', 80),
+        class_agnostic=mhc.get('class_agnostic', False),
+        upsample_type=_cfg(mhc.get('upsample_cfg')).get('type', 'deconv'),
+        norm=norm.lower() if norm else None)
+
+
+def build_dynamask_roi_head(cfg: dict, mhc: dict, common: dict,
+                            rcnn_train: dict) -> DynaMaskRoIHead:
+    """``DynaMaskRoIHead`` + ``DynaMaskHead`` + the MSM (JAX
+    ``dynamask_roi_head.py:422-464``)."""
+    loss_cfg = _cfg(mhc.get('loss_cfg'))
+    stage_sup_size = tuple(mhc.get('stage_sup_size', (14, 28, 56, 112)))
+    mask_head = DynaMaskHead(
+        num_convs_instance=mhc.get('num_convs_instance', 2),
+        conv_out_channels_instance=mhc.get('conv_out_channels_instance', 256),
+        conv_out_channels_semantic=mhc.get('conv_out_channels_semantic', 256),
+        semantic_out_stride=tuple(mhc.get('semantic_out_stride', (16, 8, 4))),
+        stage_num_classes=tuple(mhc.get('stage_num_classes',
+                                        (80, 80, 80, 1))),
+        stage_sup_size=stage_sup_size,
+        pre_upsample_last_stage=mhc.get('pre_upsample_last_stage', False),
+        faithful_stride_quirk=mhc.get('faithful_stride_quirk', True),
+        dcn_window=mhc.get('dcn_window', 3))
+    # MaskPre fan-in = pyramid channels (semantic extractor if given, else
+    # the box extractor's out_channels)
+    msm_in = (_cfg(cfg.get('semantic_roi_extractor')).get('out_channels')
+              or _cfg(cfg.get('bbox_roi_extractor')).get('out_channels', 256))
+    return DynaMaskRoIHead(
+        mask_head=mask_head,
+        mask_predictor=MaskPre(num_choices=len(stage_sup_size),
+                               in_channels=msm_in),
+        dynamic_inference=cfg.get('dynamic_inference', False),
+        dynamic_capacity=tuple(cfg.get('dynamic_capacity',
+                                       (0.5, 0.25, 0.125))),
+        stage_sup_size=stage_sup_size,
+        stage_detail_loss_weight=tuple(
+            loss_cfg.get('stage_detail_loss_weight', (0.5,) * 4)),
+        # the faithful last-stage-only instance BCE unless the config turns
+        # on the all-stage sum it declares
+        stage_instance_loss_weight=(
+            tuple(loss_cfg.get('stage_instance_loss_weight',
+                               (0.5, 0.75, 0.75, 1.0)))
+            if loss_cfg.get('all_stage_instance_loss', False) else None),
+        cb_loss_weight=loss_cfg.get('cb_loss_weight', 0.8),
+        start_stage=loss_cfg.get('start_stage', 4),
+        flops_cost=tuple(rcnn_train.get('flops', (0.23, 0.62, 1.01, 1.4))),
+        flops_lambda=rcnn_train.get('Lambda', 0.3),
+        **common)
+
+
 def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
+    """The RoI head of ``cfg``: ``StandardRoIHead`` with an
+    ``FCNMaskHead`` (Mask R-CNN) or ``DynaMaskRoIHead`` with a
+    ``DynaMaskHead`` (DynaMask), on one Shared2FC box branch."""
     cfg = _cfg(cfg)
     t = cfg.pop('type')
-    if t != 'DynaMaskRoIHead':
-        raise KeyError(f'unsupported roi head {t}: the port has the '
-                       'DynaMask RoI head only')
+    if t not in ('StandardRoIHead', 'DynaMaskRoIHead'):
+        raise KeyError(f'unsupported roi head {t}: the port has '
+                       'StandardRoIHead and DynaMaskRoIHead')
     head_cfg = _cfg(cfg['bbox_head'])
     if head_cfg.pop('type') != 'Shared2FCBBoxHead':
         raise KeyError('unsupported bbox head: the port has Shared2FC only')
@@ -90,46 +152,8 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     nms_cfg = _cfg(rcnn_test.get('nms'))
     if nms_cfg.get('type', 'nms') != 'nms':
         raise NotImplementedError(f'test nms type {nms_cfg["type"]}')
-
-    mhc = _cfg(cfg['mask_head'])
-    loss_cfg = _cfg(mhc.get('loss_cfg'))
-    if mhc.pop('type') != 'DynaMaskHead':
-        raise KeyError('unsupported mask head: the port has DynaMaskHead only')
-    stage_sup_size = tuple(mhc.get('stage_sup_size', (14, 28, 56, 112)))
-    mask_head = DynaMaskHead(
-        num_convs_instance=mhc.get('num_convs_instance', 2),
-        conv_out_channels_instance=mhc.get('conv_out_channels_instance', 256),
-        conv_out_channels_semantic=mhc.get('conv_out_channels_semantic', 256),
-        semantic_out_stride=tuple(mhc.get('semantic_out_stride', (16, 8, 4))),
-        stage_num_classes=tuple(mhc.get('stage_num_classes',
-                                        (80, 80, 80, 1))),
-        stage_sup_size=stage_sup_size,
-        pre_upsample_last_stage=mhc.get('pre_upsample_last_stage', False),
-        faithful_stride_quirk=mhc.get('faithful_stride_quirk', True),
-        dcn_window=mhc.get('dcn_window', 3))
-    # MaskPre fan-in = pyramid channels (semantic extractor if given, else
-    # the box extractor's out_channels)
-    msm_in = (_cfg(cfg.get('semantic_roi_extractor')).get('out_channels')
-              or bbox_extractor.get('out_channels', 256))
-    return DynaMaskRoIHead(
-        bbox_head, mask_head,
-        MaskPre(num_choices=len(stage_sup_size), in_channels=msm_in),
-        dynamic_inference=cfg.get('dynamic_inference', False),
-        dynamic_capacity=tuple(cfg.get('dynamic_capacity',
-                                       (0.5, 0.25, 0.125))),
-        stage_sup_size=stage_sup_size,
-        stage_detail_loss_weight=tuple(
-            loss_cfg.get('stage_detail_loss_weight', (0.5,) * 4)),
-        # the faithful last-stage-only instance BCE unless the config turns
-        # on the all-stage sum it declares
-        stage_instance_loss_weight=(
-            tuple(loss_cfg.get('stage_instance_loss_weight',
-                               (0.5, 0.75, 0.75, 1.0)))
-            if loss_cfg.get('all_stage_instance_loss', False) else None),
-        cb_loss_weight=loss_cfg.get('cb_loss_weight', 0.8),
-        start_stage=loss_cfg.get('start_stage', 4),
-        flops_cost=tuple(rcnn_train.get('flops', (0.23, 0.62, 1.01, 1.4))),
-        flops_lambda=rcnn_train.get('Lambda', 0.3),
+    common = dict(
+        bbox_head=bbox_head,
         num_classes=head_cfg.get('num_classes', 80),
         featmap_strides=tuple(bbox_extractor.get('featmap_strides',
                                                  (4, 8, 16, 32))),
@@ -155,6 +179,17 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
                                                             1.0),
         loss_bbox_weight=_cfg(head_cfg.get('loss_bbox')).get('loss_weight',
                                                               1.0))
+    mhc = _cfg(cfg['mask_head'])
+    mt = mhc.pop('type')
+    if (t, mt) == ('DynaMaskRoIHead', 'DynaMaskHead'):
+        return build_dynamask_roi_head(cfg, mhc, common, rcnn_train)
+    if (t, mt) == ('StandardRoIHead', 'FCNMaskHead'):
+        return StandardRoIHead(
+            mask_head=build_fcn_mask_head(mhc), loss_mask_weight=_cfg(
+                mhc.get('loss_mask')).get('loss_weight', 1.0), **common)
+    raise KeyError(f'unsupported mask head {mt} under {t}: the port has '
+                   'FCNMaskHead under StandardRoIHead and DynaMaskHead '
+                   'under DynaMaskRoIHead')
 
 
 def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
@@ -209,7 +244,7 @@ def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
     det = det.to_empty(device=dev)
     det.backbone.freeze_stages()
     init_weights(det, torch.Generator(device=dev).manual_seed(seed), init_std)
-    if init_std is None:
+    if init_std is None and isinstance(det.roi_head, DynaMaskRoIHead):
         with torch.no_grad():
             det.roi_head.mask_head.loss_func.detail_target.fuse_kernel.copy_(
                 torch.tensor([0.7, 0.3]).reshape(1, 2, 1, 1))

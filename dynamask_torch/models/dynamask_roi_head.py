@@ -150,8 +150,7 @@ class DynaMaskRoIHead(StandardRoIHead):
                  flops_cost: Tuple[float, ...] = (0.23, 0.62, 1.01, 1.4),
                  flops_lambda: float = 0.3, flops_target: float = 1.0,
                  gumbel_temperature: float = 0.5, **common):
-        super().__init__(bbox_head, **common)
-        self.mask_head = mask_head
+        super().__init__(bbox_head, mask_head, **common)
         self.mask_predictor = mask_predictor
         self.dynamic_inference = dynamic_inference
         self.dynamic_capacity = tuple(dynamic_capacity)
@@ -211,14 +210,6 @@ class DynaMaskRoIHead(StandardRoIHead):
         nb_up = interpolate_bilinear(nb, s, s, align_corners=True) >= 0.5
         cur_up = interpolate_bilinear(cur, s, s, align_corners=True)
         return torch.where(nb_up, cur_up, nxt)
-
-    def _rois(self, dets, batch, rescale):
-        b, d = dets.shape[:2]
-        boxes = dets[..., :4]
-        if rescale:  # back to input scale for RoI extraction
-            boxes = boxes * batch['scale_factor'][:, None, :]
-        roi_batch = torch.arange(b, device=dets.device).repeat_interleave(d)
-        return boxes.reshape(b * d, 4), roi_batch
 
     def _dynamic_test_mask(self, feats, dets, labels, batch, rescale,
                            routing: Optional[dict] = None):

@@ -97,7 +97,11 @@ def init_weights(model: nn.Module, generator: torch.Generator,
                     p.fill_(1.0 if name == 'weight' and not getattr(
                         m, 'zero_init', False) else 0.0)
                 elif p.dim() >= 2:
-                    _default_init(f'{mod_name}.{name}', p, generator)
+                    # a transposed conv stores (in, out, kh, kw): its fan
+                    # out is that of the (out, in, kh, kw) view
+                    _default_init(f'{mod_name}.{name}', p.transpose(0, 1)
+                                  if isinstance(m, nn.ConvTranspose2d)
+                                  else p, generator)
                 else:
                     p.zero_()
             if is_bn:

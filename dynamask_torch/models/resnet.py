@@ -1,6 +1,6 @@
-"""ResNet backbone (port of ``dynamask_tpu/models/resnet.py``): depth 50
-(Bottleneck) and 18 (BasicBlock), 'pytorch' style (stride on the 3×3),
-eval-mode BatchNorm with eps 1e-5. Module names follow torchvision/mmdet so
+"""ResNet backbone (port of ``dynamask_tpu/models/resnet.py``): depths 18
+and 34 (BasicBlock), 50, 101 and 152 (Bottleneck), 'pytorch' style (stride
+on the 3×3), eval-mode BatchNorm with eps 1e-5. Module names follow torchvision/mmdet so
 the state dict reads ``backbone.layer1.0.conv1.weight``.
 
 The JAX stem is ``S2DStemConv`` (``resnet.py:45``), an exact TPU layout
@@ -77,9 +77,13 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity)
 
 
+# the JAX package's table (``dynamask_tpu/models/resnet.py:276-282``)
 ARCH_SETTINGS = {
     18: (BasicBlock, (2, 2, 2, 2)),
+    34: (BasicBlock, (3, 4, 6, 3)),
     50: (Bottleneck, (3, 4, 6, 3)),
+    101: (Bottleneck, (3, 4, 23, 3)),
+    152: (Bottleneck, (3, 8, 36, 3)),
 }
 
 

@@ -1,12 +1,16 @@
-"""Box branch of the two-stage RoI head (port of
-``dynamask_tpu/models/roi_head.py``: ``StandardRoIHead._sample_rois``,
-``_extract``, ``_bbox_forward``, ``forward_train``, ``_pos_rois`` and
-``simple_test``, :167-316). RoI features come from the FPN-routed RoIAlign
-(kernels K2 and, for the gradient, K4) with the static ``sampling_ratio`` 2.
+"""The two-stage RoI head (port of ``dynamask_tpu/models/roi_head.py``:
+``StandardRoIHead._sample_rois``, ``_extract``, ``_bbox_forward``,
+``forward_train``, ``_pos_rois``, ``_mask_forward_train``, ``simple_test``
+and ``simple_test_mask``, :167-331). RoI features come from the FPN-routed
+RoIAlign (kernels K2 and, for the gradient, K4) with the static
+``sampling_ratio`` 2.
 
 In training, each image's proposals (GT boxes put in front) are assigned
 and sampled to a fixed ``num_samples`` slots, positives packed first; the
-mask branch reads the first ``max_pos`` slots of each image."""
+mask branch reads the first ``max_pos`` slots of each image. The mask
+branch here is Mask R-CNN's: a 14x14 crop through the FCN mask head to
+28x28 logits, each RoI's class channel; ``DynaMaskRoIHead`` overrides
+it."""
 
 from __future__ import annotations
 
@@ -17,12 +21,14 @@ import torch.nn as nn
 from torch.profiler import record_function
 
 from ..core.assigners import MaxIoUAssigner
+from ..core.mask_targets import mask_targets_from_crops
 from ..core.samplers import (RandomSampler, SamplingResult,
                              add_gt_as_proposals, stack_samples)
 from ..ops.roi_align import multilevel_roi_align
 from .bbox_head import (bbox_head_get_dets, bbox_head_loss,
                         bbox_targets_from_sample)
-from .layers import to_nhwc
+from .fcn_mask_head import fcn_mask_loss, select_class_channel
+from .layers import to_nchw, to_nhwc
 
 
 # the static sampling ratio of the JAX package (not the configs' adaptive 0)
@@ -32,7 +38,8 @@ FINEST_SCALE = 56
 
 
 class StandardRoIHead(nn.Module):
-    def __init__(self, bbox_head: nn.Module, num_classes: int = 80,
+    def __init__(self, bbox_head: nn.Module, mask_head: nn.Module,
+                 num_classes: int = 80,
                  featmap_strides: Tuple[int, ...] = (4, 8, 16, 32),
                  bbox_roi_out: int = 7, mask_roi_out: int = 14,
                  target_means=(0., 0., 0., 0.),
@@ -43,9 +50,11 @@ class StandardRoIHead(nn.Module):
                  pos_iou_thr: float = 0.5, neg_iou_thr: float = 0.5,
                  min_pos_iou: float = 0.5, match_low_quality: bool = True,
                  loss_cls_weight: float = 1.0,
-                 loss_bbox_weight: float = 1.0):
+                 loss_bbox_weight: float = 1.0,
+                 loss_mask_weight: float = 1.0):
         super().__init__()
         self.bbox_head = bbox_head
+        self.mask_head = mask_head
         self.num_classes = num_classes
         self.featmap_strides = tuple(featmap_strides)
         self.bbox_roi_out = bbox_roi_out
@@ -62,6 +71,7 @@ class StandardRoIHead(nn.Module):
         self.add_gt_as_proposals = add_gt_as_proposals
         self.loss_cls_weight = loss_cls_weight
         self.loss_bbox_weight = loss_bbox_weight
+        self.loss_mask_weight = loss_mask_weight
 
     def _extract(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
                  roi_batch: torch.Tensor, out_size: int) -> torch.Tensor:
@@ -139,7 +149,17 @@ class StandardRoIHead(nn.Module):
 
     def _mask_forward_train(self, feats, sample, batch, gumbel_u=None,
                             generator=None):
-        raise NotImplementedError
+        """Mask R-CNN's mask loss on the ``max_pos`` positive slots: a
+        ``mask_roi_out`` crop (K2; K4 in the backward), the mask head, and
+        each RoI's targets at the logits' size from its GT's crop."""
+        boxes, valid, labels, gt, roi_batch = self._pos_rois(sample)
+        logits = self.mask_head(to_nchw(self._extract(
+            feats, boxes, roi_batch, self.mask_roi_out)))
+        targets = mask_targets_from_crops(
+            batch['gt_crops'], batch['gt_windows'], boxes, roi_batch, gt,
+            batch['img_shape'], logits.shape[-1])
+        return {'loss_mask': fcn_mask_loss(logits, targets, labels, valid,
+                                           self.loss_mask_weight)}
 
     def simple_test(self, feats, proposals: torch.Tensor,
                     proposal_valid: torch.Tensor,
@@ -175,6 +195,24 @@ class StandardRoIHead(nn.Module):
             result['msm_routing'] = routing
         return result
 
+    def _rois(self, dets, batch, rescale):
+        """The dets' boxes as (B * D, 4) RoIs at the input's scale, and
+        their image indices."""
+        b, d = dets.shape[:2]
+        boxes = dets[..., :4]
+        if rescale:  # back to input scale for RoI extraction
+            boxes = boxes * batch['scale_factor'][:, None, :]
+        roi_batch = torch.arange(b, device=dets.device).repeat_interleave(d)
+        return boxes.reshape(b * d, 4), roi_batch
+
     def simple_test_mask(self, feats, dets, labels, batch, rescale=True,
                          routing: Optional[dict] = None):
-        raise NotImplementedError
+        """(B, D, 2P, 2P) mask probabilities: each det's crop through the
+        mask head, its class channel, a sigmoid."""
+        b, d = dets.shape[:2]
+        rois, roi_batch = self._rois(dets, batch, rescale)
+        logits = self.mask_head(to_nchw(self._extract(
+            feats, rois, roi_batch, self.mask_roi_out)))
+        probs = torch.sigmoid(select_class_channel(logits,
+                                                   labels.reshape(b * d)))
+        return probs.reshape(b, d, *probs.shape[1:])

@@ -206,12 +206,17 @@ def test_inference_detector_image(coco_set, pair, tmp_path):
     jd = Detector(JaxConfig(cfg), variables, COCO_CLASSES)
     port = init_detector(Config(cfg), device='cpu')
     load_jax_variables(port, variables)
-    assert port.CLASSES == COCO_CLASSES and port.pipeline is not None
+    # the names of the config's test set (the JAX package's init_detector
+    # falls back to COCO's 80 whatever the head's classes; ROADMAP queue 3)
+    assert port.CLASSES == COCO_CLASSES[:8] and port.pipeline is not None
     jd.canvases = port.canvases = CANVASES
     path = os.path.join(coco_set[1], '0001.jpg')       # 160x120 portrait
     ref_bbox, ref_segm = jax_infer(jd, path)
     bbox, segm = inference_detector(port, path)
-    assert len(bbox) == len(segm) == len(COCO_CLASSES)
+    assert len(bbox) == len(segm) == len(port.CLASSES)
+    assert len(ref_bbox) == len(COCO_CLASSES)
+    assert not any(len(b) or len(m) for b, m in zip(ref_bbox[8:],
+                                                    ref_segm[8:]))
 
     # the port's probabilities on the same canvas, for the threshold band
     import cv2
@@ -228,7 +233,7 @@ def test_inference_detector_image(coco_set, pair, tmp_path):
     labels = out['labels'][0].numpy()
     assert valid.sum() >= 4
     n = 0
-    for c in range(len(COCO_CLASSES)):
+    for c in range(len(port.CLASSES)):
         assert bbox[c].dtype == np.float32 and bbox[c].shape[1] == 5
         np.testing.assert_allclose(bbox[c], ref_bbox[c], rtol=1e-5,
                                    atol=1e-4)

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's flagship on one GPU.
 
-    python3 tools/profile_torch_port.py [--iters 5] [--train]
+    python3 tools/profile_torch_port.py [--iters 5] [--train] [--config CFG]
 
 Without ``--train``: builds DynaMask R50-FPN (``configs/dynamask/coco/
-r50_dynamask_1x.py``) with random N(0, 0.05) weights from seed 0, as
-``chip_smoke.py`` does, and runs one 800x1344 fp32 image through
-``simple_test`` + mask paste in the faithful and the MSM-routed mode. With
-``--train``: builds the trainer from the same config (its own seeded
-initialisation) and runs training steps on a seeded synthetic batch of 4
-images at 800x1344 with 20 GTs each, as ``chip_smoke.py`` phase 5 does.
+r50_dynamask_1x.py``, or ``--config``) with random N(0, 0.05) weights from
+seed 0, as ``chip_smoke.py`` does, and runs one fp32 image at the first
+canvas of the config's test set (800x1344 for COCO) through
+``simple_test`` + mask paste in the faithful and the MSM-routed mode (Mask
+R-CNN's one mode, ``fcn``, for an FCN mask head). With ``--train``: builds
+the trainer from the same config (its own seeded initialisation) and runs
+training steps on a seeded synthetic batch of the config's
+``samples_per_gpu`` images at the first canvas of its train set, 20 GTs
+each, as ``chip_smoke.py`` phases 5 and 8 do (``apis.config_shapes``).
 For each mode it reports
 
 * from a ``torch.profiler`` trace of whole iterations: each stage's host
@@ -26,7 +29,8 @@ For each mode it reports
   port's own kernels K1-K5), the number of kernel launches, and the
   device's busy share (kernel time over wall time).
 
-Prints a summary and writes ``chiprun_out/profile_torch_port.json``.
+Prints a summary and writes ``chiprun_out/profile_torch_port.json``
+(``profile_torch_port_<config name>.json`` for another config).
 """
 
 import argparse
@@ -40,6 +44,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+FLAGSHIP = os.path.join(ROOT, 'configs/dynamask/coco/r50_dynamask_1x.py')
 STAGES = ('backbone', 'fpn', 'rpn_and_proposals', 'box_head_and_nms',
           'mask_branch', 'paste')
 TRAIN_STAGES = ('forward_train', 'backbone', 'fpn', 'rpn_loss', 'proposals',
@@ -119,19 +124,22 @@ def _summary(mode, prof, card, unit):
               f'  {r["name"][:100]}')
 
 
-def _inference(config, card, iters):
+def _inference(config, card, iters, hw, batch_size):
     import torch
     from dynamask_torch.apis import inference_detector, init_detector
     model = init_detector(config, seed=0, init_std=0.05)
     gen = torch.Generator(device='cuda').manual_seed(0)
-    h, w = 800, 1344
+    h, w = hw
     batch = {'image': torch.randn(1, h, w, 3, generator=gen, device='cuda'),
              'img_shape': torch.tensor([[h, w]], dtype=torch.float32,
                                        device='cuda'),
              'scale_factor': torch.ones(1, 4, device='cuda')}
     modes = {}
-    for mode, dynamic in (('faithful', False), ('dynamic', True)):
-        model.roi_head.dynamic_inference = dynamic
+    dynamask = hasattr(model.roi_head, 'dynamic_inference')
+    for mode, dynamic in ((('faithful', False), ('dynamic', True))
+                          if dynamask else (('fcn', None),)):
+        if dynamask:
+            model.roi_head.dynamic_inference = dynamic
         for _ in range(2):
             inference_detector(model, batch)
         modes[mode] = _profile(lambda: inference_detector(model, batch),
@@ -140,13 +148,14 @@ def _inference(config, card, iters):
     return modes
 
 
-def _train(config, card, iters):
+def _train(config, card, iters, hw, batch_size):
     import torch
     from dynamask_torch.apis import init_trainer, synthetic_batch
     from dynamask_torch.engine import make_train_step
     # an epoch of COCO train2017 (117266 annotated images) at 4 per step
     model, opt = init_trainer(config, steps_per_epoch=117266 // 4, seed=0)
-    batch = synthetic_batch(0, b=4, h=800, w=1344, num_gts=20,
+    h, w = hw
+    batch = synthetic_batch(0, b=batch_size, h=h, w=w, num_gts=20,
                             crop_size=128,
                             num_classes=model.roi_head.num_classes,
                             device='cuda')
@@ -170,6 +179,8 @@ def main():
     ap.add_argument('--iters', type=int, default=5)
     ap.add_argument('--train', action='store_true',
                     help='profile training steps instead of inference')
+    ap.add_argument('--config', default=FLAGSHIP,
+                    help='the config file (default: the flagship)')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -179,12 +190,20 @@ def main():
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
-    config = os.path.join(ROOT, 'configs/dynamask/coco/r50_dynamask_1x.py')
-    run = _train if args.train else _inference
-    report = {'card': card, 'modes': run(config, card, args.iters)}
+    from dynamask_torch.apis import config_shapes
+    test_hw, images, train_hw = config_shapes(args.config)
+    run, hw, batch = ((_train, train_hw, images) if args.train
+                      else (_inference, test_hw, 1))
+    print(f'{os.path.relpath(args.config, ROOT)}, canvas {hw[0]}x{hw[1]}, '
+          f'batch {batch}')
+    report = {'card': card, 'config': args.config, 'canvas': hw,
+              'batch': batch,
+              'modes': run(args.config, card, args.iters, hw, batch)}
+    name = os.path.splitext(os.path.basename(args.config))[0]
+    suffix = '' if os.path.abspath(args.config) == FLAGSHIP else f'_{name}'
     os.makedirs(os.path.join(ROOT, 'chiprun_out'), exist_ok=True)
-    with open(os.path.join(ROOT, 'chiprun_out', 'profile_torch_port.json'),
-              'w') as f:
+    with open(os.path.join(ROOT, 'chiprun_out',
+                           f'profile_torch_port{suffix}.json'), 'w') as f:
         json.dump(report, f, indent=1)
 
 
