@@ -12,10 +12,14 @@ before the last line is printed:
    (``roi_align_bwd``, K2's backward) and K5 (``deform_conv_fused``, the
    whole windowed-DCN forward behind the entry points
    ``deform_conv2d_windowed_fused`` and ``deform_conv2d_frame``) from
-   ``dynamask_torch/ops/csrc`` (one ``nvcc`` per source, started together);
+   ``dynamask_torch/ops/csrc`` (one ``nvcc`` per source, started together;
+   each of K1-K4 with an fp32 and a bf16 instance);
 2. hold each kernel against its plain PyTorch version at the shapes the
    flagship's inference and training paths give it, and time both with CUDA
-   events; K5 at the SFM shapes in fp32 (n = 100 and 512) and bf16
+   events; the bf16 instances of K1-K4 (``<name>_bf16``) at the flagship's
+   inference (n = 100) and training (n = 512) shapes on bf16 inputs, K1
+   and K2 within one bf16 ulp of max|ref|, K3 within the fp32 rule plus
+   that ulp, K4 (an fp32 sum) within the fp32 rule; K5 at the SFM shapes in fp32 (n = 100 and 512) and bf16
    (n = 100), through each entry point with its rounding rule, timed beside
    the port's own form of the same function (K1 + ``torch.matmul``); K2
    and K4 also at the training crops with RoIs clustered as the training
@@ -30,8 +34,10 @@ before the last line is printed:
    4, padding and dilation 2, windows 1 and 2, one RoI, a misaligned base)
    with random, zero and exact-edge offsets, K2 and K4 at theirs (C not a
    multiple of 4, one bin, three samples a bin, one RoI, a 1x1 plane, a
-   misaligned base) with zero-area, off-plane and exact-edge RoIs, and K5
-   at its own edge shapes, untimed;
+   misaligned base) with zero-area, off-plane and exact-edge RoIs, each of
+   K1-K4 in fp32 and in bf16 (the bf16 scalar instances among them), and
+   K5 at its own edge shapes, untimed; and CUDA tensors of a type no
+   instance takes (fp16, or bf16 beside fp32) must be refused unlaunched;
 3. check the port end to end on a small input: a toy DynaMask model and a
    toy Mask R-CNN (ResNet-18, 32-channel FPN, the FCN mask head) on the GPU
    (kernels) against the same models on the CPU (plain versions), at
@@ -110,13 +116,28 @@ before the last line is printed:
    2048x1024) through ``run_test`` and ``dataset.evaluate``; the GTs given
    as predictions must score exactly 1.0 (LVIS: in every band), and the
    Cityscapes results go through ``results2txt``. It prints the phase's
-   seconds and the whole run's.
+   seconds;
+9. drive the flagship under the mixed-precision policy
+   (``dynamask_torch/core/fp16.py``): inference through
+   ``apis.make_test_fn`` in fp32 and with ``bf16=True`` (a bf16 copy of
+   the model on a bf16 image, box and score decode in fp32), both modes,
+   at 800x1344, in turns (median of 5 after a warm-up, peak memory); then
+   phase 5's trainer, batch and draws through ``train_steps`` with
+   ``compute_dtype=torch.bfloat16``: step 0's loss finite and within 5% of
+   phase 5's fp32 step 0, parameters and gradients fp32 after it, and 3
+   timed steps beside phase 5's ms/step and peak memory. Each drive must
+   launch its precision's instance of every kernel of its path exactly as
+   often as ``INFER_COUNTS`` / ``STEP_COUNTS`` say (an image: K1 3, K2 5
+   faithful and 6 dynamic; a step: K1 6, K2 6, K3 3, K4 6) and no instance
+   of the other precision. It prints the phase's seconds and the whole
+   run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
 validations and the overfit loop, and in phase 8 each configuration's
-inference modes, its training and the two evaluation paths) the kernels'
-launch counters are zeroed just before it and read just after (the loop's
+inference modes, its training and the two evaluation paths, and in phase 9
+the fp32 and bf16 drives) the kernels' launch counters are zeroed just before it
+and read just after (the loop's
 steps and its validations in turns), and every kernel of that path must
 have launched in it: K1 and K2 at inference, in the eval loops and in the
 loop's validations, K5 through both entry points in its check, K1-K4 in
@@ -130,6 +151,7 @@ line. Details go to ``chiprun_out/chip_smoke.json``.
 
 import contextlib
 import functools
+import itertools
 import json
 import logging
 import math
@@ -181,6 +203,14 @@ INFER_KERNELS = ('deform_im2col_windowed', 'roi_align_fwd')
 K5_KERNELS = ('deform_conv2d_windowed_fused', 'deform_conv2d_frame')
 TRAIN_KERNELS = ('deform_im2col_windowed', 'roi_align_fwd',
                  'deform_col2im_windowed', 'roi_align_bwd')
+# the flagship's launches of one image in each mode (the MSM's RoIAlign is
+# the dynamic mode's sixth K2) and of one training step
+INFER_COUNTS = {'faithful': {'deform_im2col_windowed': 3, 'roi_align_fwd': 5},
+                'dynamic': {'deform_im2col_windowed': 3, 'roi_align_fwd': 6}}
+STEP_COUNTS = {'deform_im2col_windowed': 6, 'roi_align_fwd': 6,
+               'deform_col2im_windowed': 3, 'roi_align_bwd': 6}
+BF16_LOSS_RTOL = 0.05   # the JAX package's own bf16 rule
+                        # (tests/test_bf16_train.py)
 
 
 def card_line() -> str:
@@ -342,6 +372,45 @@ def clustered_place(gen, dev, images, n_pos):
     return place
 
 
+def k1_bf16_cases(gen, dev):
+    """K1's bf16 instance at the flagship's inference (n = 100) and
+    training (n = 512) shapes: K1's cases with x and the offsets in bf16."""
+    for case, (x, off), kw in k1_cases(gen, dev):
+        if case.startswith(('infer', 'train')):
+            yield case, (x.bfloat16(), off.bfloat16()), kw
+        del x, off
+
+
+def k3_bf16_cases(gen, dev):
+    """K3's bf16 instance at the flagship's training shapes: K3's cases
+    with x, the offsets and the column gradient in bf16."""
+    for case, args, kw in k3_cases(gen, dev):
+        if case.startswith('train'):
+            yield case, tuple(a.bfloat16() for a in args), kw
+        del args
+
+
+def k2_bf16_cases(gen, dev):
+    """K2's bf16 instance at the flagship's inference and training crops:
+    K2's with the flat features in bf16 (RoIs, scales and plane indices as
+    they are)."""
+    for path, images, n_box, n_mask in (('infer', 1, 1000, N_DETS),
+                                        ('train', TRAIN_IMAGES, N_BOX_TRAIN,
+                                         N_POS_TRAIN)):
+        for case, args, kw in _crops(gen, dev, images, n_box, n_mask):
+            yield f'{path} {case}', (args[0].bfloat16(), *args[1:]), kw
+            del args
+
+
+def k4_bf16_cases(gen, dev):
+    """K4's bf16 instance at the flagship's training crops: K4's with the
+    crop gradient in bf16; the result is its fp32 sum."""
+    for case, args, kw in k4_cases(gen, dev):
+        if case.startswith('train '):
+            yield case, (args[0].bfloat16(), *args[1:]), kw
+        del args
+
+
 def k5_cases(gen, dev):
     """K5 at the three SFM stages (C_out = C, HWIO weights N(0, 1/(9C))),
     offsets as K1's: fp32 at n = 100 and 512, bf16 at n = 100."""
@@ -369,6 +438,27 @@ def abs_limit(tol):
 def rel_limit(tol):
     """A tolerance relative to the largest reference value."""
     return lambda scale, got: (tol * scale, f'{tol} x max|ref| {scale:.3e}')
+
+
+def bf16_ulp(scale):
+    """One bf16 ulp (8 significant bits) of a magnitude ``scale``."""
+    return 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 0.0
+
+
+def bf16_limit(scale, got):
+    """K1 and K2 in bf16: both sides round the same fp32 value (but for
+    fma contraction), which may straddle a rounding boundary: one bf16 ulp
+    of max|ref|."""
+    return bf16_ulp(scale), 'one bf16 ulp of max|ref|'
+
+
+def rounded_rel_limit(tol):
+    """K3 in bf16: the fp32 rule on the two fp32 sums, plus the one bf16
+    ulp of max|ref| that rounding them can put between two sums that
+    straddle a rounding boundary."""
+    return lambda scale, got: (tol * scale + bf16_ulp(scale),
+                               f'{tol} x max|ref| {scale:.3e} + one bf16 '
+                               f'ulp of it')
 
 
 def k5_limit(scale, got):
@@ -599,6 +689,7 @@ def _compare(got, ref):
 
 
 def kernel_specs():
+    import dynamask_torch.ops as ops
     from dynamask_torch.ops import (deform_conv as dc, deform_conv_fused as
                                     dcf, roi_align as ra)
     no_lib = ('no PyTorch call computes this function (no DCN or RoIAlign '
@@ -643,7 +734,34 @@ def kernel_specs():
              plain=functools.partial(dcf.deform_conv2d_fused_plain,
                                      round_to_input=True),
              bound=functools.partial(k5_bound, round_to_input=True),
-             replaces='dynamask_tpu/ops/deform_conv_pallas.py:177', **k5))
+             replaces='dynamask_tpu/ops/deform_conv_pallas.py:177', **k5),
+        # the bf16 instances of K1-K4 (the mixed-precision paths, phase 9)
+        dict(name='deform_im2col_windowed' + ops.BF16,
+             kernel=dc.deform_im2col_windowed,
+             plain=dc.deform_im2col_windowed_plain, cases=k1_bf16_cases,
+             bound=k1_bound, limit=bf16_limit,
+             source='dynamask_torch/ops/csrc/deform_im2col.cu',
+             replaces='dynamask_tpu/ops/deform_conv_pallas.py:318',
+             library_null=no_lib),
+        dict(name='roi_align_fwd' + ops.BF16, kernel=ra.roi_align_fwd,
+             plain=ra.roi_align_fwd_plain, cases=k2_bf16_cases,
+             bound=k2_bound, limit=bf16_limit,
+             source='dynamask_torch/ops/csrc/roi_align.cu',
+             replaces='dynamask_tpu/ops/roi_align_pallas.py:45',
+             library_null=no_lib),
+        dict(name='deform_col2im_windowed' + ops.BF16,
+             kernel=dc.deform_col2im_windowed,
+             plain=dc.deform_col2im_windowed_plain, cases=k3_bf16_cases,
+             bound=k3_bound, limit=rounded_rel_limit(K3_RTOL),
+             source='dynamask_torch/ops/csrc/deform_col2im.cu',
+             replaces='dynamask_tpu/ops/deform_conv_pallas.py:535',
+             library_null='no PyTorch call computes the DCN backward'),
+        dict(name='roi_align_bwd' + ops.BF16, kernel=ra.roi_align_bwd,
+             plain=ra.roi_align_bwd_plain, cases=k4_bf16_cases,
+             bound=k4_bound, limit=rel_limit(K4_RTOL),
+             source='dynamask_torch/ops/csrc/roi_align_bwd.cu',
+             replaces='dynamask_tpu/ops/roi_align.py:46',
+             library_null='no PyTorch call computes the RoIAlign backward'))
 
 
 # K5 off the SFM shapes, as the entry points' contract allows: ragged pixel,
@@ -733,49 +851,57 @@ def dcn_edge_offsets(gen, kind, n, s, g, window):
 
 def check_dcn_edges(report):
     """Phase 2, K1 and K3 at the edge shapes with three kinds of offsets,
-    against their plain versions (untimed). K3's offset gradient must be
-    exactly 0 wherever the plain version's is (the tent and clip rules)."""
+    in fp32 and in bf16, against their plain versions (untimed). K3's
+    offset gradient must be exactly 0 wherever the plain version's is (the
+    tent and clip rules)."""
     import torch
+    import dynamask_torch.ops as ops
     from dynamask_torch.ops import deform_conv as dc
     gen = torch.Generator(device=DEVICE).manual_seed(2)
-    worst = {'deform_im2col_windowed': 0.0, 'deform_col2im_windowed': 0.0}
-    for n, s, c, g, pad, dil, win, misaligned in DCN_EDGE_SHAPES:
-        for kind in ('random', 'zero', 'exact'):
-            x = torch.randn(n * s * s * c + misaligned, generator=gen,
-                            device=DEVICE)[int(misaligned):].view(n, s, s, c)
-            off = dcn_edge_offsets(gen, kind, n, s, g, win)
-            kw = dict(kernel_size=3, padding=pad, dilation=dil,
-                      deform_groups=g, window=win)
-            d_col = torch.randn(n, s, s, g, 9, c // g, generator=gen,
-                                device=DEVICE)
-            where = (f'n {n}, S {s}, C {c}, g {g}, pad {pad}, dil {dil}, '
-                     f'window {win}, {kind} offsets'
-                     f'{", misaligned x" if misaligned else ""}')
-            for name, args, limit in (
-                    ('deform_im2col_windowed', (x, off), abs_limit(K1_TOL)),
-                    ('deform_col2im_windowed', (x, off, d_col),
-                     rel_limit(K3_RTOL))):
-                kernel = getattr(dc, name)
-                launches = kernel.launches
-                got = kernel(*args, **kw)
-                torch.cuda.synchronize(DEVICE)
-                if kernel.launches != launches + 1:
-                    raise RuntimeError(f'{name} did not launch its kernel')
-                ref = getattr(dc, name + '_plain')(*args, **kw)
-                err, scale, finite = _compare(got, ref)
-                lim, tol = limit(scale, got)
-                worst[name] = max(worst[name], err / lim)
-                if not (err <= lim and finite):
-                    raise RuntimeError(
-                        f'{name} disagrees with its plain version at '
-                        f'{where}: max abs err {err} (limit {lim}, {tol})')
-                if name == 'deform_col2im_windowed' and (
-                        got[1][ref[1] == 0] != 0).any():
-                    raise RuntimeError(
-                        f'{name} gives an offset gradient where the plain '
-                        f'version gives exactly 0, at {where}')
+    worst = {}
+    for (n, s, c, g, pad, dil, win, misaligned), dtype, kind in \
+            itertools.product(DCN_EDGE_SHAPES,
+                              (torch.float32, torch.bfloat16),
+                              ('random', 'zero', 'exact')):
+        bf16 = dtype == torch.bfloat16
+        x = torch.randn(n * s * s * c + misaligned, generator=gen,
+                        device=DEVICE).to(dtype)[int(misaligned):].view(
+                            n, s, s, c)
+        off = dcn_edge_offsets(gen, kind, n, s, g, win).to(dtype)
+        kw = dict(kernel_size=3, padding=pad, dilation=dil,
+                  deform_groups=g, window=win)
+        d_col = torch.randn(n, s, s, g, 9, c // g, generator=gen,
+                            device=DEVICE).to(dtype)
+        where = (f'n {n}, S {s}, C {c}, g {g}, pad {pad}, dil {dil}, '
+                 f'window {win}, {kind} offsets, {dtype}'
+                 f'{", misaligned x" if misaligned else ""}')
+        for name, args, limit in (
+                ('deform_im2col_windowed', (x, off),
+                 bf16_limit if bf16 else abs_limit(K1_TOL)),
+                ('deform_col2im_windowed', (x, off, d_col),
+                 (rounded_rel_limit if bf16 else rel_limit)(K3_RTOL))):
+            kernel = getattr(dc, name)
+            key = name + (ops.BF16 if bf16 else '')
+            launches = ops.kernel_launches()[key]
+            got = kernel(*args, **kw)
+            torch.cuda.synchronize(DEVICE)
+            if ops.kernel_launches()[key] != launches + 1:
+                raise RuntimeError(f'{key} did not launch its kernel')
+            ref = getattr(dc, name + '_plain')(*args, **kw)
+            err, scale, finite = _compare(got, ref)
+            lim, tol = limit(scale, got)
+            worst[key] = max(worst.get(key, 0.0), err / lim)
+            if not (err <= lim and finite):
+                raise RuntimeError(
+                    f'{key} disagrees with its plain version at '
+                    f'{where}: max abs err {err} (limit {lim}, {tol})')
+            if name == 'deform_col2im_windowed' and (
+                    got[1][ref[1] == 0] != 0).any():
+                raise RuntimeError(
+                    f'{key} gives an offset gradient where the plain '
+                    f'version gives exactly 0, at {where}')
     print(f'  K1 and K3 at {len(DCN_EDGE_SHAPES)} edge shapes x 3 offset '
-          f'kinds: largest error over its tolerance {worst}')
+          f'kinds, fp32 and bf16: largest error over its tolerance {worst}')
     report['dcn_edges'] = worst
 
 
@@ -823,55 +949,106 @@ def roi_edge_rois(gen, n, p, s, h, w):
 
 
 def check_roi_edges(report):
-    """Phase 2, K2 and K4 at the edge shapes against their plain versions
-    (untimed). Where the plain crop is exactly 0 (every sample outside) K2's
-    must be too: the kernels make the same inside and outside decisions."""
+    """Phase 2, K2 and K4 at the edge shapes, in fp32 and in bf16, against
+    their plain versions (untimed). Where the plain crop is exactly 0
+    (every sample outside) K2's must be too: the kernels make the same
+    inside and outside decisions."""
     import torch
+    import dynamask_torch.ops as ops
     from dynamask_torch.ops import roi_align as ra
     gen = torch.Generator(device=DEVICE).manual_seed(5)
-    worst = {'roi_align_fwd': 0.0, 'roi_align_bwd': 0.0}
-    for n, p, s, c, h, w, misaligned in ROI_EDGE_SHAPES:
+    worst = {}
+    for (n, p, s, c, h, w, misaligned), dtype in itertools.product(
+            ROI_EDGE_SHAPES, (torch.float32, torch.bfloat16)):
+        bf16 = dtype == torch.bfloat16
         images = 2
         rows = images * h * w
         flat = torch.randn(rows * c + misaligned, generator=gen,
-                           device=DEVICE)[int(misaligned):].view(rows, c)
+                           device=DEVICE).to(dtype)[int(misaligned):].view(
+                               rows, c)
         rois = roi_edge_rois(gen, n, p, s, h, w)
         crop = (rois, (torch.arange(n, device=DEVICE) % images) * (h * w),
                 torch.full((n,), h, dtype=torch.int32, device=DEVICE),
                 torch.full((n,), w, dtype=torch.int32, device=DEVICE),
                 torch.ones(n, device=DEVICE))
         d_out = torch.randn(n * p * p * c + misaligned, generator=gen,
-                            device=DEVICE)[int(misaligned):].view(n, p, p, c)
-        where = (f'n {n}, P {p}, s {s}, C {c}, plane {h}x{w}'
+                            device=DEVICE).to(dtype)[int(misaligned):].view(
+                                n, p, p, c)
+        where = (f'n {n}, P {p}, s {s}, C {c}, plane {h}x{w}, {dtype}'
                  f'{", misaligned" if misaligned else ""}')
         for name, args, limit in (
-                ('roi_align_fwd', (flat, *crop), abs_limit(K2_TOL)),
+                ('roi_align_fwd', (flat, *crop),
+                 bf16_limit if bf16 else abs_limit(K2_TOL)),
                 ('roi_align_bwd', (d_out, rows, *crop), rel_limit(K4_RTOL))):
             kernel = getattr(ra, name)
-            launches = kernel.launches
+            key = name + (ops.BF16 if bf16 else '')
+            launches = ops.kernel_launches()[key]
             got = kernel(*args, p, s)
             torch.cuda.synchronize(DEVICE)
-            if kernel.launches != launches + 1:
-                raise RuntimeError(f'{name} did not launch its kernel')
+            if ops.kernel_launches()[key] != launches + 1:
+                raise RuntimeError(f'{key} did not launch its kernel')
             ref = getattr(ra, name + '_plain')(*args, p, s)
             err, scale, finite = _compare(got, ref)
             lim, tol = limit(scale, got)
-            worst[name] = max(worst[name], err / lim)
+            worst[key] = max(worst.get(key, 0.0), err / lim)
             if not (err <= lim and finite):
-                raise RuntimeError(f'{name} disagrees with its plain version '
+                raise RuntimeError(f'{key} disagrees with its plain version '
                                    f'at {where}: max abs err {err} (limit '
                                    f'{lim}, {tol})')
             if name == 'roi_align_fwd' and (got[ref == 0] != 0).any():
-                raise RuntimeError(f'{name} samples where its plain version '
+                raise RuntimeError(f'{key} samples where its plain version '
                                    f'has no inside sample, at {where}')
-    print(f'  K2 and K4 at {len(ROI_EDGE_SHAPES)} edge shapes: largest error '
-          f'over its tolerance {worst}')
+    print(f'  K2 and K4 at {len(ROI_EDGE_SHAPES)} edge shapes, fp32 and '
+          f'bf16: largest error over its tolerance {worst}')
     report['roi_edges'] = worst
+
+
+def check_refusals(report):
+    """Phase 2: a CUDA tensor of a type no instance takes (fp16), or a bf16
+    tensor beside an fp32 one, is refused with an error and launches
+    nothing: no wrapper casts it or falls back to its plain version."""
+    import torch
+    from dynamask_torch.ops import deform_conv as dc, kernel_launches
+    from dynamask_torch.ops import roi_align as ra
+    x = torch.zeros(2, 8, 8, 16, device=DEVICE)
+    off = torch.zeros(2, 8, 8, 36, device=DEVICE)
+    d_col = torch.zeros(2, 8, 8, 2, 9, 8, device=DEVICE)
+    n, dcn = 2, (3, 1, 1, 2, 3)
+    crop = (torch.zeros(n, 4, device=DEVICE),
+            torch.zeros(n, dtype=torch.int64, device=DEVICE),
+            torch.full((n,), 8, dtype=torch.int32, device=DEVICE),
+            torch.full((n,), 8, dtype=torch.int32, device=DEVICE),
+            torch.ones(n, device=DEVICE))
+    flat, d_out = (torch.zeros(64, 16, device=DEVICE),
+                   torch.zeros(n, 7, 7, 16, device=DEVICE))
+    cases = (
+        ('K1 fp16', lambda: dc.deform_im2col_windowed(x.half(), off.half(),
+                                                      *dcn)),
+        ('K1 bf16 x, fp32 offsets', lambda: dc.deform_im2col_windowed(
+            x.bfloat16(), off, *dcn)),
+        ('K3 bf16 x, fp32 d_col', lambda: dc.deform_col2im_windowed(
+            x.bfloat16(), off.bfloat16(), d_col, *dcn)),
+        ('K2 fp16', lambda: ra.roi_align_fwd(flat.half(), *crop, 7, 2)),
+        ('K4 fp16', lambda: ra.roi_align_bwd(d_out.half(), 64, *crop, 7, 2)))
+    before = kernel_launches()
+    for name, call in cases:
+        try:
+            call()
+        except (TypeError, ValueError):
+            continue
+        raise RuntimeError(f'{name}: accepted, not refused')
+    torch.cuda.synchronize(DEVICE)
+    if kernel_launches() != before:
+        raise RuntimeError('a refused call launched a kernel')
+    print(f'  {len(cases)} calls of unsupported types refused, none '
+          f'launched: {", ".join(c for c, _ in cases)}')
+    report['refused'] = [c for c, _ in cases]
 
 
 def check_kernels(report):
     """Phase 2: each kernel against its plain version, timed."""
     import torch
+    from dynamask_torch.ops import kernel_launches
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = []
     for spec in kernel_specs():
@@ -879,10 +1056,10 @@ def check_kernels(report):
         agg = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, yardstick_ms=0.0,
                    bound_ms={'bytes': 0.0, 'operations': 0.0})
         for case, args, kw in spec['cases'](gen, DEVICE):
-            launches = kernel.launches
+            launches = kernel_launches()[name]
             got = kernel(*args, **kw)
             torch.cuda.synchronize(DEVICE)
-            if kernel.launches != launches + 1:
+            if kernel_launches()[name] != launches + 1:
                 raise RuntimeError(f'{name} did not launch its kernel')
             ref = plain(*args, **kw)
             err, scale, finite = _compare(got, ref)
@@ -1773,7 +1950,7 @@ def run_train_loop(report, card, phase5_ms):
     records = LoopRecords()
     logger = logging.getLogger('dynamask_torch')
     logger.addHandler(records)
-    counts = {p: dict.fromkeys(ops.KERNELS, 0)
+    counts = {p: dict.fromkeys(ops.kernel_launches(), 0)
               for p in ('train_loop', 'val_loop')}
     torch.cuda.synchronize(DEVICE)
     torch.cuda.reset_peak_memory_stats(DEVICE)
@@ -2319,6 +2496,168 @@ def run_configs(report, card):
     return launches
 
 
+# -- phase 9: the flagship in bf16 ---------------------------------------------
+
+def check_precision_launches(path, launches, counts, prec, times=1):
+    """Each kernel of ``counts`` launched ``times`` x its count in its
+    ``prec`` instance ('fp32' or 'bf16'), and no instance of the other
+    type: no wrapper of the path fell back to or leaked into the other."""
+    print(f'  {path}: kernel launches: {launches}')
+    own = '_bf16' if prec == 'bf16' else ''
+    other = '' if prec == 'bf16' else '_bf16'
+    for name, n in counts.items():
+        if launches[name + own] != n * times:
+            raise RuntimeError(f'{name + own} launched '
+                               f'{launches[name + own]} times on the {path} '
+                               f'path, not {n * times}')
+        if launches[name + other]:
+            raise RuntimeError(f'{name + other} launched on the {path} '
+                               f'path: {launches[name + other]}')
+
+
+def run_bf16_paths(report, card):
+    """Phase 9: the flagship at full width under the mixed-precision
+    policy. Inference through ``apis.make_test_fn`` (``simple_test`` + the
+    paste, 800x1344, batch 1) in fp32 and in bf16 (a bf16 copy of the
+    model, a bf16 image), both modes, in turns: warm-up, then 5 drives of
+    each, median ms/img and peak memory; then ``train_steps`` with
+    ``compute_dtype=torch.bfloat16`` on phase 5's trainer, batch and draws
+    (seed 0): step 0's loss must be finite and within BF16_LOSS_RTOL of
+    phase 5's fp32 step 0, the masters fp32 after it; then 3 timed steps.
+    Counters are zeroed just before each precision's first drive of a mode
+    and before the steps, and read just after: each kernel's instance of
+    that precision must launch as often as INFER_COUNTS / STEP_COUNTS say,
+    the other precision's instance never."""
+    import torch
+    import dynamask_torch.ops as ops
+    from dynamask_torch.apis import (init_detector, init_trainer,
+                                     make_test_fn, synthetic_batch,
+                                     train_steps)
+    t0 = time.perf_counter()
+    model = init_detector(FLAGSHIP, device=DEVICE, seed=0, init_std=0.05)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    h, w = IMAGE_HW
+    batch = {'image': torch.randn(1, h, w, 3, generator=gen, device=DEVICE),
+             'img_shape': torch.tensor([[h, w]], dtype=torch.float32,
+                                       device=DEVICE),
+             'scale_factor': torch.ones(1, 4, device=DEVICE)}
+    launches, recs = {}, []
+    for mode, dyn in (('faithful', False), ('dynamic', True)):
+        # the fp32 fn runs ``model`` itself and the bf16 fn a copy made
+        # here: both drive ``mode`` for as long as the flag stays set
+        model.roi_head.dynamic_inference = dyn
+        t = time.perf_counter()
+        by_prec = {p: make_test_fn(model, IMAGE_HW, bf16=p == 'bf16')
+                   for p in ('fp32', 'bf16')}
+        print(f'  {mode}: the fns (and the bf16 copy) built in '
+              f'{time.perf_counter() - t:.1f} s')
+        outs, times, peaks = {}, {p: [] for p in by_prec}, {}
+        for prec, fn in by_prec.items():
+            torch.cuda.synchronize(DEVICE)
+            torch.cuda.reset_peak_memory_stats(DEVICE)
+            ops.reset_kernel_launches()
+            outs[prec] = fn(batch)
+            torch.cuda.synchronize(DEVICE)
+            peaks[prec] = torch.cuda.max_memory_allocated(DEVICE)
+            key = f'{prec}_{mode}'
+            launches[key] = ops.kernel_launches()
+            check_precision_launches(key, launches[key], INFER_COUNTS[mode],
+                                     prec)
+            if ('msm_routing' in outs[prec]) != dyn:
+                raise RuntimeError(f'{key}: the routing statistics '
+                                   f'{"missing" if dyn else "present"}')
+        for _ in range(5):
+            for prec, fn in by_prec.items():
+                t = time.perf_counter()
+                fn(batch)
+                torch.cuda.synchronize(DEVICE)
+                times[prec].append(1e3 * (time.perf_counter() - t))
+        rec = dict(mode=mode)
+        for prec, out in outs.items():
+            d = model.roi_head.max_per_img
+            for k, shape in (('dets', (1, d, 5)), ('masks', (1, d, h, w))):
+                if tuple(out[k].shape) != shape:
+                    raise RuntimeError(f'{prec} {mode}: {k} shape '
+                                       f'{tuple(out[k].shape)} != {shape}')
+            if out['dets'].dtype != torch.float32 or not torch.isfinite(
+                    out['dets']).all():
+                raise RuntimeError(f'{prec} {mode}: dets not finite fp32')
+            ms = statistics.median(times[prec])
+            n_valid = int(out['valid'].sum())
+            rec[prec] = dict(ms_per_img=ms, times_ms=times[prec],
+                             peak_memory_bytes=peaks[prec],
+                             valid_dets=n_valid)
+        print(f'  {mode}: bf16 {rec["bf16"]["ms_per_img"]:.1f} ms/img, fp32 '
+              f'{rec["fp32"]["ms_per_img"]:.1f} (medians of 5, in turns, '
+              f'after 1 warm-up each) [{card}]; peak memory bf16 '
+              f'{peaks["bf16"] / 2 ** 30:.2f} GiB, fp32 '
+              f'{peaks["fp32"] / 2 ** 30:.2f}; valid dets '
+              f'{rec["bf16"]["valid_dets"]} / {rec["fp32"]["valid_dets"]}; '
+              f'launches K1, K2 bf16 '
+              f'{launches[f"bf16_{mode}"]["deform_im2col_windowed_bf16"]}, '
+              f'{launches[f"bf16_{mode}"]["roi_align_fwd_bf16"]}, fp32 '
+              f'{launches[f"fp32_{mode}"]["deform_im2col_windowed"]}, '
+              f'{launches[f"fp32_{mode}"]["roi_align_fwd"]}')
+        recs.append(rec)
+    del model, by_prec, outs
+
+    model, opt = init_trainer(FLAGSHIP, steps_per_epoch=COCO_STEPS_PER_EPOCH,
+                              device=DEVICE, seed=0)
+    tbatch = synthetic_batch(0, b=TRAIN_IMAGES, h=h, w=w, num_gts=TRAIN_GTS,
+                             crop_size=128,
+                             num_classes=model.roi_head.num_classes,
+                             device='cpu')
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    torch.cuda.synchronize(DEVICE)
+    torch.cuda.reset_peak_memory_stats(DEVICE)
+    ops.reset_kernel_launches()
+    logs, times = [], []
+    for i in range(1 + TIMED_STEPS):
+        t = time.perf_counter()
+        log, = train_steps(model, opt, [tbatch], generator=gen,
+                           compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize(DEVICE)
+        times.append(1e3 * (time.perf_counter() - t))
+        logs.append({k: float(v) for k, v in log.items()})
+        if not all(math.isfinite(v) for v in logs[-1].values()):
+            raise RuntimeError(f'bf16 step {i}: non-finite log {logs[-1]}')
+        if i == 0:
+            masters = [k for k, p in model.named_parameters()
+                       if p.dtype != torch.float32 or (
+                           p.grad is not None and
+                           p.grad.dtype != torch.float32)]
+            if masters:
+                raise RuntimeError(f'bf16 step: parameters or gradients not '
+                                   f'fp32: {masters[:5]}')
+        print(f'  bf16 step {i}{" (warm-up)" if i == 0 else ""}: '
+              f'{times[-1]:.1f} ms [{card}], ' + ', '.join(
+                  f'{k} {v:.5g}' for k, v in logs[-1].items()))
+    launches['bf16_train'] = ops.kernel_launches()
+    check_precision_launches('bf16_train', launches['bf16_train'],
+                             STEP_COUNTS, 'bf16', times=1 + TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated(DEVICE)
+    l16, l32 = logs[0]['loss'], report['train']['losses'][0]['loss']
+    rel = abs(l16 - l32) / max(abs(l32), 1e-6)
+    ms = statistics.median(times[1:])
+    fp32 = report['train']
+    print(f'  bf16 train: {ms:.1f} ms/step (median of {TIMED_STEPS}, after 1 '
+          f'warm-up), peak memory {peak / 2 ** 30:.2f} GiB; fp32 (phase 5) '
+          f'{fp32["ms_per_step"]:.1f} ms/step, '
+          f'{fp32["peak_memory_bytes"] / 2 ** 30:.2f} GiB [{card}]; step-0 '
+          f'loss bf16 {l16:.5g}, fp32 {l32:.5g} (rel {rel:.3e}, tol '
+          f'{BF16_LOSS_RTOL})')
+    if not rel <= BF16_LOSS_RTOL:
+        raise RuntimeError(f'bf16 step-0 loss {l16} not within '
+                           f'{BF16_LOSS_RTOL} of fp32\'s {l32}')
+    report['bf16'] = dict(inference=recs, train=dict(
+        ms_per_step=ms, times_ms=times, peak_memory_bytes=peak, losses=logs,
+        loss_rel_to_fp32=rel, fp32_ms_per_step=fp32['ms_per_step'],
+        fp32_peak_memory_bytes=fp32['peak_memory_bytes']),
+        launches=launches)
+    del model, opt
+    return launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -2353,6 +2692,7 @@ def main() -> int:
     rows = check_kernels(report)
     check_dcn_edges(report)
     check_roi_edges(report)
+    check_refusals(report)
     check_k5_edges(report)
     print('phase 3: toy model, GPU against CPU')
     check_toy_against_cpu(report)
@@ -2380,14 +2720,20 @@ def main() -> int:
     t8 = time.perf_counter()
     launches.update(run_configs(report, card))
     report['phase8_s'] = time.perf_counter() - t8
+    print(f'  phase 8: {report["phase8_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 9: the flagship in bf16 [{card}]')
+    t9 = time.perf_counter()
+    launches.update(run_bf16_paths(report, card))
+    report['phase9_s'] = time.perf_counter() - t9
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 8: {report["phase8_s"]:.1f} s; the whole run '
+    print(f'  phase 9: {report["phase9_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}
         row['launches'] = sum(by_path.values())
         row['launches_by_path'] = by_path
-    assert set(r['name'] for r in rows) == set(ops.KERNELS)
+    assert set(r['name'] for r in rows) == set(ops.kernel_launches())
     report['kernels'] = rows
     os.makedirs('chiprun_out', exist_ok=True)
     with open(os.path.join('chiprun_out', 'chip_smoke.json'), 'w') as f:

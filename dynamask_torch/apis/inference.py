@@ -13,7 +13,6 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.bbox_transforms import bbox2result
 from ..data.coco import dataset_spec
@@ -22,7 +21,7 @@ from ..data.transforms import Compose
 from ..engine.checkpoint import load_params_only
 from ..models.builder import build_detector
 from ..utils.config import Config
-from .test import TEST_KEYS, paste_epilogue
+from .test import TEST_KEYS, make_test_fn
 
 def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
                   device=None, seed: int = 0,
@@ -105,13 +104,10 @@ def inference_detector(model: torch.nn.Module,
     results = model.pipeline({'img': img, 'img_shape': img.shape,
                               'ori_shape': img.shape})
     sample = format_sample(results, model.canvases)
-    dev = model.device
-    batch = {k: torch.from_numpy(sample[k])[None].to(dev) for k in TEST_KEYS}
+    batch = {k: torch.from_numpy(sample[k])[None] for k in TEST_KEYS}
     ori_h, ori_w = img.shape[:2]
     ch, cw = -(-ori_h // 32) * 32, -(-ori_w // 32) * 32
-    with torch.no_grad():
-        out = paste_epilogue(model.simple_test(batch), ch, cw,
-                             _mask_thr(model))
+    out = make_test_fn(model, (ch, cw), _mask_thr(model))(batch)
     dets, labels, valid = (out[k][0].cpu().numpy()
                            for k in ('dets', 'labels', 'valid'))
     masks = out['masks'][0, :, :ori_h, :ori_w].cpu().numpy()
@@ -129,16 +125,8 @@ def _inference_batch(model: torch.nn.Module,
     """``simple_test`` + device-side paste on a preprocessed batch; masks
     land on the input canvas, thresholded at the config's
     ``mask_thr_binary`` (0.5 without a config)."""
-    dev = model.device
-    batch = {k: v.to(dev) for k, v in batch.items()}
     ch, cw = batch['image'].shape[1:3]
-    with torch.no_grad():
-        out = model.simple_test(batch)
-        with record_function('paste'):
-            result = paste_epilogue(out, ch, cw, _mask_thr(model))
-    if 'msm_routing' in out:
-        result['msm_routing'] = out['msm_routing']
-    return result
+    return make_test_fn(model, (ch, cw), _mask_thr(model))(batch)
 
 
 def show_result(img: np.ndarray, result: Tuple, classes: Sequence[str],

@@ -7,10 +7,12 @@ and RLE encoding and COCO matching stay on the host."""
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
+from ..core.fp16 import to_bf16
 from ..ops.paste import paste_masks
 
 # the batch keys simple_test reads
@@ -28,6 +30,39 @@ def paste_epilogue(out: Dict, ch: int, cw: int, mask_thr: float) -> Dict:
     masks = (pasted >= mask_thr).reshape(b, d, ch, cw)
     return {'dets': out['dets'], 'labels': out['labels'],
             'valid': out['det_valid'], 'masks': masks}
+
+
+def make_test_fn(model: torch.nn.Module, mask_canvas: Tuple[int, int],
+                 mask_thr: float = 0.5, bf16: bool = False) -> Callable:
+    """The full test step (port of ``make_test_fn``,
+    ``dynamask_tpu/apis/test.py:36-56``), the one every test and inference
+    entry point runs: ``simple_test`` + the paste on the model's device.
+    Returns ``fn(batch)`` -> dict of padded per-image results
+    (:func:`paste_epilogue`), the masks a bool (B, D, canvas_h, canvas_w)
+    tensor thresholded on the device, and in the MSM-routed mode the
+    routing statistics under ``msm_routing``.
+
+    With ``bf16=True`` a bf16 copy of the model (``core.fp16.to_bf16``:
+    parameters and BatchNorm statistics) computes on a bf16 image; the box
+    and score decode stay fp32 (the ``core/fp16.py`` policy). The model
+    given is left as it was."""
+    ch, cw = mask_canvas
+    net = to_bf16(model) if bf16 else model
+    dev = net.device
+
+    def fn(batch: Dict[str, torch.Tensor]) -> Dict:
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        if bf16:
+            batch['image'] = batch['image'].to(torch.bfloat16)
+        with torch.no_grad():
+            out = net.simple_test(batch)
+            with record_function('paste'):
+                result = paste_epilogue(out, ch, cw, mask_thr)
+        if 'msm_routing' in out:
+            result['msm_routing'] = out['msm_routing']
+        return result
+
+    return fn
 
 
 def dataset_mask_canvas(dataset, multiple: int = 32) -> Tuple[int, int]:
@@ -69,6 +104,7 @@ def single_device_test(model: torch.nn.Module, dataset,
                               workers_per_gpu=workers_per_gpu, shuffle=False,
                               drop_last=False)
     dev = model.device
+    step = make_test_fn(model, (ch, cw), mask_thr)
     clock = dict(startup=0.0, pipeline=0.0, device=0.0, fetch=0.0)
     results: List[Dict] = []
     seen = set()
@@ -81,10 +117,7 @@ def single_device_test(model: torch.nn.Module, dataset,
         if batch is None:
             break
         t = time.perf_counter()
-        with torch.no_grad():
-            out = paste_epilogue(
-                model.simple_test({k: batch[k].to(dev) for k in TEST_KEYS}),
-                ch, cw, mask_thr)
+        out = step({k: batch[k] for k in TEST_KEYS})
         if timings is not None and dev.type == 'cuda':
             torch.cuda.synchronize(dev)
         clock['device'] += time.perf_counter() - t

@@ -32,8 +32,6 @@ from ..utils.env import collect_env
 from .inference import init_detector
 from .test import single_device_test
 
-MIXED_PRECISION = ('mixed precision (a bf16 or fp16 config key) is not '
-                   'ported: ROADMAP.md queue 1, item 5')
 
 
 def init_trainer(config: Union[str, Config], *, steps_per_epoch: int,
@@ -55,11 +53,14 @@ def init_trainer(config: Union[str, Config], *, steps_per_epoch: int,
 
 def train_steps(model: torch.nn.Module, optimizer: DetectorSGD,
                 batches: Iterable[Dict[str, torch.Tensor]],
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                compute_dtype: Optional[torch.dtype] = None
                 ) -> List[Dict[str, torch.Tensor]]:
     """One optimizer step per batch; returns each step's log (losses,
-    ``loss``, ``grad_norm``). Random draws come from ``generator``."""
-    step = make_train_step(model, optimizer)
+    ``loss``, ``grad_norm``). Random draws come from ``generator``;
+    ``compute_dtype`` as :func:`engine.train.make_train_step` (bf16 compute
+    on fp32 master weights, or None for fp32)."""
+    step = make_train_step(model, optimizer, compute_dtype)
     dev = model.device
     return [step({k: v.to(dev) for k, v in b.items()}, generator=generator)
             for b in batches]
@@ -154,10 +155,14 @@ def train_detector(cfg: Config, work_dir: Optional[str] = None,
     False validation every ``evaluation.interval`` epochs (a failure is
     logged, as in the JAX loop). Text log ``{timestamp}.log`` and json rows
     ``{timestamp}.log.json`` in ``work_dir``; each epoch's timings go to the
-    logger as the record's ``epoch_timing``."""
-    if cfg.get('bf16') or cfg.get('fp16') is not None:
-        raise NotImplementedError(MIXED_PRECISION)
+    logger as the record's ``epoch_timing``. A ``bf16 = True`` or an
+    mmdet-style ``fp16 = dict(...)`` config key trains in bf16 on fp32
+    master weights (``dynamask_tpu/apis/train.py:175-177``; bf16 needs no
+    loss scale, so the fp16 options are not read); checkpoints and
+    validation stay fp32."""
     dev = resolve_device(device)
+    compute_dtype = (torch.bfloat16 if cfg.get('bf16') or
+                     cfg.get('fp16') is not None else None)
     work_dir = work_dir or cfg.get('work_dir') or './work_dirs/default'
     os.makedirs(work_dir, exist_ok=True)
     with _run_logs(work_dir) as (logger, json_log):
@@ -187,6 +192,8 @@ def train_detector(cfg: Config, work_dir: Optional[str] = None,
         logger.info(f'model built: '
                     f'{sum(p.numel() for p in model.parameters()) / 1e6:.2f}'
                     f'M params')
+        if compute_dtype is not None:
+            logger.info('mixed precision: bf16 compute, fp32 master weights')
         pretrained = (cfg.model or {}).get('pretrained')
         if pretrained and not (resume_from or load_from):
             apply_pretrained(model, pretrained, logger)
@@ -221,7 +228,8 @@ def train_detector(cfg: Config, work_dir: Optional[str] = None,
                 timing['data_s' if it else 'first_batch_s'] += \
                     time.perf_counter() - t
                 log, = train_steps(model, optimizer, [batch],
-                                   step_generator(seed, epoch, it, dev))
+                                   step_generator(seed, epoch, it, dev),
+                                   compute_dtype)
                 if (it + 1) % log_interval == 0 or it + 1 == steps_per_epoch:
                     log = {k: float(v) for k, v in log.items()}
                     step = optimizer.steps

@@ -90,10 +90,16 @@ def _interp_matrix(out_size: int, in_size: int,
 def interpolate_bilinear(x: torch.Tensor, out_h: int, out_w: int,
                          align_corners: bool = True) -> torch.Tensor:
     """Bilinear resize of ``(..., H, W)`` with ``F.interpolate`` semantics,
-    as two matmuls against constant interpolation matrices."""
+    as two matmuls against constant interpolation matrices. A bf16 ``x``
+    goes as in the JAX package: the matrices and the first product rounded
+    to bf16, each product summed in fp32, the result bf16."""
     h, w = x.shape[-2], x.shape[-1]
-    a = torch.tensor(_interp_matrix(out_h, h, align_corners), device=x.device)
+    dt = x.dtype if x.dtype == torch.bfloat16 else torch.float32
+    # bf16 operands are exact in fp32: their fp32 products are the bf16
+    # products summed in fp32
+    a = torch.tensor(_interp_matrix(out_h, h, align_corners),
+                     device=x.device).to(dt).float()
     bt = torch.tensor(_interp_matrix(out_w, w, align_corners),
-                      device=x.device).t()
-    y = torch.matmul(a, x.float())
+                      device=x.device).t().to(dt).float()
+    y = torch.matmul(a, x.float()).to(dt).float()
     return torch.matmul(y, bt).to(x.dtype)

@@ -31,7 +31,8 @@ import torch.nn.functional as F
 from ..ops.deform_conv import deform_conv2d_nhwc
 from ..ops.roi_align import simple_roi_align
 from ..utils.registry import HEADS
-from .layers import ConvModule, resize_bilinear_2x, to_nchw, to_nhwc
+from .layers import (BatchNorm2d, ConvModule, resize_bilinear_2x, to_nchw,
+                     to_nhwc)
 
 
 class DCNPack(nn.Module):
@@ -64,7 +65,9 @@ class ClassSelectConv1x1(nn.Module):
     Holds the weights of ``nn.Conv2d(C, num_classes, 1)`` (mmdet names and
     layout) and applies the selected class's row as one dot per pixel —
     the reference's ``conv(x)[arange(N), labels]`` without the all-class
-    map."""
+    map. The dot and the bias are summed in fp32 and the logit is cast back
+    to the input's type, as the JAX module does
+    (``dynamask_tpu/models/dynamask_head.py:148-152``)."""
 
     def __init__(self, in_channels: int, num_classes: int):
         super().__init__()
@@ -75,9 +78,10 @@ class ClassSelectConv1x1(nn.Module):
     def forward(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """(N, C, H, W), (N,) -> (N, 1, H, W)."""
         safe = labels.long().clamp(0, self.num_classes - 1)
-        w_sel = self.weight[safe, :, 0, 0]                   # (N, C)
-        out = torch.einsum('nchw,nc->nhw', x, w_sel)
-        return (out + self.bias[safe][:, None, None])[:, None]
+        w_sel = self.weight[safe, :, 0, 0].to(x.dtype)       # (N, C)
+        out = torch.einsum('nchw,nc->nhw', x.float(), w_sel.float())
+        out = out + self.bias[safe].float()[:, None, None]
+        return out.to(x.dtype)[:, None]
 
 
 class SFMStage(nn.Module):
@@ -217,17 +221,19 @@ class DynaMaskHead(nn.Module):
         return inst_preds, det_preds
 
 
-class BatchNorm2dBiasedVar(nn.BatchNorm2d):
+class BatchNorm2dBiasedVar(BatchNorm2d):
     """BatchNorm2d whose training mode updates the running variance with
     the biased batch variance, as the JAX package's flax BatchNorm does
     (torch's own update uses the unbiased one). Momentum 0.1 here is flax's
-    0.9."""
+    0.9. The batch statistics are taken in fp32 from any input type, as
+    flax's are."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       unbiased=False)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
@@ -280,7 +286,9 @@ def gumbel_softmax(logits: torch.Tensor, temperature: float = 0.5,
     if u is None:
         u = torch.rand(logits.shape, generator=generator,
                        device=logits.device)
-    u = u.to(logits.device, logits.dtype)
+    # the noise stays fp32 (jax.random.uniform's type) whatever the logits'
+    # type, so bf16 logits plus it are fp32, as in the JAX package
+    u = u.to(logits.device, torch.promote_types(logits.dtype, torch.float32))
     g = -torch.log((-torch.log(u.clamp(min=eps))).clamp(min=eps))
     y = F.softmax((logits + g) / temperature, dim=-1)
     if not hard:

@@ -7,8 +7,28 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..core.boundary import interpolate_bilinear
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that also normalises against running statistics
+    of another type than its scale and bias: the mixed-precision training
+    step's frozen BatchNorms, whose scale and bias are cast to bf16 while
+    the statistics stay fp32 (``core/fp16.py``). Torch's ``batch_norm``
+    takes parameters all in the input's type or all in fp32, so the scale
+    and bias go up to the statistics' type: the function flax's BatchNorm
+    computes, which normalises in fp32 with the bf16 scale and bias and
+    rounds once to the input's type."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b, mean = self.weight, self.bias, self.running_mean
+        if (self.training or mean is None or w is None or
+                w.dtype == mean.dtype):
+            return super().forward(x)
+        return F.batch_norm(x, mean, self.running_var, w.to(mean.dtype),
+                            b.to(mean.dtype), False, 0.0, self.eps)
 
 
 class ConvModule(nn.Module):

@@ -21,13 +21,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.registry import BACKBONES
+from .layers import BatchNorm2d
 
 
 def _bn(c: int, zero_init: bool = False) -> nn.BatchNorm2d:
     """``zero_init``: the block's last BN, whose scale starts at 0
     (``zero_init_residual``, the JAX package's and mmdet's default), so
-    that each residual block starts as the identity."""
-    bn = nn.BatchNorm2d(c, eps=1e-5)
+    that each residual block starts as the identity. A ``layers.BatchNorm2d``,
+    which takes fp32 statistics under a bf16 scale and bias."""
+    bn = BatchNorm2d(c, eps=1e-5)
     bn.zero_init = zero_init
     return bn
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` for Hopper (``sm_90a``) into a shared library under the
 checkout's ``build/`` directory and loaded with ``ctypes``. Libraries are
-named by a hash of their source and flags, so an edited source is rebuilt
-and a stale library is never loaded. :func:`build` starts one ``nvcc`` per
+named by a hash of their source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded. :func:`build` starts one ``nvcc`` per
 missing source, all at once, and waits for them together.
 """
 
@@ -47,8 +48,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(_CSRC, KERNEL_SOURCES[name]), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith('.cuh'))
+    for src in [KERNEL_SOURCES[name]] + headers:
+        with open(os.path.join(_CSRC, src), 'rb') as f:
+            digest.update(f.read())
     return os.path.join(_BUILD_DIR, f'lib{name}_{digest.hexdigest()[:12]}.so')
 
 

@@ -1,5 +1,5 @@
-// K3: deform_col2im_windowed -- the backward of K1 (fp32): from the column
-// gradient d_col to d_x and d_offset.
+// K3: deform_col2im_windowed -- the backward of K1, fp32 and bf16: from the
+// column gradient d_col to d_x and d_offset.
 //
 // Replaces the Pallas body _dcn_rowmm_bwd_kernel of
 // dynamask_tpu/ops/deform_conv_pallas.py:deform_conv2d_rowmm_ad (:535;
@@ -60,9 +60,20 @@
 // reductions in L2. fp32 atomics make the order of d_x's sums, and so its
 // last bits, vary between runs. A cg that is not a multiple of 4, or a
 // misaligned base, runs the scalar instance.
+//
+// bf16 (the mixed-precision training step): x, the offsets and d_col are
+// read as bf16 as they are, with no fp32 copy: 4 channels a lane, as in
+// fp32, in 8-byte loads of d_col and of each corner, so that the d_x
+// reductions keep the fp32 instance's pattern (csrc/elem.cuh). The JAX VJP works in fp32 and
+// casts its results to the inputs' types (dynamask_tpu/ops/deform_conv.py:
+// 222-237, 336-342); so here the geometry, the two sums and the d_x adds are
+// fp32, d_x is summed into an fp32 scratch the caller zeroes (two 16-byte
+// reductions, one per 4 channels) and rounded to bf16 once by the caller, and
+// d_offset is rounded once when it is written, in the offsets' type. The
+// gates are the fp32 instance's, so zero offsets give exactly zero d_offset
+// here too (ROADMAP.md, the zero-offset fault).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "elem.cuh"
 
 namespace {
 
@@ -76,11 +87,12 @@ constexpr int GATE_Y = 1, GATE_X = 2, FLAG_BITS = 2;
 // plane pixel indices (-1 off the plane, all -1 outside), weights (wy0, wy1,
 // wx0, wx1), and as flags GATE_Y where the sample is inside, the y tent
 // has a slope and the clip passes y, GATE_X likewise.
+template <typename T>
 __device__ __forceinline__ int tap_geometry(
-    const float* __restrict__ o, int yy, int xx, int i, int j, int H, int W,
+    const T* __restrict__ o, int yy, int xx, int i, int j, int H, int W,
     int pad, int dil, float window, int4& pix, float4& wt) {
-  const float rel_y0 = (float)(i * dil - pad) + o[0];
-  const float rel_x0 = (float)(j * dil - pad) + o[1];
+  const float rel_y0 = (float)(i * dil - pad) + elem::to_float(o[0]);
+  const float rel_x0 = (float)(j * dil - pad) + elem::to_float(o[1]);
   const float py = (float)yy + rel_y0;
   const float px = (float)xx + rel_x0;
   pix = make_int4(-1, -1, -1, -1);
@@ -107,39 +119,30 @@ __device__ __forceinline__ int tap_geometry(
          ((rel_x > fx && fabsf(rel_x0) < window) ? GATE_X : 0);
 }
 
-// d_x[p .. p+3] += v: one 16-byte reduction in L2 (red.global.add.v4.f32)
-__device__ __forceinline__ void global_add4(float* p, const float4& v) {
-  atomicAdd(reinterpret_cast<float4*>(p), v);
+// the VEC channels of corner pixel `pix` (-1: not read, zeros)
+template <typename T, int VEC>
+__device__ __forceinline__ void corner(const T* plane, int pix, int C, int c,
+                                       float (&v)[VEC]) {
+  if (pix >= 0)
+    elem::load_ro<T, VEC>(plane + pix * C + c, v);
+  else
+    elem::fill(v, 0.f);
 }
 
-template <int VEC> struct Vec;
-template <> struct Vec<4> { using T = float4; };
-template <> struct Vec<1> { using T = float; };
-
-template <int VEC>
-__device__ __forceinline__ typename Vec<VEC>::T load_stream(const float* p) {
-  if constexpr (VEC == 4) {
-    return __ldcs(reinterpret_cast<const float4*>(p));
-  } else {
-    return __ldcs(p);
-  }
-}
-
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS, 4) deform_col2im_band_kernel(
-    const float* __restrict__ x, const float* __restrict__ off,
-    const float* __restrict__ d_col, float* __restrict__ d_x,
-    float* __restrict__ d_off, int H, int W, int C, int g, int k, int pad,
+    const T* __restrict__ x, const T* __restrict__ off,
+    const T* __restrict__ d_col, float* __restrict__ d_x,
+    T* __restrict__ d_off, int H, int W, int C, int g, int k, int pad,
     int dil, float window, int band_rows, int n_bands, int table_entries,
     int lanes_log2) {
-  using VT = typename Vec<VEC>::T;
   extern __shared__ __align__(16) unsigned char smem[];
   int4* t_pix = reinterpret_cast<int4*>(smem);
   float4* t_w = reinterpret_cast<float4*>(t_pix + table_entries);
   int* t_col = reinterpret_cast<int*>(t_w + table_entries);
   int* t_aux = t_col + table_entries;
 
-  const int T = k * k;
+  const int T_ = k * k;
   const int cg = C / g;
   const int band = (int)(blockIdx.x % (unsigned)n_bands);
   const int rg = (int)(blockIdx.x / (unsigned)n_bands);
@@ -147,15 +150,15 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_band_kernel(
   const long long ni = rg / g;
   const int y_first = band * band_rows;
   const int rows = min(band_rows, H - y_first);
-  const int entries = rows * W * T;
-  const int col_pix = g * T * cg;
+  const int entries = rows * W * T_;
+  const int col_pix = g * T_ * cg;
   // the one 64-bit base of each array
   const long long pix0 = (ni * H + y_first) * W;
-  const float* plane = x + ni * H * W * C + gi * cg;
+  const T* plane = x + ni * H * W * C + gi * cg;
   float* dx_plane = d_x + ni * H * W * C + gi * cg;
-  const float* offb = off + pix0 * (2 * g * T) + 2 * gi * T;
-  float* d_offb = d_off + pix0 * (2 * g * T) + 2 * gi * T;
-  const float* dcolb = d_col + pix0 * col_pix + gi * T * cg;
+  const T* offb = off + pix0 * (2 * g * T_) + 2 * gi * T_;
+  T* d_offb = d_off + pix0 * (2 * g * T_) + 2 * gi * T_;
+  const T* dcolb = d_col + pix0 * col_pix + gi * T_ * cg;
 
   const int lanes = 1 << lanes_log2;
   const int lane = threadIdx.x & 31;
@@ -172,27 +175,31 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_band_kernel(
     const int ne = min(table_entries, entries - e0);
     for (int e = threadIdx.x; e < ne; e += THREADS) {
       const int pt = e0 + e;
-      const int p = pt / T, t = pt - (pt / T) * T;
+      const int p = pt / T_, t = pt - (pt / T_) * T_;
       const int py = p / W, px = p - (p / W) * W;
       const int i = t / k, j = t - (t / k) * k;
-      const int o = p * (2 * g * T) + 2 * t;
+      const int o = p * (2 * g * T_) + 2 * t;
       const int flags = tap_geometry(offb + o, y_first + py, px, i, j, H, W,
                                      pad, dil, window, t_pix[e], t_w[e]);
       t_col[e] = p * col_pix + t * cg;
       t_aux[e] = (o << FLAG_BITS) | flags;
     }
     __syncthreads();
-    // the d_col quad of the entry after this one is loaded one entry ahead
-    VT d_next{};
+    // the d_col channels of the entry after this one are loaded one entry
+    // ahead
+    float d_next[VEC];
+    elem::fill(d_next, 0.f);
     if (slot < ne && sub < quads)
-      d_next = load_stream<VEC>(dcolb + t_col[slot] + sub * VEC);
+      elem::load_cs<T, VEC>(dcolb + t_col[slot] + sub * VEC, d_next);
     for (int e = slot; e < ne; e += slots) {
-      const VT d_first = d_next;
+      float d_first[VEC];
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) d_first[u] = d_next[u];
       if (e + slots < ne && sub < quads)
-        d_next = load_stream<VEC>(dcolb + t_col[e + slots] + sub * VEC);
+        elem::load_cs<T, VEC>(dcolb + t_col[e + slots] + sub * VEC, d_next);
       const int4 pc = t_pix[e];
       const float4 wt = t_w[e];
-      const float* dc = dcolb + t_col[e];
+      const T* dc = dcolb + t_col[e];
       const int aux = t_aux[e];
       // the offset sums are needed only where a gate passes (never at the
       // integer displacements of zero offsets): elsewhere skip the corner
@@ -207,49 +214,27 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_band_kernel(
       float sy = 0.f, sx = 0.f;
       for (int q = sub; q < quads; q += lanes) {
         const int c = q * VEC;
-        const VT d = q == sub ? d_first : load_stream<VEC>(dc + c);
-        if constexpr (VEC == 4) {
-          const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-          const float4 v00 = pv.x >= 0 ? __ldg(reinterpret_cast<const float4*>(
-                                             plane + pv.x * C + c)) : z;
-          const float4 v01 = pv.y >= 0 ? __ldg(reinterpret_cast<const float4*>(
-                                             plane + pv.y * C + c)) : z;
-          const float4 v10 = pv.z >= 0 ? __ldg(reinterpret_cast<const float4*>(
-                                             plane + pv.z * C + c)) : z;
-          const float4 v11 = pv.w >= 0 ? __ldg(reinterpret_cast<const float4*>(
-                                             plane + pv.w * C + c)) : z;
-          sy += d.x * (wt.z * (v10.x - v00.x) + wt.w * (v11.x - v01.x));
-          sy += d.y * (wt.z * (v10.y - v00.y) + wt.w * (v11.y - v01.y));
-          sy += d.z * (wt.z * (v10.z - v00.z) + wt.w * (v11.z - v01.z));
-          sy += d.w * (wt.z * (v10.w - v00.w) + wt.w * (v11.w - v01.w));
-          sx += d.x * (wt.x * (v01.x - v00.x) + wt.y * (v11.x - v10.x));
-          sx += d.y * (wt.x * (v01.y - v00.y) + wt.y * (v11.y - v10.y));
-          sx += d.z * (wt.x * (v01.z - v00.z) + wt.y * (v11.z - v10.z));
-          sx += d.w * (wt.x * (v01.w - v00.w) + wt.y * (v11.w - v10.w));
-          if (a00) global_add4(dx_plane + pc.x * C + c,
-                               make_float4(d.x * w00, d.y * w00, d.z * w00,
-                                           d.w * w00));
-          if (a01) global_add4(dx_plane + pc.y * C + c,
-                               make_float4(d.x * w01, d.y * w01, d.z * w01,
-                                           d.w * w01));
-          if (a10) global_add4(dx_plane + pc.z * C + c,
-                               make_float4(d.x * w10, d.y * w10, d.z * w10,
-                                           d.w * w10));
-          if (a11) global_add4(dx_plane + pc.w * C + c,
-                               make_float4(d.x * w11, d.y * w11, d.z * w11,
-                                           d.w * w11));
+        float d[VEC], v00[VEC], v01[VEC], v10[VEC], v11[VEC];
+        if (q == sub) {
+#pragma unroll
+          for (int u = 0; u < VEC; ++u) d[u] = d_first[u];
         } else {
-          const float v00 = pv.x >= 0 ? __ldg(plane + pv.x * C + c) : 0.f;
-          const float v01 = pv.y >= 0 ? __ldg(plane + pv.y * C + c) : 0.f;
-          const float v10 = pv.z >= 0 ? __ldg(plane + pv.z * C + c) : 0.f;
-          const float v11 = pv.w >= 0 ? __ldg(plane + pv.w * C + c) : 0.f;
-          sy += d * (wt.z * (v10 - v00) + wt.w * (v11 - v01));
-          sx += d * (wt.x * (v01 - v00) + wt.y * (v11 - v10));
-          if (a00) atomicAdd(dx_plane + pc.x * C + c, d * w00);
-          if (a01) atomicAdd(dx_plane + pc.y * C + c, d * w01);
-          if (a10) atomicAdd(dx_plane + pc.z * C + c, d * w10);
-          if (a11) atomicAdd(dx_plane + pc.w * C + c, d * w11);
+          elem::load_cs<T, VEC>(dc + c, d);
         }
+        corner<T, VEC>(plane, pv.x, C, c, v00);
+        corner<T, VEC>(plane, pv.y, C, c, v01);
+        corner<T, VEC>(plane, pv.z, C, c, v10);
+        corner<T, VEC>(plane, pv.w, C, c, v11);
+#pragma unroll
+        for (int u = 0; u < VEC; ++u)
+          sy += d[u] * (wt.z * (v10[u] - v00[u]) + wt.w * (v11[u] - v01[u]));
+#pragma unroll
+        for (int u = 0; u < VEC; ++u)
+          sx += d[u] * (wt.x * (v01[u] - v00[u]) + wt.y * (v11[u] - v10[u]));
+        if (a00) elem::red_add<VEC>(dx_plane + pc.x * C + c, d, w00);
+        if (a01) elem::red_add<VEC>(dx_plane + pc.y * C + c, d, w01);
+        if (a10) elem::red_add<VEC>(dx_plane + pc.z * C + c, d, w10);
+        if (a11) elem::red_add<VEC>(dx_plane + pc.w * C + c, d, w11);
       }
       // a group's lanes agree on `sums`, so a group skips its shuffles whole
       for (int s = sums ? lanes >> 1 : 0; s > 0; s >>= 1) {
@@ -257,22 +242,21 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_band_kernel(
         sx += __shfl_xor_sync(gmask, sx, s, lanes);
       }
       if (sub == 0) {
-        float* dst = d_offb + (aux >> FLAG_BITS);
-        dst[0] = (aux & GATE_Y) ? sy : 0.f;
-        dst[1] = (aux & GATE_X) ? sx : 0.f;
+        T* dst = d_offb + (aux >> FLAG_BITS);
+        dst[0] = elem::from_float<T>((aux & GATE_Y) ? sy : 0.f);
+        dst[1] = elem::from_float<T>((aux & GATE_X) ? sx : 0.f);
       }
     }
     __syncthreads();   // the table is read before the next chunk's overwrites
   }
 }
 
-template <int VEC>
-int launch(const float* x, const float* offsets, const float* d_col,
-           float* d_x, float* d_offsets, int n, int H, int W, int C, int g,
-           int k, int pad, int dil, int window, int band_rows,
-           int table_entries, int lanes_log2, int smem_bytes,
-           cudaStream_t stream) {
-  auto kernel = deform_col2im_band_kernel<VEC>;
+template <typename T, int VEC>
+int launch(const T* x, const T* offsets, const T* d_col, float* d_x,
+           T* d_offsets, int n, int H, int W, int C, int g, int k, int pad,
+           int dil, int window, int band_rows, int table_entries,
+           int lanes_log2, int smem_bytes, cudaStream_t stream) {
+  auto kernel = deform_col2im_band_kernel<T, VEC>;
   static int smem_set = 48 * 1024;
   if (smem_bytes > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -288,17 +272,14 @@ int launch(const float* x, const float* offsets, const float* d_col,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// band_rows, table_entries, vec (4 or 1), lanes_log2 and smem_bytes come
-// from the wrapper's launch configuration (ops/deform_conv.py:
-// dcn_launch_config); a configuration the kernel cannot run is refused with
-// cudaErrorInvalidValue before anything is launched.
-extern "C" int deform_col2im_windowed_f32(
-    const float* x, const float* offsets, const float* d_col, float* d_x,
-    float* d_offsets, int n, int H, int W, int C, int g, int k, int pad,
-    int dil, int window, int band_rows, int table_entries, int vec,
-    int lanes_log2, int smem_bytes, void* stream) {
+// Checks the launch configuration and launches the instance of `vec`: 4
+// channels a lane (a 16-byte fp32 reduction into d_x) or the scalar one.
+template <typename T>
+int entry(const T* x, const T* offsets, const T* d_col, float* d_x,
+          T* d_offsets, int n, int H, int W, int C, int g, int k, int pad,
+          int dil, int window, int band_rows, int table_entries, int vec,
+          int lanes_log2, int smem_bytes, void* stream) {
+  constexpr int WIDE = elem::kReduceVec;
   if ((long long)n * H * W * g * k * k == 0) return 0;
   const int cg = g > 0 ? C / g : 0;
   const long long rows = band_rows < H ? band_rows : H;
@@ -306,7 +287,7 @@ extern "C" int deform_col2im_windowed_f32(
       band_rows > 0 ? (long long)n * g * ((H + band_rows - 1) / band_rows) : 0;
   if (g <= 0 || C % g || band_rows <= 0 || table_entries <= 0 ||
       window < 0 || lanes_log2 < 0 || lanes_log2 > 5 ||
-      (vec == 4 ? cg % 4 != 0 : vec != 1) ||
+      (vec == WIDE ? cg % WIDE != 0 : vec != 1) ||
       (long long)table_entries * ENTRY_BYTES > smem_bytes ||
       // 32-bit indices: the plane, the band's column block and offsets
       // (shifted by the flag bits), the grid
@@ -316,11 +297,41 @@ extern "C" int deform_col2im_windowed_f32(
       blocks >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return vec == 4
-             ? launch<4>(x, offsets, d_col, d_x, d_offsets, n, H, W, C, g, k,
-                         pad, dil, window, band_rows, table_entries,
-                         lanes_log2, smem_bytes, s)
-             : launch<1>(x, offsets, d_col, d_x, d_offsets, n, H, W, C, g, k,
-                         pad, dil, window, band_rows, table_entries,
-                         lanes_log2, smem_bytes, s);
+  return vec == WIDE
+             ? launch<T, WIDE>(x, offsets, d_col, d_x, d_offsets, n, H, W, C,
+                               g, k, pad, dil, window, band_rows,
+                               table_entries, lanes_log2, smem_bytes, s)
+             : launch<T, 1>(x, offsets, d_col, d_x, d_offsets, n, H, W, C, g,
+                            k, pad, dil, window, band_rows, table_entries,
+                            lanes_log2, smem_bytes, s);
+}
+
+}  // namespace
+
+// band_rows, table_entries, vec (4 channels, in either type; or 1),
+// lanes_log2 and smem_bytes come from the wrapper's launch
+// configuration (ops/deform_conv.py:dcn_launch_config); a configuration the
+// kernel cannot run is refused with cudaErrorInvalidValue before anything
+// is launched. x, offsets, d_col and d_offsets share the element type of the
+// symbol; d_x is an fp32 sum in either.
+extern "C" int deform_col2im_windowed_f32(
+    const float* x, const float* offsets, const float* d_col, float* d_x,
+    float* d_offsets, int n, int H, int W, int C, int g, int k, int pad,
+    int dil, int window, int band_rows, int table_entries, int vec,
+    int lanes_log2, int smem_bytes, void* stream) {
+  return entry<float>(x, offsets, d_col, d_x, d_offsets, n, H, W, C, g, k,
+                      pad, dil, window, band_rows, table_entries, vec,
+                      lanes_log2, smem_bytes, stream);
+}
+
+extern "C" int deform_col2im_windowed_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* offsets,
+    const __nv_bfloat16* d_col, float* d_x, __nv_bfloat16* d_offsets, int n,
+    int H, int W, int C, int g, int k, int pad, int dil, int window,
+    int band_rows, int table_entries, int vec, int lanes_log2,
+    int smem_bytes, void* stream) {
+  return entry<__nv_bfloat16>(x, offsets, d_col, d_x, d_offsets, n, H, W, C,
+                              g, k, pad, dil, window, band_rows,
+                              table_entries, vec, lanes_log2, smem_bytes,
+                              stream);
 }

@@ -1,5 +1,5 @@
-// K2: roi_align_fwd -- FPN-routed or single-level RoIAlign (fp32), mmcv
-// aligned=True rules with a static sampling ratio.
+// K2: roi_align_fwd -- FPN-routed or single-level RoIAlign, fp32 and bf16,
+// mmcv aligned=True rules with a static sampling ratio.
 //
 // Takes the place of dynamask_tpu/ops/roi_align_pallas.py:
 // multilevel_roi_align_pallas (Pallas body _roi_align_kernel), and computes
@@ -42,10 +42,18 @@
 // design's order, v00*(hy*hx) + v01*(hy*lx) + v10*(ly*hx) + v11*(ly*lx) summed
 // over the samples and then divided by s*s, so the output is bit-identical to
 // it. All index arithmetic is 32-bit from one 64-bit base per RoI. A C that
-// is not a multiple of 4, or a misaligned base, runs the scalar instance.
+// is not a multiple of 16 bytes' channels (4 fp32, 8 bf16), or a misaligned
+// base, runs the scalar instance.
+//
+// bf16 (the mixed-precision policy of dynamask_tpu/core/fp16.py): features
+// and crops are bf16, 8 channels a lane in 16-byte loads and stores; RoIs,
+// scales and plane indices are the fp32 instance's. Coordinates and weights
+// are fp32, the blend widens each corner and sums in fp32, and the mean is
+// rounded once. The JAX form keeps the features' type and rounds the
+// bilinear weights to it (dynamask_tpu/ops/roi_align.py:105-110), so the two
+// agree to about a bf16 ulp of the crop.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "elem.cuh"
 
 namespace {
 
@@ -81,49 +89,29 @@ __device__ __forceinline__ AxisSample axis_sample(int k, int s, float lo,
   return a;
 }
 
-template <int VEC> struct Vec;
-template <> struct Vec<4> { using T = float4; };
-template <> struct Vec<1> { using T = float; };
-
-template <int VEC>
-__device__ __forceinline__ typename Vec<VEC>::T load_ro(const float* p) {
-  if constexpr (VEC == 4) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  } else {
-    return __ldg(p);
-  }
-}
-
 // acc += v00*(hy*hx) + v01*(hy*lx) + v10*(ly*hx) + v11*(ly*lx), per lane
-__device__ __forceinline__ void blend_add(float& acc, float v00, float v01,
-                                          float v10, float v11,
+template <int VEC>
+__device__ __forceinline__ void blend_add(float (&acc)[VEC],
+                                          const float (&v00)[VEC],
+                                          const float (&v01)[VEC],
+                                          const float (&v10)[VEC],
+                                          const float (&v11)[VEC],
                                           const AxisSample& y,
                                           const AxisSample& x) {
-  acc += v00 * (y.h * x.h) + v01 * (y.h * x.l) + v10 * (y.l * x.h) +
-         v11 * (y.l * x.l);
-}
-
-__device__ __forceinline__ void blend_add(float4& acc, const float4& v00,
-                                          const float4& v01,
-                                          const float4& v10,
-                                          const float4& v11,
-                                          const AxisSample& y,
-                                          const AxisSample& x) {
-  blend_add(acc.x, v00.x, v01.x, v10.x, v11.x, y, x);
-  blend_add(acc.y, v00.y, v01.y, v10.y, v11.y, y, x);
-  blend_add(acc.z, v00.z, v01.z, v10.z, v11.z, y, x);
-  blend_add(acc.w, v00.w, v01.w, v10.w, v11.w, y, x);
+#pragma unroll
+  for (int u = 0; u < VEC; ++u)
+    acc[u] += v00[u] * (y.h * x.h) + v01[u] * (y.h * x.l) +
+              v10[u] * (y.l * x.h) + v11[u] * (y.l * x.l);
 }
 
 // S > 0 fixes the sampling ratio at compile time; S == 0 reads s.
-template <int VEC, int S>
+template <typename T, int VEC, int S>
 __global__ void __launch_bounds__(THREADS, 4) roi_align_band_kernel(
-    const float* __restrict__ feat, const float* __restrict__ rois,
+    const T* __restrict__ feat, const float* __restrict__ rois,
     const long long* __restrict__ base, const int* __restrict__ hs,
     const int* __restrict__ ws, const float* __restrict__ scales,
-    float* __restrict__ out, int C, int P, int s_rt, int band_rows,
-    int n_bands, int lanes_log2) {
-  using VT = typename Vec<VEC>::T;
+    T* __restrict__ out, int C, int P, int s_rt, int band_rows, int n_bands,
+    int lanes_log2) {
   const int s = S > 0 ? S : s_rt;
   extern __shared__ __align__(16) unsigned char smem[];
   AxisSample* t_x = reinterpret_cast<AxisSample*>(smem);   // P*s
@@ -156,8 +144,8 @@ __global__ void __launch_bounds__(THREADS, 4) roi_align_band_kernel(
   __syncthreads();
 
   // the one 64-bit base of each array
-  const float* plane = feat + base[n] * C;
-  float* outb = out + (n * P + py_first) * P * C;
+  const T* plane = feat + base[n] * C;
+  T* outb = out + (n * P + py_first) * P * C;
   const int lanes = 1 << lanes_log2;
   const int sub = threadIdx.x & (lanes - 1);
   const int slot = threadIdx.x >> lanes_log2;
@@ -169,7 +157,8 @@ __global__ void __launch_bounds__(THREADS, 4) roi_align_band_kernel(
     const int r = e / P, px = e - (e / P) * P;
     for (int q = sub; q < quads; q += lanes) {
       const int c = q * VEC;
-      VT acc{};
+      float acc[VEC];
+      elem::fill(acc, 0.f);
       // s is a constant where S > 0, and these loops unroll
       for (int iy = 0; iy < s; ++iy) {
         const AxisSample ya = t_y[r * s + iy];
@@ -177,30 +166,27 @@ __global__ void __launch_bounds__(THREADS, 4) roi_align_band_kernel(
         for (int ix = 0; ix < s; ++ix) {
           const AxisSample xa = t_x[px * s + ix];
           if (xa.i0 < 0) continue;
-          const VT v00 = load_ro<VEC>(plane + (ya.i0 + xa.i0) * C + c);
-          const VT v01 = load_ro<VEC>(plane + (ya.i0 + xa.i1) * C + c);
-          const VT v10 = load_ro<VEC>(plane + (ya.i1 + xa.i0) * C + c);
-          const VT v11 = load_ro<VEC>(plane + (ya.i1 + xa.i1) * C + c);
-          blend_add(acc, v00, v01, v10, v11, ya, xa);
+          float v00[VEC], v01[VEC], v10[VEC], v11[VEC];
+          elem::load_ro<T, VEC>(plane + (ya.i0 + xa.i0) * C + c, v00);
+          elem::load_ro<T, VEC>(plane + (ya.i0 + xa.i1) * C + c, v01);
+          elem::load_ro<T, VEC>(plane + (ya.i1 + xa.i0) * C + c, v10);
+          elem::load_ro<T, VEC>(plane + (ya.i1 + xa.i1) * C + c, v11);
+          blend_add<VEC>(acc, v00, v01, v10, v11, ya, xa);
         }
       }
-      float* dst = outb + (r * P + px) * C + c;
-      if constexpr (VEC == 4) {
-        __stcs(reinterpret_cast<float4*>(dst),
-               make_float4(acc.x / ss, acc.y / ss, acc.z / ss, acc.w / ss));
-      } else {
-        __stcs(dst, acc / ss);
-      }
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) acc[u] = acc[u] / ss;
+      elem::store_cs<T, VEC>(outb + (r * P + px) * C + c, acc);
     }
   }
 }
 
-template <int VEC, int S>
-int launch(const float* feat, const float* rois, const long long* base,
-           const int* hs, const int* ws, const float* scales, float* out,
-           int N, int C, int P, int s, int band_rows, int lanes_log2,
-           int smem_bytes, cudaStream_t stream) {
-  auto kernel = roi_align_band_kernel<VEC, S>;
+template <typename T, int VEC, int S>
+int launch(const T* feat, const float* rois, const long long* base,
+           const int* hs, const int* ws, const float* scales, T* out, int N,
+           int C, int P, int s, int band_rows, int lanes_log2, int smem_bytes,
+           cudaStream_t stream) {
+  auto kernel = roi_align_band_kernel<T, VEC, S>;
   static int smem_set = 48 * 1024;
   if (smem_bytes > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -216,49 +202,77 @@ int launch(const float* feat, const float* rois, const long long* base,
   return (int)cudaGetLastError();
 }
 
-template <int VEC>
-int launch_s(const float* feat, const float* rois, const long long* base,
-             const int* hs, const int* ws, const float* scales, float* out,
+template <typename T, int VEC>
+int launch_s(const T* feat, const float* rois, const long long* base,
+             const int* hs, const int* ws, const float* scales, T* out,
              int N, int C, int P, int s, int band_rows, int lanes_log2,
              int smem_bytes, cudaStream_t stream) {
   switch (s) {
     case 1:
-      return launch<VEC, 1>(feat, rois, base, hs, ws, scales, out, N, C, P,
-                            s, band_rows, lanes_log2, smem_bytes, stream);
+      return launch<T, VEC, 1>(feat, rois, base, hs, ws, scales, out, N, C,
+                               P, s, band_rows, lanes_log2, smem_bytes,
+                               stream);
     case 2:
-      return launch<VEC, 2>(feat, rois, base, hs, ws, scales, out, N, C, P,
-                            s, band_rows, lanes_log2, smem_bytes, stream);
+      return launch<T, VEC, 2>(feat, rois, base, hs, ws, scales, out, N, C,
+                               P, s, band_rows, lanes_log2, smem_bytes,
+                               stream);
     default:
-      return launch<VEC, 0>(feat, rois, base, hs, ws, scales, out, N, C, P,
-                            s, band_rows, lanes_log2, smem_bytes, stream);
+      return launch<T, VEC, 0>(feat, rois, base, hs, ws, scales, out, N, C,
+                               P, s, band_rows, lanes_log2, smem_bytes,
+                               stream);
   }
 }
 
-}  // namespace
-
-// band_rows, vec (4 or 1), lanes_log2 and smem_bytes come from the wrapper's
-// launch configuration (ops/roi_align.py:roi_align_launch_config); a
-// configuration the kernel cannot run is refused with cudaErrorInvalidValue
-// before anything is launched. `rows` is the row count of the flat buffer.
-extern "C" int roi_align_fwd_f32(
-    const float* feat, const float* rois, const long long* base,
-    const int* hs, const int* ws, const float* scales, float* out, int N,
-    int C, int P, int s, long long rows, int band_rows, int vec,
-    int lanes_log2, int smem_bytes, void* stream) {
+// Checks the launch configuration and launches the instance of `vec`: the
+// 16-byte one (4 fp32, 8 bf16 channels a lane) or the scalar one.
+template <typename T>
+int entry(const T* feat, const float* rois, const long long* base,
+          const int* hs, const int* ws, const float* scales, T* out, int N,
+          int C, int P, int s, long long rows, int band_rows, int vec,
+          int lanes_log2, int smem_bytes, void* stream) {
+  constexpr int WIDE = elem::Wide<T>::kVec;
   if ((long long)N * P * C == 0) return 0;
   const int b = band_rows < P ? band_rows : P;
   const long long blocks =
       band_rows > 0 ? (long long)N * ((P + band_rows - 1) / band_rows) : 0;
   if (s <= 0 || band_rows <= 0 || lanes_log2 < 0 || lanes_log2 > 5 ||
-      (vec == 4 ? C % 4 != 0 : vec != 1) ||
+      (vec == WIDE ? C % WIDE != 0 : vec != 1) ||
       (long long)(P + b) * s * ENTRY_BYTES > smem_bytes ||
       // 32-bit indices: the flat buffer, one RoI's crop, the grid
       rows * C >= (1LL << 31) || (long long)P * P * C >= (1LL << 31) ||
       blocks >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return vec == 4 ? launch_s<4>(feat, rois, base, hs, ws, scales, out, N, C,
-                                P, s, band_rows, lanes_log2, smem_bytes, st)
-                  : launch_s<1>(feat, rois, base, hs, ws, scales, out, N, C,
-                                P, s, band_rows, lanes_log2, smem_bytes, st);
+  return vec == WIDE
+             ? launch_s<T, WIDE>(feat, rois, base, hs, ws, scales, out, N, C,
+                                 P, s, band_rows, lanes_log2, smem_bytes, st)
+             : launch_s<T, 1>(feat, rois, base, hs, ws, scales, out, N, C, P,
+                              s, band_rows, lanes_log2, smem_bytes, st);
+}
+
+}  // namespace
+
+// band_rows, vec (16 bytes of channels: 4 fp32 or 8 bf16; or 1), lanes_log2
+// and smem_bytes come from the wrapper's launch configuration
+// (ops/roi_align.py:roi_align_launch_config); a configuration the kernel
+// cannot run is refused with cudaErrorInvalidValue before anything is
+// launched. `rows` is the row count of the flat buffer. The features and
+// the crops share the element type of the symbol; RoIs and scales are fp32.
+extern "C" int roi_align_fwd_f32(
+    const float* feat, const float* rois, const long long* base,
+    const int* hs, const int* ws, const float* scales, float* out, int N,
+    int C, int P, int s, long long rows, int band_rows, int vec,
+    int lanes_log2, int smem_bytes, void* stream) {
+  return entry<float>(feat, rois, base, hs, ws, scales, out, N, C, P, s,
+                      rows, band_rows, vec, lanes_log2, smem_bytes, stream);
+}
+
+extern "C" int roi_align_fwd_bf16(
+    const __nv_bfloat16* feat, const float* rois, const long long* base,
+    const int* hs, const int* ws, const float* scales, __nv_bfloat16* out,
+    int N, int C, int P, int s, long long rows, int band_rows, int vec,
+    int lanes_log2, int smem_bytes, void* stream) {
+  return entry<__nv_bfloat16>(feat, rois, base, hs, ws, scales, out, N, C, P,
+                              s, rows, band_rows, vec, lanes_log2,
+                              smem_bytes, stream);
 }

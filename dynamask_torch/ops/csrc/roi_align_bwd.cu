@@ -1,5 +1,6 @@
-// K4: roi_align_bwd -- the backward of K2 (fp32): the gradient of the flat
-// feature buffer from the gradient of the RoI crops.
+// K4: roi_align_bwd -- the backward of K2, from an fp32 or a bf16 d_out:
+// the gradient of the flat feature buffer from the gradient of the RoI
+// crops.
 //
 // The JAX package differentiates its XLA RoIAlign (dynamask_tpu/ops/
 // roi_align.py:roi_align / multilevel_roi_align, _bilinear_gather :46-128)
@@ -56,10 +57,18 @@
 // fp32 atomics make the order of the sums, and so the last bits of d_feat,
 // vary between runs. A C that is not a multiple of 4, or a misaligned base,
 // runs the scalar instance.
+//
+// bf16 (the mixed-precision training step): d_out is read as bf16 as it
+// is, 4 channels a lane as in fp32, in 8-byte loads, so that the flushes
+// keep the fp32 instance's 16-byte reductions side by side (csrc/
+// elem.cuh); the contractions and the row accumulators are fp32, and
+// d_feat is the fp32 scratch the caller zero-fills in either type. The caller
+// rounds d_feat to the features' type once at the end. No bf16 atomics: a
+// bf16 sum in L2 would round at every add.
 
-#include <cuda_runtime.h>
 #include <limits.h>
-#include <stdint.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -90,43 +99,24 @@ __device__ __forceinline__ bool axis_geometry(int k, int s, float lo,
   return v >= -1.f && v <= ef;
 }
 
-template <int VEC> struct Vec;
-template <> struct Vec<4> { using T = float4; };
-template <> struct Vec<1> { using T = float; };
-
-__device__ __forceinline__ bool nonzero(float v) { return v != 0.f; }
-__device__ __forceinline__ bool nonzero(const float4& v) {
-  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
-}
-__device__ __forceinline__ float scaled(float v, float a) { return v * a; }
-__device__ __forceinline__ float4 scaled(const float4& v, float a) {
-  return make_float4(v.x * a, v.y * a, v.z * a, v.w * a);
-}
-__device__ __forceinline__ void axpy(float& acc, float a, float v) {
-  acc += a * v;
-}
-__device__ __forceinline__ void axpy(float4& acc, float a, const float4& v) {
-  acc.x += a * v.x;
-  acc.y += a * v.y;
-  acc.z += a * v.z;
-  acc.w += a * v.w;
-}
-
 template <int VEC>
-__device__ __forceinline__ typename Vec<VEC>::T load_ro(const float* p) {
-  if constexpr (VEC == 4) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  } else {
-    return __ldg(p);
-  }
+__device__ __forceinline__ bool nonzero(const float (&v)[VEC]) {
+  bool any = false;
+#pragma unroll
+  for (int u = 0; u < VEC; ++u) any = any || v[u] != 0.f;
+  return any;
 }
-
-// *p += v: one reduction in L2 (16 bytes, red.global.add.v4.f32, for a quad)
-__device__ __forceinline__ void global_add(float* p, float v) {
-  atomicAdd(p, v);
+template <int VEC>
+__device__ __forceinline__ void axpy(float (&acc)[VEC], float a,
+                                     const float (&v)[VEC]) {
+#pragma unroll
+  for (int u = 0; u < VEC; ++u) acc[u] += a * v[u];
 }
-__device__ __forceinline__ void global_add(float* p, const float4& v) {
-  atomicAdd(reinterpret_cast<float4*>(p), v);
+template <int VEC>
+__device__ __forceinline__ void assign(float (&dst)[VEC],
+                                     const float (&src)[VEC]) {
+#pragma unroll
+  for (int u = 0; u < VEC; ++u) dst[u] = src[u];
 }
 
 // The RoI's geometry, K2's arithmetic: the first sample's coordinates and
@@ -143,10 +133,12 @@ __device__ __forceinline__ void roi_geometry(const float* roi, float sc,
   bin_h = __fdiv_rn(__fsub_rn(y2, y1), (float)P);
 }
 
-// *p += acc / s^2 (inv = 1 / s^2), where anything was gathered
-template <typename VT>
-__device__ __forceinline__ void flush(float* p, const VT& acc, float inv) {
-  if (nonzero(acc)) global_add(p, scaled(acc, inv));
+// *p += acc / s^2 (inv = 1 / s^2), where anything was gathered: one fp32
+// reduction in L2 per 4 channels (red.global.add.v4.f32), or a scalar one
+template <int VEC>
+__device__ __forceinline__ void flush(float* p, const float (&acc)[VEC],
+                                      float inv) {
+  if (nonzero(acc)) elem::red_add<VEC>(p, acc, inv);
 }
 
 // First slot in [lo, hi) of the ascending table whose clamped corner is at
@@ -160,40 +152,46 @@ __device__ __forceinline__ int first_at_least(const AxisSample* t, int lo,
   return lo;
 }
 
-// The x-contraction of one d_out row for feature column X: the sum over the
-// run [jlo, jhi) of x samples that touch X of each sample's weight at X times
-// d_out at its bin (row pointer `dn`, advanced to the lane's channels).
-// Samples of one bin lie side by side in the run and share one load.
-template <int VEC>
-__device__ __forceinline__ typename Vec<VEC>::T x_contraction(
-    const AxisSample* t_x, int jlo, int jhi, int X, int w, const float* dn,
-    int C) {
-  using VT = typename Vec<VEC>::T;
-  VT t{};
+// The x-contraction of one d_out row for feature column X into t: the sum
+// over the run [jlo, jhi) of x samples that touch X of each sample's weight
+// at X times d_out at its bin (row pointer `dn`, advanced to the lane's
+// channels). Samples of one bin lie side by side in the run and share one
+// load.
+template <typename T, int VEC>
+__device__ __forceinline__ void x_contraction(const AxisSample* t_x, int jlo,
+                                              int jhi, int X, int w,
+                                              const T* dn, int C,
+                                              float (&t)[VEC]) {
+  float v[VEC];
+  elem::fill(t, 0.f);
   float wsum = 0.f;
   int bin = t_x[jlo].i1;
   for (int j = jlo; j < jhi; ++j) {
     const AxisSample xa = t_x[j];
     if (xa.i1 != bin) {
-      if (wsum != 0.f) axpy(t, wsum, load_ro<VEC>(dn + bin * C));
+      if (wsum != 0.f) {
+        elem::load_ro<T, VEC>(dn + bin * C, v);
+        axpy(t, wsum, v);
+      }
       wsum = 0.f;
       bin = xa.i1;
     }
     wsum += (xa.i0 == X ? xa.h : 0.f) + (min(xa.i0 + 1, w - 1) == X ? xa.l
                                                                    : 0.f);
   }
-  if (wsum != 0.f) axpy(t, wsum, load_ro<VEC>(dn + bin * C));
-  return t;
+  if (wsum != 0.f) {
+    elem::load_ro<T, VEC>(dn + bin * C, v);
+    axpy(t, wsum, v);
+  }
 }
 
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS, 4) roi_align_bwd_band_kernel(
-    const float* __restrict__ d_out, const float* __restrict__ rois,
+    const T* __restrict__ d_out, const float* __restrict__ rois,
     const long long* __restrict__ base, const int* __restrict__ hs,
     const int* __restrict__ ws, const float* __restrict__ scales,
     float* __restrict__ d_feat, int C, int P, int s, int band_rows,
     int n_bands, int lanes_log2) {
-  using VT = typename Vec<VEC>::T;
   extern __shared__ __align__(16) unsigned char smem[];
   AxisSample* t_x = reinterpret_cast<AxisSample*>(smem);   // P*s, ascending
   AxisSample* t_y = t_x + P * s;                            // rows*s, ascending
@@ -240,7 +238,7 @@ __global__ void __launch_bounds__(THREADS, 4) roi_align_bwd_band_kernel(
 
   // the one 64-bit base of each array
   float* plane = d_feat + base[n] * C;
-  const float* don = d_out + n * P * P * C;
+  const T* don = d_out + n * P * P * C;
   const int lanes = 1 << lanes_log2;
   const int sub = threadIdx.x & (lanes - 1);
   const int slot = threadIdx.x >> lanes_log2;
@@ -259,26 +257,29 @@ __global__ void __launch_bounds__(THREADS, 4) roi_align_bwd_band_kernel(
       const int c = q * VEC;
       float* col = plane + X * C + c;
       // rows R and R + 1 are open; the samples' rows only rise
-      VT acc0{}, acc1{}, t{};
+      float acc0[VEC], acc1[VEC], t[VEC];
+      elem::fill(acc0, 0.f);
+      elem::fill(acc1, 0.f);
+      elem::fill(t, 0.f);
       int R = -1, bin = -1;
       for (int u = ylo; u <= yhi; ++u) {
         const AxisSample ya = t_y[u];
         if (ya.i1 != bin) {
           bin = ya.i1;
-          t = x_contraction<VEC>(t_x, jlo, jhi, X, w, don + bin * P * C + c,
-                                 C);
+          x_contraction<T, VEC>(t_x, jlo, jhi, X, w, don + bin * P * C + c,
+                                C, t);
         }
         if (ya.i0 != R) {   // rows below the sample's are done
           if (R >= 0) {
             flush(col + R * w * C, acc0, inv);
             if (ya.i0 == R + 1) {
-              acc0 = acc1;
+              assign(acc0, acc1);
             } else {
               flush(col + (R + 1) * w * C, acc1, inv);
-              acc0 = VT{};
+              elem::fill(acc0, 0.f);
             }
           }
-          acc1 = VT{};
+          elem::fill(acc1, 0.f);
           R = ya.i0;
         }
         axpy(acc0, ya.h, t);
@@ -290,12 +291,12 @@ __global__ void __launch_bounds__(THREADS, 4) roi_align_bwd_band_kernel(
   }
 }
 
-template <int VEC>
-int launch(const float* d_out, const float* rois, const long long* base,
+template <typename T, int VEC>
+int launch(const T* d_out, const float* rois, const long long* base,
            const int* hs, const int* ws, const float* scales, float* d_feat,
            int N, int C, int P, int s, int band_rows, int lanes_log2,
            int smem_bytes, cudaStream_t stream) {
-  auto kernel = roi_align_bwd_band_kernel<VEC>;
+  auto kernel = roi_align_bwd_band_kernel<T, VEC>;
   static int smem_set = 48 * 1024;
   if (smem_bytes > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -311,31 +312,56 @@ int launch(const float* d_out, const float* rois, const long long* base,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// band_rows, vec (4 or 1), lanes_log2 and smem_bytes come from the wrapper's
-// launch configuration (ops/roi_align.py:roi_align_launch_config); a
-// configuration the kernel cannot run is refused with cudaErrorInvalidValue
-// before anything is launched. `rows` is the row count of d_feat.
-extern "C" int roi_align_bwd_f32(
-    const float* d_out, const float* rois, const long long* base,
-    const int* hs, const int* ws, const float* scales, float* d_feat, int N,
-    int C, int P, int s, long long rows, int band_rows, int vec,
-    int lanes_log2, int smem_bytes, void* stream) {
+// Checks the launch configuration and launches the instance of `vec`: 4
+// channels a lane (a 16-byte fp32 reduction into d_feat) or the scalar one.
+template <typename T>
+int entry(const T* d_out, const float* rois, const long long* base,
+          const int* hs, const int* ws, const float* scales, float* d_feat,
+          int N, int C, int P, int s, long long rows, int band_rows, int vec,
+          int lanes_log2, int smem_bytes, void* stream) {
+  constexpr int WIDE = elem::kReduceVec;
   if ((long long)N * P * C == 0) return 0;
   const int b = band_rows < P ? band_rows : P;
   const long long blocks =
       band_rows > 0 ? (long long)N * ((P + band_rows - 1) / band_rows) : 0;
   if (s <= 0 || band_rows <= 0 || lanes_log2 < 0 || lanes_log2 > 5 ||
-      (vec == 4 ? C % 4 != 0 : vec != 1) ||
+      (vec == WIDE ? C % WIDE != 0 : vec != 1) ||
       (long long)(P + b) * s * ENTRY_BYTES > smem_bytes ||
       // 32-bit indices: the flat buffer, one RoI's crop, the grid
       rows * C >= (1LL << 31) || (long long)P * P * C >= (1LL << 31) ||
       blocks >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return vec == 4 ? launch<4>(d_out, rois, base, hs, ws, scales, d_feat, N,
-                              C, P, s, band_rows, lanes_log2, smem_bytes, st)
-                  : launch<1>(d_out, rois, base, hs, ws, scales, d_feat, N,
-                              C, P, s, band_rows, lanes_log2, smem_bytes, st);
+  return vec == WIDE
+             ? launch<T, WIDE>(d_out, rois, base, hs, ws, scales, d_feat, N,
+                               C, P, s, band_rows, lanes_log2, smem_bytes, st)
+             : launch<T, 1>(d_out, rois, base, hs, ws, scales, d_feat, N, C,
+                            P, s, band_rows, lanes_log2, smem_bytes, st);
+}
+
+}  // namespace
+
+// band_rows, vec (4 channels, in either type; or 1), lanes_log2 and
+// smem_bytes come from the wrapper's launch configuration
+// (ops/roi_align.py:roi_align_launch_config); a configuration the kernel
+// cannot run is refused with cudaErrorInvalidValue before anything is
+// launched. `rows` is the row count of d_feat, an fp32 sum for either type
+// of d_out.
+extern "C" int roi_align_bwd_f32(
+    const float* d_out, const float* rois, const long long* base,
+    const int* hs, const int* ws, const float* scales, float* d_feat, int N,
+    int C, int P, int s, long long rows, int band_rows, int vec,
+    int lanes_log2, int smem_bytes, void* stream) {
+  return entry<float>(d_out, rois, base, hs, ws, scales, d_feat, N, C, P, s,
+                      rows, band_rows, vec, lanes_log2, smem_bytes, stream);
+}
+
+extern "C" int roi_align_bwd_bf16(
+    const __nv_bfloat16* d_out, const float* rois, const long long* base,
+    const int* hs, const int* ws, const float* scales, float* d_feat, int N,
+    int C, int P, int s, long long rows, int band_rows, int vec,
+    int lanes_log2, int smem_bytes, void* stream) {
+  return entry<__nv_bfloat16>(d_out, rois, base, hs, ws, scales, d_feat, N,
+                              C, P, s, rows, band_rows, vec, lanes_log2,
+                              smem_bytes, stream);
 }

@@ -33,8 +33,15 @@ init, gets exactly zero offset gradient); the clip passes gradient only
 where the unclipped displacement lies strictly inside ``(-window,
 window)``; the inside masks are constants.
 
-On a CPU tensor K1 and K3 run their plain PyTorch versions beside them.
-Public functions keep the JAX layouts: NHWC features and HWIO weights.
+Both kernels have an fp32 and a bf16 instance, chosen by the type of
+``x``, with the offsets (and K3's ``d_col``) in that type too. The bf16
+instances compute in fp32 and round each result once (K1's samples, K3's
+``d_offset``); K3 sums ``d_x`` in fp32 and the wrapper rounds it to bf16 at
+the end, as the JAX VJP works in fp32 and casts its results to the inputs'
+types. A CUDA tensor of any other type is refused. On a CPU tensor K1 and K3
+run their plain PyTorch versions beside them, which take both types and
+compute in fp32 the same way. Public functions keep the JAX layouts: NHWC
+features and HWIO weights.
 """
 
 from __future__ import annotations
@@ -106,7 +113,8 @@ def deform_im2col_windowed_plain(x: torch.Tensor, offsets: torch.Tensor,
                                  dilation: int = 1, deform_groups: int = 1,
                                  window: int = 3) -> torch.Tensor:
     """Plain PyTorch form of K1: ``x`` (n, H, W, C), ``offsets``
-    (n, H, W, 2*g*k*k) -> column tensor (n, H, W, g, k*k, C/g)."""
+    (n, H, W, 2*g*k*k) -> column tensor (n, H, W, g, k*k, C/g) in the type
+    of ``x``, each sample computed in fp32 and rounded once."""
     n, h, w, _ = x.shape
     g = deform_groups
     _, _, ins, _, _, fy, fx, (wy0, wy1), (wx0, wx1) = _geometry(
@@ -118,7 +126,7 @@ def deform_im2col_windowed_plain(x: torch.Tensor, offsets: torch.Tensor,
     e = (lambda t: t[..., None])
     out = ((v00 * e(wx0) + v01 * e(wx1)) * e(wy0) +
            (v10 * e(wx0) + v11 * e(wx1)) * e(wy1))
-    return out * e(ins)
+    return (out * e(ins)).to(x.dtype)
 
 
 def deform_col2im_windowed_plain(x: torch.Tensor, offsets: torch.Tensor,
@@ -128,7 +136,9 @@ def deform_col2im_windowed_plain(x: torch.Tensor, offsets: torch.Tensor,
     """Plain PyTorch form of K3, the VJP of K1: ``d_col``
     (n, H, W, g, k*k, C/g) -> (``d_x`` (n, H, W, C), ``d_offset``
     (n, H, W, 2*g*k*k)), written out by hand after ``_windowed_cvjp_bwd``
-    (``dynamask_tpu/ops/deform_conv.py:239-326``)."""
+    (``dynamask_tpu/ops/deform_conv.py:239-326``). Computed in fp32 from
+    inputs of either type; ``d_x`` is rounded to the type of ``x`` and
+    ``d_offset`` to that of ``offsets``."""
     n, h, w, c = x.shape
     g, d = deform_groups, window
     rel_y0, rel_x0, ins, rel_y, rel_x, fy, fx, (wy0, wy1), (wx0, wx1) = \
@@ -160,7 +170,7 @@ def deform_col2im_windowed_plain(x: torch.Tensor, offsets: torch.Tensor,
     d_ry = torch.where((rel_y > fy) & (rel_y0.abs() < d), s_y, 0.0)
     d_rx = torch.where((rel_x > fx) & (rel_x0.abs() < d), s_x, 0.0)
     d_off = torch.stack([d_ry, d_rx], -1).reshape(offsets.shape)
-    return d_x.contiguous(), d_off
+    return d_x.to(x.dtype).contiguous(), d_off.to(offsets.dtype)
 
 
 # Launch configuration of K1 and K3. The constants mirror the kernels'
@@ -170,10 +180,16 @@ K1_ENTRY_BYTES, K3_ENTRY_BYTES = 36, 40     # shared bytes per table entry
 TABLE_CAP = 1024             # geometry table entries per chunk
 BLOCK_ELEMS = 32768          # column elements a block covers, about
 MIN_BLOCKS = 2 * 132         # two blocks for each of the H100's SMs
+VEC_BYTES = 16               # one lane's access: 4 fp32 or 8 bf16 elements
+REDUCE_VEC = 4               # channels a lane of a kernel that reduces into
+                             # fp32 (K3, K4): one 16-byte fp32 reduction
+# the kernels' instances, by the type of x: the C symbol's suffix
+DTYPES = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 
 
 def dcn_launch_config(kernel: str, n: int, h: int, w: int, c: int, g: int,
-                      k: int = 3, aligned: bool = True) -> dict:
+                      k: int = 3, aligned: bool = True,
+                      elem_bytes: int = 4) -> dict:
     """How K1 (``kernel='k1'``) or K3 (``'k3'``) is launched on an
     (n, h, w, c) input with ``g`` deform groups and a k x k kernel: one
     block per (RoI, group, band of ``band_rows`` output rows; ``n_bands``
@@ -181,12 +197,16 @@ def dcn_launch_config(kernel: str, n: int, h: int, w: int, c: int, g: int,
     there are ``MIN_BLOCKS`` blocks where it can; the geometry table
     ``table_entries`` (pixel, tap) entries a chunk, in ``smem_bytes`` of
     shared memory; ``2 ** lanes_log2`` threads per entry, each lane ``vec``
-    channels at a time: 4 where the group's channels come in quads and the
-    bases are 16-byte ``aligned``, else 1."""
+    channels at a time where the group's channels come in such runs and the
+    bases are 16-byte ``aligned``, else 1: in K1 the 16 bytes of one access
+    (4 fp32 or 8 bf16 elements, ``elem_bytes`` 4 or 2), in K3 4 in either
+    type (``REDUCE_VEC``: its lanes end in 16-byte fp32 reductions into
+    ``d_x``, which 8 channels a lane would split into half sectors)."""
     if kernel not in ('k1', 'k3'):
         raise ValueError(f'dcn_launch_config: kernel k1 or k3, got {kernel}')
     cg, taps = c // g, k * k
-    vec = 4 if aligned and cg % 4 == 0 else 1
+    wide = VEC_BYTES // elem_bytes if kernel == 'k1' else REDUCE_VEC
+    vec = wide if aligned and cg % wide == 0 else 1
     lanes_log2 = 0
     while (1 << lanes_log2) < min(32, cg // vec):
         lanes_log2 += 1
@@ -204,15 +224,25 @@ def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+BF16 = '_bf16'   # the suffix of a bf16 instance's name
+
+
+def _count(wrapper, dtype: torch.dtype) -> None:
+    """One launch of ``wrapper``'s instance of ``dtype``: ``launches`` is a
+    dict keyed by the suffix of the instance's name, '' for fp32 and
+    ``BF16`` for bf16."""
+    wrapper.launches[BF16 if dtype == torch.bfloat16 else ''] += 1
+
+
 def _check_nhwc(name, x, offsets, k, g):
     n, h, w, c = x.shape
     expect = (n, h, w, 2 * g * k * k)
     if x.device.type != 'cuda' or offsets.device != x.device:
         raise ValueError(f'{name}: x and offsets must be on one CUDA device, '
                          f'got {x.device}, {offsets.device}')
-    if x.dtype != torch.float32 or offsets.dtype != torch.float32:
-        raise TypeError(f'{name}: float32 only, got {x.dtype}, '
-                        f'{offsets.dtype}')
+    if x.dtype not in DTYPES or offsets.dtype != x.dtype:
+        raise TypeError(f'{name}: float32 or bfloat16 x with offsets of the '
+                        f'same type, got {x.dtype}, {offsets.dtype}')
     if tuple(offsets.shape) != expect or c % g:
         raise ValueError(f'{name}: x {tuple(x.shape)} / offsets '
                          f'{tuple(offsets.shape)}, expected offsets {expect} '
@@ -225,9 +255,11 @@ def deform_im2col_windowed(x: torch.Tensor, offsets: torch.Tensor,
                            kernel_size: int = 3, padding: int = 1,
                            dilation: int = 1, deform_groups: int = 1,
                            window: int = 3) -> torch.Tensor:
-    """K1 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Arguments as :func:`deform_im2col_windowed_plain`. Carries
-    no gradient: :func:`deform_conv2d` is the differentiable entry."""
+    """K1 wrapper: the CUDA kernel's instance of the type of ``x`` (fp32
+    or bf16) for CUDA tensors, the plain version for CPU tensors. Arguments
+    as :func:`deform_im2col_windowed_plain`. Carries no gradient:
+    :func:`deform_conv2d` is the differentiable entry. ``launches`` counts
+    each instance's launches (:func:`_count`)."""
     _refuse_grad('deform_im2col_windowed', x, offsets)
     if x.device.type == 'cpu':
         return deform_im2col_windowed_plain(x, offsets, kernel_size, padding,
@@ -236,13 +268,15 @@ def deform_im2col_windowed(x: torch.Tensor, offsets: torch.Tensor,
                 deform_groups)
     n, h, w, c = x.shape
     k, g = kernel_size, deform_groups
-    col = torch.empty((n, h, w, g, k * k, c // g), dtype=torch.float32,
+    col = torch.empty((n, h, w, g, k * k, c // g), dtype=x.dtype,
                       device=x.device)
     if col.numel() == 0:
         return col
     cfg = dcn_launch_config('k1', n, h, w, c, g, k,
-                            aligned=_aligned(x, col))
-    fn = _build.load('deform_im2col').deform_im2col_windowed_f32
+                            aligned=_aligned(x, col),
+                            elem_bytes=x.element_size())
+    fn = getattr(_build.load('deform_im2col'),
+                 'deform_im2col_windowed_' + DTYPES[x.dtype])
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [
         ctypes.c_void_p]
@@ -254,21 +288,25 @@ def deform_im2col_windowed(x: torch.Tensor, offsets: torch.Tensor,
     if rc != 0:
         raise RuntimeError('deform_im2col_windowed: kernel launch failed '
                            f'with CUDA error {rc}')
-    deform_im2col_windowed.launches += 1
+    _count(deform_im2col_windowed, x.dtype)
     return col
 
 
-deform_im2col_windowed.launches = 0
+deform_im2col_windowed.launches = {'': 0, BF16: 0}
 
 
 def deform_col2im_windowed(x: torch.Tensor, offsets: torch.Tensor,
                            d_col: torch.Tensor, kernel_size: int = 3,
                            padding: int = 1, dilation: int = 1,
                            deform_groups: int = 1, window: int = 3):
-    """K3 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Arguments as :func:`deform_col2im_windowed_plain`; returns
-    ``(d_x, d_offset)``. ``d_x`` is summed with fp32 atomics, so its last
-    bits vary from run to run."""
+    """K3 wrapper: the CUDA kernel's instance of the type of ``x`` (fp32
+    or bf16; ``offsets`` and ``d_col`` in that type) for CUDA tensors, the
+    plain version for CPU tensors. Arguments as
+    :func:`deform_col2im_windowed_plain`; returns ``(d_x, d_offset)`` in the
+    inputs' type. ``d_x`` is summed with fp32 atomics into an fp32 buffer
+    (rounded to bf16 once at the end for a bf16 ``x``), so its last bits
+    vary from run to run. ``launches`` counts each instance's launches
+    (:func:`_count`)."""
     _refuse_grad('deform_col2im_windowed', x, offsets, d_col)
     if x.device.type == 'cpu':
         return deform_col2im_windowed_plain(x, offsets, d_col, kernel_size,
@@ -279,19 +317,21 @@ def deform_col2im_windowed(x: torch.Tensor, offsets: torch.Tensor,
     n, h, w, c = x.shape
     k, g = kernel_size, deform_groups
     expect = (n, h, w, g, k * k, c // g)
-    if (d_col.device != x.device or d_col.dtype != torch.float32 or
+    if (d_col.device != x.device or d_col.dtype != x.dtype or
             tuple(d_col.shape) != expect or not d_col.is_contiguous()):
         raise ValueError(f'deform_col2im_windowed: d_col must be a '
-                         f'contiguous float32 {expect} tensor on {x.device}, '
-                         f'got {tuple(d_col.shape)} {d_col.dtype} on '
-                         f'{d_col.device}')
-    d_x = torch.zeros_like(x)
+                         f'contiguous {x.dtype} {expect} tensor on '
+                         f'{x.device}, got {tuple(d_col.shape)} '
+                         f'{d_col.dtype} on {d_col.device}')
+    d_x = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     d_off = torch.empty_like(offsets)
     if d_col.numel() == 0:
-        return d_x, d_off.zero_()
+        return d_x.to(x.dtype), d_off.zero_()
     cfg = dcn_launch_config('k3', n, h, w, c, g, k,
-                            aligned=_aligned(x, d_col, d_x))
-    fn = _build.load('deform_col2im').deform_col2im_windowed_f32
+                            aligned=_aligned(x, d_col, d_x),
+                            elem_bytes=x.element_size())
+    fn = getattr(_build.load('deform_col2im'),
+                 'deform_col2im_windowed_' + DTYPES[x.dtype])
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [
         ctypes.c_void_p]
@@ -303,11 +343,11 @@ def deform_col2im_windowed(x: torch.Tensor, offsets: torch.Tensor,
     if rc != 0:
         raise RuntimeError('deform_col2im_windowed: kernel launch failed '
                            f'with CUDA error {rc}')
-    deform_col2im_windowed.launches += 1
-    return d_x, d_off
+    _count(deform_col2im_windowed, x.dtype)
+    return d_x.to(x.dtype), d_off
 
 
-deform_col2im_windowed.launches = 0
+deform_col2im_windowed.launches = {'': 0, BF16: 0}
 
 
 def im2col_weight(weight_oihw: torch.Tensor,
@@ -321,7 +361,10 @@ def im2col_weight(weight_oihw: torch.Tensor,
 
 
 class _WindowedDeformConv(torch.autograd.Function):
-    """K1 + GEMM forward; recompute (K1), two GEMMs and K3 backward."""
+    """K1 + GEMM forward; recompute (K1), two GEMMs and K3 backward. ``x``,
+    the offsets and the weight share one type, fp32 or bf16, and so do the
+    output and each gradient (in bf16 the GEMMs take bf16 operands and sum
+    in fp32, as the JAX einsum does with ``preferred_element_type``)."""
 
     @staticmethod
     def forward(ctx, x, offsets, w2, kernel_size, padding, dilation,
@@ -339,7 +382,7 @@ class _WindowedDeformConv(torch.autograd.Function):
         x, offsets, w2 = ctx.saved_tensors
         k, _, _, g, _ = ctx.conf
         n, h, w, c = x.shape
-        d_out = d_out.reshape(n * h * w, -1).float()
+        d_out = d_out.reshape(n * h * w, -1).to(x.dtype)
         d_w2 = None
         if ctx.needs_input_grad[2]:
             col = deform_im2col_windowed(x, offsets, *ctx.conf)
@@ -359,11 +402,13 @@ def deform_conv2d_nhwc(x: torch.Tensor, offsets: torch.Tensor,
                        deform_groups: int = 1,
                        window: int = 3) -> torch.Tensor:
     """Windowed DCN of NHWC ``x`` with an OIHW (torch-layout) kernel ->
-    (n, H, W, C_out) contiguous NHWC; differentiable in all three."""
+    (n, H, W, C_out) contiguous NHWC; differentiable in all three. Computes
+    in the type of ``x`` (fp32 or bf16): the offsets and the weight are
+    taken in it."""
     return _WindowedDeformConv.apply(
-        x.contiguous().float(), offsets.contiguous().float(),
-        im2col_weight(weight_oihw, deform_groups), kernel_size, padding,
-        dilation, deform_groups, window)
+        x.contiguous(), offsets.contiguous().to(x.dtype),
+        im2col_weight(weight_oihw, deform_groups).to(x.dtype), kernel_size,
+        padding, dilation, deform_groups, window)
 
 
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor,

@@ -150,7 +150,7 @@ def _fused(name, counter, x, offsets, weights, kernel_size, padding,
     if rc != 0:
         raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
                            f'{rc}')
-    counter.launches += 1
+    counter.launches[''] += 1
     return out
 
 
@@ -171,7 +171,7 @@ def deform_conv2d_windowed_fused(x: torch.Tensor, offsets: torch.Tensor,
                   round_to_input=False)
 
 
-deform_conv2d_windowed_fused.launches = 0
+deform_conv2d_windowed_fused.launches = {'': 0}   # both types, one count
 
 
 def deform_conv2d_frame(x: torch.Tensor, offsets: torch.Tensor,
@@ -190,4 +190,4 @@ def deform_conv2d_frame(x: torch.Tensor, offsets: torch.Tensor,
                   window, round_to_input=True)
 
 
-deform_conv2d_frame.launches = 0
+deform_conv2d_frame.launches = {'': 0}   # both types, one count

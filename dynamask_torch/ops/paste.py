@@ -2,7 +2,10 @@
 
 Each RoI's P×P mask is resampled into its box on a static canvas with
 ``grid_sample(align_corners=False)`` semantics and zero padding, written as
-two batched matmuls against per-RoI bilinear axis matrices.
+two batched matmuls against per-RoI bilinear axis matrices. bf16 masks stay
+bf16 at the products' inputs, the axis weights rounded to bf16 with them,
+and the products sum in fp32, as in the JAX package
+(``dynamask_tpu/ops/paste.py:64-68``).
 """
 
 from __future__ import annotations
@@ -42,5 +45,9 @@ def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, out_h: int,
     mx = ((gx + 1.0) * pw - 1.0) * 0.5
     wy = _axis_weights(my, ph)                       # (N, out_h, ph)
     wx = _axis_weights(mx, pw)                       # (N, out_w, pw)
+    # bf16 operands are exact in fp32: the fp32 products of their widened
+    # values are the bf16 products summed in fp32
+    dt = masks.dtype if masks.dtype == torch.bfloat16 else torch.float32
+    wy, wx = wy.to(dt).float(), wx.to(dt).float()
     tmp = torch.bmm(wy, masks.float())               # (N, out_h, pw)
     return torch.bmm(tmp, wx.transpose(1, 2))        # (N, out_h, out_w)

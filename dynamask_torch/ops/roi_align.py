@@ -20,6 +20,13 @@ CPU tensor the plain PyTorch versions beside the kernels run. Features are
 NHWC at these public functions, as in the JAX package; a ``channels_last``
 NCHW map viewed with ``permute(0, 2, 3, 1)`` is contiguous NHWC and costs no
 copy.
+
+The crops keep the features' type, fp32 or bf16, as the JAX forms do
+(``roi_align.py:105-107``): each kernel has an instance of each. A bf16
+crop is computed in fp32 from the widened features and rounded once; the
+bf16 backward reads a bf16 crop gradient, sums into fp32 and rounds the
+feature gradient to bf16 once at the end. RoIs, scales and plane indices
+are the same for both.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from typing import List, Sequence, Tuple
 import torch
 
 from . import _build
-from .deform_conv import MIN_BLOCKS, _aligned, _refuse_grad
+from .deform_conv import (BF16, DTYPES, MIN_BLOCKS, REDUCE_VEC, VEC_BYTES,
+                          _aligned, _count, _refuse_grad)
 
 
 def map_roi_levels(rois: torch.Tensor, num_levels: int,
@@ -89,7 +97,8 @@ def roi_align_fwd_plain(flat: torch.Tensor, rois: torch.Tensor,
 
     ``flat`` (rows, C); ``rois`` (N, 4); ``base`` (N,) int64 first row of
     each RoI's plane; ``hs``/``ws`` (N,) int32 plane extent; ``scales`` (N,)
-    float32 coordinate scale. Returns (N, P, P, C)."""
+    float32 coordinate scale. Returns (N, P, P, C) in the type of ``flat``,
+    computed in fp32 and rounded once."""
     n, c = rois.shape[0], flat.shape[1]
     p, s = out_size, sampling_ratio
     (y1, bin_h), (x1, bin_w) = _roi_axes(rois, scales, p)
@@ -102,13 +111,13 @@ def roi_align_fwd_plain(flat: torch.Tensor, rois: torch.Tensor,
     b = base.long()[:, None, None]
 
     def take(yi, xi):
-        return flat[(b + e_y(yi) * wl + e_x(xi)).reshape(-1)]
+        return flat[(b + e_y(yi) * wl + e_x(xi)).reshape(-1)].float()
 
     v = (take(y0i, x0i) * (e_y(hy) * e_x(hx) * inside).reshape(-1, 1) +
          take(y0i, x1i) * (e_y(hy) * e_x(lx) * inside).reshape(-1, 1) +
          take(y1i, x0i) * (e_y(ly) * e_x(hx) * inside).reshape(-1, 1) +
          take(y1i, x1i) * (e_y(ly) * e_x(lx) * inside).reshape(-1, 1))
-    return v.reshape(n, p, s, p, s, c).mean(dim=(2, 4))
+    return v.reshape(n, p, s, p, s, c).mean(dim=(2, 4)).to(flat.dtype)
 
 
 # Launch configuration of K2 and K4. The constants mirror the kernels'
@@ -120,7 +129,8 @@ K4_BAND = 4                  # K4: output rows a block covers
 
 
 def roi_align_launch_config(kernel: str, n: int, p: int, s: int, c: int,
-                            aligned: bool = True) -> dict:
+                            aligned: bool = True,
+                            elem_bytes: int = 4) -> dict:
     """How K2 (``kernel='k2'``) or K4 (``'k4'``) is launched on ``n`` RoIs
     of P x P bins, ``s`` x ``s`` samples a bin, C channels: one block per
     (RoI, band of ``band_rows`` output rows; ``n_bands`` bands), about
@@ -130,12 +140,16 @@ def roi_align_launch_config(kernel: str, n: int, p: int, s: int, c: int,
     RoI's P*s samples and the y table of the band's ``band_rows * s`` in
     ``smem_bytes`` of shared memory; ``2 ** lanes_log2`` threads per entry
     of the lane walk (an output column in K2, a feature column in K4), each
-    ``vec`` channels at a time: 4 where C comes in quads and the bases are
-    16-byte ``aligned``, else 1."""
+    ``vec`` channels at a time where C comes in such runs and the bases are
+    16-byte ``aligned``, else 1: in K2 the 16 bytes of one access of the
+    features, 4 fp32 or 8 bf16 elements (``elem_bytes`` 4 or 2), in K4 4
+    in either type (its lanes end in 16-byte fp32 reductions into
+    ``d_flat``)."""
     if kernel not in ('k2', 'k4'):
         raise ValueError(f'roi_align_launch_config: kernel k2 or k4, got '
                          f'{kernel}')
-    vec = 4 if aligned and c % 4 == 0 else 1
+    wide = VEC_BYTES // elem_bytes if kernel == 'k2' else REDUCE_VEC
+    vec = wide if aligned and c % wide == 0 else 1
     lanes_log2 = 0
     while (1 << lanes_log2) < min(32, c // vec):
         lanes_log2 += 1
@@ -155,8 +169,11 @@ def _check_crop(name, flat, rois, base, hs, ws, scales):
     if dev.type != 'cuda':
         raise ValueError(f'{name}: features must be on a CUDA device, got '
                          f'{dev}')
+    if flat.dtype not in DTYPES:
+        raise TypeError(f'{name}: features must be float32 or bfloat16, got '
+                        f'{flat.dtype}')
     for arg, t, dt, shape in (
-            ('flat', flat, torch.float32, None),
+            ('flat', flat, flat.dtype, None),
             ('rois', rois, torch.float32, (n, 4)),
             ('base', base, torch.int64, (n,)),
             ('hs', hs, torch.int32, (n,)),
@@ -179,21 +196,21 @@ def _check_crop(name, flat, rois, base, hs, ws, scales):
 _FNS = {}   # the kernels' C functions, their argument types set
 
 
-def _launch(kernel: str, tensors, n: int, c: int, p: int, s: int,
-            rows: int, cfg: dict, stream: int) -> None:
-    """Launch K2 (``kernel='k2'``: features, RoI arguments, output) or K4
-    (``'k4'``: d_out, RoI arguments, d_flat) with the launch configuration
-    ``cfg`` (:func:`roi_align_launch_config`)."""
+def _launch(kernel: str, dtype: torch.dtype, tensors, n: int, c: int,
+            p: int, s: int, rows: int, cfg: dict, stream: int) -> None:
+    """Launch the ``dtype`` instance of K2 (``kernel='k2'``: features, RoI
+    arguments, output) or K4 (``'k4'``: d_out, RoI arguments, d_flat) with
+    the launch configuration ``cfg`` (:func:`roi_align_launch_config`)."""
     name = 'roi_align_fwd' if kernel == 'k2' else 'roi_align_bwd'
-    fn = _FNS.get(kernel)
+    fn = _FNS.get((kernel, dtype))
     if fn is None:
         lib = 'roi_align' if kernel == 'k2' else 'roi_align_bwd'
-        fn = getattr(_build.load(lib), name + '_f32')
+        fn = getattr(_build.load(lib), f'{name}_{DTYPES[dtype]}')
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 +
                        [ctypes.c_longlong] + [ctypes.c_int] * 4 +
                        [ctypes.c_void_p])
-        _FNS[kernel] = fn
+        _FNS[kernel, dtype] = fn
     rc = fn(*[t.data_ptr() for t in tensors], n, c, p, s, rows,
             cfg['band_rows'], cfg['vec'], cfg['lanes_log2'],
             cfg['smem_bytes'], stream)
@@ -205,29 +222,32 @@ def _launch(kernel: str, tensors, n: int, c: int, p: int, s: int,
 def roi_align_fwd(flat: torch.Tensor, rois: torch.Tensor, base: torch.Tensor,
                   hs: torch.Tensor, ws: torch.Tensor, scales: torch.Tensor,
                   out_size: int, sampling_ratio: int) -> torch.Tensor:
-    """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Arguments as :func:`roi_align_fwd_plain`. Carries no
-    gradient: :func:`roi_align_flat` is the differentiable entry."""
+    """K2 wrapper: the CUDA kernel's instance of the features' type (fp32
+    or bf16) for CUDA tensors, the plain version for CPU tensors. Arguments
+    as :func:`roi_align_fwd_plain`. Carries no gradient:
+    :func:`roi_align_flat` is the differentiable entry. ``launches``
+    counts each instance's launches (``deform_conv._count``)."""
     _refuse_grad('roi_align_fwd', flat)
     if flat.device.type == 'cpu':
         return roi_align_fwd_plain(flat, rois, base, hs, ws, scales,
                                    out_size, sampling_ratio)
     _check_crop('roi_align_fwd', flat, rois, base, hs, ws, scales)
     n, c = rois.shape[0], flat.shape[1]
-    out = torch.empty((n, out_size, out_size, c), dtype=torch.float32,
+    out = torch.empty((n, out_size, out_size, c), dtype=flat.dtype,
                       device=flat.device)
     if out.numel() == 0:
         return out
     cfg = roi_align_launch_config('k2', n, out_size, sampling_ratio, c,
-                                  aligned=_aligned(flat, out))
-    _launch('k2', (flat, rois, base, hs, ws, scales, out), n, c, out_size,
-            sampling_ratio, flat.shape[0], cfg,
+                                  aligned=_aligned(flat, out),
+                                  elem_bytes=flat.element_size())
+    _launch('k2', flat.dtype, (flat, rois, base, hs, ws, scales, out), n, c,
+            out_size, sampling_ratio, flat.shape[0], cfg,
             torch.cuda.current_stream(flat.device).cuda_stream)
-    roi_align_fwd.launches += 1
+    _count(roi_align_fwd, flat.dtype)
     return out
 
 
-roi_align_fwd.launches = 0
+roi_align_fwd.launches = {'': 0, BF16: 0}
 
 
 def roi_align_bwd_plain(d_out: torch.Tensor, rows: int, rois: torch.Tensor,
@@ -236,64 +256,72 @@ def roi_align_bwd_plain(d_out: torch.Tensor, rows: int, rois: torch.Tensor,
                         out_size: int, sampling_ratio: int) -> torch.Tensor:
     """Plain PyTorch form of K4: the gradient (rows, C) of the flat
     features from ``d_out`` (N, P, P, C), as autograd of
-    :func:`roi_align_fwd_plain` (the crop is linear in the features)."""
+    :func:`roi_align_fwd_plain` (the crop is linear in the features), in
+    fp32 from a ``d_out`` of either type: the kernel's sum, which the
+    caller rounds for a bf16 crop (:class:`_RoIAlignFlat`)."""
     flat = torch.zeros(rows, d_out.shape[-1], device=d_out.device,
                        requires_grad=True)
     with torch.enable_grad():
         out = roi_align_fwd_plain(flat, rois, base, hs, ws, scales, out_size,
                                   sampling_ratio)
-    return torch.autograd.grad(out, flat, d_out)[0]
+    return torch.autograd.grad(out, flat, d_out.float())[0]
 
 
 def roi_align_bwd(d_out: torch.Tensor, rows: int, rois: torch.Tensor,
                   base: torch.Tensor, hs: torch.Tensor, ws: torch.Tensor,
                   scales: torch.Tensor, out_size: int,
                   sampling_ratio: int) -> torch.Tensor:
-    """K4 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Arguments as :func:`roi_align_bwd_plain`. The result is
-    summed with fp32 atomics, so its last bits vary from run to run."""
+    """K4 wrapper: the CUDA kernel's instance of the type of ``d_out``
+    (fp32 or bf16) for CUDA tensors, the plain version for CPU tensors.
+    Arguments as :func:`roi_align_bwd_plain`. The result is summed with
+    fp32 atomics into the fp32 buffer it returns, so its last bits vary
+    from run to run. ``launches`` counts each instance's launches
+    (``deform_conv._count``)."""
     if d_out.device.type == 'cpu':
         return roi_align_bwd_plain(d_out, rows, rois, base, hs, ws, scales,
                                    out_size, sampling_ratio)
     n, c = rois.shape[0], d_out.shape[-1]
     d_flat = torch.zeros((rows, c), dtype=torch.float32, device=d_out.device)
     _check_crop('roi_align_bwd', d_flat, rois, base, hs, ws, scales)
-    if (d_out.dtype != torch.float32 or not d_out.is_contiguous() or
+    if (d_out.dtype not in DTYPES or not d_out.is_contiguous() or
             tuple(d_out.shape) != (n, out_size, out_size, c)):
         raise ValueError(f'roi_align_bwd: d_out must be a contiguous float32 '
-                         f'{(n, out_size, out_size, c)} tensor, got '
-                         f'{tuple(d_out.shape)} {d_out.dtype}')
+                         f'or bfloat16 {(n, out_size, out_size, c)} tensor, '
+                         f'got {tuple(d_out.shape)} {d_out.dtype}')
     if d_out.numel() == 0:
         return d_flat
     cfg = roi_align_launch_config('k4', n, out_size, sampling_ratio, c,
-                                  aligned=_aligned(d_out, d_flat))
-    _launch('k4', (d_out, rois, base, hs, ws, scales, d_flat), n, c,
-            out_size, sampling_ratio, rows, cfg,
+                                  aligned=_aligned(d_out, d_flat),
+                                  elem_bytes=d_out.element_size())
+    _launch('k4', d_out.dtype, (d_out, rois, base, hs, ws, scales, d_flat),
+            n, c, out_size, sampling_ratio, rows, cfg,
             torch.cuda.current_stream(d_out.device).cuda_stream)
-    roi_align_bwd.launches += 1
+    _count(roi_align_bwd, d_out.dtype)
     return d_flat
 
 
-roi_align_bwd.launches = 0
+roi_align_bwd.launches = {'': 0, BF16: 0}
 
 
 class _RoIAlignFlat(torch.autograd.Function):
-    """K2 forward, K4 backward; the gradient of the features only."""
+    """K2 forward, K4 backward; the gradient of the features only, in their
+    type: K4 reads the crop gradient in it, sums in fp32, and the sum is
+    rounded once."""
 
     @staticmethod
     def forward(ctx, flat, rois, base, hs, ws, scales, out_size,
                 sampling_ratio):
         ctx.save_for_backward(rois, base, hs, ws, scales)
-        ctx.conf = (flat.shape[0], out_size, sampling_ratio)
+        ctx.conf = (flat.shape[0], out_size, sampling_ratio, flat.dtype)
         return roi_align_fwd(flat, rois, base, hs, ws, scales, out_size,
                              sampling_ratio)
 
     @staticmethod
     def backward(ctx, d_out):
-        rows, p, s = ctx.conf
-        d_flat = roi_align_bwd(d_out.contiguous().float(), rows,
+        rows, p, s, dtype = ctx.conf
+        d_flat = roi_align_bwd(d_out.contiguous().to(dtype), rows,
                                *ctx.saved_tensors, p, s)
-        return d_flat, None, None, None, None, None, None, None
+        return d_flat.to(dtype), None, None, None, None, None, None, None
 
 
 def roi_align_flat(flat: torch.Tensor, rois: torch.Tensor,
@@ -310,15 +338,15 @@ def roi_align_flat(flat: torch.Tensor, rois: torch.Tensor,
 
 def _flat_planes(features: Sequence[torch.Tensor]
                  ) -> Tuple[torch.Tensor, List[int]]:
-    """Concatenate NHWC planes into one (rows, C) buffer; returns it with
-    each level's first row."""
+    """Concatenate NHWC planes into one (rows, C) buffer of their type;
+    returns it with each level's first row."""
     c = features[0].shape[-1]
     flats = [f.reshape(-1, c) for f in features]
     offsets = [0]
     for f in flats[:-1]:
         offsets.append(offsets[-1] + f.shape[0])
     flat = flats[0] if len(flats) == 1 else torch.cat(flats, 0)
-    return flat.contiguous().float(), offsets
+    return flat.contiguous(), offsets
 
 
 def roi_align(features: torch.Tensor, rois: torch.Tensor,

@@ -136,7 +136,7 @@ def test_entry_points_on_cpu_run_the_plain_version(entry, dtype):
     x, off, w = _inputs('random', 2, seed=3)
     x, off, w = (torch.from_numpy(x).to(dtype), torch.from_numpy(off),
                  torch.from_numpy(w))
-    before = fn.launches
+    before = dict(fn.launches)
     got = fn(x, off, w, 3, 1, 1, 2, 3)
     ref = deform_conv2d_fused_plain(
         x, off, w, 3, 1, 1, 2, 3,

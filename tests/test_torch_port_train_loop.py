@@ -403,8 +403,9 @@ def test_cli(runs, coco, tmp_path, monkeypatch, capsys):
     run's checkpoint: exits 0, writes ``epoch_1.pth``, ``latest``, train
     rows that start the progress afresh and a val row. ``--devices 2`` and
     ``--launcher pytorch`` exit 2 naming the DDP item; without a GPU the
-    default device exits 1; a ``bf16`` config and a batch no group can
-    fill raise."""
+    default device exits 1; a ``bf16`` config trains its epoch in bf16,
+    logs the mixed-precision line and saves fp32 weights; a batch no group
+    can fill raises."""
     from dynamask_torch.apis import train_detector
     from dynamask_torch.tools.train import main
     root, _, _ = runs
@@ -434,8 +435,21 @@ def test_cli(runs, coco, tmp_path, monkeypatch, capsys):
     assert main([path]) == 1
     assert 'CUDA' in capsys.readouterr().err
     from dynamask_torch.utils import Config
-    with pytest.raises(NotImplementedError, match='item 5'):
-        train_detector(Config(dict(cfg, bf16=True)), device='cpu')
+    bf16 = tmp_path / 'bf16'
+    model, _ = train_detector(
+        Config(dict(cfg, bf16=True, total_epochs=1,
+                    data=dict(cfg['data'], workers_per_gpu=0))),
+        work_dir=str(bf16), max_steps_per_epoch=1, device='cpu',
+        validate=False)
+    text = ''.join(open(f).read() for f in glob.glob(str(bf16 / '*.log')))
+    assert 'mixed precision: bf16 compute, fp32 master weights' in text
+    got = rows(bf16)
+    assert [r['mode'] for r in got] == ['train']
+    assert np.isfinite(got[0]['loss'])
+    sd = torch.load(bf16 / 'epoch_1.pth', weights_only=True)['state_dict']
+    assert all(v.dtype == torch.float32 for v in sd.values()
+               if v.is_floating_point())
+    assert all(p.dtype == torch.float32 for p in model.parameters())
     # a batch larger than each orientation group: no step can form
     big = dict(cfg, data=dict(cfg['data'], samples_per_gpu=NUM_IMAGES))
     with pytest.raises(ValueError, match='samples_per_gpu'):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's flagship on one GPU.
 
-    python3 tools/profile_torch_port.py [--iters 5] [--train] [--config CFG]
+    python3 tools/profile_torch_port.py [--iters 5] [--train] [--bf16]
+                                        [--config CFG]
 
 Without ``--train``: builds DynaMask R50-FPN (``configs/dynamask/coco/
 r50_dynamask_1x.py``, or ``--config``) with random N(0, 0.05) weights from
@@ -13,6 +14,10 @@ the trainer from the same config (its own seeded initialisation) and runs
 training steps on a seeded synthetic batch of the config's
 ``samples_per_gpu`` images at the first canvas of its train set, 20 GTs
 each, as ``chip_smoke.py`` phases 5 and 8 do (``apis.config_shapes``).
+``--bf16`` runs the mixed-precision policy instead, as ``chip_smoke.py``
+phase 9 does: inference through ``apis.make_test_fn(..., bf16=True)`` (a
+bf16 copy of the model on a bf16 image; the paste opens the same ``paste``
+range), training steps with ``compute_dtype=torch.bfloat16``.
 For each mode it reports
 
 * from a ``torch.profiler`` trace of whole iterations: each stage's host
@@ -30,10 +35,12 @@ For each mode it reports
   device's busy share (kernel time over wall time).
 
 Prints a summary and writes ``chiprun_out/profile_torch_port.json``
-(``profile_torch_port_<config name>.json`` for another config).
+(``profile_torch_port_<config name>.json`` for another config, with
+``_bf16`` appended under ``--bf16``).
 """
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -124,9 +131,10 @@ def _summary(mode, prof, card, unit):
               f'  {r["name"][:100]}')
 
 
-def _inference(config, card, iters, hw, batch_size):
+def _inference(config, card, iters, hw, batch_size, bf16=False):
     import torch
-    from dynamask_torch.apis import inference_detector, init_detector
+    from dynamask_torch.apis import (inference_detector, init_detector,
+                                     make_test_fn)
     model = init_detector(config, seed=0, init_std=0.05)
     gen = torch.Generator(device='cuda').manual_seed(0)
     h, w = hw
@@ -140,15 +148,17 @@ def _inference(config, card, iters, hw, batch_size):
                           if dynamask else (('fcn', None),)):
         if dynamask:
             model.roi_head.dynamic_inference = dynamic
+        run = (functools.partial(make_test_fn(model, hw, bf16=True), batch)
+               if bf16 else functools.partial(inference_detector, model,
+                                              batch))
         for _ in range(2):
-            inference_detector(model, batch)
-        modes[mode] = _profile(lambda: inference_detector(model, batch),
-                               iters, STAGES)
+            run()
+        modes[mode] = _profile(run, iters, STAGES)
         _summary(mode, modes[mode], card, 'img')
     return modes
 
 
-def _train(config, card, iters, hw, batch_size):
+def _train(config, card, iters, hw, batch_size, bf16=False):
     import torch
     from dynamask_torch.apis import init_trainer, synthetic_batch
     from dynamask_torch.engine import make_train_step
@@ -159,7 +169,7 @@ def _train(config, card, iters, hw, batch_size):
                             crop_size=128,
                             num_classes=model.roi_head.num_classes,
                             device='cuda')
-    step = make_train_step(model, opt)
+    step = make_train_step(model, opt, torch.bfloat16 if bf16 else None)
     gen = torch.Generator(device='cuda').manual_seed(0)
     for _ in range(2):
         step(batch, generator=gen)
@@ -181,6 +191,8 @@ def main():
                     help='profile training steps instead of inference')
     ap.add_argument('--config', default=FLAGSHIP,
                     help='the config file (default: the flagship)')
+    ap.add_argument('--bf16', action='store_true',
+                    help='bf16 compute (the core/fp16.py policy)')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -195,12 +207,14 @@ def main():
     run, hw, batch = ((_train, train_hw, images) if args.train
                       else (_inference, test_hw, 1))
     print(f'{os.path.relpath(args.config, ROOT)}, canvas {hw[0]}x{hw[1]}, '
-          f'batch {batch}')
+          f'batch {batch}, {"bf16" if args.bf16 else "fp32"}')
     report = {'card': card, 'config': args.config, 'canvas': hw,
-              'batch': batch,
-              'modes': run(args.config, card, args.iters, hw, batch)}
+              'batch': batch, 'bf16': args.bf16,
+              'modes': run(args.config, card, args.iters, hw, batch,
+                           args.bf16)}
     name = os.path.splitext(os.path.basename(args.config))[0]
     suffix = '' if os.path.abspath(args.config) == FLAGSHIP else f'_{name}'
+    suffix += '_bf16' if args.bf16 else ''
     os.makedirs(os.path.join(ROOT, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(ROOT, 'chiprun_out',
                            f'profile_torch_port{suffix}.json'), 'w') as f:
