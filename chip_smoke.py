@@ -28,8 +28,12 @@ before the last line is printed:
    8's configurations (K1 at n = 300 for LVIS inference and at the 128
    mask slots of a Cityscapes step, K3 there too; K2 at LVIS's 300-det
    crops and on the 1024x2048 Cityscapes canvas, at inference and in
-   training, K4 there in training), on lines of their own kept out of the
-   ``kernels`` line's sums; K1 and K3 also at edge shapes
+   training, K4 there in training), and K2 and K4 at RefineMask's P2
+   crops (phase 10's, ratio 2: the semantic features at C = 256/128/64
+   and 14/28/56 and the one-channel semantic mask at each size; K2 and K4
+   at a step's 512 RoIs, K2 also at an image's 100 dets on 800x1344 and
+   on 1024x2048 and at LVIS's 300, where at C = 1 it cuts each RoI into
+   bands), on lines of their own kept out of the ``kernels`` line's sums; K1 and K3 also at edge shapes
    (ragged bands, one deform group, channels per group not a multiple of
    4, padding and dilation 2, windows 1 and 2, one RoI, a misaligned base)
    with random, zero and exact-edge offsets, K2 and K4 at theirs (C not a
@@ -38,8 +42,9 @@ before the last line is printed:
    K1-K4 in fp32 and in bf16 (the bf16 scalar instances among them), and
    K5 at its own edge shapes, untimed; and CUDA tensors of a type no
    instance takes (fp16, or bf16 beside fp32) must be refused unlaunched;
-3. check the port end to end on a small input: a toy DynaMask model and a
-   toy Mask R-CNN (ResNet-18, 32-channel FPN, the FCN mask head) on the GPU
+3. check the port end to end on a small input: a toy DynaMask model, a
+   toy Mask R-CNN (ResNet-18, 32-channel FPN, the FCN mask head) and a
+   toy RefineMask (32-channel semantic tower and stages) on the GPU
    (kernels) against the same models on the CPU (plain versions), at
    inference and for one training step (losses and per-parameter
    gradients);
@@ -71,7 +76,8 @@ before the last line is printed:
    against the numpy codec byte for byte on every mask, and that the GTs
    given as predictions score bbox and segm mAP of exactly 1.0; then one
    ``train_steps`` step from a ``build_dataloader`` batch of 4 images of
-   the set through the config's train pipeline, whose losses must be finite;
+   the set through the config's train pipeline, whose losses must be
+   finite; the drive and the step held to their exact launches;
 7. drive the training loop: (a) ``python -m dynamask_torch.tools.train``
    (its ``main``, in-process) on the flagship at full width from its own
    seeded initialisation, over a seeded 16-image COCO-format set in
@@ -109,7 +115,9 @@ before the last line is printed:
    1x1024x2048 for Cityscapes; its seeded initialisation, a synthetic
    batch with 20 GTs an image; median of 3 after a warm-up), printing
    ms/img, ms/step, peak memory, the valid det slots and the launches of
-   each path. Then the LVIS and Cityscapes evaluation paths: a seeded set
+   each path, each held to its exact counts (an image: K1 3, K2 5
+   faithful / 6 dynamic on DynaMask, K2 2 on Mask R-CNN; a step: K1 6, K2
+   6, K3 3, K4 6 on DynaMask, K2 2, K4 2 on Mask R-CNN). Then the LVIS and Cityscapes evaluation paths: a seeded set
    in each format (``build/chip_smoke_lvis/``: 8 images named by
    ``coco_url``, 1203 categories with frequency bands, negative and
    not-exhaustive categories; ``build/chip_smoke_cityscapes/``: 2 PNGs of
@@ -129,20 +137,39 @@ before the last line is printed:
    launch its precision's instance of every kernel of its path exactly as
    often as ``INFER_COUNTS`` / ``STEP_COUNTS`` say (an image: K1 3, K2 5
    faithful and 6 dynamic; a step: K1 6, K2 6, K3 3, K4 6) and no instance
-   of the other precision. It prints the phase's seconds and the whole
-   run's.
+   of the other precision. It prints the phase's seconds;
+10. drive the RefineMask family (no DCN: K2 and K4 only), each from its
+   config file, unchanged, at full width: ``configs/refinemask/coco/
+   r50_refinemask_1x.py`` at phases 4-5's protocol (random weights
+   N(0, 0.05) from seed 0, one seeded 800x1344 image through
+   ``inference_detector``, a counted warm-up and the median of 5; its
+   seeded initialisation and a synthetic batch of 4 at 800x1344 with 20
+   GTs an image and ``gt_semantic`` from the data pipeline's rasteriser,
+   one warm-up and 3 timed ``train_steps``), then the LVIS config (1203
+   classes on stages 0-2, 300 slots) and the Cityscapes one (1024x2048,
+   batch 1), one timed image and one timed step each; then one step from
+   phase 6's eval drive (``single_device_test`` -> RLE -> COCO metrics,
+   img/s) and loader-batch step on the R50 config, whose ``with_semantic``
+   train set gives the batch ``gt_semantic``.
+   Every drive must launch exactly K2 8 an image, K2 8 and K4 8 a step,
+   and nothing else. It prints ms/img, ms/step, peak memory, step 0's
+   ``loss_instance`` and ``loss_semantic``, the phase's seconds and the
+   whole run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
 validations and the overfit loop, and in phase 8 each configuration's
-inference modes, its training and the two evaluation paths, and in phase 9
-the fp32 and bf16 drives) the kernels' launch counters are zeroed just before it
+inference modes, its training and the two evaluation paths, in phase 9
+the fp32 and bf16 drives, and in phase 10 each RefineMask config's image
+and steps, the loader-batch step and the eval drive) the kernels' launch
+counters are zeroed just before it
 and read just after (the loop's
 steps and its validations in turns), and every kernel of that path must
 have launched in it: K1 and K2 at inference, in the eval loops and in the
 loop's validations, K5 through both entry points in its check, K1-K4 in
 training; behind Mask R-CNN's FCN head, which runs no DCN, K2 at
-inference and K2 and K4 in training.
+inference and K2 and K4 in training; phase 6 and phases 8-10 hold each
+drive to its exact counts, every other kernel at 0.
 
 Standard output ends with the ``kernels`` JSON line, the card's name and
 power limit as ``nvidia-smi`` reports them, and the ``{"ok": true, ...}``
@@ -167,6 +194,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, 'configs/dynamask/coco/r50_dynamask_1x.py')
 MASK_RCNN = os.path.join(ROOT,
                          'configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py')
+REFINEMASK = os.path.join(ROOT,
+                          'configs/refinemask/coco/r50_refinemask_1x.py')
 IMAGE_HW = (800, 1344)           # the flagship's test canvas
 PORTRAIT_HW = (1344, 800)        # its canvas for portrait images (phase 6)
 TRAIN_IMAGES = 4                 # the config's samples_per_gpu
@@ -270,6 +299,25 @@ def k3_cases(gen, dev):
             del x, off, d_col
 
 
+def synthetic_rois(gen, dev, n, images, canvas):
+    """(RoIs, image indices) of ``n`` random RoIs over ``images`` images of
+    the (h, w) ``canvas``: the first four partly off the image, of zero
+    area, very wide and past the far corner."""
+    import torch
+    h, w = canvas
+    xy = torch.rand(n, 2, generator=gen, device=dev) * torch.tensor(
+        [w, h], device=dev)
+    wh = torch.rand(n, 2, generator=gen, device=dev) ** 2 * torch.tensor(
+        [w, h], device=dev)
+    r = torch.cat([xy - wh / 4, xy + wh], 1)
+    r[:4] = torch.tensor([[-40., -30., 100., 90.],     # partly off
+                          [h / 2, h / 2, h / 2, h / 2],  # zero area
+                          [0., h / 3, w, h / 3 + 60],   # very wide
+                          [w - 100, h - 80, w + 60, h + 40]], device=dev)
+    return r.contiguous(), torch.randint(0, images, (n,), generator=gen,
+                                         device=dev)
+
+
 def _crops(gen, dev, images, n_box, n_mask, place=None, canvas=IMAGE_HW):
     """The crops of the main path, as (name, K2 arguments, options): the 7x7
     box extract (ratio 2) and the 14x14 mask extract (ratio 2) over P2-P5,
@@ -284,23 +332,8 @@ def _crops(gen, dev, images, n_box, n_mask, place=None, canvas=IMAGE_HW):
     h, w = canvas
     shapes = [(h // s, w // s) for s in (4, 8, 16, 32)]
 
-    def rois(n):
-        xy = torch.rand(n, 2, generator=gen, device=dev) * torch.tensor(
-            [w, h], device=dev)
-        wh = torch.rand(n, 2, generator=gen, device=dev) ** 2 * torch.tensor(
-            [w, h], device=dev)
-        r = torch.cat([xy - wh / 4, xy + wh], 1)
-        r[:4] = torch.tensor([[-40., -30., 100., 90.],     # partly off
-                              [h / 2, h / 2, h / 2, h / 2],  # zero area
-                              [0., h / 3, w, h / 3 + 60],   # very wide
-                              [w - 100, h - 80, w + 60, h + 40]], device=dev)
-        return r.contiguous()
-
-    def batch_of(n):
-        return torch.randint(0, images, (n,), generator=gen, device=dev)
-
     def synthetic(n):
-        return rois(n), batch_of(n)
+        return synthetic_rois(gen, dev, n, images, canvas)
 
     def placed(n):
         return place(n, synthetic) if place else synthetic(n)
@@ -473,7 +506,48 @@ def k5_limit(scale, got):
 CLUSTERED = 'clustered'
 PORTRAIT = 'portrait'
 CONFIG = 'config'                 # the shapes of phase 8's configurations
-OFF_ROW = (CLUSTERED, PORTRAIT, CONFIG)   # kept out of the row's sums
+REFINE = 'refine'                 # RefineMask's crops of P2 (phase 10)
+OFF_ROW = (CLUSTERED, PORTRAIT, CONFIG, REFINE)   # kept out of the row's sums
+# RefineMask's P2 crops (stride 4, sampling ratio 2) per stage: the
+# transformed semantic features (C = 256, 128, 64 at 14, 28, 56) and the
+# one-channel semantic mask at the same sizes; (P, C)
+REFINE_CROPS = ((14, 256), (28, 128), (56, 64), (14, 1), (28, 1), (56, 1))
+# the drives that take them, (label, generator seed, images, RoIs, canvas,
+# placed as the training step places them): the training step's 512
+# positive slots over 4 images, and one image's dets at inference, 100 on
+# R50 1x and Cityscapes, 300 on LVIS (at C = 1 and n < MIN_BLOCKS, K2 cuts
+# each RoI into bands)
+REFINE_DRIVES = (('train', 10, TRAIN_IMAGES, N_POS_TRAIN, IMAGE_HW, True),
+                 ('r50 infer', 12, 1, N_DETS, IMAGE_HW, False),
+                 ('lvis infer', 13, 1, LVIS_DETS, IMAGE_HW, False),
+                 ('cityscapes infer', 14, 1, N_DETS, CITY_HW, False))
+
+
+def refine_crops(dev, label, seed, images, n, canvas, clustered):
+    """K2's arguments at RefineMask's P2 crops in one drive of
+    ``REFINE_DRIVES``: ``n`` RoIs over ``images`` images of the (h, w)
+    ``canvas`` (P2 at stride 4), placed as the training step places them
+    (:func:`clustered_place`) or drawn as the inference crops'
+    (:func:`synthetic_rois`), each crop of ``REFINE_CROPS`` from the
+    drive's own generator."""
+    import torch
+    from dynamask_torch.ops import roi_align as ra
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if clustered:
+        rois, img = clustered_place(gen, dev, images, n)(n, None)
+    else:
+        rois, img = synthetic_rois(gen, dev, n, images, canvas)
+    h, w = canvas[0] // 4, canvas[1] // 4
+    for p, c in REFINE_CROPS:
+        feat = torch.randn(images, h, w, c, generator=gen, device=dev)
+        flat, _ = ra._flat_planes([feat])
+        yield (f'{REFINE} {label} P2 {n}x{p}x{p}x{c} r2', (
+            flat, rois, img * (h * w),
+            torch.full((n,), h, dtype=torch.int32, device=dev),
+            torch.full((n,), w, dtype=torch.int32, device=dev),
+            torch.full((n,), 0.25, device=dev)),
+            dict(out_size=p, sampling_ratio=2))
+        del feat, flat
 
 
 def config_crops(dev, train=False):
@@ -513,9 +587,11 @@ def clustered_crops(dev):
 def k2_cases(gen, dev):
     """K2 at the inference crops (one image, 1000 proposals, 100 dets) and
     at the training crops (4 images, 2048 sampled RoIs, 512 positive
-    slots), then at the training crops with clustered RoIs and at the
-    inference crops on the portrait canvas, each from a generator of its
-    own so the other cases keep their inputs."""
+    slots), then at the training crops with clustered RoIs, at the
+    inference crops on the portrait canvas, at phase 8's and at
+    RefineMask's P2 crops (phase 10) of its training step and of each
+    config's inference, each from a generator of its own so the other
+    cases keep their inputs."""
     import torch
     for case, args, kw in _crops(gen, dev, 1, 1000, N_DETS):
         yield 'infer ' + case, args, kw
@@ -529,6 +605,8 @@ def k2_cases(gen, dev):
         yield f'{PORTRAIT} infer {case}', args, kw
     yield from config_crops(dev)
     yield from config_crops(dev, train=True)
+    for drive in REFINE_DRIVES:
+        yield from refine_crops(dev, *drive)
 
 
 def k4_args(gen, args, kw):
@@ -544,7 +622,8 @@ def k4_args(gen, args, kw):
 
 def k4_cases(gen, dev):
     """K4 at the training crops (4 images, 2048 sampled RoIs, 512 positive
-    slots), with a random crop gradient, then with clustered RoIs."""
+    slots), with a random crop gradient, then with clustered RoIs, at the
+    Cityscapes step's crops and at RefineMask's P2 crops of a step."""
     import torch
     for case, args, kw in _crops(gen, dev, TRAIN_IMAGES, N_BOX_TRAIN,
                                  N_POS_TRAIN):
@@ -556,6 +635,10 @@ def k4_cases(gen, dev):
         del args
     cgen = torch.Generator(device=dev).manual_seed(9)
     for case, args, kw in config_crops(dev, train=True):
+        yield case, k4_args(cgen, args, kw), kw
+        del args
+    cgen = torch.Generator(device=dev).manual_seed(11)
+    for case, args, kw in refine_crops(dev, *REFINE_DRIVES[0]):
         yield case, k4_args(cgen, args, kw), kw
         del args
 
@@ -1116,12 +1199,17 @@ def check_kernels(report):
 
 # -- phase 3: a toy model, GPU against CPU ------------------------------------
 
-def toy_cfg(mask_rcnn=False):
+TOY_CONFIGS = {'dynamask': FLAGSHIP, 'mask_rcnn': MASK_RCNN,
+               'refinemask': REFINEMASK}
+
+
+def toy_cfg(kind='dynamask'):
     """A small DynaMask Mask R-CNN (ResNet-18, 32-channel FPN, 8 classes);
-    ``mask_rcnn``: the same from the Mask R-CNN config, its FCN mask head
-    at 2 convs of 32 channels."""
+    ``kind='mask_rcnn'``: the same from the Mask R-CNN config, its FCN mask
+    head at 2 convs of 32 channels; ``'refinemask'``: from the RefineMask
+    R50 1x config, one instance and two semantic convs of 32 channels."""
     from dynamask_torch.utils import Config
-    cfg = Config.fromfile(MASK_RCNN if mask_rcnn else FLAGSHIP)
+    cfg = Config.fromfile(TOY_CONFIGS[kind])
     m = cfg.model
     m.backbone.depth = 18
     m.neck.in_channels = [64, 128, 256, 512]
@@ -1134,10 +1222,14 @@ def toy_cfg(mask_rcnn=False):
     rh.bbox_head.fc_out_channels = 64
     rh.bbox_head.num_classes = 8
     mh = rh.mask_head
-    if mask_rcnn:
+    if kind == 'mask_rcnn':
         mh.num_convs = 2
         mh.in_channels = mh.conv_out_channels = 32
         mh.num_classes = 8
+    elif kind == 'refinemask':
+        mh.num_convs_instance, mh.num_convs_semantic = 1, 2
+        mh.conv_out_channels_instance = mh.conv_out_channels_semantic = 32
+        mh.stage_num_classes = [8, 8, 8, 8]
     else:
         mh.num_convs_instance = 1
         mh.conv_out_channels_instance = mh.conv_out_channels_semantic = 32
@@ -1151,7 +1243,8 @@ def toy_cfg(mask_rcnn=False):
 
 def check_toy_against_cpu(report):
     """Phase 3a: inference, the port on the GPU against itself on the CPU:
-    the toy DynaMask in both modes, then the toy Mask R-CNN."""
+    the toy DynaMask in both modes, then the toy Mask R-CNN and the toy
+    RefineMask."""
     import torch
     from dynamask_torch.models import build_detector
     gen = torch.Generator().manual_seed(1)
@@ -1159,8 +1252,8 @@ def check_toy_against_cpu(report):
     batch = {'image': img, 'img_shape': torch.tensor([[128., 128.]]),
              'scale_factor': torch.ones(1, 4)}
     for name, dynamic in (('faithful', False), ('dynamic', True),
-                          ('mask_rcnn', False)):
-        cfg = toy_cfg(mask_rcnn=name == 'mask_rcnn')
+                          ('mask_rcnn', False), ('refinemask', False)):
+        cfg = toy_cfg(name if name in TOY_CONFIGS else 'dynamask')
         cfg.model.roi_head.dynamic_inference = dynamic
         ref = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
                              device='cpu', seed=0)
@@ -1270,19 +1363,19 @@ class KinkSides:
             F.relu, head.deform_conv2d_nhwc = relu, dcn
 
 
-def toy_train_case(mask_rcnn=False):
-    """The toy training step's inputs: the model (the toy Mask R-CNN where
-    ``mask_rcnn``) on the CPU in training mode (the DynaMask toy's DCN
-    offset convs off zero, so K3's offset gradient is exercised too), the
-    same weights on the GPU, a synthetic batch of 2 images at
-    128x128, the same batch with its image perturbed by INPUT_NOISE
-    (relative), and the random draws (sampler priorities, Gumbel
-    uniforms)."""
+def toy_train_case(kind='dynamask'):
+    """The toy training step's inputs: the model (the toy of ``kind``) on
+    the CPU in training mode (the DynaMask toy's DCN offset convs off zero,
+    so K3's offset gradient is exercised too), the same weights on the GPU,
+    a synthetic batch of 2 images at 128x128 (with RefineMask's
+    ``gt_semantic``), the same batch with its image perturbed by
+    INPUT_NOISE (relative), and the random draws (sampler priorities,
+    Gumbel uniforms)."""
     import numpy as np
     import torch
     from dynamask_torch.apis import synthetic_batch
     from dynamask_torch.models import build_detector
-    cfg = toy_cfg(mask_rcnn)
+    cfg = toy_cfg(kind)
     b, hw, max_gts = 2, 128, 4
     ref = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
                          device='cpu', seed=0).train()
@@ -1295,7 +1388,8 @@ def toy_train_case(mask_rcnn=False):
                            device=DEVICE).train()
     model.load_state_dict(ref.state_dict())
     batch = synthetic_batch(3, b=b, h=hw, w=hw, num_gts=3, max_gts=max_gts,
-                            crop_size=32, num_classes=8, device='cpu')
+                            crop_size=32, num_classes=8, device='cpu',
+                            with_semantic=kind == 'refinemask')
     noisy = dict(batch, image=batch['image'] * (1 + INPUT_NOISE * torch.randn(
         batch['image'].shape, generator=torch.Generator().manual_seed(5))))
     rng = np.random.RandomState(4)
@@ -1347,14 +1441,14 @@ def toy_train_step(net, data, noise, proposals=None):
     return logs, grads, proposals if proposals is not None else taken[-1]
 
 
-def check_toy_train_against_cpu(report, mask_rcnn=False):
-    """Phase 3b: one training step of the toy model (the DynaMask toy, or
-    the Mask R-CNN toy), GPU (with and without cuDNN's convs) against CPU:
-    the same weights, batch, random draws and proposals (the first GPU
-    run's)."""
+def check_toy_train_against_cpu(report, kind='dynamask'):
+    """Phase 3b: one training step of the toy model (the DynaMask toy, the
+    Mask R-CNN toy or the RefineMask toy), GPU (with and without cuDNN's
+    convs) against CPU: the same weights, batch, random draws and proposals
+    (the first GPU run's)."""
     import torch
-    name = 'toy_train_mask_rcnn' if mask_rcnn else 'toy_train'
-    ref, model, batch, noisy, noise = toy_train_case(mask_rcnn)
+    name = 'toy_train' + ('' if kind == 'dynamask' else f'_{kind}')
+    ref, model, batch, noisy, noise = toy_train_case(kind)
     logs, grads, moved = {}, {}, {}
     sides = KinkSides()
     with sides.patched(follow=False):
@@ -1417,6 +1511,18 @@ def check_launches(path, launches, names):
     for name in names:
         if launches[name] <= 0:
             raise RuntimeError(f'{name} was not launched on the {path} path')
+
+
+def check_exact_launches(path, launches, counts, times=1):
+    """Every kernel instance launched exactly ``times`` x its count in
+    ``counts``, and every other one (the other precision's instances,
+    the kernels off the path) not at all."""
+    print(f'  {path}: kernel launches: {launches}')
+    wrong = {k: n for k, n in launches.items()
+             if n != counts.get(k, 0) * times}
+    if wrong:
+        raise RuntimeError(f'{path}: launches {wrong}, expected '
+                           f'{ {k: n * times for k, n in counts.items()} }')
 
 
 def run_inference_path(report, card):
@@ -1703,26 +1809,32 @@ def gt_as_predictions(dataset):
     return results
 
 
-def run_eval_path(report, card):
-    """Phase 6: the seeded COCO set through ``build_dataset``, the config's
-    test pipeline and loader, ``single_device_test`` (``simple_test`` + the
-    paste on the dataset's mask canvas, on the card) and
-    ``CocoDataset.evaluate``; counters around the timed drive. Then one
-    ``train_steps`` step on a loader batch of the train pipeline."""
+def run_eval_path(report, card, config=FLAGSHIP,
+                  infer_counts=INFER_COUNTS['faithful'],
+                  step_counts=STEP_COUNTS, prefix=''):
+    """Phase 6 (and phase 10 on RefineMask's R50 1x ``config``, its paths
+    named with ``prefix``): the seeded COCO set through ``build_dataset``,
+    the config's test pipeline and loader, ``single_device_test``
+    (``simple_test`` + the paste on the dataset's mask canvas, on the
+    card) and ``CocoDataset.evaluate``; counters around the timed drive,
+    held to ``infer_counts`` an image. Then one ``train_steps`` step on a
+    loader batch of the train pipeline (with ``gt_semantic`` where the
+    head reads it), held to ``step_counts``."""
     import torch
     import dynamask_torch.ops as ops
     from dynamask_torch.apis import (init_detector, init_trainer,
                                      single_device_test, train_steps)
     from dynamask_torch.data import build_dataloader, build_dataset
+    label = prefix.replace('_', ' ')
     ann_file, img_dir, n_gts = write_coco_set(COCO_SET)
-    model = init_detector(FLAGSHIP, device=DEVICE, seed=0, init_std=0.05)
+    model = init_detector(config, device=DEVICE, seed=0, init_std=0.05)
     data = model.cfg.data
     paths = dict(ann_file=ann_file, img_prefix=img_dir, data_root=None)
     dataset = build_dataset(dict(data['test'], **paths),
                             default_args=dict(test_mode=True))
     n = len(dataset)
-    print(f'  set: {n} images at COCO sizes {COCO_SIZES} (w x h), {n_gts} '
-          f'polygon GTs; the config\'s test pipeline, '
+    print(f'  {label}set: {n} images at COCO sizes {COCO_SIZES} (w x h), '
+          f'{n_gts} polygon GTs; the config\'s test pipeline, '
           f'{data["workers_per_gpu"]} loader workers')
     single_device_test(model, dataset, workers_per_gpu=0, progress=False)
     torch.cuda.synchronize(DEVICE)
@@ -1733,8 +1845,9 @@ def run_eval_path(report, card):
                                  workers_per_gpu=data['workers_per_gpu'],
                                  timings=timings)
     t_test = time.perf_counter() - t0
-    launches = {'eval': ops.kernel_launches()}
-    check_launches('eval', launches['eval'], INFER_KERNELS)
+    key = f'{prefix}eval'
+    launches = {key: ops.kernel_launches()}
+    check_exact_launches(key, launches[key], infer_counts, times=n)
     t = time.perf_counter()
     det_json, segm_json = dataset.results2json(results)
     timings['rle'] = time.perf_counter() - t
@@ -1744,44 +1857,62 @@ def run_eval_path(report, card):
     total = t_test + timings['rle'] + timings['evaluate']
     warm = total - timings['startup']
     ms = {k: 1e3 * v / n for k, v in timings.items()}
-    print(f'  eval: {n / total:.2f} img/s end to end ({1e3 * total / n:.1f} '
-          f'ms/img), {n / warm:.2f} img/s without the loader start-up '
-          f'[{card}]; ms/img: loader start-up {ms["startup"]:.1f}, host '
-          f'pipeline + collate {ms["pipeline"]:.1f}, device (simple_test + '
-          f'paste, synchronised) {ms["device"]:.1f}, device-to-host copy '
+    print(f'  {label}eval: {n / total:.2f} img/s end to end '
+          f'({1e3 * total / n:.1f} ms/img), {n / warm:.2f} img/s without the '
+          f'loader start-up [{card}]; ms/img: loader start-up '
+          f'{ms["startup"]:.1f}, host pipeline + collate '
+          f'{ms["pipeline"]:.1f}, device (simple_test + paste, '
+          f'synchronised) {ms["device"]:.1f}, device-to-host copy '
           f'{ms["fetch"]:.1f} + RLE {ms["rle"]:.1f}, evaluate '
           f'{ms["evaluate"]:.1f}')
     n_masks, n_valid = check_eval_outputs(dataset, results, det_json,
                                           segm_json)
-    print(f'  eval: {len(results)} results; {n_valid} valid dets, each '
-          f'mask\'s RLE round trip exact; C and numpy RLE byte-identical on '
-          f'all {n_masks} masks; bbox_mAP {metrics["bbox_mAP"]:.4f}, '
-          f'segm_mAP {metrics["segm_mAP"]:.4f} (random weights)')
+    print(f'  {label}eval: {len(results)} results; {n_valid} valid dets, '
+          f'each mask\'s RLE round trip exact; C and numpy RLE '
+          f'byte-identical on all {n_masks} masks; bbox_mAP '
+          f'{metrics["bbox_mAP"]:.4f}, segm_mAP {metrics["segm_mAP"]:.4f} '
+          f'(random weights)')
     gt = dataset.evaluate(gt_as_predictions(dataset), metric=['bbox', 'segm'])
-    print(f'  eval: GT as predictions: bbox_mAP {gt["bbox_mAP"]}, segm_mAP '
-          f'{gt["segm_mAP"]}')
+    print(f'  {label}eval: GT as predictions: bbox_mAP {gt["bbox_mAP"]}, '
+          f'segm_mAP {gt["segm_mAP"]}')
     if gt['bbox_mAP'] != 1.0 or gt['segm_mAP'] != 1.0:
-        raise RuntimeError('eval: GT as predictions must score exactly 1.0')
-    report['eval'] = dict(images=n, seconds=total, img_per_s=n / total,
-                          img_per_s_without_startup=n / warm,
-                          ms_per_img=ms, metrics=metrics,
-                          gt_as_predictions=gt, valid_dets=n_valid,
-                          masks_checked=n_masks, launches=launches['eval'])
+        raise RuntimeError(f'{key}: GT as predictions must score exactly '
+                           f'1.0')
+    report[key] = dict(images=n, seconds=total, img_per_s=n / total,
+                       img_per_s_without_startup=n / warm, ms_per_img=ms,
+                       metrics=metrics, gt_as_predictions=gt,
+                       valid_dets=n_valid, masks_checked=n_masks,
+                       launches=launches[key])
     del model, results
     torch.cuda.empty_cache()
 
-    model, opt = init_trainer(FLAGSHIP, steps_per_epoch=COCO_STEPS_PER_EPOCH,
+    model, opt = init_trainer(config, steps_per_epoch=COCO_STEPS_PER_EPOCH,
                               device=DEVICE, seed=0)
+    semantic = model.roi_head.with_semantic
     train_set = build_dataset(dict(data['train'], **paths), default_args=dict(
         max_gts=data['max_gts'], mask_crop_size=data['mask_crop_size']))
+    if semantic != train_set.with_semantic:
+        raise RuntimeError(f'{prefix}loader_train: the head reads '
+                           f'gt_semantic: {semantic}, the train set has it: '
+                           f'{train_set.with_semantic}')
     loader = build_dataloader(train_set, data['samples_per_gpu'],
                               workers_per_gpu=data['workers_per_gpu'])
     t = time.perf_counter()
     batch = next(iter(loader))
     t_load = time.perf_counter() - t
-    shape = tuple(batch['image'].shape)
+    img = batch['image']
+    shape = tuple(img.shape)
     if shape[0] != data['samples_per_gpu']:
         raise RuntimeError(f'loader batch {shape}')
+    sem_note = ''
+    if semantic:
+        sem = batch['gt_semantic']
+        if (sem.dtype != torch.uint8 or tuple(sem.shape) != (
+                shape[0], shape[1] // 4, shape[2] // 4) or not sem.any()):
+            raise RuntimeError(f'loader gt_semantic {tuple(sem.shape)} '
+                               f'{sem.dtype}, {int(sem.sum())} pixels set')
+        sem_note = (f', gt_semantic {tuple(sem.shape)} uint8 with '
+                    f'{int(sem.sum())} pixels set')
     ops.reset_kernel_launches()
     t = time.perf_counter()
     log, = train_steps(model, opt, [batch],
@@ -1789,20 +1920,23 @@ def run_eval_path(report, card):
                        .manual_seed(0))
     torch.cuda.synchronize(DEVICE)
     t_step = time.perf_counter() - t
-    launches['loader_train'] = ops.kernel_launches()
-    check_launches('loader_train', launches['loader_train'], TRAIN_KERNELS)
+    key = f'{prefix}loader_train'
+    launches[key] = ops.kernel_launches()
+    check_exact_launches(key, launches[key], step_counts)
     log = {k: float(v) for k, v in log.items()}
     bad = [k for k, v in log.items() if not math.isfinite(v)]
-    if bad:
-        raise RuntimeError(f'loader train step: non-finite {bad}')
-    print(f'  train step from a loader batch {shape} '
-          f'({int(batch["gt_valid"].sum())} GTs, {t_load:.1f} s to the '
-          f'first batch): {1e3 * t_step:.1f} ms (first step) [{card}], ' +
-          ', '.join(f'{k} {v:.5g}' for k, v in log.items()))
-    report['loader_train'] = dict(batch=list(shape), load_s=t_load,
-                                  step_ms=1e3 * t_step, losses=log,
-                                  launches=launches['loader_train'])
+    if bad or (semantic and 'loss_semantic' not in log):
+        raise RuntimeError(f'{key}: non-finite {bad} or no loss_semantic: '
+                           f'{sorted(log)}')
+    print(f'  {label}train step from a loader batch {shape} '
+          f'({int(batch["gt_valid"].sum())} GTs{sem_note}, {t_load:.1f} s '
+          f'to the first batch): {1e3 * t_step:.1f} ms (first step) '
+          f'[{card}], ' + ', '.join(f'{k} {v:.5g}' for k, v in log.items()))
+    report[key] = dict(batch=list(shape), load_s=t_load,
+                       step_ms=1e3 * t_step, losses=log,
+                       launches=launches[key])
     del model, opt, batch
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2274,21 +2408,27 @@ def write_cityscapes_set(root, seed=0, num_images=2):
     return ann_file, img_dir, len(anns)
 
 
-def _kernels_of(name, train):
-    """The kernels a path of config ``name`` must launch: K2 (and K4 in
-    training) behind Mask R-CNN's FCN head, K1 and K2 (and K3, K4) on the
-    DynaMask paths."""
+# Mask R-CNN's launches (no DCN): its box and mask extracts, K4 their
+# gradients in a step
+MASK_RCNN_INFER_COUNTS = {'roi_align_fwd': 2}
+MASK_RCNN_STEP_COUNTS = {'roi_align_fwd': 2, 'roi_align_bwd': 2}
+
+
+def config_modes(name):
+    """(mode, the MSM flag or None, exact launches of one image) of each
+    inference mode of phase 8's config ``name``."""
     if name == 'mask_rcnn':
-        return (('roi_align_fwd', 'roi_align_bwd') if train
-                else ('roi_align_fwd',))
-    return TRAIN_KERNELS if train else INFER_KERNELS
+        return (('fcn', None, MASK_RCNN_INFER_COUNTS),)
+    return tuple((m, m == 'dynamic', INFER_COUNTS[m])
+                 for m in ('faithful', 'dynamic'))
 
 
-def run_config_inference(report, card, name, path, hw):
-    """Phase 8, inference: the config's detector built on the card with
-    random weights N(0, 0.05) from seed 0, one seeded image at the
-    config's test canvas; per mode a counted warm-up drive, then the median
-    of 5."""
+def run_config_inference(report, card, name, path, hw, modes, repeats=5):
+    """Phases 8 and 10, inference: the config's detector built on the card
+    with random weights N(0, 0.05) from seed 0, one seeded image at the
+    config's test canvas through ``inference_detector``; per mode of
+    ``modes`` (:func:`config_modes`) a counted warm-up drive held to its
+    exact launches, then the median of ``repeats``."""
     import torch
     import dynamask_torch.ops as ops
     from dynamask_torch.apis import inference_detector, init_detector
@@ -2302,9 +2442,6 @@ def run_config_inference(report, card, name, path, hw):
                                        device=DEVICE),
              'scale_factor': torch.ones(1, 4, device=DEVICE)}
     rh = model.roi_head
-    dynamask = hasattr(rh, 'dynamic_inference')
-    modes = (('faithful', False), ('dynamic', True)) if dynamask \
-        else (('fcn', None),)
     d = rh.max_per_img
     print(f'  {name}: built in {build_s:.1f} s, '
           f'{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, '
@@ -2318,14 +2455,14 @@ def run_config_inference(report, card, name, path, hw):
         torch.cuda.synchronize(DEVICE)
         return out
 
-    for mode, dyn in modes:
+    for mode, dyn, counts in modes:
+        torch.cuda.synchronize(DEVICE)
         torch.cuda.reset_peak_memory_stats(DEVICE)
         ops.reset_kernel_launches()
         out = drive(dyn)
         key = f'{name}_{mode}'
         launches[key] = ops.kernel_launches()
-        check_launches(key, launches[key], _kernels_of(name, False))
-        side = 28 if name == 'mask_rcnn' else 112
+        check_exact_launches(key, launches[key], counts)
         expect = {'dets': (1, d, 5), 'labels': (1, d), 'valid': (1, d),
                   'masks': (1, d, h, w)}
         for k, shape in expect.items():
@@ -2336,18 +2473,26 @@ def run_config_inference(report, card, name, path, hw):
             raise RuntimeError(f'{key}: non-finite dets')
         if int(out['labels'].max()) >= rh.num_classes:
             raise RuntimeError(f'{key}: a label past {rh.num_classes}')
+        with torch.no_grad():
+            probs = model.simple_test(batch)['mask_probs']
+        side = 28 if name == 'mask_rcnn' else 112
+        if tuple(probs.shape) != (1, d, side, side) or not torch.isfinite(
+                probs).all():
+            raise RuntimeError(f'{key}: mask probabilities '
+                               f'{tuple(probs.shape)}, finite '
+                               f'{bool(torch.isfinite(probs).all())}')
         times = []
-        for _ in range(5):
+        for _ in range(repeats):
             t = time.perf_counter()
             drive(dyn)
             times.append(1e3 * (time.perf_counter() - t))
         ms = statistics.median(times)
         peak = torch.cuda.max_memory_allocated(DEVICE)
         n_valid = int(out['valid'].sum())
-        line = (f'  {key}: {ms:.1f} ms/img (median of 5, after 1 warm-up) '
-                f'[{card}]; peak memory {peak / 2 ** 30:.2f} GiB; '
+        line = (f'  {key}: {ms:.1f} ms/img (median of {repeats}, after 1 '
+                f'warm-up) [{card}]; peak memory {peak / 2 ** 30:.2f} GiB; '
                 f'{n_valid} of {d} det slots valid; mask probabilities '
-                f'{side}x{side}; launches {launches[key]}')
+                f'{side}x{side}, finite; launches {launches[key]}')
         rec = dict(config=name, mode=mode, ms_per_img=ms, times_ms=times,
                    peak_memory_bytes=peak, valid_dets=n_valid, slots=d,
                    launches=launches[key])
@@ -2358,16 +2503,19 @@ def run_config_inference(report, card, name, path, hw):
             rec['routing'] = r
         print(line)
         recs.append(rec)
-    del model
+    del model, out, probs
     torch.cuda.empty_cache()
     return launches, recs
 
 
-def run_config_train(report, card, name, path, images, hw):
-    """Phase 8, training: ``init_trainer`` on the config (its seeded JAX
-    initialisation), a seeded synthetic batch of ``images`` at the train
-    canvas with 20 GTs each over the config's classes, one warm-up and
-    three timed ``train_steps``; counters around the four."""
+def run_config_train(report, card, name, path, images, hw, counts,
+                     repeats=TIMED_STEPS):
+    """Phases 8 and 10, training: ``init_trainer`` on the config (its
+    seeded JAX initialisation), a seeded synthetic batch of ``images`` at
+    the train canvas with 20 GTs each over the config's classes (and, for
+    a head that reads it, ``gt_semantic`` through the data pipeline's
+    rasteriser), one warm-up and ``repeats`` timed ``train_steps``;
+    counters around all of them, held to ``counts`` a step."""
     import torch
     import dynamask_torch.ops as ops
     from dynamask_torch.apis import (init_trainer, synthetic_batch,
@@ -2375,31 +2523,39 @@ def run_config_train(report, card, name, path, images, hw):
     model, opt = init_trainer(path, steps_per_epoch=COCO_STEPS_PER_EPOCH,
                               device=DEVICE, seed=0)
     h, w = hw
+    semantic = model.roi_head.with_semantic
     batch = synthetic_batch(0, b=images, h=h, w=w, num_gts=TRAIN_GTS,
                             crop_size=128,
                             num_classes=model.roi_head.num_classes,
-                            device='cpu')
+                            device='cpu', with_semantic=semantic)
+    if semantic:
+        sem = batch['gt_semantic']
+        if sem.dtype != torch.uint8 or tuple(sem.shape) != (
+                images, h // 4, w // 4) or not sem.any():
+            raise RuntimeError(f'{name}: gt_semantic {tuple(sem.shape)} '
+                               f'{sem.dtype}, {int(sem.sum())} pixels set')
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     torch.cuda.synchronize(DEVICE)
     torch.cuda.reset_peak_memory_stats(DEVICE)
     ops.reset_kernel_launches()
     times, logs = [], []
-    for i in range(1 + TIMED_STEPS):
+    for i in range(1 + repeats):
         t = time.perf_counter()
         log, = train_steps(model, opt, [batch], generator=gen)
         torch.cuda.synchronize(DEVICE)
         times.append(1e3 * (time.perf_counter() - t))
         log = {k: float(v) for k, v in log.items()}
         bad = [k for k, v in log.items() if not math.isfinite(v)]
-        if bad:
-            raise RuntimeError(f'{name} train step {i}: non-finite {bad}')
+        if bad or (semantic and 'loss_semantic' not in log):
+            raise RuntimeError(f'{name} train step {i}: non-finite {bad} '
+                               f'or no loss_semantic: {sorted(log)}')
         logs.append(log)
     key = f'{name}_train'
     launches = {key: ops.kernel_launches()}
-    check_launches(key, launches[key], _kernels_of(name, True))
+    check_exact_launches(key, launches[key], counts, times=1 + repeats)
     peak = torch.cuda.max_memory_allocated(DEVICE)
     ms = statistics.median(times[1:])
-    print(f'  {key}: {ms:.1f} ms/step (median of {TIMED_STEPS}, after 1 '
+    print(f'  {key}: {ms:.1f} ms/step (median of {repeats}, after 1 '
           f'warm-up), batch {images}x{h}x{w}, {1e3 * images / ms:.2f} img/s, '
           f'peak memory {peak / 2 ** 30:.2f} GiB [{card}]; first losses ' +
           ', '.join(f'{k} {v:.4g}' for k, v in logs[0].items()))
@@ -2415,7 +2571,8 @@ def run_config_eval(report, card, name, path, writer, root):
     """Phase 8, the evaluation path of the LVIS or Cityscapes config: its
     seeded set through ``run_test`` (the config's test pipeline and loader
     workers, its detector at its seeded initialisation on the card) and
-    ``dataset.evaluate``, counters around ``run_test``; the GTs given as
+    ``dataset.evaluate``, counters around ``run_test`` held to the exact
+    launches of an image; the GTs given as
     predictions must score exactly 1.0 (LVIS: in every band too)."""
     import dynamask_torch.ops as ops
     from dynamask_torch.apis import run_test
@@ -2429,12 +2586,15 @@ def run_config_eval(report, card, name, path, writer, root):
     dataset, results = run_test(cfg, device=DEVICE)
     t_test = time.perf_counter() - t
     key = f'{name}_eval'
+    n = len(dataset)
     launches = {key: ops.kernel_launches()}
-    check_launches(key, launches[key], INFER_KERNELS)
+    # the configs test in the faithful mode (their test_cfg sets no
+    # dynamic_inference)
+    check_exact_launches(key, launches[key], INFER_COUNTS['faithful'],
+                         times=n)
     t = time.perf_counter()
     metrics = dataset.evaluate(results, metric=['bbox', 'segm'])
     t_eval = time.perf_counter() - t
-    n = len(dataset)
     det_json, segm_json = dataset.results2json(results)
     n_masks, n_valid = check_eval_outputs(dataset, results, det_json,
                                           segm_json)
@@ -2478,11 +2638,13 @@ def run_configs(report, card):
     report['configs'] = {'inference': [], 'train': [], 'eval': []}
     for name, path in CONFIG_CELLS:
         test_hw, images, train_hw = config_shapes(path)
-        got, recs = run_config_inference(report, card, name, path, test_hw)
+        got, recs = run_config_inference(report, card, name, path, test_hw,
+                                         config_modes(name))
         launches.update(got)
         report['configs']['inference'] += recs
-        got, rec = run_config_train(report, card, name, path, images,
-                                    train_hw)
+        got, rec = run_config_train(
+            report, card, name, path, images, train_hw,
+            MASK_RCNN_STEP_COUNTS if name == 'mask_rcnn' else STEP_COUNTS)
         launches.update(got)
         report['configs']['train'].append(rec)
     for name, writer, root in (('lvis', write_lvis_set, LVIS_SET),
@@ -2498,21 +2660,10 @@ def run_configs(report, card):
 
 # -- phase 9: the flagship in bf16 ---------------------------------------------
 
-def check_precision_launches(path, launches, counts, prec, times=1):
-    """Each kernel of ``counts`` launched ``times`` x its count in its
-    ``prec`` instance ('fp32' or 'bf16'), and no instance of the other
-    type: no wrapper of the path fell back to or leaked into the other."""
-    print(f'  {path}: kernel launches: {launches}')
-    own = '_bf16' if prec == 'bf16' else ''
-    other = '' if prec == 'bf16' else '_bf16'
-    for name, n in counts.items():
-        if launches[name + own] != n * times:
-            raise RuntimeError(f'{name + own} launched '
-                               f'{launches[name + own]} times on the {path} '
-                               f'path, not {n * times}')
-        if launches[name + other]:
-            raise RuntimeError(f'{name + other} launched on the {path} '
-                               f'path: {launches[name + other]}')
+def in_precision(counts, prec):
+    """``counts`` keyed by the names of ``prec``'s instances."""
+    return {k + ('_bf16' if prec == 'bf16' else ''): n
+            for k, n in counts.items()}
 
 
 def run_bf16_paths(report, card):
@@ -2561,8 +2712,8 @@ def run_bf16_paths(report, card):
             peaks[prec] = torch.cuda.max_memory_allocated(DEVICE)
             key = f'{prec}_{mode}'
             launches[key] = ops.kernel_launches()
-            check_precision_launches(key, launches[key], INFER_COUNTS[mode],
-                                     prec)
+            check_exact_launches(key, launches[key],
+                                 in_precision(INFER_COUNTS[mode], prec))
             if ('msm_routing' in outs[prec]) != dyn:
                 raise RuntimeError(f'{key}: the routing statistics '
                                    f'{"missing" if dyn else "present"}')
@@ -2633,8 +2784,9 @@ def run_bf16_paths(report, card):
               f'{times[-1]:.1f} ms [{card}], ' + ', '.join(
                   f'{k} {v:.5g}' for k, v in logs[-1].items()))
     launches['bf16_train'] = ops.kernel_launches()
-    check_precision_launches('bf16_train', launches['bf16_train'],
-                             STEP_COUNTS, 'bf16', times=1 + TIMED_STEPS)
+    check_exact_launches('bf16_train', launches['bf16_train'],
+                         in_precision(STEP_COUNTS, 'bf16'),
+                         times=1 + TIMED_STEPS)
     peak = torch.cuda.max_memory_allocated(DEVICE)
     l16, l32 = logs[0]['loss'], report['train']['losses'][0]['loss']
     rel = abs(l16 - l32) / max(abs(l32), 1e-6)
@@ -2655,6 +2807,58 @@ def run_bf16_paths(report, card):
         fp32_peak_memory_bytes=fp32['peak_memory_bytes']),
         launches=launches)
     del model, opt
+    return launches
+
+
+# -- phase 10: the RefineMask family -------------------------------------------
+
+# (name, config, timed repeats of inference and of training): the R50 1x
+# COCO config at phase 4/5's protocol, then LVIS (1203-class stages, 300
+# slots) and Cityscapes (1024x2048, batch 1), one timed repeat each
+REFINE_CELLS = (
+    ('refine_r50', REFINEMASK, 5, TIMED_STEPS),
+    ('refine_lvis', os.path.join(ROOT, 'configs/refinemask/lvis/'
+                                 'r50_refinemask_lvis_1x.py'), 1, 1),
+    ('refine_cityscapes', os.path.join(ROOT, 'configs/refinemask/'
+                                       'cityscapes/r50_refinemask_1x.py'),
+     1, 1),
+)
+# RefineMask's launches: K2 for the box and the mask extracts and, in each
+# of the 3 stages, a P2 crop of the transformed semantic features and one
+# of the semantic mask (C = 1); K4 for the same 8 crops' gradients in a
+# step; no DCN. Per image at inference, per step in training (the crops
+# take every image of a batch in one launch).
+REFINE_INFER_COUNTS = {'roi_align_fwd': 8}
+REFINE_STEP_COUNTS = {'roi_align_fwd': 8, 'roi_align_bwd': 8}
+
+
+def run_refinemask(report, card):
+    """Phase 10: the three RefineMask cells' inference and training at
+    their own shapes, each from its config file, unchanged; then phase
+    6's eval drive and loader-batch step on the R50 1x config."""
+    from dynamask_torch.apis import config_shapes
+    launches = {}
+    report['refinemask'] = {'inference': [], 'train': []}
+    for name, path, n_inf, n_steps in REFINE_CELLS:
+        test_hw, images, train_hw = config_shapes(path)
+        got, recs = run_config_inference(
+            report, card, name, path, test_hw,
+            (('infer', None, REFINE_INFER_COUNTS),), repeats=n_inf)
+        launches.update(got)
+        report['refinemask']['inference'] += recs
+        got, rec = run_config_train(report, card, name, path, images,
+                                    train_hw, REFINE_STEP_COUNTS,
+                                    repeats=n_steps)
+        launches.update(got)
+        report['refinemask']['train'].append(rec)
+    launches.update(run_eval_path(report, card, REFINEMASK,
+                                  REFINE_INFER_COUNTS, REFINE_STEP_COUNTS,
+                                  'refine_'))
+    flagship = [r['ms_per_img'] for r in report['main_path']
+                if r['mode'] == 'faithful']
+    r50 = report['refinemask']['inference'][0]['ms_per_img']
+    print(f'  refine_r50: {r50:.1f} ms/img against the flagship\'s faithful '
+          f'{flagship[0]:.1f} (phase 4) in this call')
     return launches
 
 
@@ -2697,7 +2901,8 @@ def main() -> int:
     print('phase 3: toy model, GPU against CPU')
     check_toy_against_cpu(report)
     check_toy_train_against_cpu(report)
-    check_toy_train_against_cpu(report, mask_rcnn=True)
+    check_toy_train_against_cpu(report, 'mask_rcnn')
+    check_toy_train_against_cpu(report, 'refinemask')
     print(f'phase 4: flagship inference [{card}]')
     launches = run_inference_path(report, card)
     torch.cuda.empty_cache()
@@ -2726,8 +2931,14 @@ def main() -> int:
     t9 = time.perf_counter()
     launches.update(run_bf16_paths(report, card))
     report['phase9_s'] = time.perf_counter() - t9
+    print(f'  phase 9: {report["phase9_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 10: the RefineMask family [{card}]')
+    t10 = time.perf_counter()
+    launches.update(run_refinemask(report, card))
+    report['phase10_s'] = time.perf_counter() - t10
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 9: {report["phase9_s"]:.1f} s; the whole run '
+    print(f'  phase 10: {report["phase10_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}

@@ -20,7 +20,8 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..data import build_dataloader, build_dataset, dataset_spec
+from ..data import (build_dataloader, build_dataset, dataset_spec,
+                    rasterize_semantic)
 from ..engine.checkpoint import (load_checkpoint, load_params_only,
                                  save_checkpoint)
 from ..engine.optimizer import DetectorSGD, build_optimizer
@@ -312,10 +313,15 @@ def config_shapes(config: Union[str, Config]
 def synthetic_batch(seed: int, b: int = 1, h: int = 128, w: int = 128,
                     num_gts: int = 4, max_gts: Optional[int] = None,
                     crop_size: int = 32, num_classes: int = 80,
-                    device=None) -> Dict[str, torch.Tensor]:
+                    device=None, with_semantic: bool = False
+                    ) -> Dict[str, torch.Tensor]:
     """A padded training batch from ``seed``: N(0, 1) NHWC images, boxes of
     10-40% of the image side, elliptic mask crops over windows 2 px larger
-    than the boxes; ``num_gts`` valid GTs in ``max_gts`` slots."""
+    than the boxes; ``num_gts`` valid GTs in ``max_gts`` slots. With
+    ``with_semantic`` (a RefineMask step: ``roi_head.with_semantic``), also
+    ``gt_semantic`` (b, h // 4, w // 4): the ellipses as 32-gons in image
+    coordinates through the data pipeline's own rasteriser
+    (``data.rasterize_semantic``)."""
     r = np.random.RandomState(seed)
     g = max_gts or num_gts
     side = min(h, w)
@@ -338,5 +344,16 @@ def synthetic_batch(seed: int, b: int = 1, h: int = 128, w: int = 128,
         'gt_crops': (crops & valid[..., None, None]).astype(np.uint8),
         'gt_windows': boxes + np.asarray([-2, -2, 2, 2], np.float32),
     }
+    if with_semantic:
+        win = batch['gt_windows']
+        t = np.linspace(0, 2 * np.pi, 32, endpoint=False)
+        ctr = (win[..., :2] + win[..., 2:]) / 2                 # (b, g, 2)
+        axes = (win[..., 2:] - win[..., :2]) * np.stack(
+            [rx[..., 0, 0], ry[..., 0, 0]], -1)
+        polys = ctr[..., None, :] + axes[..., None, :] * np.stack(
+            [np.cos(t), np.sin(t)], -1)                       # (b, g, 32, 2)
+        batch['gt_semantic'] = np.stack([rasterize_semantic(
+            [[polys[i, j].reshape(-1)] for j in range(num_gts)], (h, w))
+            for i in range(b)])
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}

@@ -1,6 +1,8 @@
-"""Boundary block targets, detail targets and bilinear resize (port of
+"""Boundary block targets, detail targets, bilinear resize (port of
 ``generate_block_target``, ``detail_target`` (:85-117) and
-``interpolate_bilinear`` in ``dynamask_tpu/core/boundary.py``)."""
+``interpolate_bilinear`` in ``dynamask_tpu/core/boundary.py``) and the
+test-time boundary fusion of DynaMask and RefineMask that composes them
+(``_fuse_pair`` of ``dynamask_tpu/models/dynamask_roi_head.py``)."""
 
 from __future__ import annotations
 
@@ -103,3 +105,20 @@ def interpolate_bilinear(x: torch.Tensor, out_h: int, out_w: int,
                       device=x.device).t().to(dt).float()
     y = torch.matmul(a, x.float()).to(dt).float()
     return torch.matmul(y, bt).to(x.dtype)
+
+
+# the boundary width of the test-time fusion
+TEST_BOUNDARY_WIDTH = 1
+
+
+def fuse_pair(cur: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
+    """Boundary-aware fusion of (R, s, s) logits into (R, 2s, 2s): outside
+    the boundary band of ``cur``'s prediction its upsampled logits replace
+    ``nxt``'s (the test-time fusion of DynaMask and RefineMask)."""
+    s = nxt.shape[-1]
+    binary = (torch.sigmoid(cur) >= 0.5).float()
+    nb = (generate_block_target(
+        binary, boundary_width=TEST_BOUNDARY_WIDTH) != 1).float()
+    nb_up = interpolate_bilinear(nb, s, s, align_corners=True) >= 0.5
+    cur_up = interpolate_bilinear(cur, s, s, align_corners=True)
+    return torch.where(nb_up, cur_up, nxt)

@@ -6,7 +6,8 @@ from .mask_codec import (encode_mask, decode_rle, encode_mask_plain,
 from .cocoeval import CocoEvaluator, bbox_iou_xywh
 from .transforms import (LoadImageFromFile, LoadAnnotations, Resize,
                          RandomFlip, Normalize, Pad, Compose)
-from .formatting import format_sample, collate, canvas_for
+from .formatting import (format_sample, collate, canvas_for,
+                         rasterize_semantic)
 from .coco import (CocoDataset, CocoIndex, build_dataset, dataset_spec,
                    COCO_CLASSES)
 from .lvis import (LVISV1Dataset, LVISV05Dataset, LvisEvaluator)
@@ -24,6 +25,7 @@ __all__ = [
     'CocoEvaluator', 'bbox_iou_xywh',
     'LoadImageFromFile', 'LoadAnnotations', 'Resize', 'RandomFlip',
     'Normalize', 'Pad', 'Compose', 'format_sample', 'collate', 'canvas_for',
+    'rasterize_semantic',
     'CocoDataset', 'CocoIndex', 'build_dataset', 'dataset_spec',
     'COCO_CLASSES',
     'LVISV1Dataset', 'LVISV05Dataset', 'LvisEvaluator',

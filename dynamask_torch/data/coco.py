@@ -80,6 +80,7 @@ class CocoDataset:
                  canvases: Optional[Sequence[Tuple[int, int]]] = None,
                  max_gts: int = 100,
                  mask_crop_size: int = 128,
+                 with_semantic: bool = False,
                  classes: Optional[Sequence[str]] = None):
         if data_root is not None:
             if not osp.isabs(ann_file):
@@ -92,6 +93,8 @@ class CocoDataset:
         self.canvases = [tuple(c) for c in canvases or self.CANVASES]
         self.max_gts = max_gts
         self.mask_crop_size = mask_crop_size
+        # RefineMask's semantic target (gt_semantic) in each sample
+        self.with_semantic = with_semantic
         if classes is not None:
             self.CLASSES = tuple(classes)
 
@@ -183,7 +186,8 @@ class CocoDataset:
             results['ann_info'] = self.get_ann_info(idx)
         results = self.pipeline(results)
         sample = format_sample(results, self.canvases, self.max_gts,
-                               self.mask_crop_size)
+                               self.mask_crop_size,
+                               with_semantic=self.with_semantic)
         sample['img_id'] = np.array(self.sample_id(idx), np.int64)
         return sample
 

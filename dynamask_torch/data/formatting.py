@@ -8,7 +8,10 @@ The host emits fixed-shape arrays once per image:
   * each GT's mask rasterized once into a fixed ``crop_size``² window crop
     (polygons filled in window coordinates, no resampling), from which the
     device encodes every stage resolution (14..112) by RoIAlign
-    (``core/mask_targets.py``).
+    (``core/mask_targets.py``);
+  * with ``with_semantic`` (RefineMask's train sets), ``gt_semantic``: the
+    union of the instance polygons at 1/4 of the canvas
+    (:func:`rasterize_semantic`).
 
 ``collate`` stacks same-canvas samples into a batch of torch tensors, which
 ``train_steps`` and ``single_device_test`` move to the device.
@@ -78,11 +81,38 @@ def rasterize_mask_crop(segm, window: np.ndarray, crop_size: int,
     return out
 
 
+# the stride of RefineMask's semantic logits: they sit on P2
+SEMANTIC_STRIDE = 4
+
+
+def rasterize_semantic(segms: Sequence,
+                       canvas: Tuple[int, int]) -> np.ndarray:
+    """The uint8 union, (h, w) of the ``canvas`` // ``SEMANTIC_STRIDE``,
+    of the polygon masks in ``segms`` (image coordinates, already resized
+    and flipped), each vertex divided by the stride and rounded, filled
+    with ``cv2.fillPoly``; RLE (crowd) masks add nothing (JAX
+    ``data/formatting.py:152-169``)."""
+    import cv2
+    sem = np.zeros((canvas[0] // SEMANTIC_STRIDE,
+                    canvas[1] // SEMANTIC_STRIDE), np.uint8)
+    for segm in segms:
+        if isinstance(segm, dict):
+            continue
+        pts = [(np.asarray(p, np.float32).reshape(-1, 2) / SEMANTIC_STRIDE)
+               .round().astype(np.int32) for p in segm]
+        if pts:
+            cv2.fillPoly(sem, pts, 1)
+    return sem
+
+
 def format_sample(results: Dict, canvases: Sequence[Tuple[int, int]],
                   max_gts: int = 100, crop_size: int = 128,
                   crop_margin: float = 2.0,
-                  max_ignore: int = 20) -> Dict[str, np.ndarray]:
-    """One pipeline output -> static-shape arrays (before batching)."""
+                  max_ignore: int = 20,
+                  with_semantic: bool = False) -> Dict[str, np.ndarray]:
+    """One pipeline output -> static-shape arrays (before batching); with
+    ``with_semantic`` and masks, ``gt_semantic`` of the first ``max_gts``
+    GTs' polygons (:func:`rasterize_semantic`)."""
     img = results['img']
     h, w = img.shape[:2]
     ch, cw = canvas_for(h, w, canvases)
@@ -136,6 +166,9 @@ def format_sample(results: Dict, canvases: Sequence[Tuple[int, int]],
                     tuple(out['ori_shape'].astype(int)), sf,
                     bool(out['flip']))
             out.update(gt_crops=crops, gt_windows=windows)
+            if with_semantic:
+                out['gt_semantic'] = rasterize_semantic(
+                    results['gt_masks'][:n], (ch, cw))
     return out
 
 

@@ -5,7 +5,11 @@
 both compute the same function. Port modules use the mmdet ``state_dict``
 names, so the key map below is the port's own copy of the one in
 ``dynamask_tpu/engine/pretrained.py:_mmdet_key`` (:120-215), restricted to
-the modules the port has, and run in the other direction:
+the modules the port has, and run in the other direction. It also maps the
+RefineMask leaves that the JAX importer has no rule for (the semantic
+tower and logits, ``semantic_transform_out``, the ``MultiBranchFusion``
+convs, ``SimpleRefineMaskHead``'s per-stage logits), which that importer
+skips:
 
 * conv kernels HWIO -> OIHW (the DCN leaf is named ``weight``, and a
   ``ClassSelectConv1x1`` is a ``(1, 1, C, ncls)`` kernel); the FCN mask
@@ -74,8 +78,8 @@ def mmdet_key(key: str) -> Optional[Tuple[List[str], str, Dict]]:
          lambda m: (['roi_head', 'mask_head', f'instance_conv_{m[1]}'],
                     m[2], {})),
         (r'^roi_head\.mask_head\.stages\.(\d+)\.(semantic_transform_in|'
-         r'instance_logits|detail_logits|fuse_transform_out)\.'
-         r'(weight|bias)$',
+         r'semantic_transform_out|instance_logits|detail_logits|'
+         r'fuse_transform_out)\.(weight|bias)$',
          lambda m: (['roi_head', 'mask_head', f'stage_{m[1]}', m[2]], m[3],
                     {})),
         (r'^roi_head\.mask_head\.stages\.(\d+)\.fuse_conv\.0\.(weight|bias)$',
@@ -91,6 +95,22 @@ def mmdet_key(key: str) -> Optional[Tuple[List[str], str, Dict]]:
         (r'^roi_head\.mask_head\.(final_instance_logits|final_detail_logits)'
          r'\.(weight|bias)$',
          lambda m: (['roi_head', 'mask_head', m[1]], m[2], {})),
+        # RefineMask (JAX refine_mask_head.py): the semantic tower and
+        # logits, each stage's MultiBranchFusion, SimpleRefineMaskHead's
+        # per-stage logits
+        (r'^roi_head\.mask_head\.semantic_convs\.(\d+)\.conv\.(weight|bias)$',
+         lambda m: (['roi_head', 'mask_head', f'semantic_conv_{m[1]}'],
+                    m[2], {})),
+        (r'^roi_head\.mask_head\.semantic_logits\.(weight|bias)$',
+         lambda m: (['roi_head', 'mask_head', 'semantic_logits'], m[1], {})),
+        (r'^roi_head\.mask_head\.stages\.(\d+)\.fuse_conv\.1\.'
+         r'(dilation_conv_\d+|merge_conv)\.conv\.(weight|bias)$',
+         lambda m: (['roi_head', 'mask_head', f'stage_{m[1]}', 'fuse_conv_1',
+                     m[2]], m[3], {})),
+        (r'^roi_head\.mask_head\.stage_instance_logits\.(\d+)\.'
+         r'(weight|bias)$',
+         lambda m: (['roi_head', 'mask_head',
+                     f'stage_instance_logits_{m[1]}'], m[2], {})),
         (r'^roi_head\.mask_predictor\.(conv1|conv2|fc2|bn1|bn2)\.(.+)$',
          lambda m: (['roi_head', 'mask_predictor', m[1]], m[2], {})),
         (r'^roi_head\.mask_predictor\.fc1\.(weight|bias)$',

@@ -1,7 +1,8 @@
 """Build the port's detector from a reference-schema config (port of the
-parts of ``dynamask_tpu/models/builder.py`` and
-``dynamask_tpu/models/dynamask_roi_head.py:build_dynamask_roi_head``
-(:422-464) that the Mask R-CNN and DynaMask configs use).
+parts of ``dynamask_tpu/models/builder.py`` (the RefineMask branch
+:451-494) and ``dynamask_tpu/models/dynamask_roi_head.py:
+build_dynamask_roi_head`` (:422-464) that the Mask R-CNN, DynaMask and
+RefineMask configs use).
 
 Modules are created on the ``meta`` device, materialised on the target
 device, filled from an explicit ``torch.Generator``, put in eval mode and
@@ -22,6 +23,8 @@ from .dynamask_head import DynaMaskHead, MaskPre
 from .dynamask_roi_head import DynaMaskRoIHead
 from .fcn_mask_head import FCNMaskHead
 from .layers import init_weights
+from .refine_mask_head import (RefineMaskHead, RefineRoIHead,
+                               SimpleRefineMaskHead, SimpleRefineRoIHead)
 from .roi_head import StandardRoIHead
 from .rpn_head import RPNHead
 
@@ -123,15 +126,65 @@ def build_dynamask_roi_head(cfg: dict, mhc: dict, common: dict,
         **common)
 
 
+REFINE_HEADS = {'RefineRoIHead': RefineRoIHead,
+                'SimpleRefineRoIHead': SimpleRefineRoIHead}
+REFINE_MASK_HEADS = {'RefineMaskHead': RefineMaskHead,
+                     'SimpleRefineMaskHead': SimpleRefineMaskHead}
+
+
+def build_refine_roi_head(t: str, mt: str, mhc: dict, common: dict,
+                          in_channels: int):
+    """``RefineRoIHead`` / ``SimpleRefineRoIHead`` over a
+    ``RefineMaskHead`` / ``SimpleRefineMaskHead``, with the JAX builder's
+    defaults (``dynamask_tpu/models/builder.py:451-494``). The towers' input
+    channels are the pyramid's, ``in_channels``, which the JAX modules
+    infer from their input."""
+    loss_cfg = _cfg(mhc.get('loss_cfg'))
+    stage_sup_size = tuple(mhc.get('stage_sup_size', (14, 28, 56, 112)))
+    kw = dict(
+        num_convs_instance=mhc.get('num_convs_instance', 2),
+        num_convs_semantic=mhc.get('num_convs_semantic', 4),
+        conv_in_channels_instance=in_channels,
+        conv_in_channels_semantic=in_channels,
+        conv_out_channels_instance=mhc.get('conv_out_channels_instance', 256),
+        conv_out_channels_semantic=mhc.get('conv_out_channels_semantic', 256),
+        semantic_out_stride=mhc.get('semantic_out_stride', 4),
+        dilations=tuple(mhc.get('dilations', (1, 3, 5))),
+        stage_num_classes=tuple(mhc.get('stage_num_classes',
+                                        (80, 80, 80, 80))),
+        stage_sup_size=stage_sup_size)
+    if mt == 'SimpleRefineMaskHead':
+        mask_head = SimpleRefineMaskHead(
+            fusion_type=mhc.get('fusion_type', 'MultiBranchFusionAvg'),
+            pre_upsample_last_stage=mhc.get('pre_upsample_last_stage', False),
+            **kw)
+    else:
+        mask_head = RefineMaskHead(
+            fusion_type=mhc.get('fusion_type', 'MultiBranchFusion'),
+            mask_use_sigmoid=mhc.get('mask_use_sigmoid', False), **kw)
+    return REFINE_HEADS[t](
+        mask_head=mask_head, stage_sup_size=stage_sup_size,
+        stage_instance_loss_weight=tuple(loss_cfg.get(
+            'stage_instance_loss_weight', (0.25, 0.5, 0.75, 1.0))),
+        semantic_loss_weight=loss_cfg.get('semantic_loss_weight', 1.0),
+        boundary_width=loss_cfg.get('boundary_width', 2),
+        start_stage=loss_cfg.get('start_stage', 1), **common)
+
+
+ROI_HEADS = ('StandardRoIHead', 'DynaMaskRoIHead', *REFINE_HEADS)
+
+
 def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     """The RoI head of ``cfg``: ``StandardRoIHead`` with an
-    ``FCNMaskHead`` (Mask R-CNN) or ``DynaMaskRoIHead`` with a
-    ``DynaMaskHead`` (DynaMask), on one Shared2FC box branch."""
+    ``FCNMaskHead`` (Mask R-CNN), ``DynaMaskRoIHead`` with a
+    ``DynaMaskHead`` (DynaMask) or ``RefineRoIHead`` /
+    ``SimpleRefineRoIHead`` with a ``RefineMaskHead`` /
+    ``SimpleRefineMaskHead`` (RefineMask), on one Shared2FC box branch."""
     cfg = _cfg(cfg)
     t = cfg.pop('type')
-    if t not in ('StandardRoIHead', 'DynaMaskRoIHead'):
+    if t not in ROI_HEADS:
         raise KeyError(f'unsupported roi head {t}: the port has '
-                       'StandardRoIHead and DynaMaskRoIHead')
+                       f'{", ".join(ROI_HEADS)}')
     head_cfg = _cfg(cfg['bbox_head'])
     if head_cfg.pop('type') != 'Shared2FCBBoxHead':
         raise KeyError('unsupported bbox head: the port has Shared2FC only')
@@ -187,9 +240,14 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
         return StandardRoIHead(
             mask_head=build_fcn_mask_head(mhc), loss_mask_weight=_cfg(
                 mhc.get('loss_mask')).get('loss_weight', 1.0), **common)
+    if t in REFINE_HEADS and mt in REFINE_MASK_HEADS:
+        return build_refine_roi_head(t, mt, mhc, common, mask_extractor.get(
+            'out_channels', 256))
     raise KeyError(f'unsupported mask head {mt} under {t}: the port has '
-                   'FCNMaskHead under StandardRoIHead and DynaMaskHead '
-                   'under DynaMaskRoIHead')
+                   'FCNMaskHead under StandardRoIHead, DynaMaskHead under '
+                   'DynaMaskRoIHead, and RefineMaskHead or '
+                   'SimpleRefineMaskHead under RefineRoIHead or '
+                   'SimpleRefineRoIHead')
 
 
 def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,

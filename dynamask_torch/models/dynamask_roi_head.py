@@ -1,8 +1,8 @@
 """DynaMask RoI head (port of ``dynamask_tpu/models/dynamask_roi_head.py``:
 ``routing_clip_stats``, ``dyna_mask_loss`` :74-158, ``flops_budget_loss``
 :161-170, ``_msm_labels`` :238-263, ``_mask_forward_train`` :273-297,
-``_fuse_pair``, ``_dynamic_test_mask`` :314-382, ``simple_test_mask``
-:384-419).
+``_fuse_pair`` (``core.boundary.fuse_pair``), ``_dynamic_test_mask``
+:314-382, ``simple_test_mask`` :384-419).
 
 Training runs the whole cascade on every positive slot; the MSM's
 straight-through Gumbel one-hot only weights the losses. Faithful loss
@@ -29,8 +29,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.boundary import (detail_target, generate_block_target,
-                             interpolate_bilinear)
+from ..core.boundary import detail_target, fuse_pair, interpolate_bilinear
 from ..core.mask_targets import mask_targets_from_crops
 from ..ops.roi_align import roi_align
 from ..utils.registry import HEADS
@@ -131,11 +130,9 @@ def stage_capacities(n: int, capacity: Sequence[float]
     return n, k1, k2, k3
 
 
-# the MSM's 56×56 crop of P2 (stride 4, base_roi_head.py:53-58) and the
-# boundary width of the test-time fusion
+# the MSM's 56×56 crop of P2 (stride 4, base_roi_head.py:53-58)
 MSM_OUT_SIZE = 56
 MSM_STRIDE = 4
-TEST_BOUNDARY_WIDTH = 1
 
 
 @HEADS.register_module()
@@ -201,16 +198,6 @@ class DynaMaskRoIHead(StandardRoIHead):
             self.flops_target)
         return losses
 
-    def _fuse_pair(self, cur: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
-        """Boundary-aware fusion of (R, s, s) logits into (R, 2s, 2s)."""
-        s = nxt.shape[-1]
-        binary = (torch.sigmoid(cur) >= 0.5).float()
-        nb = (generate_block_target(
-            binary, boundary_width=TEST_BOUNDARY_WIDTH) != 1).float()
-        nb_up = interpolate_bilinear(nb, s, s, align_corners=True) >= 0.5
-        cur_up = interpolate_bilinear(cur, s, s, align_corners=True)
-        return torch.where(nb_up, cur_up, nxt)
-
     def _dynamic_test_mask(self, feats, dets, labels, batch, rescale,
                            routing: Optional[dict] = None):
         b, d = dets.shape[:2]
@@ -234,8 +221,8 @@ class DynaMaskRoIHead(StandardRoIHead):
         preds, _ = self._mask_forward(feats, rois[order], roi_batch[order],
                                       flat_labels[order], caps)
         p0, p1, p2s, p3s = (p[:, 0] for p in preds)
-        fused56 = self._fuse_pair(p1[:k2], p2s)
-        fused112 = self._fuse_pair(fused56[:k3], p3s)
+        fused56 = fuse_pair(p1[:k2], p2s)
+        fused112 = fuse_pair(fused56[:k3], p3s)
         final = interpolate_bilinear(p0, 112, 112, align_corners=True)
         final[:k1] = interpolate_bilinear(p1, 112, 112, align_corners=True)
         final[:k2] = interpolate_bilinear(fused56, 112, 112,
@@ -258,6 +245,6 @@ class DynaMaskRoIHead(StandardRoIHead):
         # refine from stage 1 on (the reference drops stage 0 here)
         fused = preds[1][:, 0]
         for p in preds[2:]:
-            fused = self._fuse_pair(fused, p[:, 0])
+            fused = fuse_pair(fused, p[:, 0])
         probs = torch.sigmoid(fused)
         return probs.reshape(b, d, *probs.shape[1:])

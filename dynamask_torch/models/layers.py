@@ -36,10 +36,11 @@ class ConvModule(nn.Module):
     ``<name>.conv.weight`` as mmcv's ``ConvModule`` writes them."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int, padding: int = 0, bias: bool = True):
+                 kernel_size: int, padding: int = 0, bias: bool = True,
+                 dilation: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              padding=padding, bias=bias)
+                              padding=padding, bias=bias, dilation=dilation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
@@ -67,13 +68,14 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
 # default initialisers of the JAX package's modules, by parameter name
 # (first match wins): xavier-uniform FPN and shared fcs, N(0, 0.01) RPN and
 # class scores, N(0, 0.001) box deltas, zero DCN offset convs, flax's
-# default (LeCun normal over fan-in, truncated at 2 sigma) for the MSM,
-# whose JAX module names no initialiser; every other conv or linear weight
-# is He-normal over fan-out
+# default (LeCun normal over fan-in, truncated at 2 sigma) for the MSM and
+# for RefineMask's MultiBranchFusion convs, whose JAX modules name no
+# initialiser; every other conv or linear weight is He-normal over fan-out
 _INIT_RULES = (('neck.', 'xavier'), ('rpn_head.', 0.01),
                ('bbox_head.shared_fcs', 'xavier'), ('bbox_head.fc_cls', 0.01),
                ('bbox_head.fc_reg', 0.001), ('conv_offset', 0.0),
-               ('mask_predictor.', 'lecun'))
+               ('mask_predictor.', 'lecun'), ('.dilation_conv_', 'lecun'),
+               ('.merge_conv.', 'lecun'))
 # flax's truncated normal is rescaled to keep the asked-for variance
 _TRUNC_STD = 0.87962566103423978
 

@@ -38,6 +38,10 @@ FINEST_SCALE = 56
 
 
 class StandardRoIHead(nn.Module):
+    # whether a training batch must carry ``gt_semantic`` (RefineMask's
+    # heads say so)
+    with_semantic = False
+
     def __init__(self, bbox_head: nn.Module, mask_head: nn.Module,
                  num_classes: int = 80,
                  featmap_strides: Tuple[int, ...] = (4, 8, 16, 32),

@@ -8,12 +8,13 @@ Without ``--train``: builds DynaMask R50-FPN (``configs/dynamask/coco/
 r50_dynamask_1x.py``, or ``--config``) with random N(0, 0.05) weights from
 seed 0, as ``chip_smoke.py`` does, and runs one fp32 image at the first
 canvas of the config's test set (800x1344 for COCO) through
-``simple_test`` + mask paste in the faithful and the MSM-routed mode (Mask
-R-CNN's one mode, ``fcn``, for an FCN mask head). With ``--train``: builds
-the trainer from the same config (its own seeded initialisation) and runs
-training steps on a seeded synthetic batch of the config's
-``samples_per_gpu`` images at the first canvas of its train set, 20 GTs
-each, as ``chip_smoke.py`` phases 5 and 8 do (``apis.config_shapes``).
+``simple_test`` + mask paste in the faithful and the MSM-routed mode (the
+one mode of Mask R-CNN's FCN mask head, ``fcn``, or of RefineMask,
+``refine``). With ``--train``: builds the trainer from the same config
+(its own seeded initialisation) and runs training steps on a seeded
+synthetic batch of the config's ``samples_per_gpu`` images at the first
+canvas of its train set, 20 GTs each (and RefineMask's ``gt_semantic``),
+as ``chip_smoke.py`` phases 5, 8 and 10 do (``apis.config_shapes``).
 ``--bf16`` runs the mixed-precision policy instead, as ``chip_smoke.py``
 phase 9 does: inference through ``apis.make_test_fn(..., bf16=True)`` (a
 bf16 copy of the model on a bf16 image; the paste opens the same ``paste``
@@ -31,12 +32,16 @@ For each mode it reports
   from autograd's own thread, so its device time is also given as the
   step's kernel time less that of forward_train and optimizer;
 * device time per kernel name (the 30 largest, and every one of the
-  port's own kernels K1-K5), the number of kernel launches, and the
-  device's busy share (kernel time over wall time).
+  port's own kernels K1-K5), the number of kernel launches, the port's
+  kernels' launches per iteration from their own counters (RefineMask: K2
+  8 an image, K2 and K4 8 a step), and the device's busy share (kernel
+  time over wall time). Fill kernels (``FillFunctor``: K4's zero fill of
+  its fp32 gradient buffer among them) are summed on a line of their
+  own.
 
 Prints a summary and writes ``chiprun_out/profile_torch_port.json``
 (``profile_torch_port_<config name>.json`` for another config, with
-``_bf16`` appended under ``--bf16``).
+``_train`` appended under ``--train`` and ``_bf16`` under ``--bf16``).
 """
 
 import argparse
@@ -78,10 +83,13 @@ def _stage_times(prof, stages):
 
 
 def _profile(run, iters, stages):
-    """Kernel table and device busy share over ``iters`` calls of ``run``."""
+    """Kernel table and device busy share over ``iters`` calls of ``run``,
+    and the port's kernel launches per call from their counters."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    import dynamask_torch.ops as ops
     torch.cuda.synchronize()
+    ops.reset_kernel_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -89,6 +97,7 @@ def _profile(run, iters, stages):
             run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t) / iters
+    counted = {k: n / iters for k, n in ops.kernel_launches().items() if n}
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, 'self_device_time_total',
@@ -105,6 +114,8 @@ def _profile(run, iters, stages):
             'kernel_launches_per_iter': sum(r['launches_per_iter']
                                             for r in rows),
             'stages': _stage_times(prof, stages), 'kernels': rows[:30],
+            'port_launches_per_iter': counted,
+            'fill_kernels': [r for r in rows if 'FillFunctor' in r['name']],
             'port_kernels': [r for r in rows if _is_port_kernel(r['name'])]}
 
 
@@ -125,16 +136,22 @@ def _summary(mode, prof, card, unit):
     for r in prof['kernels'][:12]:
         print(f'  {r["ms_per_iter"]:8.3f} ms x{r["launches_per_iter"]:5.0f}'
               f'  {r["name"][:100]}')
-    print('  the port\'s own kernels:')
+    print('  the port\'s own kernels (launches per '
+          f'{unit} by their counters: {prof["port_launches_per_iter"]}):')
     for r in prof['port_kernels']:
         print(f'  {r["ms_per_iter"]:8.3f} ms x{r["launches_per_iter"]:5.0f}'
               f'  {r["name"][:100]}')
+    fills = prof['fill_kernels']
+    print(f'  zero and constant fills (K4\'s fp32 gradient buffers among '
+          f'them): {sum(r["ms_per_iter"] for r in fills):.3f} ms in '
+          f'{sum(r["launches_per_iter"] for r in fills):.0f} launches')
 
 
 def _inference(config, card, iters, hw, batch_size, bf16=False):
     import torch
     from dynamask_torch.apis import (inference_detector, init_detector,
                                      make_test_fn)
+    from dynamask_torch.models.refine_mask_head import RefineRoIHead
     model = init_detector(config, seed=0, init_std=0.05)
     gen = torch.Generator(device='cuda').manual_seed(0)
     h, w = hw
@@ -144,8 +161,9 @@ def _inference(config, card, iters, hw, batch_size, bf16=False):
              'scale_factor': torch.ones(1, 4, device='cuda')}
     modes = {}
     dynamask = hasattr(model.roi_head, 'dynamic_inference')
+    one = 'refine' if isinstance(model.roi_head, RefineRoIHead) else 'fcn'
     for mode, dynamic in ((('faithful', False), ('dynamic', True))
-                          if dynamask else (('fcn', None),)):
+                          if dynamask else ((one, None),)):
         if dynamask:
             model.roi_head.dynamic_inference = dynamic
         run = (functools.partial(make_test_fn(model, hw, bf16=True), batch)
@@ -168,7 +186,8 @@ def _train(config, card, iters, hw, batch_size, bf16=False):
     batch = synthetic_batch(0, b=batch_size, h=h, w=w, num_gts=20,
                             crop_size=128,
                             num_classes=model.roi_head.num_classes,
-                            device='cuda')
+                            device='cuda',
+                            with_semantic=model.roi_head.with_semantic)
     step = make_train_step(model, opt, torch.bfloat16 if bf16 else None)
     gen = torch.Generator(device='cuda').manual_seed(0)
     for _ in range(2):
@@ -214,7 +233,8 @@ def main():
                            args.bf16)}
     name = os.path.splitext(os.path.basename(args.config))[0]
     suffix = '' if os.path.abspath(args.config) == FLAGSHIP else f'_{name}'
-    suffix += '_bf16' if args.bf16 else ''
+    suffix += ('_train' if args.train else '') + ('_bf16' if args.bf16
+                                                   else '')
     os.makedirs(os.path.join(ROOT, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(ROOT, 'chiprun_out',
                            f'profile_torch_port{suffix}.json'), 'w') as f:
