@@ -28,7 +28,8 @@ before the last line is printed:
    8's configurations (K1 at n = 300 for LVIS inference and at the 128
    mask slots of a Cityscapes step, K3 there too; K2 at LVIS's 300-det
    crops and on the 1024x2048 Cityscapes canvas, at inference and in
-   training, K4 there in training), and K2 and K4 at RefineMask's P2
+   training, K4 there in training, and K2 at the VOC config's box extract
+   on its 1024x1024 canvas, phase 11's), and K2 and K4 at RefineMask's P2
    crops (phase 10's, ratio 2: the semantic features at C = 256/128/64
    and 14/28/56 and the one-channel semantic mask at each size; K2 and K4
    at a step's 512 RoIs, K2 also at an image's 100 dets on 800x1344 and
@@ -43,11 +44,12 @@ before the last line is printed:
    K5 at its own edge shapes, untimed; and CUDA tensors of a type no
    instance takes (fp16, or bf16 beside fp32) must be refused unlaunched;
 3. check the port end to end on a small input: a toy DynaMask model, a
-   toy Mask R-CNN (ResNet-18, 32-channel FPN, the FCN mask head) and a
-   toy RefineMask (32-channel semantic tower and stages) on the GPU
-   (kernels) against the same models on the CPU (plain versions), at
-   inference and for one training step (losses and per-parameter
-   gradients);
+   toy Mask R-CNN (ResNet-18, 32-channel FPN, the FCN mask head), a
+   toy RefineMask (32-channel semantic tower and stages), a box-only toy
+   Faster R-CNN and two toy Mask R-CNNs at depth 50 on the ResNeXt-32x4d
+   and the caffe-style backbones on the GPU (kernels) against the same
+   models on the CPU (plain versions), at inference and for one training
+   step (losses and per-parameter gradients);
 4. drive the inference path: DynaMask R50-FPN (``configs/dynamask/coco/
    r50_dynamask_1x.py``) at full width, random weights N(0, 0.05) from a
    seeded generator, one 800x1344 image in fp32, ``simple_test`` + mask paste
@@ -153,23 +155,44 @@ before the last line is printed:
    train set gives the batch ``gt_semantic``.
    Every drive must launch exactly K2 8 an image, K2 8 and K4 8 a step,
    and nothing else. It prints ms/img, ms/step, peak memory, step 0's
-   ``loss_instance`` and ``loss_semantic``, the phase's seconds and the
-   whole run's.
+   ``loss_instance`` and ``loss_semantic`` and the phase's seconds;
+11. drive the box-only detectors and the ResNet variants, each from its
+   config file, unchanged, at full width at phases 4-5's protocol (one
+   800x1344 image, a step of 4x800x1344; a counted warm-up held to its
+   exact launches, then the median of 2): Faster R-CNN
+   (``configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py``; K2 1 an
+   image, K2 1 and K4 1 a step), the same through
+   ``configs/fp16/faster_rcnn_r50_fpn_fp16_1x_coco.py`` in bf16
+   (``make_test_fn(bf16=True)``, ``compute_dtype=torch.bfloat16``; the
+   ``_bf16`` instances only), Mask R-CNN on ResNeXt-101-32x4d and on the
+   caffe-style R50 (K2 2 an image, K2 2 and K4 2 a step); then mmdet's
+   RPN -> Fast R-CNN workflow over phase 6's set: the RPN config's eval
+   drive (no kernel; ``proposal_fast`` AR, the GTs as proposals exactly
+   1.0), its proposals written to ``build/chip_smoke_proposals/
+   rpn_val.pkl``, which the Fast R-CNN config's test set reads as its
+   ``proposal_file`` (K2 an image); and the VOC config's eval drive on a
+   seeded VOC2007 layout in ``build/chip_smoke_voc/`` (8 noise JPEGs with
+   XML annotations, K2 an image, VOC2007 mAP, the GTs as predictions
+   1.0). It prints ms/img, ms/step and peak memory of each config, the
+   phase's seconds and the whole run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
 validations and the overfit loop, and in phase 8 each configuration's
 inference modes, its training and the two evaluation paths, in phase 9
-the fp32 and bf16 drives, and in phase 10 each RefineMask config's image
-and steps, the loader-batch step and the eval drive) the kernels' launch
+the fp32 and bf16 drives, in phase 10 each RefineMask config's image
+and steps, the loader-batch step and the eval drive, and in phase 11 each
+config's image and steps and the RPN, Fast R-CNN and VOC eval drives)
+the kernels' launch
 counters are zeroed just before it
 and read just after (the loop's
 steps and its validations in turns), and every kernel of that path must
 have launched in it: K1 and K2 at inference, in the eval loops and in the
 loop's validations, K5 through both entry points in its check, K1-K4 in
 training; behind Mask R-CNN's FCN head, which runs no DCN, K2 at
-inference and K2 and K4 in training; phase 6 and phases 8-10 hold each
-drive to its exact counts, every other kernel at 0.
+inference and K2 and K4 in training; phase 6 and phases 8-11 hold each
+drive to its exact counts, every other kernel at 0 (the RPN's eval drive
+launches none).
 
 Standard output ends with the ``kernels`` JSON line, the card's name and
 power limit as ``nvidia-smi`` reports them, and the ``{"ok": true, ...}``
@@ -210,6 +233,7 @@ N_POS_TRAIN = TRAIN_IMAGES * 128  # training: max_pos slots of the mask branch
 LVIS_DETS = 300                  # the LVIS config's max_per_img
 CITY_HW = (1024, 2048)           # the Cityscapes config's canvas
 CITY_POS = 128                   # its training step's mask slots (batch 1)
+VOC_HW = (1024, 1024)            # the VOC config's canvas (phase 11)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 # H100 SXM peak operation rates (data sheet, dense), by the type the
 # operations run in: fp32 outside the tensor cores, and bf16 x bf16 products
@@ -552,10 +576,10 @@ def refine_crops(dev, label, seed, images, n, canvas, clustered):
 
 def config_crops(dev, train=False):
     """The crops of the other configurations where they differ from the
-    flagship's: LVIS inference (300 dets) and Cityscapes inference on the
-    1024x2048 canvas, or (``train``) a Cityscapes training step (1 image,
-    512 sampled RoIs, 128 positive slots), each from a generator of its
-    own."""
+    flagship's: LVIS inference (300 dets), Cityscapes inference on the
+    1024x2048 canvas and VOC's box extract on its 1024x1024 canvas, or
+    (``train``) a Cityscapes training step (1 image, 512 sampled RoIs, 128
+    positive slots), each from a generator of its own."""
     import torch
     if not train:
         gen = torch.Generator(device=dev).manual_seed(6)
@@ -565,6 +589,12 @@ def config_crops(dev, train=False):
         for case, args, kw in _crops(gen, dev, 1, 1000, N_DETS,
                                      canvas=CITY_HW):
             yield f'{CONFIG} cityscapes infer {case}', args, kw
+        # the VOC config's box extract (phase 11): 1000 proposals on its
+        # 1024x1024 canvas
+        gen = torch.Generator(device=dev).manual_seed(15)
+        case, args, kw = next(_crops(gen, dev, 1, 1000, N_DETS,
+                                     canvas=VOC_HW))
+        yield f'{CONFIG} voc infer {case}', args, kw
         return
     gen = torch.Generator(device=dev).manual_seed(8)
     for case, args, kw in _crops(gen, dev, 1, 512, CITY_POS,
@@ -1200,29 +1230,46 @@ def check_kernels(report):
 # -- phase 3: a toy model, GPU against CPU ------------------------------------
 
 TOY_CONFIGS = {'dynamask': FLAGSHIP, 'mask_rcnn': MASK_RCNN,
-               'refinemask': REFINEMASK}
+               'refinemask': REFINEMASK,
+               'faster_rcnn': os.path.join(
+                   ROOT, 'configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py'),
+               'x101': os.path.join(ROOT, 'configs/mask_rcnn/'
+                                    'mask_rcnn_x101_32x4d_fpn_1x_coco.py'),
+               'caffe': os.path.join(ROOT, 'configs/mask_rcnn/'
+                                     'mask_rcnn_r50_caffe_fpn_1x_coco.py')}
+# the toys at depth 50, the ResNeXt and caffe backbones' own blocks
+DEEP_TOYS = ('x101', 'caffe')
 
 
 def toy_cfg(kind='dynamask'):
     """A small DynaMask Mask R-CNN (ResNet-18, 32-channel FPN, 8 classes);
     ``kind='mask_rcnn'``: the same from the Mask R-CNN config, its FCN mask
     head at 2 convs of 32 channels; ``'refinemask'``: from the RefineMask
-    R50 1x config, one instance and two semantic convs of 32 channels."""
+    R50 1x config, one instance and two semantic convs of 32 channels;
+    ``'faster_rcnn'``: from the Faster R-CNN config, box-only; ``'x101'``
+    and ``'caffe'``: from the ResNeXt-32x4d and the caffe-style Mask R-CNN
+    configs at depth 50, their FCN heads as the Mask R-CNN toy's."""
     from dynamask_torch.utils import Config
     cfg = Config.fromfile(TOY_CONFIGS[kind])
     m = cfg.model
-    m.backbone.depth = 18
-    m.neck.in_channels = [64, 128, 256, 512]
+    if kind in DEEP_TOYS:
+        m.backbone.depth = 50
+    else:
+        m.backbone.depth = 18
+        m.neck.in_channels = [64, 128, 256, 512]
     m.neck.out_channels = 32
     m.rpn_head.in_channels = m.rpn_head.feat_channels = 32
     rh = m.roi_head
     for ext in (rh.bbox_roi_extractor, rh.mask_roi_extractor):
-        ext.out_channels = 32
+        if ext:
+            ext.out_channels = 32
     rh.bbox_head.in_channels = 32
     rh.bbox_head.fc_out_channels = 64
     rh.bbox_head.num_classes = 8
     mh = rh.mask_head
-    if kind == 'mask_rcnn':
+    if kind == 'faster_rcnn':
+        pass
+    elif kind in ('mask_rcnn', *DEEP_TOYS):
         mh.num_convs = 2
         mh.in_channels = mh.conv_out_channels = 32
         mh.num_classes = 8
@@ -1252,7 +1299,9 @@ def check_toy_against_cpu(report):
     batch = {'image': img, 'img_shape': torch.tensor([[128., 128.]]),
              'scale_factor': torch.ones(1, 4)}
     for name, dynamic in (('faithful', False), ('dynamic', True),
-                          ('mask_rcnn', False), ('refinemask', False)):
+                          ('mask_rcnn', False), ('refinemask', False),
+                          ('faster_rcnn', False), ('x101', False),
+                          ('caffe', False)):
         cfg = toy_cfg(name if name in TOY_CONFIGS else 'dynamask')
         cfg.model.roi_head.dynamic_inference = dynamic
         ref = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
@@ -1265,17 +1314,18 @@ def check_toy_against_cpu(report):
             {k: v.to(DEVICE) for k, v in batch.items()}).items()
             if torch.is_tensor(v)}
         errs = {k: (a[k].double() - b[k].double()).abs().max().item()
-                for k in ('dets', 'mask_probs')}
+                for k in ('dets', 'mask_probs') if k in a}
         same = all(torch.equal(a[k], b[k]) for k in ('labels', 'det_valid'))
-        print(f'  toy {name}: {int(a["det_valid"].sum())} dets, mask_probs '
-              f'{tuple(a["mask_probs"].shape)}, GPU vs CPU max abs err '
-              f'dets {errs["dets"]:.3e}, mask_probs {errs["mask_probs"]:.3e}, '
-              f'labels/valid equal {same}')
+        print(f'  toy {name}: {int(a["det_valid"].sum())} dets, ' + (
+            f'mask_probs {tuple(a["mask_probs"].shape)}' if 'mask_probs' in a
+            else 'boxes only') + ', GPU vs CPU max abs err ' + ', '.join(
+                f'{k} {v:.3e}' for k, v in errs.items()) +
+            f', labels/valid equal {same}')
         report['toy'].append(dict(model=name, dynamic=dynamic,
                                   same_labels_valid=same, **errs))
         # fp32 on both devices (TF32 off), other summation orders: ~1e-5
         # on 128-px box coordinates and on mask probabilities
-        if not (same and errs['dets'] < 1e-3 and errs['mask_probs'] < 1e-3):
+        if not (same and max(errs.values()) < 1e-3):
             raise RuntimeError('toy model: GPU result disagrees with the CPU '
                                'reference')
 
@@ -2423,15 +2473,20 @@ def config_modes(name):
                  for m in ('faithful', 'dynamic'))
 
 
-def run_config_inference(report, card, name, path, hw, modes, repeats=5):
-    """Phases 8 and 10, inference: the config's detector built on the card
-    with random weights N(0, 0.05) from seed 0, one seeded image at the
-    config's test canvas through ``inference_detector``; per mode of
-    ``modes`` (:func:`config_modes`) a counted warm-up drive held to its
-    exact launches, then the median of ``repeats``."""
+def run_config_inference(report, card, name, path, hw, modes, repeats=5,
+                         bf16=False):
+    """Phases 8, 10 and 11, inference: the config's detector built on the
+    card with random weights N(0, 0.05) from seed 0, one seeded image at
+    the config's test canvas through ``inference_detector`` (with
+    ``bf16``, ``make_test_fn(..., bf16=True)``: a bf16 copy of the model on
+    a bf16 image); per mode of ``modes`` (:func:`config_modes`) a counted
+    warm-up drive held to its exact launches, then the median of
+    ``repeats``. A box-only detector's drive gives no masks."""
     import torch
     import dynamask_torch.ops as ops
-    from dynamask_torch.apis import inference_detector, init_detector
+    from dynamask_torch.apis import (inference_detector, init_detector,
+                                     make_test_fn)
+    from dynamask_torch.models.fcn_mask_head import FCNMaskHead
     t0 = time.perf_counter()
     model = init_detector(path, device=DEVICE, seed=0, init_std=0.05)
     build_s = time.perf_counter() - t0
@@ -2447,11 +2502,15 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5):
           f'{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, '
           f'{rh.num_classes} classes, {d} det slots, canvas {h}x{w}')
     launches, recs = {}, []
+    fn = (make_test_fn(model, hw, bf16=True) if bf16 else
+          functools.partial(inference_detector, model))
+    side = (None if rh.mask_head is None else
+            28 if isinstance(rh.mask_head, FCNMaskHead) else 112)
 
     def drive(dynamic):
         if dynamic is not None:
             rh.dynamic_inference = dynamic
-        out = inference_detector(model, batch)
+        out = fn(batch)
         torch.cuda.synchronize(DEVICE)
         return out
 
@@ -2463,8 +2522,11 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5):
         key = f'{name}_{mode}'
         launches[key] = ops.kernel_launches()
         check_exact_launches(key, launches[key], counts)
-        expect = {'dets': (1, d, 5), 'labels': (1, d), 'valid': (1, d),
-                  'masks': (1, d, h, w)}
+        expect = {'dets': (1, d, 5), 'labels': (1, d), 'valid': (1, d)}
+        if side:
+            expect['masks'] = (1, d, h, w)
+        if ('masks' in out) != bool(side):
+            raise RuntimeError(f'{key}: outputs {sorted(out)}')
         for k, shape in expect.items():
             if tuple(out[k].shape) != shape:
                 raise RuntimeError(f'{key}: {k} shape '
@@ -2473,14 +2535,15 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5):
             raise RuntimeError(f'{key}: non-finite dets')
         if int(out['labels'].max()) >= rh.num_classes:
             raise RuntimeError(f'{key}: a label past {rh.num_classes}')
-        with torch.no_grad():
-            probs = model.simple_test(batch)['mask_probs']
-        side = 28 if name == 'mask_rcnn' else 112
-        if tuple(probs.shape) != (1, d, side, side) or not torch.isfinite(
-                probs).all():
-            raise RuntimeError(f'{key}: mask probabilities '
-                               f'{tuple(probs.shape)}, finite '
-                               f'{bool(torch.isfinite(probs).all())}')
+        if side:
+            with torch.no_grad():
+                probs = model.simple_test(batch)['mask_probs']
+            if tuple(probs.shape) != (1, d, side, side) or not \
+                    torch.isfinite(probs).all():
+                raise RuntimeError(f'{key}: mask probabilities '
+                                   f'{tuple(probs.shape)}, finite '
+                                   f'{bool(torch.isfinite(probs).all())}')
+            del probs
         times = []
         for _ in range(repeats):
             t = time.perf_counter()
@@ -2490,12 +2553,14 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5):
         peak = torch.cuda.max_memory_allocated(DEVICE)
         n_valid = int(out['valid'].sum())
         line = (f'  {key}: {ms:.1f} ms/img (median of {repeats}, after 1 '
-                f'warm-up) [{card}]; peak memory {peak / 2 ** 30:.2f} GiB; '
-                f'{n_valid} of {d} det slots valid; mask probabilities '
-                f'{side}x{side}, finite; launches {launches[key]}')
+                f'warm-up){" bf16" if bf16 else ""} [{card}]; peak memory '
+                f'{peak / 2 ** 30:.2f} GiB; {n_valid} of {d} det slots '
+                'valid; ' + (f'mask probabilities {side}x{side}, finite'
+                             if side else 'boxes only') +
+                f'; launches {launches[key]}')
         rec = dict(config=name, mode=mode, ms_per_img=ms, times_ms=times,
                    peak_memory_bytes=peak, valid_dets=n_valid, slots=d,
-                   launches=launches[key])
+                   launches=launches[key], bf16=bf16)
         if 'msm_routing' in out:
             r = {k: v.tolist() for k, v in out['msm_routing'].items()
                  if k != 'need'}
@@ -2503,19 +2568,20 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5):
             rec['routing'] = r
         print(line)
         recs.append(rec)
-    del model, out, probs
+    del model, out, fn
     torch.cuda.empty_cache()
     return launches, recs
 
 
 def run_config_train(report, card, name, path, images, hw, counts,
-                     repeats=TIMED_STEPS):
-    """Phases 8 and 10, training: ``init_trainer`` on the config (its
+                     repeats=TIMED_STEPS, compute_dtype=None):
+    """Phases 8, 10 and 11, training: ``init_trainer`` on the config (its
     seeded JAX initialisation), a seeded synthetic batch of ``images`` at
     the train canvas with 20 GTs each over the config's classes (and, for
     a head that reads it, ``gt_semantic`` through the data pipeline's
-    rasteriser), one warm-up and ``repeats`` timed ``train_steps``;
-    counters around all of them, held to ``counts`` a step."""
+    rasteriser), one warm-up and ``repeats`` timed ``train_steps`` (in
+    ``compute_dtype`` on fp32 masters, given); counters around all of
+    them, held to ``counts`` a step."""
     import torch
     import dynamask_torch.ops as ops
     from dynamask_torch.apis import (init_trainer, synthetic_batch,
@@ -2541,7 +2607,8 @@ def run_config_train(report, card, name, path, images, hw, counts,
     times, logs = [], []
     for i in range(1 + repeats):
         t = time.perf_counter()
-        log, = train_steps(model, opt, [batch], generator=gen)
+        log, = train_steps(model, opt, [batch], generator=gen,
+                           compute_dtype=compute_dtype)
         torch.cuda.synchronize(DEVICE)
         times.append(1e3 * (time.perf_counter() - t))
         log = {k: float(v) for k, v in log.items()}
@@ -2550,18 +2617,21 @@ def run_config_train(report, card, name, path, images, hw, counts,
             raise RuntimeError(f'{name} train step {i}: non-finite {bad} '
                                f'or no loss_semantic: {sorted(log)}')
         logs.append(log)
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise RuntimeError(f'{name}: a master weight left fp32')
     key = f'{name}_train'
     launches = {key: ops.kernel_launches()}
     check_exact_launches(key, launches[key], counts, times=1 + repeats)
     peak = torch.cuda.max_memory_allocated(DEVICE)
     ms = statistics.median(times[1:])
-    print(f'  {key}: {ms:.1f} ms/step (median of {repeats}, after 1 '
+    prec = ' bf16' if compute_dtype is torch.bfloat16 else ''
+    print(f'  {key}: {ms:.1f} ms/step{prec} (median of {repeats}, after 1 '
           f'warm-up), batch {images}x{h}x{w}, {1e3 * images / ms:.2f} img/s, '
           f'peak memory {peak / 2 ** 30:.2f} GiB [{card}]; first losses ' +
           ', '.join(f'{k} {v:.4g}' for k, v in logs[0].items()))
     rec = dict(config=name, ms_per_step=ms, times_ms=times, batch=images,
                canvas=list(hw), peak_memory_bytes=peak, losses=logs,
-               launches=launches[key])
+               launches=launches[key], bf16=bool(prec))
     del model, opt, batch
     torch.cuda.empty_cache()
     return launches, rec
@@ -2862,6 +2932,250 @@ def run_refinemask(report, card):
     return launches
 
 
+# -- phase 11: the box-only detectors and the ResNet variants -----------------
+
+FASTER = os.path.join(ROOT, 'configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py')
+FASTER_FP16 = os.path.join(ROOT,
+                           'configs/fp16/faster_rcnn_r50_fpn_fp16_1x_coco.py')
+X101 = os.path.join(ROOT, 'configs/mask_rcnn/mask_rcnn_x101_32x4d_fpn_1x_coco.py')
+CAFFE = os.path.join(ROOT, 'configs/mask_rcnn/mask_rcnn_r50_caffe_fpn_1x_coco.py')
+RPN_CONFIG = os.path.join(ROOT, 'configs/rpn/rpn_r50_fpn_1x_coco.py')
+FAST_RCNN = os.path.join(ROOT, 'configs/fast_rcnn/fast_rcnn_r50_fpn_1x_coco.py')
+VOC_CONFIG = os.path.join(ROOT, 'configs/pascal_voc/'
+                          'faster_rcnn_r50_fpn_1x_voc0712.py')
+PROPOSAL_FILE = os.path.join(ROOT, 'build', 'chip_smoke_proposals',
+                             'rpn_val.pkl')
+VOC_SET = os.path.join(ROOT, 'build', 'chip_smoke_voc')
+VOC_SIZES = ((500, 375), (375, 500), (500, 333), (353, 500))   # w x h
+# Faster R-CNN's launches: its box extract alone (K2 an image; K2 and K4
+# a step: the step's crops take every image of the batch in one launch)
+BOX_INFER_COUNTS = {'roi_align_fwd': 1}
+BOX_STEP_COUNTS = {'roi_align_fwd': 1, 'roi_align_bwd': 1}
+# (name, config, bf16, an image's launches, a step's)
+BOX_CELLS = (
+    ('faster_rcnn', FASTER, False, BOX_INFER_COUNTS, BOX_STEP_COUNTS),
+    ('faster_rcnn_fp16', FASTER_FP16, True, BOX_INFER_COUNTS,
+     BOX_STEP_COUNTS),
+    ('x101', X101, False, MASK_RCNN_INFER_COUNTS, MASK_RCNN_STEP_COUNTS),
+    ('caffe', CAFFE, False, MASK_RCNN_INFER_COUNTS, MASK_RCNN_STEP_COUNTS),
+)
+
+
+def write_voc_set(root, seed=0, per_size=2):
+    """A seeded VOC2007 layout in ``root``: ``per_size`` noise JPEGs at
+    each of four VOC sizes with an XML file each, 2-6 objects of the 20
+    classes, one in three difficult, and ``ImageSets/Main/test.txt``.
+    Returns the object count."""
+    import cv2
+    import numpy as np
+    from dynamask_torch.data import VOC_CLASSES
+    rng = np.random.RandomState(seed)
+    base = os.path.join(root, 'VOC2007')
+    for d in ('JPEGImages', 'Annotations', 'ImageSets/Main'):
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+    ids, n_obj = [], 0
+    for i in range(per_size * len(VOC_SIZES)):
+        w, h = VOC_SIZES[i // per_size]
+        img_id = f'{i:06d}'
+        ids.append(img_id)
+        cv2.imwrite(os.path.join(base, 'JPEGImages', f'{img_id}.jpg'),
+                    rng.uniform(0, 255, (h, w, 3)).astype(np.uint8))
+        objs = []
+        for _ in range(rng.randint(2, 7)):
+            bw, bh = rng.randint(w // 10, w // 2), rng.randint(h // 10, h // 2)
+            x, y = rng.randint(1, w - bw), rng.randint(1, h - bh)
+            objs.append(
+                f'<object><name>{VOC_CLASSES[rng.randint(20)]}</name>'
+                f'<difficult>{int(rng.rand() < 1 / 3)}</difficult><bndbox>'
+                f'<xmin>{x}</xmin><ymin>{y}</ymin><xmax>{x + bw}</xmax>'
+                f'<ymax>{y + bh}</ymax></bndbox></object>')
+        n_obj += len(objs)
+        with open(os.path.join(base, 'Annotations', f'{img_id}.xml'),
+                  'w') as f:
+            f.write(f'<annotation><size><width>{w}</width><height>{h}'
+                    f'</height><depth>3</depth></size>{"".join(objs)}'
+                    '</annotation>')
+    with open(os.path.join(base, 'ImageSets/Main/test.txt'), 'w') as f:
+        f.write('\n'.join(ids) + '\n')
+    return n_obj
+
+
+def gt_boxes_as_results(dataset):
+    """The set's GT boxes as results (score 0.9), with the boxes as an
+    RPN's proposals too."""
+    import numpy as np
+    results = []
+    for i in range(len(dataset)):
+        ann = dataset.get_ann_info(i)
+        n = len(ann['bboxes'])
+        dets = np.concatenate([ann['bboxes'], np.full((n, 1), 0.9,
+                                                      np.float32)], 1)
+        results.append({'img_id': dataset.sample_id(i), 'dets': dets,
+                        'proposals': dets, 'labels': ann['labels'],
+                        'valid': np.ones(n, bool)})
+    return results
+
+
+def run_box_eval(report, card, name, cfg, counts):
+    """Phase 11, an evaluation drive: ``run_test``'s steps on ``cfg`` (its
+    detector at its seeded initialisation on the card, its test set,
+    ``single_device_test`` with its loader workers, timed by part),
+    counters around them held to ``counts`` an image; every image's
+    result finite and box-only. Returns (dataset, results, launches,
+    seconds)."""
+    import numpy as np
+    import dynamask_torch.ops as ops
+    from dynamask_torch.apis import init_detector, single_device_test
+    from dynamask_torch.data import build_dataset
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    model = init_detector(cfg, device=DEVICE)
+    dataset = build_dataset(dict(cfg.data.test),
+                            default_args=dict(test_mode=True))
+    timings = {}
+    results = single_device_test(model, dataset, progress=False,
+                                 workers_per_gpu=cfg.data.workers_per_gpu,
+                                 timings=timings)
+    t_test = time.perf_counter() - t
+    key = f'{name}_eval'
+    launches = {key: ops.kernel_launches()}
+    print(f'  {key}: ms/img: loader start-up '
+          f'{1e3 * timings["startup"] / len(dataset):.1f}, host pipeline + '
+          f'collate {1e3 * timings["pipeline"] / len(dataset):.1f}, device '
+          f'(simple_test, synchronised) '
+          f'{1e3 * timings["device"] / len(dataset):.1f}, device-to-host '
+          f'copy {1e3 * timings["fetch"] / len(dataset):.1f} [{card}]')
+    report.setdefault('box_eval_ms_per_img', {})[key] = {
+        k: 1e3 * v / len(dataset) for k, v in timings.items()}
+    check_exact_launches(key, launches[key], counts, times=len(dataset))
+    if sorted(r['img_id'] for r in results) != sorted(
+            dataset.sample_id(i) for i in range(len(dataset))):
+        raise RuntimeError(f'{key}: results for {len(results)} images')
+    for r in results:
+        if 'masks' in r or not np.isfinite(r['dets'][r['valid']]).all():
+            raise RuntimeError(f'{key}: image {r["img_id"]}: masks or '
+                               'non-finite dets')
+    return dataset, results, launches, t_test
+
+
+def run_proposal_paths(report, card):
+    """Phase 11, mmdet's RPN -> Fast R-CNN workflow over phase 6's set: the
+    RPN config's eval drive (no kernel), ``proposal_fast`` AR and the
+    ``proposal`` table, its proposals written as a ``proposal_file``; the
+    Fast R-CNN config's eval drive reading that file (K2 an image), its
+    bbox mAP; the GTs given as proposals must give AR 1.0 exactly."""
+    import pickle
+    from dynamask_torch.apis.test import proposal_lists
+    from dynamask_torch.utils import Config
+    ann_file, img_dir, n_gts = write_coco_set(COCO_SET)
+    paths = dict(ann_file=ann_file, img_prefix=img_dir, data_root=None)
+    cfg = Config.fromfile(RPN_CONFIG)
+    cfg.data.test.update(paths)
+    dataset, results, launches, t_test = run_box_eval(report, card, 'rpn',
+                                                      cfg, {})
+    n = len(dataset)
+    plist = proposal_lists(results)
+    metrics = dataset.evaluate(results, metric=['proposal_fast',
+                                                'proposal'])
+    gt = dataset.evaluate(gt_boxes_as_results(dataset),
+                          metric=['proposal_fast'])
+    if any(v != 1.0 for v in gt.values()):
+        raise RuntimeError(f'rpn_eval: the GTs as proposals give {gt}')
+    os.makedirs(os.path.dirname(PROPOSAL_FILE), exist_ok=True)
+    with open(PROPOSAL_FILE, 'wb') as f:
+        pickle.dump(plist, f)
+    counts = [len(p) for p in plist]
+    print(f'  rpn_eval: {n} images, {n_gts} GTs; run_test {t_test:.1f} s '
+          f'({n / t_test:.2f} img/s, {cfg.data.workers_per_gpu} loader '
+          f'workers) [{card}]; {min(counts)}-{max(counts)} proposals an '
+          'image; ' + ', '.join(f'{k} {metrics[k]:.4f}' for k in
+                                ('AR@100', 'AR@300', 'AR@1000')) +
+          f' (random weights; proposal_fast), the GTs as proposals {gt}; '
+          f'written to {os.path.relpath(PROPOSAL_FILE, ROOT)}; launches '
+          f'{launches["rpn_eval"]}')
+    report['proposals'] = {'rpn': dict(images=n, run_test_s=t_test,
+                                       proposals=counts, metrics=metrics,
+                                       gt_as_proposals=gt,
+                                       launches=launches['rpn_eval'])}
+    cfg = Config.fromfile(FAST_RCNN)
+    cfg.data.test.update(paths, proposal_file=PROPOSAL_FILE)
+    dataset, results, got, t_test = run_box_eval(report, card, 'fast_rcnn',
+                                                 cfg, BOX_INFER_COUNTS)
+    launches.update(got)
+    read = [int(dataset[i]['proposal_valid'].sum()) for i in range(n)]
+    if read != counts:
+        raise RuntimeError(f'fast_rcnn_eval: read {read} proposals, the '
+                           f'RPN wrote {counts}')
+    metrics = dataset.evaluate(results, metric=['bbox'])
+    n_valid = sum(int(r['valid'].sum()) for r in results)
+    print(f'  fast_rcnn_eval: {n} images on the RPN\'s proposals; run_test '
+          f'{t_test:.1f} s ({n / t_test:.2f} img/s) [{card}]; {n_valid} '
+          f'valid dets; bbox_mAP {metrics["bbox_mAP"]:.4f} (random '
+          f'weights); launches {got["fast_rcnn_eval"]}')
+    report['proposals']['fast_rcnn'] = dict(
+        images=n, run_test_s=t_test, valid_dets=n_valid, metrics=metrics,
+        launches=got['fast_rcnn_eval'])
+    return launches
+
+
+def run_voc_path(report, card):
+    """Phase 11, the VOC config's eval drive on a seeded VOC2007 layout in
+    ``build/chip_smoke_voc/``: K2 an image, the VOC2007 ('11points') mAP;
+    the GTs given as predictions must give mAP 1.0 (to 1e-12: eleven
+    elevenths)."""
+    from dynamask_torch.utils import Config
+    n_obj = write_voc_set(VOC_SET)
+    cfg = Config.fromfile(VOC_CONFIG)
+    cfg.data.test.update(data_root=VOC_SET)
+    dataset, results, launches, t_test = run_box_eval(
+        report, card, 'voc', cfg, BOX_INFER_COUNTS)
+    metrics = dataset.evaluate(results, metric=['mAP'])
+    gt = dataset.evaluate(gt_boxes_as_results(dataset), metric=['mAP'])
+    if abs(gt['mAP'] - 1.0) > 1e-12 or dataset.year != 2007:
+        raise RuntimeError(f'voc_eval: the GTs as predictions give {gt}')
+    n = len(dataset)
+    print(f'  voc_eval: {n} images, {n_obj} objects, {len(dataset.CLASSES)} '
+          f'classes; run_test {t_test:.1f} s ({n / t_test:.2f} img/s, '
+          f'{cfg.data.workers_per_gpu} loader workers) [{card}]; mAP '
+          f'{metrics["mAP"]:.4f} (random weights, VOC2007 11 points), the '
+          f'GTs as predictions {gt["mAP"]}; launches {launches["voc_eval"]}')
+    report['voc'] = dict(images=n, objects=n_obj, run_test_s=t_test,
+                         metrics=metrics, gt_as_predictions=gt,
+                         launches=launches['voc_eval'])
+    return launches
+
+
+def run_box_only(report, card):
+    """Phase 11: Faster R-CNN (fp32, and bf16 from the fp16 config), Mask
+    R-CNN X101-32x4d and R50-caffe, each from its config file, unchanged,
+    at full width: one image at 800x1344 and one step at 4x800x1344
+    (phases 4-5's weights protocol), each a counted warm-up held to its
+    exact launches and 2 timed repeats; then the RPN -> Fast R-CNN eval
+    drives and the VOC one."""
+    import torch
+    from dynamask_torch.apis import config_shapes
+    launches = {}
+    report['box_only'] = {'inference': [], 'train': []}
+    for name, path, bf16, infer, step in BOX_CELLS:
+        test_hw, images, train_hw = config_shapes(path)
+        prec = 'bf16' if bf16 else 'fp32'
+        got, recs = run_config_inference(
+            report, card, name, path, test_hw,
+            (('infer', None, in_precision(infer, prec)),), repeats=2,
+            bf16=bf16)
+        launches.update(got)
+        report['box_only']['inference'] += recs
+        got, rec = run_config_train(
+            report, card, name, path, images, train_hw,
+            in_precision(step, prec), repeats=2,
+            compute_dtype=torch.bfloat16 if bf16 else None)
+        launches.update(got)
+        report['box_only']['train'].append(rec)
+    launches.update(run_proposal_paths(report, card))
+    launches.update(run_voc_path(report, card))
+    return launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -2903,6 +3217,8 @@ def main() -> int:
     check_toy_train_against_cpu(report)
     check_toy_train_against_cpu(report, 'mask_rcnn')
     check_toy_train_against_cpu(report, 'refinemask')
+    for kind in ('faster_rcnn', *DEEP_TOYS):
+        check_toy_train_against_cpu(report, kind)
     print(f'phase 4: flagship inference [{card}]')
     launches = run_inference_path(report, card)
     torch.cuda.empty_cache()
@@ -2937,8 +3253,15 @@ def main() -> int:
     t10 = time.perf_counter()
     launches.update(run_refinemask(report, card))
     report['phase10_s'] = time.perf_counter() - t10
+    print(f'  phase 10: {report["phase10_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 11: the box-only detectors and the ResNet variants '
+          f'[{card}]')
+    t11 = time.perf_counter()
+    launches.update(run_box_only(report, card))
+    report['phase11_s'] = time.perf_counter() - t11
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 10: {report["phase10_s"]:.1f} s; the whole run '
+    print(f'  phase 11: {report["phase11_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}

@@ -3,8 +3,9 @@ and ``show_result`` of ``dynamask_tpu/apis/inference.py``).
 
 ``inference_detector`` takes an image (a file path or a BGR ``ndarray``),
 runs the config's test pipeline on the host and returns the reference's
-``(bbox_results, segm_results)``; given a preprocessed batch (a ``dict`` of
-tensors), it returns the padded device outputs instead.
+``(bbox_results, segm_results)`` (``bbox_results`` alone for a box-only
+detector, the (k, 5) proposals for an ``RPN``); given a preprocessed batch
+(a ``dict`` of tensors), it returns the padded device outputs instead.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from ..data.transforms import Compose
 from ..engine.checkpoint import load_params_only
 from ..models.builder import build_detector
 from ..utils.config import Config
-from .test import TEST_KEYS, make_test_fn
+from .test import is_proposal_model, make_test_fn, simple_test_inputs
+
 
 def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
                   device=None, seed: int = 0,
@@ -49,8 +51,9 @@ def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
     test = (config.get('data') or {}).get('test')
     names, model.canvases = dataset_spec(test or {})
     model.cfg = config
-    model.CLASSES = tuple(classes or config_classes(
-        names, model.roi_head.num_classes))
+    num_classes = (len(names or ()) if is_proposal_model(model)
+                   else model.roi_head.num_classes)
+    model.CLASSES = tuple(classes or config_classes(names, num_classes))
     model.pipeline = Compose(
         [t for t in test['pipeline'] if t['type'] != 'LoadImageFromFile']
     ) if test else None
@@ -77,15 +80,19 @@ def _mask_thr(model: torch.nn.Module) -> float:
 
 
 def inference_detector(model: torch.nn.Module,
-                       img: Union[str, np.ndarray, Dict[str, torch.Tensor]]):
+                       img: Union[str, np.ndarray, Dict[str, torch.Tensor]],
+                       proposals: Optional[np.ndarray] = None):
     """Detect on one image -> ``(bbox_results, segm_results)``: per class a
     (k, 5) float32 array [x1, y1, x2, y2, score] and a list of k bool
     (h, w) masks, in original-image coordinates (reference
-    apis/inference.py:inference_detector).
+    apis/inference.py:inference_detector); a box-only detector gives
+    ``bbox_results`` alone, an ``RPN`` its valid (k, 5) proposals.
 
     ``img`` is a file path or a BGR uint8 ``ndarray``, which the model's
     test pipeline resizes, normalises and pads onto one of its canvases;
-    masks are pasted on the original extent rounded up to 32.
+    masks are pasted on the original extent rounded up to 32. A Fast
+    R-CNN takes the image's (N, 4|5) ``proposals``, which its pipeline's
+    ``LoadProposals`` reads.
 
     Given a preprocessed batch instead (a ``dict`` of ``image`` (B, H, W, 3)
     NHWC, ``img_shape`` (B, 2), ``scale_factor`` (B, 4)), returns the
@@ -101,19 +108,25 @@ def inference_detector(model: torch.nn.Module,
         path, img = img, cv2.imread(img, cv2.IMREAD_COLOR)
         if img is None:
             raise FileNotFoundError(path)
-    results = model.pipeline({'img': img, 'img_shape': img.shape,
-                              'ori_shape': img.shape})
-    sample = format_sample(results, model.canvases)
-    batch = {k: torch.from_numpy(sample[k])[None] for k in TEST_KEYS}
+    results = {'img': img, 'img_shape': img.shape, 'ori_shape': img.shape}
+    if proposals is not None:
+        results['proposals'] = proposals
+    sample = format_sample(model.pipeline(results), model.canvases)
+    batch = {k: torch.from_numpy(v)[None]
+             for k, v in simple_test_inputs(sample).items()}
     ori_h, ori_w = img.shape[:2]
     ch, cw = -(-ori_h // 32) * 32, -(-ori_w // 32) * 32
     out = make_test_fn(model, (ch, cw), _mask_thr(model))(batch)
     dets, labels, valid = (out[k][0].cpu().numpy()
                            for k in ('dets', 'labels', 'valid'))
-    masks = out['masks'][0, :, :ori_h, :ori_w].cpu().numpy()
+    if is_proposal_model(model):
+        return dets[valid]
     num_classes = len(model.CLASSES)
     bbox_results = bbox2result(dets[:, :4], dets[:, 4], labels, valid,
                                num_classes)
+    if 'masks' not in out:
+        return bbox_results
+    masks = out['masks'][0, :, :ori_h, :ori_w].cpu().numpy()
     segm_results: List[List[np.ndarray]] = [[] for _ in range(num_classes)]
     for d in np.nonzero(valid)[0]:
         segm_results[int(labels[d])].append(masks[d])

@@ -1,28 +1,47 @@
 """The test loop (port of ``dynamask_tpu/apis/test.py``): the device-side
-det -> canvas mask epilogue, the dataset loop that feeds
-``CocoDataset.evaluate``, and ``run_eval``. The forward, the NMS and the
-mask paste run on the device; the masks come to the host once per image,
-and RLE encoding and COCO matching stay on the host."""
+det -> canvas mask epilogue, the dataset loop that feeds the dataset's
+``evaluate``, and ``run_eval``. The forward, the NMS and the mask paste run
+on the device; the masks come to the host once per image, and RLE encoding
+and COCO matching stay on the host. A box-only detector (Faster and Fast
+R-CNN) skips the paste and gives boxes; an ``RPN`` gives its proposals
+(the JAX loop pastes always, so it has neither)."""
 
 from __future__ import annotations
 
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..core.fp16 import to_bf16
 from ..ops.paste import paste_masks
 
-# the batch keys simple_test reads
-TEST_KEYS = ('image', 'img_shape', 'ori_shape', 'scale_factor')
+# the batch keys simple_test reads (a Fast R-CNN batch's proposals among
+# them)
+TEST_KEYS = ('image', 'img_shape', 'ori_shape', 'scale_factor', 'proposals',
+             'proposal_valid')
+
+
+def simple_test_inputs(batch: Dict) -> Dict:
+    """The keys of ``batch`` that ``simple_test`` reads."""
+    return {k: batch[k] for k in TEST_KEYS if k in batch}
+
+
+def is_proposal_model(model: torch.nn.Module) -> bool:
+    """An ``RPN``: its results are proposals, not class dets."""
+    return not hasattr(model, 'roi_head')
 
 
 def paste_epilogue(out: Dict, ch: int, cw: int, mask_thr: float) -> Dict:
     """Paste each det's mask probabilities onto a (ch, cw) canvas and
     threshold them on the device -> dets, labels, valid, masks
-    (B, D, ch, cw) bool."""
+    (B, D, ch, cw) bool; without mask probabilities (a box-only detector,
+    an RPN) dets, labels, valid."""
+    if 'mask_probs' not in out:
+        return {'dets': out['dets'], 'labels': out['labels'],
+                'valid': out['det_valid']}
     b, d = out['dets'].shape[:2]
     probs = out['mask_probs']
     boxes = out['dets'][..., :4].reshape(b * d, 4)
@@ -38,9 +57,9 @@ def make_test_fn(model: torch.nn.Module, mask_canvas: Tuple[int, int],
     ``dynamask_tpu/apis/test.py:36-56``), the one every test and inference
     entry point runs: ``simple_test`` + the paste on the model's device.
     Returns ``fn(batch)`` -> dict of padded per-image results
-    (:func:`paste_epilogue`), the masks a bool (B, D, canvas_h, canvas_w)
-    tensor thresholded on the device, and in the MSM-routed mode the
-    routing statistics under ``msm_routing``.
+    (:func:`paste_epilogue`), the masks (where the model has a mask head) a
+    bool (B, D, canvas_h, canvas_w) tensor thresholded on the device, and
+    in the MSM-routed mode the routing statistics under ``msm_routing``.
 
     With ``bf16=True`` a bf16 copy of the model (``core.fp16.to_bf16``:
     parameters and BatchNorm statistics) computes on a bf16 image; the box
@@ -88,10 +107,12 @@ def single_device_test(model: torch.nn.Module, dataset,
                        ) -> List[Dict]:
     """Run ``model`` over ``dataset`` -> one result dict per image for
     ``dataset.evaluate`` (reference single_gpu_test): numpy 'dets' (D, 5)
-    in original image coordinates, 'labels', 'valid', and 'masks', D bool
-    (h, w) masks pasted on the dataset's mask canvas in original-image
-    coordinates and cropped to the image. An image the sampler repeats to
-    fill a batch is kept once.
+    in original image coordinates, 'labels', 'valid', and with a mask head
+    'masks', D bool (h, w) masks pasted on the dataset's mask canvas in
+    original-image coordinates and cropped to the image; for an ``RPN``
+    also 'proposals', its valid (k, 5) proposals by score, as
+    ``fast_eval_recall`` reads them. An image the sampler repeats to fill a
+    batch is kept once.
 
     ``timings``, given, receives the seconds spent waiting on the loader
     for its first batch ('startup': worker start-up and that batch) and for
@@ -105,6 +126,7 @@ def single_device_test(model: torch.nn.Module, dataset,
                               drop_last=False)
     dev = model.device
     step = make_test_fn(model, (ch, cw), mask_thr)
+    proposals = is_proposal_model(model)
     clock = dict(startup=0.0, pipeline=0.0, device=0.0, fetch=0.0)
     results: List[Dict] = []
     seen = set()
@@ -117,7 +139,7 @@ def single_device_test(model: torch.nn.Module, dataset,
         if batch is None:
             break
         t = time.perf_counter()
-        out = step({k: batch[k] for k in TEST_KEYS})
+        out = step(simple_test_inputs(batch))
         if timings is not None and dev.type == 'cuda':
             torch.cuda.synchronize(dev)
         clock['device'] += time.perf_counter() - t
@@ -130,14 +152,18 @@ def single_device_test(model: torch.nn.Module, dataset,
                                   len(results) >= max_images):
                 continue
             seen.add(img_id)
-            oh, ow = ori[i]
-            # one copy per image, (D, w, h): each det's mask is then a
-            # column-major (h, w) view, the order the RLE codec reads
-            masks = out['masks'][i, :, :oh, :ow].transpose(1, 2) \
-                .contiguous().cpu().numpy()
-            results.append({'img_id': img_id, 'dets': dets[i],
-                            'labels': labels[i], 'valid': valid[i],
-                            'masks': [m.T for m in masks]})
+            res = {'img_id': img_id, 'dets': dets[i], 'labels': labels[i],
+                   'valid': valid[i]}
+            if 'masks' in out:
+                oh, ow = ori[i]
+                # one copy per image, (D, w, h): each det's mask is then a
+                # column-major (h, w) view, the order the RLE codec reads
+                masks = out['masks'][i, :, :oh, :ow].transpose(1, 2) \
+                    .contiguous().cpu().numpy()
+                res['masks'] = [m.T for m in masks]
+            if proposals:
+                res['proposals'] = dets[i][valid[i]]
+            results.append(res)
         clock['fetch'] += time.perf_counter() - t
         if progress and len(results) % 50 == 0:
             fps = len(results) / max(time.perf_counter() - t_start, 1e-6)
@@ -148,6 +174,13 @@ def single_device_test(model: torch.nn.Module, dataset,
     if timings is not None:
         timings.update(clock)
     return results
+
+
+def proposal_lists(results: List[Dict]) -> List:
+    """An RPN's results as a ``proposal_file``'s list: per image its (k, 5)
+    float32 proposals, in the results' order (the test set's, which the
+    dataset reading the file must share)."""
+    return [np.asarray(r['proposals'], np.float32) for r in results]
 
 
 def run_test(cfg, checkpoint: Optional[str] = None,

@@ -4,8 +4,8 @@ from .mask_codec import (encode_mask, decode_rle, encode_mask_plain,
                          rle_counts_to_mask, rle_counts_to_string,
                          rle_string_to_counts)
 from .cocoeval import CocoEvaluator, bbox_iou_xywh
-from .transforms import (LoadImageFromFile, LoadAnnotations, Resize,
-                         RandomFlip, Normalize, Pad, Compose)
+from .transforms import (LoadImageFromFile, LoadAnnotations, LoadProposals,
+                         Resize, RandomFlip, Normalize, Pad, Compose)
 from .formatting import (format_sample, collate, canvas_for,
                          rasterize_semantic)
 from .coco import (CocoDataset, CocoIndex, build_dataset, dataset_spec,
@@ -13,6 +13,8 @@ from .coco import (CocoDataset, CocoIndex, build_dataset, dataset_spec,
 from .lvis import (LVISV1Dataset, LVISV05Dataset, LvisEvaluator)
 from .cityscapes import (CityscapesDataset, CITYSCAPES_CLASSES,
                          CITYSCAPES_LABEL_IDS)
+from .custom import CustomDataset
+from .voc import VOC_CLASSES, VOCDataset, XMLDataset
 from .dataset_wrappers import (ConcatDataset, RepeatDataset,
                                ClassBalancedDataset, wrap_dataset)
 from .loader import GroupedBatchSampler, build_dataloader
@@ -23,13 +25,15 @@ __all__ = [
     'mask_to_rle_counts', 'rle_counts_to_mask', 'rle_counts_to_string',
     'rle_string_to_counts',
     'CocoEvaluator', 'bbox_iou_xywh',
-    'LoadImageFromFile', 'LoadAnnotations', 'Resize', 'RandomFlip',
+    'LoadImageFromFile', 'LoadAnnotations', 'LoadProposals', 'Resize',
+    'RandomFlip',
     'Normalize', 'Pad', 'Compose', 'format_sample', 'collate', 'canvas_for',
     'rasterize_semantic',
     'CocoDataset', 'CocoIndex', 'build_dataset', 'dataset_spec',
     'COCO_CLASSES',
     'LVISV1Dataset', 'LVISV05Dataset', 'LvisEvaluator',
     'CityscapesDataset', 'CITYSCAPES_CLASSES', 'CITYSCAPES_LABEL_IDS',
+    'CustomDataset', 'VOC_CLASSES', 'VOCDataset', 'XMLDataset',
     'ConcatDataset', 'RepeatDataset', 'ClassBalancedDataset', 'wrap_dataset',
     'GroupedBatchSampler', 'build_dataloader',
 ]

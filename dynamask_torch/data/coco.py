@@ -3,19 +3,23 @@
 
 A json index without pycocotools, the reference's ``_parse_ann_info``
 semantics (crowd boxes become ignore boxes, labels remap to contiguous
-0..79), orientation groups for the sampler, and ``results2json`` + the
-COCO-protocol evaluator.
+0..79), orientation groups for the sampler, precomputed proposals from a
+``proposal_file`` (JAX ``coco.py:81-120``), and ``results2json`` + the
+COCO-protocol evaluator, the class-agnostic ``proposal`` AR and
+``proposal_fast``'s direct recall (JAX ``coco.py:229-260, :318``).
 """
 
 from __future__ import annotations
 
 import json
 import os.path as osp
+import pickle
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..core.mean_ap import eval_recalls
 from ..utils.registry import DATASETS
 from .cocoeval import CocoEvaluator
 from .dataset_wrappers import WRAPPERS, wrap_dataset
@@ -37,10 +41,6 @@ COCO_CLASSES = (
     'laptop', 'mouse', 'remote', 'keyboard', 'cell phone', 'microwave',
     'oven', 'toaster', 'sink', 'refrigerator', 'book', 'clock', 'vase',
     'scissors', 'teddy bear', 'hair drier', 'toothbrush')
-
-# where the parts of the JAX dataset stack that the port lacks are queued
-NOT_PORTED = 'not ported yet (ROADMAP.md, queue 1, item 2)'
-
 
 class CocoIndex:
     """Minimal pycocotools.COCO replacement: json -> indexed lookups."""
@@ -81,12 +81,16 @@ class CocoDataset:
                  max_gts: int = 100,
                  mask_crop_size: int = 128,
                  with_semantic: bool = False,
-                 classes: Optional[Sequence[str]] = None):
+                 classes: Optional[Sequence[str]] = None,
+                 proposal_file: Optional[str] = None,
+                 max_proposals: int = 1000):
         if data_root is not None:
             if not osp.isabs(ann_file):
                 ann_file = osp.join(data_root, ann_file)
             if img_prefix and not osp.isabs(img_prefix):
                 img_prefix = osp.join(data_root, img_prefix)
+            if proposal_file and not osp.isabs(proposal_file):
+                proposal_file = osp.join(data_root, proposal_file)
         self.ann_file = ann_file
         self.img_prefix = img_prefix
         self.test_mode = test_mode
@@ -106,6 +110,13 @@ class CocoDataset:
         self.cat2label = {cid: i for i, cid in enumerate(self.cat_ids)}
 
         self.img_infos = [self.coco.imgs[i] for i in self.coco.img_ids]
+        # precomputed proposals: a pickled list of (N, 4|5) arrays in the
+        # order of the unfiltered images (mmdet's RPN test output), kept by
+        # image id so that the filtering below cannot misalign them
+        self.max_proposals = max_proposals
+        self.proposal_file = proposal_file
+        self._proposal_ids = [info['id'] for info in self.img_infos]
+        self._proposals = self._read_proposals() if proposal_file else None
         if not test_mode:
             self.img_infos = self._filter_imgs(filter_empty_gt)
         # orientation grouping (reference custom.py:_set_group_flag)
@@ -113,6 +124,25 @@ class CocoDataset:
             [0 if info['width'] >= info['height'] else 1
              for info in self.img_infos], np.int64)
         self.pipeline = Compose(pipeline)
+
+    def _read_proposals(self) -> Dict[int, np.ndarray]:
+        with open(self.proposal_file, 'rb') as f:
+            plist = pickle.load(f)
+        return {i: np.asarray(p, np.float32)
+                for i, p in zip(self._proposal_ids, plist)}
+
+    @property
+    def proposals(self) -> Optional[Dict[int, np.ndarray]]:
+        """Each image's proposals by image id, from ``proposal_file``
+        (None without one), read once in each process."""
+        if self._proposals is None and self.proposal_file:
+            self._proposals = self._read_proposals()
+        return self._proposals
+
+    def __getstate__(self) -> dict:
+        # a loader worker reads the proposal file itself: a pickle over the
+        # 64 KiB of a pipe would start the spawned workers one at a time
+        return dict(self.__dict__, _proposals=None)
 
     @classmethod
     def classes_for(cls, cfg: dict) -> Optional[Tuple[str, ...]]:
@@ -166,8 +196,11 @@ class CocoDataset:
 
     def pre_pipeline(self, idx: int) -> Dict:
         info = self.img_infos[idx]
-        return {'img_info': info, 'img_prefix': self.img_prefix,
-                'img_id': info['id']}
+        results = {'img_info': info, 'img_prefix': self.img_prefix,
+                   'img_id': info['id']}
+        if self.proposals is not None:
+            results['proposals'] = self.proposals[info['id']].copy()
+        return results
 
     def sample_id(self, idx: int) -> int:
         return int(self.img_infos[idx]['id'])
@@ -187,7 +220,8 @@ class CocoDataset:
         results = self.pipeline(results)
         sample = format_sample(results, self.canvases, self.max_gts,
                                self.mask_crop_size,
-                               with_semantic=self.with_semantic)
+                               with_semantic=self.with_semantic,
+                               max_proposals=self.max_proposals)
         sample['img_id'] = np.array(self.sample_id(idx), np.int64)
         return sample
 
@@ -223,9 +257,40 @@ class CocoDataset:
                     segm_json.append(seg)
         return det_json, segm_json
 
-    def fast_eval_recall(self, *args, **kwargs):
-        raise NotImplementedError(
-            f'fast_eval_recall needs core.eval_recalls, {NOT_PORTED}')
+    def fast_eval_recall(self, results: List[Dict],
+                         proposal_nums: Sequence[int] = (100, 300, 1000),
+                         iou_thrs: Optional[Sequence[float]] = None
+                         ) -> np.ndarray:
+        """Average recall over ``iou_thrs`` (0.5:0.95 by default) of the
+        first n proposals, for each n of ``proposal_nums``, by direct IoU
+        matching (JAX ``coco.py:229-260``): a result's ``proposals`` where
+        it has them (an RPN's), else its valid dets, by score. The GTs are
+        those ``get_ann_info`` keeps."""
+        if iou_thrs is None:
+            iou_thrs = np.arange(0.5, 0.96, 0.05)
+        by_id = {int(r['img_id']): r for r in results}
+        gts, props = [], []
+        for info in self.img_infos:
+            boxes = [a['bbox'] for a in self.coco.img_anns.get(info['id'], [])
+                     if not (a.get('iscrowd', 0) or a.get('ignore', 0))
+                     and a.get('category_id') in self.cat2label
+                     and a['bbox'][2] >= 1 and a['bbox'][3] >= 1
+                     and a.get('area', a['bbox'][2] * a['bbox'][3]) > 0]
+            b = np.asarray(boxes, np.float32).reshape(-1, 4)
+            gts.append(np.concatenate([b[:, :2], b[:, :2] + b[:, 2:]], 1))
+            res = by_id.get(info['id'])
+            if res is None:
+                props.append(np.zeros((0, 5), np.float32))
+                continue
+            if 'proposals' in res:
+                p = np.asarray(res['proposals'], np.float32).reshape(-1, 5)
+            else:
+                p = np.asarray(res['dets'], np.float32).reshape(-1, 5)[
+                    np.asarray(res['valid']).astype(bool)]
+            if len(p):
+                p = p[np.argsort(-p[:, 4], kind='mergesort')]
+            props.append(p)
+        return eval_recalls(gts, props, proposal_nums, iou_thrs).mean(axis=1)
 
     def _classwise_table(self, ev: CocoEvaluator, title: str) -> None:
         """Per-category AP table (reference coco.py:496-516 classwise)."""
@@ -242,22 +307,29 @@ class CocoDataset:
     def evaluate(self, results: List[Dict],
                  metric: Sequence[str] = ('bbox',),
                  classwise: bool = False) -> Dict[str, float]:
-        """COCO metrics of ``results`` (see :meth:`results2json`)."""
+        """COCO metrics of ``results`` (see :meth:`results2json`); with
+        'proposal_fast', ``AR@{100,300,1000}`` by :meth:`fast_eval_recall`."""
         det_json, segm_json = self.results2json(results)
-        return self.evaluate_json(det_json, segm_json, metric, classwise)
+        out = self.evaluate_json(det_json, segm_json, [
+            m for m in metric if m != 'proposal_fast'], classwise)
+        if 'proposal_fast' in metric:
+            nums = (100, 300, 1000)
+            ar = self.fast_eval_recall(results, nums)
+            out.update({f'AR@{n}': float(a) for n, a in zip(nums, ar)})
+        return out
 
     def evaluate_json(self, det_json: List[dict], segm_json: List[dict],
                       metric: Sequence[str] = ('bbox',),
                       classwise: bool = False) -> Dict[str, float]:
         """The evaluator's stage of :meth:`evaluate`, on the output of
         :meth:`results2json`: 'bbox' and 'segm' give the COCO AP/AR table
-        with the metric's prefix."""
-        unknown = set(metric) - {'bbox', 'segm'}
-        if unknown & {'proposal', 'proposal_fast'}:
-            raise NotImplementedError(
-                f'the proposal metrics are {NOT_PORTED}')
+        with the metric's prefix, 'proposal' the class-agnostic
+        AR@{100,300,1000} table (JAX ``coco.py:318-325``)."""
+        unknown = set(metric) - {'bbox', 'segm', 'proposal'}
         if unknown:
-            raise KeyError(f'metrics {sorted(unknown)} are not COCO metrics')
+            raise KeyError(f'metrics {sorted(unknown)} are not COCO metrics '
+                           "of json results ('proposal_fast' reads the "
+                           'results themselves: evaluate)')
         img_ids = [info['id'] for info in self.img_infos]
         gt_anns = [ann for info in self.img_infos
                    for ann in self.coco.img_anns.get(info['id'], [])
@@ -278,6 +350,13 @@ class CocoDataset:
                 out[f'segm_{k}'] = v
             if classwise:
                 self._classwise_table(ev, 'segm')
+        if 'proposal' in metric:
+            # every category as one (cocoEval.params.useCats = 0)
+            ev = CocoEvaluator([dict(a, category_id=0) for a in gt_anns],
+                               img_ids, [0], 'bbox',
+                               max_dets=(100, 300, 1000))
+            out.update(ev.evaluate([dict(d, category_id=0)
+                                    for d in det_json]))
         return out
 
 

@@ -11,7 +11,9 @@ The host emits fixed-shape arrays once per image:
     (``core/mask_targets.py``);
   * with ``with_semantic`` (RefineMask's train sets), ``gt_semantic``: the
     union of the instance polygons at 1/4 of the canvas
-    (:func:`rasterize_semantic`).
+    (:func:`rasterize_semantic`);
+  * precomputed proposals (``LoadProposals``), padded to
+    ``max_proposals`` with a validity mask.
 
 ``collate`` stacks same-canvas samples into a batch of torch tensors, which
 ``train_steps`` and ``single_device_test`` move to the device.
@@ -109,10 +111,13 @@ def format_sample(results: Dict, canvases: Sequence[Tuple[int, int]],
                   max_gts: int = 100, crop_size: int = 128,
                   crop_margin: float = 2.0,
                   max_ignore: int = 20,
-                  with_semantic: bool = False) -> Dict[str, np.ndarray]:
+                  with_semantic: bool = False,
+                  max_proposals: int = 1000) -> Dict[str, np.ndarray]:
     """One pipeline output -> static-shape arrays (before batching); with
     ``with_semantic`` and masks, ``gt_semantic`` of the first ``max_gts``
-    GTs' polygons (:func:`rasterize_semantic`)."""
+    GTs' polygons (:func:`rasterize_semantic`); given proposals,
+    ``proposals`` (max_proposals, 4) and ``proposal_valid`` (JAX
+    ``formatting.py:103-112``)."""
     img = results['img']
     h, w = img.shape[:2]
     ch, cw = canvas_for(h, w, canvases)
@@ -128,6 +133,13 @@ def format_sample(results: Dict, canvases: Sequence[Tuple[int, int]],
             'scale_factor', np.ones(4, np.float32)), np.float32),
         'flip': np.array(results.get('flip', False)),
     }
+
+    if 'proposals' in results:
+        props = np.asarray(results['proposals'], np.float32).reshape(-1, 4)
+        k = min(len(props), max_proposals)
+        out['proposals'] = np.zeros((max_proposals, 4), np.float32)
+        out['proposals'][:k] = props[:k]
+        out['proposal_valid'] = np.arange(max_proposals) < k
 
     if 'gt_bboxes' in results:
         boxes = np.asarray(results['gt_bboxes'], np.float32).reshape(-1, 4)

@@ -1,6 +1,8 @@
 """Host-side image and annotation transforms, numpy + cv2 (port of the part
-of ``dynamask_tpu/data/transforms.py`` that the COCO instance pipelines use:
-``configs/_base_/datasets/coco_instance.py``).
+of ``dynamask_tpu/data/transforms.py`` that the COCO instance and VOC
+pipelines use: ``configs/_base_/datasets/coco_instance.py``, and
+``LoadProposals`` :63-82 for Fast R-CNN's precomputed proposals, which
+``Resize`` and ``RandomFlip`` move with the image).
 
 Each transform maps a results dict to a results dict; masks stay polygon
 lists (or RLE dicts with pending ``_scale``/``_flip`` flags) until static
@@ -61,6 +63,27 @@ class LoadAnnotations:
 
 
 @PIPELINES.register_module()
+class LoadProposals:
+    """The proposals the dataset put in ``results['proposals']`` (from its
+    ``proposal_file``): (N, 4|5), the score column dropped, the first
+    ``num_max_proposals`` kept; none gives one zero box."""
+
+    def __init__(self, num_max_proposals: Optional[int] = None):
+        self.num_max_proposals = num_max_proposals
+
+    def __call__(self, results: Dict) -> Dict:
+        props = np.asarray(results['proposals'], np.float32)
+        if props.ndim != 2 or props.shape[1] not in (4, 5):
+            raise ValueError(f'proposals must be (N, 4|5), got '
+                             f'{props.shape}')
+        props = props[:self.num_max_proposals, :4]
+        if len(props) == 0:
+            props = np.zeros((1, 4), np.float32)
+        results['proposals'] = props
+        return results
+
+
+@PIPELINES.register_module()
 class Resize:
     """Keep-ratio resize to fit inside img_scale (max_long, max_short), or
     an exact (w, h) resize without keep_ratio. Several scales sample one per
@@ -116,6 +139,11 @@ class Resize:
                 boxes[:, 0::2] = np.clip(boxes[:, 0::2], 0, img.shape[1])
                 boxes[:, 1::2] = np.clip(boxes[:, 1::2], 0, img.shape[0])
                 results[key] = boxes
+        if 'proposals' in results:     # the proposals follow the image
+            props = results['proposals'] * results['scale_factor']
+            props[:, 0::2] = np.clip(props[:, 0::2], 0, img.shape[1])
+            props[:, 1::2] = np.clip(props[:, 1::2], 0, img.shape[0])
+            results['proposals'] = props
         if 'gt_masks' in results:
             results['gt_masks'] = [
                 _scale_segm(m, w_scale, h_scale) for m in results['gt_masks']]
@@ -162,6 +190,11 @@ class RandomFlip:
                 boxes[:, 0] = w - results[key][:, 2]
                 boxes[:, 2] = w - results[key][:, 0]
                 results[key] = boxes
+        if 'proposals' in results:
+            props = results['proposals'].copy()
+            props[:, 0] = w - results['proposals'][:, 2]
+            props[:, 2] = w - results['proposals'][:, 0]
+            results['proposals'] = props
         if 'gt_masks' in results:
             results['gt_masks'] = [_flip_segm(m, w)
                                    for m in results['gt_masks']]

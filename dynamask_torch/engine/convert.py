@@ -17,7 +17,8 @@ skips:
   spatial axes flipped;
 * dense ``(in, out)`` -> ``(out, in)``; the first box-head fc and
   ``MaskPre.fc1`` also reorder their input from HWC- to CHW-flattening;
-* BatchNorm ``scale``/``bias``/``mean``/``var``;
+* BatchNorm ``scale``/``bias``/``mean``/``var``; GroupNorm ``scale``/
+  ``bias``, no statistics;
 * ``detail_fuse_weights`` (2,) -> the loss module's (1, 2, 1, 1) kernel.
 """
 
@@ -34,13 +35,21 @@ _DETAIL_KERNEL = 'roi_head.mask_head.loss_func.detail_target.fuse_kernel'
 
 
 def _resnet_key(key: str) -> Optional[Tuple[List[str], str]]:
-    m = re.match(r'^(conv1|bn1)\.(.+)$', key)
+    """A ResNet key's JAX path: mmdet's GroupNorms (``gn1``...) are the JAX
+    ``bn1``...; the deep stem's ``stem.{0,1,3,4,6,7}`` are ``stem_conv{i}``
+    / ``stem_bn{i}``, which the JAX importer has no rule for (ROADMAP.md
+    queue 3)."""
+    m = re.match(r'^(conv1|bn1|gn1)\.(.+)$', key)
     if m:
-        return [m.group(1)], m.group(2)
-    m = re.match(r'^layer(\d+)\.(\d+)\.(conv\d|bn\d)\.(.+)$', key)
+        return [m.group(1).replace('gn', 'bn')], m.group(2)
+    m = re.match(r'^stem\.([0-8])\.(.+)$', key)
+    if m and int(m.group(1)) % 3 < 2:
+        i = int(m.group(1))
+        return [f'stem_{("conv", "bn")[i % 3]}{i // 3 + 1}'], m.group(2)
+    m = re.match(r'^layer(\d+)\.(\d+)\.(conv\d|bn\d|gn\d)\.(.+)$', key)
     if m:
         s, b, mod, leaf = m.groups()
-        return [f'layer{s}_block{b}', mod], leaf
+        return [f'layer{s}_block{b}', mod.replace('gn', 'bn')], leaf
     m = re.match(r'^layer(\d+)\.(\d+)\.downsample\.(\d)\.(.+)$', key)
     if m:
         s, b, idx, leaf = m.groups()

@@ -1,13 +1,13 @@
 """Shared-2FC box head, its training targets and loss, and test-time decode
 (port of ``dynamask_tpu/models/bbox_head.py``: ``Shared2FCBBoxHead``,
-``bbox_targets_from_sample`` :107, ``bbox_head_loss`` :127-188 with the
-flagship's L1 regression, ``bbox_head_get_dets`` :190-226). ``num_classes``
+``bbox_targets_from_sample`` :107, ``bbox_head_loss`` :127-188 with its
+L1 and SmoothL1 regression, ``bbox_head_get_dets`` :190-226). ``num_classes``
 foreground classes, softmax over ``num_classes + 1`` with background
 last."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -17,7 +17,7 @@ from ..core.bbox_transforms import bbox2delta, clip_boxes, delta2bbox
 from ..core.samplers import SamplingResult
 from ..ops.nms import multiclass_nms
 from ..utils.registry import HEADS
-from .losses import accuracy, l1_loss, softmax_cross_entropy
+from .losses import accuracy, l1_loss, smooth_l1_loss, softmax_cross_entropy
 
 
 @HEADS.register_module()
@@ -66,9 +66,11 @@ def bbox_targets_from_sample(sample: SamplingResult, num_classes: int,
 def bbox_head_loss(cls_logits: torch.Tensor, bbox_deltas: torch.Tensor,
                    targets: BBoxTargets, num_classes: int,
                    loss_cls_weight: float = 1.0,
-                   loss_bbox_weight: float = 1.0):
-    """CE averaged over the sampled RoIs; L1 on each positive RoI's
-    class-specific deltas, averaged by the same count."""
+                   loss_bbox_weight: float = 1.0,
+                   smooth_l1_beta: Optional[float] = None):
+    """CE averaged over the sampled RoIs; L1 (SmoothL1 of ``beta`` given
+    ``smooth_l1_beta``) on each positive RoI's class-specific deltas,
+    averaged by the same count."""
     avg = targets.label_weights.sum()
     loss_cls = softmax_cross_entropy(cls_logits, targets.labels,
                                      targets.label_weights, avg)
@@ -77,8 +79,13 @@ def bbox_head_loss(cls_logits: torch.Tensor, bbox_deltas: torch.Tensor,
     safe = targets.labels.clamp(0, num_classes - 1)
     pred = bbox_deltas.reshape(n, num_classes, 4)[torch.arange(
         n, device=safe.device), safe]
-    loss_bbox = l1_loss(pred, targets.bbox_targets,
-                        targets.bbox_weights[:, None], avg)
+    if smooth_l1_beta is None:
+        loss_bbox = l1_loss(pred, targets.bbox_targets,
+                            targets.bbox_weights[:, None], avg)
+    else:
+        loss_bbox = smooth_l1_loss(pred, targets.bbox_targets,
+                                   smooth_l1_beta,
+                                   targets.bbox_weights[:, None], avg)
     return {'loss_cls': loss_cls_weight * loss_cls,
             'loss_bbox': loss_bbox_weight * loss_bbox, 'acc': acc}
 

@@ -1,13 +1,19 @@
 """Build the port's detector from a reference-schema config (port of the
-parts of ``dynamask_tpu/models/builder.py`` (the RefineMask branch
-:451-494) and ``dynamask_tpu/models/dynamask_roi_head.py:
-build_dynamask_roi_head`` (:422-464) that the Mask R-CNN, DynaMask and
-RefineMask configs use).
+parts of ``dynamask_tpu/models/builder.py`` (the backbones :28-86, the
+two-stage RoI head :233-360, the RefineMask branch :451-494,
+``build_detector`` :1131-1214) and ``dynamask_tpu/models/
+dynamask_roi_head.py:build_dynamask_roi_head`` (:422-464) that the Mask
+R-CNN, Faster / Fast R-CNN, RPN, DynaMask and RefineMask configs use).
+
+Every key that changes the model is read, or refused with the ROADMAP.md
+item (§1) where its port is queued: a config the port builds computes the
+JAX package's function, or does not build.
 
 Modules are created on the ``meta`` device, materialised on the target
 device, filled from an explicit ``torch.Generator``, put in eval mode and
 converted to ``channels_last`` (convs then run through cuDNN in NHWC and the
-kernels read the maps without a copy).
+kernels read the maps without a copy). ``device='meta'`` stops before the
+materialisation: the model's structure without its weights.
 """
 
 from __future__ import annotations
@@ -36,6 +42,51 @@ def _cfg(d) -> dict:
     return dict(d) if d else {}
 
 
+def not_ported(what: str, item) -> NotImplementedError:
+    """The refusal of a config part the port lacks: ``item`` is its
+    ROADMAP.md §1 item, or the text of where it stands."""
+    where = (f'ROADMAP.md §1, item {item}' if isinstance(item, int)
+             else item)
+    return NotImplementedError(f'{what} is not ported ({where})')
+
+
+# the legacy v1 keys that JAX's two-stage builder drops (ROADMAP.md queue
+# 3, 3c): refused here rather than dropped
+LEGACY = 'ROADMAP.md queue 3, 3c: the JAX package drops it'
+BACKBONE_ITEMS = {'HRNet': 8, 'RegNet': 8, 'Res2Net': 8,
+                  'DetectoRS_ResNet': 8, 'DetectoRS_ResNeXt': 8,
+                  'SSDVGG': 6, 'HourglassNet': 9}
+NECK_ITEMS = {'PAFPN': 8, 'NASFPN': 8, 'BFP': 8, 'HRFPN': 8, 'RFP': 8,
+              'NASFCOS_FPN': 6, 'FPN_CARAFE': 9}
+DETECTOR_ITEMS = {'CascadeRCNN': 4, 'HybridTaskCascade': 4,
+                  'GridRCNN': 9, 'MaskScoringRCNN': 9, 'PointRend': 9,
+                  'CornerNet': 9}
+ROI_HEAD_ITEMS = {'CascadeRoIHead': 4, 'HybridTaskCascadeRoIHead': 4,
+                  'PISARoIHead': 9, 'DoubleHeadRoIHead': 9,
+                  'DynamicRoIHead': 9, 'GridRoIHead': 9,
+                  'MaskScoringRoIHead': 9, 'PointRendRoIHead': 9,
+                  'TridentRoIHead': 9}
+
+
+def _check_keys(what: str, cfg: dict, read, defaults=None) -> None:
+    """Refuse a key of ``cfg`` the port does not read, unless it holds the
+    value the port computes with anyway (``defaults``)."""
+    defaults = defaults or {}
+    extra = sorted(k for k, v in cfg.items() if k not in read and not (
+        k in defaults and v == defaults[k]))
+    if extra:
+        raise not_ported(f'{what} keys {extra}', 'no item yet')
+
+
+def _check_loss(what: str, loss: dict, types) -> dict:
+    """``loss``, refused unless its type is one of ``types``."""
+    loss = _cfg(loss)
+    t = loss.get('type', types[0])
+    if t not in types:
+        raise not_ported(f'{what} {t}', 5)
+    return loss
+
+
 def _check_sampling(stage: str, assigner: dict, sampler: dict) -> None:
     """The port has the sampling forms the configs use; refuse others."""
     if (sampler.get('type', 'RandomSampler') != 'RandomSampler' or
@@ -46,27 +97,77 @@ def _check_sampling(stage: str, assigner: dict, sampler: dict) -> None:
 
 
 def build_backbone(cfg: dict):
+    """``ResNet``, ``ResNeXt`` or ``ResNetV1d`` (``models/resnet.py``)."""
     cfg = _cfg(cfg)
+    t = cfg.get('type')
+    if t not in BACKBONES:
+        raise not_ported(f'backbone {t}', BACKBONE_ITEMS.get(t, 'no item'))
     cfg['out_indices'] = tuple(cfg.get('out_indices', (0, 1, 2, 3)))
     return BACKBONES.build(cfg)
 
 
 def build_neck(cfg: dict):
+    if not cfg:
+        raise not_ported('a detector without a neck (the C4 backbone)', 9)
+    if isinstance(cfg, (list, tuple)):
+        raise not_ported('a chain of necks ' + ' + '.join(
+            n.get('type', '?') for n in cfg), 8)
     cfg = _cfg(cfg)
-    cfg['in_channels'] = tuple(cfg['in_channels'])
-    return NECKS.build(cfg)
+    t = cfg.get('type')
+    if t != 'FPN':
+        raise not_ported(f'neck {t}', NECK_ITEMS.get(t, 'no item'))
+    fpn = {k: cfg.pop(k) for k in ('type', 'in_channels', 'out_channels',
+                                   'num_outs') if k in cfg}
+    if cfg.get('add_extra_convs') or cfg.get('start_level', 0) or \
+            cfg.get('relu_before_extra_convs'):
+        raise not_ported(f'FPN {cfg}', 6)
+    _check_keys('FPN', cfg, ('add_extra_convs', 'start_level',
+                             'relu_before_extra_convs'), {'end_level': -1})
+    fpn['in_channels'] = tuple(fpn['in_channels'])
+    return NECKS.build(fpn)
+
+
+def _check_coder(what: str, coder: dict) -> None:
+    if coder.get('type', 'DeltaXYWHBBoxCoder') != 'DeltaXYWHBBoxCoder':
+        raise not_ported(f'{what} {coder["type"]}',
+                         LEGACY if 'Legacy' in coder['type'] else 5)
+    _check_keys(what, coder, ('type', 'target_means', 'target_stds'),
+                {'clip_border': True})
 
 
 def build_rpn_head(cfg: dict):
+    """``RPNHead`` and its anchor and coder configs. Its ``loss_bbox`` is
+    L1 whether the config names L1Loss or SmoothL1Loss: JAX's stock RPN
+    applies L1 (``dynamask_tpu/models/rpn_head.py:136-140``, ROADMAP.md
+    queue 3), and so does the port."""
     cfg = _cfg(cfg)
-    if cfg.get('type') != 'RPNHead':
-        raise KeyError(f'unsupported rpn head {cfg.get("type")}')
+    t = cfg.get('type')
+    if t != 'RPNHead':
+        raise not_ported(f'rpn head {t}', 9 if t == 'GARPNHead' else 6)
     anchor_cfg = _cfg(cfg.get('anchor_generator'))
+    at = anchor_cfg.get('type', 'AnchorGenerator')
+    if at != 'AnchorGenerator':
+        raise not_ported(f'anchor generator {at}',
+                         LEGACY if 'Legacy' in at else 9)
+    _check_keys('AnchorGenerator', anchor_cfg,
+                ('type', 'scales', 'ratios', 'strides'),
+                {'center_offset': 0.0})
+    coder = _cfg(cfg.get('bbox_coder'))
+    _check_coder('rpn bbox coder', coder)
+    loss_cls = _check_loss('rpn loss_cls', cfg.get('loss_cls'),
+                           ('CrossEntropyLoss',))
+    if not loss_cls.get('use_sigmoid', True):
+        raise not_ported('a softmax RPN loss_cls', 'no item')
+    _check_loss('rpn loss_bbox', cfg.get('loss_bbox'),
+                ('L1Loss', 'SmoothL1Loss'))
+    _check_keys('RPNHead', cfg, ('type', 'in_channels', 'feat_channels',
+                                 'anchor_generator', 'bbox_coder',
+                                 'loss_cls', 'loss_bbox'))
     num_anchors = (len(anchor_cfg.get('scales', [8])) *
                    len(anchor_cfg.get('ratios', [0.5, 1.0, 2.0])))
     head = RPNHead(cfg.get('in_channels', 256), cfg.get('feat_channels', 256),
                    num_anchors)
-    return head, anchor_cfg, _cfg(cfg.get('bbox_coder'))
+    return head, anchor_cfg, coder
 
 
 def build_fcn_mask_head(mhc: dict) -> FCNMaskHead:
@@ -174,37 +275,89 @@ def build_refine_roi_head(t: str, mt: str, mhc: dict, common: dict,
 ROI_HEADS = ('StandardRoIHead', 'DynaMaskRoIHead', *REFINE_HEADS)
 
 
+def _extractor(cfg: dict, what: str) -> dict:
+    """A ``SingleRoIExtractor`` over ``RoIAlign`` (mmcv ``aligned=True``;
+    the JAX package's static ``sampling_ratio`` 2 whatever the config's),
+    refused otherwise."""
+    cfg = _cfg(cfg)
+    t = cfg.get('type', 'SingleRoIExtractor')
+    if t != 'SingleRoIExtractor':
+        raise not_ported(f'{what} {t}',
+                         'ROADMAP.md §1, item 5: GenericRoIExtractor'
+                         if t == 'GenericRoIExtractor' else 'no item')
+    layer = _cfg(cfg.get('roi_layer'))
+    lt = layer.get('type', 'RoIAlign')
+    if lt != 'RoIAlign':
+        raise not_ported(f'{what} roi_layer {lt}', 9)
+    if not layer.get('aligned', True):
+        raise not_ported(f'{what} RoIAlign aligned=False', LEGACY)
+    _check_keys(f'{what} roi_layer', layer, ('type', 'output_size',
+                                             'sampling_ratio', 'aligned'))
+    _check_keys(what, cfg, ('type', 'roi_layer', 'out_channels',
+                            'featmap_strides'), {'finest_scale': 56})
+    return cfg
+
+
+def _box_losses(head_cfg: dict) -> dict:
+    """The box head's loss weights and regression loss: L1, or SmoothL1
+    with its ``beta`` (JAX ``builder.py:322-327``)."""
+    _check_loss('bbox head loss_cls', head_cfg.get('loss_cls'),
+                ('CrossEntropyLoss',))
+    if _cfg(head_cfg.get('loss_cls')).get('use_sigmoid', False):
+        raise not_ported('a sigmoid bbox head loss_cls', 5)
+    loss_bbox = _check_loss('bbox head loss_bbox', head_cfg.get('loss_bbox'),
+                            ('L1Loss', 'SmoothL1Loss'))
+    return dict(
+        loss_cls_weight=_cfg(head_cfg.get('loss_cls')).get('loss_weight',
+                                                            1.0),
+        loss_bbox_weight=loss_bbox.get('loss_weight', 1.0),
+        smooth_l1_beta=(loss_bbox.get('beta', 1.0)
+                        if loss_bbox.get('type') == 'SmoothL1Loss' else None))
+
+
 def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     """The RoI head of ``cfg``: ``StandardRoIHead`` with an
-    ``FCNMaskHead`` (Mask R-CNN), ``DynaMaskRoIHead`` with a
-    ``DynaMaskHead`` (DynaMask) or ``RefineRoIHead`` /
-    ``SimpleRefineRoIHead`` with a ``RefineMaskHead`` /
-    ``SimpleRefineMaskHead`` (RefineMask), on one Shared2FC box branch."""
+    ``FCNMaskHead`` (Mask R-CNN) or with none (Faster and Fast R-CNN),
+    ``DynaMaskRoIHead`` with a ``DynaMaskHead`` (DynaMask) or
+    ``RefineRoIHead`` / ``SimpleRefineRoIHead`` with a ``RefineMaskHead``
+    / ``SimpleRefineMaskHead`` (RefineMask), on one Shared2FC box
+    branch."""
     cfg = _cfg(cfg)
     t = cfg.pop('type')
     if t not in ROI_HEADS:
-        raise KeyError(f'unsupported roi head {t}: the port has '
-                       f'{", ".join(ROI_HEADS)}')
+        raise not_ported(f'roi head {t}', ROI_HEAD_ITEMS.get(t, 'no item'))
+    if cfg.get('shared_head'):
+        raise not_ported('the shared head of the C4 backbone', 9)
     head_cfg = _cfg(cfg['bbox_head'])
-    if head_cfg.pop('type') != 'Shared2FCBBoxHead':
-        raise KeyError('unsupported bbox head: the port has Shared2FC only')
+    ht = head_cfg.pop('type')
+    if ht != 'Shared2FCBBoxHead':
+        raise not_ported(f'bbox head {ht}', 5)
+    if head_cfg.get('reg_class_agnostic') or head_cfg.get(
+            'reg_decoded_bbox'):
+        raise not_ported('class-agnostic or decoded box regression', 5)
+    _check_keys('Shared2FCBBoxHead', head_cfg, (
+        'num_classes', 'in_channels', 'roi_feat_size', 'fc_out_channels',
+        'reg_class_agnostic', 'reg_decoded_bbox', 'bbox_coder', 'loss_cls',
+        'loss_bbox'))
     bbox_head = Shared2FCBBoxHead(
         num_classes=head_cfg.get('num_classes', 80),
         in_channels=head_cfg.get('in_channels', 256),
         roi_feat_size=head_cfg.get('roi_feat_size', 7),
-        fc_out_channels=head_cfg.get('fc_out_channels', 1024),
-        reg_class_agnostic=head_cfg.get('reg_class_agnostic', False))
+        fc_out_channels=head_cfg.get('fc_out_channels', 1024))
     coder = _cfg(head_cfg.get('bbox_coder'))
+    _check_coder('bbox head coder', coder)
     rcnn_train = _cfg(_cfg(train_cfg).get('rcnn'))
     assigner = _cfg(rcnn_train.get('assigner'))
     sampler = _cfg(rcnn_train.get('sampler'))
     _check_sampling('rcnn', assigner, sampler)
-    bbox_extractor = _cfg(cfg.get('bbox_roi_extractor'))
-    mask_extractor = _cfg(cfg.get('mask_roi_extractor'))
+    bbox_extractor = _extractor(cfg.get('bbox_roi_extractor'),
+                                'bbox_roi_extractor')
+    mask_extractor = _extractor(cfg.get('mask_roi_extractor'),
+                                'mask_roi_extractor')
     rcnn_test = _cfg(_cfg(test_cfg).get('rcnn'))
     nms_cfg = _cfg(rcnn_test.get('nms'))
     if nms_cfg.get('type', 'nms') != 'nms':
-        raise NotImplementedError(f'test nms type {nms_cfg["type"]}')
+        raise not_ported(f'test nms type {nms_cfg["type"]}', 5)
     common = dict(
         bbox_head=bbox_head,
         num_classes=head_cfg.get('num_classes', 80),
@@ -228,12 +381,11 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
         neg_iou_thr=assigner.get('neg_iou_thr', 0.5),
         min_pos_iou=assigner.get('min_pos_iou', 0.5),
         match_low_quality=assigner.get('match_low_quality', True),
-        loss_cls_weight=_cfg(head_cfg.get('loss_cls')).get('loss_weight',
-                                                            1.0),
-        loss_bbox_weight=_cfg(head_cfg.get('loss_bbox')).get('loss_weight',
-                                                              1.0))
-    mhc = _cfg(cfg['mask_head'])
-    mt = mhc.pop('type')
+        **_box_losses(head_cfg))
+    mhc = _cfg(cfg.get('mask_head'))
+    mt = mhc.pop('type', None)
+    if t == 'StandardRoIHead' and mt is None:
+        return StandardRoIHead(mask_head=None, **common)
     if (t, mt) == ('DynaMaskRoIHead', 'DynaMaskHead'):
         return build_dynamask_roi_head(cfg, mhc, common, rcnn_train)
     if (t, mt) == ('StandardRoIHead', 'FCNMaskHead'):
@@ -243,66 +395,102 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     if t in REFINE_HEADS and mt in REFINE_MASK_HEADS:
         return build_refine_roi_head(t, mt, mhc, common, mask_extractor.get(
             'out_channels', 256))
-    raise KeyError(f'unsupported mask head {mt} under {t}: the port has '
-                   'FCNMaskHead under StandardRoIHead, DynaMaskHead under '
-                   'DynaMaskRoIHead, and RefineMaskHead or '
-                   'SimpleRefineMaskHead under RefineRoIHead or '
-                   'SimpleRefineRoIHead')
+    raise not_ported(
+        f'mask head {mt} under {t} (the port has none or FCNMaskHead under '
+        'StandardRoIHead, DynaMaskHead under DynaMaskRoIHead, and '
+        'RefineMaskHead or SimpleRefineMaskHead under RefineRoIHead or '
+        'SimpleRefineRoIHead)', 9)
 
 
-def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
-                   test_cfg: Optional[dict] = None, device=None,
-                   seed: int = 0, init_std: Optional[float] = None):
-    """The detector of ``model_cfg`` on ``device`` (default ``cuda``; raises
-    without a GPU unless ``device='cpu'``), its weights drawn from a
-    ``torch.Generator`` seeded with ``seed`` (see
-    :func:`dynamask_torch.models.layers.init_weights` for ``init_std``)."""
-    dev = resolve_device(device)
-    cfg = _cfg(model_cfg)
-    t = cfg.pop('type')
-    cfg.pop('pretrained', None)
-    if t != 'MaskRCNN':
-        raise KeyError(f'unsupported detector {t}: the port has MaskRCNN')
-    with torch.device('meta'):
-        backbone = build_backbone(cfg['backbone'])
-        neck = build_neck(cfg['neck'])
-        rpn_head, anchor_cfg, rpn_coder = build_rpn_head(cfg['rpn_head'])
-        roi_head = build_roi_head(cfg['roi_head'], train_cfg, test_cfg)
-    rpn_test = _cfg(_cfg(test_cfg).get('rpn'))
-    # max_num and nms_thr come from train_cfg.rpn_proposal, as in the JAX
-    # builder (dynamask_tpu/models/builder.py:1208-1211)
-    rpn_proposal = _cfg(_cfg(train_cfg).get('rpn_proposal'))
+def _rpn_cfg(anchor_cfg: dict, coder: dict, rpn_head_cfg: dict,
+             train_cfg: dict, test: dict) -> dict:
+    """The detector's RPN options: anchors, coder, train_cfg.rpn's
+    assigner and sampler, loss weights, and the test proposals of ``test``
+    (``nms_pre``, ``max_num``, ``nms_thr``)."""
     rpn_train = _cfg(_cfg(train_cfg).get('rpn'))
     rpn_assigner = _cfg(rpn_train.get('assigner'))
     rpn_sampler = _cfg(rpn_train.get('sampler'))
     _check_sampling('rpn', rpn_assigner, rpn_sampler)
-    rpn_losses = _cfg(model_cfg['rpn_head'])
-    det = DETECTORS.build(dict(
-        type=t, backbone=backbone, neck=neck, rpn_head=rpn_head,
-        roi_head=roi_head,
+    rpn_proposal = _cfg(_cfg(train_cfg).get('rpn_proposal'))
+    return dict(
         anchor_scales=tuple(anchor_cfg.get('scales', (8,))),
         anchor_ratios=tuple(anchor_cfg.get('ratios', (0.5, 1.0, 2.0))),
         anchor_strides=tuple(anchor_cfg.get('strides', (4, 8, 16, 32, 64))),
-        rpn_target_means=tuple(rpn_coder.get('target_means',
-                                             (0., 0., 0., 0.))),
-        rpn_target_stds=tuple(rpn_coder.get('target_stds', (1., 1., 1., 1.))),
-        rpn_nms_pre_test=rpn_test.get('nms_pre', 1000),
-        rpn_max_num=rpn_proposal.get('max_num', 1000),
-        rpn_nms_thr=rpn_proposal.get('nms_thr', 0.7),
+        rpn_target_means=tuple(coder.get('target_means', (0., 0., 0., 0.))),
+        rpn_target_stds=tuple(coder.get('target_stds', (1., 1., 1., 1.))),
+        rpn_nms_pre_test=test['nms_pre'], rpn_max_num=test['max_num'],
+        rpn_nms_thr=test['nms_thr'],
         rpn_nms_pre_train=rpn_proposal.get('nms_pre', 2000),
         rpn_pos_iou_thr=rpn_assigner.get('pos_iou_thr', 0.7),
         rpn_neg_iou_thr=rpn_assigner.get('neg_iou_thr', 0.3),
         rpn_min_pos_iou=rpn_assigner.get('min_pos_iou', 0.3),
         rpn_num_samples=rpn_sampler.get('num', 256),
         rpn_pos_fraction=rpn_sampler.get('pos_fraction', 0.5),
-        rpn_cls_weight=_cfg(rpn_losses.get('loss_cls')).get('loss_weight',
-                                                             1.0),
-        rpn_bbox_weight=_cfg(rpn_losses.get('loss_bbox')).get('loss_weight',
-                                                              1.0)))
-    det = det.to_empty(device=dev)
+        rpn_cls_weight=_cfg(rpn_head_cfg.get('loss_cls')).get('loss_weight',
+                                                               1.0),
+        rpn_bbox_weight=_cfg(rpn_head_cfg.get('loss_bbox')).get(
+            'loss_weight', 1.0))
+
+
+DETECTOR_TYPES = ('MaskRCNN', 'FasterRCNN', 'FastRCNN', 'RPN')
+
+
+def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
+                   test_cfg: Optional[dict] = None, device=None,
+                   seed: int = 0, init_std: Optional[float] = None):
+    """The detector of ``model_cfg`` on ``device`` (default ``cuda``; raises
+    without a GPU unless ``device='cpu'``; ``'meta'`` gives the structure
+    without weights), its weights drawn from a ``torch.Generator`` seeded
+    with ``seed`` (see :func:`dynamask_torch.models.layers.init_weights`
+    for ``init_std``). ``MaskRCNN`` and ``FasterRCNN`` (the two-stage
+    detectors), ``FastRCNN`` (the RoI head over the batch's proposals) and
+    ``RPN`` (the proposals alone)."""
+    dev = resolve_device(device)
+    cfg = _cfg(model_cfg)
+    t = cfg.pop('type')
+    cfg.pop('pretrained', None)
+    if t not in DETECTOR_TYPES:
+        raise not_ported(f'detector {t}', DETECTOR_ITEMS.get(t, 6))
+    parts = {'backbone', 'neck'} | (set() if t == 'RPN' else {'roi_head'}) | \
+        (set() if t == 'FastRCNN' else {'rpn_head'})
+    with torch.device('meta'):
+        modules = dict(backbone=build_backbone(cfg['backbone']),
+                       neck=build_neck(cfg.get('neck')))
+        _check_keys(t, cfg, parts)
+        if t != 'RPN':
+            modules['roi_head'] = build_roi_head(cfg['roi_head'], train_cfg,
+                                                 test_cfg)
+        if t != 'FastRCNN':
+            modules['rpn_head'], anchor_cfg, coder = build_rpn_head(
+                cfg['rpn_head'])
+    if t == 'RPN':
+        # the proposal detector's test NMS is test_cfg.rpn's (JAX
+        # builder.py:1170-1173)
+        rpn_test = _cfg(_cfg(test_cfg).get('rpn'))
+        test = dict(nms_pre=rpn_test.get('nms_pre', 2000),
+                    max_num=rpn_test.get('max_num',
+                                         rpn_test.get('nms_post', 2000)),
+                    nms_thr=rpn_test.get('nms_thr', 0.7))
+    else:
+        # the two-stage detectors take max_num and nms_thr from
+        # train_cfg.rpn_proposal, as the JAX builder does (builder.py:
+        # 1208-1211)
+        proposal = _cfg(_cfg(train_cfg).get('rpn_proposal'))
+        test = dict(nms_pre=_cfg(_cfg(test_cfg).get('rpn')).get('nms_pre',
+                                                                1000),
+                    max_num=proposal.get('max_num', 1000),
+                    nms_thr=proposal.get('nms_thr', 0.7))
+    if t != 'FastRCNN':
+        modules.update(_rpn_cfg(anchor_cfg, coder, model_cfg['rpn_head'],
+                                train_cfg, test))
+    det = DETECTORS.build(dict(type=t, **modules))
     det.backbone.freeze_stages()
+    if dev.type == 'meta':
+        return det.eval()
+    det = det.to_empty(device=dev)
     init_weights(det, torch.Generator(device=dev).manual_seed(seed), init_std)
-    if init_std is None and isinstance(det.roi_head, DynaMaskRoIHead):
+    if init_std is None and isinstance(getattr(det, 'roi_head', None),
+                                       DynaMaskRoIHead):
         with torch.no_grad():
             det.roi_head.mask_head.loss_func.detail_target.fuse_kernel.copy_(
                 torch.tensor([0.7, 0.3]).reshape(1, 2, 1, 1))

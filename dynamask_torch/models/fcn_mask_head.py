@@ -20,7 +20,7 @@ from .layers import ConvModule
 from .losses import binary_cross_entropy_with_logits
 
 # where the head's other forms are queued
-NOT_PORTED = 'not ported yet (ROADMAP.md, queue 1, item 7)'
+NOT_PORTED = 'not ported yet (ROADMAP.md §1, item 5)'
 
 
 @HEADS.register_module()

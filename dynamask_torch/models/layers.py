@@ -31,6 +31,35 @@ class BatchNorm2d(nn.BatchNorm2d):
                             b.to(mean.dtype), False, 0.0, self.eps)
 
 
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm at flax's epsilon (1e-6), the JAX package's
+    ``nn.GroupNorm`` (``dynamask_tpu/models/resnet.py:120-124``); its scale
+    and bias are ``weight`` and ``bias`` as mmcv's ``GN`` names them."""
+
+    def __init__(self, num_groups: int, num_channels: int):
+        super().__init__(num_groups, num_channels, eps=1e-6)
+
+
+class ConvWS2d(nn.Conv2d):
+    """Weight-standardised conv (mmcv's ``ConvWS2d``, the ``conv_cfg=
+    ConvWS`` of the gn+ws configs; JAX ``models/layers.py:67``,
+    ``WSConv``): each output channel's kernel is taken to zero mean and
+    unit standard deviation over (in, kh, kw) before the convolution. The
+    deviation is the biased one with 1e-5 added, as JAX's ``jnp.std``
+    takes it; mmcv's ``Tensor.std`` is the unbiased one (ROADMAP.md,
+    queue 3)."""
+
+    eps = 1e-5
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        flat = w.reshape(w.shape[0], -1)
+        mean = flat.mean(1).reshape(-1, 1, 1, 1)
+        std = flat.std(1, unbiased=False).reshape(-1, 1, 1, 1)
+        return self._conv_forward(x, (w - mean) / (std + self.eps),
+                                  self.bias)
+
+
 class ConvModule(nn.Module):
     """A conv under the ``.conv`` attribute, so state-dict keys read
     ``<name>.conv.weight`` as mmcv's ``ConvModule`` writes them."""
@@ -105,17 +134,18 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     """Fill every parameter and BN statistic from ``generator``.
 
     ``std=None``: the JAX package's initialisers (``_INIT_RULES``), zero
-    biases, unit BN but for the zero scale of a BN marked ``zero_init``
+    biases, unit BN and GN but for the zero scale of one marked ``zero_init``
     (a residual block's last: ``zero_init_residual``). ``std=s``: every
     float parameter ~ N(0, s) and BN statistics |N(0, s)| + 0.5 (the
     random-weight protocol of the JAX bench)."""
     with torch.no_grad():
         for mod_name, m in model.named_modules():
-            is_bn = isinstance(m, nn.modules.batchnorm._BatchNorm)
+            is_norm = isinstance(m, (nn.modules.batchnorm._BatchNorm,
+                                     nn.GroupNorm))
             for name, p in m.named_parameters(recurse=False):
                 if std is not None:
                     p.normal_(0.0, std, generator=generator)
-                elif is_bn:
+                elif is_norm:
                     p.fill_(1.0 if name == 'weight' and not getattr(
                         m, 'zero_init', False) else 0.0)
                 elif p.dim() >= 2:
@@ -126,7 +156,7 @@ def init_weights(model: nn.Module, generator: torch.Generator,
                                   else p, generator)
                 else:
                     p.zero_()
-            if is_bn:
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
                 if std is not None:
                     for buf in (m.running_mean, m.running_var):
                         buf.normal_(0.0, std, generator=generator)

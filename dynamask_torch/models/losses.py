@@ -1,7 +1,7 @@
 """The losses the flagship trains with (port of the parts of
 ``dynamask_tpu/models/losses.py`` it uses: ``weight_reduce_loss`` :20,
 ``softmax_cross_entropy`` :34, ``binary_cross_entropy_with_logits`` :44,
-``l1_loss`` :71, ``accuracy`` :160). Dense padded inputs with elementwise
+``l1_loss`` :71, ``smooth_l1_loss`` :76-86, ``accuracy`` :160). Dense padded inputs with elementwise
 weights and an ``avg_factor``, as in the JAX package."""
 
 from __future__ import annotations
@@ -47,6 +47,15 @@ def binary_cross_entropy_with_logits(logits: torch.Tensor,
 
 def l1_loss(pred, target, weight=None, avg_factor=None) -> torch.Tensor:
     return weight_reduce_loss((pred - target).abs(), weight, avg_factor)
+
+
+def smooth_l1_loss(pred, target, beta: float = 1.0, weight=None,
+                   avg_factor=None) -> torch.Tensor:
+    """0.5·d²/beta where |d| < beta, |d| − 0.5·beta beyond."""
+    diff = (pred - target).abs()
+    loss = torch.where(diff < beta, 0.5 * diff * diff / beta,
+                       diff - 0.5 * beta)
+    return weight_reduce_loss(loss, weight, avg_factor)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor,

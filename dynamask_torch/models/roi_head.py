@@ -10,7 +10,8 @@ and sampled to a fixed ``num_samples`` slots, positives packed first; the
 mask branch reads the first ``max_pos`` slots of each image. The mask
 branch here is Mask R-CNN's: a 14x14 crop through the FCN mask head to
 28x28 logits, each RoI's class channel; ``DynaMaskRoIHead`` overrides
-it."""
+it. With ``mask_head=None`` (Faster and Fast R-CNN) the head is the box
+branch alone: box losses in training, boxes at inference."""
 
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ class StandardRoIHead(nn.Module):
     # heads say so)
     with_semantic = False
 
-    def __init__(self, bbox_head: nn.Module, mask_head: nn.Module,
+    def __init__(self, bbox_head: nn.Module, mask_head: Optional[nn.Module],
                  num_classes: int = 80,
                  featmap_strides: Tuple[int, ...] = (4, 8, 16, 32),
                  bbox_roi_out: int = 7, mask_roi_out: int = 14,
@@ -55,7 +56,8 @@ class StandardRoIHead(nn.Module):
                  min_pos_iou: float = 0.5, match_low_quality: bool = True,
                  loss_cls_weight: float = 1.0,
                  loss_bbox_weight: float = 1.0,
-                 loss_mask_weight: float = 1.0):
+                 loss_mask_weight: float = 1.0,
+                 smooth_l1_beta: Optional[float] = None):
         super().__init__()
         self.bbox_head = bbox_head
         self.mask_head = mask_head
@@ -76,6 +78,8 @@ class StandardRoIHead(nn.Module):
         self.loss_cls_weight = loss_cls_weight
         self.loss_bbox_weight = loss_bbox_weight
         self.loss_mask_weight = loss_mask_weight
+        # None: the L1 box loss; a beta: SmoothL1 (the legacy v1 config)
+        self.smooth_l1_beta = smooth_l1_beta
 
     def _extract(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
                  roi_batch: torch.Tensor, out_size: int) -> torch.Tensor:
@@ -134,7 +138,10 @@ class StandardRoIHead(nn.Module):
                 flat, self.num_classes, self.target_means, self.target_stds)
             losses = bbox_head_loss(cls_logits, bbox_deltas, targets,
                                     self.num_classes, self.loss_cls_weight,
-                                    self.loss_bbox_weight)
+                                    self.loss_bbox_weight,
+                                    self.smooth_l1_beta)
+        if self.mask_head is None:
+            return losses
         with record_function('mask_branch'):
             losses.update(self._mask_forward_train(
                 feats, sample, batch, noise.get('gumbel'), generator))
@@ -171,7 +178,7 @@ class StandardRoIHead(nn.Module):
                     rescale: bool = True) -> Dict[str, torch.Tensor]:
         """Padded per-image detections + mask probabilities: dets
         (B, max_per_img, 5), labels and det_valid (B, max_per_img),
-        mask_probs (B, max_per_img, s, s)."""
+        mask_probs (B, max_per_img, s, s) (none without a mask head)."""
         with record_function('box_head_and_nms'):
             b, p = proposals.shape[:2]
             rois = proposals.reshape(b * p, 4)
@@ -191,6 +198,8 @@ class StandardRoIHead(nn.Module):
             dets, labels, det_valid = (torch.stack([o[j] for o in outs])
                                        for j in range(3))
         result = {'dets': dets, 'labels': labels, 'det_valid': det_valid}
+        if self.mask_head is None:
+            return result
         routing: Dict[str, torch.Tensor] = {}
         with record_function('mask_branch'):
             result['mask_probs'] = self.simple_test_mask(

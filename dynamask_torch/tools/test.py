@@ -4,8 +4,11 @@
 
 The flags of the JAX package's ``test.py`` that the port has: the config's
 test set through the test loop on one device (``--device``, default
-``cuda``), COCO metrics, the results as json (``--out``,
-``--format-only``) and rendered detections (``--show-dir``). A checkpoint
+``cuda``), its dataset's metrics (COCO's ``bbox``, ``segm``, ``proposal``
+and ``proposal_fast``, VOC's ``mAP`` and ``recall``), the results as json
+(``--out r.json``, ``--format-only``) or, for ``--out r.pkl``, pickled: an
+RPN's then as the ``proposal_file`` a Fast R-CNN config reads, and
+rendered detections (``--show-dir``). A checkpoint
 is a port or mmdet ``state_dict`` file; without one the weights are random
 from seed 0. ``--tta``, ``--devices`` above 1 and ``--fuse-conv-bn`` are
 not ported: each exits non-zero, naming its ROADMAP item.
@@ -16,17 +19,18 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pickle
 import sys
 from typing import List, Optional
 
 # flags of the JAX CLI the port has not got, and where they are queued
 NOT_PORTED = {
     'tta': 'test-time augmentation (aug_device_test, core/merge_augs.py) '
-           'is not ported: ROADMAP.md queue 1, item 2',
+           'is not ported: ROADMAP.md §1, item 10',
     'devices': 'multi-device eval (multi_device_test) is not ported: '
-               'ROADMAP.md queue 1, item 3',
+               'ROADMAP.md §1, item 11',
     'fuse_conv_bn': 'conv+BN folding (engine/fuse.py) is not ported: '
-                    'ROADMAP.md queue 1, item 6',
+                    'ROADMAP.md §1, item 1',
 }
 
 
@@ -36,8 +40,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument('checkpoint', nargs='?', default=None,
                    help='state_dict file (omit for random weights)')
     p.add_argument('--eval', nargs='+', default=['bbox'],
-                   choices=['bbox', 'segm'])
-    p.add_argument('--out', help='write the results json here')
+                   choices=['bbox', 'segm', 'proposal', 'proposal_fast',
+                            'mAP', 'recall'])
+    p.add_argument('--out', help='write the results here: json, or a '
+                   'pickle for a .pkl path (an RPN\'s: its proposal_file)')
     p.add_argument('--format-only', action='store_true',
                    help='write the results json without evaluating')
     p.add_argument('--show-dir',
@@ -77,11 +83,12 @@ def render_results(out_dir: str, dataset, results, classes,
         if img is None:
             raise FileNotFoundError(path)
         bbox = [[] for _ in classes]
-        segm = [[] for _ in classes]
+        segm = [[] for _ in classes] if 'masks' in res else None
         for d in np.nonzero(res['valid'])[0]:
             cls = int(res['labels'][d])
             bbox[cls].append(res['dets'][d])
-            segm[cls].append(res['masks'][d])
+            if segm is not None:
+                segm[cls].append(res['masks'][d])
         bbox = [np.stack(b) if b else np.zeros((0, 5)) for b in bbox]
         show_result(img, (bbox, segm), classes, score_thr=score_thr,
                     out_file=os.path.join(out_dir,
@@ -98,6 +105,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f'error: {msg}', file=sys.stderr)
         return 2
     from ..apis import run_test
+    from ..apis.test import proposal_lists
     from ..utils.config import Config
 
     cfg = Config.fromfile(args.config)
@@ -105,7 +113,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg.merge_from_options(dict(kv.split('=', 1) for kv in args.options))
     dataset, results = run_test(cfg, args.checkpoint, args.max_images,
                                 args.device)
-    if args.out or args.format_only:
+    if args.out and args.out.endswith('.pkl'):
+        with open(args.out, 'wb') as f:
+            pickle.dump(proposal_lists(results) if 'proposals' in results[0]
+                        else results, f)
+        print(f'results written to {args.out}')
+    elif args.out or args.format_only:
         det_json, segm_json = dataset.results2json(results)
         out_path = args.out or 'results.json'
         with open(out_path, 'w') as f:

@@ -21,8 +21,8 @@ import os
 import sys
 from typing import List, Optional
 
-DDP = ('multi-device training (DDP) is not ported: ROADMAP.md queue 1, '
-       'item 3')
+DDP = ('multi-device training (DDP) is not ported: ROADMAP.md §1, '
+       'item 11')
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
