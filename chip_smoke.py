@@ -34,7 +34,10 @@ before the last line is printed:
    and 14/28/56 and the one-channel semantic mask at each size; K2 and K4
    at a step's 512 RoIs, K2 also at an image's 100 dets on 800x1344 and
    on 1024x2048 and at LVIS's 300, where at C = 1 it cuts each RoI into
-   bands), on lines of their own kept out of the ``kernels`` line's sums; K1 and K3 also at edge shapes
+   bands), and K2 and K4 at HTC's semantic crops of a step (phase 12's:
+   the 100x168x256 stride-8 plane of 4 images, ratio 1, 2048 RoIs at 7x7
+   and 512 at 14x14), on lines of their own kept out of the ``kernels``
+   line's sums; K1 and K3 also at edge shapes
    (ragged bands, one deform group, channels per group not a multiple of
    4, padding and dilation 2, windows 1 and 2, one RoI, a misaligned base)
    with random, zero and exact-edge offsets, K2 and K4 at theirs (C not a
@@ -46,10 +49,12 @@ before the last line is printed:
 3. check the port end to end on a small input: a toy DynaMask model, a
    toy Mask R-CNN (ResNet-18, 32-channel FPN, the FCN mask head), a
    toy RefineMask (32-channel semantic tower and stages), a box-only toy
-   Faster R-CNN and two toy Mask R-CNNs at depth 50 on the ResNeXt-32x4d
-   and the caffe-style backbones on the GPU (kernels) against the same
-   models on the CPU (plain versions), at inference and for one training
-   step (losses and per-parameter gradients);
+   Faster R-CNN, two toy Mask R-CNNs at depth 50 on the ResNeXt-32x4d
+   and the caffe-style backbones, a toy Cascade Mask R-CNN and a toy HTC
+   (its semantic head at 32 channels, ``gt_semantic_seg`` in the step's
+   batch, every stage's sampler draws given) on the GPU (kernels) against
+   the same models on the CPU (plain versions), at inference and for one
+   training step (losses and per-parameter gradients);
 4. drive the inference path: DynaMask R50-FPN (``configs/dynamask/coco/
    r50_dynamask_1x.py``) at full width, random weights N(0, 0.05) from a
    seeded generator, one 800x1344 image in fp32, ``simple_test`` + mask paste
@@ -173,16 +178,37 @@ before the last line is printed:
    ``proposal_file`` (K2 an image); and the VOC config's eval drive on a
    seeded VOC2007 layout in ``build/chip_smoke_voc/`` (8 noise JPEGs with
    XML annotations, K2 an image, VOC2007 mAP, the GTs as predictions
-   1.0). It prints ms/img, ms/step and peak memory of each config, the
-   phase's seconds and the whole run's.
+   1.0). It prints ms/img, ms/step and peak memory of each config and
+   the phase's seconds;
+12. drive Cascade R-CNN and Hybrid Task Cascade, each from its config
+   file, unchanged, at full width at phases 4-5's protocol (one image at
+   the config's test canvas, a step at its train batch; a counted warm-up
+   held to its exact launches, then timed repeats):
+   ``configs/cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_coco.py`` (median
+   of 3 images, 2 steps; K2 4 an image, K2 4 and K4 4 a step: three box
+   stages and one mask extract), ``cascade_rcnn_r50_fpn_1x_coco.py`` (one
+   of each; K2 3, K2 3 and K4 3), ``configs/htc/htc_r50_fpn_1x_coco.py``
+   (median of 3 images, 2 steps with ``gt_semantic_seg`` in the batch,
+   so ``loss_semantic_seg`` and its gradient run; K2 8 an image: three
+   box stages and the mask extract, each with its semantic crop; K2 12
+   and K4 12 a step: box, semantic, mask and semantic crops in each of
+   three stages), ``htc_without_semantic_r50_fpn_1x_coco.py`` (one image,
+   K2 4) and ``htc_x101_64x4d_fpn_16x1_20e_coco.py`` (ResNeXt-101 64x4d,
+   its config's batch of 1; one image and one step, HTC's counts); then
+   phase 6's eval drive and loader-batch step on HTC (K2 8 an image, K2 12
+   and K4 12 the step; the loaders give no ``gt_semantic_seg``, as the
+   JAX package's give none). It prints ms/img, ms/step and peak memory of
+   each config, the phase's seconds and the whole run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
 validations and the overfit loop, and in phase 8 each configuration's
 inference modes, its training and the two evaluation paths, in phase 9
 the fp32 and bf16 drives, in phase 10 each RefineMask config's image
-and steps, the loader-batch step and the eval drive, and in phase 11 each
-config's image and steps and the RPN, Fast R-CNN and VOC eval drives)
+and steps, the loader-batch step and the eval drive, in phase 11 each
+config's image and steps and the RPN, Fast R-CNN and VOC eval drives, and
+in phase 12 each config's image and steps and HTC's eval drive and
+loader-batch step)
 the kernels' launch
 counters are zeroed just before it
 and read just after (the loop's
@@ -190,7 +216,7 @@ steps and its validations in turns), and every kernel of that path must
 have launched in it: K1 and K2 at inference, in the eval loops and in the
 loop's validations, K5 through both entry points in its check, K1-K4 in
 training; behind Mask R-CNN's FCN head, which runs no DCN, K2 at
-inference and K2 and K4 in training; phase 6 and phases 8-11 hold each
+inference and K2 and K4 in training; phase 6 and phases 8-12 hold each
 drive to its exact counts, every other kernel at 0 (the RPN's eval drive
 launches none).
 
@@ -531,7 +557,8 @@ CLUSTERED = 'clustered'
 PORTRAIT = 'portrait'
 CONFIG = 'config'                 # the shapes of phase 8's configurations
 REFINE = 'refine'                 # RefineMask's crops of P2 (phase 10)
-OFF_ROW = (CLUSTERED, PORTRAIT, CONFIG, REFINE)   # kept out of the row's sums
+HTC = 'htc'                       # HTC's semantic crops of a step (phase 12)
+OFF_ROW = (CLUSTERED, PORTRAIT, CONFIG, REFINE, HTC)   # out of the row sums
 # RefineMask's P2 crops (stride 4, sampling ratio 2) per stage: the
 # transformed semantic features (C = 256, 128, 64 at 14, 28, 56) and the
 # one-channel semantic mask at the same sizes; (P, C)
@@ -572,6 +599,34 @@ def refine_crops(dev, label, seed, images, n, canvas, clustered):
             torch.full((n,), 0.25, device=dev)),
             dict(out_size=p, sampling_ratio=2))
         del feat, flat
+
+
+def htc_crops(dev):
+    """K2's arguments at HTC's single-level crops of its semantic
+    embedding in a training step (phase 12): the box branch's (512
+    sampled RoIs an image) at 7x7 and the mask branch's (128 positive
+    slots an image) at 14x14, over 4 images of the 100x168x256 plane at
+    stride 8, sampling ratio 1, the RoIs placed as the training step
+    places them (:func:`clustered_place`)."""
+    import torch
+    from dynamask_torch.ops import roi_align as ra
+    gen = torch.Generator(device=dev).manual_seed(16)
+    place = clustered_place(gen, dev, TRAIN_IMAGES, N_POS_TRAIN)
+    h, w = IMAGE_HW[0] // 8, IMAGE_HW[1] // 8
+    feat = torch.randn(TRAIN_IMAGES, h, w, 256, generator=gen, device=dev)
+    flat, _ = ra._flat_planes([feat])
+
+    def synthetic(k):
+        return synthetic_rois(gen, dev, k, TRAIN_IMAGES, IMAGE_HW)
+
+    for n, p in ((N_BOX_TRAIN, 7), (N_POS_TRAIN, 14)):
+        rois, img = place(n, synthetic)
+        yield (f'{HTC} train P3 semantic {n}x{p}x{p}x256 r1', (
+            flat, rois, img * (h * w),
+            torch.full((n,), h, dtype=torch.int32, device=dev),
+            torch.full((n,), w, dtype=torch.int32, device=dev),
+            torch.full((n,), 0.125, device=dev)),
+            dict(out_size=p, sampling_ratio=1))
 
 
 def config_crops(dev, train=False):
@@ -620,8 +675,9 @@ def k2_cases(gen, dev):
     slots), then at the training crops with clustered RoIs, at the
     inference crops on the portrait canvas, at phase 8's and at
     RefineMask's P2 crops (phase 10) of its training step and of each
-    config's inference, each from a generator of its own so the other
-    cases keep their inputs."""
+    config's inference, and at HTC's semantic crops of a step (phase 12),
+    each from a generator of its own so the other cases keep their
+    inputs."""
     import torch
     for case, args, kw in _crops(gen, dev, 1, 1000, N_DETS):
         yield 'infer ' + case, args, kw
@@ -637,6 +693,7 @@ def k2_cases(gen, dev):
     yield from config_crops(dev, train=True)
     for drive in REFINE_DRIVES:
         yield from refine_crops(dev, *drive)
+    yield from htc_crops(dev)
 
 
 def k4_args(gen, args, kw):
@@ -653,7 +710,8 @@ def k4_args(gen, args, kw):
 def k4_cases(gen, dev):
     """K4 at the training crops (4 images, 2048 sampled RoIs, 512 positive
     slots), with a random crop gradient, then with clustered RoIs, at the
-    Cityscapes step's crops and at RefineMask's P2 crops of a step."""
+    Cityscapes step's crops, at RefineMask's P2 crops of a step and at
+    HTC's semantic crops of a step."""
     import torch
     for case, args, kw in _crops(gen, dev, TRAIN_IMAGES, N_BOX_TRAIN,
                                  N_POS_TRAIN):
@@ -669,6 +727,10 @@ def k4_cases(gen, dev):
         del args
     cgen = torch.Generator(device=dev).manual_seed(11)
     for case, args, kw in refine_crops(dev, *REFINE_DRIVES[0]):
+        yield case, k4_args(cgen, args, kw), kw
+        del args
+    cgen = torch.Generator(device=dev).manual_seed(17)
+    for case, args, kw in htc_crops(dev):
         yield case, k4_args(cgen, args, kw), kw
         del args
 
@@ -1236,7 +1298,12 @@ TOY_CONFIGS = {'dynamask': FLAGSHIP, 'mask_rcnn': MASK_RCNN,
                'x101': os.path.join(ROOT, 'configs/mask_rcnn/'
                                     'mask_rcnn_x101_32x4d_fpn_1x_coco.py'),
                'caffe': os.path.join(ROOT, 'configs/mask_rcnn/'
-                                     'mask_rcnn_r50_caffe_fpn_1x_coco.py')}
+                                     'mask_rcnn_r50_caffe_fpn_1x_coco.py'),
+               'cascade': os.path.join(ROOT, 'configs/cascade_rcnn/'
+                                       'cascade_mask_rcnn_r50_fpn_1x_coco.py'),
+               'htc': os.path.join(ROOT, 'configs/htc/htc_r50_fpn_1x_coco.py')}
+# the toys whose RoI head is a cascade of stages (phase 12)
+CASCADE_TOYS = ('cascade', 'htc')
 # the toys at depth 50, the ResNeXt and caffe backbones' own blocks
 DEEP_TOYS = ('x101', 'caffe')
 
@@ -1248,7 +1315,10 @@ def toy_cfg(kind='dynamask'):
     R50 1x config, one instance and two semantic convs of 32 channels;
     ``'faster_rcnn'``: from the Faster R-CNN config, box-only; ``'x101'``
     and ``'caffe'``: from the ResNeXt-32x4d and the caffe-style Mask R-CNN
-    configs at depth 50, their FCN heads as the Mask R-CNN toy's."""
+    configs at depth 50, their FCN heads as the Mask R-CNN toy's;
+    ``'cascade'`` and ``'htc'``: from the Cascade Mask R-CNN and HTC
+    configs, each stage's box and mask head as the Mask R-CNN toy's, HTC's
+    semantic head at 32 channels."""
     from dynamask_torch.utils import Config
     cfg = Config.fromfile(TOY_CONFIGS[kind])
     m = cfg.model
@@ -1263,16 +1333,23 @@ def toy_cfg(kind='dynamask'):
     for ext in (rh.bbox_roi_extractor, rh.mask_roi_extractor):
         if ext:
             ext.out_channels = 32
-    rh.bbox_head.in_channels = 32
-    rh.bbox_head.fc_out_channels = 64
-    rh.bbox_head.num_classes = 8
+    cascade = kind in CASCADE_TOYS
+    for head in (rh.bbox_head if cascade else [rh.bbox_head]):
+        head.in_channels = 32
+        head.fc_out_channels = 64
+        head.num_classes = 8
     mh = rh.mask_head
     if kind == 'faster_rcnn':
         pass
-    elif kind in ('mask_rcnn', *DEEP_TOYS):
-        mh.num_convs = 2
-        mh.in_channels = mh.conv_out_channels = 32
-        mh.num_classes = 8
+    elif kind in ('mask_rcnn', 'cascade', 'htc', *DEEP_TOYS):
+        for head in (mh if kind == 'htc' else [mh]):
+            head.num_convs = 2
+            head.in_channels = head.conv_out_channels = 32
+            head.num_classes = 8
+        if kind == 'htc':
+            rh.semantic_roi_extractor.out_channels = 32
+            rh.semantic_head.update(in_channels=32, conv_out_channels=32,
+                                    num_convs=2)
     elif kind == 'refinemask':
         mh.num_convs_instance, mh.num_convs_semantic = 1, 2
         mh.conv_out_channels_instance = mh.conv_out_channels_semantic = 32
@@ -1283,15 +1360,17 @@ def toy_cfg(kind='dynamask'):
         mh.stage_num_classes = [8, 8, 8, 1]
     cfg.test_cfg.rpn.nms_pre = 64
     cfg.train_cfg.rpn_proposal.max_num = 32
-    cfg.train_cfg.rcnn.sampler.num = 64
+    for stage in (cfg.train_cfg.rcnn if cascade else [cfg.train_cfg.rcnn]):
+        stage.sampler.num = 64
     cfg.test_cfg.rcnn.max_per_img = 8
     return cfg
 
 
 def check_toy_against_cpu(report):
     """Phase 3a: inference, the port on the GPU against itself on the CPU:
-    the toy DynaMask in both modes, then the toy Mask R-CNN and the toy
-    RefineMask."""
+    the toy DynaMask in both modes, then the toy Mask R-CNN, RefineMask,
+    Faster R-CNN, ResNeXt and caffe Mask R-CNNs, Cascade Mask R-CNN and
+    HTC."""
     import torch
     from dynamask_torch.models import build_detector
     gen = torch.Generator().manual_seed(1)
@@ -1301,9 +1380,11 @@ def check_toy_against_cpu(report):
     for name, dynamic in (('faithful', False), ('dynamic', True),
                           ('mask_rcnn', False), ('refinemask', False),
                           ('faster_rcnn', False), ('x101', False),
-                          ('caffe', False)):
+                          ('caffe', False), ('cascade', False),
+                          ('htc', False)):
         cfg = toy_cfg(name if name in TOY_CONFIGS else 'dynamask')
-        cfg.model.roi_head.dynamic_inference = dynamic
+        if name in ('faithful', 'dynamic'):
+            cfg.model.roi_head.dynamic_inference = dynamic
         ref = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
                              device='cpu', seed=0)
         model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
@@ -1418,12 +1499,13 @@ def toy_train_case(kind='dynamask'):
     the CPU in training mode (the DynaMask toy's DCN offset convs off zero,
     so K3's offset gradient is exercised too), the same weights on the GPU,
     a synthetic batch of 2 images at 128x128 (with RefineMask's
-    ``gt_semantic``), the same batch with its image perturbed by
-    INPUT_NOISE (relative), and the random draws (sampler priorities,
-    Gumbel uniforms)."""
+    ``gt_semantic``, HTC's ``gt_semantic_seg``), the same batch with its
+    image perturbed by INPUT_NOISE (relative), and the random draws
+    (sampler priorities, each cascade stage's among them, Gumbel
+    uniforms)."""
     import numpy as np
     import torch
-    from dynamask_torch.apis import synthetic_batch
+    from dynamask_torch.apis import semantic_seg_shape, synthetic_batch
     from dynamask_torch.models import build_detector
     cfg = toy_cfg(kind)
     b, hw, max_gts = 2, 128, 4
@@ -1439,17 +1521,29 @@ def toy_train_case(kind='dynamask'):
     model.load_state_dict(ref.state_dict())
     batch = synthetic_batch(3, b=b, h=hw, w=hw, num_gts=3, max_gts=max_gts,
                             crop_size=32, num_classes=8, device='cpu',
-                            with_semantic=kind == 'refinemask')
+                            with_semantic=kind == 'refinemask',
+                            semantic_seg=semantic_seg_shape(ref))
     noisy = dict(batch, image=batch['image'] * (1 + INPUT_NOISE * torch.randn(
         batch['image'].shape, generator=torch.Generator().manual_seed(5))))
     rng = np.random.RandomState(4)
     n_anchors = 3 * sum((hw // s) ** 2 for s in (4, 8, 16, 32, 64))
-    max_pos = int(cfg.train_cfg.rcnn.sampler.num *
-                  cfg.train_cfg.rcnn.sampler.pos_fraction)
+    rcnn = cfg.train_cfg.rcnn
+    sampler = (rcnn[0] if kind in CASCADE_TOYS else rcnn).sampler
+    max_pos = int(sampler.num * sampler.pos_fraction)
     noise = {'rpn': rng.uniform(size=(b, n_anchors)),
              'rcnn': rng.uniform(size=(
                  b, max_gts + cfg.train_cfg.rpn_proposal.max_num)),
              'gumbel': rng.uniform(1e-4, 1 - 1e-4, (b * max_pos, 4))}
+    if kind in CASCADE_TOYS:
+        # every stage's draws (models/cascade_roi_head.py): a later stage
+        # samples from the previous one's slots, at most sampler.num; HTC's
+        # stage-0 mask resample has the GTs in front of them
+        n = min(sampler.num, noise['rcnn'].shape[1])
+        for s in range(len(rcnn)):
+            if s:
+                noise[f'rcnn_{s}'] = rng.uniform(size=(b, n))
+            noise[f'rcnn_mask_{s}'] = rng.uniform(size=(
+                b, n + (max_gts if s == 0 else 0)))
     noise = {k: torch.from_numpy(v.astype(np.float32))
              for k, v in noise.items()}
     return ref, model, batch, noisy, noise
@@ -2475,7 +2569,7 @@ def config_modes(name):
 
 def run_config_inference(report, card, name, path, hw, modes, repeats=5,
                          bf16=False):
-    """Phases 8, 10 and 11, inference: the config's detector built on the
+    """Phases 8 and 10-12, inference: the config's detector built on the
     card with random weights N(0, 0.05) from seed 0, one seeded image at
     the config's test canvas through ``inference_detector`` (with
     ``bf16``, ``make_test_fn(..., bf16=True)``: a bf16 copy of the model on
@@ -2504,8 +2598,11 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
     launches, recs = {}, []
     fn = (make_test_fn(model, hw, bf16=True) if bf16 else
           functools.partial(inference_detector, model))
+    # FCN heads (Mask R-CNN's, Cascade Mask R-CNN's, HTC's stage heads)
+    # give 28x28 probabilities, the DynaMask and RefineMask heads 112x112
     side = (None if rh.mask_head is None else
-            28 if isinstance(rh.mask_head, FCNMaskHead) else 112)
+            28 if isinstance(rh.mask_head, (FCNMaskHead, torch.nn.ModuleList))
+            else 112)
 
     def drive(dynamic):
         if dynamic is not None:
@@ -2575,25 +2672,32 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
 
 def run_config_train(report, card, name, path, images, hw, counts,
                      repeats=TIMED_STEPS, compute_dtype=None):
-    """Phases 8, 10 and 11, training: ``init_trainer`` on the config (its
+    """Phases 8 and 10-12, training: ``init_trainer`` on the config (its
     seeded JAX initialisation), a seeded synthetic batch of ``images`` at
     the train canvas with 20 GTs each over the config's classes (and, for
     a head that reads it, ``gt_semantic`` through the data pipeline's
-    rasteriser), one warm-up and ``repeats`` timed ``train_steps`` (in
-    ``compute_dtype`` on fp32 masters, given); counters around all of
-    them, held to ``counts`` a step."""
+    rasteriser, or HTC's ``gt_semantic_seg``), one warm-up and
+    ``repeats`` timed ``train_steps`` (in ``compute_dtype`` on fp32
+    masters, given); counters around all of them, held to ``counts`` a
+    step."""
     import torch
     import dynamask_torch.ops as ops
-    from dynamask_torch.apis import (init_trainer, synthetic_batch,
-                                     train_steps)
+    from dynamask_torch.apis import (init_trainer, semantic_seg_shape,
+                                     synthetic_batch, train_steps)
     model, opt = init_trainer(path, steps_per_epoch=COCO_STEPS_PER_EPOCH,
                               device=DEVICE, seed=0)
     h, w = hw
     semantic = model.roi_head.with_semantic
+    seg = semantic_seg_shape(model)
     batch = synthetic_batch(0, b=images, h=h, w=w, num_gts=TRAIN_GTS,
                             crop_size=128,
                             num_classes=model.roi_head.num_classes,
-                            device='cpu', with_semantic=semantic)
+                            device='cpu', with_semantic=semantic,
+                            semantic_seg=seg)
+    if seg and tuple(batch['gt_semantic_seg'].shape) != (
+            images, h // seg[0], w // seg[0]):
+        raise RuntimeError(f'{name}: gt_semantic_seg '
+                           f'{tuple(batch["gt_semantic_seg"].shape)}')
     if semantic:
         sem = batch['gt_semantic']
         if sem.dtype != torch.uint8 or tuple(sem.shape) != (
@@ -2613,9 +2717,10 @@ def run_config_train(report, card, name, path, images, hw, counts,
         times.append(1e3 * (time.perf_counter() - t))
         log = {k: float(v) for k, v in log.items()}
         bad = [k for k, v in log.items() if not math.isfinite(v)]
-        if bad or (semantic and 'loss_semantic' not in log):
+        if bad or (semantic and 'loss_semantic' not in log) or (
+                seg and 'loss_semantic_seg' not in log):
             raise RuntimeError(f'{name} train step {i}: non-finite {bad} '
-                               f'or no loss_semantic: {sorted(log)}')
+                               f'or no loss_semantic(_seg): {sorted(log)}')
         logs.append(log)
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise RuntimeError(f'{name}: a master weight left fp32')
@@ -3176,6 +3281,67 @@ def run_box_only(report, card):
     return launches
 
 
+# -- phase 12: Cascade R-CNN and Hybrid Task Cascade -------------------------
+
+CASCADE_CONFIG = os.path.join(ROOT, 'configs/cascade_rcnn/'
+                              'cascade_mask_rcnn_r50_fpn_1x_coco.py')
+HTC_CONFIG = os.path.join(ROOT, 'configs/htc/htc_r50_fpn_1x_coco.py')
+# their launches: K2 for each stage's box extract, one launch an extract
+# (the step's take every image of the batch in one); Cascade Mask R-CNN
+# adds its one mask extract; HTC adds the semantic crop (single level,
+# stride 8, ratio 1) to each box and mask extract, and in training runs
+# one mask extract a stage; K4 for each crop's gradient in a step
+CASCADE_BOX_INFER = {'roi_align_fwd': 3}
+CASCADE_BOX_STEP = {'roi_align_fwd': 3, 'roi_align_bwd': 3}
+CASCADE_INFER = {'roi_align_fwd': 4}
+CASCADE_STEP = {'roi_align_fwd': 4, 'roi_align_bwd': 4}
+HTC_INFER = {'roi_align_fwd': 8}
+HTC_STEP = {'roi_align_fwd': 12, 'roi_align_bwd': 12}
+HTC_NOSEM_INFER = {'roi_align_fwd': 4}
+# (name, config, timed repeats of an image, timed steps (None: no step),
+# an image's launches, a step's)
+CASCADE_CELLS = (
+    ('cascade_mask_rcnn', CASCADE_CONFIG, 3, 2, CASCADE_INFER, CASCADE_STEP),
+    ('cascade_rcnn', os.path.join(ROOT, 'configs/cascade_rcnn/'
+                                  'cascade_rcnn_r50_fpn_1x_coco.py'),
+     1, 1, CASCADE_BOX_INFER, CASCADE_BOX_STEP),
+    ('htc', HTC_CONFIG, 3, 2, HTC_INFER, HTC_STEP),
+    ('htc_without_semantic', os.path.join(
+        ROOT, 'configs/htc/htc_without_semantic_r50_fpn_1x_coco.py'),
+     1, None, HTC_NOSEM_INFER, None),
+    ('htc_x101', os.path.join(ROOT, 'configs/htc/'
+                              'htc_x101_64x4d_fpn_16x1_20e_coco.py'),
+     1, 1, HTC_INFER, HTC_STEP),
+)
+
+
+def run_cascades(report, card):
+    """Phase 12: Cascade Mask R-CNN, Cascade R-CNN, HTC, HTC without its
+    semantic branch and HTC on ResNeXt-101 64x4d, each from its config
+    file, unchanged, at full width: one image at the config's test canvas
+    (phase 4's weights protocol) and steps at its train batch (HTC's with
+    ``gt_semantic_seg``), each a counted warm-up held to its exact
+    launches, then timed repeats; then phase 6's eval drive on HTC."""
+    from dynamask_torch.apis import config_shapes
+    launches = {}
+    report['cascades'] = {'inference': [], 'train': []}
+    for name, path, n_inf, n_steps, infer, step in CASCADE_CELLS:
+        test_hw, images, train_hw = config_shapes(path)
+        got, recs = run_config_inference(
+            report, card, name, path, test_hw, (('infer', None, infer),),
+            repeats=n_inf)
+        launches.update(got)
+        report['cascades']['inference'] += recs
+        if n_steps:
+            got, rec = run_config_train(report, card, name, path, images,
+                                        train_hw, step, repeats=n_steps)
+            launches.update(got)
+            report['cascades']['train'].append(rec)
+    launches.update(run_eval_path(report, card, HTC_CONFIG, HTC_INFER,
+                                  HTC_STEP, 'htc_'))
+    return launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -3217,7 +3383,7 @@ def main() -> int:
     check_toy_train_against_cpu(report)
     check_toy_train_against_cpu(report, 'mask_rcnn')
     check_toy_train_against_cpu(report, 'refinemask')
-    for kind in ('faster_rcnn', *DEEP_TOYS):
+    for kind in ('faster_rcnn', *DEEP_TOYS, *CASCADE_TOYS):
         check_toy_train_against_cpu(report, kind)
     print(f'phase 4: flagship inference [{card}]')
     launches = run_inference_path(report, card)
@@ -3260,9 +3426,15 @@ def main() -> int:
     t11 = time.perf_counter()
     launches.update(run_box_only(report, card))
     report['phase11_s'] = time.perf_counter() - t11
+    print(f'  phase 11: {report["phase11_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 12: Cascade R-CNN and Hybrid Task Cascade [{card}]')
+    t12 = time.perf_counter()
+    launches.update(run_cascades(report, card))
+    report['phase12_s'] = time.perf_counter() - t12
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 11: {report["phase11_s"]:.1f} s; the whole run '
-          f'{report["run_s"]:.1f} s')
+    print(f'  phase 12: {report["phase12_s"]:.1f} s; the whole run '
+          f'{report["run_s"]:.1f} s [{card}]')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}
         row['launches'] = sum(by_path.values())

@@ -297,6 +297,15 @@ def _run_validation(cfg: Config, model: torch.nn.Module, eval_cfg: dict,
     return {k: float(v) for k, v in metrics.items()}
 
 
+def semantic_seg_shape(model: torch.nn.Module) -> Optional[Tuple[int, int]]:
+    """(stride, classes) of the ``gt_semantic_seg`` a model's semantic
+    branch reads (HTC's ``FusedSemanticHead``), or None without one."""
+    head = getattr(getattr(model, 'roi_head', None), 'semantic_head', None)
+    if head is None:
+        return None
+    return model.roi_head.semantic_out_stride, head.num_classes
+
+
 def config_shapes(config: Union[str, Config]
                   ) -> Tuple[Tuple[int, int], int, Tuple[int, int]]:
     """The shapes ``config`` runs at, from what it states: the first
@@ -313,7 +322,8 @@ def config_shapes(config: Union[str, Config]
 def synthetic_batch(seed: int, b: int = 1, h: int = 128, w: int = 128,
                     num_gts: int = 4, max_gts: Optional[int] = None,
                     crop_size: int = 32, num_classes: int = 80,
-                    device=None, with_semantic: bool = False
+                    device=None, with_semantic: bool = False,
+                    semantic_seg: Optional[Tuple[int, int]] = None
                     ) -> Dict[str, torch.Tensor]:
     """A padded training batch from ``seed``: N(0, 1) NHWC images, boxes of
     10-40% of the image side, elliptic mask crops over windows 2 px larger
@@ -321,7 +331,11 @@ def synthetic_batch(seed: int, b: int = 1, h: int = 128, w: int = 128,
     ``with_semantic`` (a RefineMask step: ``roi_head.with_semantic``), also
     ``gt_semantic`` (b, h // 4, w // 4): the ellipses as 32-gons in image
     coordinates through the data pipeline's own rasteriser
-    (``data.rasterize_semantic``)."""
+    (``data.rasterize_semantic``). With ``semantic_seg = (stride,
+    classes)`` (an HTC step: :func:`semantic_seg_shape`), also
+    ``gt_semantic_seg`` (b, h // stride, w // stride) int64: uniform labels
+    in [0, classes), a tenth of the pixels 255 (ignored), drawn after
+    everything else so the other keys do not change."""
     r = np.random.RandomState(seed)
     g = max_gts or num_gts
     side = min(h, w)
@@ -355,5 +369,10 @@ def synthetic_batch(seed: int, b: int = 1, h: int = 128, w: int = 128,
         batch['gt_semantic'] = np.stack([rasterize_semantic(
             [[polys[i, j].reshape(-1)] for j in range(num_gts)], (h, w))
             for i in range(b)])
+    if semantic_seg:
+        stride, classes = semantic_seg
+        seg = r.randint(0, classes, (b, h // stride, w // stride))
+        seg[r.uniform(size=seg.shape) < 0.1] = 255
+        batch['gt_semantic_seg'] = seg.astype(np.int64)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}

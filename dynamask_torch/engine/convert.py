@@ -8,8 +8,9 @@ names, so the key map below is the port's own copy of the one in
 the modules the port has, and run in the other direction. It also maps the
 RefineMask leaves that the JAX importer has no rule for (the semantic
 tower and logits, ``semantic_transform_out``, the ``MultiBranchFusion``
-convs, ``SimpleRefineMaskHead``'s per-stage logits), which that importer
-skips:
+convs, ``SimpleRefineMaskHead``'s per-stage logits), and the cascade
+heads' (each stage's box and mask head, ``conv_res``, HTC's semantic
+head), which that importer skips:
 
 * conv kernels HWIO -> OIHW (the DCN leaf is named ``weight``, and a
   ``ClassSelectConv1x1`` is a ``(1, 1, C, ncls)`` kernel); the FCN mask
@@ -120,6 +121,34 @@ def mmdet_key(key: str) -> Optional[Tuple[List[str], str, Dict]]:
          r'(weight|bias)$',
          lambda m: (['roi_head', 'mask_head',
                      f'stage_instance_logits_{m[1]}'], m[2], {})),
+        # the cascade heads (JAX cascade_roi_head.py, htc.py): flax names a
+        # tuple field's members ``bbox_head_i`` / ``mask_heads_i``;
+        # Cascade Mask R-CNN's one mask head keeps the rules above
+        (r'^roi_head\.bbox_head\.(\d+)\.shared_fcs\.(\d+)\.(weight|bias)$',
+         lambda m: (['roi_head', f'bbox_head_{m[1]}', f'shared_fc_{m[2]}'],
+                    m[3], {'flatten_chw': 7} if m[2] == '0' else {})),
+        (r'^roi_head\.bbox_head\.(\d+)\.(fc_cls|fc_reg)\.(weight|bias)$',
+         lambda m: (['roi_head', f'bbox_head_{m[1]}', m[2]], m[3], {})),
+        (r'^roi_head\.mask_head\.(\d+)\.(convs\.(\d+)|conv_res)\.conv\.'
+         r'(weight|bias)$',
+         lambda m: (['roi_head', f'mask_heads_{m[1]}',
+                     f'conv_{m[3]}' if m[3] else 'conv_res'], m[4], {})),
+        (r'^roi_head\.mask_head\.(\d+)\.upsample\.(weight|bias)$',
+         lambda m: (['roi_head', f'mask_heads_{m[1]}', 'upsample'], m[2],
+                    {'deconv': True})),
+        (r'^roi_head\.mask_head\.(\d+)\.conv_logits\.(weight|bias)$',
+         lambda m: (['roi_head', f'mask_heads_{m[1]}', 'conv_logits'], m[2],
+                    {})),
+        # HTC's FusedSemanticHead (JAX htc.py:43-88)
+        (r'^roi_head\.semantic_head\.(lateral_convs|convs)\.(\d+)\.conv\.'
+         r'(weight|bias)$',
+         lambda m: (['roi_head', 'semantic_head',
+                     f'{"lateral" if m[1] == "lateral_convs" else "conv"}_'
+                     f'{m[2]}'], m[3], {})),
+        (r'^roi_head\.semantic_head\.(conv_embedding\.conv|conv_logits)\.'
+         r'(weight|bias)$',
+         lambda m: (['roi_head', 'semantic_head', m[1].split('.')[0]], m[2],
+                    {})),
         (r'^roi_head\.mask_predictor\.(conv1|conv2|fc2|bn1|bn2)\.(.+)$',
          lambda m: (['roi_head', 'mask_predictor', m[1]], m[2], {})),
         (r'^roi_head\.mask_predictor\.fc1\.(weight|bias)$',

@@ -3,7 +3,8 @@
 ``bbox_targets_from_sample`` :107, ``bbox_head_loss`` :127-188 with its
 L1 and SmoothL1 regression, ``bbox_head_get_dets`` :190-226). ``num_classes``
 foreground classes, softmax over ``num_classes + 1`` with background
-last."""
+last. A class-agnostic head (``reg_class_agnostic``, every Cascade R-CNN
+and HTC stage) regresses 4 deltas a RoI instead of 4 a class."""
 
 from __future__ import annotations
 
@@ -26,18 +27,19 @@ class Shared2FCBBoxHead(nn.Module):
                  roi_feat_size: int = 7, fc_out_channels: int = 1024,
                  reg_class_agnostic: bool = False):
         super().__init__()
-        if reg_class_agnostic:
-            raise NotImplementedError('class-agnostic box regression')
         self.num_classes = num_classes
+        self.reg_class_agnostic = reg_class_agnostic
         self.shared_fcs = nn.ModuleList([
             nn.Linear(in_channels * roi_feat_size ** 2, fc_out_channels),
             nn.Linear(fc_out_channels, fc_out_channels)])
         self.fc_cls = nn.Linear(fc_out_channels, num_classes + 1)
-        self.fc_reg = nn.Linear(fc_out_channels, 4 * num_classes)
+        self.fc_reg = nn.Linear(fc_out_channels,
+                                4 if reg_class_agnostic else 4 * num_classes)
 
     def forward(self, x: torch.Tensor):
         """(N, P, P, C) NHWC RoI features -> (cls_logits (N, C+1),
-        deltas (N, 4*C)). The first fc reads them in mmdet's CHW order."""
+        deltas (N, 4*C), or (N, 4) class-agnostic). The first fc reads them
+        in mmdet's CHW order."""
         x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
@@ -67,18 +69,22 @@ def bbox_head_loss(cls_logits: torch.Tensor, bbox_deltas: torch.Tensor,
                    targets: BBoxTargets, num_classes: int,
                    loss_cls_weight: float = 1.0,
                    loss_bbox_weight: float = 1.0,
-                   smooth_l1_beta: Optional[float] = None):
+                   smooth_l1_beta: Optional[float] = None,
+                   reg_class_agnostic: bool = False):
     """CE averaged over the sampled RoIs; L1 (SmoothL1 of ``beta`` given
-    ``smooth_l1_beta``) on each positive RoI's class-specific deltas,
-    averaged by the same count."""
+    ``smooth_l1_beta``) on each positive RoI's deltas (its class's, or
+    the 4 of a class-agnostic head), averaged by the same count."""
     avg = targets.label_weights.sum()
     loss_cls = softmax_cross_entropy(cls_logits, targets.labels,
                                      targets.label_weights, avg)
     acc = accuracy(cls_logits, targets.labels, targets.label_weights)
-    n = bbox_deltas.shape[0]
-    safe = targets.labels.clamp(0, num_classes - 1)
-    pred = bbox_deltas.reshape(n, num_classes, 4)[torch.arange(
-        n, device=safe.device), safe]
+    if reg_class_agnostic:
+        pred = bbox_deltas
+    else:
+        n = bbox_deltas.shape[0]
+        safe = targets.labels.clamp(0, num_classes - 1)
+        pred = bbox_deltas.reshape(n, num_classes, 4)[torch.arange(
+            n, device=safe.device), safe]
     if smooth_l1_beta is None:
         loss_bbox = l1_loss(pred, targets.bbox_targets,
                             targets.bbox_weights[:, None], avg)
@@ -97,7 +103,8 @@ def bbox_head_get_dets(rois: torch.Tensor, cls_logits: torch.Tensor,
                        score_thr: float = 0.05, iou_threshold: float = 0.5,
                        max_per_img: int = 100, rescale: bool = True):
     """Decode + multiclass NMS for one image -> (dets (max_per_img, 5),
-    labels, valid)."""
+    labels, valid). Class-agnostic (N, 4) deltas give one box a RoI,
+    which every class's score shares."""
     scores = F.softmax(cls_logits.float(), dim=-1)[:, :num_classes]
     boxes = delta2bbox(rois, bbox_deltas.float(), target_means, target_stds)
     boxes = clip_boxes(boxes.reshape(rois.shape[0], -1, 4), img_shape)

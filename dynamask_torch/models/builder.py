@@ -1,9 +1,11 @@
 """Build the port's detector from a reference-schema config (port of the
 parts of ``dynamask_tpu/models/builder.py`` (the backbones :28-86, the
-two-stage RoI head :233-360, the RefineMask branch :451-494,
-``build_detector`` :1131-1214) and ``dynamask_tpu/models/
-dynamask_roi_head.py:build_dynamask_roi_head`` (:422-464) that the Mask
-R-CNN, Faster / Fast R-CNN, RPN, DynaMask and RefineMask configs use).
+two-stage RoI head :233-360, the RefineMask branch :451-494, the cascade
+heads :531-580, ``build_detector`` :1131-1214), ``dynamask_tpu/models/
+dynamask_roi_head.py:build_dynamask_roi_head`` (:422-464) and
+``dynamask_tpu/models/htc.py:build_htc_roi_head`` (:385-460) that the
+Mask R-CNN, Faster / Fast R-CNN, RPN, DynaMask, RefineMask, Cascade R-CNN
+and HTC configs use).
 
 Every key that changes the model is read, or refused with the ROADMAP.md
 item (§1) where its port is queued: a config the port builds computes the
@@ -25,9 +27,11 @@ import torch
 from ..utils.device import resolve_device
 from ..utils.registry import BACKBONES, DETECTORS, NECKS
 from .bbox_head import Shared2FCBBoxHead
+from .cascade_roi_head import CascadeRoIHead
 from .dynamask_head import DynaMaskHead, MaskPre
 from .dynamask_roi_head import DynaMaskRoIHead
 from .fcn_mask_head import FCNMaskHead
+from .htc import FusedSemanticHead, HTCMaskHead, HybridTaskCascadeRoIHead
 from .layers import init_weights
 from .refine_mask_head import (RefineMaskHead, RefineRoIHead,
                                SimpleRefineMaskHead, SimpleRefineRoIHead)
@@ -58,11 +62,9 @@ BACKBONE_ITEMS = {'HRNet': 8, 'RegNet': 8, 'Res2Net': 8,
                   'SSDVGG': 6, 'HourglassNet': 9}
 NECK_ITEMS = {'PAFPN': 8, 'NASFPN': 8, 'BFP': 8, 'HRFPN': 8, 'RFP': 8,
               'NASFCOS_FPN': 6, 'FPN_CARAFE': 9}
-DETECTOR_ITEMS = {'CascadeRCNN': 4, 'HybridTaskCascade': 4,
-                  'GridRCNN': 9, 'MaskScoringRCNN': 9, 'PointRend': 9,
+DETECTOR_ITEMS = {'GridRCNN': 9, 'MaskScoringRCNN': 9, 'PointRend': 9,
                   'CornerNet': 9}
-ROI_HEAD_ITEMS = {'CascadeRoIHead': 4, 'HybridTaskCascadeRoIHead': 4,
-                  'PISARoIHead': 9, 'DoubleHeadRoIHead': 9,
+ROI_HEAD_ITEMS = {'PISARoIHead': 9, 'DoubleHeadRoIHead': 9,
                   'DynamicRoIHead': 9, 'GridRoIHead': 9,
                   'MaskScoringRoIHead': 9, 'PointRendRoIHead': 9,
                   'TridentRoIHead': 9}
@@ -272,7 +274,9 @@ def build_refine_roi_head(t: str, mt: str, mhc: dict, common: dict,
         start_stage=loss_cfg.get('start_stage', 1), **common)
 
 
-ROI_HEADS = ('StandardRoIHead', 'DynaMaskRoIHead', *REFINE_HEADS)
+CASCADE_HEADS = ('CascadeRoIHead', 'HybridTaskCascadeRoIHead')
+ROI_HEADS = ('StandardRoIHead', 'DynaMaskRoIHead', *REFINE_HEADS,
+             *CASCADE_HEADS)
 
 
 def _extractor(cfg: dict, what: str) -> dict:
@@ -315,41 +319,63 @@ def _box_losses(head_cfg: dict) -> dict:
                         if loss_bbox.get('type') == 'SmoothL1Loss' else None))
 
 
+def _box_head(head_cfg: dict):
+    """A ``Shared2FCBBoxHead`` (class-specific or class-agnostic
+    regression) -> (head, its coder, its config)."""
+    head_cfg = _cfg(head_cfg)
+    ht = head_cfg.pop('type')
+    if ht != 'Shared2FCBBoxHead':
+        raise not_ported(f'bbox head {ht}', 5)
+    if head_cfg.get('reg_decoded_bbox'):
+        raise not_ported('decoded box regression', 5)
+    _check_keys('Shared2FCBBoxHead', head_cfg, (
+        'num_classes', 'in_channels', 'roi_feat_size', 'fc_out_channels',
+        'reg_class_agnostic', 'reg_decoded_bbox', 'bbox_coder', 'loss_cls',
+        'loss_bbox'))
+    head = Shared2FCBBoxHead(
+        num_classes=head_cfg.get('num_classes', 80),
+        in_channels=head_cfg.get('in_channels', 256),
+        roi_feat_size=head_cfg.get('roi_feat_size', 7),
+        fc_out_channels=head_cfg.get('fc_out_channels', 1024),
+        reg_class_agnostic=bool(head_cfg.get('reg_class_agnostic', False)))
+    coder = _cfg(head_cfg.get('bbox_coder'))
+    _check_coder('bbox head coder', coder)
+    return head, coder, head_cfg
+
+
 def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     """The RoI head of ``cfg``: ``StandardRoIHead`` with an
     ``FCNMaskHead`` (Mask R-CNN) or with none (Faster and Fast R-CNN),
-    ``DynaMaskRoIHead`` with a ``DynaMaskHead`` (DynaMask) or
+    ``DynaMaskRoIHead`` with a ``DynaMaskHead`` (DynaMask),
     ``RefineRoIHead`` / ``SimpleRefineRoIHead`` with a ``RefineMaskHead``
-    / ``SimpleRefineMaskHead`` (RefineMask), on one Shared2FC box
-    branch."""
+    / ``SimpleRefineMaskHead`` (RefineMask), on one Shared2FC box branch;
+    ``CascadeRoIHead`` (Cascade R-CNN, with an ``FCNMaskHead`` or none)
+    and ``HybridTaskCascadeRoIHead`` (HTC) on one a stage."""
     cfg = _cfg(cfg)
     t = cfg.pop('type')
     if t not in ROI_HEADS:
         raise not_ported(f'roi head {t}', ROI_HEAD_ITEMS.get(t, 'no item'))
     if cfg.get('shared_head'):
         raise not_ported('the shared head of the C4 backbone', 9)
-    head_cfg = _cfg(cfg['bbox_head'])
-    ht = head_cfg.pop('type')
-    if ht != 'Shared2FCBBoxHead':
-        raise not_ported(f'bbox head {ht}', 5)
-    if head_cfg.get('reg_class_agnostic') or head_cfg.get(
-            'reg_decoded_bbox'):
-        raise not_ported('class-agnostic or decoded box regression', 5)
-    _check_keys('Shared2FCBBoxHead', head_cfg, (
-        'num_classes', 'in_channels', 'roi_feat_size', 'fc_out_channels',
-        'reg_class_agnostic', 'reg_decoded_bbox', 'bbox_coder', 'loss_cls',
-        'loss_bbox'))
-    bbox_head = Shared2FCBBoxHead(
-        num_classes=head_cfg.get('num_classes', 80),
-        in_channels=head_cfg.get('in_channels', 256),
-        roi_feat_size=head_cfg.get('roi_feat_size', 7),
-        fc_out_channels=head_cfg.get('fc_out_channels', 1024))
-    coder = _cfg(head_cfg.get('bbox_coder'))
-    _check_coder('bbox head coder', coder)
-    rcnn_train = _cfg(_cfg(train_cfg).get('rcnn'))
+    cascade = t in CASCADE_HEADS
+    stage_cfgs = cfg['bbox_head']
+    if isinstance(stage_cfgs, (list, tuple)) != cascade:
+        raise not_ported(f'{t} over {type(stage_cfgs).__name__} bbox_head',
+                         'no item')
+    stages = [_box_head(h) for h in (stage_cfgs if cascade
+                                     else [stage_cfgs])]
+    bbox_head, coder, head_cfg = stages[0]
+    rcnn_raw = _cfg(train_cfg).get('rcnn')
+    if cascade and rcnn_raw is not None:
+        stage_train = [_cfg(r) for r in rcnn_raw]
+    else:
+        stage_train = [_cfg(rcnn_raw)]
+    rcnn_train = stage_train[0]
     assigner = _cfg(rcnn_train.get('assigner'))
     sampler = _cfg(rcnn_train.get('sampler'))
-    _check_sampling('rcnn', assigner, sampler)
+    for i, st in enumerate(stage_train):
+        _check_sampling(f'rcnn {i}' if cascade else 'rcnn',
+                        _cfg(st.get('assigner')), _cfg(st.get('sampler')))
     bbox_extractor = _extractor(cfg.get('bbox_roi_extractor'),
                                 'bbox_roi_extractor')
     mask_extractor = _extractor(cfg.get('mask_roi_extractor'),
@@ -359,7 +385,6 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     if nms_cfg.get('type', 'nms') != 'nms':
         raise not_ported(f'test nms type {nms_cfg["type"]}', 5)
     common = dict(
-        bbox_head=bbox_head,
         num_classes=head_cfg.get('num_classes', 80),
         featmap_strides=tuple(bbox_extractor.get('featmap_strides',
                                                  (4, 8, 16, 32))),
@@ -382,8 +407,12 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
         min_pos_iou=assigner.get('min_pos_iou', 0.5),
         match_low_quality=assigner.get('match_low_quality', True),
         **_box_losses(head_cfg))
+    if cascade:
+        return build_cascade_roi_head(t, cfg, stages, stage_train, common,
+                                      bbox_extractor)
     mhc = _cfg(cfg.get('mask_head'))
     mt = mhc.pop('type', None)
+    common['bbox_head'] = bbox_head
     if t == 'StandardRoIHead' and mt is None:
         return StandardRoIHead(mask_head=None, **common)
     if (t, mt) == ('DynaMaskRoIHead', 'DynaMaskHead'):
@@ -400,6 +429,182 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
         'StandardRoIHead, DynaMaskHead under DynaMaskRoIHead, and '
         'RefineMaskHead or SimpleRefineMaskHead under RefineRoIHead or '
         'SimpleRefineRoIHead)', 9)
+
+
+# the keys of the cascade heads that the JAX builders read
+# (``dynamask_tpu/models/builder.py:531-580``, ``htc.py:385-460``); the
+# semantic head's ``ignore_label`` is 255 there whatever the config says
+CASCADE_KEYS = ('bbox_head', 'bbox_roi_extractor', 'mask_roi_extractor',
+                'mask_head', 'num_stages', 'stage_loss_weights')
+HTC_KEYS = ('interleaved', 'mask_info_flow', 'semantic_roi_extractor',
+            'semantic_head', 'semantic_fusion')
+HTC_MASK_KEYS = ('type', 'num_convs', 'in_channels', 'conv_out_channels',
+                 'num_classes', 'class_agnostic', 'with_conv_res',
+                 'loss_mask')
+SEMANTIC_KEYS = ('type', 'num_ins', 'fusion_level', 'num_convs',
+                 'in_channels', 'conv_out_channels', 'num_classes',
+                 'loss_weight')
+
+
+def _cascade_losses(t: str, stages) -> dict:
+    """The stage heads' losses as the JAX cascade heads apply them: loss
+    weights 1 (they pass none), stage 0's regression loss on every stage
+    (``cascade_roi_head.py:107-115``), and under HTC an L1 loss whatever
+    the config names (``htc.py:235-237``; ROADMAP.md queue 3, 3l)."""
+    losses = [_box_losses(cfg) for _, _, cfg in stages]
+    for i, lo in enumerate(losses):
+        if (lo['loss_cls_weight'], lo['loss_bbox_weight']) != (1.0, 1.0):
+            raise not_ported(f'{t} stage {i} loss weights {lo} (the JAX '
+                             'cascade heads apply 1)', 'no item')
+        if lo['smooth_l1_beta'] != losses[0]['smooth_l1_beta']:
+            raise not_ported(f'{t} stage {i} regression loss other than '
+                             'stage 0\'s', 'no item')
+    beta = (None if t == 'HybridTaskCascadeRoIHead'
+            else losses[0]['smooth_l1_beta'])
+    return dict(loss_cls_weight=1.0, loss_bbox_weight=1.0,
+                smooth_l1_beta=beta)
+
+
+def _stage_thresholds(t: str, stage_train, n: int) -> tuple:
+    """Each stage's IoU threshold: JAX reads ``pos_iou_thr`` alone and
+    assigns with ``pos = neg = min_pos`` and no low-quality matches, on
+    stage 0's sampler (``cascade_roi_head.py:42-65``); other stage
+    settings are refused."""
+    if len(stage_train) == 1 and not stage_train[0] and n == 3:
+        return (0.5, 0.6, 0.7)
+    if len(stage_train) != n:
+        raise not_ported(f'{t}: {len(stage_train)} train_cfg.rcnn stages '
+                         f'for {n} heads', 'no item')
+    s0 = _cfg(stage_train[0].get('sampler'))
+    thrs = []
+    for i, st in enumerate(stage_train):
+        a, smp = _cfg(st.get('assigner')), _cfg(st.get('sampler'))
+        thr = a.get('pos_iou_thr', 0.5)
+        if (a.get('neg_iou_thr', thr), a.get('min_pos_iou', thr),
+                a.get('match_low_quality', False)) != (thr, thr, False):
+            raise not_ported(f'{t} stage {i} assigner {a}', 'no item')
+        if (smp.get('num', 512), smp.get('pos_fraction', 0.25)) != (
+                s0.get('num', 512), s0.get('pos_fraction', 0.25)):
+            raise not_ported(f'{t} stage {i} sampler {smp} other than '
+                             'stage 0\'s', 'no item')
+        thrs.append(thr)
+    return tuple(thrs)
+
+
+def build_cascade_roi_head(t: str, cfg: dict, stages, stage_train,
+                           common: dict, bbox_extractor: dict):
+    """``CascadeRoIHead`` or ``HybridTaskCascadeRoIHead`` from the
+    configs' schema, as the JAX builders read it."""
+    htc = t == 'HybridTaskCascadeRoIHead'
+    _check_keys(t, cfg, CASCADE_KEYS + (HTC_KEYS if htc else ()))
+    n = cfg.get('num_stages', len(stages))
+    weights = tuple(cfg.get('stage_loss_weights', (1.0, 0.5, 0.25)))
+    if len(stages) != n or len(weights) != n:
+        raise not_ported(f'{t}: {len(stages)} heads, {len(weights)} loss '
+                         f'weights for num_stages {n}', 'no item')
+    for i, (head, _, _) in enumerate(stages):
+        if head.num_classes != common['num_classes']:
+            raise not_ported(f'{t} stage {i} num_classes', 'no item')
+    common.update(_cascade_losses(t, stages))
+    kw = dict(bbox_head=[h for h, _, _ in stages],
+              stage_loss_weights=weights,
+              stage_pos_iou_thr=_stage_thresholds(t, stage_train, n),
+              stage_target_stds=tuple(
+                  tuple(c.get('target_stds', (0.1, 0.1, 0.2, 0.2)))
+                  for _, c, _ in stages), **common)
+    means = {tuple(c.get('target_means', (0., 0., 0., 0.)))
+             for _, c, _ in stages}
+    if len(means) != 1:
+        raise not_ported(f'{t}: stage target_means other than stage 0\'s',
+                         'no item')
+    mhc = cfg.get('mask_head')
+    if not htc:
+        if mhc is None:
+            return CascadeRoIHead(mask_head=None, **kw)
+        mhc = _cfg(mhc) if isinstance(mhc, dict) else mhc
+        if not isinstance(mhc, dict) or mhc.pop('type', None) != \
+                'FCNMaskHead':
+            raise not_ported(f'{t} mask head {mhc} (the port has one '
+                             'FCNMaskHead, as the JAX builder)', 9)
+        if _cfg(mhc.get('loss_mask')).get('loss_weight', 1.0) != 1.0:
+            raise not_ported(f'{t} mask loss weight (JAX applies 1)',
+                             'no item')
+        return CascadeRoIHead(mask_head=build_fcn_mask_head(mhc), **kw)
+    return build_htc_roi_head(cfg, mhc, n, stage_train, bbox_extractor, kw)
+
+
+def build_htc_roi_head(cfg: dict, mhc, n: int, stage_train,
+                       bbox_extractor: dict, kw: dict):
+    """``HybridTaskCascadeRoIHead`` (JAX ``htc.py:385-460``): an
+    ``HTCMaskHead`` a stage (one dict repeats), the ``FusedSemanticHead``
+    and its extractor's stride, ``mask_size`` from the first stage's
+    train config."""
+    t = 'HybridTaskCascadeRoIHead'
+    if not cfg.get('mask_info_flow', True):
+        raise not_ported(f'{t} mask_info_flow=False (the JAX test path '
+                         'flows whatever it says)', 'no item')
+    if not cfg.get('interleaved', True) or set(cfg.get(
+            'semantic_fusion', ('bbox', 'mask'))) != {'bbox', 'mask'}:
+        raise not_ported(f'{t} interleaved=False or a semantic_fusion other '
+                         'than (bbox, mask): no config uses them', 'no item')
+    mask_cfgs = [mhc] * n if isinstance(mhc, dict) else list(mhc or ())
+    if len(mask_cfgs) != n:
+        raise not_ported(f'{t}: {len(mask_cfgs)} mask heads for {n} stages',
+                         'no item')
+    mask_heads, mask_weights = [], set()
+    for mc in map(_cfg, mask_cfgs):
+        if mc.get('type') != 'HTCMaskHead':
+            raise not_ported(f'{t} mask head {mc.get("type")}', 9)
+        _check_keys('HTCMaskHead', mc, HTC_MASK_KEYS)
+        loss = _check_loss('HTCMaskHead loss_mask', mc.get('loss_mask'),
+                           ('CrossEntropyLoss',))
+        if not loss.get('use_mask', True):
+            raise not_ported('an HTCMaskHead loss_mask without use_mask',
+                             'no item')
+        mask_weights.add(loss.get('loss_weight', 1.0))
+        mask_heads.append(HTCMaskHead(
+            with_conv_res=mc.get('with_conv_res', True),
+            num_convs=mc.get('num_convs', 4),
+            in_channels=mc.get('in_channels', 256),
+            conv_out_channels=mc.get('conv_out_channels', 256),
+            num_classes=mc.get('num_classes', 80),
+            class_agnostic=mc.get('class_agnostic', False)))
+    if len(mask_weights) != 1:
+        raise not_ported(f'{t} mask loss weights {mask_weights}', 'no item')
+    semantic_head, stride, sem_weight = None, 8, 0.2
+    sc = _cfg(cfg.get('semantic_head'))
+    if sc:
+        if sc.get('type') != 'FusedSemanticHead':
+            raise not_ported(f'semantic head {sc.get("type")}', 'no item')
+        _check_keys('FusedSemanticHead', sc, SEMANTIC_KEYS,
+                    {'ignore_label': 255})
+        sre = _extractor(cfg.get('semantic_roi_extractor'),
+                         'semantic_roi_extractor')
+        strides = tuple(sre.get('featmap_strides', (8,)))
+        fl = sc.get('fusion_level', 1)
+        levels = tuple(bbox_extractor.get('featmap_strides', (4, 8, 16, 32)))
+        if len(strides) != 1 or fl >= len(levels) or levels[fl] != \
+                strides[0]:
+            raise not_ported(f'semantic fusion level {fl} (stride '
+                             f'{levels[fl] if fl < len(levels) else "?"}) '
+                             f'other than its extractor\'s {strides}',
+                             'no item')
+        stride = strides[0]
+        sem_weight = sc.get('loss_weight', 0.2)
+        semantic_head = FusedSemanticHead(
+            num_ins=sc.get('num_ins', 5), fusion_level=fl,
+            num_convs=sc.get('num_convs', 4),
+            in_channels=sc.get('in_channels', 256),
+            conv_out_channels=sc.get('conv_out_channels', 256),
+            num_classes=sc.get('num_classes', 183))
+    elif cfg.get('semantic_roi_extractor'):
+        raise not_ported(f'{t}: a semantic extractor without a semantic '
+                         'head', 'no item')
+    kw['loss_mask_weight'] = mask_weights.pop()
+    return HybridTaskCascadeRoIHead(
+        mask_head=mask_heads, semantic_head=semantic_head,
+        semantic_out_stride=stride, semantic_loss_weight=sem_weight,
+        mask_size=stage_train[0].get('mask_size', 28), **kw)
 
 
 def _rpn_cfg(anchor_cfg: dict, coder: dict, rpn_head_cfg: dict,
@@ -433,6 +638,9 @@ def _rpn_cfg(anchor_cfg: dict, coder: dict, rpn_head_cfg: dict,
 
 
 DETECTOR_TYPES = ('MaskRCNN', 'FasterRCNN', 'FastRCNN', 'RPN')
+# the cascade detectors are the JAX package's ``TwoStageDetector``
+# (``dynamask_tpu/models/builder.py:1177-1178``): the port's two-stage one
+CASCADE_DETECTORS = ('CascadeRCNN', 'HybridTaskCascade')
 
 
 def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
@@ -444,12 +652,14 @@ def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
     with ``seed`` (see :func:`dynamask_torch.models.layers.init_weights`
     for ``init_std``). ``MaskRCNN`` and ``FasterRCNN`` (the two-stage
     detectors), ``FastRCNN`` (the RoI head over the batch's proposals) and
-    ``RPN`` (the proposals alone)."""
+    ``RPN`` (the proposals alone); ``CascadeRCNN`` and
+    ``HybridTaskCascade`` build the two-stage detector on their RoI
+    heads."""
     dev = resolve_device(device)
     cfg = _cfg(model_cfg)
     t = cfg.pop('type')
     cfg.pop('pretrained', None)
-    if t not in DETECTOR_TYPES:
+    if t not in DETECTOR_TYPES + CASCADE_DETECTORS:
         raise not_ported(f'detector {t}', DETECTOR_ITEMS.get(t, 6))
     parts = {'backbone', 'neck'} | (set() if t == 'RPN' else {'roi_head'}) | \
         (set() if t == 'FastRCNN' else {'rpn_head'})
@@ -483,6 +693,9 @@ def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
     if t != 'FastRCNN':
         modules.update(_rpn_cfg(anchor_cfg, coder, model_cfg['rpn_head'],
                                 train_cfg, test))
+    if t in CASCADE_DETECTORS:
+        t = 'FasterRCNN' if modules['roi_head'].mask_head is None else \
+            'MaskRCNN'
     det = DETECTORS.build(dict(type=t, **modules))
     det.backbone.freeze_stages()
     if dev.type == 'meta':

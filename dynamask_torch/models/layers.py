@@ -96,13 +96,13 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
 
 # default initialisers of the JAX package's modules, by parameter name
 # (first match wins): xavier-uniform FPN and shared fcs, N(0, 0.01) RPN and
-# class scores, N(0, 0.001) box deltas, zero DCN offset convs, flax's
+# class scores, N(0, 0.001) box deltas (of every cascade stage too), zero DCN offset convs, flax's
 # default (LeCun normal over fan-in, truncated at 2 sigma) for the MSM and
 # for RefineMask's MultiBranchFusion convs, whose JAX modules name no
 # initialiser; every other conv or linear weight is He-normal over fan-out
 _INIT_RULES = (('neck.', 'xavier'), ('rpn_head.', 0.01),
-               ('bbox_head.shared_fcs', 'xavier'), ('bbox_head.fc_cls', 0.01),
-               ('bbox_head.fc_reg', 0.001), ('conv_offset', 0.0),
+               ('.shared_fcs.', 'xavier'), ('.fc_cls.', 0.01),
+               ('.fc_reg.', 0.001), ('conv_offset', 0.0),
                ('mask_predictor.', 'lecun'), ('.dilation_conv_', 'lecun'),
                ('.merge_conv.', 'lecun'))
 # flax's truncated normal is rescaled to keep the asked-for variance

@@ -96,17 +96,23 @@ class StandardRoIHead(nn.Module):
                                             self.bbox_roi_out))
 
     def _sample_rois(self, proposals, proposal_valid, batch,
-                     priorities=None, generator=None) -> SamplingResult:
+                     priorities=None, generator=None, assigner=None,
+                     add_gt: Optional[bool] = None) -> SamplingResult:
         """Per-image assign + sample -> a result with a leading batch dim;
-        ``priorities`` (B, N) are the sampler's draws."""
+        ``priorities`` (B, N) are the sampler's draws. ``assigner`` and
+        ``add_gt`` (GTs put in front of the proposals) default to the
+        head's."""
+        assigner = assigner or self.assigner
+        if add_gt is None:
+            add_gt = self.add_gt_as_proposals
         samples = []
         for i in range(proposals.shape[0]):
             gts, gvalid = batch['gt_boxes'][i], batch['gt_valid'][i]
             boxes, valid = proposals[i], proposal_valid[i].bool()
-            if self.add_gt_as_proposals:
+            if add_gt:
                 boxes, valid = add_gt_as_proposals(boxes, valid, gts, gvalid)
-            assign = self.assigner(boxes, valid, gts, gvalid,
-                                   batch['gt_labels'][i])
+            assign = assigner(boxes, valid, gts, gvalid,
+                              batch['gt_labels'][i])
             samples.append(self.sampler(
                 assign, boxes, gts,
                 None if priorities is None else priorities[i], generator))
@@ -139,7 +145,8 @@ class StandardRoIHead(nn.Module):
             losses = bbox_head_loss(cls_logits, bbox_deltas, targets,
                                     self.num_classes, self.loss_cls_weight,
                                     self.loss_bbox_weight,
-                                    self.smooth_l1_beta)
+                                    self.smooth_l1_beta,
+                                    self.bbox_head.reg_class_agnostic)
         if self.mask_head is None:
             return losses
         with record_function('mask_branch'):

@@ -7,7 +7,8 @@ is the set that builds, one case per file; every other file must be
 refused with ``NotImplementedError`` naming what is missing (a ROADMAP.md
 item or the key), never another error. A handful of refusals are held to
 their message. The count went from 27 (``ROADMAP.md`` §1, before the box-only
-detectors and the ResNet variants) to 82.
+detectors and the ResNet variants) to 82, and with Cascade R-CNN and HTC
+to 113.
 """
 
 import glob
@@ -20,6 +21,26 @@ torch = pytest.importorskip('torch')
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILDS = (
     'albu_example/mask_rcnn_r50_fpn_albu_1x_coco.py',
+    'cascade_rcnn/cascade_mask_rcnn_r101_caffe_fpn_1x_coco.py',
+    'cascade_rcnn/cascade_mask_rcnn_r101_fpn_1x_coco.py',
+    'cascade_rcnn/cascade_mask_rcnn_r101_fpn_20e_coco.py',
+    'cascade_rcnn/cascade_mask_rcnn_r50_caffe_fpn_1x_coco.py',
+    'cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_coco.py',
+    'cascade_rcnn/cascade_mask_rcnn_r50_fpn_20e_coco.py',
+    'cascade_rcnn/cascade_mask_rcnn_x101_32x4d_fpn_1x_coco.py',
+    'cascade_rcnn/cascade_mask_rcnn_x101_32x4d_fpn_20e_coco.py',
+    'cascade_rcnn/cascade_mask_rcnn_x101_64x4d_fpn_1x_coco.py',
+    'cascade_rcnn/cascade_mask_rcnn_x101_64x4d_fpn_20e_coco.py',
+    'cascade_rcnn/cascade_rcnn_r101_caffe_fpn_1x_coco.py',
+    'cascade_rcnn/cascade_rcnn_r101_fpn_1x_coco.py',
+    'cascade_rcnn/cascade_rcnn_r101_fpn_20e_coco.py',
+    'cascade_rcnn/cascade_rcnn_r50_caffe_fpn_1x_coco.py',
+    'cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py',
+    'cascade_rcnn/cascade_rcnn_r50_fpn_20e_coco.py',
+    'cascade_rcnn/cascade_rcnn_x101_32x4d_fpn_1x_coco.py',
+    'cascade_rcnn/cascade_rcnn_x101_32x4d_fpn_20e_coco.py',
+    'cascade_rcnn/cascade_rcnn_x101_64x4d_fpn_1x_coco.py',
+    'cascade_rcnn/cascade_rcnn_x101_64x4d_fpn_20e_coco.py',
     'cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py',
     'cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py',
     'deepfashion/mask_rcnn_r50_fpn_15e_deepfashion.py',
@@ -50,10 +71,21 @@ BUILDS = (
     'faster_rcnn/faster_rcnn_x101_64x4d_fpn_2x_coco.py',
     'fp16/faster_rcnn_r50_fpn_fp16_1x_coco.py',
     'fp16/mask_rcnn_r50_fpn_fp16_1x_coco.py',
+    'gcnet/cascade_mask_rcnn_x101_32x4d_fpn_syncbn-backbone_1x_coco.py',
     'gcnet/mask_rcnn_r101_fpn_syncbn-backbone_1x_coco.py',
     'gcnet/mask_rcnn_r50_fpn_syncbn-backbone_1x_coco.py',
     'gcnet/mask_rcnn_x101_32x4d_fpn_syncbn-backbone_1x_coco.py',
     'guided_anchoring/ga_fast_r50_caffe_fpn_1x_coco.py',
+    'hrnet/htc_x101_64x4d_fpn_16x1_28e_coco.py',
+    'htc/htc_r101_fpn_20e_coco.py',
+    'htc/htc_r50_fpn_1x_coco.py',
+    'htc/htc_r50_fpn_20e_coco.py',
+    'htc/htc_without_semantic_r50_fpn_1x_coco.py',
+    'htc/htc_x101_32x4d_fpn_16x1_20e_coco.py',
+    'htc/htc_x101_64x4d_fpn_16x1_20e_coco.py',
+    'instaboost/cascade_mask_rcnn_r101_fpn_instaboost_4x_coco.py',
+    'instaboost/cascade_mask_rcnn_r50_fpn_instaboost_4x_coco.py',
+    'instaboost/cascade_mask_rcnn_x101_64x4d_fpn_instaboost_4x_coco.py',
     'instaboost/mask_rcnn_r101_fpn_instaboost_4x_coco.py',
     'instaboost/mask_rcnn_r50_fpn_instaboost_4x_coco.py',
     'instaboost/mask_rcnn_x101_64x4d_fpn_instaboost_4x_coco.py',
@@ -105,7 +137,9 @@ BUILDS = (
 REFUSED = {
     'groie/mask_rcnn_r50_fpn_groie_1x_coco.py': 'GenericRoIExtractor',
     'legacy_1.x/faster_rcnn_r50_fpn_1x_coco_v1.py': '3c',
-    'cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_coco.py': 'item 4',
+    'legacy_1.x/cascade_mask_rcnn_r50_fpn_1x_coco_v1.py': '3c',
+    'htc/htc_x101_64x4d_fpn_dconv_c3-c5_mstrain_400_1400_16x1_20e_coco.py':
+        'item 7',
     'retinanet/retinanet_r50_fpn_1x_coco.py': 'item 6',
     'dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py': 'item 7',
     'hrnet/faster_rcnn_hrnetv2p_w18_1x_coco.py': 'item 8',

@@ -9,12 +9,14 @@ r50_dynamask_1x.py``, or ``--config``) with random N(0, 0.05) weights from
 seed 0, as ``chip_smoke.py`` does, and runs one fp32 image at the first
 canvas of the config's test set (800x1344 for COCO) through
 ``simple_test`` + mask paste in the faithful and the MSM-routed mode (the
-one mode of Mask R-CNN's FCN mask head, ``fcn``, or of RefineMask,
-``refine``). With ``--train``: builds the trainer from the same config
-(its own seeded initialisation) and runs training steps on a seeded
-synthetic batch of the config's ``samples_per_gpu`` images at the first
-canvas of its train set, 20 GTs each (and RefineMask's ``gt_semantic``),
-as ``chip_smoke.py`` phases 5, 8 and 10 do (``apis.config_shapes``).
+one mode of Mask R-CNN's FCN mask head, ``fcn``, of RefineMask,
+``refine``, or of Cascade R-CNN and HTC, ``cascade``; an HTC step's
+batch carries ``gt_semantic_seg``). With ``--train``: builds the trainer
+from the same config (its own seeded initialisation) and runs training
+steps on a seeded synthetic batch of the config's ``samples_per_gpu``
+images at the first canvas of its train set, 20 GTs each (and
+RefineMask's ``gt_semantic``), as ``chip_smoke.py`` phases 5, 8 and 10
+do (``apis.config_shapes``).
 ``--bf16`` runs the mixed-precision policy instead, as ``chip_smoke.py``
 phase 9 does: inference through ``apis.make_test_fn(..., bf16=True)`` (a
 bf16 copy of the model on a bf16 image; the paste opens the same ``paste``
@@ -151,6 +153,7 @@ def _inference(config, card, iters, hw, batch_size, bf16=False):
     import torch
     from dynamask_torch.apis import (inference_detector, init_detector,
                                      make_test_fn)
+    from dynamask_torch.models.cascade_roi_head import CascadeRoIHead
     from dynamask_torch.models.refine_mask_head import RefineRoIHead
     model = init_detector(config, seed=0, init_std=0.05)
     gen = torch.Generator(device='cuda').manual_seed(0)
@@ -161,7 +164,8 @@ def _inference(config, card, iters, hw, batch_size, bf16=False):
              'scale_factor': torch.ones(1, 4, device='cuda')}
     modes = {}
     dynamask = hasattr(model.roi_head, 'dynamic_inference')
-    one = 'refine' if isinstance(model.roi_head, RefineRoIHead) else 'fcn'
+    one = ('refine' if isinstance(model.roi_head, RefineRoIHead) else
+           'cascade' if isinstance(model.roi_head, CascadeRoIHead) else 'fcn')
     for mode, dynamic in ((('faithful', False), ('dynamic', True))
                           if dynamask else ((one, None),)):
         if dynamask:
@@ -178,7 +182,8 @@ def _inference(config, card, iters, hw, batch_size, bf16=False):
 
 def _train(config, card, iters, hw, batch_size, bf16=False):
     import torch
-    from dynamask_torch.apis import init_trainer, synthetic_batch
+    from dynamask_torch.apis import (init_trainer, semantic_seg_shape,
+                                     synthetic_batch)
     from dynamask_torch.engine import make_train_step
     # an epoch of COCO train2017 (117266 annotated images) at 4 per step
     model, opt = init_trainer(config, steps_per_epoch=117266 // 4, seed=0)
@@ -187,7 +192,8 @@ def _train(config, card, iters, hw, batch_size, bf16=False):
                             crop_size=128,
                             num_classes=model.roi_head.num_classes,
                             device='cuda',
-                            with_semantic=model.roi_head.with_semantic)
+                            with_semantic=model.roi_head.with_semantic,
+                            semantic_seg=semantic_seg_shape(model))
     step = make_train_step(model, opt, torch.bfloat16 if bf16 else None)
     gen = torch.Generator(device='cuda').manual_seed(0)
     for _ in range(2):
