@@ -36,8 +36,11 @@ before the last line is printed:
    on 1024x2048 and at LVIS's 300, where at C = 1 it cuts each RoI into
    bands), and K2 and K4 at HTC's semantic crops of a step (phase 12's:
    the 100x168x256 stride-8 plane of 4 images, ratio 1, 2048 RoIs at 7x7
-   and 512 at 14x14), on lines of their own kept out of the ``kernels``
-   line's sums; K1 and K3 also at edge shapes
+   and 512 at 14x14), and K2 and K4 at GRoIE's all-level crops and
+   Double-Head's two box crops (phase 13's: GRoIE's box extract of an
+   image, 1000 RoIs x 4 levels, and of a step, 2048 x 4, its mask extract
+   of a step, 512 x 4 at 14x14, Double-Head's 2048 RoIs of a step and the
+   same enlarged 1.3x, in one launch), on lines of their own kept out of the ``kernels`` line's sums; K1 and K3 also at edge shapes
    (ragged bands, one deform group, channels per group not a multiple of
    4, padding and dilation 2, windows 1 and 2, one RoI, a misaligned base)
    with random, zero and exact-edge offsets, K2 and K4 at theirs (C not a
@@ -52,7 +55,9 @@ before the last line is printed:
    Faster R-CNN, two toy Mask R-CNNs at depth 50 on the ResNeXt-32x4d
    and the caffe-style backbones, a toy Cascade Mask R-CNN and a toy HTC
    (its semantic head at 32 channels, ``gt_semantic_seg`` in the step's
-   batch, every stage's sampler draws given) on the GPU (kernels) against
+   batch, every stage's sampler draws given), a toy GN+WS Mask R-CNN (GN
+   of 32 groups throughout, ``Shared4Conv1FCBBoxHead``), a toy GRoIE Mask
+   R-CNN and a toy Double-Head Faster R-CNN on the GPU (kernels) against
    the same models on the CPU (plain versions), at inference and for one
    training step (losses and per-parameter gradients);
 4. drive the inference path: DynaMask R50-FPN (``configs/dynamask/coco/
@@ -198,7 +203,27 @@ before the last line is printed:
    phase 6's eval drive and loader-batch step on HTC (K2 8 an image, K2 12
    and K4 12 the step; the loaders give no ``gt_semantic_seg``, as the
    JAX package's give none). It prints ms/img, ms/step and peak memory of
-   each config, the phase's seconds and the whole run's.
+   each config and the phase's seconds;
+13. drive the two-stage family's options, each from its config file,
+   unchanged, at full width at phases 4-5's protocol:
+   ``configs/gn+ws/mask_rcnn_r50_fpn_gn_ws-all_2x_coco.py`` (GN and ConvWS
+   in the backbone, GN on the FPN, ``Shared4Conv1FCBBoxHead`` and the mask
+   head with GN; median of 3 images, 2 steps) and its X101-32x4d file
+   (one of each), ``configs/groie/mask_rcnn_r50_fpn_groie_1x_coco.py``
+   (every RoI pooled from all four levels, one K2 launch an extract;
+   median of 3 images, 2 steps; then phase 6's eval drive and loader-batch
+   step), ``configs/double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py`` (a
+   second box crop of each RoI enlarged 1.3x, in the same K2 launch; one
+   of each),
+   ``configs/carafe/mask_rcnn_r50_fpn_carafe_1x_coco.py`` (one of each),
+   ``configs/faster_rcnn/faster_rcnn_r50_fpn_giou_1x_coco.py`` and
+   ``..._ohem_1x_coco.py`` (a step each) and ``..._soft_nms_1x_coco.py``
+   (an image); K2 2 an image and K2 2 + K4 2 a step on the Mask R-CNNs,
+   K2 1 and K2 1 + K4 1 on the Faster R-CNNs and Double-Head; then the
+   Soft-NMS config's ``multiclass_nms`` call on one image's scores, held
+   against the same call on the CPU and timed beside greedy NMS on the
+   same inputs. It prints ms/img, ms/step and
+   peak memory of each config, the phase's seconds and the whole run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
@@ -206,9 +231,10 @@ validations and the overfit loop, and in phase 8 each configuration's
 inference modes, its training and the two evaluation paths, in phase 9
 the fp32 and bf16 drives, in phase 10 each RefineMask config's image
 and steps, the loader-batch step and the eval drive, in phase 11 each
-config's image and steps and the RPN, Fast R-CNN and VOC eval drives, and
-in phase 12 each config's image and steps and HTC's eval drive and
-loader-batch step)
+config's image and steps and the RPN, Fast R-CNN and VOC eval drives, in
+phase 12 each config's image and steps and HTC's eval drive and
+loader-batch step, and in phase 13 each config's image and steps and
+GRoIE's eval drive and loader-batch step)
 the kernels' launch
 counters are zeroed just before it
 and read just after (the loop's
@@ -216,7 +242,7 @@ steps and its validations in turns), and every kernel of that path must
 have launched in it: K1 and K2 at inference, in the eval loops and in the
 loop's validations, K5 through both entry points in its check, K1-K4 in
 training; behind Mask R-CNN's FCN head, which runs no DCN, K2 at
-inference and K2 and K4 in training; phase 6 and phases 8-12 hold each
+inference and K2 and K4 in training; phase 6 and phases 8-13 hold each
 drive to its exact counts, every other kernel at 0 (the RPN's eval drive
 launches none).
 
@@ -392,17 +418,8 @@ def _crops(gen, dev, images, n_box, n_mask, place=None, canvas=IMAGE_HW):
         feats = [torch.randn(images, a, b, c, generator=gen, device=dev)
                  for a, b in shapes]
         r, b = placed(n)
-        flat, offsets = ra._flat_planes(feats)
-        lvl = ra.map_roi_levels(r, 4)
-        hs = torch.tensor([a for a, _ in shapes], device=dev,
-                          dtype=torch.int32)[lvl]
-        ws = torch.tensor([b for _, b in shapes], device=dev,
-                          dtype=torch.int32)[lvl]
-        base = torch.tensor(offsets, device=dev)[lvl] + b * (
-            hs.long() * ws.long())
-        sc = (1.0 / torch.tensor([4., 8., 16., 32.], device=dev))[lvl]
-        return (flat, r, base.contiguous(), hs.contiguous(), ws.contiguous(),
-                sc.contiguous()), dict(out_size=p, sampling_ratio=ratio)
+        return (ra.multilevel_crop_args(feats, r, b, (4, 8, 16, 32)),
+                dict(out_size=p, sampling_ratio=ratio))
 
     def single(n, p, c, plane, ratio):
         a, b = plane
@@ -558,7 +575,10 @@ PORTRAIT = 'portrait'
 CONFIG = 'config'                 # the shapes of phase 8's configurations
 REFINE = 'refine'                 # RefineMask's crops of P2 (phase 10)
 HTC = 'htc'                       # HTC's semantic crops of a step (phase 12)
-OFF_ROW = (CLUSTERED, PORTRAIT, CONFIG, REFINE, HTC)   # out of the row sums
+# GRoIE's all-level and Double-Head's two box crops (phase 13)
+TWO_STAGE = 'two_stage'
+OFF_ROW = (CLUSTERED, PORTRAIT, CONFIG, REFINE, HTC,
+           TWO_STAGE)                  # out of the row sums
 # RefineMask's P2 crops (stride 4, sampling ratio 2) per stage: the
 # transformed semantic features (C = 256, 128, 64 at 14, 28, 56) and the
 # one-channel semantic mask at the same sizes; (P, C)
@@ -629,6 +649,54 @@ def htc_crops(dev):
             dict(out_size=p, sampling_ratio=1))
 
 
+def two_stage_crops(dev, infer=True):
+    """K2's arguments at the crops phase 13 puts on K2/K4: GRoIE's
+    all-level box extract of an image (1000 proposals x 4 levels at 7x7,
+    one flat crop of 4000 rows, with ``infer``), its box extract of a step
+    (2048 sampled RoIs x 4 levels) and its mask extract of a step (512
+    positive slots x 4 levels at 14x14), and Double-Head's box crops of a
+    step in one launch (the 2048 RoIs, then the same enlarged 1.3x, each
+    routed by its own size), over P2-P5 of the 800x1344 canvas at 256 channels, the step's
+    RoIs placed as the training step places them
+    (:func:`clustered_place`); from a generator of their own."""
+    import torch
+    from dynamask_torch.models.double_head import scale_rois
+    from dynamask_torch.ops import roi_align as ra
+    gen = torch.Generator(device=dev).manual_seed(18)
+    h, w = IMAGE_HW
+    strides = (4, 8, 16, 32)
+
+    def levels(images):
+        return [torch.randn(images, h // s, w // s, 256, generator=gen,
+                            device=dev) for s in strides]
+
+    if infer:
+        feats = levels(1)
+        rois, img = synthetic_rois(gen, dev, 1000, 1, IMAGE_HW)
+        yield (f'{TWO_STAGE} groie infer box 4x1000x7x7x256 r2',
+               ra.generic_crop_args(feats, rois, img, strides),
+               dict(out_size=7, sampling_ratio=2))
+        del feats
+    feats = levels(TRAIN_IMAGES)
+    place = clustered_place(gen, dev, TRAIN_IMAGES, N_POS_TRAIN)
+
+    def synthetic(k):
+        return synthetic_rois(gen, dev, k, TRAIN_IMAGES, IMAGE_HW)
+
+    for n, p, what in ((N_BOX_TRAIN, 7, 'box'), (N_POS_TRAIN, 14, 'mask')):
+        rois, img = place(n, synthetic)
+        yield (f'{TWO_STAGE} groie train {what} 4x{n}x{p}x{p}x256 r2',
+               ra.generic_crop_args(feats, rois, img, strides),
+               dict(out_size=p, sampling_ratio=2))
+    rois, img = place(N_BOX_TRAIN, synthetic)
+    yield (f'{TWO_STAGE} double_head train box + enlarged box '
+           f'2x{N_BOX_TRAIN}x7x7x256 r2',
+           ra.multilevel_crop_args(
+               feats, torch.cat([rois, scale_rois(rois, 1.3)]).contiguous(),
+               img.repeat(2), strides),
+           dict(out_size=7, sampling_ratio=2))
+
+
 def config_crops(dev, train=False):
     """The crops of the other configurations where they differ from the
     flagship's: LVIS inference (300 dets), Cityscapes inference on the
@@ -675,9 +743,9 @@ def k2_cases(gen, dev):
     slots), then at the training crops with clustered RoIs, at the
     inference crops on the portrait canvas, at phase 8's and at
     RefineMask's P2 crops (phase 10) of its training step and of each
-    config's inference, and at HTC's semantic crops of a step (phase 12),
-    each from a generator of its own so the other cases keep their
-    inputs."""
+    config's inference, at HTC's semantic crops of a step (phase 12), and
+    at GRoIE's and Double-Head's crops (phase 13), each from a generator
+    of its own so the other cases keep their inputs."""
     import torch
     for case, args, kw in _crops(gen, dev, 1, 1000, N_DETS):
         yield 'infer ' + case, args, kw
@@ -694,6 +762,7 @@ def k2_cases(gen, dev):
     for drive in REFINE_DRIVES:
         yield from refine_crops(dev, *drive)
     yield from htc_crops(dev)
+    yield from two_stage_crops(dev)
 
 
 def k4_args(gen, args, kw):
@@ -710,8 +779,9 @@ def k4_args(gen, args, kw):
 def k4_cases(gen, dev):
     """K4 at the training crops (4 images, 2048 sampled RoIs, 512 positive
     slots), with a random crop gradient, then with clustered RoIs, at the
-    Cityscapes step's crops, at RefineMask's P2 crops of a step and at
-    HTC's semantic crops of a step."""
+    Cityscapes step's crops, at RefineMask's P2 crops of a step, at HTC's
+    semantic crops of a step, and at GRoIE's and Double-Head's crops of a
+    step."""
     import torch
     for case, args, kw in _crops(gen, dev, TRAIN_IMAGES, N_BOX_TRAIN,
                                  N_POS_TRAIN):
@@ -731,6 +801,10 @@ def k4_cases(gen, dev):
         del args
     cgen = torch.Generator(device=dev).manual_seed(17)
     for case, args, kw in htc_crops(dev):
+        yield case, k4_args(cgen, args, kw), kw
+        del args
+    cgen = torch.Generator(device=dev).manual_seed(19)
+    for case, args, kw in two_stage_crops(dev, infer=False):
         yield case, k4_args(cgen, args, kw), kw
         del args
 
@@ -1301,11 +1375,19 @@ TOY_CONFIGS = {'dynamask': FLAGSHIP, 'mask_rcnn': MASK_RCNN,
                                      'mask_rcnn_r50_caffe_fpn_1x_coco.py'),
                'cascade': os.path.join(ROOT, 'configs/cascade_rcnn/'
                                        'cascade_mask_rcnn_r50_fpn_1x_coco.py'),
-               'htc': os.path.join(ROOT, 'configs/htc/htc_r50_fpn_1x_coco.py')}
+               'htc': os.path.join(ROOT, 'configs/htc/htc_r50_fpn_1x_coco.py'),
+               'gn_ws': os.path.join(ROOT, 'configs/gn+ws/'
+                                     'mask_rcnn_r50_fpn_gn_ws-all_2x_coco.py'),
+               'groie': os.path.join(ROOT, 'configs/groie/'
+                                     'mask_rcnn_r50_fpn_groie_1x_coco.py'),
+               'double_head': os.path.join(
+                   ROOT, 'configs/double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py')}
 # the toys whose RoI head is a cascade of stages (phase 12)
 CASCADE_TOYS = ('cascade', 'htc')
 # the toys at depth 50, the ResNeXt and caffe backbones' own blocks
 DEEP_TOYS = ('x101', 'caffe')
+# the toys of the two-stage family's options (phase 13)
+TWO_STAGE_TOYS = ('gn_ws', 'groie', 'double_head')
 
 
 def toy_cfg(kind='dynamask'):
@@ -1318,7 +1400,10 @@ def toy_cfg(kind='dynamask'):
     configs at depth 50, their FCN heads as the Mask R-CNN toy's;
     ``'cascade'`` and ``'htc'``: from the Cascade Mask R-CNN and HTC
     configs, each stage's box and mask head as the Mask R-CNN toy's, HTC's
-    semantic head at 32 channels."""
+    semantic head at 32 channels; ``'gn_ws'``, ``'groie'`` and
+    ``'double_head'``: from the GN+WS and GRoIE Mask R-CNN and the
+    Double-Head Faster R-CNN configs (GN of 32 groups throughout, the
+    shared convs at 32 channels; Double-Head's tower at 64)."""
     from dynamask_torch.utils import Config
     cfg = Config.fromfile(TOY_CONFIGS[kind])
     m = cfg.model
@@ -1338,10 +1423,13 @@ def toy_cfg(kind='dynamask'):
         head.in_channels = 32
         head.fc_out_channels = 64
         head.num_classes = 8
+        if 'conv_out_channels' in head:
+            head.conv_out_channels = 64 if kind == 'double_head' else 32
     mh = rh.mask_head
-    if kind == 'faster_rcnn':
+    if kind in ('faster_rcnn', 'double_head'):
         pass
-    elif kind in ('mask_rcnn', 'cascade', 'htc', *DEEP_TOYS):
+    elif kind in ('mask_rcnn', 'cascade', 'htc', 'gn_ws', 'groie',
+                  *DEEP_TOYS):
         for head in (mh if kind == 'htc' else [mh]):
             head.num_convs = 2
             head.in_channels = head.conv_out_channels = 32
@@ -1369,8 +1457,8 @@ def toy_cfg(kind='dynamask'):
 def check_toy_against_cpu(report):
     """Phase 3a: inference, the port on the GPU against itself on the CPU:
     the toy DynaMask in both modes, then the toy Mask R-CNN, RefineMask,
-    Faster R-CNN, ResNeXt and caffe Mask R-CNNs, Cascade Mask R-CNN and
-    HTC."""
+    Faster R-CNN, ResNeXt and caffe Mask R-CNNs, Cascade Mask R-CNN, HTC,
+    and the GN+WS, GRoIE and Double-Head toys."""
     import torch
     from dynamask_torch.models import build_detector
     gen = torch.Generator().manual_seed(1)
@@ -1381,7 +1469,8 @@ def check_toy_against_cpu(report):
                           ('mask_rcnn', False), ('refinemask', False),
                           ('faster_rcnn', False), ('x101', False),
                           ('caffe', False), ('cascade', False),
-                          ('htc', False)):
+                          ('htc', False), ('gn_ws', False), ('groie', False),
+                          ('double_head', False)):
         cfg = toy_cfg(name if name in TOY_CONFIGS else 'dynamask')
         if name in ('faithful', 'dynamic'):
             cfg.model.roi_head.dynamic_inference = dynamic
@@ -3342,6 +3431,149 @@ def run_cascades(report, card):
     return launches
 
 
+# -- phase 13: the two-stage family's options --------------------------------
+
+GN_WS_CONFIG = os.path.join(ROOT, 'configs/gn+ws/'
+                            'mask_rcnn_r50_fpn_gn_ws-all_2x_coco.py')
+GROIE_CONFIG = os.path.join(ROOT, 'configs/groie/'
+                            'mask_rcnn_r50_fpn_groie_1x_coco.py')
+SOFT_NMS_CONFIG = os.path.join(ROOT, 'configs/faster_rcnn/'
+                               'faster_rcnn_r50_fpn_soft_nms_1x_coco.py')
+# the drives take phase 11's launches (one box extract; Double-Head's
+# takes its cls crop and its enlarged reg crop in one) or Mask R-CNN's (box
+# + mask extract), GRoIE's all-level extracts one launch each
+# (name, config, timed repeats of an image (None: no image), timed steps
+# (None: no step), an image's launches, a step's)
+TWO_STAGE_CELLS = (
+    ('gn_ws', GN_WS_CONFIG, 3, 2, MASK_RCNN_INFER_COUNTS,
+     MASK_RCNN_STEP_COUNTS),
+    ('gn_ws_x101', os.path.join(
+        ROOT, 'configs/gn+ws/mask_rcnn_x101_32x4d_fpn_gn_ws-all_2x_coco.py'),
+     1, 1, MASK_RCNN_INFER_COUNTS, MASK_RCNN_STEP_COUNTS),
+    ('groie', GROIE_CONFIG, 3, 2, MASK_RCNN_INFER_COUNTS,
+     MASK_RCNN_STEP_COUNTS),
+    ('double_head', os.path.join(
+        ROOT, 'configs/double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py'),
+     1, 1, BOX_INFER_COUNTS, BOX_STEP_COUNTS),
+    ('carafe', os.path.join(
+        ROOT, 'configs/carafe/mask_rcnn_r50_fpn_carafe_1x_coco.py'),
+     1, 1, MASK_RCNN_INFER_COUNTS, MASK_RCNN_STEP_COUNTS),
+    ('giou', os.path.join(
+        ROOT, 'configs/faster_rcnn/faster_rcnn_r50_fpn_giou_1x_coco.py'),
+     None, 1, BOX_INFER_COUNTS, BOX_STEP_COUNTS),
+    ('ohem', os.path.join(
+        ROOT, 'configs/faster_rcnn/faster_rcnn_r50_fpn_ohem_1x_coco.py'),
+     None, 1, BOX_INFER_COUNTS, BOX_STEP_COUNTS),
+    ('soft_nms', SOFT_NMS_CONFIG, 1, None, BOX_INFER_COUNTS, None),
+)
+
+
+# the card's Soft-NMS dets against the CPU's: |a - b| <= atol + rtol |b|
+# (the boxes, up to 1344 px, are gathered, not computed; the scores decay
+# by IoUs of fp32 boxes offset by up to 80 x 1345 px)
+SOFT_NMS_ATOL, SOFT_NMS_RTOL = 1e-5, 1e-6
+
+
+def time_soft_nms(report, card):
+    """The Soft-NMS config's test NMS on the card: its box head's decoded
+    boxes and scores of one image (1000 proposals x 80 classes, random
+    weights N(0, 0.05), seed 0) through ``multiclass_nms`` with Soft-NMS
+    (100 selection steps on the device) and with greedy NMS, each timed
+    with CUDA events on the same inputs; both must give finite dets, and
+    the card's Soft-NMS must give the CPU's on the same arguments: labels
+    and validity exactly, scores and boxes within ``SOFT_NMS_ATOL`` and
+    ``SOFT_NMS_RTOL``."""
+    import torch
+    import dynamask_torch.models.bbox_head as bh
+    from dynamask_torch.apis import inference_detector, init_detector
+    model = init_detector(SOFT_NMS_CONFIG, device=DEVICE, seed=0,
+                          init_std=0.05)
+    h, w = IMAGE_HW
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    batch = {'image': torch.randn(1, h, w, 3, generator=gen, device=DEVICE),
+             'img_shape': torch.tensor([[h, w]], dtype=torch.float32,
+                                       device=DEVICE),
+             'scale_factor': torch.ones(1, 4, device=DEVICE)}
+    seen, nms = [], bh.multiclass_nms
+    bh.multiclass_nms = lambda *a, **k: seen.append((a, k)) or nms(*a, **k)
+    try:
+        inference_detector(model, batch)
+    finally:
+        bh.multiclass_nms = nms
+    (args, kw), = seen
+    if kw.get('nms_type') != 'soft_nms':
+        raise RuntimeError(f'soft_nms: the test NMS was called with {kw}')
+    greedy_kw = {k: v for k, v in kw.items()
+                 if k not in ('nms_type', 'sigma', 'min_score')}
+    soft = nms(*args, **kw)
+    greedy = nms(*args, **greedy_kw)
+    for what, out in (('soft', soft), ('greedy', greedy)):
+        if not torch.isfinite(out[0]).all():
+            raise RuntimeError(f'soft_nms: non-finite {what} dets')
+    cpu = nms(*[a.cpu() if torch.is_tensor(a) else a for a in args],
+              **{k: v.cpu() if torch.is_tensor(v) else v
+                 for k, v in kw.items()})
+    for what, a, b in zip(('labels', 'validity'), soft[1:], cpu[1:]):
+        if not torch.equal(a.cpu(), b):
+            raise RuntimeError(f'soft_nms: the card\'s {what} differ from '
+                               'the CPU\'s')
+    diff = (soft[0].cpu() - cpu[0]).abs()
+    soft_err = diff.max().item()
+    if not (diff <= SOFT_NMS_ATOL + SOFT_NMS_RTOL * cpu[0].abs()).all():
+        raise RuntimeError(f'soft_nms: dets differ from the CPU\'s by up to '
+                           f'{soft_err} (atol {SOFT_NMS_ATOL}, rtol '
+                           f'{SOFT_NMS_RTOL})')
+    soft_ms = cuda_ms(lambda: nms(*args, **kw), iters=10)
+    greedy_ms = cuda_ms(lambda: nms(*args, **greedy_kw), iters=10)
+    boxes, scores = args[:2]
+    cands = int((scores > args[2]).sum())
+    print(f'  soft_nms: multiclass_nms on one image\'s {tuple(scores.shape)} '
+          f'scores ({cands} over score_thr {args[2]}): Soft-NMS '
+          f'{soft_ms:.3f} ms ({int(soft[2].sum())} dets), greedy NMS '
+          f'{greedy_ms:.3f} ms ({int(greedy[2].sum())} dets), device time '
+          f'by CUDA events; against the CPU: labels and validity equal, '
+          f'dets max abs err {soft_err:.3g} [{card}]')
+    report['soft_nms_timing'] = dict(soft_ms=soft_ms, greedy_ms=greedy_ms,
+                                     candidates=cands,
+                                     max_abs_err_vs_cpu=soft_err,
+                                     soft_dets=int(soft[2].sum()),
+                                     greedy_dets=int(greedy[2].sum()))
+    del model
+    torch.cuda.empty_cache()
+
+
+def run_two_stage(report, card):
+    """Phase 13: GN+WS Mask R-CNN (R50 and X101-32x4d), GRoIE Mask R-CNN,
+    Double-Head Faster R-CNN, CARAFE Mask R-CNN, and the GIoU, OHEM and
+    Soft-NMS Faster R-CNNs, each from its config file, unchanged, at full
+    width: one image at the config's test canvas (phase 4's weights
+    protocol) and steps at its train batch (4x800x1344, 20 GTs an image),
+    each a counted warm-up held to its exact launches, then timed repeats;
+    then phase 6's eval drive on GRoIE, and the Soft-NMS call against
+    greedy NMS on the same dets."""
+    from dynamask_torch.apis import config_shapes
+    launches = {}
+    report['two_stage'] = {'inference': [], 'train': []}
+    for name, path, n_inf, n_steps, infer, step in TWO_STAGE_CELLS:
+        test_hw, images, train_hw = config_shapes(path)
+        if n_inf:
+            got, recs = run_config_inference(
+                report, card, name, path, test_hw, (('infer', None, infer),),
+                repeats=n_inf)
+            launches.update(got)
+            report['two_stage']['inference'] += recs
+        if n_steps:
+            got, rec = run_config_train(report, card, name, path, images,
+                                        train_hw, step, repeats=n_steps)
+            launches.update(got)
+            report['two_stage']['train'].append(rec)
+    launches.update(run_eval_path(report, card, GROIE_CONFIG,
+                                  MASK_RCNN_INFER_COUNTS,
+                                  MASK_RCNN_STEP_COUNTS, 'groie_'))
+    time_soft_nms(report, card)
+    return launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -3383,7 +3615,7 @@ def main() -> int:
     check_toy_train_against_cpu(report)
     check_toy_train_against_cpu(report, 'mask_rcnn')
     check_toy_train_against_cpu(report, 'refinemask')
-    for kind in ('faster_rcnn', *DEEP_TOYS, *CASCADE_TOYS):
+    for kind in ('faster_rcnn', *DEEP_TOYS, *CASCADE_TOYS, *TWO_STAGE_TOYS):
         check_toy_train_against_cpu(report, kind)
     print(f'phase 4: flagship inference [{card}]')
     launches = run_inference_path(report, card)
@@ -3432,8 +3664,14 @@ def main() -> int:
     t12 = time.perf_counter()
     launches.update(run_cascades(report, card))
     report['phase12_s'] = time.perf_counter() - t12
+    print(f'  phase 12: {report["phase12_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 13: the two-stage family\'s options [{card}]')
+    t13 = time.perf_counter()
+    launches.update(run_two_stage(report, card))
+    report['phase13_s'] = time.perf_counter() - t13
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 12: {report["phase12_s"]:.1f} s; the whole run '
+    print(f'  phase 13: {report["phase13_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s [{card}]')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}

@@ -13,7 +13,11 @@ fp32's exponent range).
 * training (``engine.train.make_train_step(..., compute_dtype=
   torch.bfloat16)``) casts the fp32 parameters inside the differentiated
   function, so their gradients land on the fp32 masters; the BatchNorm
-  running statistics stay fp32, as ``batch_stats`` do in JAX.
+  running statistics stay fp32, as ``batch_stats`` do in JAX;
+* a GroupNorm (``models.layers.GroupNorm``: the GN backbones, FPN and
+  heads) takes its statistics and normalises in fp32, its bf16 scale and
+  bias widened, and rounds to bf16 once, as flax's GroupNorm does on bf16
+  inputs and parameters.
 """
 
 from __future__ import annotations

@@ -10,7 +10,9 @@ RefineMask leaves that the JAX importer has no rule for (the semantic
 tower and logits, ``semantic_transform_out``, the ``MultiBranchFusion``
 convs, ``SimpleRefineMaskHead``'s per-stage logits), and the cascade
 heads' (each stage's box and mask head, ``conv_res``, HTC's semantic
-head), which that importer skips:
+head), and the two-stage options' (the FPN's and the heads' GroupNorms,
+the box head's shared convs, CARAFE's encoders, Double-Head's branches),
+which that importer skips (ROADMAP.md queue 3, 3d, 3o, 3t):
 
 * conv kernels HWIO -> OIHW (the DCN leaf is named ``weight``, and a
   ``ClassSelectConv1x1`` is a ``(1, 1, C, ncls)`` kernel); the FCN mask
@@ -69,6 +71,13 @@ def mmdet_key(key: str) -> Optional[Tuple[List[str], str, Dict]]:
          lambda m: (['neck', f'lateral_{m[1]}'], m[2], {})),
         (r'^neck\.fpn_convs\.(\d+)\.conv\.(weight|bias)$',
          lambda m: (['neck', f'fpn_conv_{m[1]}'], m[2], {})),
+        # the FPN's GroupNorms (JAX fpn.py:37-44), FPN_CARAFE's upsamplers
+        # (JAX carafe.py:88-93)
+        (r'^neck\.(lateral|fpn)_convs\.(\d+)\.gn\.(weight|bias)$',
+         lambda m: (['neck', f'{m[1]}_gn_{m[2]}'], m[3], {})),
+        (r'^neck\.upsample_modules\.(\d+)\.(channel_compressor|'
+         r'content_encoder)\.(weight|bias)$',
+         lambda m: (['neck', f'upsample_{m[1]}', m[2]], m[3], {})),
         (r'^rpn_head\.(rpn_conv|rpn_cls|rpn_reg)\.(weight|bias)$',
          lambda m: (['rpn_head', m[1]], m[2], {})),
         (r'^roi_head\.bbox_head\.shared_fcs\.(\d+)\.(weight|bias)$',
@@ -76,12 +85,37 @@ def mmdet_key(key: str) -> Optional[Tuple[List[str], str, Dict]]:
                     {'flatten_chw': 7} if m[1] == '0' else {})),
         (r'^roi_head\.bbox_head\.(fc_cls|fc_reg)\.(weight|bias)$',
          lambda m: (['roi_head', 'bbox_head', m[1]], m[2], {})),
+        # Shared4Conv1FC's convs and GroupNorms (JAX bbox_head.py:49-56)
+        (r'^roi_head\.bbox_head\.shared_convs\.(\d+)\.(conv|gn)\.'
+         r'(weight|bias)$',
+         lambda m: (['roi_head', 'bbox_head', f'shared_{m[2]}_{m[1]}'],
+                    m[3], {})),
+        # Double-Head (JAX double_head.py): the residual block, the
+        # Bottleneck tower, the fc branch
+        (r'^roi_head\.bbox_head\.res_block\.(conv1|conv2|conv_identity)\.'
+         r'(conv|bn)\.(.+)$',
+         lambda m: (['roi_head', 'bbox_head', 'res_block',
+                     m[1] if m[2] == 'conv' else
+                     {'conv1': 'bn1', 'conv2': 'bn2',
+                      'conv_identity': 'bn_identity'}[m[1]]], m[3], {})),
+        (r'^roi_head\.bbox_head\.conv_branch\.(\d+)\.(conv\d|bn\d)\.(.+)$',
+         lambda m: (['roi_head', 'bbox_head', f'conv_branch_{m[1]}', m[2]],
+                    m[3], {})),
+        (r'^roi_head\.bbox_head\.fc_branch\.(\d+)\.(weight|bias)$',
+         lambda m: (['roi_head', 'bbox_head', f'fc_branch_{m[1]}'], m[2],
+                    {'flatten_chw': 7} if m[1] == '0' else {})),
         # Mask R-CNN's FCN mask head (JAX pretrained.py:148-158)
         (r'^roi_head\.mask_head\.convs\.(\d+)\.conv\.(weight|bias)$',
          lambda m: (['roi_head', 'mask_head', f'conv_{m[1]}'], m[2], {})),
         (r'^roi_head\.mask_head\.upsample\.(weight|bias)$',
          lambda m: (['roi_head', 'mask_head', 'upsample'], m[1],
                     {'deconv': True})),
+        # its GroupNorms and CARAFE upsampler (JAX fcn_mask_head.py:36-50)
+        (r'^roi_head\.mask_head\.convs\.(\d+)\.gn\.(weight|bias)$',
+         lambda m: (['roi_head', 'mask_head', f'gn_{m[1]}'], m[2], {})),
+        (r'^roi_head\.mask_head\.upsample\.(channel_compressor|'
+         r'content_encoder)\.(weight|bias)$',
+         lambda m: (['roi_head', 'mask_head', 'upsample', m[1]], m[2], {})),
         (r'^roi_head\.mask_head\.conv_logits\.(weight|bias)$',
          lambda m: (['roi_head', 'mask_head', 'conv_logits'], m[1], {})),
         (r'^roi_head\.mask_head\.instance_convs\.(\d+)\.conv\.(weight|bias)$',

@@ -1,11 +1,13 @@
 """Build the port's detector from a reference-schema config (port of the
 parts of ``dynamask_tpu/models/builder.py`` (the backbones :28-86, the
-two-stage RoI head :233-360, the RefineMask branch :451-494, the cascade
-heads :531-580, ``build_detector`` :1131-1214), ``dynamask_tpu/models/
+FPN and ``FPN_CARAFE`` :178-204, the two-stage RoI head with its box
+heads, losses, extractors, samplers, test NMS and Double-Head :233-420,
+the RefineMask branch :451-494, the cascade heads :531-580,
+``build_detector`` :1131-1214), ``dynamask_tpu/models/
 dynamask_roi_head.py:build_dynamask_roi_head`` (:422-464) and
 ``dynamask_tpu/models/htc.py:build_htc_roi_head`` (:385-460) that the
-Mask R-CNN, Faster / Fast R-CNN, RPN, DynaMask, RefineMask, Cascade R-CNN
-and HTC configs use).
+Mask R-CNN, Faster / Fast R-CNN, RPN, DynaMask, RefineMask, Cascade R-CNN,
+HTC and the two-stage option configs use).
 
 Every key that changes the model is read, or refused with the ROADMAP.md
 item (§1) where its port is queued: a config the port builds computes the
@@ -26,8 +28,11 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.registry import BACKBONES, DETECTORS, NECKS
-from .bbox_head import Shared2FCBBoxHead
+from .bbox_head import (ConvFCBBoxHead, Shared2FCBBoxHead,
+                        Shared4Conv1FCBBoxHead)
+from .carafe import FPN_CARAFE
 from .cascade_roi_head import CascadeRoIHead
+from .double_head import DoubleConvFCBBoxHead, DoubleHeadRoIHead
 from .dynamask_head import DynaMaskHead, MaskPre
 from .dynamask_roi_head import DynaMaskRoIHead
 from .fcn_mask_head import FCNMaskHead
@@ -60,24 +65,30 @@ LEGACY = 'ROADMAP.md queue 3, 3c: the JAX package drops it'
 BACKBONE_ITEMS = {'HRNet': 8, 'RegNet': 8, 'Res2Net': 8,
                   'DetectoRS_ResNet': 8, 'DetectoRS_ResNeXt': 8,
                   'SSDVGG': 6, 'HourglassNet': 9}
+# the keys the JAX package drops or fixes in the two-stage family's options
+# (ROADMAP.md queue 3, 3w): refused at any other value
+DROPPED = 'ROADMAP.md queue 3, 3w: the JAX package drops it'
 NECK_ITEMS = {'PAFPN': 8, 'NASFPN': 8, 'BFP': 8, 'HRFPN': 8, 'RFP': 8,
-              'NASFCOS_FPN': 6, 'FPN_CARAFE': 9}
+              'NASFCOS_FPN': 6}
 DETECTOR_ITEMS = {'GridRCNN': 9, 'MaskScoringRCNN': 9, 'PointRend': 9,
                   'CornerNet': 9}
-ROI_HEAD_ITEMS = {'PISARoIHead': 9, 'DoubleHeadRoIHead': 9,
-                  'DynamicRoIHead': 9, 'GridRoIHead': 9,
+ROI_HEAD_ITEMS = {'PISARoIHead': 9, 'DynamicRoIHead': 9, 'GridRoIHead': 9,
                   'MaskScoringRoIHead': 9, 'PointRendRoIHead': 9,
-                  'TridentRoIHead': 9}
+                  'TridentRoIHead': 9, 'PointRefineRoIHead': 9}
+# the typed samplers the port lacks, by item (OHEM draws as random, 3s)
+SAMPLER_ITEMS = {'CombinedSampler': 8, 'InstanceBalancedPosSampler': 8,
+                 'IoUBalancedNegSampler': 8, 'ScoreHLRSampler': 9}
 
 
-def _check_keys(what: str, cfg: dict, read, defaults=None) -> None:
+def _check_keys(what: str, cfg: dict, read, defaults=None,
+                item='no item yet') -> None:
     """Refuse a key of ``cfg`` the port does not read, unless it holds the
-    value the port computes with anyway (``defaults``)."""
+    value the port computes with anyway (``defaults``), naming ``item``."""
     defaults = defaults or {}
     extra = sorted(k for k, v in cfg.items() if k not in read and not (
         k in defaults and v == defaults[k]))
     if extra:
-        raise not_ported(f'{what} keys {extra}', 'no item yet')
+        raise not_ported(f'{what} keys {extra}', item)
 
 
 def _check_loss(what: str, loss: dict, types) -> dict:
@@ -89,13 +100,20 @@ def _check_loss(what: str, loss: dict, types) -> dict:
     return loss
 
 
-def _check_sampling(stage: str, assigner: dict, sampler: dict) -> None:
-    """The port has the sampling forms the configs use; refuse others."""
-    if (sampler.get('type', 'RandomSampler') != 'RandomSampler' or
-            sampler.get('neg_pos_ub', -1) != -1 or
-            not assigner.get('gt_max_assign_all', True) or
+def _check_sampling(stage: str, assigner: dict, sampler: dict,
+                    typed=('RandomSampler',)) -> None:
+    """The port has the sampling forms the configs use: a ``RandomSampler``
+    (or a type of ``typed``) over a ``MaxIoUAssigner`` without
+    ``neg_pos_ub``, ``gt_max_assign_all=False`` or ``ignore_iof_thr``;
+    refuse others, naming their item."""
+    t = sampler.get('type', 'RandomSampler')
+    if t not in typed:
+        raise not_ported(f'{stage} sampler {t}', SAMPLER_ITEMS.get(t, 9))
+    if sampler.get('neg_pos_ub', -1) != -1:
+        raise not_ported(f'{stage} sampler neg_pos_ub', 8)
+    if (not assigner.get('gt_max_assign_all', True) or
             assigner.get('ignore_iof_thr', -1) > 0):
-        raise NotImplementedError(f'{stage} sampling {assigner} {sampler}')
+        raise not_ported(f'{stage} assigner {assigner}', 9)
 
 
 def build_backbone(cfg: dict):
@@ -116,17 +134,54 @@ def build_neck(cfg: dict):
             n.get('type', '?') for n in cfg), 8)
     cfg = _cfg(cfg)
     t = cfg.get('type')
+    if t == 'FPN_CARAFE':
+        return build_fpn_carafe(cfg)
     if t != 'FPN':
-        raise not_ported(f'neck {t}', NECK_ITEMS.get(t, 'no item'))
+        raise not_ported(f'neck {t}', NECK_ITEMS.get(t, 9))
     fpn = {k: cfg.pop(k) for k in ('type', 'in_channels', 'out_channels',
-                                   'num_outs') if k in cfg}
+                                   'num_outs', 'no_norm_on_lateral')
+           if k in cfg}
     if cfg.get('add_extra_convs') or cfg.get('start_level', 0) or \
             cfg.get('relu_before_extra_convs'):
         raise not_ported(f'FPN {cfg}', 6)
+    norm_cfg = _cfg(cfg.pop('norm_cfg', None))
+    if norm_cfg:
+        if norm_cfg.get('type') != 'GN':
+            raise not_ported(f'FPN norm_cfg {norm_cfg.get("type")}', 6)
+        _check_keys('FPN norm_cfg', norm_cfg, ('type', 'num_groups'),
+                    {'requires_grad': True}, DROPPED)
+        fpn.update(norm='gn', gn_groups=norm_cfg.get('num_groups', 32))
     _check_keys('FPN', cfg, ('add_extra_convs', 'start_level',
-                             'relu_before_extra_convs'), {'end_level': -1})
+                             'relu_before_extra_convs'), {'end_level': -1}, 6)
     fpn['in_channels'] = tuple(fpn['in_channels'])
     return NECKS.build(fpn)
+
+
+# what CARAFE takes from its ``upsample_cfg`` in the JAX package: its
+# ``up_kernel``, ``encoder_kernel`` and ``compressed_channels`` in the FPN,
+# nothing in the mask head (the defaults, here); the other keys at these
+# values or refused
+CARAFE_DEFAULTS = dict(up_kernel=5, encoder_kernel=3, compressed_channels=64)
+CARAFE_FIXED = dict(type='carafe', up_group=1, encoder_dilation=1,
+                    scale_factor=2)
+
+
+def build_fpn_carafe(cfg: dict) -> FPN_CARAFE:
+    """``FPN_CARAFE`` as the JAX builder reads it (``builder.py:178-188``):
+    no norm and no activation, a CARAFE upsampler with the config's
+    kernels."""
+    _check_keys('FPN_CARAFE', cfg, (
+        'type', 'in_channels', 'out_channels', 'num_outs', 'start_level',
+        'upsample_cfg', 'order'), {'end_level': -1, 'norm_cfg': None,
+                                  'act_cfg': None}, DROPPED)
+    up = _cfg(cfg.get('upsample_cfg'))
+    _check_keys('FPN_CARAFE upsample_cfg', up, tuple(CARAFE_DEFAULTS),
+                CARAFE_FIXED, DROPPED)
+    return FPN_CARAFE(
+        in_channels=tuple(cfg['in_channels']),
+        out_channels=cfg.get('out_channels', 256),
+        num_outs=cfg.get('num_outs', 5), start_level=cfg.get('start_level', 0),
+        **{k: up.get(k, v) for k, v in CARAFE_DEFAULTS.items()})
 
 
 def _check_coder(what: str, coder: dict) -> None:
@@ -172,17 +227,37 @@ def build_rpn_head(cfg: dict):
     return head, anchor_cfg, coder
 
 
+def _gn_groups(what: str, norm_cfg) -> Optional[int]:
+    """A head's ``norm_cfg``: None, or GN's ``num_groups``."""
+    norm_cfg = _cfg(norm_cfg)
+    if not norm_cfg:
+        return None
+    if norm_cfg.get('type') != 'GN':
+        raise not_ported(f'{what} norm_cfg {norm_cfg.get("type")}', 9)
+    _check_keys(f'{what} norm_cfg', norm_cfg, ('type', 'num_groups'),
+                {'requires_grad': True}, DROPPED)
+    return norm_cfg.get('num_groups', 32)
+
+
 def build_fcn_mask_head(mhc: dict) -> FCNMaskHead:
-    """``FCNMaskHead`` from its config (JAX ``builder.py:366-379``)."""
-    norm = _cfg(mhc.get('norm_cfg')).get('type')
+    """``FCNMaskHead`` from its config (JAX ``builder.py:366-379``): GN on
+    its convs; a deconv, or CARAFE at JAX's fixed settings."""
+    up = _cfg(mhc.get('upsample_cfg'))
+    if up.get('type', 'deconv') == 'carafe':
+        _check_keys('FCNMaskHead upsample_cfg', up, (), dict(
+            CARAFE_DEFAULTS, **CARAFE_FIXED), DROPPED)
+    else:
+        _check_keys('FCNMaskHead upsample_cfg', up, (),
+                    dict(type='deconv', scale_factor=2), DROPPED)
+    groups = _gn_groups('FCNMaskHead', mhc.get('norm_cfg'))
     return FCNMaskHead(
         num_convs=mhc.get('num_convs', 4),
         in_channels=mhc.get('in_channels', 256),
         conv_out_channels=mhc.get('conv_out_channels', 256),
         num_classes=mhc.get('num_classes', 80),
         class_agnostic=mhc.get('class_agnostic', False),
-        upsample_type=_cfg(mhc.get('upsample_cfg')).get('type', 'deconv'),
-        norm=norm.lower() if norm else None)
+        upsample_type=up.get('type', 'deconv'),
+        norm=None if groups is None else 'gn', gn_groups=groups or 32)
 
 
 def build_dynamask_roi_head(cfg: dict, mhc: dict, common: dict,
@@ -275,20 +350,20 @@ def build_refine_roi_head(t: str, mt: str, mhc: dict, common: dict,
 
 
 CASCADE_HEADS = ('CascadeRoIHead', 'HybridTaskCascadeRoIHead')
-ROI_HEADS = ('StandardRoIHead', 'DynaMaskRoIHead', *REFINE_HEADS,
-             *CASCADE_HEADS)
+ROI_HEADS = ('StandardRoIHead', 'DynaMaskRoIHead', 'DoubleHeadRoIHead',
+             *REFINE_HEADS, *CASCADE_HEADS)
 
 
 def _extractor(cfg: dict, what: str) -> dict:
     """A ``SingleRoIExtractor`` over ``RoIAlign`` (mmcv ``aligned=True``;
     the JAX package's static ``sampling_ratio`` 2 whatever the config's),
-    refused otherwise."""
+    or GRoIE's ``GenericRoIExtractor`` with its ``aggregation`` over the
+    same (without its ``pre_cfg`` / ``post_cfg`` modules, item 9); refused
+    otherwise."""
     cfg = _cfg(cfg)
     t = cfg.get('type', 'SingleRoIExtractor')
-    if t != 'SingleRoIExtractor':
-        raise not_ported(f'{what} {t}',
-                         'ROADMAP.md §1, item 5: GenericRoIExtractor'
-                         if t == 'GenericRoIExtractor' else 'no item')
+    if t not in ('SingleRoIExtractor', 'GenericRoIExtractor'):
+        raise not_ported(f'{what} {t}', 9)
     layer = _cfg(cfg.get('roi_layer'))
     lt = layer.get('type', 'RoIAlign')
     if lt != 'RoIAlign':
@@ -297,9 +372,44 @@ def _extractor(cfg: dict, what: str) -> dict:
         raise not_ported(f'{what} RoIAlign aligned=False', LEGACY)
     _check_keys(f'{what} roi_layer', layer, ('type', 'output_size',
                                              'sampling_ratio', 'aligned'))
-    _check_keys(what, cfg, ('type', 'roi_layer', 'out_channels',
-                            'featmap_strides'), {'finest_scale': 56})
+    if t == 'GenericRoIExtractor':
+        _check_keys(f'{what} GenericRoIExtractor', cfg, (
+            'type', 'roi_layer', 'out_channels', 'featmap_strides',
+            'aggregation'), item=9)
+    else:
+        _check_keys(what, cfg, ('type', 'roi_layer', 'out_channels',
+                                'featmap_strides'), {'finest_scale': 56})
     return cfg
+
+
+def _extract_mode(bbox_extractor: dict, mask_extractor: dict) -> str:
+    """The RoI head's ``roi_extract_mode``: the box extractor's, which JAX
+    applies to the mask extract too (``builder.py:334-338``,
+    ``roi_head.py:192``); a mask extractor of another type is refused
+    (3z)."""
+    bt = bbox_extractor.get('type', 'SingleRoIExtractor')
+    if mask_extractor and mask_extractor.get(
+            'type', 'SingleRoIExtractor') != bt:
+        raise not_ported('a mask extractor of another type than the box '
+                         'extractor\'s', 'ROADMAP.md queue 3, 3z: the JAX '
+                         'package extracts both as the box extractor')
+    if bt != 'GenericRoIExtractor':
+        return 'single'
+    aggregation = bbox_extractor.get('aggregation', 'sum')
+    if mask_extractor and mask_extractor.get('aggregation',
+                                             'sum') != aggregation:
+        raise not_ported('a mask extractor of another aggregation than the '
+                         'box extractor\'s', 'ROADMAP.md queue 3, 3z: the '
+                         'JAX package extracts both as the box extractor')
+    return f'generic_{aggregation}'
+
+
+# the regression losses by ``loss_bbox.type``, with the keys each reads
+# beside ``loss_weight`` at the values JAX computes with (it reads none,
+# 3w): mmdet's IoU losses take eps 1e-6, JAX's 1e-7
+REG_LOSSES = {'L1Loss': (None, {}), 'SmoothL1Loss': (None, {}),
+              'IoULoss': ('iou', {'linear': False}), 'GIoULoss': ('giou', {}),
+              'BoundedIoULoss': ('bounded_iou', {'beta': 0.2, 'eps': 1e-3})}
 
 
 def _box_losses(head_cfg: dict) -> dict:
@@ -309,35 +419,67 @@ def _box_losses(head_cfg: dict) -> dict:
                 ('CrossEntropyLoss',))
     if _cfg(head_cfg.get('loss_cls')).get('use_sigmoid', False):
         raise not_ported('a sigmoid bbox head loss_cls', 5)
-    loss_bbox = _check_loss('bbox head loss_bbox', head_cfg.get('loss_bbox'),
-                            ('L1Loss', 'SmoothL1Loss'))
+    loss_bbox = _cfg(head_cfg.get('loss_bbox'))
+    lt = loss_bbox.get('type', 'L1Loss')
+    if lt not in REG_LOSSES:
+        raise not_ported(f'bbox head loss_bbox {lt}', 8)
+    kind, fixed = REG_LOSSES[lt]
+    if kind:
+        _check_keys(f'bbox head {lt}', loss_bbox, ('type', 'loss_weight'),
+                    fixed, DROPPED)
     return dict(
         loss_cls_weight=_cfg(head_cfg.get('loss_cls')).get('loss_weight',
                                                             1.0),
         loss_bbox_weight=loss_bbox.get('loss_weight', 1.0),
         smooth_l1_beta=(loss_bbox.get('beta', 1.0)
-                        if loss_bbox.get('type') == 'SmoothL1Loss' else None))
+                        if lt == 'SmoothL1Loss' else None),
+        reg_loss_type=kind,
+        reg_decoded_bbox=bool(head_cfg.get('reg_decoded_bbox', False)))
+
+
+BOX_HEADS = {'Shared2FCBBoxHead': Shared2FCBBoxHead,
+             'Shared4Conv1FCBBoxHead': Shared4Conv1FCBBoxHead,
+             'ConvFCBBoxHead': ConvFCBBoxHead}
+BOX_HEAD_KEYS = ('num_classes', 'in_channels', 'roi_feat_size',
+                 'fc_out_channels', 'reg_class_agnostic', 'reg_decoded_bbox',
+                 'bbox_coder', 'loss_cls', 'loss_bbox')
+DOUBLE_HEAD_KEYS = ('num_convs', 'num_fcs', 'conv_out_channels')
 
 
 def _box_head(head_cfg: dict):
-    """A ``Shared2FCBBoxHead`` (class-specific or class-agnostic
-    regression) -> (head, its coder, its config)."""
+    """A ``ConvFCBBoxHead`` (``Shared2FCBBoxHead``, or
+    ``Shared4Conv1FCBBoxHead`` with GN on its convs; class-specific or
+    class-agnostic regression) or Double-Head's ``DoubleConvFCBBoxHead``
+    -> (head, its coder, its config). JAX's builder passes a
+    ``ConvFCBBoxHead`` no conv or fc counts (its defaults, 0 and 2) and
+    no ``conv_out_channels`` (the convs emit ``in_channels``): other
+    values are refused (3w)."""
     head_cfg = _cfg(head_cfg)
     ht = head_cfg.pop('type')
-    if ht != 'Shared2FCBBoxHead':
-        raise not_ported(f'bbox head {ht}', 5)
-    if head_cfg.get('reg_decoded_bbox'):
-        raise not_ported('decoded box regression', 5)
-    _check_keys('Shared2FCBBoxHead', head_cfg, (
-        'num_classes', 'in_channels', 'roi_feat_size', 'fc_out_channels',
-        'reg_class_agnostic', 'reg_decoded_bbox', 'bbox_coder', 'loss_cls',
-        'loss_bbox'))
-    head = Shared2FCBBoxHead(
-        num_classes=head_cfg.get('num_classes', 80),
-        in_channels=head_cfg.get('in_channels', 256),
-        roi_feat_size=head_cfg.get('roi_feat_size', 7),
-        fc_out_channels=head_cfg.get('fc_out_channels', 1024),
-        reg_class_agnostic=bool(head_cfg.get('reg_class_agnostic', False)))
+    common = dict(num_classes=head_cfg.get('num_classes', 80),
+                  in_channels=head_cfg.get('in_channels', 256),
+                  roi_feat_size=head_cfg.get('roi_feat_size', 7),
+                  fc_out_channels=head_cfg.get('fc_out_channels', 1024),
+                  reg_class_agnostic=bool(head_cfg.get('reg_class_agnostic',
+                                                       False)))
+    if ht == 'DoubleConvFCBBoxHead':
+        _check_keys(ht, head_cfg, BOX_HEAD_KEYS + DOUBLE_HEAD_KEYS, item=9)
+        head = DoubleConvFCBBoxHead(
+            num_convs=head_cfg.get('num_convs', 4),
+            num_fcs=head_cfg.get('num_fcs', 2),
+            conv_out_channels=head_cfg.get('conv_out_channels', 1024),
+            **common)
+    elif ht in BOX_HEADS:
+        _check_keys(ht, head_cfg, BOX_HEAD_KEYS + ('norm_cfg',), dict(
+            conv_out_channels=common['in_channels'], num_shared_convs=0,
+            num_shared_fcs=2, num_cls_convs=0, num_cls_fcs=0,
+            num_reg_convs=0, num_reg_fcs=0, with_cls=True, with_reg=True),
+            DROPPED)
+        groups = _gn_groups(ht, head_cfg.get('norm_cfg'))
+        head = BOX_HEADS[ht](norm=None if groups is None else 'gn',
+                             gn_groups=groups or 32, **common)
+    else:
+        raise not_ported(f'bbox head {ht}', 9)
     coder = _cfg(head_cfg.get('bbox_coder'))
     _check_coder('bbox head coder', coder)
     return head, coder, head_cfg
@@ -348,9 +490,12 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     ``FCNMaskHead`` (Mask R-CNN) or with none (Faster and Fast R-CNN),
     ``DynaMaskRoIHead`` with a ``DynaMaskHead`` (DynaMask),
     ``RefineRoIHead`` / ``SimpleRefineRoIHead`` with a ``RefineMaskHead``
-    / ``SimpleRefineMaskHead`` (RefineMask), on one Shared2FC box branch;
+    / ``SimpleRefineMaskHead`` (RefineMask), on one conv/fc box branch;
+    ``DoubleHeadRoIHead`` over a ``DoubleConvFCBBoxHead`` (Double-Head);
     ``CascadeRoIHead`` (Cascade R-CNN, with an ``FCNMaskHead`` or none)
-    and ``HybridTaskCascadeRoIHead`` (HTC) on one a stage."""
+    and ``HybridTaskCascadeRoIHead`` (HTC) on one a stage. The extract
+    (FPN-routed or GRoIE's), the regression loss, the test NMS and the
+    sampler's ``num`` / ``pos_fraction`` are the configs'."""
     cfg = _cfg(cfg)
     t = cfg.pop('type')
     if t not in ROI_HEADS:
@@ -373,17 +518,20 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     rcnn_train = stage_train[0]
     assigner = _cfg(rcnn_train.get('assigner'))
     sampler = _cfg(rcnn_train.get('sampler'))
+    # OHEM as JAX runs it (ROADMAP.md queue 3, 3s): JAX's OHEMSampler ranks
+    # by ``cand_losses``, which no caller passes, and otherwise draws as
+    # RandomSampler, so the head's RandomSampler with the config's ``num``
+    # / ``pos_fraction`` is its draw; mmdet keeps the hardest candidates
     for i, st in enumerate(stage_train):
         _check_sampling(f'rcnn {i}' if cascade else 'rcnn',
-                        _cfg(st.get('assigner')), _cfg(st.get('sampler')))
+                        _cfg(st.get('assigner')), _cfg(st.get('sampler')),
+                        ('RandomSampler', 'OHEMSampler'))
     bbox_extractor = _extractor(cfg.get('bbox_roi_extractor'),
                                 'bbox_roi_extractor')
     mask_extractor = _extractor(cfg.get('mask_roi_extractor'),
                                 'mask_roi_extractor')
     rcnn_test = _cfg(_cfg(test_cfg).get('rcnn'))
     nms_cfg = _cfg(rcnn_test.get('nms'))
-    if nms_cfg.get('type', 'nms') != 'nms':
-        raise not_ported(f'test nms type {nms_cfg["type"]}', 5)
     common = dict(
         num_classes=head_cfg.get('num_classes', 80),
         featmap_strides=tuple(bbox_extractor.get('featmap_strides',
@@ -406,13 +554,25 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
         neg_iou_thr=assigner.get('neg_iou_thr', 0.5),
         min_pos_iou=assigner.get('min_pos_iou', 0.5),
         match_low_quality=assigner.get('match_low_quality', True),
+        roi_extract_mode=_extract_mode(bbox_extractor, mask_extractor),
+        nms_cfg=_test_nms(nms_cfg),
         **_box_losses(head_cfg))
+    if (t == 'DoubleHeadRoIHead') != any(
+            isinstance(h, DoubleConvFCBBoxHead) for h, _, _ in stages):
+        raise not_ported(f'{t} over {type(bbox_head).__name__} (the '
+                         'Double-Head pair goes together)', 9)
     if cascade:
         return build_cascade_roi_head(t, cfg, stages, stage_train, common,
                                       bbox_extractor)
     mhc = _cfg(cfg.get('mask_head'))
     mt = mhc.pop('type', None)
     common['bbox_head'] = bbox_head
+    if t == 'DoubleHeadRoIHead' and mt is None:
+        _check_keys(t, cfg, ('reg_roi_scale_factor', 'bbox_head',
+                             'bbox_roi_extractor'),
+                    {'mask_head': None, 'mask_roi_extractor': None}, 9)
+        return DoubleHeadRoIHead(reg_roi_scale_factor=cfg.get(
+            'reg_roi_scale_factor', 1.3), mask_head=None, **common)
     if t == 'StandardRoIHead' and mt is None:
         return StandardRoIHead(mask_head=None, **common)
     if (t, mt) == ('DynaMaskRoIHead', 'DynaMaskHead'):
@@ -446,23 +606,42 @@ SEMANTIC_KEYS = ('type', 'num_ins', 'fusion_level', 'num_convs',
                  'loss_weight')
 
 
+def _test_nms(nms_cfg: dict) -> dict:
+    """``multiclass_nms``'s options from ``test_cfg.rcnn.nms``: greedy, or
+    linear Soft-NMS with its ``sigma`` and ``min_score`` (JAX
+    ``builder.py:345-348``; JAX reads no ``method``, so only linear)."""
+    t = nms_cfg.get('type', 'nms')
+    if t == 'nms':
+        return {}
+    if t != 'soft_nms':
+        raise not_ported(f'test nms type {t}', 9)
+    _check_keys('soft_nms', nms_cfg, ('type', 'iou_threshold', 'sigma',
+                                      'min_score'), {'method': 'linear'},
+                DROPPED)
+    return dict(nms_type='soft_nms', sigma=nms_cfg.get('sigma', 0.5),
+                min_score=nms_cfg.get('min_score', 1e-3))
+
+
 def _cascade_losses(t: str, stages) -> dict:
     """The stage heads' losses as the JAX cascade heads apply them: loss
     weights 1 (they pass none), stage 0's regression loss on every stage
     (``cascade_roi_head.py:107-115``), and under HTC an L1 loss whatever
     the config names (``htc.py:235-237``; ROADMAP.md queue 3, 3l)."""
     losses = [_box_losses(cfg) for _, _, cfg in stages]
+    reg = ('smooth_l1_beta', 'reg_loss_type', 'reg_decoded_bbox')
     for i, lo in enumerate(losses):
         if (lo['loss_cls_weight'], lo['loss_bbox_weight']) != (1.0, 1.0):
             raise not_ported(f'{t} stage {i} loss weights {lo} (the JAX '
                              'cascade heads apply 1)', 'no item')
-        if lo['smooth_l1_beta'] != losses[0]['smooth_l1_beta']:
+        if any(lo[k] != losses[0][k] for k in reg):
             raise not_ported(f'{t} stage {i} regression loss other than '
                              'stage 0\'s', 'no item')
-    beta = (None if t == 'HybridTaskCascadeRoIHead'
-            else losses[0]['smooth_l1_beta'])
+    if t == 'HybridTaskCascadeRoIHead':
+        return dict(loss_cls_weight=1.0, loss_bbox_weight=1.0,
+                    smooth_l1_beta=None, reg_loss_type=None,
+                    reg_decoded_bbox=False)
     return dict(loss_cls_weight=1.0, loss_bbox_weight=1.0,
-                smooth_l1_beta=beta)
+                **{k: losses[0][k] for k in reg})
 
 
 def _stage_thresholds(t: str, stage_train, n: int) -> tuple:

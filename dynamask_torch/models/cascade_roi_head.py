@@ -31,7 +31,6 @@ from ..core.bbox_transforms import clip_boxes, delta2bbox
 from ..core.samplers import SamplingResult
 from ..ops.nms import multiclass_nms
 from ..utils.registry import HEADS
-from .bbox_head import bbox_head_loss, bbox_targets_from_sample
 from .roi_head import StandardRoIHead
 
 
@@ -107,12 +106,8 @@ class CascadeRoIHead(StandardRoIHead):
                                                         roi_batch, sem_feat))
         flat = SamplingResult(*[t.reshape((b * n,) + t.shape[2:])
                                 for t in sample])
-        targets = bbox_targets_from_sample(flat, self.num_classes,
-                                           self.target_means,
-                                           self.stage_target_stds[stage])
-        sl = bbox_head_loss(cls_logits, bbox_deltas, targets,
-                            self.num_classes, self.loss_cls_weight,
-                            self.loss_bbox_weight, self.smooth_l1_beta,
+        sl = self._box_loss(cls_logits, bbox_deltas, flat,
+                            self.stage_target_stds[stage],
                             head.reg_class_agnostic)
         w = self.stage_loss_weights[stage]
         losses = {f's{stage}.loss_cls': w * sl['loss_cls'],
@@ -177,7 +172,8 @@ class CascadeRoIHead(StandardRoIHead):
         scores = scores.reshape(b, p, -1)
         outs = [multiclass_nms(boxes[i].reshape(p, -1), scores[i],
                                self.score_thr, self.nms_iou_thr,
-                               self.max_per_img, valid=proposal_valid[i])
+                               self.max_per_img, valid=proposal_valid[i],
+                               **self.nms_cfg)
                 for i in range(b)]
         return (torch.stack([o[j] for o in outs]) for j in range(3))
 

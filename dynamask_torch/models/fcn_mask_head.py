@@ -2,11 +2,13 @@
 ``dynamask_tpu/models/fcn_mask_head.py:22-81``: ``FCNMaskHead``,
 ``select_class_channel`` and ``fcn_mask_loss``).
 
-Four 3x3 convs with ReLU, a 2x2 stride-2 transposed conv with ReLU, and a
-1x1 conv to one logit map per class (one map when ``class_agnostic``);
-BCE on each positive RoI's own class channel. The modules keep mmdet's
-names (``convs.{i}.conv``, ``upsample``, ``conv_logits``), so the
-reference's ``state_dict`` keys and the JAX importer read them as they are.
+Four 3x3 convs with ReLU (bias-free, each with a GroupNorm, under
+``norm='gn'``), a 2x2 stride-2 transposed conv (or, with
+``upsample_type='carafe'``, a 2x ``CARAFEPack`` at JAX's defaults) with
+ReLU, and a 1x1 conv to one logit map per class (one map when
+``class_agnostic``); BCE on each positive RoI's own class channel. The
+modules keep mmdet's names (``convs.{i}.conv`` / ``.gn``, ``upsample``,
+``conv_logits``), so the reference's ``state_dict`` keys read as they are.
 """
 
 from __future__ import annotations
@@ -16,11 +18,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.registry import HEADS
+from .carafe import CARAFEPack
 from .layers import ConvModule
 from .losses import binary_cross_entropy_with_logits
-
-# where the head's other forms are queued
-NOT_PORTED = 'not ported yet (ROADMAP.md §1, item 5)'
 
 
 @HEADS.register_module()
@@ -28,22 +28,25 @@ class FCNMaskHead(nn.Module):
     def __init__(self, num_convs: int = 4, in_channels: int = 256,
                  conv_out_channels: int = 256, num_classes: int = 80,
                  class_agnostic: bool = False,
-                 upsample_type: str = 'deconv', norm=None):
+                 upsample_type: str = 'deconv', norm=None,
+                 gn_groups: int = 32):
         super().__init__()
-        if upsample_type != 'deconv':
+        if upsample_type not in ('deconv', 'carafe'):
             raise NotImplementedError(
-                f'FCNMaskHead upsample_type={upsample_type!r} is {NOT_PORTED}')
-        if norm is not None:
-            raise NotImplementedError(
-                f'FCNMaskHead norm={norm!r} is {NOT_PORTED}')
+                f'FCNMaskHead upsample_type={upsample_type!r}')
+        if norm not in (None, 'gn'):
+            raise NotImplementedError(f'FCNMaskHead norm={norm!r}')
         self.num_classes = num_classes
         self.class_agnostic = class_agnostic
         self.convs = nn.ModuleList(
             ConvModule(in_channels if i == 0 else conv_out_channels,
-                       conv_out_channels, 3, padding=1)
+                       conv_out_channels, 3, padding=1,
+                       gn_groups=gn_groups if norm else None)
             for i in range(num_convs))
-        self.upsample = nn.ConvTranspose2d(conv_out_channels,
-                                           conv_out_channels, 2, stride=2)
+        self.upsample = (CARAFEPack(conv_out_channels, 2)
+                         if upsample_type == 'carafe' else
+                         nn.ConvTranspose2d(conv_out_channels,
+                                            conv_out_channels, 2, stride=2))
         self.conv_logits = nn.Conv2d(conv_out_channels,
                                      1 if class_agnostic else num_classes, 1)
 

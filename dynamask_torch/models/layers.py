@@ -34,10 +34,21 @@ class BatchNorm2d(nn.BatchNorm2d):
 class GroupNorm(nn.GroupNorm):
     """GroupNorm at flax's epsilon (1e-6), the JAX package's
     ``nn.GroupNorm`` (``dynamask_tpu/models/resnet.py:120-124``); its scale
-    and bias are ``weight`` and ``bias`` as mmcv's ``GN`` names them."""
+    and bias are ``weight`` and ``bias`` as mmcv's ``GN`` names them.
+
+    Under the bf16 policy (``core/fp16.py``) it computes what flax's does
+    on a bf16 input with bf16 parameters: statistics and normalisation in
+    fp32 with the bf16 scale and bias widened, one rounding to bf16 at the
+    end."""
 
     def __init__(self, num_groups: int, num_channels: int):
         super().__init__(num_groups, num_channels, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype not in (torch.bfloat16, torch.float16):
+            return super().forward(x)
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
 
 
 class ConvWS2d(nn.Conv2d):
@@ -62,17 +73,26 @@ class ConvWS2d(nn.Conv2d):
 
 class ConvModule(nn.Module):
     """A conv under the ``.conv`` attribute, so state-dict keys read
-    ``<name>.conv.weight`` as mmcv's ``ConvModule`` writes them."""
+    ``<name>.conv.weight`` as mmcv's ``ConvModule`` writes them; with
+    ``gn_groups`` a bias-free conv and a :class:`GroupNorm` under ``.gn``
+    (mmcv's ``norm_cfg=GN``, JAX's ``nn.Conv(use_bias=False)`` +
+    ``nn.GroupNorm``), no activation."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int, padding: int = 0, bias: bool = True,
-                 dilation: int = 1):
+                 dilation: int = 1, stride: int = 1,
+                 gn_groups: Optional[int] = None):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              padding=padding, bias=bias, dilation=dilation)
+                              stride=stride, padding=padding,
+                              bias=bias and gn_groups is None,
+                              dilation=dilation)
+        if gn_groups is not None:
+            self.gn = GroupNorm(gn_groups, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        x = self.conv(x)
+        return self.gn(x) if hasattr(self, 'gn') else x
 
 
 def resize_bilinear_2x(x: torch.Tensor,
@@ -95,13 +115,16 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 # default initialisers of the JAX package's modules, by parameter name
-# (first match wins): xavier-uniform FPN and shared fcs, N(0, 0.01) RPN and
-# class scores, N(0, 0.001) box deltas (of every cascade stage too), zero DCN offset convs, flax's
-# default (LeCun normal over fan-in, truncated at 2 sigma) for the MSM and
-# for RefineMask's MultiBranchFusion convs, whose JAX modules name no
+# (first match wins; a module's own ``init_rule`` attribute comes first):
+# xavier-uniform FPN, shared fcs and Double-Head's fc branch, N(0, 0.01)
+# RPN and class scores, N(0, 0.001) box deltas (of every cascade stage
+# too), zero DCN offset convs, flax's default (LeCun normal over fan-in,
+# truncated at 2 sigma) for the MSM, for RefineMask's MultiBranchFusion
+# convs and for the box head's shared convs, whose JAX modules name no
 # initialiser; every other conv or linear weight is He-normal over fan-out
 _INIT_RULES = (('neck.', 'xavier'), ('rpn_head.', 0.01),
-               ('.shared_fcs.', 'xavier'), ('.fc_cls.', 0.01),
+               ('.shared_fcs.', 'xavier'), ('.fc_branch.', 'xavier'),
+               ('.shared_convs.', 'lecun'), ('.fc_cls.', 0.01),
                ('.fc_reg.', 0.001), ('conv_offset', 0.0),
                ('mask_predictor.', 'lecun'), ('.dilation_conv_', 'lecun'),
                ('.merge_conv.', 'lecun'))
@@ -109,8 +132,10 @@ _INIT_RULES = (('neck.', 'xavier'), ('rpn_head.', 0.01),
 _TRUNC_STD = 0.87962566103423978
 
 
-def _default_init(name: str, p: torch.Tensor, generator: torch.Generator):
-    rule = next((r for key, r in _INIT_RULES if key in name), 'he')
+def _default_init(name: str, p: torch.Tensor, generator: torch.Generator,
+                  rule=None):
+    if rule is None:
+        rule = next((r for key, r in _INIT_RULES if key in name), 'he')
     if rule == 'xavier':
         fan_in = p[0].numel()
         fan_out = p.shape[0] * (p[0, 0].numel() if p.dim() > 2 else 1)
@@ -153,7 +178,8 @@ def init_weights(model: nn.Module, generator: torch.Generator,
                     # out is that of the (out, in, kh, kw) view
                     _default_init(f'{mod_name}.{name}', p.transpose(0, 1)
                                   if isinstance(m, nn.ConvTranspose2d)
-                                  else p, generator)
+                                  else p, generator,
+                                  getattr(m, 'init_rule', None))
                 else:
                     p.zero_()
             if isinstance(m, nn.modules.batchnorm._BatchNorm):

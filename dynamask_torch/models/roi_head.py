@@ -3,7 +3,11 @@
 ``forward_train``, ``_pos_rois``, ``_mask_forward_train``, ``simple_test``
 and ``simple_test_mask``, :167-331). RoI features come from the FPN-routed
 RoIAlign (kernels K2 and, for the gradient, K4) with the static
-``sampling_ratio`` 2.
+``sampling_ratio`` 2, or with ``roi_extract_mode='generic_sum'`` /
+``'generic_concat'`` (GRoIE's ``GenericRoIExtractor``) from every level
+at once, summed or concatenated: one K2 launch (K4 in the backward) an
+extract either way. The mode is the box extractor's and governs the mask
+extract too, as in JAX (``roi_head.py:192``).
 
 In training, each image's proposals (GT boxes put in front) are assigned
 and sampled to a fixed ``num_samples`` slots, positives packed first; the
@@ -25,7 +29,7 @@ from ..core.assigners import MaxIoUAssigner
 from ..core.mask_targets import mask_targets_from_crops
 from ..core.samplers import (RandomSampler, SamplingResult,
                              add_gt_as_proposals, stack_samples)
-from ..ops.roi_align import multilevel_roi_align
+from ..ops.roi_align import generic_roi_align, multilevel_roi_align
 from .bbox_head import (bbox_head_get_dets, bbox_head_loss,
                         bbox_targets_from_sample)
 from .fcn_mask_head import fcn_mask_loss, select_class_channel
@@ -57,7 +61,11 @@ class StandardRoIHead(nn.Module):
                  loss_cls_weight: float = 1.0,
                  loss_bbox_weight: float = 1.0,
                  loss_mask_weight: float = 1.0,
-                 smooth_l1_beta: Optional[float] = None):
+                 smooth_l1_beta: Optional[float] = None,
+                 reg_loss_type: Optional[str] = None,
+                 reg_decoded_bbox: bool = False,
+                 roi_extract_mode: str = 'single',
+                 nms_cfg: Optional[dict] = None):
         super().__init__()
         self.bbox_head = bbox_head
         self.mask_head = mask_head
@@ -78,14 +86,28 @@ class StandardRoIHead(nn.Module):
         self.loss_cls_weight = loss_cls_weight
         self.loss_bbox_weight = loss_bbox_weight
         self.loss_mask_weight = loss_mask_weight
-        # None: the L1 box loss; a beta: SmoothL1 (the legacy v1 config)
+        # None: the L1 box loss; a beta: SmoothL1 (the legacy v1 config);
+        # reg_loss_type 'iou' / 'giou' / 'bounded_iou' on decoded boxes
         self.smooth_l1_beta = smooth_l1_beta
+        self.reg_loss_type = reg_loss_type
+        self.reg_decoded_bbox = reg_decoded_bbox
+        if roi_extract_mode not in ('single', 'generic_sum',
+                                    'generic_concat'):
+            raise NotImplementedError(f'roi_extract_mode {roi_extract_mode}')
+        self.roi_extract_mode = roi_extract_mode
+        # multiclass_nms's nms_type / sigma / min_score (Soft-NMS)
+        self.nms_cfg = dict(nms_cfg or {})
 
     def _extract(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
                  roi_batch: torch.Tensor, out_size: int) -> torch.Tensor:
         """(N, P, P, C) NHWC RoI features from the first
         ``len(featmap_strides)`` NCHW pyramid levels."""
         levels = [to_nhwc(f) for f in feats[:len(self.featmap_strides)]]
+        if self.roi_extract_mode != 'single':
+            return generic_roi_align(
+                levels, rois, roi_batch, out_size, self.featmap_strides,
+                sampling_ratio=ROI_SAMPLING_RATIO,
+                aggregation=self.roi_extract_mode.split('_')[1])
         return multilevel_roi_align(levels, rois, roi_batch, out_size,
                                     self.featmap_strides,
                                     sampling_ratio=ROI_SAMPLING_RATIO,
@@ -140,12 +162,8 @@ class StandardRoIHead(nn.Module):
                                                          roi_batch)
             flat = SamplingResult(*[t.reshape((b * n,) + t.shape[2:])
                                     for t in sample])
-            targets = bbox_targets_from_sample(
-                flat, self.num_classes, self.target_means, self.target_stds)
-            losses = bbox_head_loss(cls_logits, bbox_deltas, targets,
-                                    self.num_classes, self.loss_cls_weight,
-                                    self.loss_bbox_weight,
-                                    self.smooth_l1_beta,
+            losses = self._box_loss(cls_logits, bbox_deltas, flat,
+                                    self.target_stds,
                                     self.bbox_head.reg_class_agnostic)
         if self.mask_head is None:
             return losses
@@ -153,6 +171,20 @@ class StandardRoIHead(nn.Module):
             losses.update(self._mask_forward_train(
                 feats, sample, batch, noise.get('gumbel'), generator))
         return losses
+
+    def _box_loss(self, cls_logits, bbox_deltas, flat: SamplingResult,
+                  target_stds, reg_class_agnostic: bool):
+        """The box head's losses on a flat sample, with the head's
+        regression loss (decoded on the sample's RoIs under
+        ``reg_decoded_bbox``)."""
+        targets = bbox_targets_from_sample(
+            flat, self.num_classes, self.target_means, target_stds,
+            self.reg_decoded_bbox)
+        return bbox_head_loss(
+            cls_logits, bbox_deltas, targets, self.num_classes,
+            self.loss_cls_weight, self.loss_bbox_weight, self.smooth_l1_beta,
+            reg_class_agnostic, self.reg_loss_type, self.reg_decoded_bbox,
+            flat.boxes, self.target_means, target_stds)
 
     def _pos_rois(self, sample: SamplingResult):
         """The first ``max_pos`` slots of each image (the packed
@@ -200,7 +232,8 @@ class StandardRoIHead(nn.Module):
                 proposal_valid[i], batch['img_shape'][i],
                 batch['scale_factor'][i], self.num_classes,
                 self.target_means, self.target_stds, self.score_thr,
-                self.nms_iou_thr, self.max_per_img, rescale=rescale)
+                self.nms_iou_thr, self.max_per_img, rescale=rescale,
+                nms_cfg=self.nms_cfg)
                 for i in range(b)]
             dets, labels, det_valid = (torch.stack([o[j] for o in outs])
                                        for j in range(3))

@@ -1,5 +1,6 @@
-"""Static-shape exact greedy NMS (port of ``dynamask_tpu/ops/nms.py``
-:30-260: ``nms``, ``batched_nms``, ``multiclass_nms``).
+"""Static-shape exact greedy NMS and Soft-NMS (port of
+``dynamask_tpu/ops/nms.py`` :30-260: ``nms``, ``soft_nms``,
+``batched_nms``, ``multiclass_nms``).
 
 Candidates are capped at a static ``pre_top_k`` by score, greedy keep is
 exact, and outputs fill fixed ``max_out`` slots with validity flags. This is
@@ -84,6 +85,51 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     return out_boxes, out_scores, out_inds, out_valid
 
 
+def soft_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             iou_threshold: float = 0.3, sigma: float = 0.5,
+             min_score: float = 1e-3, method: str = 'linear',
+             max_out: int = 100, pre_top_k: int = 1024):
+    """Soft-NMS with static shapes (JAX ``nms.py:131-181``): exactly
+    ``max_out`` selection steps on the device, none read back to the
+    host. Each takes the highest live score and decays the others by its
+    IoU with them: ``linear`` by (1 - IoU) past ``iou_threshold``,
+    ``gaussian`` by exp(-IoU²/sigma); the taken box and those decayed
+    below ``min_score`` leave the pool. Returns (boxes (max_out, 4),
+    scores, keep_inds into the input, valid = score > 0)."""
+    if method not in ('linear', 'gaussian'):
+        raise NotImplementedError(f'soft_nms method {method!r}')
+    n = boxes.shape[0]
+    k = min(pre_top_k, n)
+    neg_inf = float('-inf')
+    masked = torch.where(valid, scores.float(),
+                         torch.full_like(scores, neg_inf, dtype=torch.float))
+    cur, top_idx = torch.topk(masked, k)
+    top_boxes = boxes[top_idx]
+    iou = bbox_overlaps(top_boxes, top_boxes)                  # (k, k)
+    if method == 'gaussian':
+        decay = torch.exp(-(iou * iou) / sigma)
+    else:
+        decay = torch.where(iou > iou_threshold, 1.0 - iou,
+                            torch.ones_like(iou))
+    out_scores = cur.new_full((max_out,), neg_inf)
+    out_pos = torch.zeros(max_out, dtype=torch.long, device=boxes.device)
+    for i in range(max_out):      # one-element index tensors: no host sync
+        best = torch.argmax(cur).reshape(1)
+        out_scores[i:i + 1] = cur.index_select(0, best)
+        out_pos[i:i + 1] = best
+        cur = (cur * decay.index_select(0, best)[0]).index_fill_(0, best,
+                                                                 neg_inf)
+        cur = torch.where(cur < min_score, neg_inf, cur)
+    out_valid = out_scores > 0.0
+    out_boxes = torch.where(out_valid[:, None], top_boxes[out_pos],
+                            torch.zeros_like(top_boxes[out_pos]))
+    out_inds = torch.where(out_valid, top_idx[out_pos],
+                           torch.zeros_like(out_pos))
+    out_scores = torch.where(out_valid, out_scores,
+                             torch.zeros_like(out_scores))
+    return out_boxes, out_scores, out_inds, out_valid
+
+
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
                 idxs: torch.Tensor, valid: torch.Tensor,
                 iou_threshold: float, max_out: int, pre_top_k: int = 4096):
@@ -102,8 +148,11 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
 def multiclass_nms(multi_bboxes: torch.Tensor, multi_scores: torch.Tensor,
                    score_thr: float, iou_threshold: float, max_per_img: int,
                    valid: Optional[torch.Tensor] = None,
-                   pre_top_k: int = 2048):
-    """Per-class NMS over dense (N, C) foreground scores.
+                   pre_top_k: int = 2048, nms_type: str = 'nms',
+                   sigma: float = 0.5, min_score: float = 1e-3):
+    """Per-class NMS over dense (N, C) foreground scores: greedy, or with
+    ``nms_type='soft_nms'`` linear Soft-NMS (``sigma``, ``min_score``)
+    over the class-offset boxes (JAX ``nms.py:242-252``).
 
     ``multi_bboxes`` is (N, 4) or (N, C*4). Returns dets (max_per_img, 5)
     ``[x1, y1, x2, y2, score]``, labels (max_per_img,) int64 and validity."""
@@ -120,9 +169,22 @@ def multiclass_nms(multi_bboxes: torch.Tensor, multi_scores: torch.Tensor,
                                device=multi_scores.device).repeat(n)
     flat_valid = valid.repeat_interleave(num_classes) & \
         (flat_scores > score_thr)
-    out_boxes, out_scores, out_inds, out_valid = batched_nms(
-        flat_boxes, flat_scores, flat_labels, flat_valid, iou_threshold,
-        max_per_img, pre_top_k)
+    if nms_type == 'soft_nms':
+        max_coord = torch.where(flat_valid[:, None], flat_boxes,
+                                torch.zeros_like(flat_boxes)).max() + 1.0
+        shifted = flat_boxes + (flat_labels.to(flat_boxes.dtype) *
+                                max_coord)[:, None]
+        _, out_scores, out_inds, out_valid = soft_nms(
+            shifted, flat_scores, flat_valid, iou_threshold, sigma,
+            min_score, max_out=max_per_img, pre_top_k=pre_top_k)
+        out_boxes = torch.where(out_valid[:, None], flat_boxes[out_inds],
+                                torch.zeros_like(flat_boxes[out_inds]))
+    elif nms_type == 'nms':
+        out_boxes, out_scores, out_inds, out_valid = batched_nms(
+            flat_boxes, flat_scores, flat_labels, flat_valid, iou_threshold,
+            max_per_img, pre_top_k)
+    else:
+        raise NotImplementedError(f'multiclass_nms nms_type {nms_type!r}')
     out_labels = torch.where(out_valid, flat_labels[out_inds],
                              torch.zeros_like(out_inds))
     dets = torch.cat([out_boxes, out_scores[:, None]], dim=1)

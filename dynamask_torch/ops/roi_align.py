@@ -2,7 +2,7 @@
 
 Port of ``dynamask_tpu/ops/roi_align.py`` (``map_roi_levels`` :217,
 ``roi_align`` :159, ``multilevel_roi_align`` :230, ``simple_roi_align``
-:303). Semantics are mmcv ``RoIAlign(aligned=True)`` with a STATIC
+:303, ``generic_roi_align`` :320). Semantics are mmcv ``RoIAlign(aligned=True)`` with a STATIC
 ``sampling_ratio`` (2 for the box and mask extracts, 1 for the SFM and MSM
 crops), not mmcv's adaptive 0 (``roi_align.py:14-18``): samples outside
 ``[-1, extent]`` add zero, inside ones clamp to the edge
@@ -370,13 +370,13 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
                           sampling_ratio)
 
 
-def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
-                         roi_batch: torch.Tensor, out_size: int,
+def multilevel_crop_args(features: Sequence[torch.Tensor],
+                         rois: torch.Tensor, roi_batch: torch.Tensor,
                          featmap_strides: Tuple[int, ...],
-                         sampling_ratio: int = 2,
-                         finest_scale: int = 56) -> torch.Tensor:
-    """FPN-routed RoIAlign over NHWC levels (B, Hl, Wl, C), one kernel
-    launch for the whole pyramid -> (N, P, P, C)."""
+                         finest_scale: int = 56):
+    """The flat-crop arguments of the FPN-routed RoIAlign over NHWC
+    ``features``: (flat, RoIs, base, hs, ws, scales), each RoI on the
+    plane of its level (:func:`map_roi_levels`)."""
     num_levels = len(features)
     assert num_levels == len(featmap_strides)
     dev = features[0].device
@@ -391,8 +391,65 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
             roi_batch.long() * h_per.long() * w_per.long())
     scales = (1.0 / torch.tensor(featmap_strides, dtype=torch.float32,
                                  device=dev))[lvl]
-    return roi_align_flat(flat, rois, base, h_per, w_per, scales, out_size,
-                          sampling_ratio)
+    return flat, rois, base, h_per, w_per, scales
+
+
+def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
+                         roi_batch: torch.Tensor, out_size: int,
+                         featmap_strides: Tuple[int, ...],
+                         sampling_ratio: int = 2,
+                         finest_scale: int = 56) -> torch.Tensor:
+    """FPN-routed RoIAlign over NHWC levels (B, Hl, Wl, C), one kernel
+    launch for the whole pyramid -> (N, P, P, C)."""
+    return roi_align_flat(*multilevel_crop_args(
+        features, rois, roi_batch, featmap_strides, finest_scale), out_size,
+        sampling_ratio)
+
+
+def generic_crop_args(features: Sequence[torch.Tensor], rois: torch.Tensor,
+                      roi_batch: torch.Tensor,
+                      featmap_strides: Tuple[int, ...]):
+    """The flat-crop arguments of GRoIE's extract over NHWC ``features``:
+    (flat, RoIs, base, hs, ws, scales) of L*N rows, level after level, each
+    RoI repeated with each level's plane base and ``1/stride``."""
+    num_levels = len(features)
+    assert num_levels == len(featmap_strides)
+    n, dev = rois.shape[0], features[0].device
+    flat, offsets = _flat_planes(features)
+    hs = torch.tensor([f.shape[1] for f in features], dtype=torch.int32,
+                      device=dev).repeat_interleave(n)
+    ws = torch.tensor([f.shape[2] for f in features], dtype=torch.int32,
+                      device=dev).repeat_interleave(n)
+    base = (torch.tensor(offsets, dtype=torch.int64,
+                         device=dev).repeat_interleave(n) +
+            roi_batch.long().repeat(num_levels) * hs.long() * ws.long())
+    scales = (1.0 / torch.tensor(featmap_strides, dtype=torch.float32,
+                                 device=dev)).repeat_interleave(n)
+    return flat, rois.repeat(num_levels, 1), base, hs, ws, scales
+
+
+def generic_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
+                      roi_batch: torch.Tensor, out_size: int,
+                      featmap_strides: Tuple[int, ...],
+                      sampling_ratio: int = 2,
+                      aggregation: str = 'sum') -> torch.Tensor:
+    """GRoIE's extract (mmdet ``GenericRoIExtractor``): every RoI pooled
+    from every NHWC level at its ``1/stride``, no routing, then the L crops
+    summed (``'sum'``, (N, P, P, C)) or put side by side level after level
+    on the channels (``'concat'``, (N, P, P, L*C)). One kernel launch takes
+    all L*N crops (:func:`generic_crop_args`); the gradient is one launch
+    too."""
+    if aggregation not in ('sum', 'concat'):
+        raise NotImplementedError(f'GenericRoIExtractor aggregation '
+                                  f'{aggregation!r}')
+    n = rois.shape[0]
+    crops = roi_align_flat(*generic_crop_args(features, rois, roi_batch,
+                                              featmap_strides),
+                           out_size, sampling_ratio)
+    crops = crops.reshape(len(features), n, *crops.shape[1:])
+    if aggregation == 'sum':
+        return crops.sum(0)
+    return crops.permute(1, 2, 3, 0, 4).reshape(n, out_size, out_size, -1)
 
 
 def simple_roi_align(features: torch.Tensor, rois: torch.Tensor,

@@ -14,7 +14,8 @@ carried into the port (``engine/convert.py``).
   JAX's ``smooth_l1`` on the same deltas (fp32, 1e-6), and a twin whose
   box head trains with it; the RPN's SmoothL1 key, which JAX applies as L1
   (ROADMAP.md queue 3), the port applies as L1 too.
-- Fault 3a: the GRoIE config is refused, naming ``GenericRoIExtractor``.
+- Fault 3a stays fixed: the GRoIE config builds with the all-level
+  extract, as JAX builds it, not with FPN routing.
 - Each config file of ``chip_smoke.py`` phase 11 builds on the CPU from the
   file as it is, every state-dict key maps through the JAX importer to the
   port's own path, with the test NMS each detector type reads.
@@ -259,12 +260,24 @@ def test_legacy_v1_losses_built_as_jax_builds_them():
 
 
 def test_groie_refused():
-    """Fault 3a: the GRoIE config's ``GenericRoIExtractor`` (every level
-    pooled and summed in JAX) is refused, not built with FPN routing."""
+    """Fault 3a stays fixed: the GRoIE config's ``GenericRoIExtractor``
+    (every level pooled and summed in JAX) is not built with FPN routing:
+    it builds with the all-level extract as JAX builds it, and a GRoIE
+    extractor with the ``pre_cfg`` / ``post_cfg`` modules the port lacks
+    is refused, naming item 9."""
+    from dynamask_tpu.models import build_detector as jax_build
     from dynamask_torch.apis import init_detector
-    with pytest.raises(NotImplementedError, match='GenericRoIExtractor'):
+    from dynamask_torch.utils.config import Config
+    path = os.path.join(ROOT,
+                        'configs/groie/mask_rcnn_r50_fpn_groie_1x_coco.py')
+    d = Config.fromfile(path).to_dict()
+    mode = jax_build(d['model'], d['train_cfg'],
+                     d['test_cfg']).roi_head.roi_extract_mode
+    assert init_detector(path, device='meta').roi_head.roi_extract_mode \
+        == mode == 'generic_sum'
+    with pytest.raises(NotImplementedError, match='item 9'):
         init_detector(os.path.join(
-            ROOT, 'configs/groie/mask_rcnn_r50_fpn_groie_1x_coco.py'),
+            ROOT, 'configs/groie/grid_rcnn_r50_fpn_gn-head_groie_1x_coco.py'),
             device='meta')
 
 
