@@ -223,7 +223,24 @@ before the last line is printed:
    Soft-NMS config's ``multiclass_nms`` call on one image's scores, held
    against the same call on the CPU and timed beside greedy NMS on the
    same inputs. It prints ms/img, ms/step and
-   peak memory of each config, the phase's seconds and the whole run's.
+   peak memory of each config and the phase's seconds;
+14. drive the single-stage detectors, each from its config file,
+   unchanged, at full width at phases 4-5's protocol (no hand kernel runs
+   on these paths: every counter is held at exactly 0 on each drive):
+   ``configs/retinanet/retinanet_r50_fpn_1x_coco.py`` (median of 3 images,
+   2 steps, then its eval drive on phase 6's set: bbox AP with the 4
+   loader workers, phase 11's ms/img split, the GTs as predictions
+   exactly 1.0), ``configs/fp16/retinanet_r50_fpn_fp16_1x_coco.py`` in
+   bf16 (an image, a step), ``configs/legacy_1.x/
+   retinanet_r50_fpn_1x_coco_v1.py`` (an image), the GHM and FreeAnchor
+   R50s (a step each), ``configs/nas_fpn/retinanet_r50_fpn_crop640_50e_
+   coco.py`` (``RetinaSepBNHead`` over the BN FPN; an image and a step at
+   640x640), ``configs/atss/atss_r50_fpn_1x_coco.py``, ``configs/fcos/
+   fcos_r50_caffe_fpn_gn-head_4x4_1x_coco.py`` and its
+   ``center-normbbox-centeronreg-giou`` twin (an image and a step each).
+   Phase 3 adds the toy RetinaNet, ATSS and FCOS on the card against the
+   same weights on the CPU. It prints ms/img, ms/step and peak memory of
+   each config, the phase's seconds and the whole run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
@@ -233,8 +250,9 @@ the fp32 and bf16 drives, in phase 10 each RefineMask config's image
 and steps, the loader-batch step and the eval drive, in phase 11 each
 config's image and steps and the RPN, Fast R-CNN and VOC eval drives, in
 phase 12 each config's image and steps and HTC's eval drive and
-loader-batch step, and in phase 13 each config's image and steps and
-GRoIE's eval drive and loader-batch step)
+loader-batch step, in phase 13 each config's image and steps and
+GRoIE's eval drive and loader-batch step, and in phase 14 each config's
+image and steps and RetinaNet's eval drive)
 the kernels' launch
 counters are zeroed just before it
 and read just after (the loop's
@@ -242,9 +260,9 @@ steps and its validations in turns), and every kernel of that path must
 have launched in it: K1 and K2 at inference, in the eval loops and in the
 loop's validations, K5 through both entry points in its check, K1-K4 in
 training; behind Mask R-CNN's FCN head, which runs no DCN, K2 at
-inference and K2 and K4 in training; phase 6 and phases 8-13 hold each
+inference and K2 and K4 in training; phase 6 and phases 8-14 hold each
 drive to its exact counts, every other kernel at 0 (the RPN's eval drive
-launches none).
+and every phase-14 drive launch none).
 
 Standard output ends with the ``kernels`` JSON line, the card's name and
 power limit as ``nvidia-smi`` reports them, and the ``{"ok": true, ...}``
@@ -2656,9 +2674,22 @@ def config_modes(name):
                  for m in ('faithful', 'dynamic'))
 
 
+def det_slots(model) -> int:
+    """The det slots of an image: the RoI head's ``max_per_img``, or a
+    single-stage detector's."""
+    rh = getattr(model, 'roi_head', None)
+    return rh.max_per_img if rh is not None else \
+        model.test_cfg['max_per_img']
+
+
+def num_classes(model) -> int:
+    rh = getattr(model, 'roi_head', None)
+    return rh.num_classes if rh is not None else model.num_classes
+
+
 def run_config_inference(report, card, name, path, hw, modes, repeats=5,
                          bf16=False):
-    """Phases 8 and 10-12, inference: the config's detector built on the
+    """Phases 8 and 10-14, inference: the config's detector built on the
     card with random weights N(0, 0.05) from seed 0, one seeded image at
     the config's test canvas through ``inference_detector`` (with
     ``bf16``, ``make_test_fn(..., bf16=True)``: a bf16 copy of the model on
@@ -2679,17 +2710,18 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
              'img_shape': torch.tensor([[h, w]], dtype=torch.float32,
                                        device=DEVICE),
              'scale_factor': torch.ones(1, 4, device=DEVICE)}
-    rh = model.roi_head
-    d = rh.max_per_img
+    rh = getattr(model, 'roi_head', None)
+    d = det_slots(model)
+    classes = num_classes(model)
     print(f'  {name}: built in {build_s:.1f} s, '
           f'{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, '
-          f'{rh.num_classes} classes, {d} det slots, canvas {h}x{w}')
+          f'{classes} classes, {d} det slots, canvas {h}x{w}')
     launches, recs = {}, []
     fn = (make_test_fn(model, hw, bf16=True) if bf16 else
           functools.partial(inference_detector, model))
     # FCN heads (Mask R-CNN's, Cascade Mask R-CNN's, HTC's stage heads)
     # give 28x28 probabilities, the DynaMask and RefineMask heads 112x112
-    side = (None if rh.mask_head is None else
+    side = (None if rh is None or rh.mask_head is None else
             28 if isinstance(rh.mask_head, (FCNMaskHead, torch.nn.ModuleList))
             else 112)
 
@@ -2719,8 +2751,8 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
                                    f'{tuple(out[k].shape)} != {shape}')
         if not torch.isfinite(out['dets']).all():
             raise RuntimeError(f'{key}: non-finite dets')
-        if int(out['labels'].max()) >= rh.num_classes:
-            raise RuntimeError(f'{key}: a label past {rh.num_classes}')
+        if int(out['labels'].max()) >= classes:
+            raise RuntimeError(f'{key}: a label past {classes}')
         if side:
             with torch.no_grad():
                 probs = model.simple_test(batch)['mask_probs']
@@ -2761,7 +2793,7 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
 
 def run_config_train(report, card, name, path, images, hw, counts,
                      repeats=TIMED_STEPS, compute_dtype=None):
-    """Phases 8 and 10-12, training: ``init_trainer`` on the config (its
+    """Phases 8 and 10-14, training: ``init_trainer`` on the config (its
     seeded JAX initialisation), a seeded synthetic batch of ``images`` at
     the train canvas with 20 GTs each over the config's classes (and, for
     a head that reads it, ``gt_semantic`` through the data pipeline's
@@ -2776,11 +2808,11 @@ def run_config_train(report, card, name, path, images, hw, counts,
     model, opt = init_trainer(path, steps_per_epoch=COCO_STEPS_PER_EPOCH,
                               device=DEVICE, seed=0)
     h, w = hw
-    semantic = model.roi_head.with_semantic
+    semantic = getattr(getattr(model, 'roi_head', None), 'with_semantic',
+                       False)
     seg = semantic_seg_shape(model)
     batch = synthetic_batch(0, b=images, h=h, w=w, num_gts=TRAIN_GTS,
-                            crop_size=128,
-                            num_classes=model.roi_head.num_classes,
+                            crop_size=128, num_classes=num_classes(model),
                             device='cpu', with_semantic=semantic,
                             semantic_seg=seg)
     if seg and tuple(batch['gt_semantic_seg'].shape) != (
@@ -3210,9 +3242,10 @@ def gt_boxes_as_results(dataset):
     return results
 
 
-def run_box_eval(report, card, name, cfg, counts):
+def run_box_eval(report, card, name, cfg, counts, init_std=None):
     """Phase 11, an evaluation drive: ``run_test``'s steps on ``cfg`` (its
-    detector at its seeded initialisation on the card, its test set,
+    detector at its seeded initialisation on the card, or N(0,
+    ``init_std``) weights from seed 0, its test set,
     ``single_device_test`` with its loader workers, timed by part),
     counters around them held to ``counts`` an image; every image's
     result finite and box-only. Returns (dataset, results, launches,
@@ -3223,7 +3256,7 @@ def run_box_eval(report, card, name, cfg, counts):
     from dynamask_torch.data import build_dataset
     ops.reset_kernel_launches()
     t = time.perf_counter()
-    model = init_detector(cfg, device=DEVICE)
+    model = init_detector(cfg, device=DEVICE, seed=0, init_std=init_std)
     dataset = build_dataset(dict(cfg.data.test),
                             default_args=dict(test_mode=True))
     timings = {}
@@ -3574,6 +3607,180 @@ def run_two_stage(report, card):
     return launches
 
 
+# -- phase 14: the single-stage detectors -------------------------------------
+
+RETINANET = os.path.join(ROOT, 'configs/retinanet/retinanet_r50_fpn_1x_coco.py')
+ATSS_CONFIG = os.path.join(ROOT, 'configs/atss/atss_r50_fpn_1x_coco.py')
+FCOS_CENTER = os.path.join(ROOT, 'configs/fcos/fcos_center-normbbox-'
+                           'centeronreg-giou_r50_caffe_fpn_gn-head_4x4_1x_'
+                           'coco.py')
+CROP640_HW = (640, 640)   # the crop640 recipe's training crops
+# (name, config, timed repeats of an image (None: no image), timed steps
+# (None: no step), bf16, the canvas of both (None: the config's own));
+# no hand kernel runs on these paths: each drive holds every counter at 0
+SINGLE_STAGE_CELLS = (
+    ('retinanet', RETINANET, 3, 2, False, None),
+    ('retinanet_fp16', os.path.join(
+        ROOT, 'configs/fp16/retinanet_r50_fpn_fp16_1x_coco.py'),
+     1, 1, True, None),
+    ('retinanet_v1', os.path.join(
+        ROOT, 'configs/legacy_1.x/retinanet_r50_fpn_1x_coco_v1.py'),
+     1, None, False, None),
+    ('ghm', os.path.join(ROOT, 'configs/ghm/retinanet_ghm_r50_fpn_1x_coco.py'),
+     None, 1, False, None),
+    ('free_anchor', os.path.join(
+        ROOT, 'configs/free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py'),
+     None, 1, False, None),
+    ('crop640', os.path.join(
+        ROOT, 'configs/nas_fpn/retinanet_r50_fpn_crop640_50e_coco.py'),
+     1, 1, False, CROP640_HW),
+    ('atss', ATSS_CONFIG, 1, 1, False, None),
+    ('fcos', os.path.join(
+        ROOT, 'configs/fcos/fcos_r50_caffe_fpn_gn-head_4x4_1x_coco.py'),
+     1, 1, False, None),
+    ('fcos_center', FCOS_CENTER, 1, 1, False, None),
+)
+# the card's toy outputs against the CPU's from the same weights: dets
+# within TOY_DET_TOL (absolute, on scores and on boxes of a 96x128 canvas),
+# labels and validity equal; each loss within TOY_LOSS_RTOL relative
+TOY_DET_TOL = 1e-4
+TOY_LOSS_RTOL = 1e-4
+SINGLE_STAGE_TOYS = {'retinanet': RETINANET, 'atss': ATSS_CONFIG,
+                     'fcos': FCOS_CENTER}
+
+
+def single_stage_toy(kind):
+    """The config of a single-stage toy: ResNet-18, a 32-channel FPN with
+    its extra levels, two-conv heads of 32 channels, 8 classes, 50
+    candidates a level and 20 dets an image."""
+    from dynamask_torch.utils import Config
+    cfg = Config.fromfile(SINGLE_STAGE_TOYS[kind])
+    m = cfg.model
+    m.backbone.depth = 18
+    m.neck.in_channels = [64, 128, 256, 512]
+    m.neck.out_channels = 32
+    m.bbox_head.update(in_channels=32, feat_channels=32, stacked_convs=2,
+                       num_classes=8)
+    cfg.test_cfg.update(nms_pre=50, max_per_img=20)
+    return cfg
+
+
+def check_single_stage_toys(report):
+    """Phase 3, the single-stage toys (RetinaNet, ATSS, FCOS with center
+    sampling, ``norm_on_bbox`` and GN): built on the CPU with N(0, 0.05)
+    weights from seed 0 and copied to the card; two seeded 96x128 images
+    through ``simple_test`` and a training step's losses on the same batch
+    on both."""
+    import copy
+    import torch
+    from dynamask_torch.apis import synthetic_batch
+    from dynamask_torch.models import build_detector
+    for kind in SINGLE_STAGE_TOYS:
+        cfg = single_stage_toy(kind)
+        cpu = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                             device='cpu', seed=0, init_std=0.05)
+        gpu = copy.deepcopy(cpu).to(DEVICE)
+        batch = synthetic_batch(3, b=2, h=96, w=128, num_gts=4,
+                                num_classes=8)
+        batch['scale_factor'] = torch.tensor([[1.0] * 4, [0.8] * 4])
+        ref = cpu.simple_test(batch)
+        got = gpu.simple_test({k: v.to(DEVICE) for k, v in batch.items()})
+        for k in ('labels', 'det_valid'):
+            if not torch.equal(got[k].cpu(), ref[k]):
+                raise RuntimeError(f'toy {kind}: the card\'s {k} differ '
+                                   'from the CPU\'s')
+        err = (got['dets'].cpu() - ref['dets']).abs().max().item()
+        if err > TOY_DET_TOL or int(ref['det_valid'].sum()) < 4:
+            raise RuntimeError(f'toy {kind}: dets max abs err {err} '
+                               f'({int(ref["det_valid"].sum())} valid)')
+        cpu.train()
+        gpu.train()
+        lref = {k: float(v.detach()) for k, v in
+                cpu.forward_train(batch).items()}
+        lgot = {k: float(v.detach()) for k, v in gpu.forward_train(
+            {k: v.to(DEVICE) for k, v in batch.items()}).items()}
+        rel = {k: abs(lgot[k] - v) / max(abs(v), 1e-12)
+               for k, v in lref.items()}
+        if max(rel.values()) > TOY_LOSS_RTOL or not all(
+                math.isfinite(v) and v > 0 for v in lref.values()):
+            raise RuntimeError(f'toy {kind}: losses {lgot} vs the CPU\'s '
+                               f'{lref}')
+        print(f'  toy {kind}: {int(ref["det_valid"].sum())} valid dets, '
+              f'labels and validity equal, dets max abs err {err:.3g} '
+              f'(tol {TOY_DET_TOL}); losses max rel err '
+              f'{max(rel.values()):.3g} (tol {TOY_LOSS_RTOL})')
+        report['toy'].append(dict(toy=f'single_stage_{kind}',
+                                  dets_max_abs_err=err, loss_rel_err=rel))
+        del cpu, gpu
+
+
+def run_single_stage_eval(report, card):
+    """Phase 14, RetinaNet's evaluation drive: phase 6's seeded COCO set
+    through the config's test pipeline, its 4 loader workers and
+    ``single_device_test`` (N(0, 0.05) weights from seed 0, boxes only),
+    the ms/img split of phase 11, counters held at 0; bbox AP, and the GTs
+    as predictions must score exactly 1.0."""
+    from dynamask_torch.utils import Config
+    ann_file, img_dir, n_gts = write_coco_set(COCO_SET)
+    cfg = Config.fromfile(RETINANET)
+    cfg.data.test.update(ann_file=ann_file, img_prefix=img_dir,
+                         data_root=None)
+    dataset, results, launches, t_test = run_box_eval(
+        report, card, 'retinanet', cfg, {}, init_std=0.05)
+    t = time.perf_counter()
+    metrics = dataset.evaluate(results, metric=['bbox'])
+    t_eval = time.perf_counter() - t
+    gt = dataset.evaluate(gt_boxes_as_results(dataset), metric=['bbox'])
+    if gt['bbox_mAP'] != 1.0:
+        raise RuntimeError(f'retinanet_eval: the GTs as predictions give '
+                           f'{gt}')
+    n = len(dataset)
+    n_valid = sum(int(r['valid'].sum()) for r in results)
+    print(f'  retinanet_eval: {n} images, {n_gts} GTs; run_test {t_test:.1f} '
+          f's ({n / t_test:.2f} img/s with {cfg.data.workers_per_gpu} loader '
+          f'workers started), evaluate {t_eval:.2f} s [{card}]; {n_valid} '
+          f'valid dets; bbox_mAP {metrics["bbox_mAP"]:.4f} (random '
+          f'weights), the GTs as predictions {gt["bbox_mAP"]}; launches '
+          f'{launches["retinanet_eval"]}')
+    report['single_stage']['eval'] = dict(
+        images=n, run_test_s=t_test, evaluate_s=t_eval, valid_dets=n_valid,
+        metrics=metrics, gt_as_predictions=gt,
+        launches=launches['retinanet_eval'])
+    return launches
+
+
+def run_single_stage(report, card):
+    """Phase 14: RetinaNet (fp32, and bf16 from the fp16 config), the
+    legacy v1, GHM and FreeAnchor RetinaNets, the crop640 RetinaNet
+    (``RetinaSepBNHead`` over the BN FPN, at 640x640), ATSS, and FCOS with
+    its center-sampling twin, each from its config file, unchanged, at full
+    width: one image at the test canvas (phase 4's weights protocol) and
+    steps at the train batch (4 images, 20 GTs each), each a counted
+    warm-up with every kernel held at 0 launches, then timed repeats;
+    then RetinaNet's eval drive."""
+    import torch
+    from dynamask_torch.apis import config_shapes
+    launches = {}
+    report['single_stage'] = {'inference': [], 'train': []}
+    for name, path, n_inf, n_steps, bf16, canvas in SINGLE_STAGE_CELLS:
+        test_hw, images, train_hw = config_shapes(path)
+        if n_inf:
+            got, recs = run_config_inference(
+                report, card, name, path, canvas or test_hw,
+                (('infer', None, {}),), repeats=n_inf, bf16=bf16)
+            launches.update(got)
+            report['single_stage']['inference'] += recs
+        if n_steps:
+            got, rec = run_config_train(
+                report, card, name, path, images, canvas or train_hw, {},
+                repeats=n_steps,
+                compute_dtype=torch.bfloat16 if bf16 else None)
+            launches.update(got)
+            report['single_stage']['train'].append(rec)
+    launches.update(run_single_stage_eval(report, card))
+    return launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -3617,6 +3824,7 @@ def main() -> int:
     check_toy_train_against_cpu(report, 'refinemask')
     for kind in ('faster_rcnn', *DEEP_TOYS, *CASCADE_TOYS, *TWO_STAGE_TOYS):
         check_toy_train_against_cpu(report, kind)
+    check_single_stage_toys(report)
     print(f'phase 4: flagship inference [{card}]')
     launches = run_inference_path(report, card)
     torch.cuda.empty_cache()
@@ -3670,8 +3878,14 @@ def main() -> int:
     t13 = time.perf_counter()
     launches.update(run_two_stage(report, card))
     report['phase13_s'] = time.perf_counter() - t13
+    print(f'  phase 13: {report["phase13_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 14: the single-stage detectors [{card}]')
+    t14 = time.perf_counter()
+    launches.update(run_single_stage(report, card))
+    report['phase14_s'] = time.perf_counter() - t14
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 13: {report["phase13_s"]:.1f} s; the whole run '
+    print(f'  phase 14: {report["phase14_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s [{card}]')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}

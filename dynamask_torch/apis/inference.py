@@ -51,8 +51,9 @@ def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
     test = (config.get('data') or {}).get('test')
     names, model.canvases = dataset_spec(test or {})
     model.cfg = config
-    num_classes = (len(names or ()) if is_proposal_model(model)
-                   else model.roi_head.num_classes)
+    num_classes = (len(names or ()) if is_proposal_model(model) else
+                   getattr(model, 'num_classes', None) or
+                   model.roi_head.num_classes)
     model.CLASSES = tuple(classes or config_classes(names, num_classes))
     model.pipeline = Compose(
         [t for t in test['pipeline'] if t['type'] != 'LoadImageFromFile']

@@ -3,8 +3,9 @@ det -> canvas mask epilogue, the dataset loop that feeds the dataset's
 ``evaluate``, and ``run_eval``. The forward, the NMS and the mask paste run
 on the device; the masks come to the host once per image, and RLE encoding
 and COCO matching stay on the host. A box-only detector (Faster and Fast
-R-CNN) skips the paste and gives boxes; an ``RPN`` gives its proposals
-(the JAX loop pastes always, so it has neither)."""
+R-CNN, the single-stage detectors) skips the paste and gives boxes; an
+``RPN`` gives its proposals (the JAX loop pastes always, so it has
+neither)."""
 
 from __future__ import annotations
 
@@ -30,8 +31,10 @@ def simple_test_inputs(batch: Dict) -> Dict:
 
 
 def is_proposal_model(model: torch.nn.Module) -> bool:
-    """An ``RPN``: its results are proposals, not class dets."""
-    return not hasattr(model, 'roi_head')
+    """An ``RPN``: its results are proposals, not class dets (a two-stage
+    detector has an RoI head, a single-stage one a ``bbox_head``)."""
+    return not hasattr(model, 'roi_head') and not hasattr(model,
+                                                          'bbox_head')
 
 
 def paste_epilogue(out: Dict, ch: int, cw: int, mask_thr: float) -> Dict:

@@ -1,5 +1,5 @@
-"""Grid anchors and their validity (port of ``AnchorGenerator.grid_anchors``
-and ``valid_flags`` in ``dynamask_tpu/core/anchors.py``, :108-131).
+"""Grid anchors and their validity (port of ``AnchorGenerator`` and
+``LegacyAnchorGenerator`` in ``dynamask_tpu/core/anchors.py``, :20-160).
 
 Base anchors and grids are computed in numpy from static feature-map sizes,
 then moved to the device once per call.
@@ -7,7 +7,7 @@ then moved to the device once per call.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -15,23 +15,48 @@ import torch
 
 class AnchorGenerator:
     """Multi-level anchors: ``w = base * scale / sqrt(ratio)``,
-    ``h = base * scale * sqrt(ratio)``, scale-major, centred at 0."""
+    ``h = base * scale * sqrt(ratio)``, scale-major, centred at
+    ``center_offset * stride``. The scales are given, or are
+    ``octave_base_scale * 2 ** (i / scales_per_octave)`` (RetinaNet's
+    octave scales; ATSS's single one)."""
 
     def __init__(self, strides: Sequence[int], ratios: Sequence[float],
-                 scales: Sequence[float]):
+                 scales: Optional[Sequence[float]] = None,
+                 octave_base_scale: Optional[float] = None,
+                 scales_per_octave: Optional[int] = None,
+                 center_offset: float = 0.0):
         self.strides = [(s, s) if isinstance(s, int) else tuple(s)
                         for s in strides]
-        self.scales = np.asarray(scales, np.float32)
+        if scales is not None:
+            self.scales = np.asarray(scales, np.float32)
+        elif octave_base_scale is not None and scales_per_octave is not None:
+            octave = 2 ** (np.arange(scales_per_octave) / scales_per_octave)
+            self.scales = (octave * octave_base_scale).astype(np.float32)
+        else:
+            raise ValueError('either scales or octave_base_scale and '
+                             'scales_per_octave must be set')
         self.ratios = np.asarray(ratios, np.float32)
-        self.base_anchors = [self._base_anchors(min(s)) for s in self.strides]
+        self.center_offset = center_offset
+        self.base_anchors = [self._base_anchors(min(s), s)
+                             for s in self.strides]
 
-    def _base_anchors(self, base_size: float) -> np.ndarray:
+    @property
+    def num_base_anchors(self) -> int:
+        return len(self.scales) * len(self.ratios)
+
+    def _sizes(self, base_size: float):
         h_ratios = np.sqrt(self.ratios)
         w_ratios = 1.0 / h_ratios
         ws = (base_size * w_ratios[:, None] * self.scales[None, :]).reshape(-1)
         hs = (base_size * h_ratios[:, None] * self.scales[None, :]).reshape(-1)
-        return np.stack([-0.5 * ws, -0.5 * hs, 0.5 * ws, 0.5 * hs],
-                        axis=-1).astype(np.float32)
+        return ws, hs
+
+    def _base_anchors(self, base_size: float, stride) -> np.ndarray:
+        ws, hs = self._sizes(base_size)
+        xc = self.center_offset * stride[0]
+        yc = self.center_offset * stride[1]
+        return np.stack([xc - 0.5 * ws, yc - 0.5 * hs, xc + 0.5 * ws,
+                         yc + 0.5 * hs], axis=-1).astype(np.float32)
 
     def single_level_grid_anchors(self, featmap_size: Tuple[int, int],
                                   level: int) -> np.ndarray:
@@ -57,7 +82,7 @@ class AnchorGenerator:
         lies inside the un-padded image extent ``img_shape`` (B, 2) = (h, w)
         on that level, ``ceil(extent / stride)`` cells."""
         flags = []
-        num_base = len(self.scales) * len(self.ratios)
+        num_base = self.num_base_anchors
         for level, (feat_h, feat_w) in enumerate(featmap_sizes):
             sw, sh = self.strides[level]
             h = torch.ceil(img_shape[:, 0] / sh).long().clamp(max=feat_h)
@@ -69,3 +94,17 @@ class AnchorGenerator:
             flags.append(valid.reshape(img_shape.shape[0], -1)
                          .repeat_interleave(num_base, dim=1))
         return flags
+
+
+class LegacyAnchorGenerator(AnchorGenerator):
+    """mmdet v1.x's anchors (the ``legacy_1.x`` configs): centred at
+    ``center_offset * (stride - 1)``, with the ``- 1`` of the +1-pixel box
+    convention on their extent."""
+
+    def _base_anchors(self, base_size: float, stride) -> np.ndarray:
+        ws, hs = self._sizes(base_size)
+        xc = self.center_offset * (stride[0] - 1)
+        yc = self.center_offset * (stride[1] - 1)
+        return np.stack([xc - 0.5 * (ws - 1), yc - 0.5 * (hs - 1),
+                         xc + 0.5 * (ws - 1), yc + 0.5 * (hs - 1)],
+                        axis=-1).astype(np.float32)

@@ -89,6 +89,16 @@ def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
     return boxes.reshape(shape[:-1] + (shape[-1],))
 
 
+def distance2bbox(points: torch.Tensor,
+                  distance: torch.Tensor) -> torch.Tensor:
+    """(left, top, right, bottom) distances around (x, y) points -> boxes
+    (FCOS's decode)."""
+    return torch.stack([points[..., 0] - distance[..., 0],
+                        points[..., 1] - distance[..., 1],
+                        points[..., 0] + distance[..., 2],
+                        points[..., 1] + distance[..., 3]], dim=-1)
+
+
 def bbox2result(bboxes, scores, labels, valid,
                 num_classes: int) -> List[np.ndarray]:
     """Padded host dets -> the reference's per-class result format: a list

@@ -10,9 +10,11 @@ RefineMask leaves that the JAX importer has no rule for (the semantic
 tower and logits, ``semantic_transform_out``, the ``MultiBranchFusion``
 convs, ``SimpleRefineMaskHead``'s per-stage logits), and the cascade
 heads' (each stage's box and mask head, ``conv_res``, HTC's semantic
-head), and the two-stage options' (the FPN's and the heads' GroupNorms,
-the box head's shared convs, CARAFE's encoders, Double-Head's branches),
-which that importer skips (ROADMAP.md queue 3, 3d, 3o, 3t):
+head), the two-stage options' (the FPN's and the heads' GroupNorms,
+the box head's shared convs, CARAFE's encoders, Double-Head's branches)
+and the single-stage detectors' (the dense heads, the FPN's extra convs
+and BatchNorms), which that importer skips (ROADMAP.md queue 3, 3d, 3o,
+3t, 3aa):
 
 * conv kernels HWIO -> OIHW (the DCN leaf is named ``weight``, and a
   ``ClassSelectConv1x1`` is a ``(1, 1, C, ncls)`` kernel); the FCN mask
@@ -22,6 +24,7 @@ which that importer skips (ROADMAP.md queue 3, 3d, 3o, 3t):
   ``MaskPre.fc1`` also reorder their input from HWC- to CHW-flattening;
 * BatchNorm ``scale``/``bias``/``mean``/``var``; GroupNorm ``scale``/
   ``bias``, no statistics;
+* a dense head's ``scales`` vector -> one ``Scale`` a level;
 * ``detail_fuse_weights`` (2,) -> the loss module's (1, 2, 1, 1) kernel.
 """
 
@@ -61,8 +64,24 @@ def _resnet_key(key: str) -> Optional[Tuple[List[str], str]]:
     return None
 
 
-def mmdet_key(key: str) -> Optional[Tuple[List[str], str, Dict]]:
-    """Port state-dict key -> (JAX tree path, torch leaf name, hints)."""
+_BN_LEAF = r'(weight|bias|running_mean|running_var)'
+
+
+def _fpn_conv(i: str, num_laterals: Optional[int], norm: bool = False
+              ) -> str:
+    """The JAX name of the FPN's ``fpn_convs.{i}`` (or of its norm): an
+    output conv below the laterals' count, an extra conv from there."""
+    n = int(i)
+    if num_laterals is not None and n >= num_laterals:
+        return f'extra_{"gn" if norm else "conv"}_{n - num_laterals}'
+    return f'fpn_{"gn" if norm else "conv"}_{n}'
+
+
+def mmdet_key(key: str, num_laterals: Optional[int] = None
+              ) -> Optional[Tuple[List[str], str, Dict]]:
+    """Port state-dict key -> (JAX tree path, torch leaf name, hints).
+    ``num_laterals`` is the FPN's (:func:`neck_laterals`): its
+    ``fpn_convs`` from there on are JAX's ``extra_conv_{i}``."""
     if key.startswith('backbone.'):
         r = _resnet_key(key[len('backbone.'):])
         return None if r is None else (['backbone'] + r[0], r[1], {})
@@ -70,11 +89,31 @@ def mmdet_key(key: str) -> Optional[Tuple[List[str], str, Dict]]:
         (r'^neck\.lateral_convs\.(\d+)\.conv\.(weight|bias)$',
          lambda m: (['neck', f'lateral_{m[1]}'], m[2], {})),
         (r'^neck\.fpn_convs\.(\d+)\.conv\.(weight|bias)$',
-         lambda m: (['neck', f'fpn_conv_{m[1]}'], m[2], {})),
-        # the FPN's GroupNorms (JAX fpn.py:37-44), FPN_CARAFE's upsamplers
-        # (JAX carafe.py:88-93)
-        (r'^neck\.(lateral|fpn)_convs\.(\d+)\.gn\.(weight|bias)$',
-         lambda m: (['neck', f'{m[1]}_gn_{m[2]}'], m[3], {})),
+         lambda m: (['neck', _fpn_conv(m[1], num_laterals)], m[2], {})),
+        # the FPN's GroupNorms and BatchNorms (JAX fpn.py:37-44, both
+        # named ``*_gn_*``), FPN_CARAFE's upsamplers (JAX carafe.py:88-93)
+        (r'^neck\.lateral_convs\.(\d+)\.(gn|bn)\.' + _BN_LEAF + '$',
+         lambda m: (['neck', f'lateral_gn_{m[1]}'], m[3], {})),
+        (r'^neck\.fpn_convs\.(\d+)\.(gn|bn)\.' + _BN_LEAF + '$',
+         lambda m: (['neck', _fpn_conv(m[1], num_laterals, True)], m[3],
+                    {})),
+        # the dense heads (JAX single_stage.py, atss.py, fcos.py): the
+        # towers' convs and norms (RetinaSepBNHead's convs shared by its
+        # levels, its BatchNorms a level), the output convs, the scales
+        (r'^bbox_head\.(cls|reg)_convs\.(\d+\.)?(\d+)\.conv\.'
+         r'(weight|bias)$',
+         lambda m: (['bbox_head', f'{m[1]}_conv_{m[3]}'], m[4], {})),
+        (r'^bbox_head\.(cls|reg)_convs\.(\d+)\.gn\.(weight|bias)$',
+         lambda m: (['bbox_head', f'{m[1]}_gn_{m[2]}'], m[3], {})),
+        (r'^bbox_head\.(cls|reg)_convs\.(\d+)\.(\d+)\.bn\.' + _BN_LEAF +
+         '$', lambda m: (['bbox_head', f'{m[1]}_bn_{m[2]}_{m[3]}'], m[4],
+                         {})),
+        (r'^bbox_head\.(retina_cls|retina_reg|atss_cls|atss_reg|'
+         r'atss_centerness|conv_cls|conv_reg|conv_centerness)\.'
+         r'(weight|bias)$',
+         lambda m: (['bbox_head', m[1]], m[2], {})),
+        (r'^bbox_head\.scales\.(\d+)\.scale$',
+         lambda m: (['bbox_head'], 'scale', {'index': int(m[1])})),
         (r'^neck\.upsample_modules\.(\d+)\.(channel_compressor|'
          r'content_encoder)\.(weight|bias)$',
          lambda m: (['neck', f'upsample_{m[1]}', m[2]], m[3], {})),
@@ -218,6 +257,8 @@ def _torch_layout(params, stats, path, leaf, hints) -> np.ndarray:
         return _get(stats, path + ['var'])
     if leaf == 'bias':
         return _get(params, path + ['bias'])
+    if leaf == 'scale':                                   # Scale a level
+        return _get(params, path + ['scales'])[hints['index']]
     if leaf == 'detail_fuse_kernel':
         return _get(params, path + ['detail_fuse_weights']).reshape(1, 2, 1, 1)
     assert leaf == 'weight', leaf
@@ -242,6 +283,12 @@ def _torch_layout(params, stats, path, leaf, hints) -> np.ndarray:
     return kernel.T
 
 
+def neck_laterals(model: nn.Module) -> Optional[int]:
+    """The number of the model's FPN laterals, or None without them."""
+    lateral = getattr(getattr(model, 'neck', None), 'lateral_convs', None)
+    return None if lateral is None else len(lateral)
+
+
 def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     """Copy the JAX detector's variables into ``model`` in place.
 
@@ -249,11 +296,12 @@ def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     model that loads computes the JAX model's function."""
     params = variables['params']
     stats = variables.get('batch_stats', {})
+    laterals = neck_laterals(model)
     with torch.no_grad():
         for key, tensor in model.state_dict().items():
             if key.endswith('num_batches_tracked'):
                 continue
-            r = mmdet_key(key)
+            r = mmdet_key(key, laterals)
             if r is None:
                 raise KeyError(f'no JAX counterpart for port tensor {key}')
             arr = _torch_layout(params, stats, *r)

@@ -6,8 +6,9 @@ The port's modules carry the mmdet ``state_dict`` names, so no layout
 conversion is needed: a torchvision ResNet's names (``conv1.weight``,
 ``layer1.0.bn1.running_mean``, ...) take the ``backbone.`` prefix, and a
 detector's mmdet names (``backbone.``, ``neck.``, ``rpn_head.``,
-``roi_head.``) map one to one. Nothing is downloaded: a spec that names no
-local file leaves the model as initialised.
+``roi_head.``, a single-stage detector's ``bbox_head.``) map one to one.
+Nothing is downloaded: a spec that names no local file leaves the model as
+initialised.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 __all__ = ['resolve_pretrained_path', 'load_torch_state_dict',
            'apply_pretrained']
 
-MMDET_PREFIXES = ('backbone.', 'neck.', 'rpn_head.', 'roi_head.')
+MMDET_PREFIXES = ('backbone.', 'neck.', 'rpn_head.', 'roi_head.',
+                  'bbox_head.')
 
 
 def resolve_pretrained_path(spec: Optional[str]) -> Optional[str]:

@@ -7,7 +7,9 @@ the RefineMask branch :451-494, the cascade heads :531-580,
 dynamask_roi_head.py:build_dynamask_roi_head`` (:422-464) and
 ``dynamask_tpu/models/htc.py:build_htc_roi_head`` (:385-460) that the
 Mask R-CNN, Faster / Fast R-CNN, RPN, DynaMask, RefineMask, Cascade R-CNN,
-HTC and the two-stage option configs use).
+HTC and the two-stage option configs use); the single-stage detectors
+(RetinaNet, FreeAnchor, ATSS, FCOS) come from ``single_stage_builder.py``
+over the backbone and neck built here.
 
 Every key that changes the model is read, or refused with the ROADMAP.md
 item (§1) where its port is queued: a config the port builds computes the
@@ -71,7 +73,8 @@ DROPPED = 'ROADMAP.md queue 3, 3w: the JAX package drops it'
 NECK_ITEMS = {'PAFPN': 8, 'NASFPN': 8, 'BFP': 8, 'HRFPN': 8, 'RFP': 8,
               'NASFCOS_FPN': 6}
 DETECTOR_ITEMS = {'GridRCNN': 9, 'MaskScoringRCNN': 9, 'PointRend': 9,
-                  'CornerNet': 9}
+                  'CornerNet': 9, 'GFL': 6, 'FOVEA': 6, 'FSAF': 6,
+                  'RepPointsDetector': 6, 'NASFCOS': 6}
 ROI_HEAD_ITEMS = {'PISARoIHead': 9, 'DynamicRoIHead': 9, 'GridRoIHead': 9,
                   'MaskScoringRoIHead': 9, 'PointRendRoIHead': 9,
                   'TridentRoIHead': 9, 'PointRefineRoIHead': 9}
@@ -126,6 +129,13 @@ def build_backbone(cfg: dict):
     return BACKBONES.build(cfg)
 
 
+# the FPN keys the port reads (JAX ``fpn.py:22-35``)
+FPN_KEYS = ('type', 'in_channels', 'out_channels', 'num_outs',
+            'no_norm_on_lateral', 'start_level', 'end_level',
+            'add_extra_convs', 'extra_convs_on_inputs',
+            'relu_before_extra_convs')
+
+
 def build_neck(cfg: dict):
     if not cfg:
         raise not_ported('a detector without a neck (the C4 backbone)', 9)
@@ -138,21 +148,23 @@ def build_neck(cfg: dict):
         return build_fpn_carafe(cfg)
     if t != 'FPN':
         raise not_ported(f'neck {t}', NECK_ITEMS.get(t, 9))
-    fpn = {k: cfg.pop(k) for k in ('type', 'in_channels', 'out_channels',
-                                   'num_outs', 'no_norm_on_lateral')
-           if k in cfg}
-    if cfg.get('add_extra_convs') or cfg.get('start_level', 0) or \
-            cfg.get('relu_before_extra_convs'):
-        raise not_ported(f'FPN {cfg}', 6)
+    fpn = {k: cfg.pop(k) for k in FPN_KEYS if k in cfg}
+    if fpn.get('add_extra_convs') not in (None, False, True, 'on_input',
+                                          'on_output'):
+        raise not_ported(f'FPN add_extra_convs {fpn["add_extra_convs"]!r} '
+                         '(the JAX package takes it as \'on_output\')',
+                         DROPPED)
     norm_cfg = _cfg(cfg.pop('norm_cfg', None))
     if norm_cfg:
-        if norm_cfg.get('type') != 'GN':
-            raise not_ported(f'FPN norm_cfg {norm_cfg.get("type")}', 6)
+        nt = norm_cfg.get('type')
+        if nt not in ('GN', 'BN', 'SyncBN'):
+            raise not_ported(f'FPN norm_cfg {nt}', 9)
         _check_keys('FPN norm_cfg', norm_cfg, ('type', 'num_groups'),
                     {'requires_grad': True}, DROPPED)
-        fpn.update(norm='gn', gn_groups=norm_cfg.get('num_groups', 32))
-    _check_keys('FPN', cfg, ('add_extra_convs', 'start_level',
-                             'relu_before_extra_convs'), {'end_level': -1}, 6)
+        fpn['norm'] = 'gn' if nt == 'GN' else 'bn'
+        if nt == 'GN':
+            fpn['gn_groups'] = norm_cfg.get('num_groups', 32)
+    _check_keys('FPN', cfg, ())
     fpn['in_channels'] = tuple(fpn['in_channels'])
     return NECKS.build(fpn)
 
@@ -833,11 +845,19 @@ def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
     detectors), ``FastRCNN`` (the RoI head over the batch's proposals) and
     ``RPN`` (the proposals alone); ``CascadeRCNN`` and
     ``HybridTaskCascade`` build the two-stage detector on their RoI
-    heads."""
+    heads; ``RetinaNet`` (and ``SingleStageDetector``), ``ATSS`` and
+    ``FCOS`` the single-stage ones."""
     dev = resolve_device(device)
     cfg = _cfg(model_cfg)
     t = cfg.pop('type')
     cfg.pop('pretrained', None)
+    from .single_stage_builder import SINGLE_STAGE, build_single_stage
+    if t in SINGLE_STAGE:
+        with torch.device('meta'):
+            det = build_single_stage(t, cfg, train_cfg, test_cfg, dict(
+                backbone=build_backbone(cfg['backbone']),
+                neck=build_neck(cfg.get('neck'))))
+        return _materialise(det, dev, seed, init_std)
     if t not in DETECTOR_TYPES + CASCADE_DETECTORS:
         raise not_ported(f'detector {t}', DETECTOR_ITEMS.get(t, 6))
     parts = {'backbone', 'neck'} | (set() if t == 'RPN' else {'roi_head'}) | \
@@ -875,7 +895,15 @@ def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
     if t in CASCADE_DETECTORS:
         t = 'FasterRCNN' if modules['roi_head'].mask_head is None else \
             'MaskRCNN'
-    det = DETECTORS.build(dict(type=t, **modules))
+    return _materialise(DETECTORS.build(dict(type=t, **modules)), dev, seed,
+                        init_std)
+
+
+def _materialise(det, dev: torch.device, seed: int,
+                 init_std: Optional[float]):
+    """``det``, built on the ``meta`` device, with its frozen stages frozen,
+    materialised on ``dev`` and initialised from ``seed``, in eval mode
+    and ``channels_last``; on ``meta``, its structure alone."""
     det.backbone.freeze_stages()
     if dev.type == 'meta':
         return det.eval()

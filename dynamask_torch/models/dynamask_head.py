@@ -31,8 +31,8 @@ import torch.nn.functional as F
 from ..ops.deform_conv import deform_conv2d_nhwc
 from ..ops.roi_align import simple_roi_align
 from ..utils.registry import HEADS
-from .layers import (BatchNorm2d, ConvModule, resize_bilinear_2x, to_nchw,
-                     to_nhwc)
+from .layers import (BatchNorm2dBiasedVar, ConvModule, resize_bilinear_2x,
+                     to_nchw, to_nhwc)
 
 
 class DCNPack(nn.Module):
@@ -219,27 +219,6 @@ class DynaMaskHead(nn.Module):
         inst_preds.append(inst)
         det_preds.append(det)
         return inst_preds, det_preds
-
-
-class BatchNorm2dBiasedVar(BatchNorm2d):
-    """BatchNorm2d whose training mode updates the running variance with
-    the biased batch variance, as the JAX package's flax BatchNorm does
-    (torch's own update uses the unbiased one). Momentum 0.1 here is flax's
-    0.9. The batch statistics are taken in fp32 from any input type, as
-    flax's are."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       unbiased=False)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked += 1
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
 
 
 class MaskPre(nn.Module):

@@ -31,6 +31,27 @@ class BatchNorm2d(nn.BatchNorm2d):
                             b.to(mean.dtype), False, 0.0, self.eps)
 
 
+class BatchNorm2dBiasedVar(BatchNorm2d):
+    """BatchNorm2d whose training mode updates the running variance with
+    the biased batch variance, as the JAX package's flax BatchNorm does
+    (torch's own update uses the unbiased one). Momentum 0.1 here is flax's
+    0.9. The batch statistics are taken in fp32 from any input type, as
+    flax's are."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 class GroupNorm(nn.GroupNorm):
     """GroupNorm at flax's epsilon (1e-6), the JAX package's
     ``nn.GroupNorm`` (``dynamask_tpu/models/resnet.py:120-124``); its scale
@@ -39,16 +60,22 @@ class GroupNorm(nn.GroupNorm):
     Under the bf16 policy (``core/fp16.py``) it computes what flax's does
     on a bf16 input with bf16 parameters: statistics and normalisation in
     fp32 with the bf16 scale and bias widened, one rounding to bf16 at the
-    end."""
+    end.
+
+    It calls the ``group_norm`` operator itself: ``F.group_norm`` refuses a
+    group of one value (a dense head's 1x1 top level at one channel a
+    group, one image), which flax normalises to its bias."""
 
     def __init__(self, num_groups: int, num_channels: int):
         super().__init__(num_groups, num_channels, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype not in (torch.bfloat16, torch.float16):
-            return super().forward(x)
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+        low = x.dtype in (torch.bfloat16, torch.float16)
+        w, b = ((self.weight.float(), self.bias.float()) if low
+                else (self.weight, self.bias))
+        out = torch.group_norm(x.float() if low else x, self.num_groups, w,
+                               b, self.eps, torch.backends.cudnn.enabled)
+        return out.to(x.dtype)
 
 
 class ConvWS2d(nn.Conv2d):
@@ -76,23 +103,29 @@ class ConvModule(nn.Module):
     ``<name>.conv.weight`` as mmcv's ``ConvModule`` writes them; with
     ``gn_groups`` a bias-free conv and a :class:`GroupNorm` under ``.gn``
     (mmcv's ``norm_cfg=GN``, JAX's ``nn.Conv(use_bias=False)`` +
-    ``nn.GroupNorm``), no activation."""
+    ``nn.GroupNorm``), with ``bn`` a bias-free conv and a flax-like
+    :class:`BatchNorm2dBiasedVar` under ``.bn`` (``norm_cfg=BN``); no
+    activation."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int, padding: int = 0, bias: bool = True,
                  dilation: int = 1, stride: int = 1,
-                 gn_groups: Optional[int] = None):
+                 gn_groups: Optional[int] = None, bn: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
                               stride=stride, padding=padding,
-                              bias=bias and gn_groups is None,
+                              bias=bias and gn_groups is None and not bn,
                               dilation=dilation)
         if gn_groups is not None:
             self.gn = GroupNorm(gn_groups, out_channels)
+        if bn:
+            self.bn = BatchNorm2dBiasedVar(out_channels, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
-        return self.gn(x) if hasattr(self, 'gn') else x
+        if hasattr(self, 'gn'):
+            return self.gn(x)
+        return self.bn(x) if hasattr(self, 'bn') else x
 
 
 def resize_bilinear_2x(x: torch.Tensor,
@@ -160,16 +193,21 @@ def init_weights(model: nn.Module, generator: torch.Generator,
 
     ``std=None``: the JAX package's initialisers (``_INIT_RULES``), zero
     biases, unit BN and GN but for the zero scale of one marked ``zero_init``
-    (a residual block's last: ``zero_init_residual``). ``std=s``: every
+    (a residual block's last: ``zero_init_residual``), and a module's
+    ``init_fill`` constants by parameter name (the dense heads' prior
+    class bias, a ``Scale``'s 1). ``std=s``: every
     float parameter ~ N(0, s) and BN statistics |N(0, s)| + 0.5 (the
     random-weight protocol of the JAX bench)."""
     with torch.no_grad():
         for mod_name, m in model.named_modules():
             is_norm = isinstance(m, (nn.modules.batchnorm._BatchNorm,
                                      nn.GroupNorm))
+            fill = getattr(m, 'init_fill', {})
             for name, p in m.named_parameters(recurse=False):
                 if std is not None:
                     p.normal_(0.0, std, generator=generator)
+                elif name in fill:
+                    p.fill_(fill[name])
                 elif is_norm:
                     p.fill_(1.0 if name == 'weight' and not getattr(
                         m, 'zero_init', False) else 0.0)

@@ -2,8 +2,10 @@
 ``dynamask_tpu/models/losses.py`` it uses: ``weight_reduce_loss`` :20,
 ``softmax_cross_entropy`` :34, ``binary_cross_entropy_with_logits`` :44,
 ``l1_loss`` :71, ``smooth_l1_loss`` :76-86, ``iou_loss`` :101-130,
-``accuracy`` :160, ``bounded_iou_loss`` :456-485). Dense padded inputs
-with elementwise weights and an ``avg_factor``, as in the JAX package."""
+``accuracy`` :160, ``ghm_c_loss`` :296-320, ``ghm_r_loss`` :410-432,
+``bounded_iou_loss`` :456-485, and the focal loss of ``dynamask_tpu/
+models/single_stage.py:253-259``). Dense padded inputs with elementwise
+weights and an ``avg_factor``, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -46,17 +48,88 @@ def binary_cross_entropy_with_logits(logits: torch.Tensor,
         torch.log1p(torch.exp(-logits.abs()))
 
 
+def focal_elementwise(logits: torch.Tensor, onehot: torch.Tensor,
+                      gamma: float = 2.0, alpha: float = 0.25) -> torch.Tensor:
+    """The sigmoid focal loss of each logit against its 0/1 target (JAX
+    ``_focal_elementwise``): ``a_t * (1 - p_t) ** gamma * BCE``."""
+    p = torch.sigmoid(logits)
+    ce = binary_cross_entropy_with_logits(logits, onehot)
+    p_t = p * onehot + (1 - p) * (1 - onehot)
+    a_t = alpha * onehot + (1 - alpha) * (1 - onehot)
+    return a_t * (1 - p_t) ** gamma * ce
+
+
+def _ghm_weights(g: torch.Tensor, valid: torch.Tensor, edges: torch.Tensor,
+                 total: torch.Tensor) -> torch.Tensor:
+    """GHM's inverse gradient-density weights: an element of ``g`` in
+    ``[edges[i], edges[i + 1])`` weighs ``total / count_i``, over the
+    number of non-empty bins; invalid elements weigh 0. The counts are
+    exact integers (``bincount``)."""
+    bins = edges.numel() - 1
+    idx = (torch.bucketize(g, edges, right=True) - 1).clamp(0, bins)
+    idx = torch.where(valid & (g < edges[-1]), idx, bins)
+    count = torch.bincount(idx.reshape(-1), minlength=bins + 1)[:bins]
+    per_bin = torch.where(count > 0, total / count.clamp(min=1).float(),
+                          torch.zeros((), device=g.device))
+    nonempty = (count > 0).sum().clamp(min=1).float()
+    return torch.cat([per_bin, per_bin.new_zeros(1)])[idx] / nonempty
+
+
+def _ghm_edges(bins: int, last: float, device) -> torch.Tensor:
+    """JAX's ``jnp.linspace(0, 1, bins + 1)`` with its last edge set to
+    ``last``: ``i * (1 / bins)`` in float32, as it computes them."""
+    step = torch.tensor(1.0 / bins, dtype=torch.float32, device=device)
+    edges = torch.arange(bins + 1, dtype=torch.float32, device=device) * step
+    edges[-1] = last
+    return edges
+
+
+def ghm_c_loss(logits: torch.Tensor, onehot: torch.Tensor,
+               label_weights: torch.Tensor, bins: int = 10) -> torch.Tensor:
+    """Gradient-harmonised classification loss (mmdet ``GHMC``) in JAX's
+    stateless form: the density of this batch alone, whatever the config's
+    ``momentum`` (ROADMAP.md queue 3, 3ab). BCE weighted per element by
+    its gradient norm's bin, over the count of weighted elements."""
+    g = (torch.sigmoid(logits).detach() - onehot).abs()
+    valid = label_weights > 0
+    total = valid.sum().clamp(min=1).float()
+    edges = _ghm_edges(bins, 1.0 + 1e-6, logits.device)
+    weights = _ghm_weights(g, valid, edges, total)
+    ce = binary_cross_entropy_with_logits(logits, onehot)
+    return (ce * weights).sum() / total
+
+
+def ghm_r_loss(pred: torch.Tensor, target: torch.Tensor,
+               label_weight: torch.Tensor, mu: float = 0.02,
+               bins: int = 10) -> torch.Tensor:
+    """Gradient-harmonised regression loss (mmdet ``GHMR``), stateless as
+    :func:`ghm_c_loss`: the authentic smooth L1 ``sqrt(d² + mu²) - mu``
+    weighted by its gradient norm's bin."""
+    diff = pred - target
+    loss = torch.sqrt(diff * diff + mu * mu) - mu
+    g = (diff / torch.sqrt(mu * mu + diff * diff)).abs().detach()
+    valid = label_weight > 0
+    total = label_weight.sum().clamp(min=1).float()
+    edges = _ghm_edges(bins, 1e3, pred.device)
+    weights = _ghm_weights(g, valid, edges, total)
+    return (loss * weights).sum() / total
+
+
 def l1_loss(pred, target, weight=None, avg_factor=None) -> torch.Tensor:
     return weight_reduce_loss((pred - target).abs(), weight, avg_factor)
 
 
-def smooth_l1_loss(pred, target, beta: float = 1.0, weight=None,
-                   avg_factor=None) -> torch.Tensor:
+def smooth_l1_elementwise(pred, target, beta: float = 1.0) -> torch.Tensor:
     """0.5·d²/beta where |d| < beta, |d| − 0.5·beta beyond."""
     diff = (pred - target).abs()
-    loss = torch.where(diff < beta, 0.5 * diff * diff / beta,
+    return torch.where(diff < beta, 0.5 * diff * diff / beta,
                        diff - 0.5 * beta)
-    return weight_reduce_loss(loss, weight, avg_factor)
+
+
+def smooth_l1_loss(pred, target, beta: float = 1.0, weight=None,
+                   avg_factor=None) -> torch.Tensor:
+    return weight_reduce_loss(smooth_l1_elementwise(pred, target, beta),
+                              weight, avg_factor)
 
 
 def iou_loss(pred, target, mode: str = 'giou', eps: float = 1e-7,

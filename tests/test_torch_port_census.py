@@ -8,8 +8,10 @@ refused with ``NotImplementedError`` naming what is missing (a ROADMAP.md
 item or the key), never another error. A handful of refusals are held to
 their message. The count went from 27 (``ROADMAP.md`` §1, before the box-only
 detectors and the ResNet variants) to 82, with Cascade R-CNN and HTC to
-113, and with the two-stage family's options (GN and GN+WS, CARAFE,
-GRoIE, Double-Head, the IoU losses, OHEM and Soft-NMS) to 143.
+113, with the two-stage family's options (GN and GN+WS, CARAFE,
+GRoIE, Double-Head, the IoU losses, OHEM and Soft-NMS) to 143, and with
+the single-stage detectors (RetinaNet with GHM, FreeAnchor, the legacy v1
+form and the SepBN head; ATSS; FCOS) to 180.
 """
 
 import glob
@@ -22,6 +24,7 @@ torch = pytest.importorskip('torch')
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILDS = (
     'albu_example/mask_rcnn_r50_fpn_albu_1x_coco.py',
+    'atss/atss_r50_fpn_1x_coco.py',
     'carafe/faster_rcnn_r50_fpn_carafe_1x_coco.py',
     'carafe/mask_rcnn_r50_fpn_carafe_1x_coco.py',
     'cascade_rcnn/cascade_mask_rcnn_r101_caffe_fpn_1x_coco.py',
@@ -78,12 +81,31 @@ BUILDS = (
     'faster_rcnn/faster_rcnn_x101_32x4d_fpn_2x_coco.py',
     'faster_rcnn/faster_rcnn_x101_64x4d_fpn_1x_coco.py',
     'faster_rcnn/faster_rcnn_x101_64x4d_fpn_2x_coco.py',
+    'fcos/fcos_center-normbbox-centeronreg-giou_r50_caffe_fpn_gn-head_4x4_1x_coco.py',
+    'fcos/fcos_center_r50_caffe_fpn_gn-head_4x4_1x_coco.py',
+    'fcos/fcos_r101_caffe_fpn_gn-head_4x4_1x_coco.py',
+    'fcos/fcos_r101_caffe_fpn_gn-head_4x4_2x_coco.py',
+    'fcos/fcos_r101_caffe_fpn_gn-head_mstrain_640-800_4x4_2x_coco.py',
+    'fcos/fcos_r50_caffe_fpn_4x4_1x_coco.py',
+    'fcos/fcos_r50_caffe_fpn_gn-head_4x4_1x_coco.py',
+    'fcos/fcos_r50_caffe_fpn_gn-head_4x4_2x_coco.py',
+    'fcos/fcos_r50_caffe_fpn_gn-head_mstrain_640-800_4x4_2x_coco.py',
+    'fcos/fcos_r50_fpn_1x_coco.py',
+    'fcos/fcos_x101_64x4d_fpn_gn-head_mstrain_640-800_4x2_2x_coco.py',
     'fp16/faster_rcnn_r50_fpn_fp16_1x_coco.py',
     'fp16/mask_rcnn_r50_fpn_fp16_1x_coco.py',
+    'fp16/retinanet_r50_fpn_fp16_1x_coco.py',
+    'free_anchor/retinanet_free_anchor_r101_fpn_1x_coco.py',
+    'free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py',
+    'free_anchor/retinanet_free_anchor_x101_32x4d_fpn_1x_coco.py',
     'gcnet/cascade_mask_rcnn_x101_32x4d_fpn_syncbn-backbone_1x_coco.py',
     'gcnet/mask_rcnn_r101_fpn_syncbn-backbone_1x_coco.py',
     'gcnet/mask_rcnn_r50_fpn_syncbn-backbone_1x_coco.py',
     'gcnet/mask_rcnn_x101_32x4d_fpn_syncbn-backbone_1x_coco.py',
+    'ghm/retinanet_ghm_r101_fpn_1x_coco.py',
+    'ghm/retinanet_ghm_r50_fpn_1x_coco.py',
+    'ghm/retinanet_ghm_x101_32x4d_fpn_1x_coco.py',
+    'ghm/retinanet_ghm_x101_64x4d_fpn_1x_coco.py',
     'gn+ws/faster_rcnn_r101_fpn_gn_ws-all_1x_coco.py',
     'gn+ws/faster_rcnn_r50_fpn_gn_ws-all_1x_coco.py',
     'gn+ws/faster_rcnn_x101_32x4d_fpn_gn_ws-all_1x_coco.py',
@@ -118,6 +140,8 @@ BUILDS = (
     'instaboost/mask_rcnn_r101_fpn_instaboost_4x_coco.py',
     'instaboost/mask_rcnn_r50_fpn_instaboost_4x_coco.py',
     'instaboost/mask_rcnn_x101_64x4d_fpn_instaboost_4x_coco.py',
+    'legacy_1.x/retinanet_r50_caffe_fpn_1x_coco_v1.py',
+    'legacy_1.x/retinanet_r50_fpn_1x_coco_v1.py',
     'lvis/mask_rcnn_r101_fpn_sample1e-3_mstrain_1x_lvis_v1.py',
     'lvis/mask_rcnn_r101_fpn_sample1e-3_mstrain_2x_lvis_v0.5.py',
     'lvis/mask_rcnn_r50_fpn_sample1e-3_mstrain_1x_lvis_v1.py',
@@ -145,13 +169,28 @@ BUILDS = (
     'mask_rcnn/mask_rcnn_x101_32x8d_fpn_mstrain-poly_3x_coco.py',
     'mask_rcnn/mask_rcnn_x101_64x4d_fpn_1x_coco.py',
     'mask_rcnn/mask_rcnn_x101_64x4d_fpn_2x_coco.py',
+    'nas_fpn/retinanet_r50_fpn_crop640_50e_coco.py',
     'pascal_voc/faster_rcnn_r50_fpn_1x_voc0712.py',
+    'pascal_voc/retinanet_r50_fpn_1x_voc0712.py',
     'refinemask/cityscapes/r50_refinemask_1x.py',
     'refinemask/coco/r101_refinemask_1x.py',
     'refinemask/coco/r101_refinemask_2x.py',
     'refinemask/coco/r50_refinemask_1x.py',
     'refinemask/coco/r50_refinemask_2x.py',
     'refinemask/lvis/r50_refinemask_lvis_1x.py',
+    'retinanet/retinanet_r101_caffe_fpn_1x_coco.py',
+    'retinanet/retinanet_r101_fpn_1x_coco.py',
+    'retinanet/retinanet_r101_fpn_2x_coco.py',
+    'retinanet/retinanet_r50_caffe_fpn_1x_coco.py',
+    'retinanet/retinanet_r50_caffe_fpn_mstrain_1x_coco.py',
+    'retinanet/retinanet_r50_caffe_fpn_mstrain_2x_coco.py',
+    'retinanet/retinanet_r50_caffe_fpn_mstrain_3x_coco.py',
+    'retinanet/retinanet_r50_fpn_1x_coco.py',
+    'retinanet/retinanet_r50_fpn_2x_coco.py',
+    'retinanet/retinanet_x101_32x4d_fpn_1x_coco.py',
+    'retinanet/retinanet_x101_32x4d_fpn_2x_coco.py',
+    'retinanet/retinanet_x101_64x4d_fpn_1x_coco.py',
+    'retinanet/retinanet_x101_64x4d_fpn_2x_coco.py',
     'rpn/rpn_r101_caffe_fpn_1x_coco.py',
     'rpn/rpn_r101_fpn_1x_coco.py',
     'rpn/rpn_r101_fpn_2x_coco.py',
@@ -171,7 +210,10 @@ REFUSED = {
     'legacy_1.x/cascade_mask_rcnn_r50_fpn_1x_coco_v1.py': '3c',
     'htc/htc_x101_64x4d_fpn_dconv_c3-c5_mstrain_400_1400_16x1_20e_coco.py':
         'item 7',
-    'retinanet/retinanet_r50_fpn_1x_coco.py': 'item 6',
+    'gfl/gfl_r50_fpn_1x_coco.py': 'item 6',
+    'fcos/fcos_center-normbbox-centeronreg-giou_r50_caffe_fpn_gn-head_dcn_'
+    '4x4_1x_coco.py': 'item 7',
+    'nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py': 'item 8',
     'dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py': 'item 7',
     'hrnet/faster_rcnn_hrnetv2p_w18_1x_coco.py': 'item 8',
     'rpn/rpn_r50_caffe_c4_1x_coco.py': 'item 9',

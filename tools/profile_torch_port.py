@@ -10,8 +10,9 @@ seed 0, as ``chip_smoke.py`` does, and runs one fp32 image at the first
 canvas of the config's test set (800x1344 for COCO) through
 ``simple_test`` + mask paste in the faithful and the MSM-routed mode (the
 one mode of Mask R-CNN's FCN mask head, ``fcn``, of RefineMask,
-``refine``, or of Cascade R-CNN and HTC, ``cascade``; an HTC step's
-batch carries ``gt_semantic_seg``). With ``--train``: builds the trainer
+``refine``, of Cascade R-CNN and HTC, ``cascade``, or of a single-stage
+detector (RetinaNet, ATSS, FCOS), ``dense``; an HTC step's batch carries
+``gt_semantic_seg``). With ``--train``: builds the trainer
 from the same config (its own seeded initialisation) and runs training
 steps on a seeded synthetic batch of the config's ``samples_per_gpu``
 images at the first canvas of its train set, 20 GTs each (and
@@ -30,7 +31,10 @@ For each mode it reports
   (backbone, fpn, rpn_and_proposals, box_head_and_nms, mask_branch, paste);
   in training ``make_train_step`` (forward_train, backward, optimizer),
   ``MaskRCNN.forward_train`` (backbone, fpn, rpn_loss, proposals) and the
-  RoI head (box_branch, mask_branch). The backward pass runs its kernels
+  RoI head (box_branch, mask_branch); a single-stage detector's are
+  backbone, fpn (the neck), head, and get_dets at inference or loss in
+  training (``SingleStageDetector``, ``ATSS``, ``FCOS``). The backward
+  pass runs its kernels
   from autograd's own thread, so its device time is also given as the
   step's kernel time less that of forward_train and optimizer;
 * device time per kernel name (the 30 largest, and every one of the
@@ -63,6 +67,12 @@ STAGES = ('backbone', 'fpn', 'rpn_and_proposals', 'box_head_and_nms',
           'mask_branch', 'paste')
 TRAIN_STAGES = ('forward_train', 'backbone', 'fpn', 'rpn_loss', 'proposals',
                 'box_branch', 'mask_branch', 'backward', 'optimizer')
+# a single-stage detector's ranges (``models/single_stage.py``, ``atss.py``,
+# ``fcos.py``): the backbone, the neck (``fpn``), the dense head, then the
+# dense targets and losses or the decode and NMS
+DENSE_STAGES = ('backbone', 'fpn', 'head', 'get_dets', 'paste')
+DENSE_TRAIN_STAGES = ('forward_train', 'backbone', 'fpn', 'head', 'loss',
+                      'backward', 'optimizer')
 
 
 def _device_us(e) -> float:
@@ -163,9 +173,12 @@ def _inference(config, card, iters, hw, batch_size, bf16=False):
                                        device='cuda'),
              'scale_factor': torch.ones(1, 4, device='cuda')}
     modes = {}
-    dynamask = hasattr(model.roi_head, 'dynamic_inference')
-    one = ('refine' if isinstance(model.roi_head, RefineRoIHead) else
-           'cascade' if isinstance(model.roi_head, CascadeRoIHead) else 'fcn')
+    rh = getattr(model, 'roi_head', None)
+    dynamask = hasattr(rh, 'dynamic_inference')
+    one = ('dense' if rh is None else
+           'refine' if isinstance(rh, RefineRoIHead) else
+           'cascade' if isinstance(rh, CascadeRoIHead) else 'fcn')
+    stages = DENSE_STAGES if rh is None else STAGES
     for mode, dynamic in ((('faithful', False), ('dynamic', True))
                           if dynamask else ((one, None),)):
         if dynamask:
@@ -175,7 +188,7 @@ def _inference(config, card, iters, hw, batch_size, bf16=False):
                                               batch))
         for _ in range(2):
             run()
-        modes[mode] = _profile(run, iters, STAGES)
+        modes[mode] = _profile(run, iters, stages)
         _summary(mode, modes[mode], card, 'img')
     return modes
 
@@ -188,17 +201,21 @@ def _train(config, card, iters, hw, batch_size, bf16=False):
     # an epoch of COCO train2017 (117266 annotated images) at 4 per step
     model, opt = init_trainer(config, steps_per_epoch=117266 // 4, seed=0)
     h, w = hw
+    rh = getattr(model, 'roi_head', None)
     batch = synthetic_batch(0, b=batch_size, h=h, w=w, num_gts=20,
                             crop_size=128,
-                            num_classes=model.roi_head.num_classes,
+                            num_classes=(model.num_classes if rh is None
+                                         else rh.num_classes),
                             device='cuda',
-                            with_semantic=model.roi_head.with_semantic,
+                            with_semantic=getattr(rh, 'with_semantic',
+                                                  False),
                             semantic_seg=semantic_seg_shape(model))
     step = make_train_step(model, opt, torch.bfloat16 if bf16 else None)
     gen = torch.Generator(device='cuda').manual_seed(0)
     for _ in range(2):
         step(batch, generator=gen)
-    prof = _profile(lambda: step(batch, generator=gen), iters, TRAIN_STAGES)
+    prof = _profile(lambda: step(batch, generator=gen), iters,
+                    DENSE_TRAIN_STAGES if rh is None else TRAIN_STAGES)
     st = prof['stages']
     prof['backward_device_ms_by_difference'] = (
         prof['device_ms_per_iter'] - st['forward_train']['device_ms'] -
