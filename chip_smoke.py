@@ -40,7 +40,11 @@ before the last line is printed:
    Double-Head's two box crops (phase 13's: GRoIE's box extract of an
    image, 1000 RoIs x 4 levels, and of a step, 2048 x 4, its mask extract
    of a step, 512 x 4 at 14x14, Double-Head's 2048 RoIs of a step and the
-   same enlarged 1.3x, in one launch), on lines of their own kept out of the ``kernels`` line's sums; K1 and K3 also at edge shapes
+   same enlarged 1.3x, in one launch), and K2 and K4 at HRFPN's crops
+   (phase 15's: the 200x336 1x1-reduced map of an image and of a step's
+   4 images average-pooled to P2-P5, an image's 1000 box and 100 mask
+   RoIs, a step's 2048 and 512), on lines of their own kept out of the
+   ``kernels`` line's sums; K1 and K3 also at edge shapes
    (ragged bands, one deform group, channels per group not a multiple of
    4, padding and dilation 2, windows 1 and 2, one RoI, a misaligned base)
    with random, zero and exact-edge offsets, K2 and K4 at theirs (C not a
@@ -240,7 +244,29 @@ before the last line is printed:
    ``center-normbbox-centeronreg-giou`` twin (an image and a step each).
    Phase 3 adds the toy RetinaNet, ATSS and FCOS on the card against the
    same weights on the CPU. It prints ms/img, ms/step and peak memory of
-   each config, the phase's seconds and the whole run's.
+   each config and the phase's seconds;
+15. drive the detectors on item 8's backbones and necks, each from its
+   config file, unchanged, at full width at phases 4-5's protocol:
+   ``configs/hrnet/mask_rcnn_hrnetv2p_w32_1x_coco.py`` (HRNet-W32 +
+   HRFPN, whose P2-P6 are one 1x1-reduced map average-pooled; an image
+   and a step), ``htc_hrnetv2p_w18_20e_coco.py`` (an image and a step with
+   ``gt_semantic_seg``), ``cascade_mask_rcnn_hrnetv2p_w40_20e_coco.py``
+   (an image), ``fcos_hrnetv2p_w32_gn-head_4x4_1x_coco.py`` (HRFPN at
+   stride 2; an image and a step, no kernel),
+   ``configs/regnet/mask_rcnn_regnetx-3.2GF_fpn_1x_coco.py`` (an image
+   and a step), ``retinanet_regnetx-800MF_fpn_1x_coco.py`` (an image, no
+   kernel), ``configs/res2net/mask_rcnn_r2_101_fpn_2x_coco.py`` and
+   ``configs/pafpn/faster_rcnn_r50_pafpn_1x_coco.py`` (an image and a step
+   each), each held to its exact K2/K4 launches (the Mask R-CNNs' 2 / 2 +
+   2, HTC's and the cascade's as phase 12's, the PAFPN Faster R-CNN's 1 /
+   1 + 1) with K1, K3 and K5 at 0; then phase 6's eval drive and
+   loader-batch step on the HRNet-W18 Mask R-CNN. Phase 2 times K2 and K4
+   at HRFPN's crops (``hrfpn ...`` lines), and phase 3 adds toy Mask
+   R-CNNs on HRNet + HRFPN, RegNet and Res2Net, a toy Faster R-CNN on
+   PAFPN and a toy FCOS on HRFPN at stride 2, each on the card against the
+   same weights on the CPU (labels and validity equal, dets within 1e-4,
+   the step's losses within 1e-4 relative). It prints ms/img, ms/step and
+   peak memory of each config, the phase's seconds and the whole run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
@@ -251,8 +277,10 @@ and steps, the loader-batch step and the eval drive, in phase 11 each
 config's image and steps and the RPN, Fast R-CNN and VOC eval drives, in
 phase 12 each config's image and steps and HTC's eval drive and
 loader-batch step, in phase 13 each config's image and steps and
-GRoIE's eval drive and loader-batch step, and in phase 14 each config's
-image and steps and RetinaNet's eval drive)
+GRoIE's eval drive and loader-batch step, in phase 14 each config's
+image and steps and RetinaNet's eval drive, and in phase 15 each config's
+image and steps and the HRNet-W18 Mask R-CNN's eval drive and
+loader-batch step)
 the kernels' launch
 counters are zeroed just before it
 and read just after (the loop's
@@ -261,8 +289,9 @@ have launched in it: K1 and K2 at inference, in the eval loops and in the
 loop's validations, K5 through both entry points in its check, K1-K4 in
 training; behind Mask R-CNN's FCN head, which runs no DCN, K2 at
 inference and K2 and K4 in training; phase 6 and phases 8-14 hold each
-drive to its exact counts, every other kernel at 0 (the RPN's eval drive
-and every phase-14 drive launch none).
+drive to its exact counts, every other kernel at 0 (the RPN's eval drive,
+every phase-14 drive and phase 15's FCOS and RetinaNet drives launch
+none).
 
 Standard output ends with the ``kernels`` JSON line, the card's name and
 power limit as ``nvidia-smi`` reports them, and the ``{"ok": true, ...}``
@@ -595,8 +624,10 @@ REFINE = 'refine'                 # RefineMask's crops of P2 (phase 10)
 HTC = 'htc'                       # HTC's semantic crops of a step (phase 12)
 # GRoIE's all-level and Double-Head's two box crops (phase 13)
 TWO_STAGE = 'two_stage'
+# HRFPN's pyramid: one 1x1-reduced map average-pooled (phase 15)
+HRFPN_CROPS = 'hrfpn'
 OFF_ROW = (CLUSTERED, PORTRAIT, CONFIG, REFINE, HTC,
-           TWO_STAGE)                  # out of the row sums
+           TWO_STAGE, HRFPN_CROPS)     # out of the row sums
 # RefineMask's P2 crops (stride 4, sampling ratio 2) per stage: the
 # transformed semantic features (C = 256, 128, 64 at 14, 28, 56) and the
 # one-channel semantic mask at the same sizes; (P, C)
@@ -715,6 +746,49 @@ def two_stage_crops(dev, infer=True):
            dict(out_size=7, sampling_ratio=2))
 
 
+def hrfpn_crops(dev, infer=True):
+    """K2's arguments at the crops phase 15 puts on K2/K4 over HRFPN's
+    pyramid: P2-P5 of the 800x1344 canvas as HRFPN makes them (a
+    200x336x256 map average-pooled by 2, 4 and 8, floor mode), with
+    ``infer`` an image's box extract (1000 proposals, 7x7) and mask
+    extract (100 dets, 14x14), then a step's over 4 images (2048 sampled
+    RoIs at 7x7, 512 positive slots at 14x14, placed as the training step
+    places them, :func:`clustered_place`); ratio 2, from a generator of
+    their own."""
+    import torch
+    import torch.nn.functional as F
+    from dynamask_torch.ops import roi_align as ra
+    gen = torch.Generator(device=dev).manual_seed(20)
+    h, w = IMAGE_HW
+    strides = (4, 8, 16, 32)
+
+    def pyramid(images):
+        x = torch.randn(images, 256, h // 4, w // 4, generator=gen,
+                        device=dev)
+        levels = [x] + [F.avg_pool2d(x, 2 ** i, 2 ** i) for i in (1, 2, 3)]
+        return [lvl.permute(0, 2, 3, 1).contiguous() for lvl in levels]
+
+    if infer:
+        feats = pyramid(1)
+        for n, p, what in ((1000, 7, 'box'), (N_DETS, 14, 'mask')):
+            rois, img = synthetic_rois(gen, dev, n, 1, IMAGE_HW)
+            yield (f'{HRFPN_CROPS} infer {what} {n}x{p}x{p}x256 r2',
+                   ra.multilevel_crop_args(feats, rois, img, strides),
+                   dict(out_size=p, sampling_ratio=2))
+        del feats
+    feats = pyramid(TRAIN_IMAGES)
+    place = clustered_place(gen, dev, TRAIN_IMAGES, N_POS_TRAIN)
+
+    def synthetic(k):
+        return synthetic_rois(gen, dev, k, TRAIN_IMAGES, IMAGE_HW)
+
+    for n, p, what in ((N_BOX_TRAIN, 7, 'box'), (N_POS_TRAIN, 14, 'mask')):
+        rois, img = place(n, synthetic)
+        yield (f'{HRFPN_CROPS} train {what} {n}x{p}x{p}x256 r2',
+               ra.multilevel_crop_args(feats, rois, img, strides),
+               dict(out_size=p, sampling_ratio=2))
+
+
 def config_crops(dev, train=False):
     """The crops of the other configurations where they differ from the
     flagship's: LVIS inference (300 dets), Cityscapes inference on the
@@ -761,9 +835,10 @@ def k2_cases(gen, dev):
     slots), then at the training crops with clustered RoIs, at the
     inference crops on the portrait canvas, at phase 8's and at
     RefineMask's P2 crops (phase 10) of its training step and of each
-    config's inference, at HTC's semantic crops of a step (phase 12), and
-    at GRoIE's and Double-Head's crops (phase 13), each from a generator
-    of its own so the other cases keep their inputs."""
+    config's inference, at HTC's semantic crops of a step (phase 12), at
+    GRoIE's and Double-Head's crops (phase 13) and at HRFPN's (phase 15),
+    each from a generator of its own so the other cases keep their
+    inputs."""
     import torch
     for case, args, kw in _crops(gen, dev, 1, 1000, N_DETS):
         yield 'infer ' + case, args, kw
@@ -781,6 +856,7 @@ def k2_cases(gen, dev):
         yield from refine_crops(dev, *drive)
     yield from htc_crops(dev)
     yield from two_stage_crops(dev)
+    yield from hrfpn_crops(dev)
 
 
 def k4_args(gen, args, kw):
@@ -798,8 +874,8 @@ def k4_cases(gen, dev):
     """K4 at the training crops (4 images, 2048 sampled RoIs, 512 positive
     slots), with a random crop gradient, then with clustered RoIs, at the
     Cityscapes step's crops, at RefineMask's P2 crops of a step, at HTC's
-    semantic crops of a step, and at GRoIE's and Double-Head's crops of a
-    step."""
+    semantic crops of a step, at GRoIE's and Double-Head's crops of a
+    step, and at HRFPN's crops of a step."""
     import torch
     for case, args, kw in _crops(gen, dev, TRAIN_IMAGES, N_BOX_TRAIN,
                                  N_POS_TRAIN):
@@ -823,6 +899,10 @@ def k4_cases(gen, dev):
         del args
     cgen = torch.Generator(device=dev).manual_seed(19)
     for case, args, kw in two_stage_crops(dev, infer=False):
+        yield case, k4_args(cgen, args, kw), kw
+        del args
+    cgen = torch.Generator(device=dev).manual_seed(21)
+    for case, args, kw in hrfpn_crops(dev, infer=False):
         yield case, k4_args(cgen, args, kw), kw
         del args
 
@@ -2062,7 +2142,7 @@ def gt_as_predictions(dataset):
 
 def run_eval_path(report, card, config=FLAGSHIP,
                   infer_counts=INFER_COUNTS['faithful'],
-                  step_counts=STEP_COUNTS, prefix=''):
+                  step_counts=STEP_COUNTS, prefix='', init_std=None):
     """Phase 6 (and phase 10 on RefineMask's R50 1x ``config``, its paths
     named with ``prefix``): the seeded COCO set through ``build_dataset``,
     the config's test pipeline and loader, ``single_device_test``
@@ -2070,7 +2150,8 @@ def run_eval_path(report, card, config=FLAGSHIP,
     card) and ``CocoDataset.evaluate``; counters around the timed drive,
     held to ``infer_counts`` an image. Then one ``train_steps`` step on a
     loader batch of the train pipeline (with ``gt_semantic`` where the
-    head reads it), held to ``step_counts``."""
+    head reads it; from N(0, ``init_std``) weights, given), held to
+    ``step_counts``."""
     import torch
     import dynamask_torch.ops as ops
     from dynamask_torch.apis import (init_detector, init_trainer,
@@ -2138,7 +2219,7 @@ def run_eval_path(report, card, config=FLAGSHIP,
     torch.cuda.empty_cache()
 
     model, opt = init_trainer(config, steps_per_epoch=COCO_STEPS_PER_EPOCH,
-                              device=DEVICE, seed=0)
+                              device=DEVICE, seed=0, init_std=init_std)
     semantic = model.roi_head.with_semantic
     train_set = build_dataset(dict(data['train'], **paths), default_args=dict(
         max_gts=data['max_gts'], mask_crop_size=data['mask_crop_size']))
@@ -2792,21 +2873,21 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
 
 
 def run_config_train(report, card, name, path, images, hw, counts,
-                     repeats=TIMED_STEPS, compute_dtype=None):
+                     repeats=TIMED_STEPS, compute_dtype=None, init_std=None):
     """Phases 8 and 10-14, training: ``init_trainer`` on the config (its
     seeded JAX initialisation), a seeded synthetic batch of ``images`` at
     the train canvas with 20 GTs each over the config's classes (and, for
     a head that reads it, ``gt_semantic`` through the data pipeline's
     rasteriser, or HTC's ``gt_semantic_seg``), one warm-up and
     ``repeats`` timed ``train_steps`` (in ``compute_dtype`` on fp32
-    masters, given); counters around all of them, held to ``counts`` a
-    step."""
+    masters, given; from N(0, ``init_std``) weights, given); counters
+    around all of them, held to ``counts`` a step."""
     import torch
     import dynamask_torch.ops as ops
     from dynamask_torch.apis import (init_trainer, semantic_seg_shape,
                                      synthetic_batch, train_steps)
     model, opt = init_trainer(path, steps_per_epoch=COCO_STEPS_PER_EPOCH,
-                              device=DEVICE, seed=0)
+                              device=DEVICE, seed=0, init_std=init_std)
     h, w = hw
     semantic = getattr(getattr(model, 'roi_head', None), 'with_semantic',
                        False)
@@ -3781,6 +3862,205 @@ def run_single_stage(report, card):
     return launches
 
 
+# -- phase 15: the detectors on item 8's backbones and necks ------------------
+
+HRNET_DIR = os.path.join(ROOT, 'configs/hrnet')
+HRNET_MASK_W18 = os.path.join(HRNET_DIR, 'mask_rcnn_hrnetv2p_w18_1x_coco.py')
+FCOS_HRNET = os.path.join(HRNET_DIR,
+                          'fcos_hrnetv2p_w32_gn-head_4x4_1x_coco.py')
+REGNET_MASK = os.path.join(ROOT, 'configs/regnet/'
+                           'mask_rcnn_regnetx-3.2GF_fpn_1x_coco.py')
+RES2NET_MASK = os.path.join(ROOT,
+                            'configs/res2net/mask_rcnn_r2_101_fpn_2x_coco.py')
+PAFPN_FASTER = os.path.join(ROOT,
+                            'configs/pafpn/faster_rcnn_r50_pafpn_1x_coco.py')
+# (name, config, timed repeats of an image, timed steps (None: no step),
+# an image's launches, a step's); K1, K3 and K5 run on none of them. The
+# HRNet steps start from N(0, 0.05) weights (phase 4's protocol), as the
+# HRNet eval drive's step does: at the JAX initialisation, under JAX's
+# ``norm_eval=True`` (ROADMAP.md queue 3, 3aj), HRNet's activations reach
+# ~5e7 and the first update makes the second step's losses non-finite
+HRNET_STEP_STD = 0.05
+ITEM8_CELLS = (
+    ('hrnet_w32', os.path.join(HRNET_DIR, 'mask_rcnn_hrnetv2p_w32_1x_coco.py'),
+     1, 1, MASK_RCNN_INFER_COUNTS, MASK_RCNN_STEP_COUNTS),
+    ('htc_hrnet_w18', os.path.join(HRNET_DIR, 'htc_hrnetv2p_w18_20e_coco.py'),
+     1, 1, HTC_INFER, HTC_STEP),
+    ('cascade_hrnet_w40', os.path.join(
+        HRNET_DIR, 'cascade_mask_rcnn_hrnetv2p_w40_20e_coco.py'),
+     1, None, CASCADE_INFER, None),
+    ('fcos_hrnet_w32', FCOS_HRNET, 1, 1, {}, {}),
+    ('regnetx_3.2gf', REGNET_MASK, 1, 1, MASK_RCNN_INFER_COUNTS,
+     MASK_RCNN_STEP_COUNTS),
+    ('retinanet_regnetx_800mf', os.path.join(
+        ROOT, 'configs/regnet/retinanet_regnetx-800MF_fpn_1x_coco.py'),
+     1, None, {}, None),
+    ('res2net_101', RES2NET_MASK, 1, 1, MASK_RCNN_INFER_COUNTS,
+     MASK_RCNN_STEP_COUNTS),
+    ('pafpn', PAFPN_FASTER, 1, 1, BOX_INFER_COUNTS, BOX_STEP_COUNTS),
+)
+# the toys: (config, its backbone and neck at toy width); the heads as
+# :func:`toy_cfg` makes them
+TOY_HRNET = dict(
+    stage1=dict(num_modules=1, num_branches=1, block='BOTTLENECK',
+                num_blocks=(2,), num_channels=(16,)),
+    stage2=dict(num_modules=1, num_branches=2, block='BASIC',
+                num_blocks=(1, 2), num_channels=(8, 16)),
+    stage3=dict(num_modules=1, num_branches=3, block='BASIC',
+                num_blocks=(1, 1, 1), num_channels=(8, 16, 32)),
+    stage4=dict(num_modules=1, num_branches=4, block='BASIC',
+                num_blocks=(1, 1, 1, 1), num_channels=(8, 16, 32, 64)))
+ITEM8_TOYS = {
+    'hrnet': (HRNET_MASK_W18, dict(extra=TOY_HRNET, frozen_stages=1),
+              [8, 16, 32, 64]),
+    'regnet': (REGNET_MASK, dict(arch=dict(
+        w0=16, wa=16.0, wm=2.0, group_w=8, depth=7, bot_mul=1.0)),
+        [16, 32, 64, 128]),
+    'res2net': (RES2NET_MASK, dict(depth=50), None),
+    'pafpn': (PAFPN_FASTER, dict(depth=18), [64, 128, 256, 512]),
+    'fcos_hrnet': (FCOS_HRNET, dict(extra=TOY_HRNET), [8, 16, 32, 64]),
+}
+
+
+def item8_toy(kind):
+    """The config of an item-8 toy: the config file's detector on the toy
+    backbone and a 32-channel neck (HRFPN keeps its stride), its heads at
+    toy width (:func:`toy_cfg`'s for the two-stage ones; FCOS's two-conv
+    heads of 32 channels, 8 classes, 50 candidates a level, 20 dets)."""
+    from dynamask_torch.utils import Config
+    path, backbone, in_channels = ITEM8_TOYS[kind]
+    cfg = Config.fromfile(path)
+    m = cfg.model
+    m.backbone.update(backbone)
+    if in_channels:
+        m.neck.in_channels = in_channels
+    m.neck.out_channels = 32
+    if kind == 'fcos_hrnet':
+        m.bbox_head.update(in_channels=32, feat_channels=32, stacked_convs=2,
+                           num_classes=8)
+        cfg.test_cfg.update(nms_pre=50, max_per_img=20)
+        return cfg
+    m.rpn_head.in_channels = m.rpn_head.feat_channels = 32
+    rh = m.roi_head
+    for ext in (rh.bbox_roi_extractor, rh.mask_roi_extractor):
+        if ext:
+            ext.out_channels = 32
+    rh.bbox_head.update(in_channels=32, fc_out_channels=64, num_classes=8)
+    if rh.mask_head:
+        rh.mask_head.update(num_convs=2, in_channels=32, conv_out_channels=32,
+                            num_classes=8)
+    cfg.test_cfg.rpn.nms_pre = 64
+    cfg.train_cfg.rpn_proposal.max_num = 32
+    cfg.train_cfg.rcnn.sampler.num = 64
+    cfg.test_cfg.rcnn.max_per_img = 8
+    return cfg
+
+
+def check_item8_toys(report):
+    """Phase 3, the item-8 toys: Mask R-CNN on HRNet + HRFPN, on RegNet
+    and on Res2Net-50, Faster R-CNN on PAFPN and FCOS on HRFPN at stride
+    2, each built on the CPU at its seeded initialisation (FCOS at N(0,
+    0.05)) and loaded into the same model on the card; two seeded 128x128
+    images (the second at
+    scale factor 0.8) through ``simple_test``, and one training step on a
+    seeded batch with the same sampler draws and the card's RPN proposals
+    on both (:func:`toy_train_step`): labels and validity equal, dets
+    within TOY_DET_TOL, each loss within TOY_LOSS_RTOL relative."""
+    import numpy as np
+    import torch
+    from dynamask_torch.apis import synthetic_batch
+    from dynamask_torch.models import build_detector
+    for kind in ITEM8_TOYS:
+        cfg = item8_toy(kind)
+        # FCOS at N(0, 0.05) as phase 3's single-stage toys: at its own
+        # init the prior bias keeps every score below the threshold
+        cpu = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                             device='cpu', seed=0, init_std=0.05 if
+                             kind == 'fcos_hrnet' else None)
+        gpu = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                             device=DEVICE)
+        gpu.load_state_dict(cpu.state_dict())
+        b, hw, max_gts = 2, 128, 4
+        batch = synthetic_batch(3, b=b, h=hw, w=hw, num_gts=3,
+                                max_gts=max_gts, crop_size=32, num_classes=8,
+                                device='cpu')
+        test = {k: batch[k] for k in ('image', 'img_shape')}
+        test['scale_factor'] = torch.tensor([[1.0] * 4, [0.8] * 4])
+        with torch.no_grad():
+            ref = cpu.simple_test(test)
+            got = gpu.simple_test({k: v.to(DEVICE) for k, v in test.items()})
+        for k in ('labels', 'det_valid'):
+            if not torch.equal(got[k].cpu(), ref[k]):
+                raise RuntimeError(f'toy {kind}: the card\'s {k} differ '
+                                   'from the CPU\'s')
+        err = (got['dets'].cpu() - ref['dets']).abs().max().item()
+        if err > TOY_DET_TOL or int(ref['det_valid'].sum()) < 4:
+            raise RuntimeError(f'toy {kind}: dets max abs err {err} '
+                               f'({int(ref["det_valid"].sum())} valid)')
+        cpu.train()
+        gpu.train()
+        if kind == 'fcos_hrnet':     # no draws, no proposals
+            lref = {k: float(v.detach()) for k, v in
+                    cpu.forward_train(batch).items()}
+            lgot = {k: float(v.detach()) for k, v in gpu.forward_train(
+                {k: v.to(DEVICE) for k, v in batch.items()}).items()}
+        else:
+            rng = np.random.RandomState(4)
+            n_anchors = 3 * sum((hw // s) ** 2 for s in (4, 8, 16, 32, 64))
+            noise = {k: torch.from_numpy(v.astype(np.float32)) for k, v in {
+                'rpn': rng.uniform(size=(b, n_anchors)),
+                'rcnn': rng.uniform(size=(
+                    b, max_gts + cfg.train_cfg.rpn_proposal.max_num))}.items()}
+            lgot, _, props = toy_train_step(gpu, batch, noise)
+            lref, _, _ = toy_train_step(cpu, batch, noise, props)
+        keys = [k for k in lref if 'loss' in k]
+        rel = {k: abs(lgot[k] - lref[k]) / max(abs(lref[k]), 1e-12)
+               for k in keys}
+        if max(rel.values()) > TOY_LOSS_RTOL or not all(
+                math.isfinite(lref[k]) and lref[k] > 0 for k in keys):
+            raise RuntimeError(f'toy {kind}: losses {lgot} vs the CPU\'s '
+                               f'{lref}')
+        print(f'  toy {kind}: {int(ref["det_valid"].sum())} valid dets, '
+              f'labels and validity equal, dets max abs err {err:.3g} '
+              f'(tol {TOY_DET_TOL}); {len(keys)} losses, max rel err '
+              f'{max(rel.values()):.3g} (tol {TOY_LOSS_RTOL})')
+        report['toy'].append(dict(toy=f'item8_{kind}', dets_max_abs_err=err,
+                                  loss_rel_err=rel))
+        del cpu, gpu
+
+
+def run_item8(report, card):
+    """Phase 15: the detectors on HRNet + HRFPN, RegNet, Res2Net and PAFPN,
+    each from its config file, unchanged, at full width: an image at the
+    config's test canvas (phase 4's weights protocol) and steps at its
+    train batch (the HRNet steps from N(0, HRNET_STEP_STD) weights), each
+    a counted warm-up held to its exact launches, then timed repeats; then
+    phase 6's eval drive and loader-batch step on the HRNet-W18 Mask
+    R-CNN."""
+    from dynamask_torch.apis import config_shapes
+    launches = {}
+    report['item8'] = {'inference': [], 'train': []}
+    for name, path, n_inf, n_steps, infer, step in ITEM8_CELLS:
+        test_hw, images, train_hw = config_shapes(path)
+        got, recs = run_config_inference(
+            report, card, name, path, test_hw, (('infer', None, infer),),
+            repeats=n_inf)
+        launches.update(got)
+        report['item8']['inference'] += recs
+        if n_steps:
+            got, rec = run_config_train(
+                report, card, name, path, images, train_hw, step,
+                repeats=n_steps, init_std=HRNET_STEP_STD if 'hrnet' in name
+                else None)
+            launches.update(got)
+            report['item8']['train'].append(rec)
+    launches.update(run_eval_path(report, card, HRNET_MASK_W18,
+                                  MASK_RCNN_INFER_COUNTS,
+                                  MASK_RCNN_STEP_COUNTS, 'hrnet_',
+                                  init_std=HRNET_STEP_STD))
+    return launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -3825,6 +4105,7 @@ def main() -> int:
     for kind in ('faster_rcnn', *DEEP_TOYS, *CASCADE_TOYS, *TWO_STAGE_TOYS):
         check_toy_train_against_cpu(report, kind)
     check_single_stage_toys(report)
+    check_item8_toys(report)
     print(f'phase 4: flagship inference [{card}]')
     launches = run_inference_path(report, card)
     torch.cuda.empty_cache()
@@ -3884,8 +4165,15 @@ def main() -> int:
     t14 = time.perf_counter()
     launches.update(run_single_stage(report, card))
     report['phase14_s'] = time.perf_counter() - t14
+    print(f'  phase 14: {report["phase14_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 15: the detectors on HRNet, RegNet, Res2Net and PAFPN '
+          f'[{card}]')
+    t15 = time.perf_counter()
+    launches.update(run_item8(report, card))
+    report['phase15_s'] = time.perf_counter() - t15
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 14: {report["phase14_s"]:.1f} s; the whole run '
+    print(f'  phase 15: {report["phase15_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s [{card}]')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}

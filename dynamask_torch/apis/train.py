@@ -36,15 +36,18 @@ from .test import single_device_test
 
 
 def init_trainer(config: Union[str, Config], *, steps_per_epoch: int,
-                 device=None, seed: int = 0
+                 device=None, seed: int = 0, init_std: Optional[float] = None
                  ) -> Tuple[torch.nn.Module, DetectorSGD]:
     """The config's detector in training mode (frozen stages frozen,
     backbone BatchNorms on running statistics), initialised from ``seed``
-    as the JAX package initialises it, and its optimizer (``optimizer``,
-    ``optimizer_config``, ``lr_config``). The lr steps down at the epochs
-    of ``lr_config.step``, counted in ``steps_per_epoch`` optimizer steps
-    (the JAX trainer takes it from its loader's length)."""
-    model = init_detector(config, device=device, seed=seed)
+    as the JAX package initialises it (or, given ``init_std``, N(0,
+    ``init_std``) weights as :func:`init_detector` draws them), and its
+    optimizer (``optimizer``, ``optimizer_config``, ``lr_config``). The lr
+    steps down at the epochs of ``lr_config.step``, counted in
+    ``steps_per_epoch`` optimizer steps (the JAX trainer takes it from its
+    loader's length)."""
+    model = init_detector(config, device=device, seed=seed,
+                          init_std=init_std)
     cfg = model.cfg
     opt = build_optimizer(model, cfg.optimizer, cfg.get('optimizer_config'),
                           cfg.get('lr_config'),

@@ -12,9 +12,11 @@ convs, ``SimpleRefineMaskHead``'s per-stage logits), and the cascade
 heads' (each stage's box and mask head, ``conv_res``, HTC's semantic
 head), the two-stage options' (the FPN's and the heads' GroupNorms,
 the box head's shared convs, CARAFE's encoders, Double-Head's branches)
-and the single-stage detectors' (the dense heads, the FPN's extra convs
-and BatchNorms), which that importer skips (ROADMAP.md queue 3, 3d, 3o,
-3t, 3aa):
+the single-stage detectors' (the dense heads, the FPN's extra convs
+and BatchNorms) and those of HRNet, Res2Net, HRFPN and PAFPN (HRNet's
+stem, transitions, branches and fuse layers, Res2Net's stem, split convs
+and projections, HRFPN's reduction conv, PAFPN's bottom-up convs), which
+that importer skips (ROADMAP.md queue 3, 3d, 3o, 3t, 3aa, 3ah):
 
 * conv kernels HWIO -> OIHW (the DCN leaf is named ``weight``, and a
   ``ClassSelectConv1x1`` is a ``(1, 1, C, ncls)`` kernel); the FCN mask
@@ -67,6 +69,60 @@ def _resnet_key(key: str) -> Optional[Tuple[List[str], str]]:
 _BN_LEAF = r'(weight|bias|running_mean|running_var)'
 
 
+def _conv_bn(i: str) -> str:
+    """JAX's ``ConvBN`` member of a torch ``Sequential(conv, bn[, relu])``
+    index."""
+    return ('conv', 'bn')[int(i)]
+
+
+def _hrnet_key(key: str) -> Optional[Tuple[List[str], str]]:
+    """An HRNet key's JAX path (``dynamask_tpu/models/hrnet.py``): the
+    stem's ``conv{1,2}`` / ``bn{1,2}`` are ``stem_conv{1,2}/{conv,bn}``,
+    the transitions ``transition{t}_{i}``, a module's blocks
+    ``stage{s}_module{m}/branch{b}_block{k}`` and its fuse layers
+    ``fuse_{i}_{j}`` (j > i) or ``fuse_{i}_{j}_{k}`` (j < i); ``layer1``
+    is a ResNet's."""
+    m = re.match(r'^(conv|bn)([12])\.(.+)$', key)
+    if m:
+        return [f'stem_conv{m[2]}', m[1]], m[3]
+    m = re.match(r'^transition(\d)\.(\d+)\.(?:0\.)?([01])\.(.+)$', key)
+    if m:
+        return [f'transition{m[1]}_{m[2]}', _conv_bn(m[3])], m[4]
+    m = re.match(r'^stage(\d)\.(\d+)\.branches\.(\d+)\.(\d+)\.(conv\d|bn\d)'
+                 r'\.(.+)$', key)
+    if m:
+        return [f'stage{m[1]}_module{m[2]}', f'branch{m[3]}_block{m[4]}',
+                m[5]], m[6]
+    m = re.match(r'^stage(\d)\.(\d+)\.fuse_layers\.(\d+)\.(\d+)\.'
+                 r'(?:(\d+)\.)?([01])\.(.+)$', key)
+    if m:
+        s, mod, i, j, k, idx, leaf = m.groups()
+        name = f'fuse_{i}_{j}' + (f'_{k}' if int(j) < int(i) else '')
+        return [f'stage{s}_module{mod}', name, _conv_bn(idx)], leaf
+    return _resnet_key(key) if key.startswith('layer1.') else None
+
+
+def _res2net_key(key: str) -> Optional[Tuple[List[str], str]]:
+    """A Res2Net key's JAX path (``dynamask_tpu/models/res2net.py``): a
+    block's ``convs.{i}`` / ``bns.{i}`` are ``conv2_{i}`` / ``bn2_{i}``,
+    its ``downsample.{1,2}`` (after the pool) the projection's conv and
+    BN; the deep stem and the other convs are a ResNet's."""
+    m = re.match(r'^layer(\d+)\.(\d+)\.(convs|bns)\.(\d+)\.(.+)$', key)
+    if m:
+        s, b, kind, i, leaf = m.groups()
+        return [f'layer{s}_block{b}', f'{kind[:-1]}2_{i}'], leaf
+    m = re.match(r'^layer(\d+)\.(\d+)\.downsample\.([12])\.(.+)$', key)
+    if m:
+        s, b, idx, leaf = m.groups()
+        return [f'layer{s}_block{b}', ('downsample_conv', 'downsample_bn')[
+            int(idx) - 1]], leaf
+    return _resnet_key(key)
+
+
+# the backbones whose keys differ from a ResNet's, by class name
+_BACKBONE_KEYS = {'HRNet': _hrnet_key, 'Res2Net': _res2net_key}
+
+
 def _fpn_conv(i: str, num_laterals: Optional[int], norm: bool = False
               ) -> str:
     """The JAX name of the FPN's ``fpn_convs.{i}`` (or of its norm): an
@@ -77,15 +133,26 @@ def _fpn_conv(i: str, num_laterals: Optional[int], norm: bool = False
     return f'fpn_{"gn" if norm else "conv"}_{n}'
 
 
-def mmdet_key(key: str, num_laterals: Optional[int] = None
+def mmdet_key(key: str, num_laterals: Optional[int] = None,
+              backbone: Optional[str] = None
               ) -> Optional[Tuple[List[str], str, Dict]]:
     """Port state-dict key -> (JAX tree path, torch leaf name, hints).
     ``num_laterals`` is the FPN's (:func:`neck_laterals`): its
-    ``fpn_convs`` from there on are JAX's ``extra_conv_{i}``."""
+    ``fpn_convs`` from there on are JAX's ``extra_conv_{i}``. ``backbone``
+    is the backbone's class name (:func:`key_hints`): HRNet's and
+    Res2Net's keys map by their own rules, the others' as a ResNet's."""
     if key.startswith('backbone.'):
-        r = _resnet_key(key[len('backbone.'):])
+        r = _BACKBONE_KEYS.get(backbone, _resnet_key)(key[len('backbone.'):])
         return None if r is None else (['backbone'] + r[0], r[1], {})
     rules = [
+        # HRFPN's reduction conv, PAFPN's bottom-up convs (mmdet's
+        # ``pafpn_convs[i - 1]`` is level i's, JAX's ``pafpn_conv_{i}``)
+        (r'^neck\.reduction_conv\.conv\.(weight|bias)$',
+         lambda m: (['neck', 'reduction_conv'], m[1], {})),
+        (r'^neck\.downsample_convs\.(\d+)\.conv\.(weight|bias)$',
+         lambda m: (['neck', f'downsample_conv_{m[1]}'], m[2], {})),
+        (r'^neck\.pafpn_convs\.(\d+)\.conv\.(weight|bias)$',
+         lambda m: (['neck', f'pafpn_conv_{int(m[1]) + 1}'], m[2], {})),
         (r'^neck\.lateral_convs\.(\d+)\.conv\.(weight|bias)$',
          lambda m: (['neck', f'lateral_{m[1]}'], m[2], {})),
         (r'^neck\.fpn_convs\.(\d+)\.conv\.(weight|bias)$',
@@ -289,6 +356,14 @@ def neck_laterals(model: nn.Module) -> Optional[int]:
     return None if lateral is None else len(lateral)
 
 
+def key_hints(model: nn.Module) -> Dict:
+    """What :func:`mmdet_key` needs to know of ``model``: its FPN's
+    laterals and its backbone's class."""
+    bb = getattr(model, 'backbone', None)
+    return dict(num_laterals=neck_laterals(model),
+                backbone=None if bb is None else type(bb).__name__)
+
+
 def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     """Copy the JAX detector's variables into ``model`` in place.
 
@@ -296,12 +371,12 @@ def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     model that loads computes the JAX model's function."""
     params = variables['params']
     stats = variables.get('batch_stats', {})
-    laterals = neck_laterals(model)
+    hints = key_hints(model)
     with torch.no_grad():
         for key, tensor in model.state_dict().items():
             if key.endswith('num_batches_tracked'):
                 continue
-            r = mmdet_key(key, laterals)
+            r = mmdet_key(key, **hints)
             if r is None:
                 raise KeyError(f'no JAX counterpart for port tensor {key}')
             arr = _torch_layout(params, stats, *r)

@@ -8,7 +8,10 @@ conversion is needed: a torchvision ResNet's names (``conv1.weight``,
 detector's mmdet names (``backbone.``, ``neck.``, ``rpn_head.``,
 ``roi_head.``, a single-stage detector's ``bbox_head.``) map one to one.
 Nothing is downloaded: a spec that names no local file leaves the model as
-initialised.
+initialised. A tensor whose shape differs from the model's is reported and
+left as initialised, unless the backbone refuses it
+(``backbone.weight_fault``: an mmdet RegNet's ``conv2.weight``, grouped
+otherwise than JAX's; ROADMAP.md queue 3, 3ag), which raises.
 """
 
 from __future__ import annotations
@@ -31,22 +34,28 @@ def resolve_pretrained_path(spec: Optional[str]) -> Optional[str]:
     ``torchvision://resnet50`` is looked for as ``resnet50-*`` (the model
     zoo's file names) or ``resnet50.pth`` in ``$TORCH_HOME/hub/checkpoints``
     (``~/.cache/torch`` without ``TORCH_HOME``), ``./pretrained`` and
-    ``~/pretrained``; an ``http(s)://`` or ``open-mmlab://`` spec resolves
+    ``~/pretrained``; an ``open-mmlab://`` spec by its last part in the
+    same places (``open-mmlab://msra/hrnetv2_w32`` as ``hrnetv2_w32-*``
+    or ``hrnetv2_w32.pth``; ``regnetx_3.2gf``, ``res2net101_v1d_26w_4s``
+    also as mmcv's ``<name>_mmdetv2-*``); an ``http(s)://`` spec resolves
     to None; a plain path is returned if it exists."""
     if not spec:
         return None
-    if spec.startswith('torchvision://'):
-        name = spec[len('torchvision://'):]
-        hub = os.path.join(os.environ.get(
-            'TORCH_HOME', os.path.expanduser('~/.cache/torch')), 'hub',
-            'checkpoints')
-        for d in (hub, './pretrained', os.path.expanduser('~/pretrained')):
-            if os.path.isdir(d):
-                for f in sorted(os.listdir(d)):
-                    if f.startswith(name + '-') or f == name + '.pth':
-                        return os.path.join(d, f)
-        return None
-    if spec.startswith(('http://', 'https://', 'open-mmlab://')):
+    for scheme in ('torchvision://', 'open-mmlab://'):
+        if spec.startswith(scheme):
+            name = spec[len(scheme):].rsplit('/', 1)[-1]
+            stems = (name + '-', name + '_mmdetv2-')
+            hub = os.path.join(os.environ.get(
+                'TORCH_HOME', os.path.expanduser('~/.cache/torch')), 'hub',
+                'checkpoints')
+            for d in (hub, './pretrained',
+                      os.path.expanduser('~/pretrained')):
+                if os.path.isdir(d):
+                    for f in sorted(os.listdir(d)):
+                        if f.startswith(stems) or f == name + '.pth':
+                            return os.path.join(d, f)
+            return None
+    if spec.startswith(('http://', 'https://')):
         return None
     return spec if os.path.exists(spec) else None
 
@@ -74,6 +83,7 @@ def apply_pretrained(model: torch.nn.Module, spec: Optional[str],
     sd = load_torch_state_dict(path)
     mmdet = any(k.startswith(MMDET_PREFIXES) for k in sd)
     own = model.state_dict()
+    fault = getattr(getattr(model, 'backbone', None), 'weight_fault', None)
     with torch.no_grad():
         for key, value in sd.items():
             name = key if mmdet else f'backbone.{key}'
@@ -81,6 +91,10 @@ def apply_pretrained(model: torch.nn.Module, spec: Optional[str],
             if target is None:
                 report['skipped'].append(key)
             elif target.shape != value.shape:
+                why = fault and name.startswith('backbone.') and fault(
+                    name[len('backbone.'):], value.shape)
+                if why:
+                    raise ValueError(f'pretrained {path}: {why}')
                 report['mismatched'].append(
                     f'{key}: file {tuple(value.shape)} vs model '
                     f'{tuple(target.shape)}')

@@ -1,7 +1,8 @@
 """Build the port's detector from a reference-schema config (port of the
-parts of ``dynamask_tpu/models/builder.py`` (the backbones :28-86, the
-FPN and ``FPN_CARAFE`` :178-204, the two-stage RoI head with its box
-heads, losses, extractors, samplers, test NMS and Double-Head :233-420,
+parts of ``dynamask_tpu/models/builder.py`` (the backbones :28-115,
+HRFPN :156-160, the FPN, PAFPN and ``FPN_CARAFE`` :178-220, the
+two-stage RoI head with its box heads, losses, extractors, samplers, test
+NMS and Double-Head :233-420,
 the RefineMask branch :451-494, the cascade heads :531-580,
 ``build_detector`` :1131-1214), ``dynamask_tpu/models/
 dynamask_roi_head.py:build_dynamask_roi_head`` (:422-464) and
@@ -47,6 +48,10 @@ from .rpn_head import RPNHead
 
 # the registered modules must be imported for their registry entries
 from . import detectors, fpn, resnet  # noqa: F401
+from .fpn import PAFPN
+from .hrnet import HRFPN, HRNet
+from .regnet import RegNet
+from .res2net import Res2Net
 
 
 def _cfg(d) -> dict:
@@ -64,14 +69,12 @@ def not_ported(what: str, item) -> NotImplementedError:
 # the legacy v1 keys that JAX's two-stage builder drops (ROADMAP.md queue
 # 3, 3c): refused here rather than dropped
 LEGACY = 'ROADMAP.md queue 3, 3c: the JAX package drops it'
-BACKBONE_ITEMS = {'HRNet': 8, 'RegNet': 8, 'Res2Net': 8,
-                  'DetectoRS_ResNet': 8, 'DetectoRS_ResNeXt': 8,
+BACKBONE_ITEMS = {'DetectoRS_ResNet': 8, 'DetectoRS_ResNeXt': 8,
                   'SSDVGG': 6, 'HourglassNet': 9}
 # the keys the JAX package drops or fixes in the two-stage family's options
 # (ROADMAP.md queue 3, 3w): refused at any other value
 DROPPED = 'ROADMAP.md queue 3, 3w: the JAX package drops it'
-NECK_ITEMS = {'PAFPN': 8, 'NASFPN': 8, 'BFP': 8, 'HRFPN': 8, 'RFP': 8,
-              'NASFCOS_FPN': 6}
+NECK_ITEMS = {'NASFPN': 8, 'BFP': 8, 'RFP': 8, 'NASFCOS_FPN': 6}
 DETECTOR_ITEMS = {'GridRCNN': 9, 'MaskScoringRCNN': 9, 'PointRend': 9,
                   'CornerNet': 9, 'GFL': 6, 'FOVEA': 6, 'FSAF': 6,
                   'RepPointsDetector': 6, 'NASFCOS': 6}
@@ -119,10 +122,86 @@ def _check_sampling(stage: str, assigner: dict, sampler: dict,
         raise not_ported(f'{stage} assigner {assigner}', 9)
 
 
+# the norm_cfg and style the JAX builder drops for HRNet, RegNet and
+# Res2Net (``builder.py:86-115``): accepted at the values JAX computes
+# with, refused at any other
+BN_DEFAULTS = dict(norm_cfg=dict(type='BN', requires_grad=True),
+                   style='pytorch')
+REGNET_KEYS = ('arch', 'stem_channels', 'strides', 'out_indices',
+               'frozen_stages', 'norm_eval')
+RES2NET_KEYS = ('depth', 'scales', 'base_width', 'num_stages', 'out_indices',
+                'frozen_stages', 'norm_eval', 'zero_init_residual',
+                'stem_channels')
+
+
+def build_hrnet(cfg: dict) -> HRNet:
+    """JAX reads ``extra``, ``norm_eval`` and ``frozen_stages``
+    (``builder.py:86-91``) and builds Bottlenecks in stage 1 and
+    BasicBlocks after, one branch more a stage, whatever the config
+    says."""
+    _check_keys('HRNet', cfg, ('type', 'extra', 'norm_eval', 'frozen_stages'),
+                dict(BN_DEFAULTS, with_cp=False, zero_init_residual=False,
+                     in_channels=3, conv_cfg=None, multiscale_output=True),
+                DROPPED)
+    extra = _cfg(cfg.get('extra'))
+    _check_keys('HRNet extra', extra, tuple(f'stage{s}' for s in range(1, 5)),
+                item=DROPPED)
+    for s in range(1, 5):
+        stage = _cfg(extra.get(f'stage{s}'))
+        if not stage:
+            continue
+        want = 'BOTTLENECK' if s == 1 else 'BASIC'
+        if stage.get('block', want) != want:
+            raise not_ported(f'HRNet stage{s} block {stage["block"]!r} (JAX '
+                             f'builds {want} there)', DROPPED)
+        _check_keys(f'HRNet stage{s}', stage, (
+            'block', 'num_modules', 'num_branches', 'num_blocks',
+            'num_channels'), {'fuse_method': 'SUM'}, DROPPED)
+        if not (stage['num_branches'] == len(stage['num_blocks']) ==
+                len(stage['num_channels']) == s) or (
+                s == 1 and stage['num_modules'] != 1):
+            raise not_ported(f'HRNet stage{s} {stage} (JAX builds {s} '
+                             'branches there, one module in stage 1)',
+                             DROPPED)
+    return HRNet(extra=extra, norm_eval=cfg.get('norm_eval', True),
+                 frozen_stages=cfg.get('frozen_stages', -1))
+
+
+def build_regnet(cfg: dict) -> RegNet:
+    """JAX reads ``arch``, ``stem_channels``, ``strides``,
+    ``out_indices``, ``frozen_stages``, ``norm_eval`` and the DCN keys
+    (``builder.py:101-115``)."""
+    if _cfg(cfg.pop('dcn', None)):
+        raise not_ported('RegNet dcn (the mdconv configs)', 7)
+    cfg.pop('stage_with_dcn', None)    # read only with a dcn
+    _check_keys('RegNet', cfg, ('type',) + REGNET_KEYS,
+                dict(BN_DEFAULTS, base_channels=32), DROPPED)
+    return RegNet(**{k: tuple(v) if k in ('strides', 'out_indices') else v
+                     for k, v in cfg.items() if k in REGNET_KEYS})
+
+
+def build_res2net(cfg: dict) -> Res2Net:
+    """JAX reads every key but the ``norm_cfg``, ``style``, ``dcn`` and
+    ``stage_with_dcn`` it pops (``builder.py:93-100``): a ``dcn`` is
+    dropped there, refused here."""
+    if _cfg(cfg.pop('dcn', None)):
+        raise not_ported('Res2Net dcn', DROPPED)
+    cfg.pop('stage_with_dcn', None)    # read only with a dcn
+    _check_keys('Res2Net', cfg, ('type',) + RES2NET_KEYS, BN_DEFAULTS,
+                DROPPED)
+    return Res2Net(**{k: tuple(v) if k == 'out_indices' else v
+                      for k, v in cfg.items() if k in RES2NET_KEYS})
+
+
 def build_backbone(cfg: dict):
-    """``ResNet``, ``ResNeXt`` or ``ResNetV1d`` (``models/resnet.py``)."""
+    """``ResNet``, ``ResNeXt`` or ``ResNetV1d`` (``models/resnet.py``),
+    ``HRNet``, ``RegNet`` or ``Res2Net``."""
     cfg = _cfg(cfg)
     t = cfg.get('type')
+    built = {'HRNet': build_hrnet, 'RegNet': build_regnet,
+             'Res2Net': build_res2net}.get(t)
+    if built:
+        return built(cfg)
     if t not in BACKBONES:
         raise not_ported(f'backbone {t}', BACKBONE_ITEMS.get(t, 'no item'))
     cfg['out_indices'] = tuple(cfg.get('out_indices', (0, 1, 2, 3)))
@@ -146,6 +225,28 @@ def build_neck(cfg: dict):
     t = cfg.get('type')
     if t == 'FPN_CARAFE':
         return build_fpn_carafe(cfg)
+    if t == 'HRFPN':
+        # JAX reads out_channels, num_outs and stride (builder.py:156-160)
+        # and infers the input widths
+        _check_keys('HRFPN', cfg, ('type', 'in_channels', 'out_channels',
+                                   'num_outs', 'stride'),
+                    dict(pooling_type='AVG', conv_cfg=None, norm_cfg=None,
+                         with_cp=False), DROPPED)
+        return HRFPN(tuple(cfg['in_channels']), cfg.get('out_channels', 256),
+                     cfg.get('num_outs', 5), cfg.get('stride', 1))
+    if t == 'PAFPN':
+        # JAX's PAFPN takes the FPN's fields and computes with neither its
+        # norm nor its extra convs (fpn.py:114-152)
+        _check_keys('PAFPN', cfg, ('type', 'in_channels', 'out_channels',
+                                   'num_outs', 'start_level', 'end_level'),
+                    dict(add_extra_convs=False, extra_convs_on_inputs=True,
+                         relu_before_extra_convs=False,
+                         no_norm_on_lateral=False, norm_cfg=None,
+                         conv_cfg=None, act_cfg=None), DROPPED)
+        return PAFPN(tuple(cfg['in_channels']),
+                     **{k: cfg[k] for k in ('out_channels', 'num_outs',
+                                            'start_level', 'end_level')
+                        if k in cfg})
     if t != 'FPN':
         raise not_ported(f'neck {t}', NECK_ITEMS.get(t, 9))
     fpn = {k: cfg.pop(k) for k in FPN_KEYS if k in cfg}

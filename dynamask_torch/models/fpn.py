@@ -16,7 +16,8 @@ adds on the normalised laterals, output conv, GN; ``norm='bn'`` (the
 crop640 RetinaNet's) a flax-like BatchNorm in the same places.
 ``no_norm_on_lateral`` leaves the laterals without norm, and without a
 bias as in JAX (``fpn.py:58-63``). The extra convs are mmdet's
-``fpn_convs.{n}`` for n from the number of laterals on.
+``fpn_convs.{n}`` for n from the number of laterals on. :class:`PAFPN`
+adds the bottom-up path.
 """
 
 from __future__ import annotations
@@ -73,22 +74,62 @@ class FPN(nn.Module):
                     cin, out_channels, 3, padding=1, stride=2,
                     bias=norm is None, gn_groups=gn, bn=bn))
 
-    def forward(self, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor]:
-        used = list(inputs[self.start_level:self.end_level])
+    def top_down(self, used: Sequence[torch.Tensor]) -> list:
+        """The output convs over the laterals after the top-down adds."""
         laterals = [conv(x) for conv, x in zip(self.lateral_convs, used)]
         for i in range(len(laterals) - 1, 0, -1):
             up = F.interpolate(laterals[i], scale_factor=2, mode='nearest')
             h, w = laterals[i - 1].shape[-2:]
             laterals[i - 1] = laterals[i - 1] + up[:, :, :h, :w]
-        outs = [self.fpn_convs[i](x) for i, x in enumerate(laterals)]
+        return [self.fpn_convs[i](x) for i, x in enumerate(laterals)]
+
+    def pooled_levels(self, outs: list) -> Tuple[torch.Tensor]:
+        """``outs`` and the extra levels as stride-2 max pools of size 1."""
+        for _ in range(self.num_outs - len(outs)):
+            outs.append(outs[-1][:, :, ::2, ::2])
+        return tuple(outs)
+
+    def forward(self, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor]:
+        used = list(inputs[self.start_level:self.end_level])
+        outs = self.top_down(used)
         extra = self.fpn_convs[self.num_laterals:]
         if not len(extra):
-            for _ in range(self.num_outs - len(outs)):
-                outs.append(outs[-1][:, :, ::2, ::2])   # max_pool(1, stride 2)
-            return tuple(outs)
+            return self.pooled_levels(outs)
         src = used[-1] if self.on_input else outs[-1]
         for i, conv in enumerate(extra):
             outs.append(conv(F.relu(src) if i and self.relu_before_extra_convs
                              else src))
             src = outs[-1]
         return tuple(outs)
+
+
+@NECKS.register_module()
+class PAFPN(FPN):
+    """PAFPN (port of ``dynamask_tpu/models/fpn.py:114-152``): the FPN's
+    top-down path and output convs, then the bottom-up path: each level's
+    output plus a 3x3 stride-2 conv (``downsample_convs``) of the one
+    below it, every level but the lowest through a 3x3 conv
+    (``pafpn_convs``, mmdet's ``pafpn_convs[i - 1]`` for level i), extra
+    levels as stride-2 max pools of size 1. No norm and no extra convs: the
+    JAX form has neither."""
+
+    def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
+                 out_channels: int = 256, num_outs: int = 5,
+                 start_level: int = 0, end_level: int = -1):
+        super().__init__(in_channels, out_channels, num_outs,
+                         start_level=start_level, end_level=end_level)
+        n = self.num_laterals - 1
+        self.downsample_convs = nn.ModuleList([
+            ConvModule(out_channels, out_channels, 3, padding=1, stride=2)
+            for _ in range(n)])
+        self.pafpn_convs = nn.ModuleList([
+            ConvModule(out_channels, out_channels, 3, padding=1)
+            for _ in range(n)])
+
+    def forward(self, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor]:
+        inter = self.top_down(list(inputs[self.start_level:self.end_level]))
+        for i, conv in enumerate(self.downsample_convs):
+            h, w = inter[i + 1].shape[-2:]
+            inter[i + 1] = inter[i + 1] + conv(inter[i])[:, :, :h, :w]
+        return self.pooled_levels(inter[:1] + [
+            conv(x) for conv, x in zip(self.pafpn_convs, inter[1:])])

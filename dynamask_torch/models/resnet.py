@@ -139,6 +139,18 @@ class Bottleneck(_Block):
         return F.relu(out + identity)
 
 
+def deep_stem_layers(norm: Norm, channels: int) -> nn.Sequential:
+    """ResNetV1d's and Res2Net's stem of three 3x3 convs (the first at
+    stride 2), mmdet's ``stem.{0,1,3,4,6,7}``."""
+    half = channels // 2
+    return nn.Sequential(
+        nn.Conv2d(3, half, 3, 2, 1, bias=False), norm.make(half), nn.ReLU(),
+        nn.Conv2d(half, half, 3, 1, 1, bias=False), norm.make(half),
+        nn.ReLU(),
+        nn.Conv2d(half, channels, 3, 1, 1, bias=False), norm.make(channels),
+        nn.ReLU())
+
+
 # the JAX package's table (``dynamask_tpu/models/resnet.py:276-282``)
 ARCH_SETTINGS = {
     18: (BasicBlock, (2, 2, 2, 2)),
@@ -149,8 +161,34 @@ ARCH_SETTINGS = {
 }
 
 
+class Backbone(nn.Module):
+    """What the port's backbones share in training: ``frozen_modules()``
+    (the stem and the frozen stages, each backbone its own) stop requiring
+    a gradient in ``freeze_stages()``, and ``norm_eval`` keeps every
+    BatchNorm on its running statistics in training mode."""
+
+    frozen_stages = -1
+    norm_eval = True
+
+    def frozen_modules(self):
+        return []
+
+    def freeze_stages(self) -> None:
+        for m in self.frozen_modules():
+            for p in m.parameters():
+                p.requires_grad_(False)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if mode and self.norm_eval:
+            for m in self.modules():
+                if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                    m.eval()
+        return self
+
+
 @BACKBONES.register_module()
-class ResNet(nn.Module):
+class ResNet(Backbone):
     """Returns the stage outputs of ``out_indices`` (strides 4/8/16/32)."""
 
     def __init__(self, depth: int = 50, num_stages: int = 4,
@@ -178,14 +216,7 @@ class ResNet(nn.Module):
         self.norm_eval = norm_eval
         self.deep_stem = deep_stem
         if deep_stem:
-            half = stem_channels // 2
-            self.stem = nn.Sequential(
-                nn.Conv2d(3, half, 3, 2, 1, bias=False), norm.make(half),
-                nn.ReLU(),
-                nn.Conv2d(half, half, 3, 1, 1, bias=False), norm.make(half),
-                nn.ReLU(),
-                nn.Conv2d(half, stem_channels, 3, 1, 1, bias=False),
-                norm.make(stem_channels), nn.ReLU())
+            self.stem = deep_stem_layers(norm, stem_channels)
         else:
             self.conv1 = nn.Conv2d(3, stem_channels, 7, 2, 3, bias=False)
             self.stem_norm = f'{norm.abbr}1'
@@ -217,19 +248,6 @@ class ResNet(nn.Module):
                 [self.conv1, getattr(self, self.stem_norm)])
         return stem + [getattr(self, f'layer{i}')
                        for i in range(1, self.frozen_stages + 1)]
-
-    def freeze_stages(self) -> None:
-        for m in self.frozen_modules():
-            for p in m.parameters():
-                p.requires_grad_(False)
-
-    def train(self, mode: bool = True):
-        super().train(mode)
-        if mode and self.norm_eval:
-            for m in self.modules():
-                if isinstance(m, nn.modules.batchnorm._BatchNorm):
-                    m.eval()
-        return self
 
     def forward(self, x: torch.Tensor):
         if self.deep_stem:

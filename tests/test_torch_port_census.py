@@ -11,7 +11,8 @@ detectors and the ResNet variants) to 82, with Cascade R-CNN and HTC to
 113, with the two-stage family's options (GN and GN+WS, CARAFE,
 GRoIE, Double-Head, the IoU losses, OHEM and Soft-NMS) to 143, and with
 the single-stage detectors (RetinaNet with GHM, FreeAnchor, the legacy v1
-form and the SepBN head; ATSS; FCOS) to 180.
+form and the SepBN head; ATSS; FCOS) to 180, and with HRNet and HRFPN,
+RegNet (all but the mdconv file, item 7), Res2Net and PAFPN to 227.
 """
 
 import glob
@@ -127,7 +128,36 @@ BUILDS = (
     'groie/faster_rcnn_r50_fpn_groie_1x_coco.py',
     'groie/mask_rcnn_r50_fpn_groie_1x_coco.py',
     'guided_anchoring/ga_fast_r50_caffe_fpn_1x_coco.py',
+    'hrnet/cascade_mask_rcnn_hrnetv2p_w18_20e_coco.py',
+    'hrnet/cascade_mask_rcnn_hrnetv2p_w32_20e_coco.py',
+    'hrnet/cascade_mask_rcnn_hrnetv2p_w40_20e_coco.py',
+    'hrnet/cascade_rcnn_hrnetv2p_w18_20e_coco.py',
+    'hrnet/cascade_rcnn_hrnetv2p_w32_20e_coco.py',
+    'hrnet/cascade_rcnn_hrnetv2p_w40_20e_coco.py',
+    'hrnet/faster_rcnn_hrnetv2p_w18_1x_coco.py',
+    'hrnet/faster_rcnn_hrnetv2p_w18_2x_coco.py',
+    'hrnet/faster_rcnn_hrnetv2p_w32_1x_coco.py',
+    'hrnet/faster_rcnn_hrnetv2p_w32_2x_coco.py',
+    'hrnet/faster_rcnn_hrnetv2p_w40_1x_coco.py',
+    'hrnet/faster_rcnn_hrnetv2p_w40_2x_coco.py',
+    'hrnet/fcos_hrnetv2p_w18_gn-head_4x4_1x_coco.py',
+    'hrnet/fcos_hrnetv2p_w18_gn-head_4x4_2x_coco.py',
+    'hrnet/fcos_hrnetv2p_w18_gn-head_mstrain_640-800_4x4_2x_coco.py',
+    'hrnet/fcos_hrnetv2p_w32_gn-head_4x4_1x_coco.py',
+    'hrnet/fcos_hrnetv2p_w32_gn-head_4x4_2x_coco.py',
+    'hrnet/fcos_hrnetv2p_w32_gn-head_mstrain_640-800_4x4_2x_coco.py',
+    'hrnet/fcos_hrnetv2p_w40_gn-head_mstrain_640-800_4x4_2x_coco.py',
+    'hrnet/htc_hrnetv2p_w18_20e_coco.py',
+    'hrnet/htc_hrnetv2p_w32_20e_coco.py',
+    'hrnet/htc_hrnetv2p_w40_20e_coco.py',
+    'hrnet/htc_hrnetv2p_w40_28e_coco.py',
     'hrnet/htc_x101_64x4d_fpn_16x1_28e_coco.py',
+    'hrnet/mask_rcnn_hrnetv2p_w18_1x_coco.py',
+    'hrnet/mask_rcnn_hrnetv2p_w18_2x_coco.py',
+    'hrnet/mask_rcnn_hrnetv2p_w32_1x_coco.py',
+    'hrnet/mask_rcnn_hrnetv2p_w32_2x_coco.py',
+    'hrnet/mask_rcnn_hrnetv2p_w40_1x_coco.py',
+    'hrnet/mask_rcnn_hrnetv2p_w40_2x_coco.py',
     'htc/htc_r101_fpn_20e_coco.py',
     'htc/htc_r50_fpn_1x_coco.py',
     'htc/htc_r50_fpn_20e_coco.py',
@@ -170,6 +200,7 @@ BUILDS = (
     'mask_rcnn/mask_rcnn_x101_64x4d_fpn_1x_coco.py',
     'mask_rcnn/mask_rcnn_x101_64x4d_fpn_2x_coco.py',
     'nas_fpn/retinanet_r50_fpn_crop640_50e_coco.py',
+    'pafpn/faster_rcnn_r50_pafpn_1x_coco.py',
     'pascal_voc/faster_rcnn_r50_fpn_1x_voc0712.py',
     'pascal_voc/retinanet_r50_fpn_1x_voc0712.py',
     'refinemask/cityscapes/r50_refinemask_1x.py',
@@ -178,6 +209,23 @@ BUILDS = (
     'refinemask/coco/r50_refinemask_1x.py',
     'refinemask/coco/r50_refinemask_2x.py',
     'refinemask/lvis/r50_refinemask_lvis_1x.py',
+    'regnet/faster_rcnn_regnetx-3.2GF_fpn_1x_coco.py',
+    'regnet/faster_rcnn_regnetx-3.2GF_fpn_2x_coco.py',
+    'regnet/faster_rcnn_regnetx-3.2GF_fpn_mstrain_3x_coco.py',
+    'regnet/mask_rcnn_regnetx-12GF_fpn_1x_coco.py',
+    'regnet/mask_rcnn_regnetx-3.2GF_fpn_1x_coco.py',
+    'regnet/mask_rcnn_regnetx-3.2GF_fpn_mstrain_3x_coco.py',
+    'regnet/mask_rcnn_regnetx-4GF_fpn_1x_coco.py',
+    'regnet/mask_rcnn_regnetx-6.4GF_fpn_1x_coco.py',
+    'regnet/mask_rcnn_regnetx-8GF_fpn_1x_coco.py',
+    'regnet/retinanet_regnetx-1.6GF_fpn_1x_coco.py',
+    'regnet/retinanet_regnetx-3.2GF_fpn_1x_coco.py',
+    'regnet/retinanet_regnetx-800MF_fpn_1x_coco.py',
+    'res2net/cascade_mask_rcnn_r2_101_fpn_20e_coco.py',
+    'res2net/cascade_rcnn_r2_101_fpn_20e_coco.py',
+    'res2net/faster_rcnn_r2_101_fpn_2x_coco.py',
+    'res2net/htc_r2_101_fpn_20e_coco.py',
+    'res2net/mask_rcnn_r2_101_fpn_2x_coco.py',
     'retinanet/retinanet_r101_caffe_fpn_1x_coco.py',
     'retinanet/retinanet_r101_fpn_1x_coco.py',
     'retinanet/retinanet_r101_fpn_2x_coco.py',
@@ -215,7 +263,7 @@ REFUSED = {
     '4x4_1x_coco.py': 'item 7',
     'nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py': 'item 8',
     'dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py': 'item 7',
-    'hrnet/faster_rcnn_hrnetv2p_w18_1x_coco.py': 'item 8',
+    'regnet/mask_rcnn_regnetx-3.2GF_fpn_mdconv_c3-c5_1x_coco.py': 'item 7',
     'rpn/rpn_r50_caffe_c4_1x_coco.py': 'item 9',
     'libra_rcnn/libra_faster_rcnn_r50_fpn_1x_coco.py': 'item 8',
 }

@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch port's flagship on one GPU.
 
     python3 tools/profile_torch_port.py [--iters 5] [--train] [--bf16]
-                                        [--config CFG]
+                                        [--config CFG] [--cudnn-benchmark]
 
 Without ``--train``: builds DynaMask R50-FPN (``configs/dynamask/coco/
 r50_dynamask_1x.py``, or ``--config``) with random N(0, 0.05) weights from
@@ -47,7 +47,9 @@ For each mode it reports
 
 Prints a summary and writes ``chiprun_out/profile_torch_port.json``
 (``profile_torch_port_<config name>.json`` for another config, with
-``_train`` appended under ``--train`` and ``_bf16`` under ``--bf16``).
+``_train`` appended under ``--train``, ``_bf16`` under ``--bf16`` and
+``_cudnn_benchmark`` under ``--cudnn-benchmark``, which lets cuDNN time
+its algorithms for each conv shape in place of its heuristic's pick).
 """
 
 import argparse
@@ -235,12 +237,17 @@ def main():
                     help='the config file (default: the flagship)')
     ap.add_argument('--bf16', action='store_true',
                     help='bf16 compute (the core/fp16.py policy)')
+    ap.add_argument('--cudnn-benchmark', action='store_true',
+                    help="let cuDNN time its algorithms for each conv "
+                    "shape (torch.backends.cudnn.benchmark) instead of "
+                    "taking its heuristic's pick")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit('profile_torch_port: needs a CUDA device')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = args.cudnn_benchmark
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
@@ -249,15 +256,18 @@ def main():
     run, hw, batch = ((_train, train_hw, images) if args.train
                       else (_inference, test_hw, 1))
     print(f'{os.path.relpath(args.config, ROOT)}, canvas {hw[0]}x{hw[1]}, '
-          f'batch {batch}, {"bf16" if args.bf16 else "fp32"}')
+          f'batch {batch}, {"bf16" if args.bf16 else "fp32"}' +
+          (', cudnn.benchmark' if args.cudnn_benchmark else ''))
     report = {'card': card, 'config': args.config, 'canvas': hw,
               'batch': batch, 'bf16': args.bf16,
+              'cudnn_benchmark': args.cudnn_benchmark,
               'modes': run(args.config, card, args.iters, hw, batch,
                            args.bf16)}
     name = os.path.splitext(os.path.basename(args.config))[0]
     suffix = '' if os.path.abspath(args.config) == FLAGSHIP else f'_{name}'
     suffix += ('_train' if args.train else '') + ('_bf16' if args.bf16
                                                    else '')
+    suffix += '_cudnn_benchmark' if args.cudnn_benchmark else ''
     os.makedirs(os.path.join(ROOT, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(ROOT, 'chiprun_out',
                            f'profile_torch_port{suffix}.json'), 'w') as f:
