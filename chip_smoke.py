@@ -266,7 +266,30 @@ before the last line is printed:
    PAFPN and a toy FCOS on HRFPN at stride 2, each on the card against the
    same weights on the CPU (labels and validity equal, dets within 1e-4,
    the step's losses within 1e-4 relative). It prints ms/img, ms/step and
-   peak memory of each config, the phase's seconds and the whole run's.
+   peak memory of each config and the phase's seconds;
+16. run the detectors on the backbones' deformable convs and block
+   plugins from their config files, unchanged, at full width
+   (``ITEM7_CELLS``): ``configs/dcn/``'s DCNv1 Mask R-CNN (an image and a
+   step), DCNv2 Mask R-CNN (an image at 800x1344 through the exact gather
+   with its mask, an image at 800x800 where JAX's windowed form runs on
+   the square stride-1 maps, each held to its count of the two forms, and
+   a step), group-4 DCNv2 Faster R-CNN (an image) and DCNv1 Cascade Mask
+   R-CNN (an image and a step); GCNet's r16 Mask R-CNN (an image and a
+   step) and GRoIE's r4 GCB file (an image); GA '1111' + DCN Faster R-CNN
+   (an image and a step); FCOS with ``dcn_on_last_conv`` (an image and a
+   step, no kernel); RegNetX-3.2GF mdconv (an image and a step); HTC
+   X101-64x4d DCN (an image); each held to its exact K2/K4 launches with
+   K1, K3 and K5 at 0, the steps from the JAX initialisation. Then the
+   plain exact-gather DCNv1 timed by stage with CUDA events (layer2-4's
+   strided and stride-1 blocks at a step's 4 and an image's 1 800x1344
+   images, forward and forward + backward, ``plain dcn ...`` lines) and
+   GA '1111' at c4 and c5 (``plain GA ...`` lines): plain PyTorch by
+   design, the JAX package computes them in XLA. Last, toy DCNv1 + GCB
+   and DCNv2 (4 groups) + GA '1111' Mask R-CNNs at depth 50 through
+   phase 3's inference and training-step checks, and a toy FCOS with
+   ``dcn_on_last_conv`` (its losses and every gradient, the offset
+   convs' among them), on the card against the CPU. It prints the
+   phase's seconds and the whole run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
@@ -278,9 +301,9 @@ config's image and steps and the RPN, Fast R-CNN and VOC eval drives, in
 phase 12 each config's image and steps and HTC's eval drive and
 loader-batch step, in phase 13 each config's image and steps and
 GRoIE's eval drive and loader-batch step, in phase 14 each config's
-image and steps and RetinaNet's eval drive, and in phase 15 each config's
+image and steps and RetinaNet's eval drive, in phase 15 each config's
 image and steps and the HRNet-W18 Mask R-CNN's eval drive and
-loader-batch step)
+loader-batch step, and in phase 16 each config's image and steps)
 the kernels' launch
 counters are zeroed just before it
 and read just after (the loop's
@@ -288,10 +311,10 @@ steps and its validations in turns), and every kernel of that path must
 have launched in it: K1 and K2 at inference, in the eval loops and in the
 loop's validations, K5 through both entry points in its check, K1-K4 in
 training; behind Mask R-CNN's FCN head, which runs no DCN, K2 at
-inference and K2 and K4 in training; phase 6 and phases 8-14 hold each
+inference and K2 and K4 in training; phase 6 and phases 8-16 hold each
 drive to its exact counts, every other kernel at 0 (the RPN's eval drive,
-every phase-14 drive and phase 15's FCOS and RetinaNet drives launch
-none).
+every phase-14 drive, phase 15's FCOS and RetinaNet drives and phase
+16's FCOS drives launch none).
 
 Standard output ends with the ``kernels`` JSON line, the card's name and
 power limit as ``nvidia-smi`` reports them, and the ``{"ok": true, ...}``
@@ -1501,11 +1524,16 @@ def toy_cfg(kind='dynamask'):
     semantic head at 32 channels; ``'gn_ws'``, ``'groie'`` and
     ``'double_head'``: from the GN+WS and GRoIE Mask R-CNN and the
     Double-Head Faster R-CNN configs (GN of 32 groups throughout, the
-    shared convs at 32 channels; Double-Head's tower at 64)."""
+    shared convs at 32 channels; Double-Head's tower at 64); an item-7
+    toy (``ITEM7_TOYS``, phase 16): its config's Mask R-CNN at depth 50
+    with the toy's backbone keys, the heads as the Mask R-CNN toy's."""
     from dynamask_torch.utils import Config
-    cfg = Config.fromfile(TOY_CONFIGS[kind])
+    cfg = Config.fromfile(TOY_CONFIGS[kind] if kind in TOY_CONFIGS
+                          else ITEM7_TOYS[kind][0])
     m = cfg.model
-    if kind in DEEP_TOYS:
+    if kind in ITEM7_TOYS:
+        m.backbone.update(ITEM7_TOYS[kind][1])
+    if kind in DEEP_TOYS or kind in ITEM7_TOYS:
         m.backbone.depth = 50
     else:
         m.backbone.depth = 18
@@ -1527,7 +1555,7 @@ def toy_cfg(kind='dynamask'):
     if kind in ('faster_rcnn', 'double_head'):
         pass
     elif kind in ('mask_rcnn', 'cascade', 'htc', 'gn_ws', 'groie',
-                  *DEEP_TOYS):
+                  *DEEP_TOYS, *ITEM7_TOYS):
         for head in (mh if kind == 'htc' else [mh]):
             head.num_convs = 2
             head.in_channels = head.conv_out_channels = 32
@@ -1616,6 +1644,7 @@ TOY_LOSS_RTOL = 1e-4   # fp32 sums in other orders: ~1e-6 relative
 # fails (:class:`KinkSides`).
 TOY_GRAD_RL2 = 1e-3
 TOY_GRAD_FLOOR = 10.0
+TOY_GRAD_ZERO = 1e-9    # of the largest gradient norm: a zero's rounding
 KINK_RTOL = 1e-5
 INPUT_NOISE = 1e-7
 
@@ -1660,7 +1689,10 @@ class KinkSides:
         import torch
         import torch.nn.functional as F
         import dynamask_torch.models.dynamask_head as head
+        import dynamask_torch.ops.deform_conv as dc
         relu, dcn, kept = F.relu, head.deform_conv2d_nhwc, iter(self.kept)
+        # the backbones' DCNs (phase 16), looked up at each call
+        exact, windowed = dc.deform_conv2d_exact, dc.modulated_deform_conv2d
 
         def offset_side(o):
             f = torch.floor(o)
@@ -1674,11 +1706,21 @@ class KinkSides:
             return dcn(x, self._pin(offsets, follow, kept, offset_side),
                        *args)
 
+        def pinned(op):
+            def run(x, offsets, *args):
+                return op(x, self._pin(offsets, follow, kept, offset_side),
+                          *args)
+            return run
+
         F.relu, head.deform_conv2d_nhwc = pinned_relu, pinned_dcn
+        dc.deform_conv2d_exact = pinned(exact)
+        dc.modulated_deform_conv2d = pinned(windowed)
         try:
             yield
         finally:
             F.relu, head.deform_conv2d_nhwc = relu, dcn
+            dc.deform_conv2d_exact, dc.modulated_deform_conv2d = exact, \
+                windowed
 
 
 def toy_train_case(kind='dynamask'):
@@ -3730,12 +3772,13 @@ SINGLE_STAGE_TOYS = {'retinanet': RETINANET, 'atss': ATSS_CONFIG,
                      'fcos': FCOS_CENTER}
 
 
-def single_stage_toy(kind):
-    """The config of a single-stage toy: ResNet-18, a 32-channel FPN with
-    its extra levels, two-conv heads of 32 channels, 8 classes, 50
-    candidates a level and 20 dets an image."""
+def single_stage_toy(kind, path=None):
+    """The config of a single-stage toy (``kind``'s, or the file at
+    ``path``): ResNet-18, a 32-channel FPN with its extra levels, two-conv
+    heads of 32 channels, 8 classes, 50 candidates a level and 20 dets an
+    image."""
     from dynamask_torch.utils import Config
-    cfg = Config.fromfile(SINGLE_STAGE_TOYS[kind])
+    cfg = Config.fromfile(path or SINGLE_STAGE_TOYS[kind])
     m = cfg.model
     m.backbone.depth = 18
     m.neck.in_channels = [64, 128, 256, 512]
@@ -4061,6 +4104,357 @@ def run_item8(report, card):
     return launches
 
 
+# -- phase 16: the backbones' deformable convs and block plugins (item 7) ----
+
+DCN_DIR = os.path.join(ROOT, 'configs/dcn')
+MDCONV_MASK = os.path.join(DCN_DIR, 'mask_rcnn_r50_fpn_mdconv_c3-c5_1x_coco.py')
+FCOS_DCN = os.path.join(ROOT, 'configs/fcos/fcos_center-normbbox-centeronreg-'
+                        'giou_r50_caffe_fpn_gn-head_dcn_4x4_1x_coco.py')
+SQUARE_HW = (800, 800)      # a COCO image of equal sides, resized
+# (name, config, timed repeats of an image (None: no image), its canvas
+# (None: the config's), timed steps (None: no step), an image's launches, a
+# step's); K1, K3 and K5 run on none of them
+ITEM7_CELLS = (
+    ('dcn_mask_rcnn', os.path.join(DCN_DIR,
+                                   'mask_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py'),
+     1, None, 1, MASK_RCNN_INFER_COUNTS, MASK_RCNN_STEP_COUNTS),
+    ('mdconv_mask_rcnn', MDCONV_MASK, 1, None, 1, MASK_RCNN_INFER_COUNTS,
+     MASK_RCNN_STEP_COUNTS),
+    ('mdconv_mask_rcnn_square', MDCONV_MASK, 1, SQUARE_HW, None,
+     MASK_RCNN_INFER_COUNTS, None),
+    ('mdconv_g4_faster', os.path.join(
+        DCN_DIR, 'faster_rcnn_r50_fpn_mdconv_c3-c5_group4_1x_coco.py'),
+     1, None, None, BOX_INFER_COUNTS, None),
+    ('dcn_cascade_mask_rcnn', os.path.join(
+        DCN_DIR, 'cascade_mask_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py'),
+     1, None, 1, CASCADE_INFER, CASCADE_STEP),
+    ('gcb_mask_rcnn', os.path.join(
+        ROOT, 'configs/gcnet/mask_rcnn_r50_fpn_r16_gcb_c3-c5_1x_coco.py'),
+     1, None, 1, MASK_RCNN_INFER_COUNTS, MASK_RCNN_STEP_COUNTS),
+    ('groie_gcb', os.path.join(
+        ROOT, 'configs/groie/mask_rcnn_r50_fpn_syncbn-backbone_r4_gcb_c3-c5_'
+        'groie_1x_coco.py'), 1, None, None, MASK_RCNN_INFER_COUNTS, None),
+    ('ga_1111_dcn_faster', os.path.join(
+        ROOT, 'configs/empirical_attention/'
+        'faster_rcnn_r50_fpn_attention_1111_dcn_1x_coco.py'),
+     1, None, 1, BOX_INFER_COUNTS, BOX_STEP_COUNTS),
+    ('fcos_dcn', FCOS_DCN, 1, None, 1, {}, {}),
+    ('regnetx_3.2gf_mdconv', os.path.join(
+        ROOT, 'configs/regnet/mask_rcnn_regnetx-3.2GF_fpn_mdconv_c3-c5_1x_'
+        'coco.py'), 1, None, 1, MASK_RCNN_INFER_COUNTS,
+     MASK_RCNN_STEP_COUNTS),
+    ('htc_x101_dcn', os.path.join(
+        ROOT, 'configs/htc/htc_x101_64x4d_fpn_dconv_c3-c5_mstrain_400_1400_'
+        '16x1_20e_coco.py'), 1, None, None, HTC_INFER, None),
+)
+# the DCNv2 drives' forms on R50's c3-c5 (13 blocks) per forward: every
+# block through the exact gather on 800x1344; on 800x800 the three strided
+# first blocks so, the ten others in JAX's windowed form (3am)
+DCN_FORMS = {'mdconv_mask_rcnn': (13, 0), 'mdconv_mask_rcnn_square': (3, 10)}
+# the toys, two-stage (:func:`toy_cfg`, depth 50) and FCOS: the config and
+# what the toy's backbone or head adds to it
+ITEM7_TOYS = {
+    'dcn_gcb': (os.path.join(
+        ROOT, 'configs/gcnet/mask_rcnn_r50_fpn_r16_gcb_c3-c5_1x_coco.py'),
+        dict(dcn=dict(type='DCN', deform_groups=1),
+             stage_with_dcn=(False, True, True, True))),
+    'mdcn4_ga': (MDCONV_MASK, dict(
+        dcn=dict(type='DCNv2', deform_groups=4),
+        plugins=[dict(cfg=dict(type='GeneralizedAttention', spatial_range=-1,
+                               num_heads=8, attention_type='1111',
+                               kv_stride=2),
+                      stages=(False, False, True, True),
+                      position='after_conv2')])),
+}
+# the plain DCN's timed stages: (stage, input channels, input H x W of a
+# step's and an image's first block at 800x1344)
+DCN_STAGES = (('layer2', 128, (200, 336)), ('layer3', 256, (100, 168)),
+              ('layer4', 512, (50, 84)))
+
+
+@contextlib.contextmanager
+def counted_dcn_forms():
+    """Counts the calls of the exact gather and of the windowed DCNv2 (the
+    backbone's ``DeformConv2dPack`` looks them up at each call)."""
+    import dynamask_torch.ops.deform_conv as dc
+    counts = {'exact': 0, 'windowed': 0}
+    exact, windowed = dc.deform_conv2d_exact, dc.modulated_deform_conv2d
+
+    def cexact(*a, **k):
+        counts['exact'] += 1
+        return exact(*a, **k)
+
+    def cwindowed(*a, **k):
+        counts['windowed'] += 1
+        return windowed(*a, **k)
+
+    dc.deform_conv2d_exact, dc.modulated_deform_conv2d = cexact, cwindowed
+    try:
+        yield counts
+    finally:
+        dc.deform_conv2d_exact, dc.modulated_deform_conv2d = exact, windowed
+
+
+def check_dcn_forms(report, name, counts):
+    """A DCNv2 drive's calls are whole forwards of ``DCN_FORMS[name]``."""
+    exact, windowed = DCN_FORMS[name]
+    n = (counts['exact'] + counts['windowed']) // (exact + windowed)
+    if n < 1 or (counts['exact'], counts['windowed']) != (exact * n,
+                                                          windowed * n):
+        raise RuntimeError(f'{name}: DCN forms {counts}, expected '
+                           f'{exact} exact and {windowed} windowed a forward')
+    print(f'  {name}: {n} forwards, each {exact} exact-gather and '
+          f'{windowed} windowed DCNs')
+    report['item7'].setdefault('dcn_forms', {})[name] = dict(counts,
+                                                             forwards=n)
+
+
+def time_plain_dcn(report, card):
+    """The plain exact-gather DCNv1 of R50's c3-c5 on the card, stage by
+    stage, forward and forward + backward with CUDA events: a stage's
+    strided first block and a stride-1 block, at a step's 4 images and an
+    image's 1, 800x1344; then GA '1111' (8 heads, kv stride 2) at c4 and
+    c5's widths and maps. These are plain PyTorch by design (the JAX
+    package computes them in XLA): the lines are the case for a hand
+    kernel, not kernel rows."""
+    import torch
+    from dynamask_torch.models.plugins import GeneralizedAttention
+    from dynamask_torch.ops.deform_conv import deform_conv2d_exact
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    recs = []
+    for images in (TRAIN_IMAGES, 1):
+        for stage, c, (h, w) in DCN_STAGES:
+            for stride in (2, 1):
+                hi, wi = (h, w) if stride == 2 else (h // 2, w // 2)
+                ho, wo = (hi - 1) // stride + 1, (wi - 1) // stride + 1
+                x = torch.randn(images, hi, wi, c, generator=gen,
+                                device=DEVICE, requires_grad=True)
+                off = torch.randn(images, ho, wo, 18, generator=gen,
+                                  device=DEVICE, requires_grad=True)
+                wt = (torch.randn(3, 3, c, c, generator=gen, device=DEVICE)
+                      / (9 * c) ** 0.5).requires_grad_()
+                cot = torch.randn(images, ho, wo, c, generator=gen,
+                                  device=DEVICE)
+
+                def fwd():
+                    with torch.no_grad():
+                        deform_conv2d_exact(x, off, wt, None, 3, stride)
+
+                def fwd_bwd():
+                    out = deform_conv2d_exact(x, off, wt, None, 3, stride)
+                    torch.autograd.grad((out * cot).sum(), (x, off, wt))
+
+                torch.cuda.reset_peak_memory_stats(DEVICE)
+                f_ms = cuda_ms(fwd, iters=3, warmup=1)
+                fb_ms = cuda_ms(fwd_bwd, iters=3, warmup=1)
+                peak = torch.cuda.max_memory_allocated(DEVICE)
+                # the least time: the inputs read and the output written
+                # once (the backward also reads the output's gradient and
+                # writes each input's), the 9 taps' products (the
+                # backward's two more) at the fp32 peak
+                nbytes = _nbytes(x, off, wt, cot)
+                ops = 2 * cot.numel() * 9 * c
+                f_bound = bound_of(nbytes, {'fp32': ops})
+                fb_bound = bound_of(2 * nbytes, {'fp32': 3 * ops})
+                rec = dict(op='dcn_exact', stage=stage, images=images,
+                           stride=stride, c=c, hw_in=[hi, wi],
+                           fwd_ms=f_ms, fwd_bwd_ms=fb_ms, peak_bytes=peak,
+                           fwd_bound=f_bound, fwd_bwd_bound=fb_bound)
+                recs.append(rec)
+                print(f'  plain dcn {stage} {images}x{hi}x{wi}x{c} stride '
+                      f'{stride}: fwd {f_ms:.3f} ms (bound {f_bound[0]:.3f},'
+                      f' {f_bound[1]}), fwd+bwd {fb_ms:.3f} ms (bound '
+                      f'{fb_bound[0]:.3f}), peak {peak / 2 ** 30:.2f} GiB '
+                      f'[{card}]')
+                del x, off, wt, cot
+        for stage, c, (h, w) in (('c4', 256, (50, 84)),
+                                 ('c5', 512, (25, 42))):
+            ga = GeneralizedAttention(c, num_heads=8, attention_type='1111',
+                                      kv_stride=2).to(DEVICE)
+            with torch.no_grad():
+                for p in ga.parameters():
+                    p.normal_(0, 0.05, generator=gen)
+            x = torch.randn(images, c, h, w, generator=gen, device=DEVICE
+                            ).contiguous(memory_format=torch.channels_last)
+            x.requires_grad_()
+
+            def ga_fwd():
+                with torch.no_grad():
+                    ga(x)
+
+            def ga_fwd_bwd():
+                ga(x).sum().backward()
+
+            torch.cuda.reset_peak_memory_stats(DEVICE)
+            f_ms = cuda_ms(ga_fwd, iters=3, warmup=1)
+            fb_ms = cuda_ms(ga_fwd_bwd, iters=3, warmup=1)
+            peak = torch.cuda.max_memory_allocated(DEVICE)
+            recs.append(dict(op='generalized_attention_1111', stage=stage,
+                             images=images, c=c, hw=[h, w], fwd_ms=f_ms,
+                             fwd_bwd_ms=fb_ms, peak_bytes=peak))
+            print(f'  plain GA 1111 {stage} {images}x{h}x{w}x{c}: fwd '
+                  f'{f_ms:.3f} ms, fwd+bwd {fb_ms:.3f} ms, peak '
+                  f'{peak / 2 ** 30:.2f} GiB [{card}]')
+            del ga, x
+    report['item7']['plain_ops'] = recs
+    torch.cuda.empty_cache()
+
+
+def item7_toy(kind):
+    """The config of an item-7 toy: the Mask R-CNN toy of its config file
+    at depth 50 (:func:`toy_cfg`) with the toy's backbone keys, or FCOS's
+    DCN config at :func:`single_stage_toy`'s width."""
+    if kind == 'fcos_dcn':
+        cfg = single_stage_toy(kind, FCOS_DCN)
+        assert cfg.model.bbox_head.dcn_on_last_conv
+        return cfg
+    return toy_cfg(kind)
+
+
+def check_item7_toys(report):
+    """Phase 16's toys on the card against the same weights on the CPU:
+    the DCNv1 + GCB and the DCNv2 (4 groups) + GA '1111' Mask R-CNNs
+    through phase 3's inference check (labels and validity equal, dets and
+    mask probabilities within 1e-3) and phase 3's training step (each loss
+    within TOY_LOSS_RTOL, every parameter's gradient within TOY_GRAD_RL2
+    relative L2 or the CPU's own noise, the offset convs' among them);
+    FCOS with ``dcn_on_last_conv`` at N(0, 0.05) through ``simple_test``
+    and a training step's losses and gradients, as its single-stage
+    siblings plus the gradients."""
+    import copy
+    import torch
+    from dynamask_torch.apis import synthetic_batch
+    from dynamask_torch.models import build_detector
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn(1, 128, 128, 3, generator=gen)
+    batch = {'image': img, 'img_shape': torch.tensor([[128., 128.]]),
+             'scale_factor': torch.ones(1, 4)}
+    for kind in ITEM7_TOYS:
+        cfg = item7_toy(kind)
+        ref = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                             device='cpu', seed=0)
+        model = copy.deepcopy(ref).to(DEVICE)
+        a = ref.simple_test(batch)
+        b = {k: v.cpu() for k, v in model.simple_test(
+            {k: v.to(DEVICE) for k, v in batch.items()}).items()
+            if torch.is_tensor(v)}
+        errs = {k: (a[k].double() - b[k].double()).abs().max().item()
+                for k in ('dets', 'mask_probs')}
+        same = all(torch.equal(a[k], b[k]) for k in ('labels', 'det_valid'))
+        print(f'  toy {kind}: {int(a["det_valid"].sum())} dets, GPU vs CPU '
+              'max abs err ' + ', '.join(f'{k} {v:.3e}' for k, v in
+                                          errs.items()) +
+              f', labels/valid equal {same}')
+        report['toy'].append(dict(model=f'item7_{kind}',
+                                  same_labels_valid=same, **errs))
+        if not (same and max(errs.values()) < 1e-3):
+            raise RuntimeError(f'toy {kind}: GPU result disagrees with the '
+                               'CPU reference')
+        del ref, model
+        check_toy_train_against_cpu(report, kind)
+    cfg = item7_toy('fcos_dcn')
+    cpu = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                         device='cpu', seed=0, init_std=0.05)
+    gpu = copy.deepcopy(cpu).to(DEVICE)
+    data = synthetic_batch(3, b=2, h=96, w=128, num_gts=4, num_classes=8)
+    data['scale_factor'] = torch.tensor([[1.0] * 4, [0.8] * 4])
+    ref = cpu.simple_test(data)
+    got = gpu.simple_test({k: v.to(DEVICE) for k, v in data.items()})
+    err = (got['dets'].cpu() - ref['dets']).abs().max().item()
+    if not all(torch.equal(got[k].cpu(), ref[k]) for k in (
+            'labels', 'det_valid')) or err > TOY_DET_TOL or int(
+            ref['det_valid'].sum()) < 4:
+        raise RuntimeError(f'toy fcos_dcn: the card\'s dets differ from the '
+                           f'CPU\'s (max abs err {err})')
+    # the step's losses and gradients as phase 3's two-stage toys hold
+    # them: the CPU on the card's side of each kink, each gradient within
+    # TOY_GRAD_RL2 or TOY_GRAD_FLOOR times the CPU's own noise; the GN of
+    # the 1x1 top level normalises single values, so the gradients that
+    # reach the neck through it alone are zero in the math and rounding on
+    # both devices: under TOY_GRAD_ZERO of the largest norm on both, they
+    # are not compared
+    noisy = dict(data, image=data['image'] * (1 + INPUT_NOISE * torch.randn(
+        data['image'].shape, generator=torch.Generator().manual_seed(5))))
+
+    def step(net, batch):
+        net.train().zero_grad(set_to_none=True)
+        losses = net.forward_train({k: v.to(net.device)
+                                    for k, v in batch.items()})
+        sum(v for k, v in losses.items() if 'loss' in k).backward()
+        return ({k: float(v.detach()) for k, v in losses.items()},
+                {k: p.grad.detach().cpu().double()
+                 for k, p in net.named_parameters() if p.grad is not None})
+
+    logs, grads, sides = {}, {}, KinkSides()
+    with sides.patched(follow=False):
+        logs['gpu'], grads['gpu'] = step(gpu, data)
+    for run, batch in (('cpu', data), ('cpu_noisy', noisy)):
+        with sides.patched(follow=True):
+            logs[run], grads[run] = step(cpu, batch)
+    rel = {k: abs(logs['gpu'][k] - v) / max(abs(v), 1e-12)
+           for k, v in logs['cpu'].items()}
+
+    def rel_l2(a, g):
+        return ((a - g).norm() / g.norm()).item()
+
+    zero = TOY_GRAD_ZERO * max(g.norm().item() for g in
+                               grads['cpu'].values())
+    rows = sorted((rel_l2(grads['gpu'][k], g) / max(
+        TOY_GRAD_RL2, TOY_GRAD_FLOOR * rel_l2(grads['cpu_noisy'][k], g)),
+        rel_l2(grads['gpu'][k], g), k) for k, g in grads['cpu'].items()
+        if max(g.norm().item(), grads['gpu'][k].norm().item()) > zero)
+    offsets = {k: d for _, d, k in rows if 'conv_offset' in k}
+    if (max(rel.values()) > TOY_LOSS_RTOL or rows[-1][0] > 1.0 or
+            len(offsets) != 4):
+        raise RuntimeError(f'toy fcos_dcn: losses {rel}, worst gradient '
+                           f'{rows[-1]}, offset convs {offsets}')
+    print(f'  toy fcos_dcn: {int(ref["det_valid"].sum())} valid dets, labels '
+          f'and validity equal, dets max abs err {err:.3g} (tol '
+          f'{TOY_DET_TOL}); losses max rel err {max(rel.values()):.3g} (tol '
+          f'{TOY_LOSS_RTOL}); {len(rows)} gradients, the nearest its '
+          f'tolerance {rows[-1][2]} {rows[-1][1]:.3g} (max({TOY_GRAD_RL2}, '
+          f'{TOY_GRAD_FLOOR} x CPU noise)), the offset convs\' max '
+          f'{max(offsets.values()):.3g}; kink inputs moved {sides.moved}')
+    report['toy'].append(dict(toy='item7_fcos_dcn', dets_max_abs_err=err,
+                              loss_rel_err=rel,
+                              grad_rel_l2={k: d for _, d, k in rows}))
+
+
+def run_item7(report, card):
+    """Phase 16: the detectors on the backbones' deformable convs and
+    block plugins, each from its config file, unchanged, at full width:
+    an image at the config's test canvas (the DCNv2 Mask R-CNN also at
+    800x800, where JAX's windowed form runs) with phase 4's weights
+    protocol, and steps at its train batch from the JAX initialisation,
+    each a counted warm-up held to its exact launches, then timed repeats;
+    the plain DCN and GA timed by stage; the toys on the card against the
+    CPU."""
+    import torch
+    from dynamask_torch.apis import config_shapes
+    launches = {}
+    report['item7'] = {'inference': [], 'train': []}
+    for name, path, n_inf, hw, n_steps, infer, step in ITEM7_CELLS:
+        test_hw, images, train_hw = config_shapes(path)
+        if n_inf:
+            with counted_dcn_forms() as forms:
+                got, recs = run_config_inference(
+                    report, card, name, path, hw or test_hw,
+                    (('infer', None, infer),), repeats=n_inf)
+            if name in DCN_FORMS:
+                check_dcn_forms(report, name, forms)
+            launches.update(got)
+            report['item7']['inference'] += recs
+        if n_steps:
+            got, rec = run_config_train(report, card, name, path, images,
+                                        train_hw, step, repeats=n_steps)
+            launches.update(got)
+            report['item7']['train'].append(rec)
+        torch.cuda.empty_cache()
+    time_plain_dcn(report, card)
+    check_item7_toys(report)
+    return launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -4172,8 +4566,15 @@ def main() -> int:
     t15 = time.perf_counter()
     launches.update(run_item8(report, card))
     report['phase15_s'] = time.perf_counter() - t15
+    print(f'  phase 15: {report["phase15_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 16: the backbones\' deformable convs and block plugins '
+          f'[{card}]')
+    t16 = time.perf_counter()
+    launches.update(run_item7(report, card))
+    report['phase16_s'] = time.perf_counter() - t16
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 15: {report["phase15_s"]:.1f} s; the whole run '
+    print(f'  phase 16: {report["phase16_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s [{card}]')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}

@@ -27,7 +27,20 @@ that importer skips (ROADMAP.md queue 3, 3d, 3o, 3t, 3aa, 3ah):
 * BatchNorm ``scale``/``bias``/``mean``/``var``; GroupNorm ``scale``/
   ``bias``, no statistics;
 * a dense head's ``scales`` vector -> one ``Scale`` a level;
-* ``detail_fuse_weights`` (2,) -> the loss module's (1, 2, 1, 1) kernel.
+* ``detail_fuse_weights`` (2,) -> the loss module's (1, 2, 1, 1) kernel;
+* a backbone's or FCOS's deformable conv: mmcv's ``<conv>.weight`` is
+  JAX's ``<conv>_weight`` beside the block's convs (FCOS's
+  ``{cls,reg}_dcn_weight``), HWIO, or RegNet's grouped (g, 3, 3, C_in/g,
+  C_out/g); ``<conv>.conv_offset`` is ``<conv>_offset``
+  (``{cls,reg}_dcn_offset``); the JAX importer leaves these at init
+  (ROADMAP.md queue 3, 3al);
+* a block plugin under mmdet's name (``context_block``,
+  ``gen_attention_block``) is JAX's ``{position}_plugin{i}``:
+  ``ContextBlock``'s ``channel_add_conv.{0,1,3}`` are the dense
+  ``channel_add_fc1``, the LayerNorm ``channel_add_ln`` and
+  ``channel_add_fc2`` (1x1 convs and a (C, 1, 1) affine in mmcv);
+  ``GeneralizedAttention``'s flat ``appr_bias`` / ``geom_bias`` are JAX's
+  (heads, C / heads). The JAX importer has no rule for them (3al).
 """
 
 from __future__ import annotations
@@ -122,6 +135,59 @@ def _res2net_key(key: str) -> Optional[Tuple[List[str], str]]:
 # the backbones whose keys differ from a ResNet's, by class name
 _BACKBONE_KEYS = {'HRNet': _hrnet_key, 'Res2Net': _res2net_key}
 
+# a plugin's keys below its module: (JAX module, leaf, hints)
+_PLUGIN_KEYS = (
+    (r'^conv_mask\.(weight|bias)$', lambda m: (['conv_mask'], m[1], {})),
+    (r'^channel_add_conv\.0\.(weight|bias)$',
+     lambda m: (['channel_add_fc1'], m[1], {'unit_dims': 2} if m[1] ==
+                'weight' else {})),
+    (r'^channel_add_conv\.1\.(weight|bias)$',
+     lambda m: (['channel_add_ln'], m[1], {'unit_dims': 2})),
+    (r'^channel_add_conv\.3\.(weight|bias)$',
+     lambda m: (['channel_add_fc2'], m[1], {'unit_dims': 2} if m[1] ==
+                'weight' else {})),
+    (r'^(query_conv|key_conv|value_conv|proj_conv|appr_geom_fc_x|'
+     r'appr_geom_fc_y)\.weight$', lambda m: ([m[1]], 'weight', {})),
+    (r'^(appr_bias|geom_bias)$', lambda m: ([], m[1], {})),
+)
+
+
+def _module_key(key: str, dcn, plugins):
+    """The key of a deformable conv or a plugin (module names of
+    :func:`key_hints`), or None."""
+    mod, _, leaf = key.rpartition('.')
+    offset = mod.endswith('.conv_offset')
+    conv_mod = mod[:-len('.conv_offset')] if offset else mod
+    if conv_mod in dcn:
+        owner, _, conv = conv_mod.rpartition('.')
+        m = re.match(r'^bbox_head\.(cls|reg)_convs\.\d+$', owner)
+        if m:
+            path, name = ['bbox_head'], f'{m[1]}_dcn'
+        else:
+            path, name = _block_path(owner), conv
+        if offset:
+            return path + [f'{name}_offset'], leaf, {}
+        return path, 'weight', {'flax_leaf': f'{name}_weight'}
+    for prefix, jax_name in plugins.items():
+        if key.startswith(prefix + '.'):
+            rest = key[len(prefix) + 1:]
+            for pattern, fn in _PLUGIN_KEYS:
+                m = re.match(pattern, rest)
+                if m:
+                    sub, leaf, hints = fn(m)
+                    owner = prefix.rpartition('.')[0]
+                    return _block_path(owner) + [jax_name] + sub, leaf, hints
+    return None
+
+
+def _block_path(owner: str) -> List[str]:
+    """``backbone.layer{s}.{b}`` -> JAX's ``['backbone',
+    'layer{s}_block{b}']``."""
+    m = re.match(r'^backbone\.layer(\d+)\.(\d+)$', owner)
+    if m is None:
+        raise KeyError(f'no JAX block for {owner}')
+    return ['backbone', f'layer{m[1]}_block{m[2]}']
+
 
 def _fpn_conv(i: str, num_laterals: Optional[int], norm: bool = False
               ) -> str:
@@ -134,13 +200,19 @@ def _fpn_conv(i: str, num_laterals: Optional[int], norm: bool = False
 
 
 def mmdet_key(key: str, num_laterals: Optional[int] = None,
-              backbone: Optional[str] = None
+              backbone: Optional[str] = None, dcn=frozenset(),
+              plugins: Optional[Dict[str, str]] = None
               ) -> Optional[Tuple[List[str], str, Dict]]:
     """Port state-dict key -> (JAX tree path, torch leaf name, hints).
     ``num_laterals`` is the FPN's (:func:`neck_laterals`): its
     ``fpn_convs`` from there on are JAX's ``extra_conv_{i}``. ``backbone``
     is the backbone's class name (:func:`key_hints`): HRNet's and
-    Res2Net's keys map by their own rules, the others' as a ResNet's."""
+    Res2Net's keys map by their own rules, the others' as a ResNet's.
+    ``dcn`` names the model's deformable convs, ``plugins`` maps each
+    block plugin's module name to its JAX name (:func:`key_hints`)."""
+    special = _module_key(key, dcn, plugins or {})
+    if special is not None:
+        return special
     if key.startswith('backbone.'):
         r = _BACKBONE_KEYS.get(backbone, _resnet_key)(key[len('backbone.'):])
         return None if r is None else (['backbone'] + r[0], r[1], {})
@@ -323,16 +395,26 @@ def _torch_layout(params, stats, path, leaf, hints) -> np.ndarray:
     if leaf == 'running_var':
         return _get(stats, path + ['var'])
     if leaf == 'bias':
-        return _get(params, path + ['bias'])
+        arr = _get(params, path + ['bias'])
+        return arr.reshape(arr.shape + (1,) * hints.get('unit_dims', 0))
     if leaf == 'scale':                                   # Scale a level
         return _get(params, path + ['scales'])[hints['index']]
     if leaf == 'detail_fuse_kernel':
         return _get(params, path + ['detail_fuse_weights']).reshape(1, 2, 1, 1)
+    if leaf in ('appr_bias', 'geom_bias'):              # (heads, d) -> flat
+        return _get(params, path + [leaf]).reshape(-1)
     assert leaf == 'weight', leaf
-    node = _node(params, path)
+    arr = _weight_layout(_node(params, path), hints)
+    return arr.reshape(arr.shape + (1,) * hints.get('unit_dims', 0))
+
+
+def _weight_layout(node, hints) -> np.ndarray:
     if 'scale' in node:                                   # BatchNorm
         return np.asarray(node['scale'], np.float32)
     kernel = np.asarray(node[hints.get('flax_leaf', 'kernel')], np.float32)
+    if kernel.ndim == 5:                  # RegNet's grouped DCN kernel
+        g, kh, kw, ci, co = kernel.shape
+        return kernel.transpose(0, 4, 3, 1, 2).reshape(g * co, ci, kh, kw)
     if hints.get('deconv'):
         # flax ConvTranspose (kh, kw, in, out) applies its kernel in
         # convolution orientation, torch's ConvTranspose2d (in, out, kh, kw)
@@ -358,10 +440,19 @@ def neck_laterals(model: nn.Module) -> Optional[int]:
 
 def key_hints(model: nn.Module) -> Dict:
     """What :func:`mmdet_key` needs to know of ``model``: its FPN's
-    laterals and its backbone's class."""
+    laterals, its backbone's class, its deformable convs' module names and
+    its block plugins' (module name -> JAX name)."""
+    from ..models.layers import DeformConv2dPack
     bb = getattr(model, 'backbone', None)
+    dcn, plugins = set(), {}
+    for name, m in model.named_modules():
+        if isinstance(m, DeformConv2dPack):
+            dcn.add(name)
+        for _, plugin, jax_name in getattr(m, 'plugin_names', ()):
+            plugins[f'{name}.{plugin}'] = jax_name
     return dict(num_laterals=neck_laterals(model),
-                backbone=None if bb is None else type(bb).__name__)
+                backbone=None if bb is None else type(bb).__name__,
+                dcn=frozenset(dcn), plugins=plugins)
 
 
 def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:

@@ -9,9 +9,10 @@ detector's mmdet names (``backbone.``, ``neck.``, ``rpn_head.``,
 ``roi_head.``, a single-stage detector's ``bbox_head.``) map one to one.
 Nothing is downloaded: a spec that names no local file leaves the model as
 initialised. A tensor whose shape differs from the model's is reported and
-left as initialised, unless the backbone refuses it
-(``backbone.weight_fault``: an mmdet RegNet's ``conv2.weight``, grouped
-otherwise than JAX's; ROADMAP.md queue 3, 3ag), which raises.
+left as initialised, unless a module refuses it (its ``weight_fault``:
+an mmdet RegNet's ``conv2.weight``, grouped otherwise than JAX's,
+ROADMAP.md queue 3, 3ag; a ResNeXt's grouped ``conv2.weight`` for a
+deformable 3x3, 3ao; an mmdet FCOS head's DCNv2 offsets), which raises.
 """
 
 from __future__ import annotations
@@ -83,7 +84,8 @@ def apply_pretrained(model: torch.nn.Module, spec: Optional[str],
     sd = load_torch_state_dict(path)
     mmdet = any(k.startswith(MMDET_PREFIXES) for k in sd)
     own = model.state_dict()
-    fault = getattr(getattr(model, 'backbone', None), 'weight_fault', None)
+    faults = [(name + '.', m.weight_fault) for name, m in
+              model.named_modules() if name and hasattr(m, 'weight_fault')]
     with torch.no_grad():
         for key, value in sd.items():
             name = key if mmdet else f'backbone.{key}'
@@ -91,8 +93,8 @@ def apply_pretrained(model: torch.nn.Module, spec: Optional[str],
             if target is None:
                 report['skipped'].append(key)
             elif target.shape != value.shape:
-                why = fault and name.startswith('backbone.') and fault(
-                    name[len('backbone.'):], value.shape)
+                why = next((f(name[len(p):], value.shape) for p, f in faults
+                            if name.startswith(p)), None)
                 if why:
                     raise ValueError(f'pretrained {path}: {why}')
                 report['mismatched'].append(

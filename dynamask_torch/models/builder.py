@@ -52,6 +52,7 @@ from .fpn import PAFPN
 from .hrnet import HRFPN, HRNet
 from .regnet import RegNet
 from .res2net import Res2Net
+from .resnet import DROPPED, dcn_spec
 
 
 def _cfg(d) -> dict:
@@ -71,9 +72,6 @@ def not_ported(what: str, item) -> NotImplementedError:
 LEGACY = 'ROADMAP.md queue 3, 3c: the JAX package drops it'
 BACKBONE_ITEMS = {'DetectoRS_ResNet': 8, 'DetectoRS_ResNeXt': 8,
                   'SSDVGG': 6, 'HourglassNet': 9}
-# the keys the JAX package drops or fixes in the two-stage family's options
-# (ROADMAP.md queue 3, 3w): refused at any other value
-DROPPED = 'ROADMAP.md queue 3, 3w: the JAX package drops it'
 NECK_ITEMS = {'NASFPN': 8, 'BFP': 8, 'RFP': 8, 'NASFCOS_FPN': 6}
 DETECTOR_ITEMS = {'GridRCNN': 9, 'MaskScoringRCNN': 9, 'PointRend': 9,
                   'CornerNet': 9, 'GFL': 6, 'FOVEA': 6, 'FSAF': 6,
@@ -170,14 +168,19 @@ def build_hrnet(cfg: dict) -> HRNet:
 def build_regnet(cfg: dict) -> RegNet:
     """JAX reads ``arch``, ``stem_channels``, ``strides``,
     ``out_indices``, ``frozen_stages``, ``norm_eval`` and the DCN keys
-    (``builder.py:101-115``)."""
-    if _cfg(cfg.pop('dcn', None)):
-        raise not_ported('RegNet dcn (the mdconv configs)', 7)
-    cfg.pop('stage_with_dcn', None)    # read only with a dcn
+    (``builder.py:101-115``; a ``dcn`` without a type is DCNv2 there)."""
+    dcn = _cfg(cfg.pop('dcn', None))
+    with_dcn = cfg.pop('stage_with_dcn', None)    # read only with a dcn
     _check_keys('RegNet', cfg, ('type',) + REGNET_KEYS,
                 dict(BN_DEFAULTS, base_channels=32), DROPPED)
-    return RegNet(**{k: tuple(v) if k in ('strides', 'out_indices') else v
-                     for k, v in cfg.items() if k in REGNET_KEYS})
+    extra = {}
+    if dcn:
+        extra = dict(dcn=dcn_spec(dict(dcn, type=dcn.get('type', 'DCNv2'))),
+                     stage_with_dcn=tuple(with_dcn if with_dcn is not None
+                                          else (False, True, True, True)))
+    return RegNet(**extra, **{
+        k: tuple(v) if k in ('strides', 'out_indices') else v
+        for k, v in cfg.items() if k in REGNET_KEYS})
 
 
 def build_res2net(cfg: dict) -> Res2Net:

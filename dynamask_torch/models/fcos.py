@@ -13,6 +13,12 @@ JAX's (``fcos.py:252-290``): focal at gamma 2 and alpha 0.25 over every
 location, the IoU loss (``giou``, or ``log_iou`` for mmdet's ``IoULoss``)
 weighted by the centerness target over each image's centerness sum and
 averaged over the images, centerness BCE.
+
+``dcn_on_last_conv`` makes the last conv of both towers a 3x3 DCNv1 with
+its own offset conv (JAX ``:83-104``, ``layers.DeformConv2dPack`` through
+the exact gather), initialised N(0, 0.01) as the tower's convs and bias
+free; mmdet's names it ``{cls,reg}_convs.{i}.conv``, its offsets
+``.conv_offset``.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from torch.profiler import record_function
 from ..core.bbox_transforms import distance2bbox
 from ..utils.registry import DETECTORS, HEADS
 from .atss import Scale
+from .layers import DeformConv2dPack, WeightFaults
 from .losses import (binary_cross_entropy_with_logits, focal_elementwise,
                      iou_loss)
 from .single_stage import (PRIOR_BIAS, DenseDetector, TowerConv,
@@ -37,7 +44,7 @@ INF = 1e8
 
 
 @HEADS.register_module()
-class FCOSHead(nn.Module):
+class FCOSHead(WeightFaults, nn.Module):
     """Cls and reg towers (GroupNorm with ``gn_groups``, their convs then
     bias-free, or no norm), ``conv_cls`` (the prior bias), ``conv_reg``
     and ``conv_centerness`` (on the cls tower, or on the reg tower with
@@ -48,7 +55,8 @@ class FCOSHead(nn.Module):
                  strides: Sequence[int] = (8, 16, 32, 64, 128),
                  gn_groups: Optional[int] = None,
                  centerness_on_reg: bool = False,
-                 norm_on_bbox: bool = False):
+                 norm_on_bbox: bool = False,
+                 dcn_on_last_conv: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.strides = tuple(strides)
@@ -61,11 +69,34 @@ class FCOSHead(nn.Module):
         self.reg_convs = nn.ModuleList(
             [TowerConv(chans[i], chans[i + 1], bias=gn_groups is None,
                        gn_groups=gn_groups) for i in range(stacked_convs)])
+        if dcn_on_last_conv and stacked_convs:
+            for tower in (self.cls_convs, self.reg_convs):
+                dcn = DeformConv2dPack(chans[-2], chans[-1])
+                dcn.init_rule = 0.01
+                tower[-1].conv = dcn
         self.conv_cls = head_conv(chans[-1], num_classes,
                                   bias_init=PRIOR_BIAS)
         self.conv_reg = head_conv(chans[-1], 4)
         self.conv_centerness = head_conv(chans[-1], 1)
         self.scales = nn.ModuleList([Scale() for _ in self.strides])
+
+    def weight_fault(self, key: str, shape) -> Optional[str]:
+        """A ``conv_offset`` of another width than this head's DCNv1 (an
+        mmdet checkpoint's DCNv2 offsets and mask, 27 channels) is refused
+        on load; it is never cut."""
+        parts = key.split('.')
+        if len(parts) != 5 or parts[2:4] != ['conv', 'conv_offset']:
+            return None
+        try:
+            conv = getattr(self, parts[0])[int(parts[1])].conv
+        except (AttributeError, IndexError, ValueError):
+            return None
+        want = tuple(getattr(conv.conv_offset, parts[4]).shape)
+        if not isinstance(conv, DeformConv2dPack) or tuple(shape) == want:
+            return None
+        return (f'{key}: the checkpoint\'s {tuple(shape)} does not fit this '
+                f'head\'s DCNv1 offsets {want} (the JAX package builds '
+                '``dcn_on_last_conv`` as DCNv1; ROADMAP.md queue 3)')
 
     def forward(self, feats: Sequence[torch.Tensor]):
         """-> per level (B, C, H, W) scores, (B, 4, H, W) fp32 distances in

@@ -10,6 +10,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.boundary import interpolate_bilinear
+from ..ops import deform_conv as dcn_ops
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -128,6 +129,88 @@ class ConvModule(nn.Module):
         return self.bn(x) if hasattr(self, 'bn') else x
 
 
+class WeightFaults:
+    """A module that refuses, on load, a checkpoint tensor the JAX
+    package's layout cannot take: :meth:`weight_fault` names why (None
+    keeps the tensor to ``load_state_dict``'s own checks)."""
+
+    def weight_fault(self, key: str, shape) -> Optional[str]:
+        """Why a checkpoint tensor ``key`` (the module's own name) of
+        ``shape`` is refused, or None."""
+        return None
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        for k, v in state_dict.items():
+            if k.startswith(prefix):
+                fault = self.weight_fault(k[len(prefix):], v.shape)
+                if fault:
+                    raise ValueError(fault)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class DeformConv2dPack(nn.Module):
+    """A 3x3 deformable conv with self-predicted offsets, as the JAX
+    package's backbones and dense heads build it (ResNet's ``_dcn3x3``,
+    ``dynamask_tpu/models/resnet.py:147-177``; RegNet's, ``regnet.py:
+    93-120``; FCOS's ``dcn_on_last_conv``, ``fcos.py:83-104``), under
+    mmcv's names: ``conv_offset`` (a biased conv at the stride and
+    dilation, zero at init, ``2 * g * 9`` channels, ``3 * g * 9`` with
+    ``modulated``: the offsets, then the mask logits) and the bias-free
+    ``weight`` (C_out, C_in / ``groups``, 3, 3).
+
+    ``modulated`` (mmcv's ``DCNv2``) scales each tap by the sigmoid of its
+    mask logit. The exact gather computes it (``ops.deform_conv2d_exact``,
+    unbounded offsets, any stride), but with ``square_window`` a
+    stride-1 conv on a square map takes JAX's windowed form instead
+    (``ops.modulated_deform_conv2d``, offsets clipped to ±3), as ResNet's
+    does in JAX (ROADMAP.md queue 3). ``groups`` > 1 contracts with the
+    block-diagonal dense kernel of the grouped weight, as JAX's RegNet
+    assembles it."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 dilation: int = 1, deform_groups: int = 1,
+                 modulated: bool = False, groups: int = 1,
+                 square_window: bool = False):
+        super().__init__()
+        self.stride, self.dilation = stride, dilation
+        self.deform_groups, self.modulated = deform_groups, modulated
+        self.groups, self.square_window = groups, square_window
+        self.conv_offset = nn.Conv2d(
+            in_channels, deform_groups * (3 if modulated else 2) * 9, 3,
+            stride, dilation, dilation)
+        self.weight = nn.Parameter(torch.empty(out_channels,
+                                               in_channels // groups, 3, 3))
+
+    def dense_weight(self) -> torch.Tensor:
+        """The HWIO (3, 3, C_in, C_out) kernel: block-diagonal over the
+        groups."""
+        w, g = self.weight, self.groups
+        if g == 1:
+            return w.permute(2, 3, 1, 0)
+        co, ci = w.shape[0] // g, w.shape[1]
+        blocks = w.reshape(g, co, ci, 3, 3).permute(0, 3, 4, 2, 1)
+        dense = w.new_zeros(3, 3, ci * g, co * g)
+        for i in range(g):
+            dense[:, :, i * ci:(i + 1) * ci, i * co:(i + 1) * co] = blocks[i]
+        return dense
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        off = to_nhwc(self.conv_offset(x))
+        xn, w = to_nhwc(x), self.dense_weight()
+        d = self.dilation
+        n_off = self.deform_groups * 18
+        mask = torch.sigmoid(off[..., n_off:]) if self.modulated else None
+        if (self.modulated and self.square_window and self.stride == 1 and
+                x.shape[-2] == x.shape[-1]):
+            out = dcn_ops.modulated_deform_conv2d(
+                xn, off[..., :n_off], mask, w, 3, d, d, self.deform_groups)
+        else:
+            out = dcn_ops.deform_conv2d_exact(
+                xn, off[..., :n_off], w, mask, 3, self.stride, d, d,
+                self.deform_groups)
+        return to_nchw(out)
+
+
 def resize_bilinear_2x(x: torch.Tensor,
                        align_corners: bool = False) -> torch.Tensor:
     """Bilinear ×2 upsample of NCHW. The SFM feature upsample is
@@ -193,21 +276,25 @@ def init_weights(model: nn.Module, generator: torch.Generator,
 
     ``std=None``: the JAX package's initialisers (``_INIT_RULES``), zero
     biases, unit BN and GN but for the zero scale of one marked ``zero_init``
-    (a residual block's last: ``zero_init_residual``), and a module's
+    (a residual block's last: ``zero_init_residual``), a module's
     ``init_fill`` constants by parameter name (the dense heads' prior
-    class bias, a ``Scale``'s 1). ``std=s``: every
-    float parameter ~ N(0, s) and BN statistics |N(0, s)| + 0.5 (the
-    random-weight protocol of the JAX bench)."""
+    class bias, a ``Scale``'s 1, a LayerNorm's affine) and its
+    ``init_std`` normal draws (``GeneralizedAttention``'s biases).
+    ``std=s``: every float parameter ~ N(0, s) and BN statistics
+    |N(0, s)| + 0.5 (the random-weight protocol of the JAX bench)."""
     with torch.no_grad():
         for mod_name, m in model.named_modules():
             is_norm = isinstance(m, (nn.modules.batchnorm._BatchNorm,
                                      nn.GroupNorm))
             fill = getattr(m, 'init_fill', {})
+            stds = getattr(m, 'init_std', {})
             for name, p in m.named_parameters(recurse=False):
                 if std is not None:
                     p.normal_(0.0, std, generator=generator)
                 elif name in fill:
                     p.fill_(fill[name])
+                elif name in stds:
+                    p.normal_(0.0, stds[name], generator=generator)
                 elif is_norm:
                     p.fill_(1.0 if name == 'weight' and not getattr(
                         m, 'zero_init', False) else 0.0)

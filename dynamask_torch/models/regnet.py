@@ -15,8 +15,10 @@ therefore does not fit, and a load of one is refused naming 3ag
 
 Module names are mmdet's (a ResNet's: ``conv1``, ``bn1``,
 ``layer{s}.{b}.conv{1,2,3}``, ``bn{1,2,3}``, ``downsample.{0,1}``).
-``stage_with_dcn`` / ``dcn`` (the mdconv config) are refused in the
-builder (ROADMAP.md §1, item 7).
+With ``dcn`` (the mdconv config) the 3x3 of the ``stage_with_dcn`` stages
+is a deformable conv through the exact gather at any map shape, DCNv2 by
+default (JAX ``:86-120``), its grouped ``conv2.weight`` (3ag's groups)
+contracted as the block-diagonal dense kernel JAX assembles.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.registry import BACKBONES
+from .layers import DeformConv2dPack
 from .resnet import Backbone, Norm, _Block
 
 # the JAX package's table (``dynamask_tpu/models/regnet.py:22-39``)
@@ -107,14 +110,15 @@ class RegNetBlock(_Block):
 
     def __init__(self, inplanes: int, width: int, bottleneck_width: int,
                  groups: int, stride: int = 1, downsample: bool = False,
-                 norm: Optional[Norm] = None):
+                 norm: Optional[Norm] = None, dcn: Optional[dict] = None):
         super().__init__()
         norm = norm or Norm()
         bw = bottleneck_width
         self.conv1 = nn.Conv2d(inplanes, bw, 1, bias=False)
         self.bn1 = norm.make(bw)
-        self.conv2 = nn.Conv2d(bw, bw, 3, stride, 1, groups=groups,
-                               bias=False)
+        self.conv2 = (DeformConv2dPack(bw, bw, stride, groups=groups, **dcn)
+                      if dcn else nn.Conv2d(bw, bw, 3, stride, 1,
+                                            groups=groups, bias=False))
         self.bn2 = norm.make(bw)
         self.conv3 = nn.Conv2d(bw, width, 1, bias=False)
         self.bn3 = norm.make(width)
@@ -135,12 +139,15 @@ class RegNet(Backbone):
     returns the stage outputs of ``out_indices`` (strides 4/8/16/32 at the
     default ``strides``). ``frozen_stages = n`` freezes the stem and the
     first n stages (JAX ``frozen_param_paths``: ``conv1``, ``bn1``,
-    ``layer{s}_``)."""
+    ``layer{s}_``). ``dcn``: the ``DeformConv2dPack`` options of the
+    ``stage_with_dcn`` stages' 3x3s (``resnet.dcn_spec``)."""
 
     def __init__(self, arch='regnetx_3.2gf', stem_channels: int = 32,
                  strides: Sequence[int] = (2, 2, 2, 2),
                  out_indices: Sequence[int] = (0, 1, 2, 3),
-                 frozen_stages: int = -1, norm_eval: bool = True):
+                 frozen_stages: int = -1, norm_eval: bool = True,
+                 dcn: Optional[dict] = None,
+                 stage_with_dcn: Sequence[bool] = (False,) * 4):
         super().__init__()
         widths, blocks, bot_muls, groups = regnet_layout(arch)
         norm = Norm()
@@ -158,7 +165,9 @@ class RegNet(Backbone):
             for b in range(n):
                 layer.append(RegNetBlock(inplanes, w, bw, g,
                                          strides[i] if b == 0 else 1,
-                                         downsample=b == 0, norm=norm))
+                                         downsample=b == 0, norm=norm,
+                                         dcn=dcn if stage_with_dcn[i]
+                                         else None))
                 inplanes = w
             setattr(self, f'layer{i + 1}', nn.Sequential(*layer))
 
@@ -186,14 +195,6 @@ class RegNet(Backbone):
                 f'RegNet\'s {tuple(conv.weight.shape)} ({conv.groups} '
                 'groups: the JAX package takes the group width as the group '
                 f'count, {FAULT}); the weight is not reshaped')
-
-    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
-        for k, v in state_dict.items():
-            if k.startswith(prefix):
-                fault = self.weight_fault(k[len(prefix):], v.shape)
-                if fault:
-                    raise ValueError(fault)
-        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor):
         x = F.relu(self.bn1(self.conv1(x)))

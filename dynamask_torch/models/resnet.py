@@ -16,7 +16,21 @@ variants the JAX ``ResNet`` takes (``:286-405``) and its builder registers
   read as JAX reads it, not at all: the affine of a stage past
   ``frozen_stages`` trains (ROADMAP.md queue 3);
 * ``conv_cfg=ConvWS``: the blocks' convs weight-standardised (the stem's
-  and the projections' stay plain, as in JAX; ROADMAP.md queue 3).
+  and the projections' stay plain, as in JAX; ROADMAP.md queue 3);
+* ``dcn`` / ``stage_with_dcn``: the 3x3 of a Bottleneck (a BasicBlock's
+  first conv) in those stages is a deformable conv
+  (``layers.DeformConv2dPack``, JAX ``_dcn3x3`` ``:147-177``): DCNv1
+  through the exact gather, DCNv2 through the exact gather with its mask
+  but on a square map at stride 1, where JAX takes the windowed form
+  (ROADMAP.md queue 3, 3am). Its kernel is dense whatever ``groups`` says,
+  as in JAX: a ResNeXt checkpoint's grouped ``conv2.weight`` is refused
+  there (:meth:`ResNet.weight_fault`, 3ao);
+* ``plugins``: ``ContextBlock`` / ``GeneralizedAttention``
+  (``models/plugins.py``) in the stages each names, at ``after_conv1``,
+  ``after_conv2`` (before the ReLU, as JAX places them, where mmdet puts
+  them after it: 3ap) or ``after_conv3``, named as mmdet's
+  ``make_block_plugins`` names them (``context_block``,
+  ``gen_attention_block``, and the plugin's ``postfix``).
 
 Module names follow mmdet, so the state dict reads
 ``backbone.layer1.0.conv1.weight``, ``...bn1`` (``gn1`` under GN), and
@@ -39,11 +53,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.registry import BACKBONES
-from .layers import BatchNorm2d, ConvWS2d, GroupNorm
+from .layers import (BatchNorm2d, ConvWS2d, DeformConv2dPack, GroupNorm,
+                     WeightFaults)
+from .plugins import build_plugin
 
 # where the ResNet options the port lacks are queued (ROADMAP.md §1)
-NOT_PORTED = {'dcn': 7, 'stage_with_dcn': 7, 'plugins': 7, 'strides': 9,
-              'dilations': 9}
+NOT_PORTED = {'strides': 9, 'dilations': 9}
+# the keys the JAX package drops or fixes (ROADMAP.md queue 3, 3w): refused
+# at any other value than the one it computes with
+DROPPED = 'ROADMAP.md queue 3, 3w: the JAX package drops it'
 
 
 class Norm:
@@ -78,6 +96,49 @@ def _conv_type(conv_cfg: Optional[dict]):
     return ConvWS2d if kind == 'ConvWS' else nn.Conv2d
 
 
+def dcn_spec(dcn: Optional[dict]) -> Optional[dict]:
+    """A backbone's ``dcn`` config -> the ``DeformConv2dPack`` options
+    (``deform_groups``, ``modulated``) JAX reads from it (``builder.py:
+    40-48``: its type holding 'v2', ``deform_groups`` or
+    ``deformable_groups``), or None; mmdet's ``fallback_on_stride`` is
+    accepted only at False, which JAX computes with (3w)."""
+    if not dcn:
+        return None
+    dcn = dict(dcn)
+    kind = dcn.pop('type', 'DCN')
+    groups = dcn.pop('deform_groups', dcn.pop('deformable_groups', 1))
+    if kind not in ('DCN', 'DCNv2') or dcn.pop('fallback_on_stride',
+                                               False) or dcn:
+        raise NotImplementedError(f'backbone dcn {kind} {dcn} is not ported '
+                                  f'({DROPPED}; the port has DCN and DCNv2 '
+                                  'with deform_groups, fallback_on_stride '
+                                  'False)')
+    return dict(deform_groups=groups, modulated=kind == 'DCNv2')
+
+
+POSITIONS = ('after_conv1', 'after_conv2', 'after_conv3')
+
+
+def stage_plugins(plugins, num_stages: int = 4):
+    """A backbone's ``plugins`` list -> per stage the ``(position, cfg,
+    postfix)`` of each plugin it holds, in the list's order (JAX
+    ``builder.py:49-63``: ``position`` defaults to ``after_conv3``,
+    ``stages`` to every stage)."""
+    per_stage = [[] for _ in range(num_stages)]
+    for p in plugins or ():
+        p = dict(p)
+        cfg, pos = dict(p.pop('cfg')), p.pop('position', 'after_conv3')
+        stages, postfix = p.pop('stages', (True,) * 4), p.pop('postfix', '')
+        if p or pos not in POSITIONS:
+            raise NotImplementedError(f'backbone plugin keys {sorted(p)}, '
+                                      f'position {pos!r} are not ported '
+                                      f'({DROPPED})')
+        for si, on in enumerate(stages[:num_stages]):
+            if on:
+                per_stage[si].append((pos, cfg, str(postfix)))
+    return per_stage
+
+
 class _Block(nn.Module):
     def _add_norm(self, i: int, norm: Norm, c: int, zero_init=False):
         name = f'{norm.abbr}{i}'
@@ -88,26 +149,61 @@ class _Block(nn.Module):
         return nn.Sequential(nn.Conv2d(inplanes, out, 1, stride, bias=False),
                              norm.make(out))
 
+    def _add_plugins(self, plugins, channels: dict) -> None:
+        """Build the block's plugins under mmdet's names; ``plugin_names``
+        keeps (position, name, JAX name) of each, JAX's name being
+        ``{position}_plugin{i}`` (JAX ``resnet.py:139-145``)."""
+        self.plugin_names = []
+        for i, (pos, cfg, postfix) in enumerate(plugins or ()):
+            if pos not in channels:
+                raise NotImplementedError(f'a {type(self).__name__} plugin '
+                                          f'{pos} ({DROPPED})')
+            module = build_plugin(cfg, channels[pos])
+            name = module.abbr + postfix
+            if hasattr(self, name):
+                raise ValueError(f'duplicate plugin {name}: give each its '
+                                 'own postfix')
+            self.add_module(name, module)
+            self.plugin_names.append((pos, name, f'{pos}_plugin{i}'))
+
+    def _plugins(self, x: torch.Tensor, position: str) -> torch.Tensor:
+        for pos, name, _ in self.plugin_names:
+            if pos == position:
+                x = getattr(self, name)(x)
+        return x
+
+    @staticmethod
+    def _dcn(cin: int, cout: int, stride: int, dcn: dict) -> nn.Module:
+        # the kernel dense and the DCNv2 form by the map's shape, as JAX's
+        # _dcn3x3 takes them (3ao, 3am)
+        return DeformConv2dPack(cin, cout, stride, square_window=True, **dcn)
+
 
 class BasicBlock(_Block):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, norm: Norm = None, conv=nn.Conv2d,
-                 zero_init_residual: bool = True, **_):
+                 zero_init_residual: bool = True, dcn: Optional[dict] = None,
+                 plugins=(), **_):
         super().__init__()
         norm = norm or Norm()
-        self.conv1 = conv(inplanes, planes, 3, stride, 1, bias=False)
+        self.conv1 = (self._dcn(inplanes, planes, stride, dcn) if dcn else
+                      conv(inplanes, planes, 3, stride, 1, bias=False))
         self.n1 = self._add_norm(1, norm, planes)
         self.conv2 = conv(planes, planes, 3, 1, 1, bias=False)
         self.n2 = self._add_norm(2, norm, planes, zero_init_residual)
         self.downsample = (self._projection(inplanes, planes, stride, norm)
                            if downsample else None)
+        self._add_plugins(plugins, dict(after_conv1=planes,
+                                        after_conv2=planes))
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(getattr(self, self.n1)(self.conv1(x)))
+        out = getattr(self, self.n1)(self.conv1(x))
+        out = F.relu(self._plugins(out, 'after_conv1'))
         out = getattr(self, self.n2)(self.conv2(out))
+        out = self._plugins(out, 'after_conv2')
         return F.relu(out + identity)
 
 
@@ -117,25 +213,33 @@ class Bottleneck(_Block):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, norm: Norm = None, conv=nn.Conv2d,
                  zero_init_residual: bool = True, style: str = 'pytorch',
-                 groups: int = 1, base_width: int = 64):
+                 groups: int = 1, base_width: int = 64,
+                 dcn: Optional[dict] = None, plugins=()):
         super().__init__()
         norm = norm or Norm()
         s1, s2 = (1, stride) if style == 'pytorch' else (stride, 1)
         width = int(planes * (base_width / 64.0)) * groups
         self.conv1 = conv(inplanes, width, 1, s1, bias=False)
         self.n1 = self._add_norm(1, norm, width)
-        self.conv2 = conv(width, width, 3, s2, 1, groups=groups, bias=False)
+        self.conv2 = (self._dcn(width, width, s2, dcn) if dcn else
+                      conv(width, width, 3, s2, 1, groups=groups,
+                           bias=False))
         self.n2 = self._add_norm(2, norm, width)
         self.conv3 = conv(width, planes * 4, 1, bias=False)
         self.n3 = self._add_norm(3, norm, planes * 4, zero_init_residual)
         self.downsample = (self._projection(inplanes, planes * 4, stride,
                                             norm) if downsample else None)
+        self._add_plugins(plugins, dict(after_conv1=width, after_conv2=width,
+                                        after_conv3=planes * 4))
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(getattr(self, self.n1)(self.conv1(x)))
-        out = F.relu(getattr(self, self.n2)(self.conv2(out)))
+        out = getattr(self, self.n1)(self.conv1(x))
+        out = F.relu(self._plugins(out, 'after_conv1'))
+        out = getattr(self, self.n2)(self.conv2(out))
+        out = F.relu(self._plugins(out, 'after_conv2'))
         out = getattr(self, self.n3)(self.conv3(out))
+        out = self._plugins(out, 'after_conv3')
         return F.relu(out + identity)
 
 
@@ -161,7 +265,7 @@ ARCH_SETTINGS = {
 }
 
 
-class Backbone(nn.Module):
+class Backbone(WeightFaults, nn.Module):
     """What the port's backbones share in training: ``frozen_modules()``
     (the stem and the frozen stages, each backbone its own) stop requiring
     a gradient in ``freeze_stages()``, and ``norm_eval`` keeps every
@@ -187,6 +291,7 @@ class Backbone(nn.Module):
         return self
 
 
+
 @BACKBONES.register_module()
 class ResNet(Backbone):
     """Returns the stage outputs of ``out_indices`` (strides 4/8/16/32)."""
@@ -199,7 +304,10 @@ class ResNet(Backbone):
                  avg_down: bool = False, stem_channels: int = 64,
                  norm_cfg: Optional[dict] = None,
                  conv_cfg: Optional[dict] = None,
-                 zero_init_residual: bool = True, **unported):
+                 zero_init_residual: bool = True,
+                 dcn: Optional[dict] = None,
+                 stage_with_dcn: Optional[Tuple[bool, ...]] = None,
+                 plugins=None, **unported):
         super().__init__()
         if unported:
             raise NotImplementedError('ResNet keys not ported: ' + ', '.join(
@@ -211,6 +319,10 @@ class ResNet(Backbone):
             raise NotImplementedError(f'ResNet style {style!r}')
         block, stage_blocks = ARCH_SETTINGS[depth]
         norm, conv = Norm(norm_cfg), _conv_type(conv_cfg)
+        dcn = dcn_spec(dcn)
+        with_dcn = tuple(stage_with_dcn if stage_with_dcn is not None
+                         else (False, True, True, True))
+        per_stage = stage_plugins(plugins, num_stages)
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
         self.norm_eval = norm_eval
@@ -235,10 +347,31 @@ class ResNet(Backbone):
                     inplanes, planes, stride if first else 1, downsample=proj,
                     norm=norm, conv=conv,
                     zero_init_residual=zero_init_residual, style=style,
-                    groups=groups, base_width=base_width))
+                    groups=groups, base_width=base_width,
+                    dcn=dcn if with_dcn[i] else None,
+                    plugins=per_stage[i]))
                 inplanes = planes * block.expansion
             setattr(self, f'layer{i + 1}', nn.Sequential(*blocks))
             planes *= 2
+
+    def weight_fault(self, key: str, shape) -> Optional[str]:
+        """A grouped (ResNeXt) ``conv2.weight`` for a deformable 3x3, whose
+        kernel is dense as JAX builds it (3ao), is refused; it is never
+        reshaped."""
+        parts = key.split('.')
+        if len(parts) != 4 or parts[3] != 'weight':
+            return None
+        try:
+            conv = getattr(getattr(self, parts[0])[int(parts[1])], parts[2])
+        except (AttributeError, IndexError, ValueError):
+            return None
+        if not isinstance(conv, DeformConv2dPack) or tuple(shape) == tuple(
+                conv.weight.shape):
+            return None
+        return (f'{key}: the checkpoint\'s {tuple(shape)} does not fit this '
+                f'ResNet\'s deformable {tuple(conv.weight.shape)} (the JAX '
+                'package builds a dense kernel whatever the groups, '
+                'ROADMAP.md queue 3, 3ao); the weight is not reshaped')
 
     def frozen_modules(self):
         """The stem and the first ``frozen_stages`` stages."""

@@ -260,13 +260,11 @@ FCOS_REG = {'IoULoss': ('log_iou', {'linear': False}),
 
 
 def build_fcos(cfg: dict, train_cfg: dict, test_cfg: dict, modules):
-    """FCOS over ``FCOSHead``; ``dcn_on_last_conv`` is item 7."""
+    """FCOS over ``FCOSHead``."""
     hc = _cfg(cfg['bbox_head'])
     ht = hc.get('type')
     if ht != 'FCOSHead':
         raise not_ported(f'FCOS bbox head {ht}', HEAD_ITEMS.get(ht, 6))
-    if hc.get('dcn_on_last_conv'):
-        raise not_ported('FCOSHead dcn_on_last_conv', 7)
     _check_keys('FCOSHead', hc, FCOS_KEYS, {'conv_bias': 'auto',
                                             'conv_cfg': None}, DROPPED)
     for key, want in (('loss_cls', FOCAL), ('loss_centerness', CENTERNESS)):
@@ -286,7 +284,8 @@ def build_fcos(cfg: dict, train_cfg: dict, test_cfg: dict, modules):
                     strides=strides,
                     gn_groups=_gn('FCOSHead', _cfg(hc.get('norm_cfg'))),
                     centerness_on_reg=hc.get('centerness_on_reg', False),
-                    norm_on_bbox=hc.get('norm_on_bbox', False))
+                    norm_on_bbox=hc.get('norm_on_bbox', False),
+                    dcn_on_last_conv=bool(hc.get('dcn_on_last_conv', False)))
     return FCOS(bbox_head=head, **modules,
                 num_classes=hc.get('num_classes', 80),
                 regress_ranges=tuple(tuple(r) for r in hc.get(

@@ -6,7 +6,9 @@ backward, behind the autograd function :func:`deform_conv2d`), K2
 feature gradient, behind :func:`roi_align_flat`), and K5, the fused
 windowed-DCN forward (sampling and contraction in one launch), behind the
 forward-only entry points :func:`deform_conv2d_windowed_fused` and
-:func:`deform_conv2d_frame`. The rest is plain PyTorch on the device.
+:func:`deform_conv2d_frame`. The rest is plain PyTorch on the device, the
+backbones' DCNs among it (:func:`deform_conv2d_exact`,
+:func:`modulated_deform_conv2d`: XLA in the JAX package, no kernel).
 K1-K4 each have an fp32 and a bf16 instance, chosen by the tensors' type.
 ``KERNELS`` holds each kernel wrapper, K5 once per entry point; each
 wrapper's ``launches`` counts its instances' launches apart, keyed by the
@@ -14,8 +16,9 @@ suffix of the instance's name ('' for fp32, ``BF16`` for bf16)."""
 
 from .deform_conv import (BF16, deform_col2im_windowed,
                           deform_col2im_windowed_plain, deform_conv2d,
-                          deform_im2col_windowed,
-                          deform_im2col_windowed_plain)
+                          deform_conv2d_exact, deform_im2col_windowed,
+                          deform_im2col_windowed_plain,
+                          modulated_deform_conv2d)
 from .deform_conv_fused import (deform_conv2d_frame,
                                 deform_conv2d_fused_plain,
                                 deform_conv2d_windowed_fused)
@@ -46,7 +49,8 @@ def reset_kernel_launches() -> None:
         fn.launches = dict.fromkeys(fn.launches, 0)
 
 
-__all__ = ['deform_conv2d', 'deform_im2col_windowed',
+__all__ = ['deform_conv2d', 'deform_conv2d_exact', 'modulated_deform_conv2d',
+           'deform_im2col_windowed',
            'deform_im2col_windowed_plain', 'deform_col2im_windowed',
            'deform_col2im_windowed_plain', 'deform_conv2d_windowed_fused',
            'deform_conv2d_frame', 'deform_conv2d_fused_plain', 'batched_nms',

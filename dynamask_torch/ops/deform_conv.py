@@ -47,6 +47,7 @@ features and HWIO weights.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -414,13 +415,310 @@ def deform_conv2d_nhwc(x: torch.Tensor, offsets: torch.Tensor,
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor,
                   weights: torch.Tensor, kernel_size: int = 3,
                   stride: int = 1, padding: int = 1, dilation: int = 1,
-                  deform_groups: int = 1, window: int = 3) -> torch.Tensor:
+                  deform_groups: int = 1, window: Optional[int] = 3,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The JAX signature: ``x`` (N, H, W, C), ``offsets``
-    (N, H, W, 2*g*k*k), HWIO ``weights`` (k, k, C, C_out) ->
-    (N, H, W, C_out). Stride 1, bounded window only (the SFM case)."""
-    if stride != 1 or window is None:
-        raise NotImplementedError('deform_conv2d: the port has the stride-1 '
-                                  'bounded-window form only')
+    (N, Ho, Wo, 2*g*k*k), HWIO ``weights`` (k, k, C, C_out) ->
+    (N, Ho, Wo, C_out). A ``window`` takes the bounded-window form through
+    K1/K3 (stride 1, the SFM case); ``window=None`` the exact gather
+    (:func:`deform_conv2d_exact`, any stride, DCNv2 with ``mask``)."""
+    if window is None:
+        return deform_conv2d_exact(x, offsets, weights, mask, kernel_size,
+                                   stride, padding, dilation, deform_groups)
+    if stride != 1 or mask is not None:
+        raise NotImplementedError('deform_conv2d: the bounded-window form is '
+                                  'stride 1 without a mask')
     return deform_conv2d_nhwc(x, offsets, weights.permute(3, 2, 0, 1),
                               kernel_size, padding, dilation, deform_groups,
                               window)
+
+
+# -- the exact gather and the windowed DCNv2 (plain PyTorch) -----------------
+#
+# The DCNs of the backbones (ResNet's and RegNet's ``dcn``, FCOS's
+# ``dcn_on_last_conv``) take two forms that the JAX package computes in XLA,
+# never in Pallas: the exact gather ``deform_conv2d(window=None[, mask])``
+# (``dynamask_tpu/ops/deform_conv.py:433-557``) and the windowed DCNv2
+# ``modulated_deform_conv2d`` (``:569-653``). Here they are plain PyTorch on
+# the device by design: no TPU kernel stands behind them, so none is ported.
+# Each is a ``torch.autograd.Function`` that saves only its inputs: its
+# backward recomputes a few taps at a time (JAX scans the taps under a
+# checkpoint, so one tap's gather is live at a time through the backward)
+# and writes out the gradient JAX's autodiff gives. At an integer sample
+# position that gradient follows JAX's tie rules (ROADMAP.md queue 3,
+# 3ak): ``d|z|/dz = 1`` at 0 and ``clip``'s tie splits 0.5, where torch's
+# autodiff would take 0 and 1 and mmcv the right-hand slope.
+
+
+def _jax_tent_grad(z: torch.Tensor) -> torch.Tensor:
+    """d/dz ``clip(1 - |z|, 0)`` by JAX's autodiff rules: ``|z|'`` is 1 at
+    z = 0, and ``clip``'s tie at 1 - |z| = 0 takes half."""
+    u = 1.0 - z.abs()
+    c = torch.where(u > 0, 1.0, torch.where(u == 0, 0.5, 0.0))
+    return torch.where(z >= 0, -c, c)
+
+
+def _jax_clip_grad(r: torch.Tensor, d: int) -> torch.Tensor:
+    """d/dr ``clip(r, -d, d)`` by JAX's rules: half at either bound."""
+    a = r.abs()
+    return torch.where(a < d, 1.0, torch.where(a == d, 0.5, 0.0))
+
+
+def _axis(base: torch.Tensor, off: torch.Tensor, extent: int,
+          window: Optional[int]):
+    """One axis of a run of taps' samples: ``base`` the displacement-free
+    position (exact form) or the displacement's integer part (windowed),
+    ``off`` the offsets. -> (low corner, its weight and the high corner's,
+    inside flag, [(corner shift, gradient coefficient)], chain factor)."""
+    if window is None:
+        p = base + off
+        inside = (p > -1.0) & (p < extent)
+        f = torch.floor(p).clamp(0, extent - 1)
+        grads = [(0, _jax_tent_grad(p - f)), (1, _jax_tent_grad(p - f - 1.0))]
+        chain = None
+        r = p
+        lo = f
+    else:
+        grid, r0 = base
+        r0 = r0 + off
+        inside = (grid + r0 > -1.0) & (grid + r0 < extent)
+        r = r0.clamp(-window, window)
+        f = torch.floor(r)
+        # JAX sums the tents over u in [-D, D+1]: at an integer r the corner
+        # below r takes part in the gradient, but for u = -D - 1
+        below = _jax_tent_grad(r - f + 1.0) * (f - 1.0 >= -window)
+        grads = [(-1, below), (0, _jax_tent_grad(r - f)),
+                 (1, _jax_tent_grad(r - f - 1.0))]
+        chain = _jax_clip_grad(r0, window)
+        lo = grid + f
+    w0 = (1.0 - (r - f).abs()).clamp(min=0.0)
+    w1 = (1.0 - (r - f - 1.0).abs()).clamp(min=0.0)
+    return lo.long(), w0, w1, inside, grads, chain
+
+
+class _Sampler:
+    """The taps of a DCN over one (N, H, W, C) input: for a run of taps the
+    bilinear sample positions of every (output pixel, tap, deform group),
+    laid out (N, Ho, Wo, taps, g), gathered from a zero-padded row table
+    (``pad`` rows and columns each side, so every corner a tap touches
+    lands in it)."""
+
+    def __init__(self, x, offsets, mask, k, stride, padding, dilation, g,
+                 window):
+        self.n, self.h, self.w, self.c = x.shape
+        self.ho, self.wo = offsets.shape[1:3]
+        self.k, self.g, self.window = k, g, window
+        self.stride = stride
+        self.pad = 1 if window is None else window + 1
+        self.cd = torch.float64 if x.dtype == torch.float64 else \
+            torch.float32
+        p = self.pad
+        self.hp, self.wp = self.h + 2 * p, self.w + 2 * p
+        self.table = F.pad(x.to(self.cd), (0, 0, p, p, p, p)).reshape(
+            -1, self.c // g)
+        # tap-major: (N, Ho, Wo, taps, g[, 2])
+        self.off = offsets.reshape(self.n, self.ho, self.wo, g, k * k,
+                                   2).float().transpose(3, 4)
+        self.mask = None if mask is None else mask.reshape(
+            self.n, self.ho, self.wo, g, k * k).transpose(3, 4)
+        dev = x.device
+        tap = torch.arange(k * k, device=dev)
+        self.dy = ((tap // k) * dilation - padding).float()
+        self.dx = ((tap % k) * dilation - padding).float()
+        self.oy = torch.arange(self.ho, dtype=torch.float32,
+                               device=dev).view(1, -1, 1, 1, 1)
+        self.ox = torch.arange(self.wo, dtype=torch.float32,
+                               device=dev).view(1, 1, -1, 1, 1)
+        self.nsel = torch.arange(self.n, device=dev).view(-1, 1, 1, 1, 1)
+        self.gsel = torch.arange(g, device=dev).view(1, 1, 1, 1, g)
+
+    def taps(self, ts: slice):
+        """Taps ``ts``' geometry: the axes of :func:`_axis`, the row of each
+        one's low corner in the table and ``corner(a, b)``, the values at
+        the shift (a, b) from it (N, Ho, Wo, taps, g, C/g)."""
+        off = self.off[:, :, :, ts]
+        dy = self.dy[ts].view(1, 1, 1, -1, 1)
+        dx = self.dx[ts].view(1, 1, 1, -1, 1)
+        if self.window is None:
+            ay = _axis(self.oy * self.stride + dy, off[..., 0], self.h, None)
+            ax = _axis(self.ox * self.stride + dx, off[..., 1], self.w, None)
+        else:
+            ay = _axis((self.oy, dy), off[..., 0], self.h, self.window)
+            ax = _axis((self.ox, dx), off[..., 1], self.w, self.window)
+        p, g = self.pad, self.g
+        row0 = ((self.nsel * self.hp + ay[0] + p) * self.wp + ax[0] + p) * g \
+            + self.gsel
+
+        def corner(a: int, b: int) -> torch.Tensor:
+            return self.table[row0 + (a * self.wp + b) * g]
+        return ay, ax, row0, corner
+
+    def sample(self, ay, ax, corner):
+        """The taps' samples (N, Ho, Wo, taps, g, C/g), before the mask:
+        zero off the plane."""
+        e = (lambda v: v.to(self.cd)[..., None])
+        _, wy0, wy1, iny, _, _ = ay
+        _, wx0, wx1, inx, _, _ = ax
+        s = (e(wy0) * (e(wx0) * corner(0, 0) + e(wx1) * corner(0, 1)) +
+             e(wy1) * (e(wx0) * corner(1, 0) + e(wx1) * corner(1, 1)))
+        return s * e(iny & inx)
+
+    def taps_mask(self, ts: slice) -> Optional[torch.Tensor]:
+        return None if self.mask is None else self.mask[:, :, :, ts]
+
+
+def _tap_weights(weights: torch.Tensor, k: int) -> torch.Tensor:
+    """HWIO (k, k, C, C_out) -> (k*k, C, C_out), tap-major as the offsets."""
+    return weights.reshape(k * k, weights.shape[2], weights.shape[3])
+
+
+class _ExactDeformConv(torch.autograd.Function):
+    """The exact-gather DCN (``window=None``) and the windowed DCNv2
+    (``window=D``): the forward samples every tap in one pass and contracts
+    the (taps x C) samples with the weight in one product; the backward
+    recomputes ``BWD_TAPS`` taps at a time from the inputs, so only that
+    many taps' samples are live (JAX scans them one at a time)."""
+
+    BWD_TAPS = 3
+
+    @staticmethod
+    def forward(ctx, x, offsets, mask, weights, k, stride, padding,
+                dilation, g, window):
+        sm = _Sampler(x, offsets, mask, k, stride, padding, dilation, g,
+                      window)
+        m = sm.n * sm.ho * sm.wo
+        every = slice(0, k * k)
+        ay, ax, _, corner = sm.taps(every)
+        s = sm.sample(ay, ax, corner)
+        mk = sm.taps_mask(every)
+        if mk is not None:
+            s = s * mk.to(sm.cd)[..., None]
+        out = s.reshape(m, -1) @ weights.to(sm.cd).reshape(-1,
+                                                           weights.shape[3])
+        ctx.save_for_backward(x, offsets, mask, weights)
+        ctx.conf = (k, stride, padding, dilation, g, window)
+        return out.reshape(sm.n, sm.ho, sm.wo, -1).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        x, offsets, mask, weights = ctx.saved_tensors
+        k, stride, padding, dilation, g, window = ctx.conf
+        sm = _Sampler(x, offsets, mask, k, stride, padding, dilation, g,
+                      window)
+        cd, c, cg = sm.cd, sm.c, sm.c // g
+        wt = _tap_weights(weights, k).to(cd)
+        m = sm.n * sm.ho * sm.wo
+        d_out = d_out.reshape(m, -1).to(cd)
+        d_table = torch.zeros_like(sm.table)
+        d_w = torch.empty_like(wt)
+        # (N, Ho, Wo, taps, g[, 2]), tap-major as the sampler
+        d_off = torch.empty(sm.n, sm.ho, sm.wo, k * k, g, 2,
+                            dtype=torch.float32, device=x.device)
+        d_mask = None if mask is None else torch.empty(
+            sm.n, sm.ho, sm.wo, k * k, g, dtype=cd, device=x.device)
+        e = (lambda v: v.to(cd)[..., None])
+        for t0 in range(0, k * k, _ExactDeformConv.BWD_TAPS):
+            ts = slice(t0, min(t0 + _ExactDeformConv.BWD_TAPS, k * k))
+            nt = ts.stop - ts.start
+            ay, ax, row0, corner = sm.taps(ts)
+            a = sm.sample(ay, ax, corner)
+            mk = sm.taps_mask(ts)
+            s = a if mk is None else a * e(mk)
+            d_w[ts] = (s.reshape(m, nt * c).t() @ d_out).reshape(nt, c, -1)
+            d_s = (d_out @ wt[ts].reshape(nt * c, -1).t()).reshape(a.shape)
+            if mk is not None:
+                d_mask[:, :, :, ts] = (d_s * a).sum(-1)
+                d_s = d_s * e(mk)
+            _, wy0, wy1, iny, gy, chy = ay
+            _, wx0, wx1, inx, gx, chx = ax
+            d_s = d_s * e(iny & inx)
+            for (a_, b_), wgt in (((0, 0), wy0 * wx0), ((0, 1), wy0 * wx1),
+                                  ((1, 0), wy1 * wx0), ((1, 1), wy1 * wx1)):
+                d_table.index_add_(0, (row0 + (a_ * sm.wp + b_) * g).reshape(
+                    -1), (d_s * e(wgt)).reshape(-1, cg))
+            d_y = sum(e(coef) * (e(wx0) * corner(a_, 0) +
+                                 e(wx1) * corner(a_, 1))
+                      for a_, coef in gy)
+            d_x = sum(e(coef) * (e(wy0) * corner(0, b_) +
+                                 e(wy1) * corner(1, b_))
+                      for b_, coef in gx)
+            d_y, d_x = (d_s * d_y).sum(-1), (d_s * d_x).sum(-1)
+            if window is not None:
+                d_y, d_x = d_y * chy, d_x * chx
+            d_off[:, :, :, ts, :, 0], d_off[:, :, :, ts, :, 1] = d_y, d_x
+        p = sm.pad
+        d_x_in = d_table.reshape(sm.n, sm.hp, sm.wp, c)[
+            :, p:p + sm.h, p:p + sm.w]
+        return (d_x_in.to(x.dtype).contiguous(),
+                d_off.transpose(3, 4).reshape(offsets.shape).to(
+                    offsets.dtype),
+                None if mask is None else d_mask.transpose(3, 4).reshape(
+                    mask.shape).to(mask.dtype),
+                d_w.reshape(weights.shape).to(weights.dtype),
+                None, None, None, None, None, None)
+
+
+def _check_dcn(name, x, offsets, mask, weights, k, g, ho, wo):
+    n, _, _, c = x.shape
+    expect = (n, ho, wo, 2 * g * k * k)
+    if tuple(offsets.shape) != expect or c % g or tuple(
+            weights.shape[:3]) != (k, k, c):
+        raise ValueError(f'{name}: x {tuple(x.shape)}, offsets '
+                         f'{tuple(offsets.shape)}, weights '
+                         f'{tuple(weights.shape)}: expected offsets {expect},'
+                         f' HWIO weights ({k}, {k}, {c}, C_out) and C '
+                         f'divisible by {g}')
+    if mask is not None and tuple(mask.shape) != expect[:3] + (g * k * k,):
+        raise ValueError(f'{name}: mask {tuple(mask.shape)}, expected '
+                         f'{expect[:3] + (g * k * k,)}')
+
+
+def deform_conv2d_exact(x: torch.Tensor, offsets: torch.Tensor,
+                        weights: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None,
+                        kernel_size: int = 3, stride: int = 1,
+                        padding: int = 1, dilation: int = 1,
+                        deform_groups: int = 1) -> torch.Tensor:
+    """The exact-gather DCN (JAX ``deform_conv2d(window=None, mask=)``):
+    ``x`` (N, H, W, C), ``offsets`` (N, Ho, Wo, 2*g*k*k) laid out
+    (g, kh, kw, [dy, dx]), HWIO ``weights`` (k, k, C, C_out), the DCNv2
+    ``mask`` (N, Ho, Wo, g*k*k), already sigmoided -> (N, Ho, Wo, C_out).
+    A sample is bilinear on the plane, zero where its position falls
+    outside (-1, extent) on either axis; offsets are unbounded. Positions
+    are fp32, values fp32 (fp64 for an fp64 ``x``); the output takes the
+    type of ``x``. Differentiable in ``x``, the offsets, the mask and the
+    weights."""
+    n, h, w, _ = x.shape
+    k = kernel_size
+    ho = (h + 2 * padding - dilation * (k - 1) - 1) // stride + 1
+    wo = (w + 2 * padding - dilation * (k - 1) - 1) // stride + 1
+    _check_dcn('deform_conv2d_exact', x, offsets, mask, weights, k,
+               deform_groups, ho, wo)
+    return _ExactDeformConv.apply(
+        x.contiguous(), offsets.contiguous(),
+        None if mask is None else mask.contiguous(), weights, k, stride,
+        padding, dilation, deform_groups, None)
+
+
+def modulated_deform_conv2d(x: torch.Tensor, offsets: torch.Tensor,
+                            mask: torch.Tensor, weights: torch.Tensor,
+                            kernel_size: int = 3, padding: int = 1,
+                            dilation: int = 1, deform_groups: int = 1,
+                            window: int = 3) -> torch.Tensor:
+    """The windowed DCNv2 (JAX ``modulated_deform_conv2d``, stride 1):
+    arguments as :func:`deform_conv2d_exact` with a (N, H, W, g*k*k)
+    ``mask``. Each tap's displacement (its place in the kernel plus its
+    offset) is clipped to ``±window`` before the bilinear sample; the
+    sample is zero where the unclipped position falls outside (-1,
+    extent). Differentiable as :func:`deform_conv2d_exact`, with JAX's
+    rules at integer displacements and at the clip's bounds (3ak)."""
+    n, h, w, _ = x.shape
+    k = kernel_size
+    _check_dcn('modulated_deform_conv2d', x, offsets, mask, weights, k,
+               deform_groups, h, w)
+    if 2 * padding != dilation * (k - 1):
+        raise ValueError('modulated_deform_conv2d: the windowed form keeps '
+                         'the map size (padding = dilation * (k - 1) / 2)')
+    return _ExactDeformConv.apply(
+        x.contiguous(), offsets.contiguous(), mask.contiguous(), weights, k,
+        1, padding, dilation, deform_groups, window)

@@ -815,8 +815,7 @@ def test_phase12_config_builds(name):
 
 @pytest.mark.parametrize('rel,what', [
     ('legacy_1.x/cascade_mask_rcnn_r50_fpn_1x_coco_v1.py', '3c'),
-    ('htc/htc_x101_64x4d_fpn_dconv_c3-c5_mstrain_400_1400_16x1_20e_coco.py',
-     'item 7')])
+    ('detectors/htc_r50_sac_1x_coco.py', 'item 8')])
 def test_cascade_configs_refused(rel, what):
     from dynamask_torch.apis import init_detector
     with pytest.raises(NotImplementedError, match=what):

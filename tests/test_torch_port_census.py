@@ -11,8 +11,13 @@ detectors and the ResNet variants) to 82, with Cascade R-CNN and HTC to
 113, with the two-stage family's options (GN and GN+WS, CARAFE,
 GRoIE, Double-Head, the IoU losses, OHEM and Soft-NMS) to 143, and with
 the single-stage detectors (RetinaNet with GHM, FreeAnchor, the legacy v1
-form and the SepBN head; ATSS; FCOS) to 180, and with HRNet and HRFPN,
-RegNet (all but the mdconv file, item 7), Res2Net and PAFPN to 227.
+form and the SepBN head; ATSS; FCOS) to 180, with HRNet and HRFPN,
+RegNet (all but the mdconv file), Res2Net and PAFPN to 227, and with the
+backbones' deformable convs and block plugins (``configs/dcn/`` but its
+two RoI-pool files, ``gcnet/``, ``empirical_attention/``, GRoIE's two
+GCB files, HTC X101-64x4d's dconv file, FCOS's ``dcn_on_last_conv`` file
+and RegNetX-3.2GF's mdconv file: 37) to 264. The ``dconv`` files of GFL
+and RepPoints are still refused, for their detectors (item 6).
 """
 
 import glob
@@ -50,12 +55,29 @@ BUILDS = (
     'cascade_rcnn/cascade_rcnn_x101_64x4d_fpn_20e_coco.py',
     'cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py',
     'cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py',
+    'dcn/cascade_mask_rcnn_r101_fpn_dconv_c3-c5_1x_coco.py',
+    'dcn/cascade_mask_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py',
+    'dcn/cascade_mask_rcnn_x101_32x4d_fpn_dconv_c3-c5_1x_coco.py',
+    'dcn/cascade_rcnn_r101_fpn_dconv_c3-c5_1x_coco.py',
+    'dcn/cascade_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py',
+    'dcn/faster_rcnn_r101_fpn_dconv_c3-c5_1x_coco.py',
+    'dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py',
+    'dcn/faster_rcnn_r50_fpn_mdconv_c3-c5_1x_coco.py',
+    'dcn/faster_rcnn_r50_fpn_mdconv_c3-c5_group4_1x_coco.py',
+    'dcn/faster_rcnn_x101_32x4d_fpn_dconv_c3-c5_1x_coco.py',
+    'dcn/mask_rcnn_r101_fpn_dconv_c3-c5_1x_coco.py',
+    'dcn/mask_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py',
+    'dcn/mask_rcnn_r50_fpn_mdconv_c3-c5_1x_coco.py',
     'deepfashion/mask_rcnn_r50_fpn_15e_deepfashion.py',
     'double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py',
     'dynamask/cityscapes/r50_dynamask_cityscapes_1x.py',
     'dynamask/coco/r101_dynamask_3x.py',
     'dynamask/coco/r50_dynamask_1x.py',
     'dynamask/lvis/r50_dynamask_lvis_1x.py',
+    'empirical_attention/faster_rcnn_r50_fpn_attention_0010_1x_coco.py',
+    'empirical_attention/faster_rcnn_r50_fpn_attention_0010_dcn_1x_coco.py',
+    'empirical_attention/faster_rcnn_r50_fpn_attention_1111_1x_coco.py',
+    'empirical_attention/faster_rcnn_r50_fpn_attention_1111_dcn_1x_coco.py',
     'fast_rcnn/fast_rcnn_r101_caffe_fpn_1x_coco.py',
     'fast_rcnn/fast_rcnn_r101_fpn_1x_coco.py',
     'fast_rcnn/fast_rcnn_r101_fpn_2x_coco.py',
@@ -82,7 +104,10 @@ BUILDS = (
     'faster_rcnn/faster_rcnn_x101_32x4d_fpn_2x_coco.py',
     'faster_rcnn/faster_rcnn_x101_64x4d_fpn_1x_coco.py',
     'faster_rcnn/faster_rcnn_x101_64x4d_fpn_2x_coco.py',
-    'fcos/fcos_center-normbbox-centeronreg-giou_r50_caffe_fpn_gn-head_4x4_1x_coco.py',
+    'fcos/fcos_center-normbbox-centeronreg-giou_r50_caffe_fpn_gn-head_4x4_1x'
+    '_coco.py',
+    'fcos/fcos_center-normbbox-centeronreg-giou_r50_caffe_fpn_gn-head_dcn_4x'
+    '4_1x_coco.py',
     'fcos/fcos_center_r50_caffe_fpn_gn-head_4x4_1x_coco.py',
     'fcos/fcos_r101_caffe_fpn_gn-head_4x4_1x_coco.py',
     'fcos/fcos_r101_caffe_fpn_gn-head_4x4_2x_coco.py',
@@ -100,9 +125,29 @@ BUILDS = (
     'free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py',
     'free_anchor/retinanet_free_anchor_x101_32x4d_fpn_1x_coco.py',
     'gcnet/cascade_mask_rcnn_x101_32x4d_fpn_syncbn-backbone_1x_coco.py',
+    'gcnet/cascade_mask_rcnn_x101_32x4d_fpn_syncbn-backbone_dconv_c3-c5_1x_c'
+    'oco.py',
+    'gcnet/cascade_mask_rcnn_x101_32x4d_fpn_syncbn-backbone_dconv_c3-c5_r16_'
+    'gcb_c3-c5_1x_coco.py',
+    'gcnet/cascade_mask_rcnn_x101_32x4d_fpn_syncbn-backbone_dconv_c3-c5_r4_g'
+    'cb_c3-c5_1x_coco.py',
+    'gcnet/cascade_mask_rcnn_x101_32x4d_fpn_syncbn-backbone_r16_gcb_c3-c5_1x'
+    '_coco.py',
+    'gcnet/cascade_mask_rcnn_x101_32x4d_fpn_syncbn-backbone_r4_gcb_c3-c5_1x_'
+    'coco.py',
+    'gcnet/mask_rcnn_r101_fpn_r16_gcb_c3-c5_1x_coco.py',
+    'gcnet/mask_rcnn_r101_fpn_r4_gcb_c3-c5_1x_coco.py',
     'gcnet/mask_rcnn_r101_fpn_syncbn-backbone_1x_coco.py',
+    'gcnet/mask_rcnn_r101_fpn_syncbn-backbone_r16_gcb_c3-c5_1x_coco.py',
+    'gcnet/mask_rcnn_r101_fpn_syncbn-backbone_r4_gcb_c3-c5_1x_coco.py',
+    'gcnet/mask_rcnn_r50_fpn_r16_gcb_c3-c5_1x_coco.py',
+    'gcnet/mask_rcnn_r50_fpn_r4_gcb_c3-c5_1x_coco.py',
     'gcnet/mask_rcnn_r50_fpn_syncbn-backbone_1x_coco.py',
+    'gcnet/mask_rcnn_r50_fpn_syncbn-backbone_r16_gcb_c3-c5_1x_coco.py',
+    'gcnet/mask_rcnn_r50_fpn_syncbn-backbone_r4_gcb_c3-c5_1x_coco.py',
     'gcnet/mask_rcnn_x101_32x4d_fpn_syncbn-backbone_1x_coco.py',
+    'gcnet/mask_rcnn_x101_32x4d_fpn_syncbn-backbone_r16_gcb_c3-c5_1x_coco.py',
+    'gcnet/mask_rcnn_x101_32x4d_fpn_syncbn-backbone_r4_gcb_c3-c5_1x_coco.py',
     'ghm/retinanet_ghm_r101_fpn_1x_coco.py',
     'ghm/retinanet_ghm_r50_fpn_1x_coco.py',
     'ghm/retinanet_ghm_x101_32x4d_fpn_1x_coco.py',
@@ -126,7 +171,9 @@ BUILDS = (
     'gn/mask_rcnn_r50_fpn_gn-all_contrib_2x_coco.py',
     'gn/mask_rcnn_r50_fpn_gn-all_contrib_3x_coco.py',
     'groie/faster_rcnn_r50_fpn_groie_1x_coco.py',
+    'groie/mask_rcnn_r101_fpn_syncbn-backbone_r4_gcb_c3-c5_groie_1x_coco.py',
     'groie/mask_rcnn_r50_fpn_groie_1x_coco.py',
+    'groie/mask_rcnn_r50_fpn_syncbn-backbone_r4_gcb_c3-c5_groie_1x_coco.py',
     'guided_anchoring/ga_fast_r50_caffe_fpn_1x_coco.py',
     'hrnet/cascade_mask_rcnn_hrnetv2p_w18_20e_coco.py',
     'hrnet/cascade_mask_rcnn_hrnetv2p_w32_20e_coco.py',
@@ -164,6 +211,7 @@ BUILDS = (
     'htc/htc_without_semantic_r50_fpn_1x_coco.py',
     'htc/htc_x101_32x4d_fpn_16x1_20e_coco.py',
     'htc/htc_x101_64x4d_fpn_16x1_20e_coco.py',
+    'htc/htc_x101_64x4d_fpn_dconv_c3-c5_mstrain_400_1400_16x1_20e_coco.py',
     'instaboost/cascade_mask_rcnn_r101_fpn_instaboost_4x_coco.py',
     'instaboost/cascade_mask_rcnn_r50_fpn_instaboost_4x_coco.py',
     'instaboost/cascade_mask_rcnn_x101_64x4d_fpn_instaboost_4x_coco.py',
@@ -214,6 +262,7 @@ BUILDS = (
     'regnet/faster_rcnn_regnetx-3.2GF_fpn_mstrain_3x_coco.py',
     'regnet/mask_rcnn_regnetx-12GF_fpn_1x_coco.py',
     'regnet/mask_rcnn_regnetx-3.2GF_fpn_1x_coco.py',
+    'regnet/mask_rcnn_regnetx-3.2GF_fpn_mdconv_c3-c5_1x_coco.py',
     'regnet/mask_rcnn_regnetx-3.2GF_fpn_mstrain_3x_coco.py',
     'regnet/mask_rcnn_regnetx-4GF_fpn_1x_coco.py',
     'regnet/mask_rcnn_regnetx-6.4GF_fpn_1x_coco.py',
@@ -256,14 +305,13 @@ REFUSED = {
     'groie/grid_rcnn_r50_fpn_gn-head_groie_1x_coco.py': 'item 9',
     'legacy_1.x/faster_rcnn_r50_fpn_1x_coco_v1.py': '3c',
     'legacy_1.x/cascade_mask_rcnn_r50_fpn_1x_coco_v1.py': '3c',
-    'htc/htc_x101_64x4d_fpn_dconv_c3-c5_mstrain_400_1400_16x1_20e_coco.py':
-        'item 7',
+    'gfl/gfl_r101_fpn_dconv_c3-c5_mstrain_2x_coco.py': 'item 6',
     'gfl/gfl_r50_fpn_1x_coco.py': 'item 6',
-    'fcos/fcos_center-normbbox-centeronreg-giou_r50_caffe_fpn_gn-head_dcn_'
-    '4x4_1x_coco.py': 'item 7',
+    'reppoints/reppoints_moment_r101_fpn_dconv_c3-c5_gn-neck+head_2x_coco.py':
+        'item 6',
     'nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py': 'item 8',
-    'dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py': 'item 7',
-    'regnet/mask_rcnn_regnetx-3.2GF_fpn_mdconv_c3-c5_1x_coco.py': 'item 7',
+    'dcn/faster_rcnn_r50_fpn_dpool_1x_coco.py': 'item 9',
+    'dcn/faster_rcnn_r50_fpn_mdpool_1x_coco.py': 'item 9',
     'rpn/rpn_r50_caffe_c4_1x_coco.py': 'item 9',
     'libra_rcnn/libra_faster_rcnn_r50_fpn_1x_coco.py': 'item 8',
 }

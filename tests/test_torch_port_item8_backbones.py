@@ -430,8 +430,8 @@ def test_open_mmlab_specs_resolve_locally(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('cfg,what', [
     (dict(type='RegNet', arch='regnetx_3.2gf',
-          dcn=dict(type='DCNv2', deform_groups=1),
-          stage_with_dcn=(False, True, True, True)), 'item 7'),
+          dcn=dict(type='DCNv2', deform_groups=1, fallback_on_stride=True),
+          stage_with_dcn=(False, True, True, True)), '3w'),
     (dict(type='Res2Net', depth=50, dcn=dict(type='DCN'),
           stage_with_dcn=(False, True, True, True)), '3w'),
     (dict(type='HRNet', extra=dict(TOY_HRNET, stage2=dict(

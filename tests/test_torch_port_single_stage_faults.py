@@ -315,8 +315,8 @@ REFUSALS = {
         loss_weight=1.0), '3w'),
     'atss_gn16': ('atss', lambda h, n, t: h.update(norm_cfg=dict(
         type='GN', num_groups=16)), '3w'),
-    'fcos_dcn': ('fcos', lambda h, n, t: h.update(dcn_on_last_conv=True),
-                 'item 7'),
+    'fcos_dcn': ('fcos', lambda h, n, t: h.update(
+        dcn_on_last_conv=True, conv_cfg=dict(type='DCNv2')), '3w'),
     'fcos_conv_bias': ('fcos', lambda h, n, t: h.update(conv_bias=True),
                        '3w'),
     'fcos_linear_iou': ('fcos_plain', lambda h, n, t: h.update(
