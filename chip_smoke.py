@@ -43,7 +43,13 @@ before the last line is printed:
    same enlarged 1.3x, in one launch), and K2 and K4 at HRFPN's crops
    (phase 15's: the 200x336 1x1-reduced map of an image and of a step's
    4 images average-pooled to P2-P5, an image's 1000 box and 100 mask
-   RoIs, a step's 2048 and 512), on lines of their own kept out of the
+   RoIs, a step's 2048 and 512), and K1 and K3 on the whole maps of
+   phase 17 (``map ...`` lines, every map of ``WHOLE_MAPS``: GA-RPN's
+   P2-P6 and GA-RetinaNet's P3-P7 in 4 deform groups at C = 256, the
+   stride-1 SAC branches of layer2-4 in one group at C = 128/256/512 and
+   dilations 1 and 3, K1 at an image's and a step's, K3 at a step's, the
+   step's SAC maps from zero offsets too, where K3's offset gradient
+   must be exactly 0), on lines of their own kept out of the
    ``kernels`` line's sums; K1 and K3 also at edge shapes
    (ragged bands, one deform group, channels per group not a multiple of
    4, padding and dilation 2, windows 1 and 2, one RoI, a misaligned base)
@@ -289,7 +295,21 @@ before the last line is printed:
    phase 3's inference and training-step checks, and a toy FCOS with
    ``dcn_on_last_conv`` (its losses and every gradient, the offset
    convs' among them), on the card against the CPU. It prints the
-   phase's seconds and the whole run's.
+   phase's seconds;
+17. run guided anchoring and DetectoRS from their config files, unchanged,
+   at full width (``ITEM9_CELLS``): ``configs/guided_anchoring/``'s
+   GA-RPN, GA-Faster R-CNN and GA-RetinaNet R50 (an image and a step
+   each: K1 on every FPN level in 4 deform groups, K3 in the steps) and
+   ``configs/detectors/``'s deformable-SAC Cascade R-CNN (an image and a
+   step: K1/K3 on the stride-1 SAC branches at dilations 1 and 3), the
+   DetectoRS HTC (SAC + a two-step RFP, an image) and HTC with RFP alone
+   (an image), each held to its exact K1-K5 launches and to its count of
+   exact-gather calls (the strided SAC blocks), the steps from the JAX
+   initialisation; then a toy GA-Faster R-CNN and a toy DetectoRS Cascade
+   Mask R-CNN (SAC + RFP) through phase 3's inference and training-step
+   checks, and a toy GA-RetinaNet (dets, losses and every gradient, the
+   ``FeatureAdaption`` offset convs' among them), on the card against the
+   CPU. It prints the phase's seconds and the whole run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
@@ -303,7 +323,8 @@ loader-batch step, in phase 13 each config's image and steps and
 GRoIE's eval drive and loader-batch step, in phase 14 each config's
 image and steps and RetinaNet's eval drive, in phase 15 each config's
 image and steps and the HRNet-W18 Mask R-CNN's eval drive and
-loader-batch step, and in phase 16 each config's image and steps)
+loader-batch step, and in phases 16 and 17 each config's image and
+steps)
 the kernels' launch
 counters are zeroed just before it
 and read just after (the loop's
@@ -311,7 +332,7 @@ steps and its validations in turns), and every kernel of that path must
 have launched in it: K1 and K2 at inference, in the eval loops and in the
 loop's validations, K5 through both entry points in its check, K1-K4 in
 training; behind Mask R-CNN's FCN head, which runs no DCN, K2 at
-inference and K2 and K4 in training; phase 6 and phases 8-16 hold each
+inference and K2 and K4 in training; phase 6 and phases 8-17 hold each
 drive to its exact counts, every other kernel at 0 (the RPN's eval drive,
 every phase-14 drive, phase 15's FCOS and RetinaNet drives and phase
 16's FCOS drives launch none).
@@ -419,7 +440,7 @@ def k1_cases(gen, dev):
     slots in training; 2 deform groups. Offsets reach ±5 px, past the ±3
     window and off the plane. Then, on lines of their own, the shapes the
     other configurations give it: n = 300 at LVIS inference, 128 positive
-    slots in a Cityscapes training step."""
+    slots in a Cityscapes training step, and phase 17's whole maps."""
     import torch
     for path, n in (('infer', N_DETS), ('train', N_POS_TRAIN),
                     (f'{CONFIG} lvis infer', LVIS_DETS),
@@ -431,10 +452,12 @@ def k1_cases(gen, dev):
             yield f'{path} {n}x{s}x{s}x{c}', (x, off), dict(
                 kernel_size=3, padding=1, dilation=1, deform_groups=2,
                 window=3)
+    yield from whole_map_cases(gen, dev, train=False)
 
 
 def k3_cases(gen, dev):
-    """K3 at the training shapes of K1, with a random column gradient."""
+    """K3 at the training shapes of K1, with a random column gradient, and
+    at a step's whole maps of phase 17."""
     import torch
     for case, (x, off), kw in k1_cases(gen, dev):
         if case.startswith(('train', f'{CONFIG} cityscapes train')):
@@ -443,6 +466,7 @@ def k3_cases(gen, dev):
                                 device=dev)
             yield case, (x, off, d_col), kw
             del x, off, d_col
+    yield from whole_map_cases(gen, dev, train=True)
 
 
 def synthetic_rois(gen, dev, n, images, canvas):
@@ -546,6 +570,8 @@ def k1_bf16_cases(gen, dev):
     """K1's bf16 instance at the flagship's inference (n = 100) and
     training (n = 512) shapes: K1's cases with x and the offsets in bf16."""
     for case, (x, off), kw in k1_cases(gen, dev):
+        if case.startswith(WHOLE_MAP):     # the last ones, fp32 only
+            break
         if case.startswith(('infer', 'train')):
             yield case, (x.bfloat16(), off.bfloat16()), kw
         del x, off
@@ -555,6 +581,8 @@ def k3_bf16_cases(gen, dev):
     """K3's bf16 instance at the flagship's training shapes: K3's cases
     with x, the offsets and the column gradient in bf16."""
     for case, args, kw in k3_cases(gen, dev):
+        if case.startswith(WHOLE_MAP):     # the last ones, fp32 only
+            break
         if case.startswith('train'):
             yield case, tuple(a.bfloat16() for a in args), kw
         del args
@@ -649,8 +677,50 @@ HTC = 'htc'                       # HTC's semantic crops of a step (phase 12)
 TWO_STAGE = 'two_stage'
 # HRFPN's pyramid: one 1x1-reduced map average-pooled (phase 15)
 HRFPN_CROPS = 'hrfpn'
+# K1 and K3 on whole maps: guided anchoring's FPN levels and DetectoRS'
+# SAC branches (phase 17)
+WHOLE_MAP = 'map'
 OFF_ROW = (CLUSTERED, PORTRAIT, CONFIG, REFINE, HTC,
-           TWO_STAGE, HRFPN_CROPS)     # out of the row sums
+           TWO_STAGE, HRFPN_CROPS, WHOLE_MAP)     # out of the row sums
+# the whole maps phase 17 gives K1 (an image and a step's 4 images) and K3 (a
+# step's) at 800x1344: GA-RPN's P2-P6 and GA-RetinaNet's P3-P7 (C 256, 4
+# deform groups, padding and dilation 1), and the two branches of the
+# stride-1 SAC blocks of layer2-4 (C 128/256/512, one group, padding and
+# dilation 1 and 3); (n, H, W, C, deform groups, padding, dilation).
+# tests/test_torch_port_dcn_bands.py checks the launch configuration of each
+GA_LEVELS = ((200, 336), (100, 168), (50, 84), (25, 42), (13, 21), (7, 11))
+SAC_MAPS = ((100, 168, 128), (50, 84, 256), (25, 42, 512))
+WHOLE_MAPS = ([(n, h, w, 256, 4, 1, 1) for n in (1, TRAIN_IMAGES)
+               for h, w in GA_LEVELS]
+              + [(n, h, w, c, 1, d, d) for n in (1, TRAIN_IMAGES)
+                 for h, w, c in SAC_MAPS for d in (1, 3)])
+
+
+def whole_map_cases(gen, dev, train):
+    """K1's (``train``: K3's, a step's shapes only, with a random column
+    gradient) arguments on every one of phase 17's whole maps, with offsets
+    up to ±5 px; a step's SAC maps once more from zero offsets, the SAC
+    init a step from the JAX initialisation runs."""
+    import torch
+    for n, h, w, c, g, pad, d in WHOLE_MAPS:
+        if train and n != TRAIN_IMAGES:
+            continue
+        kinds = ('random', 'zero') if g == 1 and n == TRAIN_IMAGES \
+            else ('random',)
+        for kind in kinds:
+            x = torch.randn(n, h, w, c, generator=gen, device=dev)
+            off = torch.zeros(n, h, w, g * 18, device=dev) if kind == 'zero' \
+                else (torch.rand(n, h, w, g * 18, generator=gen,
+                                 device=dev) - 0.5) * 10
+            args = (x, off)
+            if train:
+                args += (torch.randn(n, h, w, g, 9, c // g, generator=gen,
+                                     device=dev),)
+            label = 'ga' if g == 4 else 'sac'
+            yield (f'{WHOLE_MAP} {label} {n}x{h}x{w}x{c} g{g} d{d} {kind}',
+                   args, dict(kernel_size=3, padding=pad, dilation=d,
+                              deform_groups=g, window=3))
+            del x, off, args
 # RefineMask's P2 crops (stride 4, sampling ratio 2) per stage: the
 # transformed semantic features (C = 256, 128, 64 at 14, 28, 56) and the
 # one-channel semantic mask at the same sizes; (P, C)
@@ -1046,6 +1116,23 @@ def k4_bound(args, kw, out):
             {'fp32': d_out.numel() * (kw['sampling_ratio'] ** 2 * 12 + 1)})
 
 
+def k3_zeros(got, ref, args, kw):
+    """K3's offset gradient against the VJP's zeros: (held, incidental,
+    largest). ``held``: it is exactly 0 wherever the rules make it so (the
+    sample outside, an integer clipped displacement, the clip;
+    ``deform_conv.offset_grad_live``), as the plain version's is.
+    Elsewhere it is held to the tolerance only: a channel sum that cancels
+    to exactly 0 in one order of summation may leave a last-bit residue in
+    another. ``incidental``: the plain version's zeros where the rules
+    leave the gradient live; ``largest``: K3's largest magnitude there."""
+    from dynamask_torch.ops.deform_conv import offset_grad_live
+    x, off = args[:2]
+    live = offset_grad_live(off, x.shape[1], x.shape[2], **kw)
+    there = got[1][live & (ref[1] == 0)].float()
+    largest = float(there.abs().max()) if there.numel() else 0.0
+    return not (got[1][~live] != 0).any(), there.numel(), largest
+
+
 def _compare(got, ref):
     """(max abs error, max abs reference, all finite) over one output or a
     tuple of outputs."""
@@ -1180,9 +1267,10 @@ def check_k5_edges(report):
 
 # K1 and K3 off the SFM shapes: ragged bands (S = 13, 17), one deform group,
 # channels per group not a multiple of 4 (the scalar instance), padding 2
-# with dilation 2, windows 1 and 2, one RoI, and a base off 16-byte
-# alignment (the scalar instance at cg = 32); (n, S, C, g, padding,
-# dilation, window, misaligned)
+# with dilation 2, windows 1 and 2, one RoI, a base off 16-byte alignment
+# (the scalar instance at cg = 32), and SAC's large branch (one group,
+# padding and dilation 3); (n, S, C, g, padding, dilation, window,
+# misaligned)
 DCN_EDGE_SHAPES = ((2, 13, 64, 2, 1, 1, 3, False),
                    (2, 17, 64, 2, 1, 1, 3, False),
                    (2, 14, 64, 1, 1, 1, 3, False),
@@ -1192,7 +1280,8 @@ DCN_EDGE_SHAPES = ((2, 13, 64, 2, 1, 1, 3, False),
                    (2, 14, 64, 2, 1, 1, 1, False),
                    (2, 14, 64, 2, 1, 1, 2, False),
                    (1, 28, 128, 2, 1, 1, 3, False),
-                   (2, 14, 64, 2, 1, 1, 3, True))
+                   (2, 14, 64, 2, 1, 1, 3, True),
+                   (2, 14, 64, 1, 3, 3, 3, False))
 
 
 def dcn_edge_offsets(gen, kind, n, s, g, window):
@@ -1222,8 +1311,8 @@ def dcn_edge_offsets(gen, kind, n, s, g, window):
 def check_dcn_edges(report):
     """Phase 2, K1 and K3 at the edge shapes with three kinds of offsets,
     in fp32 and in bf16, against their plain versions (untimed). K3's
-    offset gradient must be exactly 0 wherever the plain version's is (the
-    tent and clip rules)."""
+    offset gradient must be exactly 0 wherever the tent and clip rules make
+    the plain version's so (``k3_zeros``)."""
     import torch
     import dynamask_torch.ops as ops
     from dynamask_torch.ops import deform_conv as dc
@@ -1265,11 +1354,11 @@ def check_dcn_edges(report):
                 raise RuntimeError(
                     f'{key} disagrees with its plain version at '
                     f'{where}: max abs err {err} (limit {lim}, {tol})')
-            if name == 'deform_col2im_windowed' and (
-                    got[1][ref[1] == 0] != 0).any():
+            if name == 'deform_col2im_windowed' and not k3_zeros(
+                    got, ref, args, kw)[0]:
                 raise RuntimeError(
-                    f'{key} gives an offset gradient where the plain '
-                    f'version gives exactly 0, at {where}')
+                    f'{key} gives an offset gradient where the tent and '
+                    f'clip rules give exactly 0, at {where}')
     print(f'  K1 and K3 at {len(DCN_EDGE_SHAPES)} edge shapes x 3 offset '
           f'kinds, fp32 and bf16: largest error over its tolerance {worst}')
     report['dcn_edges'] = worst
@@ -1438,6 +1527,12 @@ def check_kernels(report):
                 raise RuntimeError(f'{name} [{case}] disagrees with its '
                                    f'plain version: max abs err {err} '
                                    f'(limit {limit}, max |ref| {scale})')
+            zeros = k3_zeros(got, ref, args, kw) if name.startswith(
+                'deform_col2im') else None
+            if zeros and not zeros[0]:
+                raise RuntimeError(f'{name} [{case}] gives an offset '
+                                   'gradient where the tent and clip rules '
+                                   'give exactly 0')
             del ref
             ms = cuda_ms(lambda: kernel(*args, **kw))
             plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=5)
@@ -1453,6 +1548,11 @@ def check_kernels(report):
                 name=name, case=case, max_abs_err=err, max_abs_ref=scale,
                 tol=limit, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by, bytes=nbytes, ops=ops)
+            if zeros and zeros[1]:
+                line += (f'; {zeros[1]} live offset gradients the plain '
+                         f'version sums to exactly 0, K3 at most '
+                         f'{zeros[2]:.3e} there')
+                case_rec['incidental_zeros'] = list(zeros[1:])
             if 'yardstick' in spec:   # the main path's form: K1 + matmul
                 y_ms = cuda_ms(lambda: spec['yardstick'](*args, **kw))
                 line += f', K1 + GEMM {y_ms:.4f} ms'
@@ -1502,9 +1602,20 @@ TOY_CONFIGS = {'dynamask': FLAGSHIP, 'mask_rcnn': MASK_RCNN,
                'groie': os.path.join(ROOT, 'configs/groie/'
                                      'mask_rcnn_r50_fpn_groie_1x_coco.py'),
                'double_head': os.path.join(
-                   ROOT, 'configs/double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py')}
+                   ROOT, 'configs/double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py'),
+               # phase 17's two-stage toys
+               'ga_faster': os.path.join(
+                   ROOT, 'configs/guided_anchoring/'
+                   'ga_faster_r50_fpn_1x_coco.py'),
+               'detectors': os.path.join(
+                   ROOT, 'configs/detectors/'
+                   'detectors_cascade_rcnn_r50_1x_coco.py')}
 # the toys whose RoI head is a cascade of stages (phase 12)
 CASCADE_TOYS = ('cascade', 'htc')
+# phase 17's: the GA-Faster R-CNN's guided anchors (a square a location)
+# and the DetectoRS Cascade Mask R-CNN's SAC + RFP at depth 50
+GA_TOYS = ('ga_faster',)
+ITEM9_TWO_STAGE_TOYS = GA_TOYS + ('detectors',)
 # the toys at depth 50, the ResNeXt and caffe backbones' own blocks
 DEEP_TOYS = ('x101', 'caffe')
 # the toys of the two-stage family's options (phase 13)
@@ -1526,25 +1637,33 @@ def toy_cfg(kind='dynamask'):
     Double-Head Faster R-CNN configs (GN of 32 groups throughout, the
     shared convs at 32 channels; Double-Head's tower at 64); an item-7
     toy (``ITEM7_TOYS``, phase 16): its config's Mask R-CNN at depth 50
-    with the toy's backbone keys, the heads as the Mask R-CNN toy's."""
+    with the toy's backbone keys, the heads as the Mask R-CNN toy's;
+    ``'ga_faster'``: from the GA-Faster R-CNN config (its GA-RPN head at
+    32 channels, test proposals as the training ones, which the GA
+    builder requires); ``'detectors'``: from the DetectoRS Cascade Mask
+    R-CNN config at depth 50 (both backbones), its RFP's ASPP at 8
+    channels a branch, the heads as the cascade toy's."""
     from dynamask_torch.utils import Config
     cfg = Config.fromfile(TOY_CONFIGS[kind] if kind in TOY_CONFIGS
                           else ITEM7_TOYS[kind][0])
     m = cfg.model
     if kind in ITEM7_TOYS:
         m.backbone.update(ITEM7_TOYS[kind][1])
-    if kind in DEEP_TOYS or kind in ITEM7_TOYS:
+    if kind in DEEP_TOYS or kind in ITEM7_TOYS or kind == 'detectors':
         m.backbone.depth = 50
     else:
         m.backbone.depth = 18
         m.neck.in_channels = [64, 128, 256, 512]
     m.neck.out_channels = 32
+    if kind == 'detectors':
+        m.neck.aspp_out_channels = 8
+        m.neck.rfp_backbone.rfp_inplanes = 32
     m.rpn_head.in_channels = m.rpn_head.feat_channels = 32
     rh = m.roi_head
     for ext in (rh.bbox_roi_extractor, rh.mask_roi_extractor):
         if ext:
             ext.out_channels = 32
-    cascade = kind in CASCADE_TOYS
+    cascade = kind in CASCADE_TOYS or kind == 'detectors'
     for head in (rh.bbox_head if cascade else [rh.bbox_head]):
         head.in_channels = 32
         head.fc_out_channels = 64
@@ -1552,10 +1671,10 @@ def toy_cfg(kind='dynamask'):
         if 'conv_out_channels' in head:
             head.conv_out_channels = 64 if kind == 'double_head' else 32
     mh = rh.mask_head
-    if kind in ('faster_rcnn', 'double_head'):
+    if kind in ('faster_rcnn', 'double_head', *GA_TOYS):
         pass
     elif kind in ('mask_rcnn', 'cascade', 'htc', 'gn_ws', 'groie',
-                  *DEEP_TOYS, *ITEM7_TOYS):
+                  'detectors', *DEEP_TOYS, *ITEM7_TOYS):
         for head in (mh if kind == 'htc' else [mh]):
             head.num_convs = 2
             head.in_channels = head.conv_out_channels = 32
@@ -1574,6 +1693,8 @@ def toy_cfg(kind='dynamask'):
         mh.stage_num_classes = [8, 8, 8, 1]
     cfg.test_cfg.rpn.nms_pre = 64
     cfg.train_cfg.rpn_proposal.max_num = 32
+    if kind in GA_TOYS:
+        cfg.test_cfg.rpn.max_num = 32
     for stage in (cfg.train_cfg.rcnn if cascade else [cfg.train_cfg.rcnn]):
         stage.sampler.num = 64
     cfg.test_cfg.rcnn.max_per_img = 8
@@ -1689,10 +1810,13 @@ class KinkSides:
         import torch
         import torch.nn.functional as F
         import dynamask_torch.models.dynamask_head as head
+        import dynamask_torch.models.guided_anchor as ga
         import dynamask_torch.ops.deform_conv as dc
         relu, dcn, kept = F.relu, head.deform_conv2d_nhwc, iter(self.kept)
-        # the backbones' DCNs (phase 16), looked up at each call
+        # the backbones' DCNs (phase 16) and SAC's windowed one (phase 17),
+        # looked up at each call; the GA heads' windowed DCN (phase 17)
         exact, windowed = dc.deform_conv2d_exact, dc.modulated_deform_conv2d
+        nhwc, ga_dcn = dc.deform_conv2d_nhwc, ga.deform_conv2d_nhwc
 
         def offset_side(o):
             f = torch.floor(o)
@@ -1715,12 +1839,15 @@ class KinkSides:
         F.relu, head.deform_conv2d_nhwc = pinned_relu, pinned_dcn
         dc.deform_conv2d_exact = pinned(exact)
         dc.modulated_deform_conv2d = pinned(windowed)
+        dc.deform_conv2d_nhwc, ga.deform_conv2d_nhwc = pinned(nhwc), \
+            pinned(ga_dcn)
         try:
             yield
         finally:
             F.relu, head.deform_conv2d_nhwc = relu, dcn
             dc.deform_conv2d_exact, dc.modulated_deform_conv2d = exact, \
                 windowed
+            dc.deform_conv2d_nhwc, ga.deform_conv2d_nhwc = nhwc, ga_dcn
 
 
 def toy_train_case(kind='dynamask'):
@@ -1730,8 +1857,8 @@ def toy_train_case(kind='dynamask'):
     a synthetic batch of 2 images at 128x128 (with RefineMask's
     ``gt_semantic``, HTC's ``gt_semantic_seg``), the same batch with its
     image perturbed by INPUT_NOISE (relative), and the random draws
-    (sampler priorities, each cascade stage's among them, Gumbel
-    uniforms)."""
+    (sampler priorities, each cascade stage's among them, GA's shape
+    sampler's, Gumbel uniforms). SAC's offset convs start off zero too."""
     import numpy as np
     import torch
     from dynamask_torch.apis import semantic_seg_shape, synthetic_batch
@@ -1742,7 +1869,8 @@ def toy_train_case(kind='dynamask'):
                          device='cpu', seed=0).train()
     with torch.no_grad():
         for name, p in ref.named_parameters():
-            if 'conv_offset' in name:
+            if any(k in name for k in ('conv_offset', 'offset_s',
+                                       'offset_l')):
                 p.copy_(torch.randn(p.shape, generator=torch.Generator(
                 ).manual_seed(2)) * 0.05)
     model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
@@ -1755,15 +1883,21 @@ def toy_train_case(kind='dynamask'):
     noisy = dict(batch, image=batch['image'] * (1 + INPUT_NOISE * torch.randn(
         batch['image'].shape, generator=torch.Generator().manual_seed(5))))
     rng = np.random.RandomState(4)
-    n_anchors = 3 * sum((hw // s) ** 2 for s in (4, 8, 16, 32, 64))
+    # a GA-RPN samples the squares, one a location
+    n_anchors = (1 if kind in GA_TOYS else 3) * sum(
+        (hw // s) ** 2 for s in (4, 8, 16, 32, 64))
+    cascade = kind in CASCADE_TOYS or kind == 'detectors'
     rcnn = cfg.train_cfg.rcnn
-    sampler = (rcnn[0] if kind in CASCADE_TOYS else rcnn).sampler
+    sampler = (rcnn[0] if cascade else rcnn).sampler
     max_pos = int(sampler.num * sampler.pos_fraction)
     noise = {'rpn': rng.uniform(size=(b, n_anchors)),
              'rcnn': rng.uniform(size=(
                  b, max_gts + cfg.train_cfg.rpn_proposal.max_num)),
              'gumbel': rng.uniform(1e-4, 1 - 1e-4, (b * max_pos, 4))}
-    if kind in CASCADE_TOYS:
+    if kind in GA_TOYS:     # the shape sampler's draws
+        noise['ga_pos'] = rng.uniform(size=(b, n_anchors))
+        noise['ga_neg'] = rng.uniform(size=(b, n_anchors))
+    if cascade:
         # every stage's draws (models/cascade_roi_head.py): a later stage
         # samples from the previous one's slots, at most sampler.num; HTC's
         # stage-0 mask resample has the GTs in front of them
@@ -1787,6 +1921,7 @@ def toy_train_step(net, data, noise, proposals=None):
     caller may pin the sides of its kinks (:class:`KinkSides`)."""
     import torch
     import dynamask_torch.models.detectors as detectors
+    import dynamask_torch.models.guided_anchor as ga
     from dynamask_torch.models.detectors import parse_losses
     dev = net.device
     orig = detectors.rpn_get_proposals
@@ -1799,14 +1934,14 @@ def toy_train_step(net, data, noise, proposals=None):
         return type(proposals)(*[t.to(dev) for t in proposals])
 
     net.zero_grad(set_to_none=True)
-    detectors.rpn_get_proposals = hook
+    detectors.rpn_get_proposals = ga.rpn_get_proposals = hook
     try:
         total, log = parse_losses(net.forward_train(
             {k: v.to(dev) for k, v in data.items()},
             {k: v.to(dev) for k, v in noise.items()}))
         total.backward()
     finally:
-        detectors.rpn_get_proposals = orig
+        detectors.rpn_get_proposals = ga.rpn_get_proposals = orig
     logs = {k: float(v.detach()) for k, v in log.items()}
     grads = {k: (p.grad.detach().cpu().double() if p.grad is not None
                  else torch.zeros(p.shape, dtype=torch.float64))
@@ -2798,16 +2933,22 @@ def config_modes(name):
 
 
 def det_slots(model) -> int:
-    """The det slots of an image: the RoI head's ``max_per_img``, or a
-    single-stage detector's."""
+    """The det slots of an image: the RoI head's ``max_per_img``, a
+    single-stage detector's, or a proposal detector's proposals."""
     rh = getattr(model, 'roi_head', None)
-    return rh.max_per_img if rh is not None else \
-        model.test_cfg['max_per_img']
+    if rh is not None:
+        return rh.max_per_img
+    if hasattr(model, 'test_cfg'):
+        return model.test_cfg['max_per_img']
+    return model.rpn_max_num
 
 
 def num_classes(model) -> int:
+    """The classes of the dets (one for a proposal detector's)."""
     rh = getattr(model, 'roi_head', None)
-    return rh.num_classes if rh is not None else model.num_classes
+    if rh is not None:
+        return rh.num_classes
+    return getattr(model, 'num_classes', 1)
 
 
 def run_config_inference(report, card, name, path, hw, modes, repeats=5,
@@ -4195,17 +4336,20 @@ def counted_dcn_forms():
         dc.deform_conv2d_exact, dc.modulated_deform_conv2d = exact, windowed
 
 
-def check_dcn_forms(report, name, counts):
-    """A DCNv2 drive's calls are whole forwards of ``DCN_FORMS[name]``."""
-    exact, windowed = DCN_FORMS[name]
-    n = (counts['exact'] + counts['windowed']) // (exact + windowed)
-    if n < 1 or (counts['exact'], counts['windowed']) != (exact * n,
-                                                          windowed * n):
+def check_dcn_forms(report, name, counts, forms=None, section='item7'):
+    """A drive's calls are whole forwards of ``forms`` (``DCN_FORMS[name]``
+    by default): (exact-gather, windowed DCNv2) calls a forward; (0, 0)
+    asks for none."""
+    exact, windowed = forms or DCN_FORMS[name]
+    per = exact + windowed
+    n = (counts['exact'] + counts['windowed']) // per if per else 0
+    if (per and n < 1) or (counts['exact'], counts['windowed']) != (
+            exact * n, windowed * n):
         raise RuntimeError(f'{name}: DCN forms {counts}, expected '
                            f'{exact} exact and {windowed} windowed a forward')
     print(f'  {name}: {n} forwards, each {exact} exact-gather and '
           f'{windowed} windowed DCNs')
-    report['item7'].setdefault('dcn_forms', {})[name] = dict(counts,
+    report[section].setdefault('dcn_forms', {})[name] = dict(counts,
                                                              forwards=n)
 
 
@@ -4323,7 +4467,6 @@ def check_item7_toys(report):
     siblings plus the gradients."""
     import copy
     import torch
-    from dynamask_torch.apis import synthetic_batch
     from dynamask_torch.models import build_detector
     gen = torch.Generator().manual_seed(1)
     img = torch.randn(1, 128, 128, 3, generator=gen)
@@ -4352,7 +4495,21 @@ def check_item7_toys(report):
                                'CPU reference')
         del ref, model
         check_toy_train_against_cpu(report, kind)
-    cfg = item7_toy('fcos_dcn')
+    check_dense_toy(report, 'fcos_dcn', item7_toy('fcos_dcn'), 4)
+
+
+def check_dense_toy(report, name, cfg, n_offsets, noise=None):
+    """A dense-head toy (``cfg``) on the card against the CPU: built on the
+    CPU with N(0, 0.05) weights from seed 0 and copied to the card; two
+    seeded 96x128 images through ``simple_test`` (labels and validity
+    equal, dets within TOY_DET_TOL) and a training step with ``noise``'s
+    draws (each loss within TOY_LOSS_RTOL, every gradient within
+    TOY_GRAD_RL2 relative L2 or the CPU's own noise; ``n_offsets`` offset
+    conv tensors among them)."""
+    import copy
+    import torch
+    from dynamask_torch.apis import synthetic_batch
+    from dynamask_torch.models import build_detector
     cpu = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
                          device='cpu', seed=0, init_std=0.05)
     gpu = copy.deepcopy(cpu).to(DEVICE)
@@ -4364,7 +4521,7 @@ def check_item7_toys(report):
     if not all(torch.equal(got[k].cpu(), ref[k]) for k in (
             'labels', 'det_valid')) or err > TOY_DET_TOL or int(
             ref['det_valid'].sum()) < 4:
-        raise RuntimeError(f'toy fcos_dcn: the card\'s dets differ from the '
+        raise RuntimeError(f'toy {name}: the card\'s dets differ from the '
                            f'CPU\'s (max abs err {err})')
     # the step's losses and gradients as phase 3's two-stage toys hold
     # them: the CPU on the card's side of each kink, each gradient within
@@ -4378,8 +4535,9 @@ def check_item7_toys(report):
 
     def step(net, batch):
         net.train().zero_grad(set_to_none=True)
-        losses = net.forward_train({k: v.to(net.device)
-                                    for k, v in batch.items()})
+        losses = net.forward_train(
+            {k: v.to(net.device) for k, v in batch.items()},
+            {k: v.to(net.device) for k, v in (noise or {}).items()})
         sum(v for k, v in losses.items() if 'loss' in k).backward()
         return ({k: float(v.detach()) for k, v in losses.items()},
                 {k: p.grad.detach().cpu().double()
@@ -4405,19 +4563,21 @@ def check_item7_toys(report):
         if max(g.norm().item(), grads['gpu'][k].norm().item()) > zero)
     offsets = {k: d for _, d, k in rows if 'conv_offset' in k}
     if (max(rel.values()) > TOY_LOSS_RTOL or rows[-1][0] > 1.0 or
-            len(offsets) != 4):
-        raise RuntimeError(f'toy fcos_dcn: losses {rel}, worst gradient '
+            len(offsets) != n_offsets):
+        raise RuntimeError(f'toy {name}: losses {rel}, worst gradient '
                            f'{rows[-1]}, offset convs {offsets}')
-    print(f'  toy fcos_dcn: {int(ref["det_valid"].sum())} valid dets, labels '
+    print(f'  toy {name}: {int(ref["det_valid"].sum())} valid dets, labels '
           f'and validity equal, dets max abs err {err:.3g} (tol '
           f'{TOY_DET_TOL}); losses max rel err {max(rel.values()):.3g} (tol '
           f'{TOY_LOSS_RTOL}); {len(rows)} gradients, the nearest its '
           f'tolerance {rows[-1][2]} {rows[-1][1]:.3g} (max({TOY_GRAD_RL2}, '
           f'{TOY_GRAD_FLOOR} x CPU noise)), the offset convs\' max '
           f'{max(offsets.values()):.3g}; kink inputs moved {sides.moved}')
-    report['toy'].append(dict(toy='item7_fcos_dcn', dets_max_abs_err=err,
+    report['toy'].append(dict(toy=f'dense_{name}', dets_max_abs_err=err,
                               loss_rel_err=rel,
                               grad_rel_l2={k: d for _, d, k in rows}))
+
+
 
 
 def run_item7(report, card):
@@ -4452,6 +4612,121 @@ def run_item7(report, card):
         torch.cuda.empty_cache()
     time_plain_dcn(report, card)
     check_item7_toys(report)
+    return launches
+
+
+# -- phase 17: guided anchoring and DetectoRS (item 9's first entry, item 8)
+
+K1, K3 = 'deform_im2col_windowed', 'deform_col2im_windowed'
+GA_DIR = os.path.join(ROOT, 'configs/guided_anchoring')
+DETECTORS_DIR = os.path.join(ROOT, 'configs/detectors')
+# (name, config, timed repeats of an image, timed steps (None: no step), an
+# image's launches, a step's, exact-gather calls a forward). K1 per
+# windowed DCN forward: GA-RPN's one FeatureAdaption on each of P2-P6,
+# GA-RetinaNet's two on each of P3-P7, the two branches of each of R50's 10
+# stride-1 SAC blocks in layer2-4 (each backbone pass); a step recomputes
+# K1 for the kernel's gradient and runs K3 once a DCN. The 3 strided SAC
+# blocks' two branches take the exact gather (plain PyTorch); HTC with RFP
+# alone builds SAC with plain branches (3aw)
+ITEM9_CELLS = (
+    ('ga_rpn', os.path.join(GA_DIR, 'ga_rpn_r50_fpn_1x_coco.py'), 2, 2,
+     {K1: 5}, {K1: 10, K3: 5}, 0),
+    ('ga_faster', os.path.join(GA_DIR, 'ga_faster_r50_fpn_1x_coco.py'), 2,
+     2, {K1: 5, 'roi_align_fwd': 1},
+     {K1: 10, K3: 5, 'roi_align_fwd': 1, 'roi_align_bwd': 1}, 0),
+    ('ga_retinanet', os.path.join(GA_DIR, 'ga_retinanet_r50_fpn_1x_coco.py'),
+     2, 2, {K1: 10}, {K1: 20, K3: 10}, 0),
+    ('sac_cascade_rcnn', os.path.join(DETECTORS_DIR,
+                                      'cascade_rcnn_r50_sac_1x_coco.py'),
+     1, 1, {K1: 20, 'roi_align_fwd': 3},
+     {K1: 40, K3: 20, 'roi_align_fwd': 3, 'roi_align_bwd': 3}, 6),
+    ('detectors_htc', os.path.join(DETECTORS_DIR,
+                                   'detectors_htc_r50_1x_coco.py'),
+     1, None, {K1: 40, 'roi_align_fwd': 8}, None, 12),
+    ('htc_rfp', os.path.join(DETECTORS_DIR, 'htc_r50_rfp_1x_coco.py'), 1,
+     None, {'roi_align_fwd': 8}, None, 0),
+)
+
+
+def check_item9_toys(report):
+    """Phase 17's toys on the card against the same weights on the CPU:
+    the GA-Faster R-CNN and the DetectoRS Cascade Mask R-CNN (SAC + RFP)
+    toys through phase 3's inference check and training step (their
+    ``FeatureAdaption`` and SAC offset convs off zero, so K3's offset
+    gradient is exercised, and among the gradients compared), and a
+    GA-RetinaNet toy at :func:`single_stage_toy`'s width (dets, losses and
+    every gradient, its two offset convs' among them) with the shape
+    sampler's draws given."""
+    import copy
+    import numpy as np
+    import torch
+    from dynamask_torch.models import build_detector
+    gen = torch.Generator().manual_seed(1)
+    batch = {'image': torch.randn(1, 128, 128, 3, generator=gen),
+             'img_shape': torch.tensor([[128., 128.]]),
+             'scale_factor': torch.ones(1, 4)}
+    for kind in ITEM9_TWO_STAGE_TOYS:
+        cfg = toy_cfg(kind)
+        ref = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                             device='cpu', seed=0)
+        model = copy.deepcopy(ref).to(DEVICE)
+        a = ref.simple_test(batch)
+        b = {k: v.cpu() for k, v in model.simple_test(
+            {k: v.to(DEVICE) for k, v in batch.items()}).items()
+            if torch.is_tensor(v)}
+        errs = {k: (a[k].double() - b[k].double()).abs().max().item()
+                for k in ('dets', 'mask_probs') if k in a}
+        same = all(torch.equal(a[k], b[k]) for k in ('labels', 'det_valid'))
+        print(f'  toy {kind}: {int(a["det_valid"].sum())} dets, GPU vs CPU '
+              'max abs err ' + ', '.join(f'{k} {v:.3e}' for k, v in
+                                          errs.items()) +
+              f', labels/valid equal {same}')
+        report['toy'].append(dict(model=f'item9_{kind}',
+                                  same_labels_valid=same, **errs))
+        if not (same and max(errs.values()) < 1e-3):
+            raise RuntimeError(f'toy {kind}: GPU result disagrees with the '
+                               'CPU reference')
+        del ref, model
+        check_toy_train_against_cpu(report, kind)
+    cfg = single_stage_toy('ga_retinanet', os.path.join(
+        GA_DIR, 'ga_retinanet_r50_fpn_1x_coco.py'))
+    squares = sum(-(-96 // s) * -(-128 // s) for s in (8, 16, 32, 64, 128))
+    rng = np.random.RandomState(6)
+    noise = {k: torch.from_numpy(rng.uniform(size=(2, squares)).astype(
+        np.float32)) for k in ('ga_pos', 'ga_neg')}
+    check_dense_toy(report, 'ga_retinanet', cfg, 2, noise)
+
+
+def run_item9(report, card):
+    """Phase 17: guided anchoring's and DetectoRS' detectors from their
+    config files, unchanged, at full width: an image at the config's test
+    canvas with phase 4's weights protocol and steps at its train batch
+    from the JAX initialisation, each a counted warm-up held to its exact
+    launches of every kernel and to its exact-gather calls, then timed
+    repeats; then the toys on the card against the CPU."""
+    import torch
+    from dynamask_torch.apis import config_shapes
+    launches = {}
+    report['item9'] = {'inference': [], 'train': []}
+    for name, path, n_inf, n_steps, infer, step, exact in ITEM9_CELLS:
+        test_hw, images, train_hw = config_shapes(path)
+        with counted_dcn_forms() as forms:
+            got, recs = run_config_inference(
+                report, card, name, path, test_hw, (('infer', None, infer),),
+                repeats=n_inf)
+        check_dcn_forms(report, f'{name}_infer', forms, (exact, 0), 'item9')
+        launches.update(got)
+        report['item9']['inference'] += recs
+        if n_steps:
+            with counted_dcn_forms() as forms:
+                got, rec = run_config_train(report, card, name, path, images,
+                                            train_hw, step, repeats=n_steps)
+            check_dcn_forms(report, f'{name}_train', forms, (exact, 0),
+                            'item9')
+            launches.update(got)
+            report['item9']['train'].append(rec)
+        torch.cuda.empty_cache()
+    check_item9_toys(report)
     return launches
 
 
@@ -4573,8 +4848,14 @@ def main() -> int:
     t16 = time.perf_counter()
     launches.update(run_item7(report, card))
     report['phase16_s'] = time.perf_counter() - t16
+    print(f'  phase 16: {report["phase16_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 17: guided anchoring and DetectoRS [{card}]')
+    t17 = time.perf_counter()
+    launches.update(run_item9(report, card))
+    report['phase17_s'] = time.perf_counter() - t17
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 16: {report["phase16_s"]:.1f} s; the whole run '
+    print(f'  phase 17: {report["phase17_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s [{card}]')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}

@@ -41,19 +41,31 @@ class MaxIoUAssigner:
                  gt_labels: Optional[torch.Tensor] = None) -> AssignResult:
         """``boxes`` (N, 4) with ``box_valid`` (N,); ``gt_boxes`` (K, 4)
         with ``gt_valid`` (K,); optional ``gt_labels`` (K,)."""
-        num_gts = gt_boxes.shape[0]
         box_valid = box_valid.bool()
         gt_valid = gt_valid.bool()
         overlaps = bbox_overlaps(gt_boxes, boxes)               # (K, N)
         overlaps = torch.where(gt_valid[:, None] & box_valid[None, :],
                                overlaps, -1.0)
+        return self.assign_wrt_overlaps(overlaps, gt_valid, box_valid,
+                                        gt_labels)
+
+    def assign_wrt_overlaps(self, overlaps: torch.Tensor,
+                            gt_valid: torch.Tensor, box_valid: torch.Tensor,
+                            gt_labels: Optional[torch.Tensor] = None
+                            ) -> AssignResult:
+        """Steps 1-4 on a (K, N) overlap matrix whose invalid rows and
+        columns are already -1 (JAX ``assign_wrt_overlaps``, the entry of
+        guided anchoring's approx-max overlaps)."""
+        num_gts = overlaps.shape[0]
+        box_valid = box_valid.bool()
+        gt_valid = gt_valid.bool()
 
         # argmax takes the first of tied maxima, as jnp.argmax does
         max_overlaps = overlaps.max(0).values
         argmax = overlaps.argmax(0)
         gt_max = overlaps.max(1).values
-        assigned = torch.full((boxes.shape[0],), -1, dtype=torch.int64,
-                              device=boxes.device)
+        assigned = torch.full((overlaps.shape[1],), -1, dtype=torch.int64,
+                              device=overlaps.device)
         neg = (max_overlaps >= 0) & (max_overlaps < self.neg_iou_thr)
         assigned = torch.where(neg, 0, assigned)
         assigned = torch.where(max_overlaps >= self.pos_iou_thr, argmax + 1,
@@ -61,7 +73,7 @@ class MaxIoUAssigner:
         if self.match_low_quality:
             claim = ((gt_valid & (gt_max >= self.min_pos_iou))[:, None] &
                      (overlaps == gt_max[:, None]) & (overlaps > -1))
-            ids = torch.arange(num_gts, device=boxes.device)[:, None]
+            ids = torch.arange(num_gts, device=overlaps.device)[:, None]
             last = torch.where(claim, ids, -1).max(0).values
             assigned = torch.where(last >= 0, last + 1, assigned)
         assigned = torch.where(gt_valid.any(), assigned,

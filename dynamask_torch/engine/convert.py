@@ -40,7 +40,18 @@ that importer skips (ROADMAP.md queue 3, 3d, 3o, 3t, 3aa, 3ah):
   ``channel_add_fc1``, the LayerNorm ``channel_add_ln`` and
   ``channel_add_fc2`` (1x1 convs and a (C, 1, 1) affine in mmcv);
   ``GeneralizedAttention``'s flat ``appr_bias`` / ``geom_bias`` are JAX's
-  (heads, C / heads). The JAX importer has no rule for them (3al).
+  (heads, C / heads). The JAX importer has no rule for them (3al);
+* guided anchoring's heads: ``conv_loc``, ``conv_shape`` (and GA-RPN's
+  ``conv_cls`` / ``conv_reg``) under their own names, a
+  ``FeatureAdaption``'s ``conv_offset`` and its ``conv_adaption.weight``,
+  JAX's raw ``weight`` leaf (HWIO);
+* DetectoRS: a SAC ``conv2`` is JAX's ``sac_conv2`` (its ``weight`` and
+  ``weight_diff`` raw HWIO leaves, ``switch``, ``pre_context``,
+  ``post_context``, ``offset_s``, ``offset_l``), a block's ``rfp_conv``
+  its own; the RFP's backbones ``neck.rfp_modules.{i}`` are JAX's
+  ``neck/rfp_backbones_{i}``, its FPN's convs sit under ``neck/fpn``,
+  ``rfp_aspp.aspp.{i}`` is ``rfp_aspp/aspp_{i}``, ``rfp_weight`` its own
+  (the JAX importer skips or misplaces these, ROADMAP.md queue 3, 3ax).
 """
 
 from __future__ import annotations
@@ -67,7 +78,8 @@ def _resnet_key(key: str) -> Optional[Tuple[List[str], str]]:
     if m and int(m.group(1)) % 3 < 2:
         i = int(m.group(1))
         return [f'stem_{("conv", "bn")[i % 3]}{i // 3 + 1}'], m.group(2)
-    m = re.match(r'^layer(\d+)\.(\d+)\.(conv\d|bn\d|gn\d)\.(.+)$', key)
+    m = re.match(r'^layer(\d+)\.(\d+)\.(conv\d|bn\d|gn\d|rfp_conv)\.(.+)$',
+                 key)
     if m:
         s, b, mod, leaf = m.groups()
         return [f'layer{s}_block{b}', mod.replace('gn', 'bn')], leaf
@@ -152,9 +164,22 @@ _PLUGIN_KEYS = (
 )
 
 
-def _module_key(key: str, dcn, plugins):
-    """The key of a deformable conv or a plugin (module names of
-    :func:`key_hints`), or None."""
+_SAC_PARTS = (r'^(switch|pre_context|post_context|offset_s|offset_l)\.'
+              r'(weight|bias)$')
+
+
+def _module_key(key: str, dcn, plugins, sac=frozenset()):
+    """The key of a deformable conv, a plugin or a SAC conv (module names
+    of :func:`key_hints`), or None."""
+    for name in sac:
+        if key.startswith(name + '.'):
+            owner, _, _ = name.rpartition('.')
+            path = _block_path(owner) + ['sac_conv2']
+            rest = key[len(name) + 1:]
+            if rest in ('weight', 'weight_diff'):
+                return path, 'weight', {'flax_leaf': rest}
+            m = re.match(_SAC_PARTS, rest)
+            return None if m is None else (path + [m[1]], m[2], {})
     mod, _, leaf = key.rpartition('.')
     offset = mod.endswith('.conv_offset')
     conv_mod = mod[:-len('.conv_offset')] if offset else mod
@@ -182,11 +207,17 @@ def _module_key(key: str, dcn, plugins):
 
 def _block_path(owner: str) -> List[str]:
     """``backbone.layer{s}.{b}`` -> JAX's ``['backbone',
-    'layer{s}_block{b}']``."""
-    m = re.match(r'^backbone\.layer(\d+)\.(\d+)$', owner)
+    'layer{s}_block{b}']``; an RFP backbone's ``neck.rfp_modules.{i}.
+    layer{s}.{b}`` -> ``['neck', 'rfp_backbones_{i}', ...]``."""
+    m = re.match(r'^(backbone|neck\.rfp_modules\.(\d+))\.layer(\d+)\.(\d+)$',
+                 owner)
     if m is None:
         raise KeyError(f'no JAX block for {owner}')
-    return ['backbone', f'layer{m[1]}_block{m[2]}']
+    return _rfp_root(m[2]) + [f'layer{m[3]}_block{m[4]}']
+
+
+def _rfp_root(i: Optional[str]) -> List[str]:
+    return ['backbone'] if i is None else ['neck', f'rfp_backbones_{i}']
 
 
 def _fpn_conv(i: str, num_laterals: Optional[int], norm: bool = False
@@ -201,7 +232,8 @@ def _fpn_conv(i: str, num_laterals: Optional[int], norm: bool = False
 
 def mmdet_key(key: str, num_laterals: Optional[int] = None,
               backbone: Optional[str] = None, dcn=frozenset(),
-              plugins: Optional[Dict[str, str]] = None
+              plugins: Optional[Dict[str, str]] = None, sac=frozenset(),
+              fpn: Tuple[str, ...] = ('neck',)
               ) -> Optional[Tuple[List[str], str, Dict]]:
     """Port state-dict key -> (JAX tree path, torch leaf name, hints).
     ``num_laterals`` is the FPN's (:func:`neck_laterals`): its
@@ -209,14 +241,39 @@ def mmdet_key(key: str, num_laterals: Optional[int] = None,
     is the backbone's class name (:func:`key_hints`): HRNet's and
     Res2Net's keys map by their own rules, the others' as a ResNet's.
     ``dcn`` names the model's deformable convs, ``plugins`` maps each
-    block plugin's module name to its JAX name (:func:`key_hints`)."""
-    special = _module_key(key, dcn, plugins or {})
+    block plugin's module name to its JAX name, ``sac`` names the SAC
+    convs, ``fpn`` is the JAX path of the FPN's convs (DetectoRS' RFP
+    holds its FPN as ``neck/fpn``) (:func:`key_hints`)."""
+    special = _module_key(key, dcn, plugins or {}, sac)
     if special is not None:
         return special
     if key.startswith('backbone.'):
         r = _BACKBONE_KEYS.get(backbone, _resnet_key)(key[len('backbone.'):])
         return None if r is None else (['backbone'] + r[0], r[1], {})
+    m = re.match(r'^neck\.rfp_modules\.(\d+)\.(.+)$', key)
+    if m:
+        r = _resnet_key(m[2])
+        return None if r is None else (_rfp_root(m[1]) + r[0], r[1], {})
+    fpn = list(fpn)
     rules = [
+        # DetectoRS' RFP: the ASPP's convs and the fusion gate
+        (r'^neck\.rfp_aspp\.aspp\.(\d+)\.(weight|bias)$',
+         lambda m: (['neck', 'rfp_aspp', f'aspp_{m[1]}'], m[2], {})),
+        (r'^neck\.rfp_weight\.(weight|bias)$',
+         lambda m: (['neck', 'rfp_weight'], m[1], {})),
+        # guided anchoring's heads (JAX guided_anchor.py): the 1x1 location,
+        # shape, objectness and delta convs, each FeatureAdaption's offset
+        # conv and deformable kernel (a raw ``weight``)
+        (r'^rpn_head\.(conv_loc|conv_shape|conv_cls|conv_reg)\.'
+         r'(weight|bias)$', lambda m: (['rpn_head', m[1]], m[2], {})),
+        (r'^bbox_head\.(conv_loc|conv_shape)\.(weight|bias)$',
+         lambda m: (['bbox_head', m[1]], m[2], {})),
+        (r'^(rpn_head|bbox_head)\.(feature_adaption(?:_cls|_reg)?)\.'
+         r'conv_offset\.weight$',
+         lambda m: ([m[1], m[2], 'conv_offset'], 'weight', {})),
+        (r'^(rpn_head|bbox_head)\.(feature_adaption(?:_cls|_reg)?)\.'
+         r'conv_adaption\.weight$',
+         lambda m: ([m[1], m[2]], 'weight', {'flax_leaf': 'weight'})),
         # HRFPN's reduction conv, PAFPN's bottom-up convs (mmdet's
         # ``pafpn_convs[i - 1]`` is level i's, JAX's ``pafpn_conv_{i}``)
         (r'^neck\.reduction_conv\.conv\.(weight|bias)$',
@@ -226,15 +283,15 @@ def mmdet_key(key: str, num_laterals: Optional[int] = None,
         (r'^neck\.pafpn_convs\.(\d+)\.conv\.(weight|bias)$',
          lambda m: (['neck', f'pafpn_conv_{int(m[1]) + 1}'], m[2], {})),
         (r'^neck\.lateral_convs\.(\d+)\.conv\.(weight|bias)$',
-         lambda m: (['neck', f'lateral_{m[1]}'], m[2], {})),
+         lambda m: (fpn + [f'lateral_{m[1]}'], m[2], {})),
         (r'^neck\.fpn_convs\.(\d+)\.conv\.(weight|bias)$',
-         lambda m: (['neck', _fpn_conv(m[1], num_laterals)], m[2], {})),
+         lambda m: (fpn + [_fpn_conv(m[1], num_laterals)], m[2], {})),
         # the FPN's GroupNorms and BatchNorms (JAX fpn.py:37-44, both
         # named ``*_gn_*``), FPN_CARAFE's upsamplers (JAX carafe.py:88-93)
         (r'^neck\.lateral_convs\.(\d+)\.(gn|bn)\.' + _BN_LEAF + '$',
-         lambda m: (['neck', f'lateral_gn_{m[1]}'], m[3], {})),
+         lambda m: (fpn + [f'lateral_gn_{m[1]}'], m[3], {})),
         (r'^neck\.fpn_convs\.(\d+)\.(gn|bn)\.' + _BN_LEAF + '$',
-         lambda m: (['neck', _fpn_conv(m[1], num_laterals, True)], m[3],
+         lambda m: (fpn + [_fpn_conv(m[1], num_laterals, True)], m[3],
                     {})),
         # the dense heads (JAX single_stage.py, atss.py, fcos.py): the
         # towers' convs and norms (RetinaSepBNHead's convs shared by its
@@ -440,19 +497,25 @@ def neck_laterals(model: nn.Module) -> Optional[int]:
 
 def key_hints(model: nn.Module) -> Dict:
     """What :func:`mmdet_key` needs to know of ``model``: its FPN's
-    laterals, its backbone's class, its deformable convs' module names and
-    its block plugins' (module name -> JAX name)."""
+    laterals and JAX path, its backbone's class, its deformable convs' and
+    SAC convs' module names and its block plugins' (module name -> JAX
+    name)."""
+    from ..models.detectors_resnet import SAConv
     from ..models.layers import DeformConv2dPack
     bb = getattr(model, 'backbone', None)
-    dcn, plugins = set(), {}
+    dcn, sac, plugins = set(), set(), {}
     for name, m in model.named_modules():
         if isinstance(m, DeformConv2dPack):
             dcn.add(name)
+        if isinstance(m, SAConv):
+            sac.add(name)
         for _, plugin, jax_name in getattr(m, 'plugin_names', ()):
             plugins[f'{name}.{plugin}'] = jax_name
+    rfp = getattr(getattr(model, 'neck', None), 'takes_images', False)
     return dict(num_laterals=neck_laterals(model),
                 backbone=None if bb is None else type(bb).__name__,
-                dcn=frozenset(dcn), plugins=plugins)
+                dcn=frozenset(dcn), plugins=plugins, sac=frozenset(sac),
+                fpn=('neck', 'fpn') if rfp else ('neck',))
 
 
 def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:

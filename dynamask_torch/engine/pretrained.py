@@ -12,7 +12,10 @@ initialised. A tensor whose shape differs from the model's is reported and
 left as initialised, unless a module refuses it (its ``weight_fault``:
 an mmdet RegNet's ``conv2.weight``, grouped otherwise than JAX's,
 ROADMAP.md queue 3, 3ag; a ResNeXt's grouped ``conv2.weight`` for a
-deformable 3x3, 3ao; an mmdet FCOS head's DCNv2 offsets), which raises.
+deformable 3x3, 3ao; an mmdet FCOS head's DCNv2 offsets), which raises. A
+tensor the model lacks is reported as skipped, unless a module that sets
+``refuses_missing_keys`` refuses it (an mmdet DetectoRS checkpoint's
+``weight_gamma`` / ``weight_beta`` of ``ConvAWS``, 3at).
 """
 
 from __future__ import annotations
@@ -84,19 +87,23 @@ def apply_pretrained(model: torch.nn.Module, spec: Optional[str],
     sd = load_torch_state_dict(path)
     mmdet = any(k.startswith(MMDET_PREFIXES) for k in sd)
     own = model.state_dict()
-    faults = [(name + '.', m.weight_fault) for name, m in
-              model.named_modules() if name and hasattr(m, 'weight_fault')]
+    faults = [(name + '.', m) for name, m in model.named_modules()
+              if name and hasattr(m, 'weight_fault')]
     with torch.no_grad():
         for key, value in sd.items():
             name = key if mmdet else f'backbone.{key}'
             target = own.get(name)
+            if target is None or target.shape != value.shape:
+                why = next((m.weight_fault(name[len(p):], value.shape)
+                            for p, m in faults if name.startswith(p) and (
+                                target is not None or getattr(
+                                    m, 'refuses_missing_keys', False))),
+                           None)
+                if why:
+                    raise ValueError(f'pretrained {path}: {why}')
             if target is None:
                 report['skipped'].append(key)
             elif target.shape != value.shape:
-                why = next((f(name[len(p):], value.shape) for p, f in faults
-                            if name.startswith(p)), None)
-                if why:
-                    raise ValueError(f'pretrained {path}: {why}')
                 report['mismatched'].append(
                     f'{key}: file {tuple(value.shape)} vs model '
                     f'{tuple(target.shape)}')

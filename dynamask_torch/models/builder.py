@@ -1,16 +1,18 @@
 """Build the port's detector from a reference-schema config (port of the
-parts of ``dynamask_tpu/models/builder.py`` (the backbones :28-115,
-HRFPN :156-160, the FPN, PAFPN and ``FPN_CARAFE`` :178-220, the
+parts of ``dynamask_tpu/models/builder.py`` (the backbones :28-131,
+DetectoRS' among them, HRFPN :156-160, DetectoRS' RFP :191-206, the FPN,
+PAFPN and ``FPN_CARAFE`` :178-220, the GA-RPN family :826-877, the
 two-stage RoI head with its box heads, losses, extractors, samplers, test
 NMS and Double-Head :233-420,
 the RefineMask branch :451-494, the cascade heads :531-580,
 ``build_detector`` :1131-1214), ``dynamask_tpu/models/
 dynamask_roi_head.py:build_dynamask_roi_head`` (:422-464) and
 ``dynamask_tpu/models/htc.py:build_htc_roi_head`` (:385-460) that the
-Mask R-CNN, Faster / Fast R-CNN, RPN, DynaMask, RefineMask, Cascade R-CNN,
-HTC and the two-stage option configs use); the single-stage detectors
-(RetinaNet, FreeAnchor, ATSS, FCOS) come from ``single_stage_builder.py``
-over the backbone and neck built here.
+Mask R-CNN, Faster / Fast R-CNN, RPN, GA-RPN / GA-Faster R-CNN,
+DynaMask, RefineMask, Cascade R-CNN, HTC and the two-stage option configs
+use); the single-stage detectors (RetinaNet, FreeAnchor, GA-RetinaNet,
+ATSS, FCOS) come from ``single_stage_builder.py`` over the backbone and
+neck built here.
 
 Every key that changes the model is read, or refused with the ROADMAP.md
 item (§1) where its port is queued: a config the port builds computes the
@@ -52,7 +54,7 @@ from .fpn import PAFPN
 from .hrnet import HRFPN, HRNet
 from .regnet import RegNet
 from .res2net import Res2Net
-from .resnet import DROPPED, dcn_spec
+from .resnet import DROPPED, Backbone, dcn_spec
 
 
 def _cfg(d) -> dict:
@@ -70,9 +72,8 @@ def not_ported(what: str, item) -> NotImplementedError:
 # the legacy v1 keys that JAX's two-stage builder drops (ROADMAP.md queue
 # 3, 3c): refused here rather than dropped
 LEGACY = 'ROADMAP.md queue 3, 3c: the JAX package drops it'
-BACKBONE_ITEMS = {'DetectoRS_ResNet': 8, 'DetectoRS_ResNeXt': 8,
-                  'SSDVGG': 6, 'HourglassNet': 9}
-NECK_ITEMS = {'NASFPN': 8, 'BFP': 8, 'RFP': 8, 'NASFCOS_FPN': 6}
+BACKBONE_ITEMS = {'SSDVGG': 6, 'HourglassNet': 9}
+NECK_ITEMS = {'NASFPN': 8, 'BFP': 8, 'NASFCOS_FPN': 6}
 DETECTOR_ITEMS = {'GridRCNN': 9, 'MaskScoringRCNN': 9, 'PointRend': 9,
                   'CornerNet': 9, 'GFL': 6, 'FOVEA': 6, 'FSAF': 6,
                   'RepPointsDetector': 6, 'NASFCOS': 6}
@@ -196,13 +197,56 @@ def build_res2net(cfg: dict) -> Res2Net:
                       for k, v in cfg.items() if k in RES2NET_KEYS})
 
 
+# the DetectoRS backbone's keys that JAX reads (``builder.py:116-131``);
+# ``conv_cfg`` ConvAWS, which it drops, is computed as JAX computes it
+# (3at), ``output_img`` is what the RFP neck's call does in both packages
+DETECTORS_KEYS = ('type', 'depth', 'num_stages', 'out_indices',
+                  'frozen_stages', 'norm_eval', 'stage_with_sac', 'sac',
+                  'rfp_inplanes', 'groups', 'base_width', 'output_img',
+                  'conv_cfg')
+
+
+def build_detectors_resnet(cfg: dict):
+    """``DetectoRS_ResNet`` / ``DetectoRS_ResNeXt`` as the JAX builder
+    reads them, SAC in stages 2-4 by default where mmdet's default is
+    none (3aw); a ``conv_cfg`` other than ConvAWS (or none) is
+    refused."""
+    from .detectors_resnet import DetectoRS_ResNeXt, DetectoRSResNet
+    cfg.pop('pretrained', None)
+    _check_keys(cfg['type'], cfg, DETECTORS_KEYS,
+                dict(BN_DEFAULTS, zero_init_residual=True, with_cp=False,
+                     in_channels=3, stem_channels=64, base_channels=64,
+                     deep_stem=False, avg_down=False, dcn=None,
+                     stage_with_dcn=(False, False, False, False),
+                     plugins=None), DROPPED)
+    if _cfg(cfg.get('conv_cfg')) not in ({}, {'type': 'ConvAWS'}):
+        raise not_ported(f'DetectoRS conv_cfg {cfg["conv_cfg"]}', DROPPED)
+    sac = _cfg(cfg.get('sac'))
+    _check_keys('DetectoRS sac', sac, ('use_deform',), {'type': 'SAC'},
+                DROPPED)
+    resnext = cfg['type'] == 'DetectoRS_ResNeXt'
+    kw = dict(depth=cfg.get('depth', 50), num_stages=cfg.get('num_stages', 4),
+              out_indices=tuple(cfg.get('out_indices', (0, 1, 2, 3))),
+              frozen_stages=cfg.get('frozen_stages', 1),
+              norm_eval=cfg.get('norm_eval', True),
+              stage_with_sac=tuple(cfg.get('stage_with_sac',
+                                           (False, True, True, True))),
+              sac_use_deform=sac.get('use_deform', False),
+              rfp_inplanes=cfg.get('rfp_inplanes'),
+              groups=cfg.get('groups', 32 if resnext else 1),
+              base_width=cfg.get('base_width', 4))
+    return (DetectoRS_ResNeXt if resnext else DetectoRSResNet)(**kw)
+
+
 def build_backbone(cfg: dict):
     """``ResNet``, ``ResNeXt`` or ``ResNetV1d`` (``models/resnet.py``),
-    ``HRNet``, ``RegNet`` or ``Res2Net``."""
+    ``HRNet``, ``RegNet``, ``Res2Net`` or DetectoRS' ResNet / ResNeXt."""
     cfg = _cfg(cfg)
     t = cfg.get('type')
     built = {'HRNet': build_hrnet, 'RegNet': build_regnet,
-             'Res2Net': build_res2net}.get(t)
+             'Res2Net': build_res2net,
+             'DetectoRS_ResNet': build_detectors_resnet,
+             'DetectoRS_ResNeXt': build_detectors_resnet}.get(t)
     if built:
         return built(cfg)
     if t not in BACKBONES:
@@ -250,6 +294,8 @@ def build_neck(cfg: dict):
                      **{k: cfg[k] for k in ('out_channels', 'num_outs',
                                             'start_level', 'end_level')
                         if k in cfg})
+    if t == 'RFP':
+        return build_rfp(cfg)
     if t != 'FPN':
         raise not_ported(f'neck {t}', NECK_ITEMS.get(t, 9))
     fpn = {k: cfg.pop(k) for k in FPN_KEYS if k in cfg}
@@ -271,6 +317,33 @@ def build_neck(cfg: dict):
     _check_keys('FPN', cfg, ())
     fpn['in_channels'] = tuple(fpn['in_channels'])
     return NECKS.build(fpn)
+
+
+def build_rfp(cfg: dict):
+    """DetectoRS' ``RFP`` (JAX ``builder.py:191-206``): its FPN (the
+    keys JAX reads: ``in_channels``, ``out_channels``, ``num_outs``,
+    ``start_level``, ``add_extra_convs``), ``rfp_steps - 1`` backbones of
+    ``rfp_backbone``, the ASPP's widths and dilations."""
+    from .necks_extra import RFP
+    _check_keys('RFP', cfg, (
+        'type', 'rfp_steps', 'rfp_backbone', 'aspp_out_channels',
+        'aspp_dilations', 'in_channels', 'out_channels', 'num_outs',
+        'start_level', 'add_extra_convs'), dict(
+            end_level=-1, no_norm_on_lateral=False, norm_cfg=None,
+            conv_cfg=None, act_cfg=None, relu_before_extra_convs=False,
+            extra_convs_on_inputs=True), DROPPED)
+    if cfg.get('add_extra_convs', False) not in (False, True, 'on_input'):
+        raise not_ported(f'RFP add_extra_convs {cfg["add_extra_convs"]!r}',
+                         DROPPED)
+    return RFP(
+        rfp_backbones=[build_backbone(cfg['rfp_backbone'])
+                       for _ in range(cfg.get('rfp_steps', 2) - 1)],
+        aspp_out_channels=cfg.get('aspp_out_channels', 64),
+        aspp_dilations=tuple(cfg.get('aspp_dilations', (1, 3, 6, 1))),
+        in_channels=tuple(cfg['in_channels']),
+        out_channels=cfg.get('out_channels', 256),
+        num_outs=cfg.get('num_outs', 5), start_level=cfg.get('start_level', 0),
+        add_extra_convs=cfg.get('add_extra_convs', False))
 
 
 # what CARAFE takes from its ``upsample_cfg`` in the JAX package: its
@@ -316,7 +389,7 @@ def build_rpn_head(cfg: dict):
     cfg = _cfg(cfg)
     t = cfg.get('type')
     if t != 'RPNHead':
-        raise not_ported(f'rpn head {t}', 9 if t == 'GARPNHead' else 6)
+        raise not_ported(f'rpn head {t}', 6)
     anchor_cfg = _cfg(cfg.get('anchor_generator'))
     at = anchor_cfg.get('type', 'AnchorGenerator')
     if at != 'AnchorGenerator':
@@ -932,6 +1005,144 @@ def _rpn_cfg(anchor_cfg: dict, coder: dict, rpn_head_cfg: dict,
             'loss_weight', 1.0))
 
 
+# the keys of guided anchoring's heads and trainers that the JAX builders
+# read (``dynamask_tpu/models/builder.py:658-697, :826-877``); the others
+# at the values JAX computes with (3w)
+GA_HEAD_KEYS = ('type', 'in_channels', 'feat_channels', 'deform_groups',
+                'approx_anchor_generator', 'square_anchor_generator',
+                'anchor_coder', 'bbox_coder', 'loc_filter_thr', 'loss_loc',
+                'loss_shape', 'loss_cls', 'loss_bbox')
+GA_FOCAL = dict(type='FocalLoss', use_sigmoid=True, gamma=2.0, alpha=0.25,
+                loss_weight=1.0)
+ZERO4 = (0., 0., 0., 0.)
+
+
+def ga_anchor_cfg(hc: dict, strides, octave_base_scale: float) -> dict:
+    """The approx generator's octave scales, ratios and strides; the square
+    generator, which JAX does not read, only as it builds it (ratio 1 at
+    the octave base scale on the approx strides)."""
+    a = _cfg(hc.get('approx_anchor_generator'))
+    _check_keys('approx_anchor_generator', a, (
+        'type', 'octave_base_scale', 'scales_per_octave', 'ratios',
+        'strides'), {'center_offset': 0.0}, DROPPED)
+    if a.get('type', 'AnchorGenerator') != 'AnchorGenerator':
+        raise not_ported(f'approx anchor generator {a["type"]}', DROPPED)
+    out = dict(octave_base_scale=a.get('octave_base_scale',
+                                       octave_base_scale),
+               scales_per_octave=a.get('scales_per_octave', 3),
+               anchor_ratios=tuple(a.get('ratios', (0.5, 1.0, 2.0))),
+               anchor_strides=tuple(a.get('strides', strides)))
+    sq = _cfg(hc.get('square_anchor_generator'))
+    _check_keys('square_anchor_generator', sq, (), dict(
+        type='AnchorGenerator', ratios=[1.0],
+        scales=[out['octave_base_scale']],
+        strides=list(out['anchor_strides']), center_offset=0.0), DROPPED)
+    return out
+
+
+def ga_losses(hc: dict, cls_loss: dict) -> dict:
+    """The GA heads' losses as JAX applies them: its focal location loss
+    (gamma 2, alpha 0.25) and ``cls_loss``, both at weight 1; the bounded
+    IoU shape loss's and the SmoothL1 box loss's ``beta``."""
+    _check_keys('loss_loc', _cfg(hc.get('loss_loc')), (), GA_FOCAL, DROPPED)
+    _check_keys('loss_cls', _cfg(hc.get('loss_cls')), (), cls_loss, DROPPED)
+    ls = _cfg(hc.get('loss_shape'))
+    _check_keys('loss_shape', ls, ('beta',), dict(
+        type='BoundedIoULoss', loss_weight=1.0, eps=1e-3), DROPPED)
+    lb = _cfg(hc.get('loss_bbox'))
+    _check_keys('GA loss_bbox', lb, ('beta',), dict(
+        type='SmoothL1Loss', loss_weight=1.0), DROPPED)
+    return dict(shape_beta=ls.get('beta', 0.2), beta=lb.get('beta'))
+
+
+def ga_train_cfg(tr: dict, extra=()) -> dict:
+    """A GA head's training config: the ``ga_assigner`` (approx max IoU)
+    and ``ga_sampler`` (random, no GTs added) and the region ratios; ->
+    the keyword arguments they give."""
+    ga_as, ga_sm = _cfg(tr.get('ga_assigner')), _cfg(tr.get('ga_sampler'))
+    _check_keys('ga_assigner', ga_as, ('pos_iou_thr', 'neg_iou_thr',
+                                       'min_pos_iou'),
+                dict(type='ApproxMaxIoUAssigner', ignore_iof_thr=-1,
+                     gt_max_assign_all=True, match_low_quality=True),
+                DROPPED)
+    _check_keys('ga_sampler', ga_sm, ('num', 'pos_fraction'), dict(
+        type='RandomSampler', neg_pos_ub=-1, add_gt_as_proposals=False),
+        DROPPED)
+    _check_keys('GA train_cfg', tr, ('ga_assigner', 'ga_sampler',
+                                     'center_ratio', 'ignore_ratio') +
+                tuple(extra),
+                {'allowed_border': -1, 'pos_weight': -1, 'debug': False},
+                DROPPED)
+    return dict(ga_pos_iou_thr=ga_as.get('pos_iou_thr', 0.7),
+                ga_neg_iou_thr=ga_as.get('neg_iou_thr', 0.3),
+                ga_min_pos_iou=ga_as.get('min_pos_iou', 0.3),
+                ga_sample_num=ga_sm.get('num', 256),
+                ga_pos_fraction=ga_sm.get('pos_fraction', 0.5),
+                center_ratio=tr.get('center_ratio', 0.2),
+                ignore_ratio=tr.get('ignore_ratio', 0.5))
+
+
+def build_ga_rpn_family(t: str, cfg: dict, train_cfg: dict, test_cfg: dict,
+                        modules: dict):
+    """GA-RPN (``RPN``) and GA-Faster R-CNN (``FasterRCNN``) over a
+    ``GARPNHead`` (JAX ``builder.py:826-877``). ``anchor_coder`` is read
+    by neither package's code path: the guided anchors are decoded with
+    unit stds (3aq), logged, not refused, as every file of the family
+    names other stds. The proposals take ``max_num`` and ``nms_thr`` from
+    ``train_cfg.rpn_proposal`` at test time too, as in JAX."""
+    from .guided_anchor import GAFasterRCNN, GARPN, GARPNHead
+    hc = _cfg(cfg['rpn_head'])
+    _check_keys('GARPNHead', hc, GA_HEAD_KEYS, item=DROPPED)
+    coders = [_cfg(hc.get(k)) for k in ('anchor_coder', 'bbox_coder')]
+    for name, coder in zip(('anchor_coder', 'bbox_coder'), coders):
+        _check_coder(f'GARPNHead {name}', coder)
+        if tuple(coder.get('target_means', ZERO4)) != ZERO4:
+            raise not_ported(f'GARPNHead {name} target_means (JAX decodes '
+                             'with zero means)', DROPPED)
+    losses = ga_losses(hc, dict(type='CrossEntropyLoss', use_sigmoid=True,
+                                loss_weight=1.0))
+    tr = _cfg(train_cfg)
+    rpn_tr = _cfg(tr.get('rpn'))
+    asg, smp = _cfg(rpn_tr.get('assigner')), _cfg(rpn_tr.get('sampler'))
+    _check_sampling('rpn', asg, smp)
+    _check_keys('GA rpn assigner', asg, ('type', 'pos_iou_thr',
+                                         'neg_iou_thr', 'min_pos_iou'),
+                {'match_low_quality': True, 'ignore_iof_thr': -1,
+                 'gt_max_assign_all': True}, DROPPED)
+    _check_keys('GA rpn sampler', smp, ('type', 'num', 'pos_fraction'),
+                {'neg_pos_ub': -1, 'add_gt_as_proposals': False}, DROPPED)
+    kw = ga_train_cfg(rpn_tr, ('assigner', 'sampler'))
+    proposal = _cfg(tr.get('rpn_proposal'))
+    test = _cfg(_cfg(test_cfg).get('rpn'))
+    prop = dict(max_num=proposal.get('max_num', 300),
+                nms_thr=proposal.get('nms_thr', 0.7))
+    for k, v in prop.items():
+        if test.get(k, v) != v:
+            raise not_ported(f'GA test_cfg.rpn {k} {test[k]} other than '
+                             f'rpn_proposal\'s {v} (JAX takes the latter at '
+                             'test time)', DROPPED)
+    args = dict(
+        **ga_anchor_cfg(hc, (4, 8, 16, 32, 64), 8), **kw,
+        target_stds=tuple(coders[1].get('target_stds',
+                                        (0.07, 0.07, 0.11, 0.11))),
+        rpn_pos_iou_thr=asg.get('pos_iou_thr', 0.7),
+        rpn_neg_iou_thr=asg.get('neg_iou_thr', 0.3),
+        rpn_min_pos_iou=asg.get('min_pos_iou', 0.3),
+        rpn_num_samples=smp.get('num', 256),
+        rpn_pos_fraction=smp.get('pos_fraction', 0.5),
+        shape_beta=losses['shape_beta'],
+        rpn_beta=1.0 if losses['beta'] is None else losses['beta'],
+        loc_filter_thr=hc.get('loc_filter_thr', 0.01),
+        rpn_nms_pre_train=proposal.get('nms_pre', 2000),
+        rpn_nms_pre_test=test.get('nms_pre', 1000),
+        rpn_max_num=prop['max_num'], rpn_nms_thr=prop['nms_thr'])
+    head = GARPNHead(hc.get('in_channels', 256), hc.get('feat_channels', 256),
+                     hc.get('deform_groups', 4))
+    if t == 'RPN':
+        return GARPN(rpn_head=head, **modules, **args)
+    return GAFasterRCNN(rpn_head=head, **modules, **args)
+
+
 DETECTOR_TYPES = ('MaskRCNN', 'FasterRCNN', 'FastRCNN', 'RPN')
 # the cascade detectors are the JAX package's ``TwoStageDetector``
 # (``dynamask_tpu/models/builder.py:1177-1178``): the port's two-stage one
@@ -970,6 +1181,15 @@ def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
         modules = dict(backbone=build_backbone(cfg['backbone']),
                        neck=build_neck(cfg.get('neck')))
         _check_keys(t, cfg, parts)
+        if _cfg(cfg.get('rpn_head')).get('type') == 'GARPNHead':
+            if t not in ('RPN', 'FasterRCNN'):
+                raise not_ported(f'a GARPNHead under {t} (the port has GA-RPN '
+                                 'and GA-Faster R-CNN)', 'no item')
+            if t != 'RPN':
+                modules['roi_head'] = build_roi_head(cfg['roi_head'],
+                                                     train_cfg, test_cfg)
+            det = build_ga_rpn_family(t, cfg, train_cfg, test_cfg, modules)
+            return _materialise(det, dev, seed, init_std)
         if t != 'RPN':
             modules['roi_head'] = build_roi_head(cfg['roi_head'], train_cfg,
                                                  test_cfg)
@@ -1008,7 +1228,9 @@ def _materialise(det, dev: torch.device, seed: int,
     """``det``, built on the ``meta`` device, with its frozen stages frozen,
     materialised on ``dev`` and initialised from ``seed``, in eval mode
     and ``channels_last``; on ``meta``, its structure alone."""
-    det.backbone.freeze_stages()
+    for m in det.modules():     # the RFP's backbones' stages too
+        if isinstance(m, Backbone):
+            m.freeze_stages()
     if dev.type == 'meta':
         return det.eval()
     det = det.to_empty(device=dev)

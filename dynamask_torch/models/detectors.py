@@ -47,9 +47,17 @@ class _Detector(nn.Module):
         return next(self.parameters()).device
 
     def extract_feat(self, images: torch.Tensor):
-        """NCHW images -> FPN levels P2..P6 (NCHW, ``channels_last``)."""
+        """NCHW images -> FPN levels P2..P6 (NCHW, ``channels_last``). A
+        neck that ``takes_images`` (DetectoRS' RFP, which runs more
+        backbone passes over them) is called with the images too, as JAX
+        calls ``neck(images, feats)`` (``dynamask_tpu/models/detectors.py:
+        61-68``), and opens its own ranges: ``fpn`` for its first pyramid,
+        ``rfp_backbone`` (ASPP and the backbone pass) and ``rfp_neck``
+        (pyramid and gate) for each round."""
         with record_function('backbone'):
             c = self.backbone(images)
+        if getattr(self.neck, 'takes_images', False):
+            return self.neck(images, c)
         with record_function('fpn'):
             return self.neck(c)
 

@@ -91,8 +91,10 @@ class FCOSHead(WeightFaults, nn.Module):
             conv = getattr(self, parts[0])[int(parts[1])].conv
         except (AttributeError, IndexError, ValueError):
             return None
+        if not isinstance(conv, DeformConv2dPack):
+            return None
         want = tuple(getattr(conv.conv_offset, parts[4]).shape)
-        if not isinstance(conv, DeformConv2dPack) or tuple(shape) == want:
+        if tuple(shape) == want:
             return None
         return (f'{key}: the checkpoint\'s {tuple(shape)} does not fit this '
                 f'head\'s DCNv1 offsets {want} (the JAX package builds '

@@ -15,7 +15,7 @@ from ..core.bbox_transforms import bbox2delta, clip_boxes, delta2bbox
 from ..core.samplers import RandomSampler
 from ..ops.nms import batched_nms
 from ..utils.registry import HEADS
-from .losses import binary_cross_entropy_with_logits
+from .losses import binary_cross_entropy_with_logits, smooth_l1_elementwise
 
 
 class Proposals(NamedTuple):
@@ -65,32 +65,37 @@ def rpn_loss(cls_scores: List[torch.Tensor], bbox_preds: List[torch.Tensor],
              target_means=(0., 0., 0., 0.), target_stds=(1., 1., 1., 1.),
              loss_cls_weight: float = 1.0, loss_bbox_weight: float = 1.0,
              priorities: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None):
-    """Sigmoid BCE over the sampled anchors and L1 over the positive ones,
-    both divided by the batch's total sampled count. ``anchors`` (K, 4),
-    ``anchor_valid`` (B, K); ``priorities`` (B, K) sampler draws, else drawn
-    from ``generator``."""
+             generator: Optional[torch.Generator] = None,
+             smoothl1_beta: Optional[float] = None):
+    """Sigmoid BCE over the sampled anchors and L1 (SmoothL1 of
+    ``smoothl1_beta``, GA-RPN's) over the positive ones, both divided by
+    the batch's total sampled count. ``anchors`` (K, 4), or (B, K, 4) an
+    image's own (GA-RPN's guided anchors), ``anchor_valid`` (B, K);
+    ``priorities`` (B, K) sampler draws, else drawn from ``generator``."""
     flat_cls, flat_reg = _flatten_levels(cls_scores, bbox_preds)
     b, k = flat_cls.shape
+    anchors = anchors.expand(b, -1, -1)       # (B, K, 4): a view
     cls_sum = reg_sum = count = 0.0
     for i in range(b):
-        assign = assigner(anchors, anchor_valid[i], gt_boxes[i], gt_valid[i])
-        sample = sampler(assign, anchors, gt_boxes[i],
+        anc = anchors[i]
+        assign = assigner(anc, anchor_valid[i], gt_boxes[i], gt_valid[i])
+        sample = sampler(assign, anc, gt_boxes[i],
                          None if priorities is None else priorities[i],
                          generator)
         pos = (sample.is_pos & sample.valid).float()
-        w = torch.zeros(k, device=anchors.device).index_add(
+        w = torch.zeros(k, device=anc.device).index_add(
             0, sample.inds, sample.valid.float())
-        target = torch.zeros(k, device=anchors.device).index_add(
+        target = torch.zeros(k, device=anc.device).index_add(
             0, sample.inds, pos)
         deltas = bbox2delta(sample.boxes, sample.target_boxes, target_means,
                             target_stds)
-        reg_t = torch.zeros_like(anchors).index_add(
+        reg_t = torch.zeros_like(anc).index_add(
             0, sample.inds, deltas * pos[:, None])
         cls_sum = cls_sum + (binary_cross_entropy_with_logits(
             flat_cls[i], target) * w).sum()
-        reg_sum = reg_sum + ((flat_reg[i] - reg_t).abs() *
-                             target[:, None]).sum()
+        reg_l = ((flat_reg[i] - reg_t).abs() if smoothl1_beta is None else
+                 smooth_l1_elementwise(flat_reg[i], reg_t, smoothl1_beta))
+        reg_sum = reg_sum + (reg_l * target[:, None]).sum()
         count = count + w.sum()
     avg = count.clamp(min=1.0)
     return {'loss_rpn_cls': loss_cls_weight * cls_sum / avg,
@@ -108,7 +113,8 @@ def rpn_get_proposals(cls_scores: List[torch.Tensor],
                       pre_top_k: int = 3072) -> Proposals:
     """Per-level sigmoid scores -> top ``nms_pre`` -> decode and clip ->
     level-aware NMS -> ``max_num`` slots. Scores and deltas are NCHW conv
-    maps; they are read location-major, anchor-minor (the anchor layout)."""
+    maps; they are read location-major, anchor-minor (the anchor layout).
+    A level's anchors are (A, 4), or (B, A, 4) each image's own."""
     b = cls_scores[0].shape[0]
     lvl_boxes, lvl_scores, lvl_ids = [], [], []
     for lvl, (cs, bp, anc) in enumerate(zip(cls_scores, bbox_preds,
@@ -118,7 +124,9 @@ def rpn_get_proposals(cls_scores: List[torch.Tensor],
         top_s, top_i = torch.topk(scores, k, dim=1)
         deltas = bp.float().permute(0, 2, 3, 1).reshape(b, -1, 4)  # (B, HWA, 4)
         top_d = torch.gather(deltas, 1, top_i[..., None].expand(b, k, 4))
-        boxes = delta2bbox(anc[top_i], top_d, target_means, target_stds)
+        top_a = torch.gather(anc.expand(b, -1, -1), 1,
+                             top_i[..., None].expand(b, k, 4))
+        boxes = delta2bbox(top_a, top_d, target_means, target_stds)
         boxes = clip_boxes(boxes, img_shapes[:, None, :])
         lvl_boxes.append(boxes)
         lvl_scores.append(top_s)

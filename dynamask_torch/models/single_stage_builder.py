@@ -1,8 +1,8 @@
 """Build the single-stage detectors from a reference-schema config (port
 of the parts of ``dynamask_tpu/models/builder.py`` that build them:
 ``build_single_stage`` :614-770 for RetinaNet, its GHM, legacy v1 and
-SepBN forms and FreeAnchor, and ``build_detector``'s ATSS :886-915 and
-FCOS :1082-1127).
+SepBN forms, FreeAnchor and GA-RetinaNet (:658-697), and
+``build_detector``'s ATSS :886-915 and FCOS :1082-1127).
 
 As in ``models/builder.py``, every key that changes the model is read or
 refused, naming the ROADMAP.md item where its port is queued or the JAX
@@ -18,15 +18,16 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 from .atss import ATSS, ATSSHead
-from .builder import DROPPED, _cfg, _check_keys, not_ported
+from .builder import (DROPPED, GA_HEAD_KEYS, _cfg, _check_keys, ga_anchor_cfg,
+                      ga_losses, ga_train_cfg, not_ported)
 from .fcos import FCOS, FCOSHead, INF
 from .freeanchor import FreeAnchor
 from .single_stage import RetinaHead, RetinaNet, RetinaSepBNHead
 
 SINGLE_STAGE = ('RetinaNet', 'SingleStageDetector', 'ATSS', 'FCOS')
 # the dense heads the port lacks, by ROADMAP.md item
-HEAD_ITEMS = {'GARetinaHead': 9, 'PISARetinaHead': 9, 'SSDHead': 6,
-              'PISASSDHead': 9, 'NASFCOSHead': 6}
+HEAD_ITEMS = {'PISARetinaHead': 9, 'SSDHead': 6, 'PISASSDHead': 9,
+              'NASFCOSHead': 6}
 FOCAL = dict(type='FocalLoss', use_sigmoid=True, gamma=2.0, alpha=0.25,
              loss_weight=1.0)
 CENTERNESS = dict(type='CrossEntropyLoss', use_sigmoid=True, loss_weight=1.0)
@@ -140,11 +141,55 @@ RETINA_KEYS = ('type', 'num_classes', 'in_channels', 'stacked_convs',
 FREE_ANCHOR_KEYS = ('pre_anchor_topk', 'bbox_thr', 'gamma', 'alpha')
 
 
+def build_ga_retinanet(hc: dict, train_cfg: dict, test_cfg: dict, modules):
+    """GA-RetinaNet: RetinaNet over a ``GARetinaHead`` (JAX ``builder.py:
+    658-697``). JAX decodes the guided anchors and the boxes with
+    ``anchor_coder``'s stds and reads no ``bbox_coder``, which is accepted
+    only as the same coder; the focal losses are JAX's fixed gamma 2, alpha
+    0.25."""
+    from .guided_anchor import GARetinaHead, GARetinaNet
+    _check_keys('GARetinaHead', hc, GA_HEAD_KEYS + ('num_classes',
+                                                    'stacked_convs'),
+                item=DROPPED)
+    coder = _cfg(hc.get('anchor_coder'))
+    _check_keys('GARetinaHead anchor_coder', coder, ('target_stds',), dict(
+        type='DeltaXYWHBBoxCoder', target_means=[0., 0., 0., 0.],
+        clip_border=True), DROPPED)
+    stds = tuple(coder.get('target_stds', (1., 1., 1., 1.)))
+    _check_keys('GARetinaHead bbox_coder', _cfg(hc.get('bbox_coder')), (),
+                dict(coder, target_stds=list(stds)), DROPPED)
+    losses = ga_losses(hc, FOCAL)
+    tr = _cfg(train_cfg)
+    a = _cfg(tr.get('assigner'))
+    _check_keys('GA-RetinaNet assigner', a, ('pos_iou_thr', 'neg_iou_thr',
+                                             'min_pos_iou'),
+                dict(type='MaxIoUAssigner', ignore_iof_thr=-1,
+                     gt_max_assign_all=True, match_low_quality=True),
+                DROPPED)
+    kw = ga_train_cfg(tr, ('assigner',))
+    num_classes = hc.get('num_classes', 80)
+    head = GARetinaHead(num_classes, hc.get('in_channels', 256),
+                        hc.get('feat_channels', 256),
+                        hc.get('stacked_convs', 4), hc.get('deform_groups', 4))
+    return GARetinaNet(
+        bbox_head=head, **modules, num_classes=num_classes,
+        **ga_anchor_cfg(hc, (8, 16, 32, 64, 128), 4), target_stds=stds,
+        **kw, pos_iou_thr=a.get('pos_iou_thr', 0.5),
+        neg_iou_thr=a.get('neg_iou_thr', 0.5),
+        min_pos_iou=a.get('min_pos_iou', 0.0),
+        smoothl1_beta=0.04 if losses['beta'] is None else losses['beta'],
+        shape_beta=losses['shape_beta'],
+        loc_filter_thr=hc.get('loc_filter_thr', 0.01),
+        **_test_cfg(test_cfg, 0.5))
+
+
 def build_retinanet(cfg: dict, train_cfg: dict, test_cfg: dict, modules):
-    """RetinaNet (``RetinaHead``, ``RetinaSepBNHead``) and FreeAnchor
-    (``FreeAnchorRetinaHead``)."""
+    """RetinaNet (``RetinaHead``, ``RetinaSepBNHead``), FreeAnchor
+    (``FreeAnchorRetinaHead``) and GA-RetinaNet (``GARetinaHead``)."""
     hc = _cfg(cfg['bbox_head'])
     ht = hc.get('type')
+    if ht == 'GARetinaHead':
+        return build_ga_retinanet(hc, train_cfg, test_cfg, modules)
     if ht not in ('RetinaHead', 'RetinaSepBNHead', 'FreeAnchorRetinaHead'):
         raise not_ported(f'bbox head {ht}', HEAD_ITEMS.get(ht, 6))
     legacy = _legacy(hc)

@@ -86,6 +86,30 @@ def _geometry(offsets: torch.Tensor, h: int, w: int, k: int, padding: int,
     return rel_y0, rel_x0, ins, rel_y, rel_x, fy, fx, wy, wx
 
 
+def _offset_gates(rel_y0, rel_x0, rel_y, rel_x, fy, fx, window):
+    """Where each axis's offset gradient may be non-zero: the tent has a
+    slope (the clipped displacement is not an integer) and the clip passes
+    (the unclipped one lies strictly inside the window)."""
+    return ((rel_y > fy) & (rel_y0.abs() < window),
+            (rel_x > fx) & (rel_x0.abs() < window))
+
+
+def offset_grad_live(offsets: torch.Tensor, h: int, w: int,
+                     kernel_size: int = 3, padding: int = 1,
+                     dilation: int = 1, deform_groups: int = 1,
+                     window: int = 3) -> torch.Tensor:
+    """A bool tensor of ``offsets``' shape: True where the windowed DCN's
+    VJP lets the offset gradient be non-zero (the sample inside and the
+    axis's gate open, :func:`_offset_gates`); elsewhere K3 and its plain
+    version both give exactly 0 (the tent and clip rules, 3f)."""
+    rel_y0, rel_x0, ins, rel_y, rel_x, fy, fx, _, _ = _geometry(
+        offsets, h, w, kernel_size, padding, dilation, deform_groups, window)
+    gy, gx = _offset_gates(rel_y0, rel_x0, rel_y, rel_x, fy, fx, window)
+    inside = ins > 0
+    return torch.stack([gy & inside, gx & inside], -1).reshape(
+        offsets.shape)
+
+
 def _corner_index(n, h, w, g, fy, fx, window):
     """Row of the (y0, x0) corner in the zero-padded (n*Hp*Wp*g) plane
     buffer of :func:`_padded`, and the row step of one plane row."""
@@ -168,8 +192,9 @@ def deform_col2im_windowed_plain(x: torch.Tensor, offsets: torch.Tensor,
     # inside the window
     s_y = (dc * (e(wx0) * (v10 - v00) + e(wx1) * (v11 - v01))).sum(-1)
     s_x = (dc * (e(wy0) * (v01 - v00) + e(wy1) * (v11 - v10))).sum(-1)
-    d_ry = torch.where((rel_y > fy) & (rel_y0.abs() < d), s_y, 0.0)
-    d_rx = torch.where((rel_x > fx) & (rel_x0.abs() < d), s_x, 0.0)
+    gate_y, gate_x = _offset_gates(rel_y0, rel_x0, rel_y, rel_x, fy, fx, d)
+    d_ry = torch.where(gate_y, s_y, 0.0)
+    d_rx = torch.where(gate_x, s_x, 0.0)
     d_off = torch.stack([d_ry, d_rx], -1).reshape(offsets.shape)
     return d_x.to(x.dtype).contiguous(), d_off.to(offsets.dtype)
 

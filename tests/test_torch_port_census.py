@@ -16,8 +16,11 @@ RegNet (all but the mdconv file), Res2Net and PAFPN to 227, and with the
 backbones' deformable convs and block plugins (``configs/dcn/`` but its
 two RoI-pool files, ``gcnet/``, ``empirical_attention/``, GRoIE's two
 GCB files, HTC X101-64x4d's dconv file, FCOS's ``dcn_on_last_conv`` file
-and RegNetX-3.2GF's mdconv file: 37) to 264. The ``dconv`` files of GFL
-and RepPoints are still refused, for their detectors (item 6).
+and RegNetX-3.2GF's mdconv file: 37) to 264, and with guided anchoring
+(``configs/guided_anchoring/`` but its Fast R-CNN file, which built
+before: 16) and DetectoRS (``configs/detectors/``: 6) to 286. The
+``dconv`` files of GFL and RepPoints are still refused, for their
+detectors (item 6).
 """
 
 import glob
@@ -69,6 +72,12 @@ BUILDS = (
     'dcn/mask_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py',
     'dcn/mask_rcnn_r50_fpn_mdconv_c3-c5_1x_coco.py',
     'deepfashion/mask_rcnn_r50_fpn_15e_deepfashion.py',
+    'detectors/cascade_rcnn_r50_rfp_1x_coco.py',
+    'detectors/cascade_rcnn_r50_sac_1x_coco.py',
+    'detectors/detectors_cascade_rcnn_r50_1x_coco.py',
+    'detectors/detectors_htc_r50_1x_coco.py',
+    'detectors/htc_r50_rfp_1x_coco.py',
+    'detectors/htc_r50_sac_1x_coco.py',
     'double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py',
     'dynamask/cityscapes/r50_dynamask_cityscapes_1x.py',
     'dynamask/coco/r101_dynamask_3x.py',
@@ -175,6 +184,22 @@ BUILDS = (
     'groie/mask_rcnn_r50_fpn_groie_1x_coco.py',
     'groie/mask_rcnn_r50_fpn_syncbn-backbone_r4_gcb_c3-c5_groie_1x_coco.py',
     'guided_anchoring/ga_fast_r50_caffe_fpn_1x_coco.py',
+    'guided_anchoring/ga_faster_r101_caffe_fpn_1x_coco.py',
+    'guided_anchoring/ga_faster_r50_caffe_fpn_1x_coco.py',
+    'guided_anchoring/ga_faster_r50_fpn_1x_coco.py',
+    'guided_anchoring/ga_faster_x101_32x4d_fpn_1x_coco.py',
+    'guided_anchoring/ga_faster_x101_64x4d_fpn_1x_coco.py',
+    'guided_anchoring/ga_retinanet_r101_caffe_fpn_1x_coco.py',
+    'guided_anchoring/ga_retinanet_r101_caffe_fpn_mstrain_2x.py',
+    'guided_anchoring/ga_retinanet_r50_caffe_fpn_1x_coco.py',
+    'guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py',
+    'guided_anchoring/ga_retinanet_x101_32x4d_fpn_1x_coco.py',
+    'guided_anchoring/ga_retinanet_x101_64x4d_fpn_1x_coco.py',
+    'guided_anchoring/ga_rpn_r101_caffe_fpn_1x_coco.py',
+    'guided_anchoring/ga_rpn_r50_caffe_fpn_1x_coco.py',
+    'guided_anchoring/ga_rpn_r50_fpn_1x_coco.py',
+    'guided_anchoring/ga_rpn_x101_32x4d_fpn_1x_coco.py',
+    'guided_anchoring/ga_rpn_x101_64x4d_fpn_1x_coco.py',
     'hrnet/cascade_mask_rcnn_hrnetv2p_w18_20e_coco.py',
     'hrnet/cascade_mask_rcnn_hrnetv2p_w32_20e_coco.py',
     'hrnet/cascade_mask_rcnn_hrnetv2p_w40_20e_coco.py',

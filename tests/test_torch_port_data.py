@@ -425,11 +425,16 @@ def test_not_ported_parts_raise(coco_set):
 
 
 def test_imports_without_jax():
-    """No module of the port's data, engine, apis, utils or CLIs imports
-    jax or the JAX package."""
+    """No module of the port's data, engine, apis, utils or CLIs, nor
+    guided anchoring's or DetectoRS' model modules, imports jax or the JAX
+    package."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['dynamask_tpu'] = None; "
             "import dynamask_torch.data, dynamask_torch.apis, "
+            "dynamask_torch.models.guided_anchor, "
+            "dynamask_torch.models.detectors_resnet, "
+            "dynamask_torch.models.necks_extra, "
+            "dynamask_torch.models.single_stage_builder, "
             "dynamask_torch.tools.test, dynamask_torch.tools.train, "
             "dynamask_torch.engine.checkpoint, "
             "dynamask_torch.engine.pretrained, "

@@ -42,7 +42,8 @@ def _offsets(rng, n, s, g, k, padding, dilation, window):
 
 
 @pytest.mark.parametrize('padding,dilation,window',
-                         [(1, 1, 3), (2, 2, 3), (1, 1, 1), (1, 1, 2)])
+                         [(1, 1, 3), (2, 2, 3), (1, 1, 1), (1, 1, 2),
+                          (3, 3, 3)])
 def test_corners_lie_in_the_band(padding, dilation, window):
     """Every corner with a non-zero weight of an inside sample of output
     pixel (y, x) lies in rows and columns [y - window, y + window + 1]."""
@@ -65,6 +66,30 @@ def test_corners_lie_in_the_band(padding, dilation, window):
     assert -window in reached and window in reached
 
 
+@pytest.mark.parametrize('padding,dilation,window',
+                         [(1, 1, 3), (3, 3, 3), (1, 1, 2)])
+def test_offset_grad_live_is_the_plain_versions_rule(padding, dilation,
+                                                      window):
+    """``offset_grad_live``, which ``chip_smoke.py`` holds K3's exact zeros
+    to: the plain version's offset gradient is exactly 0 wherever it is
+    False (samples outside, integer and clipped displacements: a third of
+    them here) and non-zero wherever it is True; zero offsets make it
+    False everywhere (3f)."""
+    rng = np.random.RandomState(40 + padding + window)
+    n, s, g, c = 2, 11, 2, 8
+    off = _offsets(rng, n, s, g, 3, padding, dilation, window)
+    x = torch.from_numpy(rng.randn(n, s, s, c).astype(np.float32))
+    d_col = torch.from_numpy(
+        rng.randn(n, s, s, g, 9, c // g).astype(np.float32))
+    kw = dict(kernel_size=3, padding=padding, dilation=dilation,
+              deform_groups=g, window=window)
+    live = dc.offset_grad_live(off, s, s, **kw)
+    assert live.shape == off.shape and 0 < int(live.sum()) < live.numel()
+    _, d_off = dc.deform_col2im_windowed_plain(x, off, d_col, **kw)
+    assert not d_off[~live].any() and (d_off[live] != 0).all()
+    assert not dc.offset_grad_live(torch.zeros_like(off), s, s, **kw).any()
+
+
 # the shapes the port runs: the three SFM stages at inference (n = 100) and
 # in training (n = 512); (n, S, C, g, padding, dilation, window)
 MAIN_SHAPES = [(n, s, c, 2, 1, 1, 3) for n in (100, 512)
@@ -74,7 +99,7 @@ EDGE_SHAPES = [(2, 13, 64, 2, 1, 1, 3), (2, 17, 64, 2, 1, 1, 3),
                (2, 14, 64, 1, 1, 1, 3), (2, 9, 6, 2, 1, 1, 3),
                (2, 12, 20, 2, 1, 1, 3), (2, 14, 64, 2, 2, 2, 3),
                (2, 14, 64, 2, 1, 1, 1), (2, 14, 64, 2, 1, 1, 2),
-               (1, 28, 128, 2, 1, 1, 3)]
+               (1, 28, 128, 2, 1, 1, 3), (2, 14, 64, 1, 3, 3, 3)]
 
 
 @pytest.mark.parametrize('kernel', ['k1', 'k3'])
@@ -200,3 +225,85 @@ def test_k3_band_emulation_matches_plain_and_jax(band):
                                        atol=1e-4 * scale, err_msg=what)
     np.testing.assert_array_equal(bands[1].numpy() == 0,
                                   np.asarray(ref_off) == 0)
+
+
+# the whole maps guided anchoring and DetectoRS give K1/K3 at 800x1344, the
+# list phase 2 of chip_smoke.py compares on the card: (n, H, W, C, g,
+# padding, dilation)
+from chip_smoke import WHOLE_MAPS            # noqa: E402
+
+
+@pytest.mark.parametrize('kernel', ['k1', 'k3'])
+@pytest.mark.parametrize('shape', WHOLE_MAPS,
+                         ids=lambda s: 'n{}_{}x{}_C{}_g{}_p{}_d{}'.format(*s))
+def test_launch_config_on_whole_maps(shape, kernel):
+    """On the non-square whole maps: the bands cover every row once, the
+    table fits a block's shared memory, 16-byte quads and up to 32 lanes
+    (cg 64-512); the 32-bit indices the kernels check hold (a plane, a
+    band's column block, the grid; the 64-bit bases take the rest: GA-RPN's
+    P2 for four images is a 6.2e8-element column tensor); where the maps
+    give fewer than ``MIN_BLOCKS`` rows the bands narrow to one row and the
+    grid stays underfilled (``n * g * H`` blocks: 25 at layer4's 25x42 on
+    one image)."""
+    n, h, w, c, g, pad, dil = shape
+    cg = c // g
+    cfg = dc.dcn_launch_config(kernel, n, h, w, c, g, 3)
+    band, n_bands = cfg['band_rows'], cfg['n_bands']
+    assert n_bands == -(-h // band)
+    covered = np.zeros(h, int)
+    for b in range(n_bands):
+        covered[b * band:b * band + min(band, h - b * band)] += 1
+    assert (covered == 1).all()
+    assert 0 < cfg['smem_bytes'] <= 232_448
+    assert cfg['vec'] == 4 and (1 << cfg['lanes_log2']) == min(32, cg // 4)
+    blocks = n * g * n_bands
+    assert band == 1 or blocks >= dc.MIN_BLOCKS
+    if n * g * h < dc.MIN_BLOCKS:
+        assert band == 1 and blocks == n * g * h < dc.MIN_BLOCKS
+    assert h * w * c < 2 ** 31
+    assert min(band, h) * w * g * 9 * cg < 2 ** 31
+    assert blocks < 2 ** 31
+    if shape == (4, 200, 336, 256, 4, 1, 1):
+        assert n * h * w * 9 * c == 619_315_200
+
+
+@pytest.mark.parametrize('band', [1, 4])
+def test_k3_band_emulation_at_dilation_3(band):
+    """SAC's large branch: K3 band by band at padding and dilation 3 on a
+    non-square 13x10 plane, one deform group, equals the plain version to
+    1e-6 of the largest gradient and ``jax.grad`` of the JAX windowed DCN
+    to 1e-4, with the same exact zeros of d_offset; from zero offsets (the
+    SAC init) d_offset is exactly zero on all three (3f)."""
+    from dynamask_tpu.ops.deform_conv import deform_conv2d_windowed
+    rng = np.random.RandomState(30 + band)
+    n, h, w, c, c_out, g, pad, dil, window = 2, 13, 10, 8, 6, 1, 3, 3, 3
+    x = rng.randn(n, h, w, c).astype(np.float32)
+    wt = (rng.randn(3, 3, c, c_out) * 0.2).astype(np.float32)
+    ct = rng.randn(n, h, w, c_out).astype(np.float32)
+    w2 = dc.im2col_weight(torch.from_numpy(wt).permute(3, 2, 0, 1), g)
+    d_col = (torch.from_numpy(ct).reshape(-1, c_out) @ w2.t()).reshape(
+        n, h, w, g, 9, c // g)
+    xt = torch.from_numpy(x)
+    random = rng.uniform(-5, 5, (n, h, w, 18)).astype(np.float32)
+    for off in (random, np.zeros_like(random)):
+        ref_x, ref_off = jax.grad(
+            lambda a, o: jnp.sum(deform_conv2d_windowed(
+                a, o, jnp.asarray(wt), 3, 1, pad, dil, g, window) *
+                jnp.asarray(ct)), (0, 1))(jnp.asarray(x), jnp.asarray(off))
+        ot = torch.from_numpy(off)
+        plain = dc.deform_col2im_windowed_plain(xt, ot, d_col, 3, pad, dil,
+                                                g, window)
+        bands = _k3_by_bands(xt, ot, d_col, 3, pad, dil, g, window, band)
+        for what, a, b, r in zip(('d_x', 'd_offset'), bands, plain,
+                                 (ref_x, ref_off)):
+            r = np.asarray(r)
+            scale = float(np.abs(ref_x).max())
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=1e-6 * scale, err_msg=what)
+            for got in (a, b):
+                np.testing.assert_allclose(got.numpy(), r, rtol=1e-4,
+                                           atol=1e-4 * scale, err_msg=what)
+        np.testing.assert_array_equal(bands[1].numpy() == 0,
+                                      np.asarray(ref_off) == 0)
+        if not off.any():
+            assert not bands[1].any() and not plain[1].any()

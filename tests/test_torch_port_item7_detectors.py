@@ -357,3 +357,29 @@ def test_fcos_dcn_refuses_an_mmdet_dcnv2_offset_conv():
     sd[key] = torch.zeros(27, 32, 3, 3)
     with pytest.raises(ValueError, match='DCNv1'):
         copy.deepcopy(port).load_state_dict(sd)
+
+
+def test_plain_fcos_skips_an_mmdet_dcn_checkpoints_offset_conv(tmp_path):
+    """A ``dcn_on_last_conv`` checkpoint loaded into an FCOS without it
+    (its tower conv a plain ``nn.Conv2d``): the offset conv's tensors,
+    which the model lacks, are reported as skipped, through
+    ``apply_pretrained`` and through ``load_state_dict(strict=False)``;
+    every tensor the model has is loaded."""
+    from dynamask_torch.engine.pretrained import apply_pretrained
+    from dynamask_torch.models import build_detector
+    _, _, dcn = fcos_twin()
+    m, train_cfg, test_cfg = fcos_cfg()
+    m['bbox_head']['dcn_on_last_conv'] = False
+    plain = build_detector(m, train_cfg, test_cfg, device='cpu')
+    assert type(plain.bbox_head.cls_convs[1].conv) is torch.nn.Conv2d
+    sd = dcn.state_dict()
+    extra = sorted(set(sd) - set(plain.state_dict()))
+    assert 'bbox_head.cls_convs.1.conv.conv_offset.weight' in extra
+    path = tmp_path / 'fcos_dcn.pth'
+    torch.save({'state_dict': sd}, path)
+    report = apply_pretrained(plain, str(path))
+    assert sorted(report['skipped']) == extra
+    assert not report['mismatched']
+    assert len(report['loaded']) == len(sd) - len(extra)
+    got = plain.load_state_dict(sd, strict=False)
+    assert sorted(got.unexpected_keys) == extra and not got.missing_keys

@@ -65,10 +65,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 FLAGSHIP = os.path.join(ROOT, 'configs/dynamask/coco/r50_dynamask_1x.py')
-STAGES = ('backbone', 'fpn', 'rpn_and_proposals', 'box_head_and_nms',
-          'mask_branch', 'paste')
-TRAIN_STAGES = ('forward_train', 'backbone', 'fpn', 'rpn_loss', 'proposals',
-                'box_branch', 'mask_branch', 'backward', 'optimizer')
+# DetectoRS' RFP neck adds its rounds' ranges after ``fpn``
+# (``models/necks_extra.py``): ASPP and the backbone pass, pyramid and gate
+RFP_STAGES = ('rfp_backbone', 'rfp_neck')
+STAGES = ('backbone', 'fpn', *RFP_STAGES, 'rpn_and_proposals',
+          'box_head_and_nms', 'mask_branch', 'paste')
+TRAIN_STAGES = ('forward_train', 'backbone', 'fpn', *RFP_STAGES, 'rpn_loss',
+                'proposals', 'box_branch', 'mask_branch', 'backward',
+                'optimizer')
 # a single-stage detector's ranges (``models/single_stage.py``, ``atss.py``,
 # ``fcos.py``): the backbone, the neck (``fpn``), the dense head, then the
 # dense targets and losses or the decode and NMS
