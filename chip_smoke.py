@@ -680,8 +680,11 @@ HRFPN_CROPS = 'hrfpn'
 # K1 and K3 on whole maps: guided anchoring's FPN levels and DetectoRS'
 # SAC branches (phase 17)
 WHOLE_MAP = 'map'
+# item 9's RoI heads: PointRend's P2-only crops, Grid R-CNN's jittered
+# positives, FPN-routed and all-level (phase 18)
+HEAD_CROPS = 'heads'
 OFF_ROW = (CLUSTERED, PORTRAIT, CONFIG, REFINE, HTC,
-           TWO_STAGE, HRFPN_CROPS, WHOLE_MAP)     # out of the row sums
+           TWO_STAGE, HRFPN_CROPS, WHOLE_MAP, HEAD_CROPS)  # out of the sums
 # the whole maps phase 17 gives K1 (an image and a step's 4 images) and K3 (a
 # step's) at 800x1344: GA-RPN's P2-P6 and GA-RetinaNet's P3-P7 (C 256, 4
 # deform groups, padding and dilation 1), and the two branches of the
@@ -882,6 +885,74 @@ def hrfpn_crops(dev, infer=True):
                dict(out_size=p, sampling_ratio=2))
 
 
+def jittered(gen, boxes, amplitude=0.15, canvas=IMAGE_HW):
+    """Grid R-CNN's jitter of the positives (``models/grid_rcnn.py``):
+    centres moved and sides scaled by up to ``amplitude`` of the side,
+    clipped to the image."""
+    import torch
+    h, w = canvas
+    jit = (torch.rand(boxes.shape, generator=gen, device=boxes.device) * 2
+           - 1) * amplitude
+    cxcy = (boxes[:, 2:] + boxes[:, :2]) / 2
+    wh = boxes[:, 2:] - boxes[:, :2]
+    cxcy, wh = cxcy + wh * jit[:, :2], wh * (1 + jit[:, 2:])
+    lim = torch.tensor([w - 1, h - 1, w - 1, h - 1], device=boxes.device)
+    return torch.minimum(torch.cat([cxcy - wh / 2, cxcy + wh / 2], 1).clamp(
+        min=0), lim).contiguous()
+
+
+def head_crops(dev, infer=True):
+    """K2's arguments at the crops phase 18 puts on K2/K4 (item 9's RoI
+    heads): PointRend's coarse crop, P2 alone at 14x14 and ratio 1 (stride
+    4), of an image's 100 dets (with ``infer``) and of a step's 512
+    positive slots; Grid R-CNN's 14x14 crop (ratio 2) of a step's 512
+    positives, jittered as its head jitters them, FPN-routed over P2-P5 and
+    under GRoIE's box extractor from all four levels (4 x 512 rows, one
+    launch); over the 800x1344 canvas at 256 channels, the step's RoIs
+    placed as the training step places them (:func:`clustered_place`),
+    from a generator of their own."""
+    import torch
+    from dynamask_torch.ops import roi_align as ra
+    gen = torch.Generator(device=dev).manual_seed(22)
+    h, w = IMAGE_HW
+    strides = (4, 8, 16, 32)
+
+    def p2_crop(feats, rois, img):
+        a, b = feats[0].shape[1:3]
+        n = rois.shape[0]
+        flat, _ = ra._flat_planes([feats[0]])
+        return (flat, rois, img * (a * b),
+                torch.full((n,), a, dtype=torch.int32, device=dev),
+                torch.full((n,), b, dtype=torch.int32, device=dev),
+                torch.full((n,), 0.25, device=dev))
+
+    if infer:
+        feats = [torch.randn(1, h // 4, w // 4, 256, generator=gen,
+                             device=dev)]
+        rois, img = synthetic_rois(gen, dev, N_DETS, 1, IMAGE_HW)
+        yield (f'{HEAD_CROPS} point_rend infer P2 {N_DETS}x14x14x256 r1',
+               p2_crop(feats, rois, img), dict(out_size=14, sampling_ratio=1))
+        del feats
+    feats = [torch.randn(TRAIN_IMAGES, h // s, w // s, 256, generator=gen,
+                         device=dev) for s in strides]
+    place = clustered_place(gen, dev, TRAIN_IMAGES, N_POS_TRAIN)
+
+    def synthetic(k):
+        return synthetic_rois(gen, dev, k, TRAIN_IMAGES, IMAGE_HW)
+
+    rois, img = place(N_POS_TRAIN, synthetic)
+    yield (f'{HEAD_CROPS} point_rend train P2 {N_POS_TRAIN}x14x14x256 r1',
+           p2_crop(feats, rois, img), dict(out_size=14, sampling_ratio=1))
+    jb = jittered(gen, rois)
+    yield (f'{HEAD_CROPS} grid train jittered {N_POS_TRAIN}x14x14x256 r2',
+           ra.multilevel_crop_args(feats, jb, img, strides),
+           dict(out_size=14, sampling_ratio=2))
+    yield (f'{HEAD_CROPS} grid groie train jittered '
+           f'4x{N_POS_TRAIN}x14x14x256 r2',
+           ra.generic_crop_args(feats, jb, img, strides),
+           dict(out_size=14, sampling_ratio=2))
+
+
 def config_crops(dev, train=False):
     """The crops of the other configurations where they differ from the
     flagship's: LVIS inference (300 dets), Cityscapes inference on the
@@ -929,9 +1000,9 @@ def k2_cases(gen, dev):
     inference crops on the portrait canvas, at phase 8's and at
     RefineMask's P2 crops (phase 10) of its training step and of each
     config's inference, at HTC's semantic crops of a step (phase 12), at
-    GRoIE's and Double-Head's crops (phase 13) and at HRFPN's (phase 15),
-    each from a generator of its own so the other cases keep their
-    inputs."""
+    GRoIE's and Double-Head's crops (phase 13), at HRFPN's (phase 15) and
+    at item 9's heads' (phase 18), each from a generator of its own so the
+    other cases keep their inputs."""
     import torch
     for case, args, kw in _crops(gen, dev, 1, 1000, N_DETS):
         yield 'infer ' + case, args, kw
@@ -950,6 +1021,7 @@ def k2_cases(gen, dev):
     yield from htc_crops(dev)
     yield from two_stage_crops(dev)
     yield from hrfpn_crops(dev)
+    yield from head_crops(dev)
 
 
 def k4_args(gen, args, kw):
@@ -968,7 +1040,8 @@ def k4_cases(gen, dev):
     slots), with a random crop gradient, then with clustered RoIs, at the
     Cityscapes step's crops, at RefineMask's P2 crops of a step, at HTC's
     semantic crops of a step, at GRoIE's and Double-Head's crops of a
-    step, and at HRFPN's crops of a step."""
+    step, at HRFPN's crops of a step and at item 9's heads' crops of a
+    step (PointRend's P2 crop, Grid R-CNN's jittered positives)."""
     import torch
     for case, args, kw in _crops(gen, dev, TRAIN_IMAGES, N_BOX_TRAIN,
                                  N_POS_TRAIN):
@@ -996,6 +1069,10 @@ def k4_cases(gen, dev):
         del args
     cgen = torch.Generator(device=dev).manual_seed(21)
     for case, args, kw in hrfpn_crops(dev, infer=False):
+        yield case, k4_args(cgen, args, kw), kw
+        del args
+    cgen = torch.Generator(device=dev).manual_seed(23)
+    for case, args, kw in head_crops(dev, infer=False):
         yield case, k4_args(cgen, args, kw), kw
         del args
 
@@ -1609,13 +1686,29 @@ TOY_CONFIGS = {'dynamask': FLAGSHIP, 'mask_rcnn': MASK_RCNN,
                    'ga_faster_r50_fpn_1x_coco.py'),
                'detectors': os.path.join(
                    ROOT, 'configs/detectors/'
-                   'detectors_cascade_rcnn_r50_1x_coco.py')}
+                   'detectors_cascade_rcnn_r50_1x_coco.py'),
+               # phase 18's: item 9's RoI heads
+               'point_refine': os.path.join(
+                   ROOT, 'configs/point_refine/r50_point_refine_1x.py'),
+               'point_rend': os.path.join(
+                   ROOT, 'configs/point_rend/'
+                   'point_rend_r50_caffe_fpn_mstrain_1x_coco.py'),
+               'ms_rcnn': os.path.join(
+                   ROOT, 'configs/ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py'),
+               'grid_rcnn': os.path.join(
+                   ROOT, 'configs/grid_rcnn/'
+                   'grid_rcnn_r50_fpn_gn-head_1x_coco.py'),
+               'dynamic_rcnn': os.path.join(
+                   ROOT, 'configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py')}
 # the toys whose RoI head is a cascade of stages (phase 12)
 CASCADE_TOYS = ('cascade', 'htc')
 # phase 17's: the GA-Faster R-CNN's guided anchors (a square a location)
 # and the DetectoRS Cascade Mask R-CNN's SAC + RFP at depth 50
 GA_TOYS = ('ga_faster',)
 ITEM9_TWO_STAGE_TOYS = GA_TOYS + ('detectors',)
+# phase 18's: item 9's RoI heads
+HEAD_TOYS = ('point_refine', 'point_rend', 'ms_rcnn', 'grid_rcnn',
+             'dynamic_rcnn')
 # the toys at depth 50, the ResNeXt and caffe backbones' own blocks
 DEEP_TOYS = ('x101', 'caffe')
 # the toys of the two-stage family's options (phase 13)
@@ -1642,7 +1735,12 @@ def toy_cfg(kind='dynamask'):
     32 channels, test proposals as the training ones, which the GA
     builder requires); ``'detectors'``: from the DetectoRS Cascade Mask
     R-CNN config at depth 50 (both backbones), its RFP's ASPP at 8
-    channels a branch, the heads as the cascade toy's."""
+    channels a branch, the heads as the cascade toy's; phase 18's
+    (``HEAD_TOYS``): PointRefine (as the DynaMask toy's mask head),
+    PointRend (coarse and point heads at 32 channels, 64-wide fcs), Mask
+    Scoring R-CNN (the Mask R-CNN toy's mask head, the MaskIoU head on its
+    32 channels), Grid R-CNN (2 convs, 8 channels a point) and Dynamic
+    R-CNN (box-only), each from its config file."""
     from dynamask_torch.utils import Config
     cfg = Config.fromfile(TOY_CONFIGS[kind] if kind in TOY_CONFIGS
                           else ITEM7_TOYS[kind][0])
@@ -1660,7 +1758,7 @@ def toy_cfg(kind='dynamask'):
         m.neck.rfp_backbone.rfp_inplanes = 32
     m.rpn_head.in_channels = m.rpn_head.feat_channels = 32
     rh = m.roi_head
-    for ext in (rh.bbox_roi_extractor, rh.mask_roi_extractor):
+    for ext in (rh.bbox_roi_extractor, rh.get('mask_roi_extractor')):
         if ext:
             ext.out_channels = 32
     cascade = kind in CASCADE_TOYS or kind == 'detectors'
@@ -1670,11 +1768,19 @@ def toy_cfg(kind='dynamask'):
         head.num_classes = 8
         if 'conv_out_channels' in head:
             head.conv_out_channels = 64 if kind == 'double_head' else 32
-    mh = rh.mask_head
-    if kind in ('faster_rcnn', 'double_head', *GA_TOYS):
+    mh = rh.get('mask_head')
+    if kind in ('faster_rcnn', 'double_head', 'dynamic_rcnn', *GA_TOYS):
         pass
+    elif kind == 'grid_rcnn':
+        rh.grid_roi_extractor.out_channels = 32
+        rh.grid_head.update(in_channels=32, point_feat_channels=8,
+                            num_convs=2)
+    elif kind == 'point_rend':
+        mh.update(in_channels=32, conv_out_channels=32, fc_out_channels=64,
+                  num_classes=8)
+        rh.point_head.update(in_channels=32, fc_channels=32, num_classes=8)
     elif kind in ('mask_rcnn', 'cascade', 'htc', 'gn_ws', 'groie',
-                  'detectors', *DEEP_TOYS, *ITEM7_TOYS):
+                  'detectors', 'ms_rcnn', *DEEP_TOYS, *ITEM7_TOYS):
         for head in (mh if kind == 'htc' else [mh]):
             head.num_convs = 2
             head.in_channels = head.conv_out_channels = 32
@@ -1683,6 +1789,8 @@ def toy_cfg(kind='dynamask'):
             rh.semantic_roi_extractor.out_channels = 32
             rh.semantic_head.update(in_channels=32, conv_out_channels=32,
                                     num_convs=2)
+        if kind == 'ms_rcnn':
+            rh.mask_iou_head.update(in_channels=32, num_classes=8)
     elif kind == 'refinemask':
         mh.num_convs_instance, mh.num_convs_semantic = 1, 2
         mh.conv_out_channels_instance = mh.conv_out_channels_semantic = 32
@@ -1779,7 +1887,11 @@ class KinkSides:
     on the kept run's side where the two differ by at most KINK_RTOL of the
     input's largest magnitude (both sides are then right within rounding,
     and the derivative differs); a side that differs by more raises.
-    ``moved`` counts the inputs moved."""
+    ``moved`` counts the inputs moved. The point heads' top-k (phase 18)
+    is such a kink too: a run that follows takes the kept run's points
+    where they are its own top-k within KINK_RTOL of the map's largest
+    magnitude (a value at the k-th place ties the next within rounding,
+    as saturated sigmoids do), and raises where they are not."""
 
     def __init__(self):
         self.kept, self.moved = [], 0
@@ -1805,14 +1917,41 @@ class KinkSides:
             x = x + torch.where(flip, ref - x.detach(), 0.0)
         return x
 
+    def _pin_top_k(self, top_k, x, k, follow, kept):
+        import torch
+        values, idx = top_k(x, k)
+        if not follow:
+            self.kept.append(idx.detach().cpu().clone())
+            return values, idx
+        ref = next(kept, None)
+        if ref is None or ref.shape != idx.shape:
+            raise RuntimeError('toy train: the runs meet other top-ks')
+        ref = ref.to(x.device)
+        rows = (torch.sort(ref, -1).values != torch.sort(idx, -1).values
+                ).any(-1)
+        if rows.any():
+            chosen = torch.zeros_like(x, dtype=torch.bool).scatter(-1, ref,
+                                                                   True)
+            low = torch.where(chosen, x, float('inf')).amin(-1)
+            high = torch.where(chosen, float('-inf'), x).amax(-1)
+            gap = (high - low)[rows].max()
+            if gap > KINK_RTOL * x.abs().max():
+                raise RuntimeError(f'toy train: a top-k takes other points '
+                                   f'by {gap}')
+            self.moved += int(rows.sum())
+        return x.gather(-1, ref), ref
+
     @contextlib.contextmanager
     def patched(self, follow: bool):
         import torch
         import torch.nn.functional as F
         import dynamask_torch.models.dynamask_head as head
         import dynamask_torch.models.guided_anchor as ga
+        import dynamask_torch.models.point_refine_head as prh
+        import dynamask_torch.models.point_rend as prend
         import dynamask_torch.ops.deform_conv as dc
         relu, dcn, kept = F.relu, head.deform_conv2d_nhwc, iter(self.kept)
+        top_k = prh.top_k
         # the backbones' DCNs (phase 16) and SAC's windowed one (phase 17),
         # looked up at each call; the GA heads' windowed DCN (phase 17)
         exact, windowed = dc.deform_conv2d_exact, dc.modulated_deform_conv2d
@@ -1836,7 +1975,11 @@ class KinkSides:
                           *args)
             return run
 
+        def pinned_top_k(x, k):
+            return self._pin_top_k(top_k, x, k, follow, kept)
+
         F.relu, head.deform_conv2d_nhwc = pinned_relu, pinned_dcn
+        prh.top_k = prend.top_k = pinned_top_k
         dc.deform_conv2d_exact = pinned(exact)
         dc.modulated_deform_conv2d = pinned(windowed)
         dc.deform_conv2d_nhwc, ga.deform_conv2d_nhwc = pinned(nhwc), \
@@ -1845,6 +1988,7 @@ class KinkSides:
             yield
         finally:
             F.relu, head.deform_conv2d_nhwc = relu, dcn
+            prh.top_k = prend.top_k = top_k
             dc.deform_conv2d_exact, dc.modulated_deform_conv2d = exact, \
                 windowed
             dc.deform_conv2d_nhwc, ga.deform_conv2d_nhwc = nhwc, ga_dcn
@@ -1858,7 +2002,8 @@ def toy_train_case(kind='dynamask'):
     ``gt_semantic``, HTC's ``gt_semantic_seg``), the same batch with its
     image perturbed by INPUT_NOISE (relative), and the random draws
     (sampler priorities, each cascade stage's among them, GA's shape
-    sampler's, Gumbel uniforms). SAC's offset convs start off zero too."""
+    sampler's, Gumbel uniforms, PointRend's points, Grid R-CNN's second
+    sampling and jitter). SAC's offset convs start off zero too."""
     import numpy as np
     import torch
     from dynamask_torch.apis import semantic_seg_shape, synthetic_batch
@@ -1878,7 +2023,9 @@ def toy_train_case(kind='dynamask'):
     model.load_state_dict(ref.state_dict())
     batch = synthetic_batch(3, b=b, h=hw, w=hw, num_gts=3, max_gts=max_gts,
                             crop_size=32, num_classes=8, device='cpu',
-                            with_semantic=kind == 'refinemask',
+                            with_semantic=getattr(getattr(
+                                ref, 'roi_head', None), 'with_semantic',
+                                False),
                             semantic_seg=semantic_seg_shape(ref))
     noisy = dict(batch, image=batch['image'] * (1 + INPUT_NOISE * torch.randn(
         batch['image'].shape, generator=torch.Generator().manual_seed(5))))
@@ -1897,6 +2044,16 @@ def toy_train_case(kind='dynamask'):
     if kind in GA_TOYS:     # the shape sampler's draws
         noise['ga_pos'] = rng.uniform(size=(b, n_anchors))
         noise['ga_neg'] = rng.uniform(size=(b, n_anchors))
+    if kind == 'point_rend':   # the oversampled and the uniform points
+        rh = ref.roi_head
+        n_imp = int(rh.importance_sample_ratio * rh.num_points)
+        noise['point_over'] = rng.uniform(size=(
+            b * max_pos, int(rh.num_points * rh.oversample_ratio), 2))
+        noise['point_rand'] = rng.uniform(size=(
+            b * max_pos, rh.num_points - n_imp, 2))
+    if kind == 'grid_rcnn':    # the grid branch's sampling and jitter
+        noise['rcnn_grid'] = rng.uniform(size=noise['rcnn'].shape)
+        noise['grid_jitter'] = rng.uniform(-0.15, 0.15, (b * max_pos, 4))
     if cascade:
         # every stage's draws (models/cascade_roi_head.py): a later stage
         # samples from the previous one's slots, at most sampler.num; HTC's
@@ -2951,6 +3108,23 @@ def num_classes(model) -> int:
     return getattr(model, 'num_classes', 1)
 
 
+def mask_side(rh):
+    """The side of a RoI head's mask probabilities, None without a mask
+    head: 28 from the FCN heads (Mask R-CNN's, Mask Scoring R-CNN's, the
+    cascades' stage heads), PointRend's coarse side doubled at each
+    subdivision step (224), 112 from the DynaMask, RefineMask and
+    PointRefine heads."""
+    import torch
+    from dynamask_torch.models.fcn_mask_head import FCNMaskHead
+    if rh is None or rh.mask_head is None:
+        return None
+    if isinstance(rh.mask_head, (FCNMaskHead, torch.nn.ModuleList)):
+        return 28
+    if hasattr(rh, 'subdivision_steps'):
+        return rh.mask_head.out_size * rh.scale_factor ** rh.subdivision_steps
+    return 112
+
+
 def run_config_inference(report, card, name, path, hw, modes, repeats=5,
                          bf16=False):
     """Phases 8 and 10-14, inference: the config's detector built on the
@@ -2964,7 +3138,6 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
     import dynamask_torch.ops as ops
     from dynamask_torch.apis import (inference_detector, init_detector,
                                      make_test_fn)
-    from dynamask_torch.models.fcn_mask_head import FCNMaskHead
     t0 = time.perf_counter()
     model = init_detector(path, device=DEVICE, seed=0, init_std=0.05)
     build_s = time.perf_counter() - t0
@@ -2983,11 +3156,7 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
     launches, recs = {}, []
     fn = (make_test_fn(model, hw, bf16=True) if bf16 else
           functools.partial(inference_detector, model))
-    # FCN heads (Mask R-CNN's, Cascade Mask R-CNN's, HTC's stage heads)
-    # give 28x28 probabilities, the DynaMask and RefineMask heads 112x112
-    side = (None if rh is None or rh.mask_head is None else
-            28 if isinstance(rh.mask_head, (FCNMaskHead, torch.nn.ModuleList))
-            else 112)
+    side = mask_side(rh)
 
     def drive(dynamic):
         if dynamic is not None:
@@ -3019,13 +3188,21 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
             raise RuntimeError(f'{key}: a label past {classes}')
         if side:
             with torch.no_grad():
-                probs = model.simple_test(batch)['mask_probs']
+                full = model.simple_test(batch)
+            probs = full['mask_probs']
             if tuple(probs.shape) != (1, d, side, side) or not \
                     torch.isfinite(probs).all():
                 raise RuntimeError(f'{key}: mask probabilities '
                                    f'{tuple(probs.shape)}, finite '
                                    f'{bool(torch.isfinite(probs).all())}')
-            del probs
+            # Mask Scoring R-CNN's box scores times its predicted IoUs
+            segm = full.get('segm_scores')
+            if segm is not None and not (
+                    tuple(segm.shape) == (1, d) and
+                    torch.isfinite(segm).all() and
+                    (segm <= full['dets'][..., 4] + 1e-6).all()):
+                raise RuntimeError(f'{key}: segm_scores {segm}')
+            del probs, full
         times = []
         for _ in range(repeats):
             t = time.perf_counter()
@@ -4126,7 +4303,7 @@ def item8_toy(kind):
         return cfg
     m.rpn_head.in_channels = m.rpn_head.feat_channels = 32
     rh = m.roi_head
-    for ext in (rh.bbox_roi_extractor, rh.mask_roi_extractor):
+    for ext in (rh.bbox_roi_extractor, rh.get('mask_roi_extractor')):
         if ext:
             ext.out_channels = 32
     rh.bbox_head.update(in_channels=32, fc_out_channels=64, num_classes=8)
@@ -4730,6 +4907,117 @@ def run_item9(report, card):
     return launches
 
 
+# -- phase 18: item 9's two-stage heads ---------------------------------------
+
+ROI_FWD, ROI_BWD = 'roi_align_fwd', 'roi_align_bwd'
+# (name, config, timed repeats of an image, timed steps, an image's
+# launches, a step's). K2 an image: the box extract and the head's crop of
+# the dets (PointRefine's 14x14 mask extract, PointRend's coarse crop of P2
+# alone, Grid R-CNN's 14x14 grid extract, all-level under GRoIE's box
+# extractor), and Mask Scoring R-CNN's mask extract twice (its MaskIoU
+# head crops the mask features again); a step: the box extract and the
+# head's crop of the positives (Grid R-CNN's second sample, jittered),
+# each with K4 for its gradient; Dynamic R-CNN the box extract alone. No
+# DCN on these paths.
+HEAD_CELLS = (
+    ('point_refine', TOY_CONFIGS['point_refine'], 2, 2, {ROI_FWD: 2},
+     {ROI_FWD: 2, ROI_BWD: 2}),
+    ('point_rend', TOY_CONFIGS['point_rend'], 2, 2, {ROI_FWD: 2},
+     {ROI_FWD: 2, ROI_BWD: 2}),
+    ('ms_rcnn', TOY_CONFIGS['ms_rcnn'], 2, 2, {ROI_FWD: 3},
+     {ROI_FWD: 2, ROI_BWD: 2}),
+    ('grid_rcnn', TOY_CONFIGS['grid_rcnn'], 2, 2, {ROI_FWD: 2},
+     {ROI_FWD: 2, ROI_BWD: 2}),
+    ('grid_rcnn_groie', os.path.join(
+        ROOT, 'configs/groie/grid_rcnn_r50_fpn_gn-head_groie_1x_coco.py'), 1,
+     1, {ROI_FWD: 2}, {ROI_FWD: 2, ROI_BWD: 2}),
+    ('dynamic_rcnn', TOY_CONFIGS['dynamic_rcnn'], 2, 2, {ROI_FWD: 1},
+     {ROI_FWD: 1, ROI_BWD: 1}),
+)
+# the toys' mask probabilities, card against CPU, on every valid det's
+# pixel: the CPU run takes the card's side of each top-k tie and ReLU kink
+# within rounding (:class:`KinkSides`); they agreed within 9.4e-6 on an
+# H100 (PERF.md, phase 18), and dets are held at 1e-3
+HEAD_TOY_MASK_TOL = 1e-4
+
+
+def check_head_toys(report):
+    """Phase 18's toys on the card against the same weights on the CPU:
+    ``simple_test`` (dets, labels and validity; the valid dets' mask
+    probabilities; Mask Scoring R-CNN's ``segm_scores``), the CPU run on
+    the card run's side of each kink (the point heads' top-k ties, the
+    ReLUs; :class:`KinkSides`), then phase 3's
+    training step of each (losses and every gradient, with and without
+    cuDNN), the draws of PointRend's points and of Grid R-CNN's second
+    sampling and jitter given."""
+    import copy
+    import torch
+    from dynamask_torch.models import build_detector
+    gen = torch.Generator().manual_seed(1)
+    batch = {'image': torch.randn(1, 128, 128, 3, generator=gen),
+             'img_shape': torch.tensor([[128., 128.]]),
+             'scale_factor': torch.ones(1, 4)}
+    for kind in HEAD_TOYS:
+        cfg = toy_cfg(kind)
+        ref = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                             device='cpu', seed=0)
+        model = copy.deepcopy(ref).to(DEVICE)
+        sides = KinkSides()
+        with torch.no_grad():
+            with sides.patched(follow=False):
+                b = {k: v.cpu() for k, v in model.simple_test(
+                    {k: v.to(DEVICE) for k, v in batch.items()}).items()}
+            with sides.patched(follow=True):
+                a = ref.simple_test(batch)
+        same = all(torch.equal(a[k], b[k]) for k in ('labels', 'det_valid'))
+        valid = a['det_valid'].bool()
+        errs = {k: (a[k].double() - b[k].double())[valid].abs().max().item()
+                for k in ('dets', 'segm_scores', 'mask_probs') if k in a}
+        masks_agree = errs.get('mask_probs', 0.0) < HEAD_TOY_MASK_TOL
+        print(f'  toy {kind}: {int(valid.sum())} dets, GPU vs CPU max abs '
+              'err ' + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()) +
+              f' (masks under {HEAD_TOY_MASK_TOL}), labels/valid equal '
+              f'{same}; top-k rows and ReLU inputs put on the GPU run\'s '
+              f'side of a tie: {sides.moved}')
+        report['toy'].append(dict(model=f'heads_{kind}',
+                                  same_labels_valid=same,
+                                  kink_inputs_moved=sides.moved, **errs))
+        box_errs = [v for k, v in errs.items() if k != 'mask_probs']
+        if not (same and int(valid.sum()) > 0 and masks_agree and
+                max(box_errs) < 1e-3):
+            raise RuntimeError(f'toy {kind}: GPU result disagrees with the '
+                               'CPU reference')
+        del ref, model
+        check_toy_train_against_cpu(report, kind)
+
+
+def run_item9_heads(report, card):
+    """Phase 18: item 9's two-stage heads from their config files,
+    unchanged, at full width: an image at the config's test canvas with
+    phase 4's weights protocol and steps at its train batch from the JAX
+    initialisation (PointRefine's with ``gt_semantic``), each a counted
+    warm-up held to its exact launches of every kernel, then timed
+    repeats; then the toys on the card against the CPU."""
+    import torch
+    from dynamask_torch.apis import config_shapes
+    launches = {}
+    report['heads'] = {'inference': [], 'train': []}
+    for name, path, n_inf, n_steps, infer, step in HEAD_CELLS:
+        test_hw, images, train_hw = config_shapes(path)
+        got, recs = run_config_inference(
+            report, card, name, path, test_hw, (('infer', None, infer),),
+            repeats=n_inf)
+        launches.update(got)
+        report['heads']['inference'] += recs
+        got, rec = run_config_train(report, card, name, path, images,
+                                    train_hw, step, repeats=n_steps)
+        launches.update(got)
+        report['heads']['train'].append(rec)
+        torch.cuda.empty_cache()
+    check_head_toys(report)
+    return launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -4854,8 +5142,14 @@ def main() -> int:
     t17 = time.perf_counter()
     launches.update(run_item9(report, card))
     report['phase17_s'] = time.perf_counter() - t17
+    print(f'  phase 17: {report["phase17_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 18: item 9\'s two-stage heads [{card}]')
+    t18 = time.perf_counter()
+    launches.update(run_item9_heads(report, card))
+    report['phase18_s'] = time.perf_counter() - t18
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 17: {report["phase17_s"]:.1f} s; the whole run '
+    print(f'  phase 18: {report["phase18_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s [{card}]')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}

@@ -51,7 +51,18 @@ that importer skips (ROADMAP.md queue 3, 3d, 3o, 3t, 3aa, 3ah):
   its own; the RFP's backbones ``neck.rfp_modules.{i}`` are JAX's
   ``neck/rfp_backbones_{i}``, its FPN's convs sit under ``neck/fpn``,
   ``rfp_aspp.aspp.{i}`` is ``rfp_aspp/aspp_{i}``, ``rfp_weight`` its own
-  (the JAX importer skips or misplaces these, ROADMAP.md queue 3, 3ax).
+  (the JAX importer skips or misplaces these, ROADMAP.md queue 3, 3ax);
+* item 9's RoI heads, which the JAX importer skips (3bd): the MaskIoU
+  head's convs and fcs (the first fc's input reordered as the box head's);
+  PointRend's coarse ``downsample_conv``, ``fcs`` and ``fc_logits`` (its
+  rows mmdet's (class, y, x) where JAX's columns are (y, x, class)) and
+  its point head, and PointRefine's stage MLPs (1x1 ``Conv1d`` kernels,
+  JAX's dense ``fc_{i}`` / ``fc_logits``); Grid R-CNN's ``grid_head``
+  (JAX's ``grid_head_module``: the tower's biased convs and GroupNorms,
+  each transition's ``{forder,sorder}_{i}_{j}_{dw,pw}``, the raw
+  ``deconv{1,2}_kernel`` / ``_bias`` leaves of its grouped deconvs,
+  flipped and regrouped as ``ConvTranspose2d(groups=points)``); Dynamic
+  R-CNN's state buffers ``roi_head.dyn_*`` (JAX's ``batch_stats``).
 """
 
 from __future__ import annotations
@@ -418,6 +429,50 @@ def mmdet_key(key: str, num_laterals: Optional[int] = None,
          r'(weight|bias)$',
          lambda m: (['roi_head', 'semantic_head', m[1].split('.')[0]], m[2],
                     {})),
+        # item 9's heads: Mask Scoring R-CNN's MaskIoU head (JAX
+        # mask_scoring.py:26-55), PointRend's coarse and point heads
+        # (point_rend.py:65-126; the coarse logits' rows are mmdet's (class,
+        # y, x), JAX's columns (y, x, class)), PointRefine's point MLPs
+        # (point_refine_head.py:83-88), Grid R-CNN's GridHead (grid_rcnn.py:
+        # 102-170, JAX's module ``grid_head_module``; its grouped deconvs
+        # raw leaves), Dynamic R-CNN's state (dynamic_rcnn.py:48-67, in
+        # ``batch_stats``)
+        (r'^roi_head\.mask_iou_head\.convs\.(\d+)\.conv\.(weight|bias)$',
+         lambda m: (['roi_head', 'mask_iou_head', f'conv_{m[1]}'], m[2], {})),
+        (r'^roi_head\.(mask_iou_head|mask_head)\.fcs\.(\d+)\.(weight|bias)$',
+         lambda m: (['roi_head', m[1], f'fc_{m[2]}'], m[3],
+                    {'flatten_chw': 7} if m[2] == '0' else {})),
+        (r'^roi_head\.mask_iou_head\.fc_mask_iou\.(weight|bias)$',
+         lambda m: (['roi_head', 'mask_iou_head', 'fc_mask_iou'], m[1], {})),
+        (r'^roi_head\.mask_head\.downsample_conv\.conv\.(weight|bias)$',
+         lambda m: (['roi_head', 'mask_head', 'downsample_conv'], m[1], {})),
+        (r'^roi_head\.mask_head\.fc_logits\.(weight|bias)$',
+         lambda m: (['roi_head', 'mask_head', 'fc_logits'], m[1],
+                    {'rows_hwc': 7})),
+        (r'^roi_head\.(point_head|mask_head\.stages\.(\d+))\.fcs\.(\d+)\.'
+         r'conv\.(weight|bias)$',
+         lambda m: (_point_mlp(m[1], m[2]) + [f'fc_{m[3]}'], m[4],
+                    {'unit_dims': 1} if m[4] == 'weight' else {})),
+        (r'^roi_head\.(point_head|mask_head\.stages\.(\d+))\.fc_logits\.'
+         r'(weight|bias)$',
+         lambda m: (_point_mlp(m[1], m[2]) + ['fc_logits'], m[3],
+                    {'unit_dims': 1} if m[3] == 'weight' else {})),
+        (r'^roi_head\.grid_head\.convs\.(\d+)\.(conv|gn)\.(weight|bias)$',
+         lambda m: (['roi_head', 'grid_head_module', f'{m[2]}_{m[1]}'], m[3],
+                    {})),
+        (r'^roi_head\.grid_head\.(forder|sorder)_trans\.(\d+)\.(\d+)\.([01])\.'
+         r'(weight|bias)$',
+         lambda m: (['roi_head', 'grid_head_module',
+                     f'{m[1]}_{m[2]}_{m[3]}_{("dw", "pw")[int(m[4])]}'], m[5],
+                    {})),
+        (r'^roi_head\.grid_head\.norm1\.(weight|bias)$',
+         lambda m: (['roi_head', 'grid_head_module', 'deconv1_gn'], m[1], {})),
+        (r'^roi_head\.grid_head\.(deconv[12])\.(weight|bias)$',
+         lambda m: (['roi_head', 'grid_head_module'], m[2], dict(
+             flax_leaf=f'{m[1]}_{"kernel" if m[2] == "weight" else "bias"}',
+             grouped_deconv=m[2] == 'weight'))),
+        (r'^roi_head\.(dyn_iou_thr|dyn_beta|dyn_iou_hist|dyn_beta_hist|'
+         r'dyn_step)$', lambda m: (['roi_head'], 'state', {'stat': m[1]})),
         (r'^roi_head\.mask_predictor\.(conv1|conv2|fc2|bn1|bn2)\.(.+)$',
          lambda m: (['roi_head', 'mask_predictor', m[1]], m[2], {})),
         (r'^roi_head\.mask_predictor\.fc1\.(weight|bias)$',
@@ -433,6 +488,21 @@ def mmdet_key(key: str, num_laterals: Optional[int] = None,
     return None
 
 
+def _point_mlp(owner: str, stage: Optional[str]) -> List[str]:
+    """The JAX path of a point MLP: PointRend's ``point_head`` or a
+    PointRefine stage."""
+    if stage is None:
+        return ['roi_head', 'point_head']
+    return ['roi_head', 'mask_head', f'stage_{stage}']
+
+
+def _float(a) -> np.ndarray:
+    """A JAX leaf as float32, or float64 where it is (a float64 gradient
+    laid out for a comparison)."""
+    a = np.asarray(a)
+    return a if a.dtype == np.float64 else a.astype(np.float32)
+
+
 def _node(tree, path: List[str]):
     for p in path:
         if not isinstance(tree, dict) or p not in tree:
@@ -442,7 +512,7 @@ def _node(tree, path: List[str]):
 
 
 def _get(tree, path: List[str]) -> np.ndarray:
-    return np.asarray(_node(tree, path), np.float32)
+    return _float(_node(tree, path))
 
 
 def _torch_layout(params, stats, path, leaf, hints) -> np.ndarray:
@@ -451,8 +521,11 @@ def _torch_layout(params, stats, path, leaf, hints) -> np.ndarray:
         return _get(stats, path + ['mean'])
     if leaf == 'running_var':
         return _get(stats, path + ['var'])
+    if leaf == 'state':                                   # a JAX statistic
+        return _get(stats, path + [hints['stat']])
     if leaf == 'bias':
-        arr = _get(params, path + ['bias'])
+        arr = _rows_chw(_get(params, path + [hints.get('flax_leaf', 'bias')]),
+                        hints)
         return arr.reshape(arr.shape + (1,) * hints.get('unit_dims', 0))
     if leaf == 'scale':                                   # Scale a level
         return _get(params, path + ['scales'])[hints['index']]
@@ -461,17 +534,38 @@ def _torch_layout(params, stats, path, leaf, hints) -> np.ndarray:
     if leaf in ('appr_bias', 'geom_bias'):              # (heads, d) -> flat
         return _get(params, path + [leaf]).reshape(-1)
     assert leaf == 'weight', leaf
-    arr = _weight_layout(_node(params, path), hints)
+    arr = _rows_chw(_weight_layout(_node(params, path), hints), hints)
     return arr.reshape(arr.shape + (1,) * hints.get('unit_dims', 0))
+
+
+def _rows_chw(arr: np.ndarray, hints) -> np.ndarray:
+    """Rows (the first axis) of an (s, s, C) map in JAX's (y, x, class)
+    order put in mmdet's (class, y, x) order (``rows_hwc`` s)."""
+    s = hints.get('rows_hwc')
+    if not s:
+        return arr
+    rest = arr.shape[1:]
+    return np.ascontiguousarray(arr.reshape(s, s, -1, *rest).transpose(
+        2, 0, 1, *range(3, 3 + len(rest))).reshape(arr.shape))
 
 
 def _weight_layout(node, hints) -> np.ndarray:
     if 'scale' in node:                                   # BatchNorm
-        return np.asarray(node['scale'], np.float32)
-    kernel = np.asarray(node[hints.get('flax_leaf', 'kernel')], np.float32)
+        return _float(node['scale'])
+    kernel = _float(node[hints.get('flax_leaf', 'kernel')])
     if kernel.ndim == 5:                  # RegNet's grouped DCN kernel
         g, kh, kw, ci, co = kernel.shape
         return kernel.transpose(0, 4, 3, 1, 2).reshape(g * co, ci, kh, kw)
+    if hints.get('grouped_deconv'):
+        # JAX's grouped deconv (k, k, C_in / g, g * C_out / g), applied in
+        # convolution orientation a group at a time (grid_rcnn.py:76-99):
+        # torch's (C_in, C_out / g, k, k), flipped; the groups are the
+        # grid's points, deconv2's outputs
+        g = np.shape(node['deconv2_kernel'])[-1]
+        k, _, cg, co = kernel.shape
+        w = kernel[::-1, ::-1].reshape(k, k, cg, g, co // g)
+        return np.ascontiguousarray(w.transpose(3, 2, 4, 0, 1).reshape(
+            g * cg, co // g, k, k))
     if hints.get('deconv'):
         # flax ConvTranspose (kh, kw, in, out) applies its kernel in
         # convolution orientation, torch's ConvTranspose2d (in, out, kh, kw)

@@ -6,7 +6,11 @@ The port's modules carry the mmdet ``state_dict`` names, so no layout
 conversion is needed: a torchvision ResNet's names (``conv1.weight``,
 ``layer1.0.bn1.running_mean``, ...) take the ``backbone.`` prefix, and a
 detector's mmdet names (``backbone.``, ``neck.``, ``rpn_head.``,
-``roi_head.``, a single-stage detector's ``bbox_head.``) map one to one.
+``roi_head.``, a single-stage detector's ``bbox_head.``) map one to one,
+item 9's heads' among them (``mask_iou_head``, PointRend's coarse head in
+mmdet's row order and its ``point_head``'s 1x1 ``Conv1d`` kernels,
+``grid_head``'s grouped deconvs in mmdet's layout); Dynamic R-CNN's
+state buffers, which an mmdet checkpoint lacks, stay at their start.
 Nothing is downloaded: a spec that names no local file leaves the model as
 initialised. A tensor whose shape differs from the model's is reported and
 left as initialised, unless a module refuses it (its ``weight_fault``:

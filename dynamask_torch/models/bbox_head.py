@@ -39,14 +39,15 @@ class ConvFCBBoxHead(nn.Module):
     fcs with ReLU, then the class scores and the deltas (JAX
     ``bbox_head.py:26-97``). The shared convs emit ``in_channels``, as
     JAX's do (its builder drops ``conv_out_channels``, ROADMAP.md queue 3,
-    3w). mmdet's names: ``shared_convs.{i}.conv`` / ``.gn``,
-    ``shared_fcs.{i}``, ``fc_cls``, ``fc_reg``."""
+    3w). ``with_reg=False`` builds no ``fc_reg``. mmdet's names:
+    ``shared_convs.{i}.conv`` / ``.gn``, ``shared_fcs.{i}``, ``fc_cls``,
+    ``fc_reg``."""
 
     def __init__(self, num_classes: int = 80, in_channels: int = 256,
                  roi_feat_size: int = 7, fc_out_channels: int = 1024,
                  reg_class_agnostic: bool = False, num_shared_convs: int = 0,
                  num_shared_fcs: int = 2, norm: Optional[str] = None,
-                 gn_groups: int = 32):
+                 gn_groups: int = 32, with_reg: bool = True):
         super().__init__()
         self.num_classes = num_classes
         self.reg_class_agnostic = reg_class_agnostic
@@ -63,20 +64,23 @@ class ConvFCBBoxHead(nn.Module):
             width = fc_out_channels
         self.shared_fcs = nn.ModuleList(fcs)
         self.fc_cls = nn.Linear(width, num_classes + 1)
-        self.fc_reg = nn.Linear(width,
-                                4 if reg_class_agnostic else 4 * num_classes)
+        if with_reg:
+            self.fc_reg = nn.Linear(
+                width, 4 if reg_class_agnostic else 4 * num_classes)
 
     def forward(self, x: torch.Tensor):
         """(N, P, P, C) NHWC RoI features -> (cls_logits (N, C+1),
-        deltas (N, 4*C), or (N, 4) class-agnostic). The first fc reads them
-        in mmdet's CHW order."""
+        deltas (N, 4*C), or (N, 4) class-agnostic, or None without
+        ``fc_reg`` (``with_reg=False``, Grid R-CNN's box head)). The first
+        fc reads them in mmdet's CHW order."""
         x = x.permute(0, 3, 1, 2)
         for conv in getattr(self, 'shared_convs', ()):
             x = F.relu(conv(x))
         x = x.reshape(x.shape[0], -1)
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
-        return self.fc_cls(x), self.fc_reg(x)
+        reg = getattr(self, 'fc_reg', None)
+        return self.fc_cls(x), None if reg is None else reg(x)
 
 
 @HEADS.register_module()

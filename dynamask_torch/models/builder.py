@@ -10,7 +10,9 @@ dynamask_roi_head.py:build_dynamask_roi_head`` (:422-464) and
 ``dynamask_tpu/models/htc.py:build_htc_roi_head`` (:385-460) that the
 Mask R-CNN, Faster / Fast R-CNN, RPN, GA-RPN / GA-Faster R-CNN,
 DynaMask, RefineMask, Cascade R-CNN, HTC and the two-stage option configs
-use); the single-stage detectors (RetinaNet, FreeAnchor, GA-RetinaNet,
+use, and Mask Scoring R-CNN, PointRend, PointRefine, Grid R-CNN and
+Dynamic R-CNN); the single-stage detectors (RetinaNet, FreeAnchor,
+GA-RetinaNet,
 ATSS, FCOS) come from ``single_stage_builder.py`` over the backbone and
 neck built here.
 
@@ -40,9 +42,14 @@ from .cascade_roi_head import CascadeRoIHead
 from .double_head import DoubleConvFCBBoxHead, DoubleHeadRoIHead
 from .dynamask_head import DynaMaskHead, MaskPre
 from .dynamask_roi_head import DynaMaskRoIHead
+from .dynamic_rcnn import DynamicRoIHead
 from .fcn_mask_head import FCNMaskHead
+from .grid_rcnn import GRID_LOSS_WEIGHT, GridHead, GridRoIHead
 from .htc import FusedSemanticHead, HTCMaskHead, HybridTaskCascadeRoIHead
 from .layers import init_weights
+from .mask_scoring import MaskIoUHead, MaskScoringRoIHead
+from .point_refine_head import PointRefineMaskHead, PointRefineRoIHead
+from .point_rend import CoarseMaskHead, MaskPointHead, PointRendRoIHead
 from .refine_mask_head import (RefineMaskHead, RefineRoIHead,
                                SimpleRefineMaskHead, SimpleRefineRoIHead)
 from .roi_head import StandardRoIHead
@@ -74,12 +81,9 @@ def not_ported(what: str, item) -> NotImplementedError:
 LEGACY = 'ROADMAP.md queue 3, 3c: the JAX package drops it'
 BACKBONE_ITEMS = {'SSDVGG': 6, 'HourglassNet': 9}
 NECK_ITEMS = {'NASFPN': 8, 'BFP': 8, 'NASFCOS_FPN': 6}
-DETECTOR_ITEMS = {'GridRCNN': 9, 'MaskScoringRCNN': 9, 'PointRend': 9,
-                  'CornerNet': 9, 'GFL': 6, 'FOVEA': 6, 'FSAF': 6,
+DETECTOR_ITEMS = {'CornerNet': 9, 'GFL': 6, 'FOVEA': 6, 'FSAF': 6,
                   'RepPointsDetector': 6, 'NASFCOS': 6}
-ROI_HEAD_ITEMS = {'PISARoIHead': 9, 'DynamicRoIHead': 9, 'GridRoIHead': 9,
-                  'MaskScoringRoIHead': 9, 'PointRendRoIHead': 9,
-                  'TridentRoIHead': 9, 'PointRefineRoIHead': 9}
+ROI_HEAD_ITEMS = {'PISARoIHead': 9, 'TridentRoIHead': 9}
 # the typed samplers the port lacks, by item (OHEM draws as random, 3s)
 SAMPLER_ITEMS = {'CombinedSampler': 8, 'InstanceBalancedPosSampler': 8,
                  'IoUBalancedNegSampler': 8, 'ScoreHLRSampler': 9}
@@ -540,7 +544,9 @@ def build_refine_roi_head(t: str, mt: str, mhc: dict, common: dict,
 
 CASCADE_HEADS = ('CascadeRoIHead', 'HybridTaskCascadeRoIHead')
 ROI_HEADS = ('StandardRoIHead', 'DynaMaskRoIHead', 'DoubleHeadRoIHead',
-             *REFINE_HEADS, *CASCADE_HEADS)
+             *REFINE_HEADS, *CASCADE_HEADS, 'MaskScoringRoIHead',
+             'PointRendRoIHead', 'PointRefineRoIHead', 'GridRoIHead',
+             'DynamicRoIHead')
 
 
 def _extractor(cfg: dict, what: str) -> dict:
@@ -635,16 +641,22 @@ BOX_HEAD_KEYS = ('num_classes', 'in_channels', 'roi_feat_size',
 DOUBLE_HEAD_KEYS = ('num_convs', 'num_fcs', 'conv_out_channels')
 
 
-def _box_head(head_cfg: dict):
+def _box_head(head_cfg: dict, with_reg: bool = True):
     """A ``ConvFCBBoxHead`` (``Shared2FCBBoxHead``, or
     ``Shared4Conv1FCBBoxHead`` with GN on its convs; class-specific or
     class-agnostic regression) or Double-Head's ``DoubleConvFCBBoxHead``
     -> (head, its coder, its config). JAX's builder passes a
     ``ConvFCBBoxHead`` no conv or fc counts (its defaults, 0 and 2) and
     no ``conv_out_channels`` (the convs emit ``in_channels``): other
-    values are refused (3w)."""
+    values are refused (3w). The head regresses with ``with_reg`` and
+    classifies only without (Grid R-CNN's, JAX ``with_reg=False``); a
+    config that says otherwise is refused."""
     head_cfg = _cfg(head_cfg)
     ht = head_cfg.pop('type')
+    if head_cfg.pop('with_reg', True) != with_reg:
+        raise not_ported(f'{ht} with_reg={not with_reg} (JAX regresses in '
+                         'every box head but Grid R-CNN\'s, which has '
+                         'none)', DROPPED)
     common = dict(num_classes=head_cfg.get('num_classes', 80),
                   in_channels=head_cfg.get('in_channels', 256),
                   roi_feat_size=head_cfg.get('roi_feat_size', 7),
@@ -662,11 +674,12 @@ def _box_head(head_cfg: dict):
         _check_keys(ht, head_cfg, BOX_HEAD_KEYS + ('norm_cfg',), dict(
             conv_out_channels=common['in_channels'], num_shared_convs=0,
             num_shared_fcs=2, num_cls_convs=0, num_cls_fcs=0,
-            num_reg_convs=0, num_reg_fcs=0, with_cls=True, with_reg=True),
+            num_reg_convs=0, num_reg_fcs=0, with_cls=True),
             DROPPED)
         groups = _gn_groups(ht, head_cfg.get('norm_cfg'))
         head = BOX_HEADS[ht](norm=None if groups is None else 'gn',
-                             gn_groups=groups or 32, **common)
+                             gn_groups=groups or 32, with_reg=with_reg,
+                             **common)
     else:
         raise not_ported(f'bbox head {ht}', 9)
     coder = _cfg(head_cfg.get('bbox_coder'))
@@ -682,7 +695,9 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     / ``SimpleRefineMaskHead`` (RefineMask), on one conv/fc box branch;
     ``DoubleHeadRoIHead`` over a ``DoubleConvFCBBoxHead`` (Double-Head);
     ``CascadeRoIHead`` (Cascade R-CNN, with an ``FCNMaskHead`` or none)
-    and ``HybridTaskCascadeRoIHead`` (HTC) on one a stage. The extract
+    and ``HybridTaskCascadeRoIHead`` (HTC) on one a stage;
+    ``MaskScoringRoIHead``, ``PointRendRoIHead``, ``PointRefineRoIHead``,
+    ``GridRoIHead`` and ``DynamicRoIHead``. The extract
     (FPN-routed or GRoIE's), the regression loss, the test NMS and the
     sampler's ``num`` / ``pos_fraction`` are the configs'."""
     cfg = _cfg(cfg)
@@ -696,8 +711,8 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     if isinstance(stage_cfgs, (list, tuple)) != cascade:
         raise not_ported(f'{t} over {type(stage_cfgs).__name__} bbox_head',
                          'no item')
-    stages = [_box_head(h) for h in (stage_cfgs if cascade
-                                     else [stage_cfgs])]
+    stages = [_box_head(h, with_reg=t != 'GridRoIHead')
+              for h in (stage_cfgs if cascade else [stage_cfgs])]
     bbox_head, coder, head_cfg = stages[0]
     rcnn_raw = _cfg(train_cfg).get('rcnn')
     if cascade and rcnn_raw is not None:
@@ -717,8 +732,9 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
                         ('RandomSampler', 'OHEMSampler'))
     bbox_extractor = _extractor(cfg.get('bbox_roi_extractor'),
                                 'bbox_roi_extractor')
-    mask_extractor = _extractor(cfg.get('mask_roi_extractor'),
-                                'mask_roi_extractor')
+    point_rend = t == 'PointRendRoIHead'
+    mask_extractor = (_point_rend_extractor if point_rend else _extractor)(
+        cfg.get('mask_roi_extractor'), 'mask_roi_extractor')
     rcnn_test = _cfg(_cfg(test_cfg).get('rcnn'))
     nms_cfg = _cfg(rcnn_test.get('nms'))
     common = dict(
@@ -743,7 +759,8 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
         neg_iou_thr=assigner.get('neg_iou_thr', 0.5),
         min_pos_iou=assigner.get('min_pos_iou', 0.5),
         match_low_quality=assigner.get('match_low_quality', True),
-        roi_extract_mode=_extract_mode(bbox_extractor, mask_extractor),
+        roi_extract_mode=_extract_mode(bbox_extractor,
+                                       {} if point_rend else mask_extractor),
         nms_cfg=_test_nms(nms_cfg),
         **_box_losses(head_cfg))
     if (t == 'DoubleHeadRoIHead') != any(
@@ -756,6 +773,24 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     mhc = _cfg(cfg.get('mask_head'))
     mt = mhc.pop('type', None)
     common['bbox_head'] = bbox_head
+    if t in ROI_HEAD_KEYS:
+        _check_keys(t, cfg, ROI_HEAD_KEYS[t], {'mask_head': None,
+                                               'mask_roi_extractor': None,
+                                               'shared_head': None},
+                    DROPPED)
+    in_channels = mask_extractor.get('out_channels', 256)
+    if t == 'MaskScoringRoIHead':
+        return build_mask_scoring_roi_head(cfg, mhc, mt, common, rcnn_train,
+                                           in_channels)
+    if t == 'PointRendRoIHead':
+        return build_point_rend_roi_head(cfg, mhc, mt, common, rcnn_train,
+                                         rcnn_test, in_channels)
+    if t == 'PointRefineRoIHead':
+        return build_point_refine_roi_head(mhc, mt, common, in_channels)
+    if t == 'GridRoIHead':
+        return build_grid_roi_head(cfg, common, rcnn_train, bbox_extractor)
+    if t == 'DynamicRoIHead':
+        return build_dynamic_roi_head(cfg, common, rcnn_train)
     if t == 'DoubleHeadRoIHead' and mt is None:
         _check_keys(t, cfg, ('reg_roi_scale_factor', 'bbox_head',
                              'bbox_roi_extractor'),
@@ -771,13 +806,247 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
             mask_head=build_fcn_mask_head(mhc), loss_mask_weight=_cfg(
                 mhc.get('loss_mask')).get('loss_weight', 1.0), **common)
     if t in REFINE_HEADS and mt in REFINE_MASK_HEADS:
-        return build_refine_roi_head(t, mt, mhc, common, mask_extractor.get(
-            'out_channels', 256))
+        return build_refine_roi_head(t, mt, mhc, common, in_channels)
     raise not_ported(
         f'mask head {mt} under {t} (the port has none or FCNMaskHead under '
         'StandardRoIHead, DynaMaskHead under DynaMaskRoIHead, and '
         'RefineMaskHead or SimpleRefineMaskHead under RefineRoIHead or '
         'SimpleRefineRoIHead)', 9)
+
+
+MASK_LOSS = dict(type='CrossEntropyLoss', use_mask=True)
+# the keys of Mask Scoring R-CNN's, PointRend's, PointRefine's, Grid R-CNN's
+# and Dynamic R-CNN's RoI head configs beside ``type`` (JAX reads these)
+ROI_HEAD_KEYS = {
+    'MaskScoringRoIHead': ('bbox_roi_extractor', 'bbox_head',
+                           'mask_roi_extractor', 'mask_head',
+                           'mask_iou_head'),
+    'PointRendRoIHead': ('bbox_roi_extractor', 'bbox_head',
+                         'mask_roi_extractor', 'mask_head', 'point_head'),
+    'PointRefineRoIHead': ('bbox_roi_extractor', 'bbox_head',
+                           'mask_roi_extractor', 'mask_head'),
+    'GridRoIHead': ('bbox_roi_extractor', 'bbox_head', 'grid_roi_extractor',
+                    'grid_head'),
+    'DynamicRoIHead': ('bbox_roi_extractor', 'bbox_head'),
+}
+# what JAX's ``MaskIoUHead`` computes with, whatever the config says
+MASK_IOU_FIXED = dict(num_convs=4, num_fcs=2, conv_out_channels=256,
+                      fc_out_channels=1024)
+# Grid R-CNN's grid loss, its weight fixed in JAX (``grid_rcnn.py:338``)
+GRID_LOSS = dict(type='CrossEntropyLoss', use_sigmoid=True,
+                 loss_weight=GRID_LOSS_WEIGHT)
+# every grid file's ``max_num_grid``, which JAX does not apply (3ay)
+MAX_NUM_GRID = 192
+
+
+def _point_rend_extractor(cfg: dict, what: str) -> dict:
+    """PointRend's mask extractor: its one level, stride 4 (JAX reads its
+    ``output_size`` and crops P2 with RoIAlign at ratio 1, 3ba). The
+    files' ``roi_layer`` keeps the base config's ``sampling_ratio`` 0
+    through the merge, which ``SimpleRoIAlign`` has no use for."""
+    cfg = _cfg(cfg)
+    layer = _cfg(cfg.get('roi_layer'))
+    _check_keys(f'{what} roi_layer', layer, ('output_size',),
+                {'type': 'SimpleRoIAlign', 'sampling_ratio': 0}, DROPPED)
+    _check_keys(what, cfg, ('roi_layer', 'out_channels'), dict(
+        type='GenericRoIExtractor', aggregation='concat',
+        featmap_strides=[4]), DROPPED)
+    return cfg
+
+
+def _mask_loss_weight(mhc: dict) -> float:
+    loss = _cfg(mhc.get('loss_mask'))
+    _check_keys('loss_mask', loss, ('loss_weight',), MASK_LOSS, DROPPED)
+    return loss.get('loss_weight', 1.0)
+
+
+def build_mask_scoring_roi_head(cfg: dict, mhc: dict, mt, common: dict,
+                                rcnn_train: dict, in_channels: int):
+    """Mask R-CNN's FCN mask head and the ``MaskIoUHead`` JAX builds (its
+    defaults, the RoI head's classes); the IoU loss's weight."""
+    if mt != 'FCNMaskHead':
+        raise not_ported(f'{mt} under MaskScoringRoIHead (JAX builds an '
+                         'FCNMaskHead)', DROPPED)
+    ic = _cfg(cfg.get('mask_iou_head'))
+    loss = _cfg(ic.get('loss_iou'))
+    _check_keys('loss_iou', loss, ('loss_weight',), {'type': 'MSELoss'},
+                DROPPED)
+    _check_keys('MaskIoUHead', ic, ('loss_iou',), dict(
+        MASK_IOU_FIXED, type='MaskIoUHead', in_channels=in_channels,
+        roi_feat_size=common['mask_roi_out'],
+        num_classes=common['num_classes']), DROPPED)
+    if rcnn_train.get('mask_thr_binary', 0.5) != 0.5:
+        raise not_ported('train_cfg.rcnn.mask_thr_binary other than the '
+                         '0.5 JAX binarises at', DROPPED)
+    return MaskScoringRoIHead(
+        mask_head=build_fcn_mask_head(mhc),
+        mask_iou_head=MaskIoUHead(in_channels=in_channels,
+                                  roi_feat_size=common['mask_roi_out'],
+                                  num_classes=common['num_classes'],
+                                  **MASK_IOU_FIXED),
+        loss_iou_weight=loss.get('loss_weight', 0.5),
+        loss_mask_weight=_mask_loss_weight(mhc), **common)
+
+
+COARSE_KEYS = ('num_convs', 'num_fcs', 'in_channels', 'conv_out_channels',
+               'fc_out_channels', 'downsample_factor', 'roi_feat_size',
+               'num_classes', 'loss_mask')
+POINT_KEYS = ('num_classes', 'num_fcs', 'in_channels', 'fc_channels',
+              'class_agnostic', 'coarse_pred_each_layer', 'loss_point')
+
+
+def build_point_rend_roi_head(cfg: dict, mhc: dict, mt, common: dict,
+                              rcnn_train: dict, rcnn_test: dict,
+                              in_channels: int):
+    """``CoarseMaskHead`` + ``MaskPointHead`` (JAX ``builder.py:495-527``):
+    the point head's loss at weight 1, as JAX applies it; the points'
+    features P2's (stride 4, the extractor's only level)."""
+    if mt != 'CoarseMaskHead':
+        raise not_ported(f'{mt} under PointRendRoIHead', DROPPED)
+    _check_keys('CoarseMaskHead', mhc, COARSE_KEYS, item=DROPPED)
+    if mhc.get('in_channels', 256) != in_channels or mhc.get(
+            'roi_feat_size', 14) != common['mask_roi_out']:
+        raise not_ported('a CoarseMaskHead of other input channels or size '
+                         "than its P2 crops'", DROPPED)
+    coarse = CoarseMaskHead(**{k: mhc[k] for k in COARSE_KEYS[:-1]
+                               if k in mhc})
+    phc = _cfg(cfg.get('point_head'))
+    if phc.pop('type', None) != 'MaskPointHead':
+        raise not_ported('a PointRend point head other than MaskPointHead',
+                         DROPPED)
+    _check_keys('MaskPointHead', phc, POINT_KEYS, item=DROPPED)
+    _check_keys('loss_point', _cfg(phc.get('loss_point')), (),
+                dict(MASK_LOSS, loss_weight=1.0), DROPPED)
+    if phc.get('in_channels', 256) != in_channels or phc.get(
+            'num_classes', 80) != coarse.num_classes:
+        raise not_ported('a MaskPointHead of other input channels or '
+                         'classes than the P2 crops\' and the coarse '
+                         'head\'s', DROPPED)
+    point = MaskPointHead(**{k: phc[k] for k in POINT_KEYS[:-1] if k in phc})
+    if rcnn_train.get('mask_size', coarse.out_size) != coarse.out_size:
+        raise not_ported(f'PointRend train_cfg.rcnn.mask_size '
+                         f'{rcnn_train["mask_size"]} (JAX trains the coarse '
+                         f'head at its {coarse.out_size})', DROPPED)
+    return PointRendRoIHead(
+        mask_head=coarse, point_head=point,
+        num_points=rcnn_train.get('num_points', 196),
+        oversample_ratio=rcnn_train.get('oversample_ratio', 3.0),
+        importance_sample_ratio=rcnn_train.get('importance_sample_ratio',
+                                               0.75),
+        subdivision_steps=rcnn_test.get('subdivision_steps', 5),
+        subdivision_num_points=rcnn_test.get('subdivision_num_points', 784),
+        scale_factor=rcnn_test.get('scale_factor', 2),
+        loss_mask_weight=_mask_loss_weight(mhc), **common)
+
+
+POINT_REFINE_KEYS = ('num_convs_instance', 'num_convs_semantic', 'num_fcs',
+                     'conv_out_channels_instance',
+                     'conv_out_channels_semantic', 'semantic_out_stride',
+                     'mask_use_sigmoid', 'coarse_pred_each_layer',
+                     'stage_num_classes', 'stage_sup_size', 'num_points')
+
+
+def build_point_refine_roi_head(mhc: dict, mt, common: dict,
+                                in_channels: int):
+    """``PointRefineMaskHead`` (JAX ``builder.py:579-610``). Its loss
+    config's ``start_stage`` 4 is the all-plain supervision JAX computes
+    (its ``boundary_width`` then reaches nothing); the loss type the
+    reference lacks is taken as JAX takes it (``point_refine_head.py:
+    10-15``)."""
+    if mt != 'PointRefineMaskHead':
+        raise not_ported(f'{mt} under PointRefineRoIHead', DROPPED)
+    loss_cfg = _cfg(mhc.pop('loss_cfg', None))
+    _check_keys('PointRefineMaskHead', mhc, POINT_REFINE_KEYS, item=DROPPED)
+    _check_keys('PointRefineMaskHead loss_cfg', loss_cfg, (
+        'stage_instance_loss_weight', 'semantic_loss_weight',
+        'detail_loss_weight', 'boundary_width'), dict(
+            type='PointRefineCrossEntropyLoss', start_stage=4), DROPPED)
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in mhc.items()}
+    mask_head = PointRefineMaskHead(conv_in_channels_instance=in_channels,
+                                    conv_in_channels_semantic=in_channels,
+                                    **kw)
+    return PointRefineRoIHead(
+        mask_head=mask_head,
+        stage_sup_size=tuple(mhc.get('stage_sup_size', (14, 28, 56, 112))),
+        stage_instance_loss_weight=tuple(loss_cfg.get(
+            'stage_instance_loss_weight', (0.5,) * 4)),
+        semantic_loss_weight=loss_cfg.get('semantic_loss_weight', 1.0),
+        detail_loss_weight=loss_cfg.get('detail_loss_weight', 1.0),
+        boundary_width=loss_cfg.get('boundary_width', 2), start_stage=4,
+        **common)
+
+
+GRID_HEAD_KEYS = ('grid_points', 'num_convs', 'roi_feat_size', 'in_channels',
+                  'point_feat_channels', 'norm_cfg', 'loss_grid')
+
+
+def build_grid_roi_head(cfg: dict, common: dict, rcnn_train: dict,
+                        bbox_extractor: dict):
+    """``GridHead`` and ``GridRoIHead`` (JAX ``builder.py:421-436``) over
+    the box head without regression that ``_box_head`` builds for it. The
+    grid extract takes the box extractor's mode whatever the grid
+    extractor's type (3z)."""
+    gh = _cfg(cfg.get('grid_head'))
+    if gh.pop('type', None) != 'GridHead':
+        raise not_ported('a grid head other than GridHead', DROPPED)
+    _check_keys('GridHead', gh, GRID_HEAD_KEYS, dict(
+        conv_kernel_size=3, deconv_kernel_size=4,
+        conv_out_channels=gh.get('point_feat_channels', 64) *
+        gh.get('grid_points', 9)), DROPPED)
+    _check_keys('loss_grid', _cfg(gh.get('loss_grid')), (), GRID_LOSS,
+                DROPPED)
+    norm = _cfg(gh.get('norm_cfg'))
+    _check_keys('GridHead norm_cfg', norm, ('num_groups',),
+                {'type': 'GN', 'requires_grad': True}, DROPPED)
+    ext = _extractor(cfg.get('grid_roi_extractor'), 'grid_roi_extractor')
+    out = _cfg(ext.get('roi_layer')).get('output_size', 14)
+    if gh.get('roi_feat_size', 14) != out or gh.get(
+            'in_channels', 256) != bbox_extractor.get('out_channels', 256):
+        raise not_ported('a GridHead of another roi_feat_size or in_channels '
+                         'than its crops\'', DROPPED)
+    if rcnn_train.get('max_num_grid', MAX_NUM_GRID) != MAX_NUM_GRID:
+        raise not_ported(f'train_cfg.rcnn.max_num_grid other than every '
+                         f'file\'s {MAX_NUM_GRID} (JAX applies none, 3ay)',
+                         DROPPED)
+    head = GridHead(grid_points=gh.get('grid_points', 9),
+                    num_convs=gh.get('num_convs', 8), roi_feat_size=out,
+                    in_channels=gh.get('in_channels', 256),
+                    point_feat_channels=gh.get('point_feat_channels', 64),
+                    gn_groups=norm.get('num_groups', 36))
+    return GridRoIHead(grid_head=head, grid_roi_out=out,
+                       pos_radius=rcnn_train.get('pos_radius', 1), **common)
+
+
+DYNAMIC_KEYS = ('iou_topk', 'beta_topk', 'initial_iou', 'initial_beta',
+                'update_iter_interval')
+
+
+def build_dynamic_roi_head(cfg: dict, common: dict, rcnn_train: dict):
+    """``DynamicRoIHead`` (JAX ``builder.py:437-447``): it assigns with one
+    threshold for positives, negatives and low-quality matches and trains
+    a class-specific SmoothL1 box loss whose beta starts at
+    ``initial_beta``; a config whose assigner or box loss says otherwise
+    is refused."""
+    dyn = _cfg(rcnn_train.get('dynamic_rcnn'))
+    _check_keys('dynamic_rcnn', dyn, DYNAMIC_KEYS, item=DROPPED)
+    kw = dict(iou_topk=dyn.get('iou_topk', 75),
+              beta_topk=dyn.get('beta_topk', 10),
+              initial_iou=dyn.get('initial_iou', 0.4),
+              initial_beta=dyn.get('initial_beta', 1.0),
+              update_iter_interval=dyn.get('update_iter_interval', 100))
+    assigner = _cfg(rcnn_train.get('assigner'))
+    thr = assigner.get('pos_iou_thr', 0.5)
+    loss = _cfg(_cfg(cfg['bbox_head']).get('loss_bbox'))
+    if (assigner.get('neg_iou_thr', 0.5), assigner.get('min_pos_iou', 0.5)
+            ) != (thr, thr) or loss.get('type') != 'SmoothL1Loss' or \
+            loss.get('beta', 1.0) != kw['initial_beta'] or \
+            common['bbox_head'].reg_class_agnostic or \
+            common['reg_decoded_bbox']:
+        raise not_ported('a DynamicRoIHead with other assigner thresholds, '
+                         'box loss or beta than the one dynamic threshold '
+                         'and SmoothL1 from initial_beta JAX trains with',
+                         DROPPED)
+    return DynamicRoIHead(**kw, **common)
 
 
 # the keys of the cascade heads that the JAX builders read
@@ -1144,9 +1413,11 @@ def build_ga_rpn_family(t: str, cfg: dict, train_cfg: dict, test_cfg: dict,
 
 
 DETECTOR_TYPES = ('MaskRCNN', 'FasterRCNN', 'FastRCNN', 'RPN')
-# the cascade detectors are the JAX package's ``TwoStageDetector``
-# (``dynamask_tpu/models/builder.py:1177-1178``): the port's two-stage one
-CASCADE_DETECTORS = ('CascadeRCNN', 'HybridTaskCascade')
+# the detectors the JAX package builds as its ``TwoStageDetector`` by
+# another name (``dynamask_tpu/models/builder.py:1176-1180``): the port's
+# two-stage one
+TWO_STAGE_DETECTORS = ('CascadeRCNN', 'HybridTaskCascade', 'GridRCNN',
+                     'MaskScoringRCNN', 'PointRend')
 
 
 def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
@@ -1158,10 +1429,11 @@ def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
     with ``seed`` (see :func:`dynamask_torch.models.layers.init_weights`
     for ``init_std``). ``MaskRCNN`` and ``FasterRCNN`` (the two-stage
     detectors), ``FastRCNN`` (the RoI head over the batch's proposals) and
-    ``RPN`` (the proposals alone); ``CascadeRCNN`` and
-    ``HybridTaskCascade`` build the two-stage detector on their RoI
-    heads; ``RetinaNet`` (and ``SingleStageDetector``), ``ATSS`` and
-    ``FCOS`` the single-stage ones."""
+    ``RPN`` (the proposals alone); ``CascadeRCNN``,
+    ``HybridTaskCascade``, ``GridRCNN``, ``MaskScoringRCNN`` and
+    ``PointRend`` build the two-stage detector on their RoI heads;
+    ``RetinaNet`` (and ``SingleStageDetector``), ``ATSS`` and ``FCOS``
+    the single-stage ones."""
     dev = resolve_device(device)
     cfg = _cfg(model_cfg)
     t = cfg.pop('type')
@@ -1173,7 +1445,7 @@ def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
                 backbone=build_backbone(cfg['backbone']),
                 neck=build_neck(cfg.get('neck'))))
         return _materialise(det, dev, seed, init_std)
-    if t not in DETECTOR_TYPES + CASCADE_DETECTORS:
+    if t not in DETECTOR_TYPES + TWO_STAGE_DETECTORS:
         raise not_ported(f'detector {t}', DETECTOR_ITEMS.get(t, 6))
     parts = {'backbone', 'neck'} | (set() if t == 'RPN' else {'roi_head'}) | \
         (set() if t == 'FastRCNN' else {'rpn_head'})
@@ -1216,7 +1488,7 @@ def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
     if t != 'FastRCNN':
         modules.update(_rpn_cfg(anchor_cfg, coder, model_cfg['rpn_head'],
                                 train_cfg, test))
-    if t in CASCADE_DETECTORS:
+    if t in TWO_STAGE_DETECTORS:
         t = 'FasterRCNN' if modules['roi_head'].mask_head is None else \
             'MaskRCNN'
     return _materialise(DETECTORS.build(dict(type=t, **modules)), dev, seed,

@@ -279,7 +279,8 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     (a residual block's last: ``zero_init_residual``), a module's
     ``init_fill`` constants by parameter name (the dense heads' prior
     class bias, a ``Scale``'s 1, a LayerNorm's affine) and its
-    ``init_std`` normal draws (``GeneralizedAttention``'s biases).
+    ``init_std`` normal draws (``GeneralizedAttention``'s biases); a
+    module's ``init_buffers()`` sets its own state (Dynamic R-CNN's).
     ``std=s``: every float parameter ~ N(0, s) and BN statistics
     |N(0, s)| + 0.5 (the random-weight protocol of the JAX bench)."""
     with torch.no_grad():
@@ -307,6 +308,8 @@ def init_weights(model: nn.Module, generator: torch.Generator,
                                   getattr(m, 'init_rule', None))
                 else:
                     p.zero_()
+            if hasattr(m, 'init_buffers'):      # a state of its own
+                m.init_buffers()
             if isinstance(m, nn.modules.batchnorm._BatchNorm):
                 if std is not None:
                     for buf in (m.running_mean, m.running_var):

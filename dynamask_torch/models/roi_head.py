@@ -169,8 +169,13 @@ class StandardRoIHead(nn.Module):
             return losses
         with record_function('mask_branch'):
             losses.update(self._mask_forward_train(
-                feats, sample, batch, noise.get('gumbel'), generator))
+                feats, sample, batch, self._mask_draws(noise), generator))
         return losses
+
+    def _mask_draws(self, noise: dict):
+        """The mask branch's draws in ``noise``: DynaMask's 'gumbel'
+        uniforms (PointRend's heads take their points')."""
+        return noise.get('gumbel')
 
     def _box_loss(self, cls_logits, bbox_deltas, flat: SamplingResult,
                   target_stds, reg_class_agnostic: bool):

@@ -275,10 +275,18 @@ def test_groie_refused():
                      d['test_cfg']).roi_head.roi_extract_mode
     assert init_detector(path, device='meta').roi_head.roi_extract_mode \
         == mode == 'generic_sum'
+    # GRoIE's Grid R-CNN builds too (item 9's heads), the all-level extract
+    # its box and grid crops'
+    assert init_detector(os.path.join(
+        ROOT, 'configs/groie/grid_rcnn_r50_fpn_gn-head_groie_1x_coco.py'),
+        device='meta').roi_head.roi_extract_mode == 'generic_sum'
+    from dynamask_torch.models import build_detector
+    d['model']['roi_head']['bbox_roi_extractor']['pre_cfg'] = dict(
+        type='ConvModule', in_channels=256, out_channels=256, kernel_size=5,
+        padding=2, inplace=False)
     with pytest.raises(NotImplementedError, match='item 9'):
-        init_detector(os.path.join(
-            ROOT, 'configs/groie/grid_rcnn_r50_fpn_gn-head_groie_1x_coco.py'),
-            device='meta')
+        build_detector(d['model'], d['train_cfg'], d['test_cfg'],
+                       device='meta')
 
 
 @pytest.mark.parametrize('name', sorted(PHASE11))

@@ -18,8 +18,10 @@ two RoI-pool files, ``gcnet/``, ``empirical_attention/``, GRoIE's two
 GCB files, HTC X101-64x4d's dconv file, FCOS's ``dcn_on_last_conv`` file
 and RegNetX-3.2GF's mdconv file: 37) to 264, and with guided anchoring
 (``configs/guided_anchoring/`` but its Fast R-CNN file, which built
-before: 16) and DetectoRS (``configs/detectors/``: 6) to 286. The
-``dconv`` files of GFL and RepPoints are still refused, for their
+before: 16) and DetectoRS (``configs/detectors/``: 6) to 286, and with
+item 9's two-stage heads (Mask Scoring R-CNN 8, Grid R-CNN 6 with
+GRoIE's grid file, PointRend 2, PointRefine 1, Dynamic R-CNN 1) to 304.
+The ``dconv`` files of GFL and RepPoints are still refused, for their
 detectors (item 6).
 """
 
@@ -83,6 +85,7 @@ BUILDS = (
     'dynamask/coco/r101_dynamask_3x.py',
     'dynamask/coco/r50_dynamask_1x.py',
     'dynamask/lvis/r50_dynamask_lvis_1x.py',
+    'dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py',
     'empirical_attention/faster_rcnn_r50_fpn_attention_0010_1x_coco.py',
     'empirical_attention/faster_rcnn_r50_fpn_attention_0010_dcn_1x_coco.py',
     'empirical_attention/faster_rcnn_r50_fpn_attention_1111_1x_coco.py',
@@ -179,7 +182,13 @@ BUILDS = (
     'gn/mask_rcnn_r50_fpn_gn-all_3x_coco.py',
     'gn/mask_rcnn_r50_fpn_gn-all_contrib_2x_coco.py',
     'gn/mask_rcnn_r50_fpn_gn-all_contrib_3x_coco.py',
+    'grid_rcnn/grid_rcnn_r101_fpn_gn-head_2x_coco.py',
+    'grid_rcnn/grid_rcnn_r50_fpn_gn-head_1x_coco.py',
+    'grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py',
+    'grid_rcnn/grid_rcnn_x101_32x4d_fpn_gn-head_2x_coco.py',
+    'grid_rcnn/grid_rcnn_x101_64x4d_fpn_gn-head_2x_coco.py',
     'groie/faster_rcnn_r50_fpn_groie_1x_coco.py',
+    'groie/grid_rcnn_r50_fpn_gn-head_groie_1x_coco.py',
     'groie/mask_rcnn_r101_fpn_syncbn-backbone_r4_gcb_c3-c5_groie_1x_coco.py',
     'groie/mask_rcnn_r50_fpn_groie_1x_coco.py',
     'groie/mask_rcnn_r50_fpn_syncbn-backbone_r4_gcb_c3-c5_groie_1x_coco.py',
@@ -272,10 +281,21 @@ BUILDS = (
     'mask_rcnn/mask_rcnn_x101_32x8d_fpn_mstrain-poly_3x_coco.py',
     'mask_rcnn/mask_rcnn_x101_64x4d_fpn_1x_coco.py',
     'mask_rcnn/mask_rcnn_x101_64x4d_fpn_2x_coco.py',
+    'ms_rcnn/ms_rcnn_r101_caffe_fpn_1x_coco.py',
+    'ms_rcnn/ms_rcnn_r101_caffe_fpn_2x_coco.py',
+    'ms_rcnn/ms_rcnn_r50_caffe_fpn_1x_coco.py',
+    'ms_rcnn/ms_rcnn_r50_caffe_fpn_2x_coco.py',
+    'ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py',
+    'ms_rcnn/ms_rcnn_x101_32x4d_fpn_1x_coco.py',
+    'ms_rcnn/ms_rcnn_x101_64x4d_fpn_1x_coco.py',
+    'ms_rcnn/ms_rcnn_x101_64x4d_fpn_2x_coco.py',
     'nas_fpn/retinanet_r50_fpn_crop640_50e_coco.py',
     'pafpn/faster_rcnn_r50_pafpn_1x_coco.py',
     'pascal_voc/faster_rcnn_r50_fpn_1x_voc0712.py',
     'pascal_voc/retinanet_r50_fpn_1x_voc0712.py',
+    'point_refine/r50_point_refine_1x.py',
+    'point_rend/point_rend_r50_caffe_fpn_mstrain_1x_coco.py',
+    'point_rend/point_rend_r50_caffe_fpn_mstrain_3x_coco.py',
     'refinemask/cityscapes/r50_refinemask_1x.py',
     'refinemask/coco/r101_refinemask_1x.py',
     'refinemask/coco/r101_refinemask_2x.py',
@@ -327,7 +347,7 @@ BUILDS = (
     'scratch/mask_rcnn_r50_fpn_gn-all_scratch_6x_coco.py',
 )
 REFUSED = {
-    'groie/grid_rcnn_r50_fpn_gn-head_groie_1x_coco.py': 'item 9',
+    'pisa/pisa_faster_rcnn_r50_fpn_1x_coco.py': 'item 9',
     'legacy_1.x/faster_rcnn_r50_fpn_1x_coco_v1.py': '3c',
     'legacy_1.x/cascade_mask_rcnn_r50_fpn_1x_coco_v1.py': '3c',
     'gfl/gfl_r101_fpn_dconv_c3-c5_mstrain_2x_coco.py': 'item 6',

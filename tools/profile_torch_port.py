@@ -28,10 +28,11 @@ For each mode it reports
   time and the device time of the kernels it launched, read from the
   ``record_function`` ranges that the real entry points open: at inference
   ``MaskRCNN.simple_test``, the RoI head and ``inference_detector``
-  (backbone, fpn, rpn_and_proposals, box_head_and_nms, mask_branch, paste);
+  (backbone, fpn, rpn_and_proposals, box_head_and_nms, mask_branch, paste;
+  Grid R-CNN's grid_branch, Mask Scoring R-CNN's mask_iou_branch);
   in training ``make_train_step`` (forward_train, backward, optimizer),
   ``MaskRCNN.forward_train`` (backbone, fpn, rpn_loss, proposals) and the
-  RoI head (box_branch, mask_branch); a single-stage detector's are
+  RoI head (box_branch, mask_branch, Grid R-CNN's grid_branch); a single-stage detector's are
   backbone, fpn (the neck), head, and get_dets at inference or loss in
   training (``SingleStageDetector``, ``ATSS``, ``FCOS``). The backward
   pass runs its kernels
@@ -68,11 +69,14 @@ FLAGSHIP = os.path.join(ROOT, 'configs/dynamask/coco/r50_dynamask_1x.py')
 # DetectoRS' RFP neck adds its rounds' ranges after ``fpn``
 # (``models/necks_extra.py``): ASPP and the backbone pass, pyramid and gate
 RFP_STAGES = ('rfp_backbone', 'rfp_neck')
+# Grid R-CNN's grid head and Mask Scoring R-CNN's rescoring open their own
+# (``models/grid_rcnn.py``, ``mask_scoring.py``)
 STAGES = ('backbone', 'fpn', *RFP_STAGES, 'rpn_and_proposals',
-          'box_head_and_nms', 'mask_branch', 'paste')
+          'box_head_and_nms', 'mask_branch', 'grid_branch', 'mask_iou_branch',
+          'paste')
 TRAIN_STAGES = ('forward_train', 'backbone', 'fpn', *RFP_STAGES, 'rpn_loss',
-                'proposals', 'box_branch', 'mask_branch', 'backward',
-                'optimizer')
+                'proposals', 'box_branch', 'mask_branch', 'grid_branch',
+                'backward', 'optimizer')
 # a single-stage detector's ranges (``models/single_stage.py``, ``atss.py``,
 # ``fcos.py``): the backbone, the neck (``fpn``), the dense head, then the
 # dense targets and losses or the decode and NMS
