@@ -1874,6 +1874,9 @@ TOY_LOSS_RTOL = 1e-4   # fp32 sums in other orders: ~1e-6 relative
 TOY_GRAD_RL2 = 1e-3
 TOY_GRAD_FLOOR = 10.0
 TOY_GRAD_ZERO = 1e-9    # of the largest gradient norm: a zero's rounding
+# a toy step in float64 on both devices (phase 19): sums in other orders
+TOY_LOSS_RTOL64 = 1e-9
+TOY_GRAD_RL2_64 = 1e-6
 KINK_RTOL = 1e-5
 INPUT_NOISE = 1e-7
 
@@ -3125,15 +3128,55 @@ def mask_side(rh):
     return 112
 
 
+def device_busy(fn):
+    """One more call of ``fn`` under ``torch.profiler`` (CPU and CUDA):
+    {'wall_ms', 'busy_ms', 'share'}, the union of the device's kernel and
+    copy intervals over the call's wall time, the profiler's own cost
+    inside it; ``share`` None when the trace holds no device time. The
+    device-side spans of the ``record_function`` ranges are not work:
+    they are left out by their flag and by their names."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(DEVICE)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(DEVICE)
+        wall = time.perf_counter() - t
+    events = prof.events()
+    ranges = {e.name for e in events if e.device_type == DeviceType.CPU}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA and e.name not in
+                   ranges and not getattr(e, 'is_user_annotation', False))
+    busy, end = 0.0, float('-inf')
+    for start, stop in spans:       # microseconds
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return dict(wall_ms=1e3 * wall, busy_ms=busy / 1e3,
+                share=busy / 1e6 / wall if spans else None)
+
+
+def busy_text(b) -> str:
+    if b['share'] is None:
+        return (f'device busy share not measured (no device time in the '
+                f'trace of a {b["wall_ms"]:.1f} ms pass)')
+    return (f'device busy {100 * b["share"]:.1f}% of a {b["wall_ms"]:.1f} ms '
+            'profiled pass')
+
+
 def run_config_inference(report, card, name, path, hw, modes, repeats=5,
-                         bf16=False):
+                         bf16=False, busy=False):
     """Phases 8 and 10-14, inference: the config's detector built on the
     card with random weights N(0, 0.05) from seed 0, one seeded image at
     the config's test canvas through ``inference_detector`` (with
     ``bf16``, ``make_test_fn(..., bf16=True)``: a bf16 copy of the model on
     a bf16 image); per mode of ``modes`` (:func:`config_modes`) a counted
     warm-up drive held to its exact launches, then the median of
-    ``repeats``. A box-only detector's drive gives no masks."""
+    ``repeats``, and with ``busy`` one more drive under the profiler
+    (:func:`device_busy`). A box-only detector's drive gives no masks."""
     import torch
     import dynamask_torch.ops as ops
     from dynamask_torch.apis import (inference_detector, init_detector,
@@ -3220,6 +3263,9 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
         rec = dict(config=name, mode=mode, ms_per_img=ms, times_ms=times,
                    peak_memory_bytes=peak, valid_dets=n_valid, slots=d,
                    launches=launches[key], bf16=bf16)
+        if busy:
+            rec['busy'] = device_busy(lambda: drive(dyn))
+            line += '; ' + busy_text(rec['busy'])
         if 'msm_routing' in out:
             r = {k: v.tolist() for k, v in out['msm_routing'].items()
                  if k != 'need'}
@@ -3233,7 +3279,8 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
 
 
 def run_config_train(report, card, name, path, images, hw, counts,
-                     repeats=TIMED_STEPS, compute_dtype=None, init_std=None):
+                     repeats=TIMED_STEPS, compute_dtype=None, init_std=None,
+                     busy=False):
     """Phases 8 and 10-14, training: ``init_trainer`` on the config (its
     seeded JAX initialisation), a seeded synthetic batch of ``images`` at
     the train canvas with 20 GTs each over the config's classes (and, for
@@ -3241,7 +3288,8 @@ def run_config_train(report, card, name, path, images, hw, counts,
     rasteriser, or HTC's ``gt_semantic_seg``), one warm-up and
     ``repeats`` timed ``train_steps`` (in ``compute_dtype`` on fp32
     masters, given; from N(0, ``init_std``) weights, given); counters
-    around all of them, held to ``counts`` a step."""
+    around all of them, held to ``counts`` a step; with ``busy`` one more
+    step under the profiler (:func:`device_busy`)."""
     import torch
     import dynamask_torch.ops as ops
     from dynamask_torch.apis import (init_trainer, semantic_seg_shape,
@@ -3292,13 +3340,19 @@ def run_config_train(report, card, name, path, images, hw, counts,
     peak = torch.cuda.max_memory_allocated(DEVICE)
     ms = statistics.median(times[1:])
     prec = ' bf16' if compute_dtype is torch.bfloat16 else ''
+    shares = device_busy(lambda: train_steps(
+        model, opt, [batch], generator=gen,
+        compute_dtype=compute_dtype)) if busy else None
     print(f'  {key}: {ms:.1f} ms/step{prec} (median of {repeats}, after 1 '
           f'warm-up), batch {images}x{h}x{w}, {1e3 * images / ms:.2f} img/s, '
           f'peak memory {peak / 2 ** 30:.2f} GiB [{card}]; first losses ' +
-          ', '.join(f'{k} {v:.4g}' for k, v in logs[0].items()))
+          ', '.join(f'{k} {v:.4g}' for k, v in logs[0].items()) +
+          (f'; {busy_text(shares)}' if busy else ''))
     rec = dict(config=name, ms_per_step=ms, times_ms=times, batch=images,
                canvas=list(hw), peak_memory_bytes=peak, losses=logs,
                launches=launches[key], bf16=bool(prec))
+    if busy:
+        rec['busy'] = shares
     del model, opt, batch
     torch.cuda.empty_cache()
     return launches, rec
@@ -4675,14 +4729,19 @@ def check_item7_toys(report):
     check_dense_toy(report, 'fcos_dcn', item7_toy('fcos_dcn'), 4)
 
 
-def check_dense_toy(report, name, cfg, n_offsets, noise=None):
+def check_dense_toy(report, name, cfg, n_offsets, noise=None,
+                    step_dtype=None):
     """A dense-head toy (``cfg``) on the card against the CPU: built on the
     CPU with N(0, 0.05) weights from seed 0 and copied to the card; two
     seeded 96x128 images through ``simple_test`` (labels and validity
     equal, dets within TOY_DET_TOL) and a training step with ``noise``'s
     draws (each loss within TOY_LOSS_RTOL, every gradient within
     TOY_GRAD_RL2 relative L2 or the CPU's own noise; ``n_offsets`` offset
-    conv tensors among them)."""
+    conv tensors among them). With ``step_dtype=torch.float64`` the step
+    runs in float64 on both (the model and the batch cast), held to
+    TOY_LOSS_RTOL64 and TOY_GRAD_RL2_64: phase 19's toys, whose fp32
+    gradients of the backbone's early BatchNorms part from their own
+    float64 by up to 8.7e-3 relative L2 on the CPU (RepPoints)."""
     import copy
     import torch
     from dynamask_torch.apis import synthetic_batch
@@ -4709,12 +4768,20 @@ def check_dense_toy(report, name, cfg, n_offsets, noise=None):
     # are not compared
     noisy = dict(data, image=data['image'] * (1 + INPUT_NOISE * torch.randn(
         data['image'].shape, generator=torch.Generator().manual_seed(5))))
+    loss_tol, grad_tol = TOY_LOSS_RTOL, TOY_GRAD_RL2
+    if step_dtype is not None:
+        loss_tol, grad_tol = TOY_LOSS_RTOL64, TOY_GRAD_RL2_64
+        cpu, gpu = cpu.to(step_dtype), gpu.to(step_dtype)
+
+    def cast(v, dev):
+        return v.to(dev, step_dtype) if (
+            step_dtype is not None and v.is_floating_point()) else v.to(dev)
 
     def step(net, batch):
         net.train().zero_grad(set_to_none=True)
         losses = net.forward_train(
-            {k: v.to(net.device) for k, v in batch.items()},
-            {k: v.to(net.device) for k, v in (noise or {}).items()})
+            {k: cast(v, net.device) for k, v in batch.items()},
+            {k: cast(v, net.device) for k, v in (noise or {}).items()})
         sum(v for k, v in losses.items() if 'loss' in k).backward()
         return ({k: float(v.detach()) for k, v in losses.items()},
                 {k: p.grad.detach().cpu().double()
@@ -4735,21 +4802,23 @@ def check_dense_toy(report, name, cfg, n_offsets, noise=None):
     zero = TOY_GRAD_ZERO * max(g.norm().item() for g in
                                grads['cpu'].values())
     rows = sorted((rel_l2(grads['gpu'][k], g) / max(
-        TOY_GRAD_RL2, TOY_GRAD_FLOOR * rel_l2(grads['cpu_noisy'][k], g)),
+        grad_tol, TOY_GRAD_FLOOR * rel_l2(grads['cpu_noisy'][k], g)),
         rel_l2(grads['gpu'][k], g), k) for k, g in grads['cpu'].items()
         if max(g.norm().item(), grads['gpu'][k].norm().item()) > zero)
     offsets = {k: d for _, d, k in rows if 'conv_offset' in k}
-    if (max(rel.values()) > TOY_LOSS_RTOL or rows[-1][0] > 1.0 or
+    if (max(rel.values()) > loss_tol or rows[-1][0] > 1.0 or
             len(offsets) != n_offsets):
         raise RuntimeError(f'toy {name}: losses {rel}, worst gradient '
                            f'{rows[-1]}, offset convs {offsets}')
+    prec = '' if step_dtype is None else ' (step in float64)'
     print(f'  toy {name}: {int(ref["det_valid"].sum())} valid dets, labels '
           f'and validity equal, dets max abs err {err:.3g} (tol '
-          f'{TOY_DET_TOL}); losses max rel err {max(rel.values()):.3g} (tol '
-          f'{TOY_LOSS_RTOL}); {len(rows)} gradients, the nearest its '
-          f'tolerance {rows[-1][2]} {rows[-1][1]:.3g} (max({TOY_GRAD_RL2}, '
-          f'{TOY_GRAD_FLOOR} x CPU noise)), the offset convs\' max '
-          f'{max(offsets.values()):.3g}; kink inputs moved {sides.moved}')
+          f'{TOY_DET_TOL}); losses{prec} max rel err '
+          f'{max(rel.values()):.3g} (tol {loss_tol}); {len(rows)} gradients, '
+          f'the nearest its tolerance {rows[-1][2]} {rows[-1][1]:.3g} '
+          f'(max({grad_tol}, {TOY_GRAD_FLOOR} x CPU noise)), the offset '
+          f'convs\' max {max(offsets.values(), default=0.0):.3g}; kink inputs '
+          f'moved {sides.moved}')
     report['toy'].append(dict(toy=f'dense_{name}', dets_max_abs_err=err,
                               loss_rel_err=rel,
                               grad_rel_l2={k: d for _, d, k in rows}))
@@ -5018,6 +5087,235 @@ def run_item9_heads(report, card):
     return launches
 
 
+# -- phase 19: item 6's FPN dense detectors -----------------------------------
+
+GFL_CONFIG = os.path.join(ROOT, 'configs/gfl/gfl_r50_fpn_1x_coco.py')
+ITEM6_CONFIGS = {
+    'gfl': GFL_CONFIG,
+    'fsaf': os.path.join(ROOT, 'configs/fsaf/fsaf_r50_fpn_1x_coco.py'),
+    'fovea': os.path.join(ROOT,
+                          'configs/foveabox/fovea_r50_fpn_4x4_1x_coco.py'),
+    'fovea_align': os.path.join(
+        ROOT, 'configs/foveabox/fovea_align_r50_fpn_gn-head_4x4_2x_coco.py'),
+    'reppoints': os.path.join(
+        ROOT, 'configs/reppoints/reppoints_moment_r50_fpn_gn-neck+head_1x_'
+        'coco.py'),
+    'reppoints_grid': os.path.join(
+        ROOT, 'configs/reppoints/bbox_r50_grid_fpn_gn-neck+head_1x_coco.py'),
+    'nas_fcos': os.path.join(
+        ROOT, 'configs/nas_fcos/nas_fcos_nashead_r50_caffe_fpn_gn-head_4x4_'
+        '1x_coco.py'),
+}
+# (name, timed repeats of an image, timed steps (None: no step), the
+# exact-gather and the windowed DCNs a forward): FoveaBox's FeatureAlign a
+# level (5), RepPoints' two DCNs a level (10), NAS-FCOS' two DCNv2s in each
+# tower a level (20). No hand kernel runs on these paths: each drive holds
+# K1-K5 and their bf16 instances at 0 launches.
+ITEM6_CELLS = (
+    ('gfl', 1, 1, 0, 0),
+    ('fsaf', 1, 1, 0, 0),
+    ('fovea', 1, 1, 0, 0),
+    ('fovea_align', 1, 1, 5, 0),
+    ('reppoints', 1, 1, 10, 0),
+    ('reppoints_grid', 1, None, 10, 0),
+    ('nas_fcos', 1, 1, 0, 20),
+)
+# the toys on the card against the CPU, and the offset convs among each
+# one's gradients (the align head's FeatureAlign; NAS-FCOS' four DCNv2s,
+# weight and bias)
+ITEM6_TOYS = {'gfl': 0, 'fsaf': 0, 'fovea_align': 1, 'reppoints': 0,
+              'nas_fcos': 8}
+
+
+def counted_item6_forms(name):
+    """The (exact-gather, windowed) DCNs a forward of ``name``'s detector,
+    counted from the built model: FoveaBox's FeatureAlign and RepPoints'
+    ``DeformConv2d`` s each run once a level, NAS-FCOS' DCNv2s once a level
+    each, over the 5 levels; held against ``ITEM6_CELLS``."""
+    from dynamask_torch.models import build_detector
+    from dynamask_torch.models.layers import DeformConv2d
+    from dynamask_torch.models.nasfcos import ModulatedDeformConv2dPack
+    from dynamask_torch.utils import Config
+    cfg = Config.fromfile(ITEM6_CONFIGS[name])
+    model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                           device='meta')
+    mods = list(model.bbox_head.modules())
+    n = len(ITEM6_LEVELS)
+    return (n * sum(isinstance(m, DeformConv2d) for m in mods),
+            n * sum(isinstance(m, ModulatedDeformConv2dPack) for m in mods))
+
+
+def item6_toy(kind):
+    """The config of an item-6 toy at :func:`single_stage_toy`'s width
+    (NAS-FCOS' searched head keeps its four ops, RepPoints' point features
+    32 channels)."""
+    cfg = single_stage_toy(kind, ITEM6_CONFIGS[kind])
+    if kind == 'nas_fcos':
+        cfg.model.bbox_head.pop('stacked_convs')
+    if kind.startswith('reppoints'):
+        cfg.model.bbox_head.point_feat_channels = 32
+    return cfg
+
+
+# the FPN levels P3-P7 at 800x1344
+ITEM6_LEVELS = ((100, 168), (50, 84), (25, 42), (13, 21), (7, 11))
+# (form, deform groups, offsets' half-range in pixels, modulated): the
+# align FoveaBox's FeatureAlign, RepPoints' point DCNs (offsets of a few
+# strides), NAS-FCOS' windowed DCNv2 (its +-3 window)
+ITEM6_DCNS = (('fovea_align', 4, 4.0, False), ('reppoints', 1, 12.0, False),
+              ('nas_fcos', 2, 3.0, True))
+
+
+def time_item6_dcns(report, card):
+    """The plain DCNs of phase 19's heads on the card, level by level (P3-P7
+    at 800x1344, 256 channels in and out), forward and forward + backward
+    with CUDA events, at a step's 4 images and an image's 1: the
+    exact gather of FoveaBox's FeatureAlign (4 groups) and of RepPoints
+    (offsets past any window, most samples off the plane), NAS-FCOS' windowed
+    DCNv2 (2 groups). Plain PyTorch by design (XLA in the JAX package):
+    the lines are ROADMAP.md S13's case for a hand kernel, not kernel
+    rows."""
+    import torch
+    from dynamask_torch.ops.deform_conv import (deform_conv2d_exact,
+                                                modulated_deform_conv2d)
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    recs, c = [], 256
+    for form, g, amp, modulated in ITEM6_DCNS:
+        for images in (TRAIN_IMAGES, 1):
+            totals = [0.0, 0.0]
+            for h, w in ITEM6_LEVELS:
+                x = torch.randn(images, h, w, c, generator=gen, device=DEVICE,
+                                requires_grad=True)
+                off = ((torch.rand(images, h, w, 18 * g, generator=gen,
+                                   device=DEVICE) * 2 - 1) *
+                       amp).requires_grad_()
+                mask = torch.rand(images, h, w, 9 * g, generator=gen,
+                                  device=DEVICE, requires_grad=True)
+                wt = (torch.randn(3, 3, c, c, generator=gen, device=DEVICE)
+                      / (9 * c) ** 0.5).requires_grad_()
+                cot = torch.randn(images, h, w, c, generator=gen,
+                                  device=DEVICE)
+                if modulated:
+                    def call():
+                        return modulated_deform_conv2d(x, off, mask, wt, 3,
+                                                       1, 1, g)
+                    inputs = (x, off, mask, wt)
+                else:
+                    def call():
+                        return deform_conv2d_exact(x, off, wt, None, 3, 1, 1,
+                                                   1, g)
+                    inputs = (x, off, wt)
+
+                def fwd():
+                    with torch.no_grad():
+                        call()
+
+                def fwd_bwd():
+                    torch.autograd.grad((call() * cot).sum(), inputs)
+
+                torch.cuda.reset_peak_memory_stats(DEVICE)
+                f_ms = cuda_ms(fwd, iters=3, warmup=1)
+                fb_ms = cuda_ms(fwd_bwd, iters=3, warmup=1)
+                peak = torch.cuda.max_memory_allocated(DEVICE)
+                nbytes = _nbytes(*inputs, cot)
+                ops = 2 * cot.numel() * 9 * c
+                f_bound = bound_of(nbytes, {'fp32': ops})
+                fb_bound = bound_of(2 * nbytes, {'fp32': 3 * ops})
+                totals[0] += f_ms
+                totals[1] += fb_ms
+                recs.append(dict(op=form, images=images, hw=[h, w], c=c,
+                                 groups=g, fwd_ms=f_ms, fwd_bwd_ms=fb_ms,
+                                 peak_bytes=peak, fwd_bound=f_bound,
+                                 fwd_bwd_bound=fb_bound))
+                print(f'  plain dcn {form} {images}x{h}x{w}x{c} g {g}: fwd '
+                      f'{f_ms:.3f} ms (bound {f_bound[0]:.3f}, '
+                      f'{f_bound[1]}), fwd+bwd {fb_ms:.3f} ms (bound '
+                      f'{fb_bound[0]:.3f}), peak {peak / 2 ** 30:.2f} GiB '
+                      f'[{card}]')
+                del x, off, mask, wt, cot, inputs
+            print(f'  plain dcn {form} x{images}, P3-P7: fwd {totals[0]:.3f} '
+                  f'ms, fwd+bwd {totals[1]:.3f} ms [{card}]')
+            torch.cuda.empty_cache()
+    report['item6']['plain_dcn'] = recs
+
+
+def run_item6(report, card):
+    """Phase 19: item 6's FPN dense detectors (GFL, FSAF, FoveaBox and its
+    align form, RepPoints and its grid form, NAS-FCOS with its searched
+    head), each from its config file, unchanged, at full width: an image at
+    the config's test canvas with phase 4's weights protocol and steps at
+    its train batch (20 GTs an image) from the JAX initialisation, each a
+    counted warm-up held to 0 launches of every kernel and to its exact
+    DCN forms, then a timed repeat and a profiled pass (the device-busy
+    share); then GFL through phase 6's eval drive, the plain DCNs timed by
+    level, and the toys on the card against the CPU."""
+    import torch
+    from dynamask_torch.apis import config_shapes
+    launches = {}
+    report['item6'] = {'inference': [], 'train': []}
+    for name, n_inf, n_steps, exact, windowed in ITEM6_CELLS:
+        forms = (exact, windowed)
+        if counted_item6_forms(name) != forms:
+            raise RuntimeError(f'{name}: the model runs '
+                               f'{counted_item6_forms(name)} DCNs a forward, '
+                               f'the table says {forms}')
+        path = ITEM6_CONFIGS[name]
+        test_hw, images, train_hw = config_shapes(path)
+        with counted_dcn_forms() as counts:
+            got, recs = run_config_inference(
+                report, card, name, path, test_hw, (('infer', None, {}),),
+                repeats=n_inf, busy=True)
+        check_dcn_forms(report, f'{name}_infer', counts, forms, 'item6')
+        launches.update(got)
+        report['item6']['inference'] += recs
+        if n_steps:
+            with counted_dcn_forms() as counts:
+                got, rec = run_config_train(report, card, name, path, images,
+                                            train_hw, {}, repeats=n_steps,
+                                            busy=True)
+            check_dcn_forms(report, f'{name}_train', counts, forms, 'item6')
+            launches.update(got)
+            report['item6']['train'].append(rec)
+        torch.cuda.empty_cache()
+    launches.update(run_gfl_eval(report, card))
+    time_item6_dcns(report, card)
+    for kind, n_offsets in ITEM6_TOYS.items():
+        check_dense_toy(report, kind, item6_toy(kind), n_offsets,
+                        step_dtype=torch.float64)
+    return launches
+
+
+def run_gfl_eval(report, card):
+    """Phase 19, GFL's evaluation drive: phase 6's seeded COCO set through
+    the config's test pipeline, its loader workers and
+    ``single_device_test`` (N(0, 0.05) weights from seed 0), the ms/img
+    split of phase 11, every kernel at 0; bbox AP, and the GTs as
+    predictions must score exactly 1.0."""
+    from dynamask_torch.utils import Config
+    ann_file, img_dir, n_gts = write_coco_set(COCO_SET)
+    cfg = Config.fromfile(GFL_CONFIG)
+    cfg.data.test.update(ann_file=ann_file, img_prefix=img_dir,
+                         data_root=None)
+    dataset, results, launches, t_test = run_box_eval(
+        report, card, 'gfl', cfg, {}, init_std=0.05)
+    metrics = dataset.evaluate(results, metric=['bbox'])
+    gt = dataset.evaluate(gt_boxes_as_results(dataset), metric=['bbox'])
+    if gt['bbox_mAP'] != 1.0:
+        raise RuntimeError(f'gfl_eval: the GTs as predictions give {gt}')
+    n = len(dataset)
+    n_valid = sum(int(r['valid'].sum()) for r in results)
+    print(f'  gfl_eval: {n} images, {n_gts} GTs; run_test {t_test:.1f} s '
+          f'({n / t_test:.2f} img/s with {cfg.data.workers_per_gpu} loader '
+          f'workers started) [{card}]; {n_valid} valid dets; bbox_mAP '
+          f'{metrics["bbox_mAP"]:.4f} (random weights), the GTs as '
+          f'predictions {gt["bbox_mAP"]}; launches {launches["gfl_eval"]}')
+    report['item6']['eval'] = dict(images=n, run_test_s=t_test,
+                                   valid_dets=n_valid, metrics=metrics,
+                                   gt_as_predictions=gt,
+                                   launches=launches['gfl_eval'])
+    return launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -5148,8 +5446,14 @@ def main() -> int:
     t18 = time.perf_counter()
     launches.update(run_item9_heads(report, card))
     report['phase18_s'] = time.perf_counter() - t18
+    print(f'  phase 18: {report["phase18_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 19: item 6\'s FPN dense detectors [{card}]')
+    t19 = time.perf_counter()
+    launches.update(run_item6(report, card))
+    report['phase19_s'] = time.perf_counter() - t19
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 18: {report["phase18_s"]:.1f} s; the whole run '
+    print(f'  phase 19: {report["phase19_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s [{card}]')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}

@@ -23,13 +23,16 @@ def bbox_area(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def bbox_overlaps(boxes1: torch.Tensor, boxes2: torch.Tensor,
-                  eps: float = 1e-6) -> torch.Tensor:
-    """Pairwise IoU of ``(..., N, 4)`` and ``(..., M, 4)`` -> ``(..., N, M)``."""
+                  eps: float = 1e-6, mode: str = 'iou') -> torch.Tensor:
+    """Pairwise IoU of ``(..., N, 4)`` and ``(..., M, 4)`` -> ``(..., N, M)``;
+    ``mode='iof'``: the intersection over the area of ``boxes1``."""
     lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
     rb = torch.minimum(boxes1[..., :, None, 2:4], boxes2[..., None, :, 2:4])
     wh = (rb - lt).clamp(min=0.0)
     inter = wh[..., 0] * wh[..., 1]
     area1 = bbox_area(boxes1)[..., :, None]
+    if mode == 'iof':
+        return inter / area1.clamp(min=eps)
     area2 = bbox_area(boxes2)[..., None, :]
     return inter / (area1 + area2 - inter).clamp(min=eps)
 

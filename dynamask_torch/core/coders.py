@@ -1,5 +1,6 @@
-"""The delta box coders (port of ``DeltaXYWHBBoxCoder`` and
-``LegacyDeltaXYWHBBoxCoder`` in ``dynamask_tpu/core/coders.py``)."""
+"""The box coders (port of ``DeltaXYWHBBoxCoder``,
+``LegacyDeltaXYWHBBoxCoder`` and ``TBLRBBoxCoder`` in
+``dynamask_tpu/core/coders.py``)."""
 
 from __future__ import annotations
 
@@ -69,3 +70,37 @@ class LegacyDeltaXYWHBBoxCoder(DeltaXYWHBBoxCoder):
             x1, x2 = x1.clamp(0, w), x2.clamp(0, w)
             y1, y2 = y1.clamp(0, h), y2.clamp(0, h)
         return torch.stack([x1, y1, x2, y2], -1).reshape(deltas.shape)
+
+
+class TBLRBBoxCoder:
+    """FSAF's coder (JAX ``coders.py:85-121``): the (top, bottom, left,
+    right) distances of a box's sides from its prior's centre, over the
+    prior's height or width (floored at 1e-6) and ``normalizer``; the
+    decode clamps to ``max_shape`` (h, w) where it is given."""
+
+    def __init__(self, normalizer: float = 4.0):
+        self.normalizer = normalizer
+
+    @staticmethod
+    def _prior(priors):
+        px = (priors[..., 0] + priors[..., 2]) * 0.5
+        py = (priors[..., 1] + priors[..., 3]) * 0.5
+        return px, py, priors[..., 2] - priors[..., 0], \
+            priors[..., 3] - priors[..., 1]
+
+    def encode(self, priors, gts):
+        px, py, w, h = self._prior(priors)
+        h, w = h.clamp(min=1e-6), w.clamp(min=1e-6)
+        return torch.stack([(py - gts[..., 1]) / h, (gts[..., 3] - py) / h,
+                            (px - gts[..., 0]) / w, (gts[..., 2] - px) / w],
+                           -1) / self.normalizer
+
+    def decode(self, priors, tblr, max_shape=None):
+        t = tblr * self.normalizer
+        px, py, w, h = self._prior(priors)
+        x1, x2 = px - t[..., 2] * w, px + t[..., 3] * w
+        y1, y2 = py - t[..., 0] * h, py + t[..., 1] * h
+        if max_shape is not None:
+            x1, x2 = x1.clamp(0, max_shape[1]), x2.clamp(0, max_shape[1])
+            y1, y2 = y1.clamp(0, max_shape[0]), y2.clamp(0, max_shape[0])
+        return torch.stack([x1, y1, x2, y2], -1)

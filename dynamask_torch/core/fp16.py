@@ -46,6 +46,12 @@ def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
     return tree
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or in its own type where that is wider: a decode's
+    entry, which keeps a float64 check in float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def to_bf16(tree: Any) -> Any:
     return cast_floating(tree, torch.bfloat16)
 

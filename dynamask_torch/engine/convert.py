@@ -62,7 +62,19 @@ that importer skips (ROADMAP.md queue 3, 3d, 3o, 3t, 3aa, 3ah):
   each transition's ``{forder,sorder}_{i}_{j}_{dw,pw}``, the raw
   ``deconv{1,2}_kernel`` / ``_bias`` leaves of its grouped deconvs,
   flipped and regrouped as ``ConvTranspose2d(groups=points)``); Dynamic
-  R-CNN's state buffers ``roi_head.dyn_*`` (JAX's ``batch_stats``).
+  R-CNN's state buffers ``roi_head.dyn_*`` (JAX's ``batch_stats``);
+* item 6's dense heads, which the JAX importer skips (3bh): GFL's
+  ``gfl_cls`` / ``gfl_reg``; FoveaBox's FeatureAlign (``conv_offset``,
+  JAX's ``feature_adaption_offset``; ``conv_adaption.weight``, the raw
+  ``feature_adaption_weight``); RepPoints' 1x1 and 3x3 convs, its two
+  DCNs (the raw ``reppoints_{cls,pts_refine}_conv_kernel``) and
+  ``bbox_head.moment_transfer`` (JAX's top-level ``moment_transfer``);
+  NAS-FCOS's searched head (``{cls,reg}_convs.{i}`` are JAX's
+  ``{cls,reg}_op{i}``, the DCNv2s' raw ``weight`` and ``bias`` beside
+  their ``conv_offset``, the GNs ``{cls,reg}_gn{i}``) and searched neck
+  (``adapt_convs.{i}`` -> ``adapt_conv_{i}`` / ``adapt_bn_{i}``, each cell
+  ``fpn.<cell>`` -> ``<cell>`` with its ``out_conv.bn`` JAX's ``out_bn``,
+  ``extra_downsamples.{i}`` -> ``extra_conv_{i}`` / ``extra_bn_{i}``).
 """
 
 from __future__ import annotations
@@ -241,10 +253,46 @@ def _fpn_conv(i: str, num_laterals: Optional[int], norm: bool = False
     return f'fpn_{"gn" if norm else "conv"}_{n}'
 
 
+# the dense heads whose keys map by rules of their own (``head`` of
+# :func:`key_hints`), tried before the shared ones
+_HEAD_RULES = {
+    'FoveaHead': (
+        (r'^bbox_head\.feature_adaption\.conv_offset\.weight$',
+         lambda m: (['bbox_head', 'feature_adaption_offset'], 'weight', {})),
+        (r'^bbox_head\.feature_adaption\.conv_adaption\.weight$',
+         lambda m: (['bbox_head'], 'weight',
+                    {'flax_leaf': 'feature_adaption_weight'})),
+    ),
+    'RepPointsHead': (
+        (r'^bbox_head\.(reppoints_cls_conv|reppoints_pts_refine_conv)\.'
+         r'weight$', lambda m: (['bbox_head'], 'weight',
+                                {'flax_leaf': f'{m[1]}_kernel'})),
+        (r'^bbox_head\.(reppoints_pts_init_conv|reppoints_pts_init_out|'
+         r'reppoints_cls_out|reppoints_pts_refine_out)\.(weight|bias)$',
+         lambda m: (['bbox_head', m[1]], m[2], {})),
+        (r'^bbox_head\.moment_transfer$',
+         lambda m: (['moment_transfer'], 'raw', {})),
+    ),
+    'NASFCOSHead': (
+        (r'^bbox_head\.(cls|reg)_convs\.([02])\.conv\.conv_offset\.'
+         r'(weight|bias)$',
+         lambda m: (['bbox_head', f'{m[1]}_op{m[2]}', 'conv_offset'], m[3],
+                    {})),
+        (r'^bbox_head\.(cls|reg)_convs\.([02])\.conv\.(weight|bias)$',
+         lambda m: (['bbox_head', f'{m[1]}_op{m[2]}'], m[3],
+                    {'flax_leaf': m[3]})),
+        (r'^bbox_head\.(cls|reg)_convs\.([13])\.conv\.(weight|bias)$',
+         lambda m: (['bbox_head', f'{m[1]}_op{m[2]}'], m[3], {})),
+        (r'^bbox_head\.(cls|reg)_convs\.(\d)\.gn\.(weight|bias)$',
+         lambda m: (['bbox_head', f'{m[1]}_gn{m[2]}'], m[3], {})),
+    ),
+}
+
+
 def mmdet_key(key: str, num_laterals: Optional[int] = None,
               backbone: Optional[str] = None, dcn=frozenset(),
               plugins: Optional[Dict[str, str]] = None, sac=frozenset(),
-              fpn: Tuple[str, ...] = ('neck',)
+              fpn: Tuple[str, ...] = ('neck',), head: Optional[str] = None
               ) -> Optional[Tuple[List[str], str, Dict]]:
     """Port state-dict key -> (JAX tree path, torch leaf name, hints).
     ``num_laterals`` is the FPN's (:func:`neck_laterals`): its
@@ -254,7 +302,12 @@ def mmdet_key(key: str, num_laterals: Optional[int] = None,
     ``dcn`` names the model's deformable convs, ``plugins`` maps each
     block plugin's module name to its JAX name, ``sac`` names the SAC
     convs, ``fpn`` is the JAX path of the FPN's convs (DetectoRS' RFP
-    holds its FPN as ``neck/fpn``) (:func:`key_hints`)."""
+    holds its FPN as ``neck/fpn``), ``head`` the dense head's class, whose
+    own rules come first (:func:`key_hints`)."""
+    for pattern, fn in _HEAD_RULES.get(head, ()):
+        m = re.match(pattern, key)
+        if m:
+            return fn(m)
     special = _module_key(key, dcn, plugins or {}, sac)
     if special is not None:
         return special
@@ -293,6 +346,15 @@ def mmdet_key(key: str, num_laterals: Optional[int] = None,
          lambda m: (['neck', f'downsample_conv_{m[1]}'], m[2], {})),
         (r'^neck\.pafpn_convs\.(\d+)\.conv\.(weight|bias)$',
          lambda m: (['neck', f'pafpn_conv_{int(m[1]) + 1}'], m[2], {})),
+        # NAS-FCOS' searched neck (JAX nasfcos.py:44-130)
+        (r'^neck\.(adapt|extra)_(?:convs|downsamples)\.(\d+)\.(conv|bn)\.'
+         + _BN_LEAF + '$',
+         lambda m: (['neck', f'{m[1]}_{m[3]}_{m[2]}'], m[4], {})),
+        (r'^neck\.fpn\.(c\d\d(?:_\d)?)\.(input1_conv|input2_conv|out_conv)'
+         r'\.conv\.weight$',
+         lambda m: (['neck', m[1], m[2]], 'weight', {})),
+        (r'^neck\.fpn\.(c\d\d(?:_\d)?)\.out_conv\.bn\.' + _BN_LEAF + '$',
+         lambda m: (['neck', m[1], 'out_bn'], m[2], {})),
         (r'^neck\.lateral_convs\.(\d+)\.conv\.(weight|bias)$',
          lambda m: (fpn + [f'lateral_{m[1]}'], m[2], {})),
         (r'^neck\.fpn_convs\.(\d+)\.conv\.(weight|bias)$',
@@ -316,8 +378,8 @@ def mmdet_key(key: str, num_laterals: Optional[int] = None,
          '$', lambda m: (['bbox_head', f'{m[1]}_bn_{m[2]}_{m[3]}'], m[4],
                          {})),
         (r'^bbox_head\.(retina_cls|retina_reg|atss_cls|atss_reg|'
-         r'atss_centerness|conv_cls|conv_reg|conv_centerness)\.'
-         r'(weight|bias)$',
+         r'atss_centerness|conv_cls|conv_reg|conv_centerness|gfl_cls|'
+         r'gfl_reg)\.(weight|bias)$',
          lambda m: (['bbox_head', m[1]], m[2], {})),
         (r'^bbox_head\.scales\.(\d+)\.scale$',
          lambda m: (['bbox_head'], 'scale', {'index': int(m[1])})),
@@ -527,6 +589,8 @@ def _torch_layout(params, stats, path, leaf, hints) -> np.ndarray:
         arr = _rows_chw(_get(params, path + [hints.get('flax_leaf', 'bias')]),
                         hints)
         return arr.reshape(arr.shape + (1,) * hints.get('unit_dims', 0))
+    if leaf == 'raw':                                     # a bare leaf
+        return _get(params, path)
     if leaf == 'scale':                                   # Scale a level
         return _get(params, path + ['scales'])[hints['index']]
     if leaf == 'detail_fuse_kernel':
@@ -592,8 +656,8 @@ def neck_laterals(model: nn.Module) -> Optional[int]:
 def key_hints(model: nn.Module) -> Dict:
     """What :func:`mmdet_key` needs to know of ``model``: its FPN's
     laterals and JAX path, its backbone's class, its deformable convs' and
-    SAC convs' module names and its block plugins' (module name -> JAX
-    name)."""
+    SAC convs' module names, its block plugins' (module name -> JAX
+    name) and its dense head's class."""
     from ..models.detectors_resnet import SAConv
     from ..models.layers import DeformConv2dPack
     bb = getattr(model, 'backbone', None)
@@ -606,10 +670,12 @@ def key_hints(model: nn.Module) -> Dict:
         for _, plugin, jax_name in getattr(m, 'plugin_names', ()):
             plugins[f'{name}.{plugin}'] = jax_name
     rfp = getattr(getattr(model, 'neck', None), 'takes_images', False)
+    head = getattr(model, 'bbox_head', None)
     return dict(num_laterals=neck_laterals(model),
                 backbone=None if bb is None else type(bb).__name__,
                 dcn=frozenset(dcn), plugins=plugins, sac=frozenset(sac),
-                fpn=('neck', 'fpn') if rfp else ('neck',))
+                fpn=('neck', 'fpn') if rfp else ('neck',),
+                head=None if head is None else type(head).__name__)
 
 
 def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:

@@ -80,9 +80,8 @@ def not_ported(what: str, item) -> NotImplementedError:
 # 3, 3c): refused here rather than dropped
 LEGACY = 'ROADMAP.md queue 3, 3c: the JAX package drops it'
 BACKBONE_ITEMS = {'SSDVGG': 6, 'HourglassNet': 9}
-NECK_ITEMS = {'NASFPN': 8, 'BFP': 8, 'NASFCOS_FPN': 6}
-DETECTOR_ITEMS = {'CornerNet': 9, 'GFL': 6, 'FOVEA': 6, 'FSAF': 6,
-                  'RepPointsDetector': 6, 'NASFCOS': 6}
+NECK_ITEMS = {'NASFPN': 8, 'BFP': 8}
+DETECTOR_ITEMS = {'CornerNet': 9}
 ROI_HEAD_ITEMS = {'PISARoIHead': 9, 'TridentRoIHead': 9}
 # the typed samplers the port lacks, by item (OHEM draws as random, 3s)
 SAMPLER_ITEMS = {'CombinedSampler': 8, 'InstanceBalancedPosSampler': 8,
@@ -300,6 +299,20 @@ def build_neck(cfg: dict):
                         if k in cfg})
     if t == 'RFP':
         return build_rfp(cfg)
+    if t == 'NASFCOS_FPN':
+        # JAX reads in_channels, out_channels, num_outs and start_level
+        # (builder.py:174-179): the searched cells' input convs are plain
+        # 3x3 convs whatever conv_cfg and norm_cfg say; the configs name
+        # DCNv2 and BN, accepted as that drop (ROADMAP.md queue 3, 3bg)
+        from .nasfcos import NASFCOS_FPN
+        _check_keys('NASFCOS_FPN', cfg, ('type', 'in_channels',
+                                         'out_channels', 'num_outs',
+                                         'start_level'),
+                    dict(norm_cfg={'type': 'BN'}, conv_cfg={'type': 'DCNv2'}),
+                    DROPPED)
+        return NASFCOS_FPN(tuple(cfg['in_channels']),
+                           cfg.get('out_channels', 256),
+                           cfg.get('num_outs', 5), cfg.get('start_level', 1))
     if t != 'FPN':
         raise not_ported(f'neck {t}', NECK_ITEMS.get(t, 9))
     fpn = {k: cfg.pop(k) for k in FPN_KEYS if k in cfg}

@@ -211,6 +211,30 @@ class DeformConv2dPack(nn.Module):
         return to_nchw(out)
 
 
+class DeformConv2d(nn.Module):
+    """mmcv's ``DeformConv2d``: an exact-gather DCNv1 whose offsets come
+    from outside (``ops.deform_conv2d_exact``, unbounded offsets), its
+    bias-free ``weight`` (C_out, C_in, k, k) initialised N(0, 0.01) as the
+    JAX dense heads' raw DCN kernels (FoveaBox's ``feature_adaption_weight``,
+    RepPoints' ``reppoints_*_conv_kernel``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, deform_groups: int = 1):
+        super().__init__()
+        self.kernel_size, self.deform_groups = kernel_size, deform_groups
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               kernel_size, kernel_size))
+        self.init_rule = 0.01
+
+    def forward(self, x: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+        """NCHW ``x`` and (N, 2*g*k*k, H, W) ``offsets`` -> NCHW, stride 1,
+        the map size kept."""
+        k = self.kernel_size
+        return to_nchw(dcn_ops.deform_conv2d_exact(
+            to_nhwc(x), to_nhwc(offsets), self.weight.permute(2, 3, 1, 0),
+            None, k, 1, (k - 1) // 2, 1, self.deform_groups))
+
+
 def resize_bilinear_2x(x: torch.Tensor,
                        align_corners: bool = False) -> torch.Tensor:
     """Bilinear ×2 upsample of NCHW. The SFM feature upsample is

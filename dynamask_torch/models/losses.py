@@ -3,7 +3,8 @@
 ``softmax_cross_entropy`` :34, ``binary_cross_entropy_with_logits`` :44,
 ``l1_loss`` :71, ``smooth_l1_loss`` :76-86, ``iou_loss`` :101-130,
 ``accuracy`` :160, ``ghm_c_loss`` :296-320, ``ghm_r_loss`` :410-432,
-``bounded_iou_loss`` :456-485, and the focal loss of ``dynamask_tpu/
+``bounded_iou_loss`` :456-485, GFL's ``quality_focal_loss`` :335-361
+and ``distribution_focal_loss`` :398-418, and the focal loss of ``dynamask_tpu/
 models/single_stage.py:253-259``). Dense padded inputs with elementwise
 weights and an ``avg_factor``, as in the JAX package."""
 
@@ -113,6 +114,35 @@ def ghm_r_loss(pred: torch.Tensor, target: torch.Tensor,
     edges = _ghm_edges(bins, 1e3, pred.device)
     weights = _ghm_weights(g, valid, edges, total)
     return (loss * weights).sum() / total
+
+
+def quality_focal_loss(logits: torch.Tensor, onehot: torch.Tensor,
+                       score: torch.Tensor, beta: float = 2.0, weight=None,
+                       avg_factor=None) -> torch.Tensor:
+    """GFL's Quality Focal Loss: BCE of each logit against its class's
+    quality ``score`` (0 off the label's column), modulated by
+    ``|target - sigmoid| ** beta``."""
+    target = onehot * score[..., None]
+    mod = (target - torch.sigmoid(logits)).abs() ** beta
+    return weight_reduce_loss(
+        binary_cross_entropy_with_logits(logits, target) * mod, weight,
+        avg_factor)
+
+
+def distribution_focal_loss(logits: torch.Tensor, target: torch.Tensor,
+                            weight=None, avg_factor=None) -> torch.Tensor:
+    """GFL's Distribution Focal Loss: the cross-entropy of the (..., bins)
+    ``logits`` to the two integer bins around each continuous ``target``,
+    weighted by its distance to the other."""
+    tl = torch.floor(target).long()
+    tr = tl + 1
+    wl = tr.to(target.dtype) - target
+    wr = target - tl.to(target.dtype)
+    logp = F.log_softmax(logits, -1)
+    top = logits.shape[-1] - 1
+    nl = -logp.gather(-1, tl.clamp(0, top)[..., None])[..., 0]
+    nr = -logp.gather(-1, tr.clamp(0, top)[..., None])[..., 0]
+    return weight_reduce_loss(nl * wl + nr * wr, weight, avg_factor)
 
 
 def l1_loss(pred, target, weight=None, avg_factor=None) -> torch.Tensor:

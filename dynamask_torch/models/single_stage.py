@@ -26,7 +26,9 @@ from ..core.anchors import AnchorGenerator, LegacyAnchorGenerator
 from ..core.assigners import MaxIoUAssigner
 from ..core.bbox_transforms import clip_boxes
 from ..core.coders import DeltaXYWHBBoxCoder, LegacyDeltaXYWHBBoxCoder
+from ..core.fp16 import at_least_f32
 from ..ops.nms import multiclass_nms
+from ..ops.point_sample import top_k
 from ..utils.registry import DETECTORS, HEADS
 from .detectors import _Detector
 from .layers import ConvModule
@@ -37,10 +39,12 @@ PRIOR_BIAS = -4.59512
 
 
 def head_conv(cin: int, cout: int, bias: bool = True,
-              bias_init: Optional[float] = None) -> nn.Conv2d:
-    """A 3x3 conv of a dense head, initialised N(0, 0.01) as the JAX heads
-    are (``normal_init(0.01)``), its bias 0 or ``bias_init``."""
-    conv = nn.Conv2d(cin, cout, 3, padding=1, bias=bias)
+              bias_init: Optional[float] = None, kernel: int = 3
+              ) -> nn.Conv2d:
+    """A 3x3 (or ``kernel`` x ``kernel``) conv of a dense head, initialised
+    N(0, 0.01) as the JAX heads are (``normal_init(0.01)``), its bias 0 or
+    ``bias_init``."""
+    conv = nn.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=bias)
     conv.init_rule = 0.01
     if bias_init is not None:
         conv.init_fill = {'bias': bias_init}
@@ -48,14 +52,17 @@ def head_conv(cin: int, cout: int, bias: bool = True,
 
 
 class TowerConv(ConvModule):
-    """One 3x3 conv of a head's tower and its ReLU, mmcv's ``ConvModule``
-    names (``.conv``, then ``.gn`` or ``.bn``); the conv keeps its bias
-    under a norm where ``bias`` says so, as ATSS's tower does in JAX."""
+    """One 3x3 (or ``kernel`` x ``kernel``) conv of a head's tower and its
+    ReLU, mmcv's ``ConvModule`` names (``.conv``, then ``.gn`` or ``.bn``);
+    the conv keeps its bias under a norm where ``bias`` says so, as ATSS's
+    tower does in JAX."""
 
     def __init__(self, cin: int, cout: int, bias: bool = True,
-                 gn_groups: Optional[int] = None, bn: bool = False):
-        super().__init__(cin, cout, 3, padding=1, gn_groups=gn_groups, bn=bn)
-        self.conv = head_conv(cin, cout, bias=bias)
+                 gn_groups: Optional[int] = None, bn: bool = False,
+                 kernel: int = 3):
+        super().__init__(cin, cout, kernel, padding=kernel // 2,
+                         gn_groups=gn_groups, bn=bn)
+        self.conv = head_conv(cin, cout, bias=bias, kernel=kernel)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(super().forward(x))
@@ -136,10 +143,11 @@ class RetinaSepBNHead(RetinaHead):
 def flatten_levels(maps: Sequence[torch.Tensor], channels: int
                    ) -> torch.Tensor:
     """Per-level (B, A*channels, H, W) maps -> (B, sum H*W*A, channels) in
-    fp32, location-major and anchor-minor like the anchors."""
+    fp32 (float64 stays), location-major and anchor-minor like the
+    anchors."""
     b = maps[0].shape[0]
-    return torch.cat([m.permute(0, 2, 3, 1).reshape(b, -1, channels)
-                      for m in maps], 1).float()
+    return at_least_f32(torch.cat([m.permute(0, 2, 3, 1).reshape(
+        b, -1, channels) for m in maps], 1))
 
 
 def one_hot_fg(labels: torch.Tensor, pos: torch.Tensor,
@@ -203,11 +211,14 @@ def anchor_head_loss(cls_scores: List[torch.Tensor],
 
 def dense_nms(boxes: torch.Tensor, scores: torch.Tensor, batch: Dict,
               score_thr: float, iou_thr: float, max_per_img: int,
-              rescale: bool = True) -> Dict[str, torch.Tensor]:
-    """Per image: the (N, 4) boxes clipped to ``img_shape``, divided by
+              rescale: bool = True, clip_inset: float = 0.0
+              ) -> Dict[str, torch.Tensor]:
+    """Per image: the (N, 4) boxes clipped to ``img_shape`` less
+    ``clip_inset`` (FoveaBox clips to ``w - 1``, ``h - 1``), divided by
     ``scale_factor`` with ``rescale``, then ``multiclass_nms`` over the
     (N, C) scores -> dets (B, max_per_img, 5), labels, det_valid."""
-    boxes = clip_boxes(boxes, batch['img_shape'][:, None, :].to(boxes.dtype))
+    boxes = clip_boxes(boxes, batch['img_shape'][:, None, :].to(boxes.dtype)
+                       - clip_inset)
     dets, labels, valid = [], [], []
     for i in range(boxes.shape[0]):
         b = boxes[i]
@@ -226,13 +237,15 @@ def dense_get_dets(cls_scores, bbox_preds, priors, batch: Dict,
                    num_classes: int, decode, cent_preds=None,
                    nms_pre: int = 1000, score_thr: float = 0.05,
                    iou_thr: float = 0.5, max_per_img: int = 100,
-                   rescale: bool = True) -> Dict[str, torch.Tensor]:
+                   rescale: bool = True, reg_channels: int = 4,
+                   clip_inset: float = 0.0) -> Dict[str, torch.Tensor]:
     """The dense heads' test path (JAX ``anchor_head_get_dets`` and the
-    ATSS and FCOS ``simple_test``): per level the class sigmoids (times
+    dense detectors' ``simple_test``): per level the class sigmoids (times
     the centerness sigmoid, given ``cent_preds``), the ``nms_pre``
-    priors (anchors or points) of highest max-class score, their
-    regression decoded by ``decode(priors, preds)``; then
-    :func:`dense_nms`."""
+    priors (anchors or points) of highest max-class score, the lower
+    index first among equal scores as ``jax.lax.top_k`` takes them
+    (``ops.point_sample.top_k``), their ``reg_channels`` regression
+    outputs decoded by ``decode(priors, preds)``; then :func:`dense_nms`."""
     lvl_boxes, lvl_scores = [], []
     for i, (cs, bp, pr) in enumerate(zip(cls_scores, bbox_preds, priors)):
         scores = torch.sigmoid(flatten_levels([cs], num_classes))
@@ -240,14 +253,15 @@ def dense_get_dets(cls_scores, bbox_preds, priors, batch: Dict,
             scores = scores * torch.sigmoid(flatten_levels([cent_preds[i]],
                                                            1))
         k = min(nms_pre, scores.shape[1])
-        idx = torch.topk(scores.max(-1).values, k, dim=1).indices
+        idx = top_k(scores.max(-1).values, k)[1]
         lvl_scores.append(scores.gather(
             1, idx[..., None].expand(-1, -1, num_classes)))
-        preds = flatten_levels([bp], 4).gather(
-            1, idx[..., None].expand(-1, -1, 4))
+        preds = flatten_levels([bp], reg_channels).gather(
+            1, idx[..., None].expand(-1, -1, reg_channels))
         lvl_boxes.append(decode(pr[idx], preds))
     return dense_nms(torch.cat(lvl_boxes, 1), torch.cat(lvl_scores, 1),
-                     batch, score_thr, iou_thr, max_per_img, rescale)
+                     batch, score_thr, iou_thr, max_per_img, rescale,
+                     clip_inset)
 
 
 def anchor_head_get_dets(cls_scores, bbox_preds, mlvl_anchors,

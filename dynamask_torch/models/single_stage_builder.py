@@ -2,7 +2,9 @@
 of the parts of ``dynamask_tpu/models/builder.py`` that build them:
 ``build_single_stage`` :614-770 for RetinaNet, its GHM, legacy v1 and
 SepBN forms, FreeAnchor and GA-RetinaNet (:658-697), and
-``build_detector``'s ATSS :886-915 and FCOS :1082-1127).
+``build_detector``'s ATSS :886-915, RepPoints :916-960, FoveaBox
+:962-995, FSAF :997-1028, GFL :1051-1080 and FCOS with NAS-FCOS
+:1082-1127).
 
 As in ``models/builder.py``, every key that changes the model is read or
 refused, naming the ROADMAP.md item where its port is queued or the JAX
@@ -24,10 +26,10 @@ from .fcos import FCOS, FCOSHead, INF
 from .freeanchor import FreeAnchor
 from .single_stage import RetinaHead, RetinaNet, RetinaSepBNHead
 
-SINGLE_STAGE = ('RetinaNet', 'SingleStageDetector', 'ATSS', 'FCOS')
+SINGLE_STAGE = ('RetinaNet', 'SingleStageDetector', 'ATSS', 'FCOS', 'NASFCOS',
+                'GFL', 'FSAF', 'FOVEA', 'RepPointsDetector')
 # the dense heads the port lacks, by ROADMAP.md item
-HEAD_ITEMS = {'PISARetinaHead': 9, 'SSDHead': 6, 'PISASSDHead': 9,
-              'NASFCOSHead': 6}
+HEAD_ITEMS = {'PISARetinaHead': 9, 'SSDHead': 6, 'PISASSDHead': 9}
 FOCAL = dict(type='FocalLoss', use_sigmoid=True, gamma=2.0, alpha=0.25,
              loss_weight=1.0)
 CENTERNESS = dict(type='CrossEntropyLoss', use_sigmoid=True, loss_weight=1.0)
@@ -304,14 +306,39 @@ FCOS_REG = {'IoULoss': ('log_iou', {'linear': False}),
             'GIoULoss': ('giou', {})}
 
 
-def build_fcos(cfg: dict, train_cfg: dict, test_cfg: dict, modules):
-    """FCOS over ``FCOSHead``."""
+# the FCOSHead keys JAX does not read for a NASFCOSHead (builder.py:
+# 1090-1096), accepted at mmdet's defaults
+NAS_HEAD_DEFAULTS = dict(stacked_convs=4, centerness_on_reg=False,
+                         norm_on_bbox=False, dcn_on_last_conv=False,
+                         conv_bias='auto', conv_cfg=None)
+
+
+def build_fcos(cfg: dict, train_cfg: dict, test_cfg: dict, modules,
+               nas: bool = False):
+    """FCOS over ``FCOSHead``; NAS-FCOS (``nas``) over ``FCOSHead`` or the
+    searched ``NASFCOSHead``. Neither JAX nor mmdet's FCOS head reads a
+    ``train_cfg.assigner`` (the NAS-FCOS configs name a ``MaxIoUAssigner``):
+    it is accepted for NAS-FCOS and changes nothing."""
     hc = _cfg(cfg['bbox_head'])
     ht = hc.get('type')
-    if ht != 'FCOSHead':
+    if ht == 'NASFCOSHead' and nas:
+        from .nasfcos import NASFCOSHead
+        _check_keys('NASFCOSHead', hc, [k for k in FCOS_KEYS
+                                         if k not in NAS_HEAD_DEFAULTS],
+                    NAS_HEAD_DEFAULTS, DROPPED)
+        gn = _gn('NASFCOSHead', _cfg(hc.get('norm_cfg')) or {'type': 'GN'})
+        head = NASFCOSHead(num_classes=hc.get('num_classes', 80),
+                           in_channels=hc.get('in_channels', 256),
+                           feat_channels=hc.get('feat_channels', 256),
+                           strides=tuple(hc.get('strides',
+                                                (8, 16, 32, 64, 128))),
+                           gn_groups=gn)
+    elif ht != 'FCOSHead':
         raise not_ported(f'FCOS bbox head {ht}', HEAD_ITEMS.get(ht, 6))
-    _check_keys('FCOSHead', hc, FCOS_KEYS, {'conv_bias': 'auto',
-                                            'conv_cfg': None}, DROPPED)
+    else:
+        head = None
+        _check_keys('FCOSHead', hc, FCOS_KEYS, {'conv_bias': 'auto',
+                                                'conv_cfg': None}, DROPPED)
     for key, want in (('loss_cls', FOCAL), ('loss_centerness', CENTERNESS)):
         _check_keys(f'FCOS {key}', _cfg(hc.get(key)), (), want, DROPPED)
     lb = _cfg(hc.get('loss_bbox'))
@@ -320,18 +347,26 @@ def build_fcos(cfg: dict, train_cfg: dict, test_cfg: dict, modules):
     mode, fixed = FCOS_REG[lb.get('type', 'GIoULoss')]
     _check_keys('FCOS loss_bbox', lb, ('type',), dict(fixed, loss_weight=1.0),
                 DROPPED)
-    _train_cfg(train_cfg)
+    if nas and 'assigner' in _cfg(train_cfg):
+        _train_cfg(train_cfg, 'MaxIoUAssigner',
+                   ('pos_iou_thr', 'neg_iou_thr', 'min_pos_iou'))
+    else:
+        _train_cfg(train_cfg)
     strides = tuple(hc.get('strides', (8, 16, 32, 64, 128)))
-    head = FCOSHead(num_classes=hc.get('num_classes', 80),
-                    in_channels=hc.get('in_channels', 256),
-                    feat_channels=hc.get('feat_channels', 256),
-                    stacked_convs=hc.get('stacked_convs', 4),
-                    strides=strides,
-                    gn_groups=_gn('FCOSHead', _cfg(hc.get('norm_cfg'))),
-                    centerness_on_reg=hc.get('centerness_on_reg', False),
-                    norm_on_bbox=hc.get('norm_on_bbox', False),
-                    dcn_on_last_conv=bool(hc.get('dcn_on_last_conv', False)))
-    return FCOS(bbox_head=head, **modules,
+    head = head or FCOSHead(
+        num_classes=hc.get('num_classes', 80),
+        in_channels=hc.get('in_channels', 256),
+        feat_channels=hc.get('feat_channels', 256),
+        stacked_convs=hc.get('stacked_convs', 4), strides=strides,
+        gn_groups=_gn('FCOSHead', _cfg(hc.get('norm_cfg'))),
+        centerness_on_reg=hc.get('centerness_on_reg', False),
+        norm_on_bbox=hc.get('norm_on_bbox', False),
+        dcn_on_last_conv=bool(hc.get('dcn_on_last_conv', False)))
+    if nas:
+        from .nasfcos import NASFCOS as FCOS_
+    else:
+        FCOS_ = FCOS
+    return FCOS_(bbox_head=head, **modules,
                 num_classes=hc.get('num_classes', 80),
                 regress_ranges=tuple(tuple(r) for r in hc.get(
                     'regress_ranges', ((-1, 64), (64, 128), (128, 256),
@@ -341,10 +376,233 @@ def build_fcos(cfg: dict, train_cfg: dict, test_cfg: dict, modules):
                 reg_loss_mode=mode, **_test_cfg(test_cfg, 0.5))
 
 
+GFL_KEYS = ('type', 'num_classes', 'in_channels', 'stacked_convs',
+            'feat_channels', 'anchor_generator', 'reg_max', 'loss_cls',
+            'loss_dfl', 'loss_bbox', 'norm_cfg')
+
+
+def build_gfl(cfg: dict, train_cfg: dict, test_cfg: dict, modules):
+    """GFL over ``GFLHead`` (JAX ``builder.py:1051-1080``): QFL fixed at
+    beta 2 and weight 1, DFL's and GIoU's weights read, GN 32 groups."""
+    from .gfl import GFL, GFLHead
+    hc = _cfg(cfg['bbox_head'])
+    if hc.get('type') != 'GFLHead':
+        raise not_ported(f'GFL bbox head {hc.get("type")}', 6)
+    _check_keys('GFLHead', hc, GFL_KEYS, item=DROPPED)
+    _check_keys('GFL loss_cls', _cfg(hc.get('loss_cls')), (), dict(
+        type='QualityFocalLoss', use_sigmoid=True, beta=2.0, loss_weight=1.0),
+        DROPPED)
+    dfl, giou = _cfg(hc.get('loss_dfl')), _cfg(hc.get('loss_bbox'))
+    _check_keys('GFL loss_dfl', dfl, ('loss_weight',),
+                {'type': 'DistributionFocalLoss'}, DROPPED)
+    _check_keys('GFL loss_bbox', giou, ('loss_weight',),
+                {'type': 'GIoULoss'}, DROPPED)
+    if _gn('GFLHead', _cfg(hc.get('norm_cfg')) or {'type': 'GN'}) != 32:
+        raise not_ported('GFLHead GN groups other than 32', DROPPED)
+    a = _cfg(hc.get('anchor_generator'))
+    _check_keys('GFL anchor_generator', a, ('octave_base_scale', 'ratios',
+                                            'strides'),
+                {'type': 'AnchorGenerator', 'scales_per_octave': 1,
+                 'center_offset': 0.0}, DROPPED)
+    strides = tuple(a.get('strides', (8, 16, 32, 64, 128)))
+    reg_max = hc.get('reg_max', 16)
+    assigner = _train_cfg(train_cfg, 'ATSSAssigner', ('topk',))
+    head = GFLHead(num_classes=hc.get('num_classes', 80),
+                   in_channels=hc.get('in_channels', 256),
+                   feat_channels=hc.get('feat_channels', 256),
+                   stacked_convs=hc.get('stacked_convs', 4),
+                   num_levels=len(strides), reg_max=reg_max)
+    return GFL(bbox_head=head, **modules,
+               num_classes=hc.get('num_classes', 80), strides=strides,
+               octave_base_scale=a.get('octave_base_scale', 8),
+               anchor_ratios=tuple(a.get('ratios', (1.0,))), reg_max=reg_max,
+               assigner_topk=assigner.get('topk', 9),
+               loss_dfl_weight=dfl.get('loss_weight', 0.25),
+               loss_bbox_weight=giou.get('loss_weight', 2.0),
+               **_test_cfg(test_cfg, 0.6))
+
+
+FSAF_KEYS = ('type', 'num_classes', 'in_channels', 'stacked_convs',
+             'feat_channels', 'anchor_generator', 'bbox_coder', 'loss_cls',
+             'loss_bbox')
+
+
+def build_fsaf(cfg: dict, train_cfg: dict, test_cfg: dict, modules):
+    """FSAF over a one-anchor ``RetinaHead`` (JAX ``builder.py:997-1028``):
+    JAX reads the anchors' strides alone (the anchor is the stride cell),
+    the coder's normalizer, the assigner's scales and IoF; its focal loss
+    is fixed at gamma 2 and alpha 0.25, its box loss ``-log IoU`` on the
+    decoded boxes, so the configs' must be those."""
+    from .fsaf import FSAF
+    hc = _cfg(cfg['bbox_head'])
+    if hc.get('type') != 'FSAFHead':
+        raise not_ported(f'FSAF bbox head {hc.get("type")}', 6)
+    _check_keys('FSAFHead', hc, FSAF_KEYS, {'reg_decoded_bbox': True},
+                DROPPED)
+    _check_keys('FSAF loss_cls', _cfg(hc.get('loss_cls')), (), dict(
+        FOCAL, reduction='none'), DROPPED)
+    _check_keys('FSAF loss_bbox', _cfg(hc.get('loss_bbox')), (), dict(
+        type='IoULoss', eps=1e-6, loss_weight=1.0, reduction='none'),
+        DROPPED)
+    a = _cfg(hc.get('anchor_generator'))
+    _check_keys('FSAF anchor_generator', a, ('strides',), dict(
+        type='AnchorGenerator', octave_base_scale=1, scales_per_octave=1,
+        ratios=[1.0], center_offset=0.0), DROPPED)
+    coder = _cfg(hc.get('bbox_coder'))
+    _check_keys('FSAF bbox_coder', coder, ('normalizer',),
+                {'type': 'TBLRBBoxCoder'}, DROPPED)
+    assigner = _train_cfg(train_cfg, 'CenterRegionAssigner',
+                          ('pos_scale', 'neg_scale', 'min_pos_iof'))
+    head = RetinaHead(num_classes=hc.get('num_classes', 80),
+                      in_channels=hc.get('in_channels', 256),
+                      feat_channels=hc.get('feat_channels', 256),
+                      stacked_convs=hc.get('stacked_convs', 4), num_anchors=1)
+    return FSAF(bbox_head=head, **modules,
+                num_classes=hc.get('num_classes', 80),
+                strides=tuple(a.get('strides', (8, 16, 32, 64, 128))),
+                tblr_normalizer=coder.get('normalizer', 4.0),
+                pos_scale=assigner.get('pos_scale', 0.2),
+                neg_scale=assigner.get('neg_scale', 0.2),
+                min_pos_iof=assigner.get('min_pos_iof', 0.01),
+                **_test_cfg(test_cfg, 0.5))
+
+
+FOVEA_KEYS = ('type', 'num_classes', 'in_channels', 'feat_channels',
+              'stacked_convs', 'strides', 'base_edge_list', 'scale_ranges',
+              'sigma', 'with_deform', 'deform_groups', 'norm_cfg',
+              'loss_cls', 'loss_bbox')
+
+
+def build_fovea(cfg: dict, train_cfg: dict, test_cfg: dict, modules):
+    """FoveaBox over ``FoveaHead`` (JAX ``builder.py:962-995``): the focal
+    loss's gamma and alpha and SmoothL1's beta and weight read."""
+    from .fovea import FOVEA, FoveaHead
+    hc = _cfg(cfg['bbox_head'])
+    if hc.get('type') != 'FoveaHead':
+        raise not_ported(f'FOVEA bbox head {hc.get("type")}', 6)
+    _check_keys('FoveaHead', hc, FOVEA_KEYS, {'conv_cfg': None}, DROPPED)
+    lc, lb = _cfg(hc.get('loss_cls')) or dict(FOCAL), _cfg(hc.get('loss_bbox'))
+    _check_keys('FoveaBox loss_cls', lc, ('gamma', 'alpha'), dict(
+        type='FocalLoss', use_sigmoid=True, loss_weight=1.0), DROPPED)
+    _check_keys('FoveaBox loss_bbox', lb, ('beta', 'loss_weight'),
+                {'type': 'SmoothL1Loss'}, DROPPED)
+    _train_cfg(train_cfg)
+    head = FoveaHead(num_classes=hc.get('num_classes', 80),
+                     in_channels=hc.get('in_channels', 256),
+                     feat_channels=hc.get('feat_channels', 256),
+                     stacked_convs=hc.get('stacked_convs', 4),
+                     with_deform=hc.get('with_deform', False),
+                     deform_groups=hc.get('deform_groups', 4),
+                     gn_groups=_gn('FoveaHead', _cfg(hc.get('norm_cfg'))))
+    return FOVEA(bbox_head=head, **modules,
+                 num_classes=hc.get('num_classes', 80),
+                 strides=tuple(hc.get('strides', (8, 16, 32, 64, 128))),
+                 base_edge_list=tuple(hc.get('base_edge_list',
+                                             (16, 32, 64, 128, 256))),
+                 scale_ranges=tuple(tuple(r) for r in hc.get(
+                     'scale_ranges', ((8, 32), (16, 64), (32, 128),
+                                      (64, 256), (128, 512)))),
+                 sigma=hc.get('sigma', 0.4), focal_gamma=lc.get('gamma', 2.0),
+                 focal_alpha=lc.get('alpha', 0.25),
+                 smoothl1_beta=lb.get('beta', 0.11),
+                 loss_bbox_weight=lb.get('loss_weight', 1.0),
+                 **_test_cfg(test_cfg, 0.5))
+
+
+REPPOINTS_KEYS = ('type', 'num_classes', 'in_channels', 'feat_channels',
+                  'point_feat_channels', 'stacked_convs', 'num_points',
+                  'gradient_mul', 'point_strides', 'point_base_scale',
+                  'norm_cfg', 'loss_cls', 'loss_bbox_init',
+                  'loss_bbox_refine', 'use_grid_points', 'transform_method',
+                  'moment_mul')
+
+
+def _stage_cfg(train_cfg: dict, stage: str, assigner_type: str, keys,
+               fixed=None) -> dict:
+    """RepPoints' ``train_cfg.init`` / ``.refine``: its assigner (of
+    ``assigner_type``, ``keys`` read, ``fixed`` at JAX's values) and the
+    keys mmdet reads at their defaults."""
+    c = _cfg(_cfg(train_cfg).get(stage))
+    _check_keys(f'RepPoints train_cfg.{stage}', c, ('assigner',),
+                {'allowed_border': -1, 'pos_weight': -1, 'debug': False},
+                DROPPED)
+    a = _cfg(c.get('assigner'))
+    _check_keys(f'RepPoints {stage} assigner', a, keys, dict(
+        fixed or {}, type=assigner_type), DROPPED)
+    return a
+
+
+def build_reppoints(cfg: dict, train_cfg: dict, test_cfg: dict, modules):
+    """RepPoints over ``RepPointsHead`` (JAX ``builder.py:916-960``): the
+    focal loss fixed at gamma 2 and alpha 0.25, SmoothL1's beta read from
+    ``loss_bbox_init`` alone (``loss_bbox_refine``'s is accepted only at the
+    same value), GN on both towers at 32 groups or none, the refine
+    assigner's ``min_pos_iou`` at 0."""
+    from .reppoints import RepPointsDetector, RepPointsHead
+    _check_keys('RepPointsDetector train_cfg', _cfg(train_cfg),
+                ('init', 'refine'), item=DROPPED)
+    hc = _cfg(cfg['bbox_head'])
+    if hc.get('type') != 'RepPointsHead':
+        raise not_ported(f'RepPoints bbox head {hc.get("type")}', 6)
+    _check_keys('RepPointsHead', hc, REPPOINTS_KEYS, {'conv_cfg': None},
+                DROPPED)
+    _check_keys('RepPoints loss_cls', _cfg(hc.get('loss_cls')), (), FOCAL,
+                DROPPED)
+    init = _cfg(hc.get('loss_bbox_init'))
+    _check_keys('RepPoints loss_bbox_init', init, ('beta', 'loss_weight'),
+                {'type': 'SmoothL1Loss'}, DROPPED)
+    beta = init.get('beta', 1.0 / 9.0)
+    refine = _cfg(hc.get('loss_bbox_refine'))
+    _check_keys('RepPoints loss_bbox_refine', refine, ('loss_weight',),
+                {'type': 'SmoothL1Loss', 'beta': beta}, DROPPED)
+    norm = _cfg(hc.get('norm_cfg'))
+    if norm and _gn('RepPointsHead', norm) != 32:
+        raise not_ported('RepPointsHead GN groups other than 32', DROPPED)
+    if hc.get('transform_method', 'moment') not in ('moment', 'minmax',
+                                                     'partial_minmax'):
+        raise not_ported(f'RepPoints transform {hc["transform_method"]}',
+                         DROPPED)
+    ia = _stage_cfg(train_cfg, 'init', 'PointAssigner', ('scale', 'pos_num'))
+    ra = _stage_cfg(train_cfg, 'refine', 'MaxIoUAssigner',
+                    ('pos_iou_thr', 'neg_iou_thr'),
+                    {'min_pos_iou': 0, 'ignore_iof_thr': -1})
+    num_classes = hc.get('num_classes', 80)
+    num_points = hc.get('num_points', 9)
+    base = hc.get('point_base_scale', 4)
+    head = RepPointsHead(num_classes=num_classes,
+                         in_channels=hc.get('in_channels', 256),
+                         feat_channels=hc.get('feat_channels', 256),
+                         point_feat_channels=hc.get('point_feat_channels',
+                                                    256),
+                         stacked_convs=hc.get('stacked_convs', 3),
+                         num_points=num_points,
+                         gradient_mul=hc.get('gradient_mul', 0.1),
+                         gn_groups=32 if norm else None,
+                         use_grid_points=hc.get('use_grid_points', False),
+                         point_base_scale=base)
+    return RepPointsDetector(
+        bbox_head=head, **modules, num_classes=num_classes,
+        num_points=num_points,
+        point_strides=tuple(hc.get('point_strides', (8, 16, 32, 64, 128))),
+        point_base_scale=base, moment_mul=hc.get('moment_mul', 0.01),
+        transform_method=hc.get('transform_method', 'moment'),
+        init_assign_scale=ia.get('scale', 4),
+        init_pos_num=ia.get('pos_num', 1),
+        refine_pos_iou=ra.get('pos_iou_thr', 0.5),
+        refine_neg_iou=ra.get('neg_iou_thr', 0.4),
+        loss_init_weight=init.get('loss_weight', 0.5),
+        loss_refine_weight=refine.get('loss_weight', 1.0),
+        smoothl1_beta=beta, **_test_cfg(test_cfg, 0.5))
+
+
 def build_single_stage(t: str, cfg: dict, train_cfg: dict, test_cfg: dict,
                        modules: Dict) -> Tuple:
     """The single-stage detector of type ``t`` over the built ``modules``
     (backbone and neck)."""
     _check_keys(t, cfg, ('backbone', 'neck', 'bbox_head'))
-    build = {'ATSS': build_atss, 'FCOS': build_fcos}.get(t, build_retinanet)
+    if t == 'NASFCOS':
+        return build_fcos(cfg, train_cfg, test_cfg, modules, nas=True)
+    build = {'ATSS': build_atss, 'FCOS': build_fcos, 'GFL': build_gfl,
+             'FSAF': build_fsaf, 'FOVEA': build_fovea,
+             'RepPointsDetector': build_reppoints}.get(t, build_retinanet)
     return build(cfg, train_cfg, test_cfg, modules)
