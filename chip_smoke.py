@@ -309,7 +309,27 @@ before the last line is printed:
    Mask R-CNN (SAC + RFP) through phase 3's inference and training-step
    checks, and a toy GA-RetinaNet (dets, losses and every gradient, the
    ``FeatureAdaption`` offset convs' among them), on the card against the
-   CPU. It prints the phase's seconds and the whole run's.
+   CPU. It prints the phase's seconds;
+18-19. run item 9's two-stage heads and item 6's FPN dense detectors
+   (``run_item9_heads``, ``run_item6``);
+20. run SSD, PISA, Libra R-CNN and NAS-FPN from their config files,
+   unchanged, at full width (``ITEM20_CELLS``, ``run_item20``): SSD300 and
+   PISA-SSD300 at 300x300, PISA Faster / Mask R-CNN R50 and PISA RetinaNet
+   at 800x1344 (the X101 PISA Mask R-CNN an image), Libra Faster R-CNN at
+   768x1344, Libra RetinaNet at 768x1280 (the canvases nearest 800x1344
+   where JAX's BFP is defined, ROADMAP.md queue 3, 3bj) and NAS-FPN
+   RetinaNet at 640x640, an image and a step of 4 each, with Libra Fast
+   R-CNN on proposals given in the batch; each held to its exact K1-K5
+   launches (PISA Faster R-CNN: K2 1 an image, K2 2 and K4 1 a step, its
+   Score-HLR pass over every candidate one K2 launch without K4; PISA
+   Mask R-CNN 2, 3 and 2; Libra's two-stage files 1, 1 and 1; 0 on the
+   others), with its device-busy share. Then PISA Faster R-CNN's step
+   split into its sampler's host and device ms, Libra Faster R-CNN at
+   800x1344 required to raise the 3bj ``ValueError``, and toy SSD300 and
+   NAS-FPN RetinaNet (float64 steps), PISA Mask R-CNN and Libra Faster
+   R-CNN on the card against the CPU; phase 2's ``pisa ...`` lines time K2
+   at the Score-HLR pass's 8080 RoIs and the 2000-proposal test crop. It
+   prints the phase's seconds and the whole run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
@@ -323,7 +343,7 @@ loader-batch step, in phase 13 each config's image and steps and
 GRoIE's eval drive and loader-batch step, in phase 14 each config's
 image and steps and RetinaNet's eval drive, in phase 15 each config's
 image and steps and the HRNet-W18 Mask R-CNN's eval drive and
-loader-batch step, and in phases 16 and 17 each config's image and
+loader-batch step, and in phases 16-20 each config's image and
 steps)
 the kernels' launch
 counters are zeroed just before it
@@ -332,7 +352,7 @@ steps and its validations in turns), and every kernel of that path must
 have launched in it: K1 and K2 at inference, in the eval loops and in the
 loop's validations, K5 through both entry points in its check, K1-K4 in
 training; behind Mask R-CNN's FCN head, which runs no DCN, K2 at
-inference and K2 and K4 in training; phase 6 and phases 8-17 hold each
+inference and K2 and K4 in training; phase 6 and phases 8-20 hold each
 drive to its exact counts, every other kernel at 0 (the RPN's eval drive,
 every phase-14 drive, phase 15's FCOS and RetinaNet drives and phase
 16's FCOS drives launch none).
@@ -683,8 +703,14 @@ WHOLE_MAP = 'map'
 # item 9's RoI heads: PointRend's P2-only crops, Grid R-CNN's jittered
 # positives, FPN-routed and all-level (phase 18)
 HEAD_CROPS = 'heads'
+# PISA Faster R-CNN's Score-HLR pass over a step's candidates and its test
+# crop of 2000 proposals (phase 20)
+PISA_CROPS = 'pisa'
 OFF_ROW = (CLUSTERED, PORTRAIT, CONFIG, REFINE, HTC,
-           TWO_STAGE, HRFPN_CROPS, WHOLE_MAP, HEAD_CROPS)  # out of the sums
+           TWO_STAGE, HRFPN_CROPS, WHOLE_MAP, HEAD_CROPS,
+           PISA_CROPS)  # out of the sums
+PISA_PROPOSALS = 2000       # PISA Faster R-CNN's proposals an image
+PISA_SCORE_ROIS = TRAIN_IMAGES * (PISA_PROPOSALS + TRAIN_GTS)   # 8080
 # the whole maps phase 17 gives K1 (an image and a step's 4 images) and K3 (a
 # step's) at 800x1344: GA-RPN's P2-P6 and GA-RetinaNet's P3-P7 (C 256, 4
 # deform groups, padding and dilation 1), and the two branches of the
@@ -953,6 +979,31 @@ def head_crops(dev, infer=True):
            dict(out_size=14, sampling_ratio=2))
 
 
+def pisa_crops(dev):
+    """K2's arguments at the crops phase 20 adds: PISA Faster R-CNN's
+    Score-HLR pass, one box forward without a gradient over every candidate
+    of a step (4 x (2000 proposals + 20 GTs) = 8080 RoIs in image order,
+    7x7 at ratio 2, FPN-routed over P2-P5 of four 800x1344 images at 256
+    channels; no K4 follows it), and its test crop of an image's 2000
+    proposals, from a generator of their own."""
+    import torch
+    from dynamask_torch.ops import roi_align as ra
+    gen = torch.Generator(device=dev).manual_seed(24)
+    h, w = IMAGE_HW
+    strides = (4, 8, 16, 32)
+    for images, n, what in ((TRAIN_IMAGES, PISA_SCORE_ROIS, 'score_hlr'),
+                            (1, PISA_PROPOSALS, 'infer')):
+        feats = [torch.randn(images, h // s, w // s, 256, generator=gen,
+                             device=dev) for s in strides]
+        rois, img = synthetic_rois(gen, dev, n, images, IMAGE_HW)
+        img, order = img.sort(stable=True)
+        yield (f'{PISA_CROPS} {what} {n}x7x7x256 r2',
+               ra.multilevel_crop_args(feats, rois[order].contiguous(), img,
+                                       strides),
+               dict(out_size=7, sampling_ratio=2))
+        del feats
+
+
 def config_crops(dev, train=False):
     """The crops of the other configurations where they differ from the
     flagship's: LVIS inference (300 dets), Cityscapes inference on the
@@ -1000,9 +1051,9 @@ def k2_cases(gen, dev):
     inference crops on the portrait canvas, at phase 8's and at
     RefineMask's P2 crops (phase 10) of its training step and of each
     config's inference, at HTC's semantic crops of a step (phase 12), at
-    GRoIE's and Double-Head's crops (phase 13), at HRFPN's (phase 15) and
-    at item 9's heads' (phase 18), each from a generator of its own so the
-    other cases keep their inputs."""
+    GRoIE's and Double-Head's crops (phase 13), at HRFPN's (phase 15), at
+    item 9's heads' (phase 18) and at PISA's (phase 20), each from a
+    generator of its own so the other cases keep their inputs."""
     import torch
     for case, args, kw in _crops(gen, dev, 1, 1000, N_DETS):
         yield 'infer ' + case, args, kw
@@ -1022,6 +1073,7 @@ def k2_cases(gen, dev):
     yield from two_stage_crops(dev)
     yield from hrfpn_crops(dev)
     yield from head_crops(dev)
+    yield from pisa_crops(dev)
 
 
 def k4_args(gen, args, kw):
@@ -1699,7 +1751,13 @@ TOY_CONFIGS = {'dynamask': FLAGSHIP, 'mask_rcnn': MASK_RCNN,
                    ROOT, 'configs/grid_rcnn/'
                    'grid_rcnn_r50_fpn_gn-head_1x_coco.py'),
                'dynamic_rcnn': os.path.join(
-                   ROOT, 'configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py')}
+                   ROOT, 'configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py'),
+               # phase 20's: PISA's and Libra's RoI heads
+               'pisa_mask_rcnn': os.path.join(
+                   ROOT, 'configs/pisa/pisa_mask_rcnn_r50_fpn_1x_coco.py'),
+               'libra_faster_rcnn': os.path.join(
+                   ROOT, 'configs/libra_rcnn/'
+                   'libra_faster_rcnn_r50_fpn_1x_coco.py')}
 # the toys whose RoI head is a cascade of stages (phase 12)
 CASCADE_TOYS = ('cascade', 'htc')
 # phase 17's: the GA-Faster R-CNN's guided anchors (a square a location)
@@ -1740,19 +1798,25 @@ def toy_cfg(kind='dynamask'):
     PointRend (coarse and point heads at 32 channels, 64-wide fcs), Mask
     Scoring R-CNN (the Mask R-CNN toy's mask head, the MaskIoU head on its
     32 channels), Grid R-CNN (2 convs, 8 channels a point) and Dynamic
-    R-CNN (box-only), each from its config file."""
+    R-CNN (box-only), each from its config file; phase 20's PISA Mask
+    R-CNN (the Mask R-CNN toy's heads under its Score-HLR sampler) and
+    Libra Faster R-CNN (its FPN and BFP at 32 channels)."""
     from dynamask_torch.utils import Config
     cfg = Config.fromfile(TOY_CONFIGS[kind] if kind in TOY_CONFIGS
                           else ITEM7_TOYS[kind][0])
     m = cfg.model
     if kind in ITEM7_TOYS:
         m.backbone.update(ITEM7_TOYS[kind][1])
+    # Libra's FPN, then its BFP (a list of necks)
+    fpn, *rest = m.neck if isinstance(m.neck, list) else [m.neck]
     if kind in DEEP_TOYS or kind in ITEM7_TOYS or kind == 'detectors':
         m.backbone.depth = 50
     else:
         m.backbone.depth = 18
-        m.neck.in_channels = [64, 128, 256, 512]
-    m.neck.out_channels = 32
+        fpn['in_channels'] = [64, 128, 256, 512]
+    fpn['out_channels'] = 32
+    for neck in rest:
+        neck['in_channels'] = 32
     if kind == 'detectors':
         m.neck.aspp_out_channels = 8
         m.neck.rfp_backbone.rfp_inplanes = 32
@@ -1769,7 +1833,8 @@ def toy_cfg(kind='dynamask'):
         if 'conv_out_channels' in head:
             head.conv_out_channels = 64 if kind == 'double_head' else 32
     mh = rh.get('mask_head')
-    if kind in ('faster_rcnn', 'double_head', 'dynamic_rcnn', *GA_TOYS):
+    if kind in ('faster_rcnn', 'double_head', 'dynamic_rcnn',
+                'libra_faster_rcnn', *GA_TOYS):
         pass
     elif kind == 'grid_rcnn':
         rh.grid_roi_extractor.out_channels = 32
@@ -1780,7 +1845,8 @@ def toy_cfg(kind='dynamask'):
                   num_classes=8)
         rh.point_head.update(in_channels=32, fc_channels=32, num_classes=8)
     elif kind in ('mask_rcnn', 'cascade', 'htc', 'gn_ws', 'groie',
-                  'detectors', 'ms_rcnn', *DEEP_TOYS, *ITEM7_TOYS):
+                  'detectors', 'ms_rcnn', 'pisa_mask_rcnn', *DEEP_TOYS,
+                  *ITEM7_TOYS):
         for head in (mh if kind == 'htc' else [mh]):
             head.num_convs = 2
             head.in_channels = head.conv_out_channels = 32
@@ -2054,6 +2120,9 @@ def toy_train_case(kind='dynamask'):
             b * max_pos, int(rh.num_points * rh.oversample_ratio), 2))
         noise['point_rand'] = rng.uniform(size=(
             b * max_pos, rh.num_points - n_imp, 2))
+    if sampler.get('type') == 'CombinedSampler':   # Libra's two samplers
+        for name in ('rcnn_pos', 'rcnn_pos_n', 'rcnn_neg'):
+            noise[name] = rng.uniform(size=noise['rcnn'].shape)
     if kind == 'grid_rcnn':    # the grid branch's sampling and jitter
         noise['rcnn_grid'] = rng.uniform(size=noise['rcnn'].shape)
         noise['grid_jitter'] = rng.uniform(-0.15, 0.15, (b * max_pos, 4))
@@ -4730,10 +4799,13 @@ def check_item7_toys(report):
 
 
 def check_dense_toy(report, name, cfg, n_offsets, noise=None,
-                    step_dtype=None):
+                    step_dtype=None, hw=(96, 128), init_std=0.05,
+                    prepare=None):
     """A dense-head toy (``cfg``) on the card against the CPU: built on the
-    CPU with N(0, 0.05) weights from seed 0 and copied to the card; two
-    seeded 96x128 images through ``simple_test`` (labels and validity
+    CPU with N(0, ``init_std``) weights from seed 0 (None: the JAX
+    initialisers; ``prepare(model)``, given, then changes them) and copied
+    to the card; two seeded images of ``hw`` (96x128) through
+    ``simple_test`` (labels and validity
     equal, dets within TOY_DET_TOL) and a training step with ``noise``'s
     draws (each loss within TOY_LOSS_RTOL, every gradient within
     TOY_GRAD_RL2 relative L2 or the CPU's own noise; ``n_offsets`` offset
@@ -4747,9 +4819,13 @@ def check_dense_toy(report, name, cfg, n_offsets, noise=None,
     from dynamask_torch.apis import synthetic_batch
     from dynamask_torch.models import build_detector
     cpu = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
-                         device='cpu', seed=0, init_std=0.05)
+                         device='cpu', seed=0, init_std=init_std)
+    if prepare is not None:
+        with torch.no_grad():
+            prepare(cpu)
     gpu = copy.deepcopy(cpu).to(DEVICE)
-    data = synthetic_batch(3, b=2, h=96, w=128, num_gts=4, num_classes=8)
+    data = synthetic_batch(3, b=2, h=hw[0], w=hw[1], num_gts=4,
+                           num_classes=8)
     data['scale_factor'] = torch.tensor([[1.0] * 4, [0.8] * 4])
     ref = cpu.simple_test(data)
     got = gpu.simple_test({k: v.to(DEVICE) for k, v in data.items()})
@@ -5316,6 +5392,360 @@ def run_gfl_eval(report, card):
     return launches
 
 
+# -- phase 20: SSD, PISA, Libra R-CNN and NAS-FPN -----------------------------
+
+ITEM20_CONFIGS = {name: os.path.join(ROOT, path) for name, path in {
+    'ssd300': 'configs/ssd/ssd300_coco.py',
+    'pisa_ssd300': 'configs/pisa/pisa_ssd300_coco.py',
+    'pisa_faster_rcnn': 'configs/pisa/pisa_faster_rcnn_r50_fpn_1x_coco.py',
+    'pisa_mask_rcnn': 'configs/pisa/pisa_mask_rcnn_r50_fpn_1x_coco.py',
+    'pisa_mask_rcnn_x101':
+        'configs/pisa/pisa_mask_rcnn_x101_32x4d_fpn_1x_coco.py',
+    'pisa_retinanet': 'configs/pisa/pisa_retinanet_r50_fpn_1x_coco.py',
+    'libra_faster_rcnn':
+        'configs/libra_rcnn/libra_faster_rcnn_r50_fpn_1x_coco.py',
+    'libra_fast_rcnn': 'configs/libra_rcnn/libra_fast_rcnn_r50_fpn_1x_coco.py',
+    'libra_retinanet': 'configs/libra_rcnn/libra_retinanet_r50_fpn_1x_coco.py',
+    'nas_fpn': 'configs/nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py',
+}.items()}
+SSD_HW = (300, 300)          # SSD300's canvas, an image's and a step's
+# the COCO-scale canvases nearest 800x1344 on which JAX's BFP is defined
+# (ROADMAP.md queue 3, 3bj): P2-P6 at 768x1344, P3-P7 at 768x1280
+LIBRA_HW = (768, 1344)
+LIBRA_RETINA_HW = (768, 1280)
+# (name, an image's canvas, a step's canvas or None, an image's launches, a
+# step's). PISA's RoI head: K2 an image (the box crop of its proposals, and
+# Mask R-CNN's mask crop); a step: the Score-HLR pass over every candidate
+# (K2, no K4), then the sampled box crop and the mask crop (K2 + K4 each).
+# Libra's box crop reads the BFP pyramid. SSD, the RetinaNets and NAS-FPN
+# run no hand kernel: every count 0.
+ITEM20_CELLS = (
+    ('ssd300', SSD_HW, SSD_HW, {}, {}),
+    ('pisa_ssd300', SSD_HW, SSD_HW, {}, {}),
+    ('pisa_faster_rcnn', IMAGE_HW, IMAGE_HW, {ROI_FWD: 1},
+     {ROI_FWD: 2, ROI_BWD: 1}),
+    ('pisa_mask_rcnn', IMAGE_HW, IMAGE_HW, {ROI_FWD: 2},
+     {ROI_FWD: 3, ROI_BWD: 2}),
+    ('pisa_mask_rcnn_x101', IMAGE_HW, None, {ROI_FWD: 2}, None),
+    ('pisa_retinanet', IMAGE_HW, IMAGE_HW, {}, {}),
+    ('libra_faster_rcnn', LIBRA_HW, LIBRA_HW, {ROI_FWD: 1},
+     {ROI_FWD: 1, ROI_BWD: 1}),
+    ('libra_retinanet', LIBRA_RETINA_HW, LIBRA_RETINA_HW, {}, {}),
+    ('nas_fpn', CROP640_HW, CROP640_HW, {}, {}),
+)
+LIBRA_FAST_COUNTS = ({ROI_FWD: 1}, {ROI_FWD: 1, ROI_BWD: 1})
+FAST_PROPOSALS = (1000, 2000)   # an image's test proposals, a step's
+# the toys on the card against the CPU: (kind, canvas) of the dense ones,
+# their steps in float64; the two-stage ones (phase 3's fp32 step: K2/K4
+# take fp32 and bf16, not float64). The dense ones take the JAX
+# initialisers and then ``TOY_HEADS[kind]``: N(0, 0.05) weights leave
+# their logits to the biases, every location's scores within rounding of
+# each other (fp32 and float64 on the CPU part by 8.0 on a NAS-FPN det),
+# and from the JAX init SSD's softmax saturates (scores of 0.99998-0.99999,
+# 132.7 apart) and NAS-FPN's prior bias leaves no det over the threshold;
+# after these the two part by 4.4e-5 and 1.1e-5
+ITEM20_DENSE_TOYS = (('ssd300', SSD_HW), ('nas_fpn', (128, 128)))
+ITEM20_TWO_STAGE_TOYS = ('pisa_mask_rcnn', 'libra_faster_rcnn')
+
+
+def range_split(fn, names):
+    """One call of ``fn`` under ``torch.profiler``: per ``record_function``
+    range of ``names``, the host ms it spans (its CPU events' durations
+    summed) and the device ms busy inside those spans (the union of kernel
+    and copy intervals clipped to them)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(DEVICE)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(DEVICE)
+    events = prof.events()
+    cpu_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA and e.name not in
+                   cpu_names and not getattr(e, 'is_user_annotation', False))
+    out = {}
+    for name in names:
+        windows = [(e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CPU and e.name == name]
+        busy = 0.0
+        for lo, hi in windows:
+            end = lo
+            for s, t in spans:
+                s, t = max(s, end), min(t, hi)
+                if t > s:
+                    busy += t - s
+                    end = t
+        out[name] = dict(host_ms=sum(hi - lo for lo, hi in windows) / 1e3,
+                         device_ms=busy / 1e3, calls=len(windows))
+    return out
+
+
+def check_bfp_3bj(report, card):
+    """Libra Faster R-CNN on the 800x1344 canvas: JAX's BFP cannot resize
+    its P6 (13x21) to the gather size (50x84) by whole-number ratios and
+    fails; the port raises the ValueError naming 3bj (ROADMAP.md queue
+    3), which this check requires."""
+    import torch
+    from dynamask_torch.apis import inference_detector, init_detector
+    model = init_detector(ITEM20_CONFIGS['libra_faster_rcnn'],
+                          device=DEVICE, seed=0, init_std=0.05)
+    h, w = IMAGE_HW
+    batch = {'image': torch.zeros(1, h, w, 3, device=DEVICE),
+             'img_shape': torch.tensor([[h, w]], dtype=torch.float32,
+                                       device=DEVICE),
+             'scale_factor': torch.ones(1, 4, device=DEVICE)}
+    try:
+        inference_detector(model, batch)
+    except ValueError as e:
+        if '3bj' not in str(e):
+            raise
+        print(f'  libra_faster_rcnn at {h}x{w}: raises the 3bj error, as '
+              f'required: {e} [{card}]')
+        report['item20']['bfp_3bj'] = str(e)
+        return
+    finally:
+        del model
+        torch.cuda.empty_cache()
+    raise RuntimeError(f'libra_faster_rcnn at {h}x{w}: no 3bj error')
+
+
+def run_pisa_sampler_split(report, card):
+    """PISA Faster R-CNN's step, profiled once more: the host ms and the
+    device ms inside its ``score_hlr`` range (the no-grad box forward over
+    every candidate) and its ``sampler`` range (the assignment and the
+    Score-HLR sampling of each image, ``nms_match`` among them, whose
+    greedy keep reads a flag back once per fixpoint iteration)."""
+    import torch
+    from dynamask_torch.apis import init_trainer, synthetic_batch, train_steps
+    model, opt = init_trainer(ITEM20_CONFIGS['pisa_faster_rcnn'],
+                              steps_per_epoch=COCO_STEPS_PER_EPOCH,
+                              device=DEVICE, seed=0)
+    h, w = IMAGE_HW
+    batch = synthetic_batch(0, b=TRAIN_IMAGES, h=h, w=w, num_gts=TRAIN_GTS,
+                            crop_size=128, num_classes=80, device='cpu')
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    train_steps(model, opt, [batch], generator=gen)
+    split = range_split(lambda: train_steps(model, opt, [batch],
+                                            generator=gen),
+                        ('score_hlr', 'sampler', 'forward_train'))
+    s, hlr, step = split['sampler'], split['score_hlr'], split[
+        'forward_train']
+    print(f'  pisa_faster_rcnn step, profiled: sampler (assign + Score-HLR '
+          f'of {s["calls"]} images) host {s["host_ms"]:.1f} ms, device '
+          f'{s["device_ms"]:.1f} ms; score_hlr pass host {hlr["host_ms"]:.1f}'
+          f' ms, device {hlr["device_ms"]:.1f} ms; forward_train host '
+          f'{step["host_ms"]:.1f} ms, device {step["device_ms"]:.1f} ms '
+          f'[{card}]')
+    report['item20']['pisa_sampler'] = split
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+def fast_proposals(gen, n, images, hw):
+    """(B, n, 4) proposals and their validity: per image random boxes of
+    5-40% of the side (the last tenth invalid padding)."""
+    import torch
+    h, w = hw
+    xy = torch.rand(images, n, 2, generator=gen, device=DEVICE) * \
+        torch.tensor([w, h], device=DEVICE)
+    wh = (0.05 + 0.35 * torch.rand(images, n, 2, generator=gen,
+                                   device=DEVICE)) * min(h, w)
+    lim = torch.tensor([w, h, w, h], device=DEVICE)
+    boxes = torch.minimum(torch.cat([xy, xy + wh], -1), lim)
+    valid = torch.arange(n, device=DEVICE) < n - n // 10
+    return boxes, valid.expand(images, n).contiguous()
+
+
+def run_libra_fast(report, card):
+    """Libra Fast R-CNN from its file at full width on proposals from the
+    batch (phase 11's workflow, without the RPN): an image of 1000
+    proposals at 768x1344 (N(0, 0.05) weights) and a step of 4 images
+    with 2000 each (the JAX initialisation), each a counted warm-up held
+    to its exact launches and a timed repeat, with the device-busy
+    share."""
+    import torch
+    import dynamask_torch.ops as ops
+    from dynamask_torch.apis import (init_detector, init_trainer,
+                                     synthetic_batch, train_steps)
+    infer_counts, step_counts = LIBRA_FAST_COUNTS
+    path = ITEM20_CONFIGS['libra_fast_rcnn']
+    model = init_detector(path, device=DEVICE, seed=0, init_std=0.05)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    h, w = LIBRA_HW
+    props, valid = fast_proposals(gen, FAST_PROPOSALS[0], 1, LIBRA_HW)
+    batch = {'image': torch.randn(1, h, w, 3, generator=gen, device=DEVICE),
+             'img_shape': torch.tensor([[h, w]], dtype=torch.float32,
+                                       device=DEVICE),
+             'scale_factor': torch.ones(1, 4, device=DEVICE),
+             'proposals': props, 'proposal_valid': valid}
+
+    def image():
+        with torch.no_grad():
+            out = model.simple_test(batch)
+        torch.cuda.synchronize(DEVICE)
+        return out
+
+    launches = {}
+    ops.reset_kernel_launches()
+    out = image()
+    launches['libra_fast_rcnn_infer'] = ops.kernel_launches()
+    check_exact_launches('libra_fast_rcnn_infer',
+                         launches['libra_fast_rcnn_infer'], infer_counts)
+    if not torch.isfinite(out['dets']).all():
+        raise RuntimeError('libra_fast_rcnn_infer: non-finite dets')
+    t = time.perf_counter()
+    image()
+    ms = 1e3 * (time.perf_counter() - t)
+    busy = device_busy(image)
+    print(f'  libra_fast_rcnn_infer: {ms:.1f} ms/img, {FAST_PROPOSALS[0]} '
+          f'proposals at {h}x{w} [{card}]; {int(out["det_valid"].sum())} '
+          f'valid dets; {busy_text(busy)}')
+    rec = dict(config='libra_fast_rcnn', ms_per_img=ms, busy=busy)
+    del model
+    model, opt = init_trainer(path, steps_per_epoch=COCO_STEPS_PER_EPOCH,
+                              device=DEVICE, seed=0)
+    step_batch = synthetic_batch(0, b=TRAIN_IMAGES, h=h, w=w,
+                                 num_gts=TRAIN_GTS, crop_size=128,
+                                 num_classes=80, device='cpu')
+    props, valid = fast_proposals(gen, FAST_PROPOSALS[1], TRAIN_IMAGES,
+                                  LIBRA_HW)
+    step_batch.update(proposals=props.cpu(), proposal_valid=valid.cpu())
+    ops.reset_kernel_launches()
+    times = []
+    for _ in range(2):
+        t = time.perf_counter()
+        log, = train_steps(model, opt, [step_batch], generator=gen)
+        torch.cuda.synchronize(DEVICE)
+        times.append(1e3 * (time.perf_counter() - t))
+        if not all(math.isfinite(float(v)) for v in log.values()):
+            raise RuntimeError(f'libra_fast_rcnn_train: {log}')
+    launches['libra_fast_rcnn_train'] = ops.kernel_launches()
+    check_exact_launches('libra_fast_rcnn_train',
+                         launches['libra_fast_rcnn_train'], step_counts, 2)
+    busy = device_busy(lambda: train_steps(model, opt, [step_batch],
+                                           generator=gen))
+    print(f'  libra_fast_rcnn_train: {times[1]:.1f} ms/step (after 1 '
+          f'warm-up), batch {TRAIN_IMAGES}x{h}x{w}, {FAST_PROPOSALS[1]} '
+          f'proposals an image [{card}]; losses ' + ', '.join(
+              f'{k} {float(v):.4g}' for k, v in log.items()) +
+          f'; {busy_text(busy)}')
+    report['item20']['libra_fast'] = dict(infer=rec, ms_per_step=times[1],
+                                          times_ms=times, busy=busy)
+    del model, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def scale_ssd_head(model):
+    """SSD's head convs at a tenth of their He weights."""
+    for conv in [*model.bbox_head.cls_convs, *model.bbox_head.reg_convs]:
+        conv.weight.mul_(0.1)
+
+
+def unbias_retina_cls(model):
+    """RetinaNet's class conv without its prior bias, its weights x10."""
+    model.bbox_head.retina_cls.bias.zero_()
+    model.bbox_head.retina_cls.weight.mul_(10.0)
+
+
+TOY_HEADS = {'ssd300': scale_ssd_head, 'nas_fpn': unbias_retina_cls}
+
+
+def check_item20_toys(report):
+    """Phase 20's toys on the card against the CPU: SSD300 (the full VGG at
+    300x300, 8 classes) and NAS-FPN RetinaNet (at 128x128) as phase 19's
+    dense toys (their steps in float64 on both devices), PISA Mask R-CNN
+    and Libra Faster R-CNN as phase 18's (``simple_test``, then phase 3's
+    training step with every draw given, the Score-HLR and combined
+    samplers' among them)."""
+    import copy
+    import torch
+    from dynamask_torch.models import build_detector
+    for kind, hw in ITEM20_DENSE_TOYS:
+        if kind == 'ssd300':
+            from dynamask_torch.utils import Config
+            cfg = Config.fromfile(ITEM20_CONFIGS[kind])
+            cfg.model.bbox_head.num_classes = 8
+            cfg.test_cfg.update(nms_pre=50, max_per_img=20)
+        else:
+            cfg = single_stage_toy(kind, ITEM20_CONFIGS[kind])
+            cfg.model.neck.in_channels = [128, 256, 512]
+        check_dense_toy(report, kind, cfg, 0, step_dtype=torch.float64,
+                        hw=hw, init_std=None, prepare=TOY_HEADS[kind])
+    gen = torch.Generator().manual_seed(1)
+    batch = {'image': torch.randn(1, 128, 128, 3, generator=gen),
+             'img_shape': torch.tensor([[128., 128.]]),
+             'scale_factor': torch.ones(1, 4)}
+    for kind in ITEM20_TWO_STAGE_TOYS:
+        cfg = toy_cfg(kind)
+        ref = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                             device='cpu', seed=0)
+        model = copy.deepcopy(ref).to(DEVICE)
+        sides = KinkSides()
+        with torch.no_grad():
+            with sides.patched(follow=False):
+                b = {k: v.cpu() for k, v in model.simple_test(
+                    {k: v.to(DEVICE) for k, v in batch.items()}).items()}
+            with sides.patched(follow=True):
+                a = ref.simple_test(batch)
+        same = all(torch.equal(a[k], b[k]) for k in ('labels', 'det_valid'))
+        valid = a['det_valid'].bool()
+        errs = {k: (a[k].double() - b[k].double())[valid].abs().max().item()
+                for k in ('dets', 'mask_probs') if k in a}
+        print(f'  toy {kind}: {int(valid.sum())} dets, GPU vs CPU max abs '
+              'err ' + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()) +
+              f', labels/valid equal {same}; ReLU inputs put on the GPU '
+              f'run\'s side of a kink: {sides.moved}')
+        report['toy'].append(dict(model=f'item20_{kind}',
+                                  same_labels_valid=same, **errs))
+        if not (same and int(valid.sum()) > 0 and errs['dets'] < 1e-3 and
+                errs.get('mask_probs', 0.0) < HEAD_TOY_MASK_TOL):
+            raise RuntimeError(f'toy {kind}: GPU result disagrees with the '
+                               'CPU reference')
+        del ref, model
+        check_toy_train_against_cpu(report, kind)
+
+
+def run_item20(report, card):
+    """Phase 20: SSD300 and PISA-SSD300, PISA Faster / Mask R-CNN (and the
+    X101 Mask R-CNN's image) and PISA RetinaNet, Libra Faster R-CNN, Libra
+    Fast R-CNN and Libra RetinaNet, NAS-FPN RetinaNet, each from its config
+    file, unchanged, at full width: an image with phase 4's weights
+    protocol and a step of 4 images (20 GTs each) from the JAX
+    initialisation, on SSD's 300x300, 800x1344, the canvases where JAX's
+    BFP is defined (768x1344, 768x1280) and NAS-FPN's 640x640; each a
+    counted warm-up held to its exact launches of every kernel, a timed
+    repeat and a profiled pass (the device-busy share). Then PISA Faster
+    R-CNN's sampler split, Libra's 3bj raise at 800x1344 and the toys on
+    the card against the CPU."""
+    import torch
+    from dynamask_torch.apis import config_shapes
+    launches = {}
+    report['item20'] = {'inference': [], 'train': []}
+    for name, infer_hw, train_hw, infer, step in ITEM20_CELLS:
+        path = ITEM20_CONFIGS[name]
+        images = config_shapes(path)[1]
+        got, recs = run_config_inference(
+            report, card, name, path, infer_hw, (('infer', None, infer),),
+            repeats=1, busy=True)
+        launches.update(got)
+        report['item20']['inference'] += recs
+        if train_hw is not None:
+            got, rec = run_config_train(report, card, name, path, images,
+                                        train_hw, step, repeats=1, busy=True)
+            launches.update(got)
+            report['item20']['train'].append(rec)
+        torch.cuda.empty_cache()
+    launches.update(run_libra_fast(report, card))
+    run_pisa_sampler_split(report, card)
+    check_bfp_3bj(report, card)
+    check_item20_toys(report)
+    return launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -5452,8 +5882,14 @@ def main() -> int:
     t19 = time.perf_counter()
     launches.update(run_item6(report, card))
     report['phase19_s'] = time.perf_counter() - t19
+    print(f'  phase 19: {report["phase19_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 20: SSD, PISA, Libra R-CNN and NAS-FPN [{card}]')
+    t20 = time.perf_counter()
+    launches.update(run_item20(report, card))
+    report['phase20_s'] = time.perf_counter() - t20
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 19: {report["phase19_s"]:.1f} s; the whole run '
+    print(f'  phase 20: {report["phase20_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s [{card}]')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}

@@ -14,7 +14,7 @@ from .lvis import (LVISV1Dataset, LVISV05Dataset, LvisEvaluator)
 from .cityscapes import (CityscapesDataset, CITYSCAPES_CLASSES,
                          CITYSCAPES_LABEL_IDS)
 from .custom import CustomDataset
-from .voc import VOC_CLASSES, VOCDataset, XMLDataset
+from .voc import VOC_CLASSES, VOCDataset, WIDERFaceDataset, XMLDataset
 from .dataset_wrappers import (ConcatDataset, RepeatDataset,
                                ClassBalancedDataset, wrap_dataset)
 from .loader import GroupedBatchSampler, build_dataloader
@@ -33,7 +33,8 @@ __all__ = [
     'COCO_CLASSES',
     'LVISV1Dataset', 'LVISV05Dataset', 'LvisEvaluator',
     'CityscapesDataset', 'CITYSCAPES_CLASSES', 'CITYSCAPES_LABEL_IDS',
-    'CustomDataset', 'VOC_CLASSES', 'VOCDataset', 'XMLDataset',
+    'CustomDataset', 'VOC_CLASSES', 'VOCDataset', 'WIDERFaceDataset',
+    'XMLDataset',
     'ConcatDataset', 'RepeatDataset', 'ClassBalancedDataset', 'wrap_dataset',
     'GroupedBatchSampler', 'build_dataloader',
 ]

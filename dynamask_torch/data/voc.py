@@ -1,8 +1,8 @@
 """Pascal VOC and other XML-annotated sets (port of ``dynamask_tpu/data/
 voc.py:27-199``, the reference's ``xml_style.py`` + ``voc.py``): one XML
 file per image, difficult objects as ignore boxes, VOC mAP ('11points' for
-VOC2007, 'area' otherwise) and proposal recall. ``WIDERFaceDataset`` waits
-for SSD (ROADMAP.md §1, item 6).
+VOC2007, 'area' otherwise) and proposal recall; ``WIDERFaceDataset``
+(:198-200), SSD's face set.
 """
 
 from __future__ import annotations
@@ -137,3 +137,9 @@ class VOCDataset(XMLDataset):
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.year = 2007 if 'VOC2007' in self.img_prefix else 2012
+
+
+@DATASETS.register_module()
+class WIDERFaceDataset(XMLDataset):
+    """WIDER FACE in the XML layout (JAX ``voc.py:198-200``): one class."""
+    CLASSES = ('face',)

@@ -168,7 +168,32 @@ def _res2net_key(key: str) -> Optional[Tuple[List[str], str]]:
 
 
 # the backbones whose keys differ from a ResNet's, by class name
-_BACKBONE_KEYS = {'HRNet': _hrnet_key, 'Res2Net': _res2net_key}
+# SSDVGG's ``features`` Sequential: each conv's index -> JAX's name (the
+# JAX importer's ``_VGG16_FEATURE_MAP`` of ``pretrained.py:84-91``, and
+# fc6 / fc7, which it does not map)
+_VGG_CONVS = dict(zip((0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28, 31,
+                       33),
+                      [f'conv{s}_{c}' for s, n in enumerate((2, 2, 3, 3, 3), 1)
+                       for c in range(1, n + 1)] + ['fc6', 'fc7']))
+
+
+def _ssd_vgg_key(key: str) -> Optional[Tuple[List[str], str]]:
+    """An SSDVGG key's JAX path (``dynamask_tpu/models/ssd.py:70-127``):
+    ``features.{i}`` -> ``conv{s}_{c}`` / ``fc6`` / ``fc7``, ``extra.{i}`` ->
+    ``extra_{i}``, ``l2_norm.weight`` -> ``l2_norm``'s raw ``weight``."""
+    m = re.match(r'^features\.(\d+)\.(weight|bias)$', key)
+    if m and int(m[1]) in _VGG_CONVS:
+        return [_VGG_CONVS[int(m[1])]], m[2]
+    m = re.match(r'^extra\.(\d+)\.(weight|bias)$', key)
+    if m:
+        return [f'extra_{m[1]}'], m[2]
+    if key == 'l2_norm.weight':
+        return ['l2_norm', 'weight'], 'raw'
+    return None
+
+
+_BACKBONE_KEYS = {'HRNet': _hrnet_key, 'Res2Net': _res2net_key,
+                  'SSDVGG': _ssd_vgg_key}
 
 # a plugin's keys below its module: (JAX module, leaf, hints)
 _PLUGIN_KEYS = (
@@ -256,6 +281,10 @@ def _fpn_conv(i: str, num_laterals: Optional[int], norm: bool = False
 # the dense heads whose keys map by rules of their own (``head`` of
 # :func:`key_hints`), tried before the shared ones
 _HEAD_RULES = {
+    'SSDHead': (
+        (r'^bbox_head\.(cls|reg)_convs\.(\d+)\.(weight|bias)$',
+         lambda m: (['bbox_head', f'{m[1]}_conv_{m[2]}'], m[3], {})),
+    ),
     'FoveaHead': (
         (r'^bbox_head\.feature_adaption\.conv_offset\.weight$',
          lambda m: (['bbox_head', 'feature_adaption_offset'], 'weight', {})),
@@ -289,10 +318,26 @@ _HEAD_RULES = {
 }
 
 
+# NAS-FPN's keys (``neck`` of :func:`key_hints`; JAX necks_extra.py:
+# 142-180): the laterals, each extra level's conv, each stack's cells
+_NECK_RULES = {
+    'NASFPN': (
+        (r'^neck\.lateral_convs\.(\d+)\.conv\.(weight|bias)$',
+         lambda m: (['neck', f'lateral_conv_{m[1]}'], m[2], {})),
+        (r'^neck\.extra_downsamples\.(\d+)\.0\.conv\.(weight|bias)$',
+         lambda m: (['neck', f'extra_conv_{m[1]}'], m[2], {})),
+        (r'^neck\.fpn_stages\.(\d+)\.(\w+)\.out_conv\.conv\.(weight|bias)$',
+         lambda m: (['neck', f'stage{m[1]}_{m[2]}', 'out_conv', 'conv'],
+                    m[3], {})),
+    ),
+}
+
+
 def mmdet_key(key: str, num_laterals: Optional[int] = None,
               backbone: Optional[str] = None, dcn=frozenset(),
               plugins: Optional[Dict[str, str]] = None, sac=frozenset(),
-              fpn: Tuple[str, ...] = ('neck',), head: Optional[str] = None
+              fpn: Tuple[str, ...] = ('neck',), head: Optional[str] = None,
+              neck: Optional[str] = None
               ) -> Optional[Tuple[List[str], str, Dict]]:
     """Port state-dict key -> (JAX tree path, torch leaf name, hints).
     ``num_laterals`` is the FPN's (:func:`neck_laterals`): its
@@ -303,8 +348,15 @@ def mmdet_key(key: str, num_laterals: Optional[int] = None,
     block plugin's module name to its JAX name, ``sac`` names the SAC
     convs, ``fpn`` is the JAX path of the FPN's convs (DetectoRS' RFP
     holds its FPN as ``neck/fpn``), ``head`` the dense head's class, whose
-    own rules come first (:func:`key_hints`)."""
-    for pattern, fn in _HEAD_RULES.get(head, ()):
+    own rules come first, and ``neck`` the neck's class (:func:`key_hints`):
+    NAS-FPN's keys map by rules of their own, a chain's ``neck.{i}.`` as
+    its member's under JAX's ``neck/necks_{i}`` (Libra's FPN, then its
+    BFP's ``refine``)."""
+    m = re.match(r'^neck\.(\d+)\.(.+)$', key)
+    if neck == 'NeckChain' and m:
+        return mmdet_key('neck.' + m[2], num_laterals, backbone, dcn, plugins,
+                         sac, ('neck', f'necks_{m[1]}'), head)
+    for pattern, fn in _HEAD_RULES.get(head, ()) + _NECK_RULES.get(neck, ()):
         m = re.match(pattern, key)
         if m:
             return fn(m)
@@ -357,6 +409,11 @@ def mmdet_key(key: str, num_laterals: Optional[int] = None,
          lambda m: (['neck', m[1], 'out_bn'], m[2], {})),
         (r'^neck\.lateral_convs\.(\d+)\.conv\.(weight|bias)$',
          lambda m: (fpn + [f'lateral_{m[1]}'], m[2], {})),
+        # BFP's refinement: a NonLocal2d's four 1x1 convs, or one 3x3 conv
+        (r'^neck\.refine\.(g|theta|phi|conv_out)\.conv\.(weight|bias)$',
+         lambda m: (fpn + ['refine', m[1]], m[2], {})),
+        (r'^neck\.refine\.conv\.(weight|bias)$',
+         lambda m: (fpn + ['refine'], m[1], {})),
         (r'^neck\.fpn_convs\.(\d+)\.conv\.(weight|bias)$',
          lambda m: (fpn + [_fpn_conv(m[1], num_laterals)], m[2], {})),
         # the FPN's GroupNorms and BatchNorms (JAX fpn.py:37-44, both
@@ -648,8 +705,12 @@ def _weight_layout(node, hints) -> np.ndarray:
 
 
 def neck_laterals(model: nn.Module) -> Optional[int]:
-    """The number of the model's FPN laterals, or None without them."""
-    lateral = getattr(getattr(model, 'neck', None), 'lateral_convs', None)
+    """The number of the model's FPN laterals (a chain's first neck's),
+    or None without them."""
+    neck = getattr(model, 'neck', None)
+    if type(neck).__name__ == 'NeckChain':
+        neck = neck[0]
+    lateral = getattr(neck, 'lateral_convs', None)
     return None if lateral is None else len(lateral)
 
 
@@ -657,7 +718,7 @@ def key_hints(model: nn.Module) -> Dict:
     """What :func:`mmdet_key` needs to know of ``model``: its FPN's
     laterals and JAX path, its backbone's class, its deformable convs' and
     SAC convs' module names, its block plugins' (module name -> JAX
-    name) and its dense head's class."""
+    name), its dense head's class and its neck's."""
     from ..models.detectors_resnet import SAConv
     from ..models.layers import DeformConv2dPack
     bb = getattr(model, 'backbone', None)
@@ -669,13 +730,15 @@ def key_hints(model: nn.Module) -> Dict:
             sac.add(name)
         for _, plugin, jax_name in getattr(m, 'plugin_names', ()):
             plugins[f'{name}.{plugin}'] = jax_name
-    rfp = getattr(getattr(model, 'neck', None), 'takes_images', False)
+    neck = getattr(model, 'neck', None)
+    rfp = getattr(neck, 'takes_images', False)
     head = getattr(model, 'bbox_head', None)
     return dict(num_laterals=neck_laterals(model),
                 backbone=None if bb is None else type(bb).__name__,
                 dcn=frozenset(dcn), plugins=plugins, sac=frozenset(sac),
                 fpn=('neck', 'fpn') if rfp else ('neck',),
-                head=None if head is None else type(head).__name__)
+                head=None if head is None else type(head).__name__,
+                neck=None if neck is None else type(neck).__name__)
 
 
 def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:

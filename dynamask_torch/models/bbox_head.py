@@ -23,8 +23,8 @@ from ..core.samplers import SamplingResult
 from ..ops.nms import multiclass_nms
 from ..utils.registry import HEADS
 from .layers import ConvModule
-from .losses import (accuracy, bounded_iou_loss, iou_loss, l1_loss,
-                     smooth_l1_loss, softmax_cross_entropy)
+from .losses import (accuracy, balanced_l1_loss, bounded_iou_loss, iou_loss,
+                     l1_loss, smooth_l1_loss, softmax_cross_entropy)
 
 # the regression losses decoded boxes take: (loss function, its mode);
 # mmdet's ``IoULoss`` is -log(IoU), as JAX reads it (``bbox_head.py:169``)
@@ -136,7 +136,8 @@ def bbox_head_loss(cls_logits: torch.Tensor, bbox_deltas: torch.Tensor,
     the 4 of a class-agnostic head), averaged by the same count. With
     ``reg_decoded_bbox`` the deltas are first decoded on ``rois`` by
     ``target_means`` / ``target_stds``; ``reg_loss_type`` 'iou', 'giou'
-    or 'bounded_iou' then takes the IoU loss of each positive box."""
+    or 'bounded_iou' then takes the IoU loss of each positive box;
+    'balanced_l1' the balanced L1 of beta ``smooth_l1_beta``."""
     avg = targets.label_weights.sum()
     loss_cls = softmax_cross_entropy(cls_logits, targets.labels,
                                      targets.label_weights, avg)
@@ -157,6 +158,13 @@ def bbox_head_loss(cls_logits: torch.Tensor, bbox_deltas: torch.Tensor,
                         avg_factor=avg) if mode else
                      fn(pred, targets.bbox_targets, weight=w[:, None],
                         avg_factor=avg))
+    elif reg_loss_type == 'balanced_l1':
+        # Libra R-CNN: its beta in ``smooth_l1_beta``, alpha and gamma
+        # fixed at 0.5 and 1.5 as in JAX
+        loss_bbox = balanced_l1_loss(pred, targets.bbox_targets,
+                                     smooth_l1_beta,
+                                     weight=targets.bbox_weights[:, None],
+                                     avg_factor=avg)
     elif smooth_l1_beta is None:
         loss_bbox = l1_loss(pred, targets.bbox_targets,
                             targets.bbox_weights[:, None], avg)

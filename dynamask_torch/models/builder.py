@@ -79,13 +79,9 @@ def not_ported(what: str, item) -> NotImplementedError:
 # the legacy v1 keys that JAX's two-stage builder drops (ROADMAP.md queue
 # 3, 3c): refused here rather than dropped
 LEGACY = 'ROADMAP.md queue 3, 3c: the JAX package drops it'
-BACKBONE_ITEMS = {'SSDVGG': 6, 'HourglassNet': 9}
-NECK_ITEMS = {'NASFPN': 8, 'BFP': 8}
+BACKBONE_ITEMS = {'HourglassNet': 9}
 DETECTOR_ITEMS = {'CornerNet': 9}
-ROI_HEAD_ITEMS = {'PISARoIHead': 9, 'TridentRoIHead': 9}
-# the typed samplers the port lacks, by item (OHEM draws as random, 3s)
-SAMPLER_ITEMS = {'CombinedSampler': 8, 'InstanceBalancedPosSampler': 8,
-                 'IoUBalancedNegSampler': 8, 'ScoreHLRSampler': 9}
+ROI_HEAD_ITEMS = {'TridentRoIHead': 9}
 
 
 def _check_keys(what: str, cfg: dict, read, defaults=None,
@@ -109,16 +105,20 @@ def _check_loss(what: str, loss: dict, types) -> dict:
 
 
 def _check_sampling(stage: str, assigner: dict, sampler: dict,
-                    typed=('RandomSampler',)) -> None:
+                    typed=('RandomSampler',), capped=()) -> None:
     """The port has the sampling forms the configs use: a ``RandomSampler``
     (or a type of ``typed``) over a ``MaxIoUAssigner`` without
-    ``neg_pos_ub``, ``gt_max_assign_all=False`` or ``ignore_iof_thr``;
-    refuse others, naming their item."""
+    ``gt_max_assign_all=False`` or ``ignore_iof_thr``, and a
+    ``neg_pos_ub`` only on a type of ``capped`` (the samplers JAX hands it
+    to and that apply it: PISA's Score-HLR), or on the RPN's, which JAX
+    drops (3bn); refuse others, naming their item."""
     t = sampler.get('type', 'RandomSampler')
     if t not in typed:
-        raise not_ported(f'{stage} sampler {t}', SAMPLER_ITEMS.get(t, 9))
-    if sampler.get('neg_pos_ub', -1) != -1:
-        raise not_ported(f'{stage} sampler neg_pos_ub', 8)
+        raise not_ported(f'{stage} sampler {t}', 9)
+    if sampler.get('neg_pos_ub', -1) != -1 and t not in capped and \
+            stage != 'rpn':
+        raise not_ported(f'{stage} sampler {t} neg_pos_ub (JAX samples '
+                         'without it)', DROPPED)
     if (not assigner.get('gt_max_assign_all', True) or
             assigner.get('ignore_iof_thr', -1) > 0):
         raise not_ported(f'{stage} assigner {assigner}', 9)
@@ -269,10 +269,13 @@ def build_neck(cfg: dict):
     if not cfg:
         raise not_ported('a detector without a neck (the C4 backbone)', 9)
     if isinstance(cfg, (list, tuple)):
-        raise not_ported('a chain of necks ' + ' + '.join(
-            n.get('type', '?') for n in cfg), 8)
+        # Libra R-CNN's FPN then BFP (JAX ``ChainedNeck``)
+        from .necks_extra import NeckChain
+        return NeckChain(*[build_neck(c) for c in cfg])
     cfg = _cfg(cfg)
     t = cfg.get('type')
+    if t in ('BFP', 'NASFPN'):
+        return build_extra_neck(cfg)
     if t == 'FPN_CARAFE':
         return build_fpn_carafe(cfg)
     if t == 'HRFPN':
@@ -314,7 +317,7 @@ def build_neck(cfg: dict):
                            cfg.get('out_channels', 256),
                            cfg.get('num_outs', 5), cfg.get('start_level', 1))
     if t != 'FPN':
-        raise not_ported(f'neck {t}', NECK_ITEMS.get(t, 9))
+        raise not_ported(f'neck {t}', 9)
     fpn = {k: cfg.pop(k) for k in FPN_KEYS if k in cfg}
     if fpn.get('add_extra_convs') not in (None, False, True, 'on_input',
                                           'on_output'):
@@ -334,6 +337,28 @@ def build_neck(cfg: dict):
     _check_keys('FPN', cfg, ())
     fpn['in_channels'] = tuple(fpn['in_channels'])
     return NECKS.build(fpn)
+
+
+def build_extra_neck(cfg: dict):
+    """Libra's ``BFP`` (JAX reads ``in_channels``, ``num_levels``,
+    ``refine_level``, ``refine_type``, ``builder.py:161-165``) or
+    ``NASFPN`` (``in_channels``, ``out_channels``, ``num_outs``,
+    ``stack_times``, ``start_level``, :167-172; ``add_extra_convs``, which
+    it drops, only at the configs' True: JAX's NAS-FPN has no other form)."""
+    from .necks_extra import BFP, NASFPN
+    if cfg['type'] == 'BFP':
+        _check_keys('BFP', cfg, ('type', 'in_channels', 'num_levels',
+                                 'refine_level', 'refine_type'),
+                    {'conv_cfg': None, 'norm_cfg': None}, DROPPED)
+        return BFP(cfg.get('in_channels', 256), cfg.get('num_levels', 5),
+                   cfg.get('refine_level', 2), cfg.get('refine_type'))
+    _check_keys('NASFPN', cfg, ('type', 'in_channels', 'out_channels',
+                                'num_outs', 'stack_times', 'start_level'),
+                {'add_extra_convs': True, 'end_level': -1, 'norm_cfg': None},
+                DROPPED)
+    return NASFPN(tuple(cfg['in_channels']), cfg.get('out_channels', 256),
+                  cfg.get('num_outs', 5), cfg.get('stack_times', 7),
+                  cfg.get('start_level', 0))
 
 
 def build_rfp(cfg: dict):
@@ -559,7 +584,10 @@ CASCADE_HEADS = ('CascadeRoIHead', 'HybridTaskCascadeRoIHead')
 ROI_HEADS = ('StandardRoIHead', 'DynaMaskRoIHead', 'DoubleHeadRoIHead',
              *REFINE_HEADS, *CASCADE_HEADS, 'MaskScoringRoIHead',
              'PointRendRoIHead', 'PointRefineRoIHead', 'GridRoIHead',
-             'DynamicRoIHead')
+             'DynamicRoIHead', 'PISARoIHead')
+# the typed RoI samplers (Libra's, PISA's) and the heads that take them
+TYPED_SAMPLERS = {'StandardRoIHead': ('CombinedSampler',),
+                  'PISARoIHead': ('ScoreHLRSampler',)}
 
 
 def _extractor(cfg: dict, what: str) -> dict:
@@ -617,12 +645,15 @@ def _extract_mode(bbox_extractor: dict, mask_extractor: dict) -> str:
 # 3w): mmdet's IoU losses take eps 1e-6, JAX's 1e-7
 REG_LOSSES = {'L1Loss': (None, {}), 'SmoothL1Loss': (None, {}),
               'IoULoss': ('iou', {'linear': False}), 'GIoULoss': ('giou', {}),
-              'BoundedIoULoss': ('bounded_iou', {'beta': 0.2, 'eps': 1e-3})}
+              'BoundedIoULoss': ('bounded_iou', {'beta': 0.2, 'eps': 1e-3}),
+              'BalancedL1Loss': ('balanced_l1', {'alpha': 0.5,
+                                                 'gamma': 1.5})}
 
 
 def _box_losses(head_cfg: dict) -> dict:
-    """The box head's loss weights and regression loss: L1, or SmoothL1
-    with its ``beta`` (JAX ``builder.py:322-327``)."""
+    """The box head's loss weights and regression loss: L1, SmoothL1 or
+    Libra's balanced L1 with its ``beta`` (JAX ``builder.py:322-327``),
+    or an IoU loss."""
     _check_loss('bbox head loss_cls', head_cfg.get('loss_cls'),
                 ('CrossEntropyLoss',))
     if _cfg(head_cfg.get('loss_cls')).get('use_sigmoid', False):
@@ -630,17 +661,20 @@ def _box_losses(head_cfg: dict) -> dict:
     loss_bbox = _cfg(head_cfg.get('loss_bbox'))
     lt = loss_bbox.get('type', 'L1Loss')
     if lt not in REG_LOSSES:
-        raise not_ported(f'bbox head loss_bbox {lt}', 8)
+        raise not_ported(f'bbox head loss_bbox {lt}', 'no item')
     kind, fixed = REG_LOSSES[lt]
     if kind:
-        _check_keys(f'bbox head {lt}', loss_bbox, ('type', 'loss_weight'),
-                    fixed, DROPPED)
+        # Libra's balanced L1 reads its beta; alpha and gamma are fixed
+        _check_keys(f'bbox head {lt}', loss_bbox, ('type', 'loss_weight') +
+                    (('beta',) if kind == 'balanced_l1' else ()), fixed,
+                    DROPPED)
     return dict(
         loss_cls_weight=_cfg(head_cfg.get('loss_cls')).get('loss_weight',
                                                             1.0),
         loss_bbox_weight=loss_bbox.get('loss_weight', 1.0),
         smooth_l1_beta=(loss_bbox.get('beta', 1.0)
-                        if lt == 'SmoothL1Loss' else None),
+                        if lt in ('SmoothL1Loss', 'BalancedL1Loss')
+                        else None),
         reg_loss_type=kind,
         reg_decoded_bbox=bool(head_cfg.get('reg_decoded_bbox', False)))
 
@@ -742,7 +776,8 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     for i, st in enumerate(stage_train):
         _check_sampling(f'rcnn {i}' if cascade else 'rcnn',
                         _cfg(st.get('assigner')), _cfg(st.get('sampler')),
-                        ('RandomSampler', 'OHEMSampler'))
+                        ('RandomSampler', 'OHEMSampler') +
+                        TYPED_SAMPLERS.get(t, ()), ('ScoreHLRSampler',))
     bbox_extractor = _extractor(cfg.get('bbox_roi_extractor'),
                                 'bbox_roi_extractor')
     point_rend = t == 'PointRendRoIHead'
@@ -776,6 +811,8 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
                                        {} if point_rend else mask_extractor),
         nms_cfg=_test_nms(nms_cfg),
         **_box_losses(head_cfg))
+    if sampler.get('type') in ('CombinedSampler', 'ScoreHLRSampler'):
+        common['sampler'] = build_sampler(sampler)
     if (t == 'DoubleHeadRoIHead') != any(
             isinstance(h, DoubleConvFCBBoxHead) for h, _, _ in stages):
         raise not_ported(f'{t} over {type(bbox_head).__name__} (the '
@@ -804,6 +841,9 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
         return build_grid_roi_head(cfg, common, rcnn_train, bbox_extractor)
     if t == 'DynamicRoIHead':
         return build_dynamic_roi_head(cfg, common, rcnn_train)
+    if t == 'PISARoIHead':
+        return build_pisa_roi_head(cfg, mhc, mt, common, rcnn_train,
+                                   head_cfg)
     if t == 'DoubleHeadRoIHead' and mt is None:
         _check_keys(t, cfg, ('reg_roi_scale_factor', 'bbox_head',
                              'bbox_roi_extractor'),
@@ -825,6 +865,87 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
         'StandardRoIHead, DynaMaskHead under DynaMaskRoIHead, and '
         'RefineMaskHead or SimpleRefineMaskHead under RefineRoIHead or '
         'SimpleRefineRoIHead)', 9)
+
+
+def build_sampler(sampler: dict):
+    """Libra's ``CombinedSampler`` over an ``InstanceBalancedPosSampler``
+    and an ``IoUBalancedNegSampler`` (JAX reads ``floor_thr`` and
+    ``num_bins``; ``floor_fraction`` only at 0), or PISA's
+    ``ScoreHLRSampler`` (every key read), built as JAX's registry builds
+    them (``samplers.py:265-297``, ``pisa.py:224-233``)."""
+    from ..core.samplers import (CombinedSampler, InstanceBalancedPosSampler,
+                                 IoUBalancedNegSampler)
+    from .pisa import ScoreHLRSampler
+    t = sampler['type']
+    common = dict(num=sampler.get('num', 512),
+                  pos_fraction=sampler.get('pos_fraction', 0.25),
+                  neg_pos_ub=sampler.get('neg_pos_ub', -1))
+    if t == 'ScoreHLRSampler':
+        _check_keys(t, sampler, ('type', 'num', 'pos_fraction', 'neg_pos_ub',
+                                 'add_gt_as_proposals', 'k', 'bias',
+                                 'score_thr', 'iou_thr'), item=DROPPED)
+        return ScoreHLRSampler(k=sampler.get('k', 0.5),
+                               bias=sampler.get('bias', 0.0),
+                               score_thr=sampler.get('score_thr', 0.05),
+                               iou_thr=sampler.get('iou_thr', 0.5), **common)
+    _check_keys(t, sampler, ('type', 'num', 'pos_fraction', 'neg_pos_ub',
+                             'add_gt_as_proposals', 'pos_sampler',
+                             'neg_sampler'), item=DROPPED)
+    pos, neg = _cfg(sampler.get('pos_sampler')), _cfg(
+        sampler.get('neg_sampler'))
+    if (pos.get('type'), neg.get('type')) != ('InstanceBalancedPosSampler',
+                                              'IoUBalancedNegSampler'):
+        raise not_ported(f'CombinedSampler over {pos.get("type")} and '
+                         f'{neg.get("type")} (the port has Libra\'s pair)',
+                         'no item')
+    _check_keys('InstanceBalancedPosSampler', pos, ('type',), item=DROPPED)
+    _check_keys('IoUBalancedNegSampler', neg, ('type', 'floor_thr',
+                                               'num_bins'),
+                {'floor_fraction': 0}, DROPPED)
+    return CombinedSampler(
+        pos_sampler=InstanceBalancedPosSampler(**common),
+        neg_sampler=IoUBalancedNegSampler(
+            floor_thr=neg.get('floor_thr', -1),
+            num_bins=neg.get('num_bins', 3), **common), **common)
+
+
+def pisa_cfg(train_cfg: dict) -> dict:
+    """PISA's ``isr`` and ``carl`` of a ``train_cfg`` (their ``k`` and
+    ``bias``) as the keyword arguments of its heads."""
+    isr, carl = _cfg(train_cfg.get('isr')), _cfg(train_cfg.get('carl'))
+    _check_keys('PISA isr', isr, ('k', 'bias'), item=DROPPED)
+    _check_keys('PISA carl', carl, ('k', 'bias'), item=DROPPED)
+    return dict(isr_k=isr.get('k', 2.0), isr_bias=isr.get('bias', 0.0),
+                carl_k=carl.get('k', 1.0), carl_bias=carl.get('bias', 0.2))
+
+
+def build_pisa_roi_head(cfg: dict, mhc: dict, mt, common: dict,
+                        rcnn_train: dict, head_cfg: dict):
+    """``PISARoIHead`` (JAX ``builder.py:389-420``) over its
+    ``ScoreHLRSampler``: Mask R-CNN's FCN mask head or none,
+    ``train_cfg.rcnn``'s ``isr`` and ``carl``; its box loss
+    is SmoothL1 of the head's ``beta`` whatever the type, so only a
+    ``SmoothL1Loss`` is taken."""
+    from .pisa import PISARoIHead, ScoreHLRSampler
+    _check_keys('PISARoIHead', cfg, ('bbox_roi_extractor', 'bbox_head',
+                                     'mask_roi_extractor', 'mask_head'),
+                item=DROPPED)
+    if not isinstance(common.get('sampler'), ScoreHLRSampler):
+        raise not_ported('PISARoIHead without a ScoreHLRSampler (no config '
+                         'names one)', 'no item')
+    lt = _cfg(head_cfg.get('loss_bbox')).get('type', 'L1Loss')
+    if lt != 'SmoothL1Loss':
+        raise not_ported(f'PISARoIHead loss_bbox {lt} (JAX applies '
+                         'SmoothL1)', DROPPED)
+    kw = pisa_cfg(rcnn_train)
+    if mt is None:
+        return PISARoIHead(mask_head=None, **kw, **common)
+    if mt != 'FCNMaskHead':
+        raise not_ported(f'{mt} under PISARoIHead (JAX builds an '
+                         'FCNMaskHead)', DROPPED)
+    return PISARoIHead(mask_head=build_fcn_mask_head(mhc),
+                       loss_mask_weight=_cfg(mhc.get('loss_mask')).get(
+                           'loss_weight', 1.0), **kw, **common)
 
 
 MASK_LOSS = dict(type='CrossEntropyLoss', use_mask=True)
@@ -1265,6 +1386,9 @@ def _rpn_cfg(anchor_cfg: dict, coder: dict, rpn_head_cfg: dict,
     rpn_train = _cfg(_cfg(train_cfg).get('rpn'))
     rpn_assigner = _cfg(rpn_train.get('assigner'))
     rpn_sampler = _cfg(rpn_train.get('sampler'))
+    # its ``neg_pos_ub`` is dropped as the JAX builder drops it (it samples
+    # the RPN by ``num`` and ``pos_fraction`` alone, builder.py:1203-1207):
+    # Libra R-CNN's 5 is computed without the cap (ROADMAP.md queue 3, 3bn)
     _check_sampling('rpn', rpn_assigner, rpn_sampler)
     rpn_proposal = _cfg(_cfg(train_cfg).get('rpn_proposal'))
     return dict(
@@ -1451,7 +1575,15 @@ def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
     cfg = _cfg(model_cfg)
     t = cfg.pop('type')
     cfg.pop('pretrained', None)
-    from .single_stage_builder import SINGLE_STAGE, build_single_stage
+    from .single_stage_builder import (SINGLE_STAGE, SSD_HEADS, build_ssd,
+                                       build_single_stage)
+    if _cfg(cfg.get('bbox_head')).get('type') in SSD_HEADS:
+        # SSD has no neck: it goes before the neck's C4 refusal
+        if t != 'SingleStageDetector':
+            raise not_ported(f'an SSD head under {t}', 'no item')
+        with torch.device('meta'):
+            det = build_ssd(cfg, train_cfg, test_cfg)
+        return _materialise(det, dev, seed, init_std)
     if t in SINGLE_STAGE:
         with torch.device('meta'):
             det = build_single_stage(t, cfg, train_cfg, test_cfg, dict(

@@ -4,12 +4,14 @@
 ``l1_loss`` :71, ``smooth_l1_loss`` :76-86, ``iou_loss`` :101-130,
 ``accuracy`` :160, ``ghm_c_loss`` :296-320, ``ghm_r_loss`` :410-432,
 ``bounded_iou_loss`` :456-485, GFL's ``quality_focal_loss`` :335-361
-and ``distribution_focal_loss`` :398-418, and the focal loss of ``dynamask_tpu/
+and ``distribution_focal_loss`` :398-418, Libra R-CNN's
+``balanced_l1_loss`` :282-295, and the focal loss of ``dynamask_tpu/
 models/single_stage.py:253-259``). Dense padded inputs with elementwise
 weights and an ``avg_factor``, as in the JAX package."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -160,6 +162,23 @@ def smooth_l1_loss(pred, target, beta: float = 1.0, weight=None,
                    avg_factor=None) -> torch.Tensor:
     return weight_reduce_loss(smooth_l1_elementwise(pred, target, beta),
                               weight, avg_factor)
+
+
+def balanced_l1_loss(pred, target, beta: float = 1.0, alpha: float = 0.5,
+                     gamma: float = 1.5, weight=None,
+                     avg_factor=None) -> torch.Tensor:
+    """Libra R-CNN's balanced L1 (JAX ``losses.py:282-295``): with
+    ``b = e ** (gamma / alpha) - 1``, ``alpha / b * (b d + 1) log(b d / beta
+    + 1) - alpha d`` where ``d = |pred - target| < beta``, ``gamma d +
+    gamma / b - alpha beta`` beyond."""
+    diff = (pred - target).abs()
+    b = math.e ** (gamma / alpha) - 1
+    loss = torch.where(
+        diff < beta,
+        alpha / b * (b * diff + 1) * torch.log(
+            (b * diff / beta + 1).clamp(min=1e-12)) - alpha * diff,
+        gamma * diff + gamma / b - alpha * beta)
+    return weight_reduce_loss(loss, weight, avg_factor)
 
 
 def iou_loss(pred, target, mode: str = 'giou', eps: float = 1e-7,

@@ -42,6 +42,30 @@ ROI_SAMPLING_RATIO = 2
 FINEST_SCALE = 56
 
 
+def image_draws(priorities, i: int):
+    """Image ``i``'s row of each (B, N) draw of ``priorities``."""
+    if priorities is None:
+        return None
+    if isinstance(priorities, dict):
+        return {k: v[i] for k, v in priorities.items()}
+    return priorities[i]
+
+
+# the named draws of the typed samplers (``core/samplers.py``)
+DRAW_NAMES = ('n', 'pos', 'pos_n', 'neg', 'neg_n')
+
+
+def sampler_draws(noise: dict, key: str):
+    """The sampler draws of ``noise`` under ``key``: ``noise[key]``, the
+    sampler's own (B, N), and ``noise[key + '_' + name]`` for the named
+    draws of a typed sampler; None where there are none."""
+    draws = {name: noise[f'{key}_{name}'] for name in DRAW_NAMES
+             if f'{key}_{name}' in noise}
+    if key in noise:
+        draws[''] = noise[key]
+    return draws or None
+
+
 class StandardRoIHead(nn.Module):
     # whether a training batch must carry ``gt_semantic`` (RefineMask's
     # heads say so)
@@ -65,7 +89,8 @@ class StandardRoIHead(nn.Module):
                  reg_loss_type: Optional[str] = None,
                  reg_decoded_bbox: bool = False,
                  roi_extract_mode: str = 'single',
-                 nms_cfg: Optional[dict] = None):
+                 nms_cfg: Optional[dict] = None,
+                 sampler: Optional[RandomSampler] = None):
         super().__init__()
         self.bbox_head = bbox_head
         self.mask_head = mask_head
@@ -80,7 +105,9 @@ class StandardRoIHead(nn.Module):
         self.max_per_img = max_per_img
         self.assigner = MaxIoUAssigner(pos_iou_thr, neg_iou_thr, min_pos_iou,
                                        match_low_quality=match_low_quality)
-        self.sampler = RandomSampler(num_samples, pos_fraction)
+        # a typed sampler (Libra's CombinedSampler, PISA's Score-HLR) or
+        # the random one
+        self.sampler = sampler or RandomSampler(num_samples, pos_fraction)
         self.max_pos = max_pos
         self.add_gt_as_proposals = add_gt_as_proposals
         self.loss_cls_weight = loss_cls_weight
@@ -121,7 +148,8 @@ class StandardRoIHead(nn.Module):
                      priorities=None, generator=None, assigner=None,
                      add_gt: Optional[bool] = None) -> SamplingResult:
         """Per-image assign + sample -> a result with a leading batch dim;
-        ``priorities`` (B, N) are the sampler's draws. ``assigner`` and
+        ``priorities`` (B, N) are the sampler's draws, or a dict of named
+        (B, N) draws (``core/samplers.py``). ``assigner`` and
         ``add_gt`` (GTs put in front of the proposals) default to the
         head's."""
         assigner = assigner or self.assigner
@@ -136,8 +164,7 @@ class StandardRoIHead(nn.Module):
             assign = assigner(boxes, valid, gts, gvalid,
                               batch['gt_labels'][i])
             samples.append(self.sampler(
-                assign, boxes, gts,
-                None if priorities is None else priorities[i], generator))
+                assign, boxes, gts, image_draws(priorities, i), generator))
         return stack_samples(samples)
 
     def forward_train(self, feats, proposals: torch.Tensor,
@@ -148,12 +175,13 @@ class StandardRoIHead(nn.Module):
                       ) -> Dict[str, torch.Tensor]:
         """Box-branch losses on the sampled RoIs, then the mask branch's on
         the packed positives. ``noise`` may hold the draws ('rcnn' (B, N)
-        sampler priorities, 'gumbel' (B * max_pos, stages)); missing ones
-        come from ``generator``."""
+        sampler priorities and a typed sampler's 'rcnn_<name>', 'gumbel'
+        (B * max_pos, stages)); missing ones come from ``generator``."""
         noise = noise or {}
         with record_function('box_branch'):
             sample = self._sample_rois(proposals, proposal_valid, batch,
-                                       noise.get('rcnn'), generator)
+                                       sampler_draws(noise, 'rcnn'),
+                                       generator)
             b, n = sample.boxes.shape[:2]
             rois = sample.boxes.reshape(b * n, 4)
             roi_batch = torch.arange(b, device=rois.device

@@ -89,7 +89,7 @@ def rpn_loss(cls_scores: List[torch.Tensor], bbox_preds: List[torch.Tensor],
             0, sample.inds, pos)
         deltas = bbox2delta(sample.boxes, sample.target_boxes, target_means,
                             target_stds)
-        reg_t = torch.zeros_like(anc).index_add(
+        reg_t = deltas.new_zeros(anc.shape).index_add(
             0, sample.inds, deltas * pos[:, None])
         cls_sum = cls_sum + (binary_cross_entropy_with_logits(
             flat_cls[i], target) * w).sum()

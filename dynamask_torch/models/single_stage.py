@@ -32,7 +32,8 @@ from ..ops.point_sample import top_k
 from ..utils.registry import DETECTORS, HEADS
 from .detectors import _Detector
 from .layers import ConvModule
-from .losses import focal_elementwise, ghm_c_loss, ghm_r_loss
+from .losses import (balanced_l1_loss, focal_elementwise, ghm_c_loss,
+                     ghm_r_loss)
 
 # the focal-loss prior: a class bias of -log((1 - p) / p) at p = 0.01
 PRIOR_BIAS = -4.59512
@@ -172,7 +173,8 @@ def anchor_head_loss(cls_scores: List[torch.Tensor],
     """The dense anchor loss (JAX ``anchor_head_loss``): each image's
     anchors (A, 4) with their validity (B, A) assigned to its GTs; the
     focal (or GHM-C) loss over the positive and negative anchors, the L1
-    (or GHM-R) loss of the positives' ``coder`` deltas."""
+    (GHM-R, or Libra's balanced L1) loss of the positives' ``coder``
+    deltas."""
     flat_cls = flatten_levels(cls_scores, num_classes)
     flat_reg = flatten_levels(bbox_preds, 4)
     pos, include, labels, targets = [], [], [], []
@@ -203,6 +205,12 @@ def anchor_head_loss(cls_scores: List[torch.Tensor],
             flat_reg.reshape(-1, 4), targets.reshape(-1, 4),
             pos[..., None].expand_as(targets).reshape(-1, 4).float(),
             ghm_mu, ghm_r_bins)
+    elif reg_loss_type == 'balanced_l1':
+        # Libra RetinaNet: JAX fixes beta 0.11, alpha 0.5, gamma 1.5
+        loss_bbox = balanced_l1_loss(
+            flat_reg.reshape(-1, 4), targets.reshape(-1, 4), beta=0.11,
+            weight=pos[..., None].expand_as(targets).reshape(-1, 4).float(),
+            avg_factor=avg)
     else:
         loss_bbox = ((flat_reg - targets).abs() * pos[..., None]).sum() / avg
     return {'loss_cls': loss_cls_weight * loss_cls,

@@ -1,7 +1,8 @@
 """Build the single-stage detectors from a reference-schema config (port
 of the parts of ``dynamask_tpu/models/builder.py`` that build them:
-``build_single_stage`` :614-770 for RetinaNet, its GHM, legacy v1 and
-SepBN forms, FreeAnchor and GA-RetinaNet (:658-697), and
+``build_single_stage`` :614-770 for RetinaNet, its GHM, legacy v1,
+SepBN, Libra (balanced L1) and PISA forms, FreeAnchor and GA-RetinaNet
+(:658-697), ``build_ssd`` :772-800 for SSD and PISA-SSD, and
 ``build_detector``'s ATSS :886-915, RepPoints :916-960, FoveaBox
 :962-995, FSAF :997-1028, GFL :1051-1080 and FCOS with NAS-FCOS
 :1082-1127).
@@ -9,10 +10,13 @@ SepBN forms, FreeAnchor and GA-RetinaNet (:658-697), and
 As in ``models/builder.py``, every key that changes the model is read or
 refused, naming the ROADMAP.md item where its port is queued or the JAX
 fault that fixes it: the keys the JAX builder drops are accepted only at
-the value JAX computes with (ROADMAP.md queue 3, 3w), but for two faults
+the value JAX computes with (ROADMAP.md queue 3, 3w), but for the faults
 the configs rely on, which the port reproduces: GHM's ``momentum``
-(3ab: the losses are momentum-free) and RetinaNet's ``SmoothL1Loss`` (3af:
-it regresses with L1, whatever the type).
+(3ab: the losses are momentum-free), RetinaNet's ``SmoothL1Loss`` (3af:
+it regresses with L1, whatever the type; PISA's RetinaNet too), SSD's
+assigner's ``gt_max_assign_all=False`` (3bm: every anchor that ties a GT's
+best IoU is claimed) and the NAS-FPN file's ``RetinaSepBNHead``
+``norm_cfg=None`` (3bo: the JAX head has BatchNorm).
 """
 
 from __future__ import annotations
@@ -21,15 +25,14 @@ from typing import Dict, Optional, Tuple
 
 from .atss import ATSS, ATSSHead
 from .builder import (DROPPED, GA_HEAD_KEYS, _cfg, _check_keys, ga_anchor_cfg,
-                      ga_losses, ga_train_cfg, not_ported)
+                      ga_losses, ga_train_cfg, not_ported, pisa_cfg)
 from .fcos import FCOS, FCOSHead, INF
 from .freeanchor import FreeAnchor
 from .single_stage import RetinaHead, RetinaNet, RetinaSepBNHead
 
 SINGLE_STAGE = ('RetinaNet', 'SingleStageDetector', 'ATSS', 'FCOS', 'NASFCOS',
                 'GFL', 'FSAF', 'FOVEA', 'RepPointsDetector')
-# the dense heads the port lacks, by ROADMAP.md item
-HEAD_ITEMS = {'PISARetinaHead': 9, 'SSDHead': 6, 'PISASSDHead': 9}
+SSD_HEADS = ('SSDHead', 'PISASSDHead')
 FOCAL = dict(type='FocalLoss', use_sigmoid=True, gamma=2.0, alpha=0.25,
              loss_weight=1.0)
 CENTERNESS = dict(type='CrossEntropyLoss', use_sigmoid=True, loss_weight=1.0)
@@ -131,7 +134,15 @@ def _retina_losses(hc: dict) -> dict:
     elif t in ('L1Loss', 'SmoothL1Loss'):
         _check_keys(t, lb, ('type', 'beta'), {'loss_weight': 1.0}, DROPPED)
     elif t == 'BalancedL1Loss':
-        raise not_ported('RetinaNet BalancedL1Loss (Libra)', 8)
+        # Libra RetinaNet: JAX fixes beta 0.11, alpha 0.5 and gamma 1.5
+        # (single_stage.py:215-222) and reads the weight
+        _check_keys(t, lb, ('type', 'loss_weight'),
+                    {'alpha': 0.5, 'gamma': 1.5, 'beta': 0.11}, DROPPED)
+        if lb.get('beta', 1.0) != 0.11:
+            raise not_ported('RetinaNet BalancedL1Loss beta other than the '
+                             '0.11 JAX applies', DROPPED)
+        out.update(reg_loss_type='balanced_l1',
+                   loss_bbox_weight=lb.get('loss_weight', 1.0))
     else:
         raise not_ported(f'RetinaNet loss_bbox {t}', 6)
     return out
@@ -192,8 +203,9 @@ def build_retinanet(cfg: dict, train_cfg: dict, test_cfg: dict, modules):
     ht = hc.get('type')
     if ht == 'GARetinaHead':
         return build_ga_retinanet(hc, train_cfg, test_cfg, modules)
-    if ht not in ('RetinaHead', 'RetinaSepBNHead', 'FreeAnchorRetinaHead'):
-        raise not_ported(f'bbox head {ht}', HEAD_ITEMS.get(ht, 6))
+    if ht not in ('RetinaHead', 'RetinaSepBNHead', 'FreeAnchorRetinaHead',
+                  'PISARetinaHead'):
+        raise not_ported(f'bbox head {ht}', 6)
     legacy = _legacy(hc)
     kw = dict(num_classes=hc.get('num_classes', 80), **_anchors(hc, legacy))
     num_anchors = (len(kw['anchor_ratios']) *
@@ -222,10 +234,14 @@ def build_retinanet(cfg: dict, train_cfg: dict, test_cfg: dict, modules):
             fa_alpha=hc.get('alpha', 0.5),
             smoothl1_beta=lb.get('beta', 0.11),
             loss_bbox_weight=lb.get('loss_weight', 0.75))
+    if ht == 'PISARetinaHead':
+        return build_pisa_retinanet(hc, train_cfg, head_kw, kw, legacy,
+                                    modules)
     if ht == 'RetinaSepBNHead':
         _check_keys(ht, hc, RETINA_KEYS + ('num_ins', 'norm_cfg'),
                     item=DROPPED)
-        norm = _cfg(hc.get('norm_cfg'))
+        # norm_cfg=None (the NAS-FPN file's) keeps JAX's BatchNorm (3bo)
+        norm = _cfg(hc.get('norm_cfg')) or {'type': 'BN'}
         if norm.get('type') not in ('BN', 'SyncBN') or \
                 norm.get('requires_grad', True) is not True:
             raise not_ported(f'RetinaSepBNHead norm_cfg {norm} (the JAX '
@@ -242,6 +258,140 @@ def build_retinanet(cfg: dict, train_cfg: dict, test_cfg: dict, modules):
         legacy=legacy, pos_iou_thr=a.get('pos_iou_thr', 0.5),
         neg_iou_thr=a.get('neg_iou_thr', 0.4),
         min_pos_iou=a.get('min_pos_iou', 0.0), **_retina_losses(hc))
+
+
+def build_pisa_retinanet(hc: dict, train_cfg: dict, head_kw: dict, kw: dict,
+                         legacy: bool, modules):
+    """PISA RetinaNet (JAX ``builder.py:741-750``): a ``RetinaHead``,
+    the focal loss's gamma and alpha, CARL's beta from ``loss_bbox`` (the
+    box loss is L1 whatever its type, 3af), ``train_cfg``'s ``isr`` and
+    ``carl``. JAX builds it without the legacy anchors."""
+    from .pisa import PISARetinaNet
+    if legacy:
+        raise not_ported('a legacy PISA RetinaNet (JAX builds it without '
+                         'the legacy anchors)', DROPPED)
+    _check_keys('PISARetinaHead', hc, RETINA_KEYS,
+                {'conv_cfg': None, 'norm_cfg': None}, DROPPED)
+    lc = _cfg(hc.get('loss_cls')) or dict(FOCAL)
+    _check_keys('PISA FocalLoss', lc, ('type', 'gamma', 'alpha'),
+                {'use_sigmoid': True, 'loss_weight': 1.0}, DROPPED)
+    if lc.get('type') != 'FocalLoss':
+        raise not_ported(f'PISA RetinaNet loss_cls {lc.get("type")}', DROPPED)
+    lb = _cfg(hc.get('loss_bbox'))
+    _check_keys('PISA loss_bbox', lb, ('type', 'beta'), {'loss_weight': 1.0},
+                DROPPED)
+    if lb.get('type') not in ('SmoothL1Loss', 'L1Loss'):
+        raise not_ported(f'PISA RetinaNet loss_bbox {lb.get("type")}',
+                         DROPPED)
+    tr = _cfg(train_cfg)
+    a = _train_cfg({k: v for k, v in tr.items() if k not in ('isr', 'carl')},
+                   'MaxIoUAssigner', ('pos_iou_thr', 'neg_iou_thr',
+                                      'min_pos_iou'))
+    return PISARetinaNet(
+        bbox_head=RetinaHead(**head_kw), **modules, **kw,
+        **_coder(hc, (1., 1., 1., 1.)), pos_iou_thr=a.get('pos_iou_thr', 0.5),
+        neg_iou_thr=a.get('neg_iou_thr', 0.4),
+        min_pos_iou=a.get('min_pos_iou', 0.0),
+        focal_gamma=lc.get('gamma', 2.0), focal_alpha=lc.get('alpha', 0.25),
+        carl_beta=lb.get('beta', 0.11), **pisa_cfg(tr))
+
+
+# SSDVGG's keys that JAX reads (``input_size``, ``depth`` at 16) and the
+# others at the values it computes with (``builder.py:774-777``)
+SSDVGG_FIXED = dict(with_last_pool=False, ceil_mode=True, out_indices=(3, 4),
+                    out_feature_indices=(22, 34), l2_norm_scale=20)
+SSD_TRAIN_KEYS = ('assigner', 'smoothl1_beta', 'neg_pos_ratio')
+SSD512 = ('ROADMAP.md queue 3, 3bi: the JAX SSDVGG gives 6 levels on a 512 '
+          'canvas against the 7 of the config\'s anchors, and raises')
+
+
+def build_ssd(cfg: dict, train_cfg: dict, test_cfg: dict):
+    """SSD and PISA-SSD (JAX ``build_ssd``, ``builder.py:772-800``):
+    ``SSDVGG`` at its input size (300; 512 refused, 3bi), an ``SSDHead`` /
+    ``PISASSDHead`` of ``2 + 2 * len(ratios)`` anchors a level over the
+    VGG's widths, the SSD anchors (legacy where the generator or the coder
+    says so), the assigner, ``smoothl1_beta`` and ``neg_pos_ratio``; PISA's
+    ``isr`` and ``carl``. The assigner's ``gt_max_assign_all=False``, which
+    JAX drops, is computed as JAX computes it (3bm)."""
+    from .pisa import PISASSD
+    from .ssd import SSD, SSDVGG, SSDHead
+    _check_keys('SSD', cfg, ('backbone', 'neck', 'bbox_head'))
+    bc = _cfg(cfg['backbone'])
+    if bc.get('type') != 'SSDVGG':
+        raise not_ported(f'an SSD head over {bc.get("type")}', 'no item')
+    _check_keys('SSDVGG', bc, ('type', 'input_size'),
+                dict(SSDVGG_FIXED, depth=16), DROPPED)
+    size = bc.get('input_size', 300)
+    if size != 300:
+        raise not_ported(f'SSD at input_size {size}', SSD512)
+    backbone = SSDVGG(size)
+    hc = _cfg(cfg['bbox_head'])
+    ht = hc.get('type')
+    # JAX's head takes the VGG's widths whatever the config says
+    if tuple(hc.pop('in_channels', backbone.out_channels)) != \
+            backbone.out_channels:
+        raise not_ported(f'{ht} in_channels other than the VGG\'s '
+                         f'{backbone.out_channels}', DROPPED)
+    _check_keys(ht, hc, ('type', 'num_classes', 'anchor_generator',
+                         'bbox_coder'), item=DROPPED)
+    a = _cfg(hc.get('anchor_generator'))
+    _check_keys('SSD anchor_generator', a, (
+        'type', 'basesize_ratio_range', 'strides', 'ratios'),
+        {'scale_major': False, 'input_size': size}, DROPPED)
+    coder = _cfg(hc.get('bbox_coder'))
+    _check_keys('SSD bbox_coder', coder, ('type', 'target_means',
+                                          'target_stds'),
+                {'clip_border': True}, DROPPED)
+    legacy = _legacy(hc)
+    for what, got, want in (
+            ('anchor generator', a.get('type', 'SSDAnchorGenerator'),
+             'SSDAnchorGenerator'),
+            ('bbox coder', coder.get('type', 'DeltaXYWHBBoxCoder'),
+             'DeltaXYWHBBoxCoder')):
+        if got != ('Legacy' if legacy else '') + want:
+            raise not_ported(f'SSD {what} {got}', DROPPED)
+    ratios = tuple(tuple(r) for r in a.get(
+        'ratios', ((2,), (2, 3), (2, 3), (2, 3), (2,), (2,))))
+    strides = tuple(a.get('strides', (8, 16, 32, 64, 100, 300)))
+    if not len(ratios) == len(strides) == len(backbone.out_channels):
+        raise not_ported(f'SSD anchors on {len(strides)} levels over the '
+                         f'VGG\'s {len(backbone.out_channels)}', DROPPED)
+    num_classes = hc.get('num_classes', 80)
+    head = SSDHead(num_classes, backbone.out_channels,
+                   [2 + 2 * len(r) for r in ratios])
+    tr = _cfg(train_cfg)
+    pisa = ht == 'PISASSDHead'
+    _check_keys('SSD train_cfg', tr, SSD_TRAIN_KEYS + (
+        ('isr', 'carl') if pisa else ()),
+        {'allowed_border': -1, 'pos_weight': -1, 'debug': False}, DROPPED)
+    asg = _cfg(tr.get('assigner'))
+    _check_keys('SSD assigner', asg, ('type', 'pos_iou_thr', 'neg_iou_thr',
+                                      'min_pos_iou', 'gt_max_assign_all'),
+                {'ignore_iof_thr': -1, 'match_low_quality': True}, DROPPED)
+    if asg.get('type', 'MaxIoUAssigner') != 'MaxIoUAssigner':
+        raise not_ported(f'SSD assigner {asg["type"]}', DROPPED)
+    tc = _test_cfg(test_cfg, 0.45)
+    kw = dict(num_classes=num_classes, input_size=size, strides=strides,
+              ratios=ratios, basesize_ratio_range=tuple(
+                  a.get('basesize_ratio_range', (0.15, 0.9))),
+              target_means=tuple(coder.get('target_means', (0., 0., 0., 0.))),
+              target_stds=tuple(coder.get('target_stds',
+                                          (0.1, 0.1, 0.2, 0.2))),
+              pos_iou_thr=asg.get('pos_iou_thr', 0.5),
+              neg_iou_thr=asg.get('neg_iou_thr', 0.5),
+              min_pos_iou=asg.get('min_pos_iou', 0.2),
+              neg_pos_ratio=tr.get('neg_pos_ratio', 3),
+              smoothl1_beta=tr.get('smoothl1_beta', 1.0),
+              nms_pre=tc['nms_pre'],
+              score_thr=_cfg(test_cfg).get('score_thr', 0.02),
+              nms_iou_thr=tc['nms_iou_thr'],
+              max_per_img=_cfg(test_cfg).get('max_per_img', 200))
+    if not pisa:
+        return SSD(backbone, head, legacy=legacy, **kw)
+    if legacy:
+        raise not_ported('a legacy PISA-SSD (JAX builds it without the '
+                         'legacy anchors)', DROPPED)
+    return PISASSD(backbone, head, **pisa_cfg(tr), **kw)
 
 
 def _gn(what: str, norm_cfg: dict):
@@ -334,7 +484,7 @@ def build_fcos(cfg: dict, train_cfg: dict, test_cfg: dict, modules,
                                                 (8, 16, 32, 64, 128))),
                            gn_groups=gn)
     elif ht != 'FCOSHead':
-        raise not_ported(f'FCOS bbox head {ht}', HEAD_ITEMS.get(ht, 6))
+        raise not_ported(f'FCOS bbox head {ht}', 6)
     else:
         head = None
         _check_keys('FCOSHead', hc, FCOS_KEYS, {'conv_bias': 'auto',

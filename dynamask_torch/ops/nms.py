@@ -1,6 +1,6 @@
 """Static-shape exact greedy NMS and Soft-NMS (port of
 ``dynamask_tpu/ops/nms.py`` :30-260: ``nms``, ``soft_nms``,
-``batched_nms``, ``multiclass_nms``).
+``batched_nms``, ``multiclass_nms``; ``nms_match`` :262-305).
 
 Candidates are capped at a static ``pre_top_k`` by score, greedy keep is
 exact, and outputs fill fixed ``max_out`` slots with validity flags. This is
@@ -189,3 +189,29 @@ def multiclass_nms(multi_bboxes: torch.Tensor, multi_scores: torch.Tensor,
                              torch.zeros_like(out_inds))
     dets = torch.cat([out_boxes, out_scores[:, None]], dim=1)
     return dets, out_labels, out_valid
+
+
+def nms_match(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+              iou_threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS *matching* (port of ``nms_match``,
+    ``dynamask_tpu/ops/nms.py:262-305``): each box's group leader, the
+    kept box that suppresses it (the first kept box in score order whose
+    IoU with it is over ``iou_threshold``), and its 0-based score rank
+    within that group, ties in input order. -> (leader (N,) int64 index
+    into the input, -1 for an invalid box or one no kept box matches;
+    rank (N,) int64)."""
+    n = boxes.shape[0]
+    order = torch.argsort(torch.where(valid, -scores, float('inf')),
+                          stable=True)
+    sb, sv = boxes[order], valid[order]
+    keep = _greedy_keep(sb, sv, iou_threshold)
+    j = torch.arange(n, device=boxes.device)
+    match = (keep[:, None] & (bbox_overlaps(sb, sb) > iou_threshold) &
+             sv[None, :] & (j[:, None] <= j[None, :]))
+    leader = (match.long() * (n - j)[:, None]).argmax(0)
+    has = match.any(0) & sv
+    same = has[:, None] & has[None, :] & (leader[:, None] == leader[None])
+    rank = (same & (j[:, None] < j[None, :])).sum(0)
+    inv = torch.argsort(order)
+    leader = torch.where(has, order[leader], -1)
+    return leader[inv], rank[inv]

@@ -815,7 +815,7 @@ def test_phase12_config_builds(name):
 
 @pytest.mark.parametrize('rel,what', [
     ('legacy_1.x/cascade_mask_rcnn_r50_fpn_1x_coco_v1.py', '3c'),
-    ('libra_rcnn/libra_faster_rcnn_r50_fpn_1x_coco.py', 'item 8')])
+    ('dcn/faster_rcnn_r50_fpn_dpool_1x_coco.py', 'item 9')])
 def test_cascade_configs_refused(rel, what):
     from dynamask_torch.apis import init_detector
     with pytest.raises(NotImplementedError, match=what):

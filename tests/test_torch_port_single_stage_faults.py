@@ -308,9 +308,7 @@ REFUSALS = {
     'on_lateral': ('retina', lambda h, n, t: n.update(
         add_extra_convs='on_lateral'), '3w'),
     'balanced_l1': ('retina', lambda h, n, t: h.update(loss_bbox=dict(
-        type='BalancedL1Loss')), 'item 8'),
-    'sepbn_no_norm': ('sepbn', lambda h, n, t: h.update(norm_cfg=None),
-                      '3w'),
+        type='BalancedL1Loss')), '3w'),
     'atss_giou_weight': ('atss', lambda h, n, t: h['loss_bbox'].update(
         loss_weight=1.0), '3w'),
     'atss_gn16': ('atss', lambda h, n, t: h.update(norm_cfg=dict(
