@@ -329,7 +329,34 @@ before the last line is printed:
    NAS-FPN RetinaNet (float64 steps), PISA Mask R-CNN and Libra Faster
    R-CNN on the card against the CPU; phase 2's ``pisa ...`` lines time K2
    at the Score-HLR pass's 8080 RoIs and the 2000-proposal test crop. It
-   prints the phase's seconds and the whole run's.
+   prints the phase's seconds;
+21. run the rest of item 9 from its config files, unchanged, at full
+   width (``ITEM21_CELLS``, ``run_item21``): the C4 Faster R-CNN, Mask
+   R-CNN and RPN (``configs/{faster_rcnn,mask_rcnn,rpn}/
+   *_r50_caffe_c4_1x_coco.py``: the caffe ResNet-50 to its stride-16
+   layer3, no neck, the RPN on that one level, RoIAlign to 14x14 at 1024
+   channels, the res5 shared head before the avg-pooled box head and the
+   deconv-only mask head), the DeformRoIPool and modulated DeformRoIPool
+   Faster R-CNNs (``configs/dcn/faster_rcnn_r50_fpn_{dpool,mdpool}_1x_
+   coco.py``: the box crop plain PyTorch, two deform pool passes with the
+   offset fcs between) at 800x1344, and CornerNet on Hourglass-104
+   (``configs/cornernet/cornernet_hourglass104_mstest_8x6_210e_coco.py``:
+   an image at 383x511, the canvas its test pipeline gives a 640x480
+   image, and a step at its 511x511 train canvas), an image and a step of
+   4 each, with phase 4's and phase 5's weights; each held to its exact
+   K1-K5 launches (K2 1 an image and K2 1 + K4 1 a step on C4 Faster
+   R-CNN, 2 and 2 + 2 on C4 Mask R-CNN, 0 on the RPN, the two deform pool
+   files and CornerNet), with its device-busy share (CornerNet's from a
+   profiled step that also gives its ten costliest kernels by name,
+   ``cornernet step, profiled``); then the plain deform pool timed at an
+   image's and a step's box crops (``plain dpool ...`` lines), CornerNet
+   at 800x1344 required to raise the 3bq ``ValueError`` (its Hourglass
+   cannot halve that canvas evenly), and toy C4 Mask R-CNN, mdpool
+   Faster R-CNN and CornerNet on the card against the CPU; phase
+   2's ``c4 ...`` lines time K2 at the C4 crops of an image (1000
+   proposals, 100 dets, 14x14 at 1024 channels on the 50x84 stride-16
+   map) and K2 and K4 at a step's (2048 box RoIs and 512 mask slots of 4
+   images). It prints the phase's seconds and the whole run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
@@ -343,7 +370,7 @@ loader-batch step, in phase 13 each config's image and steps and
 GRoIE's eval drive and loader-batch step, in phase 14 each config's
 image and steps and RetinaNet's eval drive, in phase 15 each config's
 image and steps and the HRNet-W18 Mask R-CNN's eval drive and
-loader-batch step, and in phases 16-20 each config's image and
+loader-batch step, and in phases 16-21 each config's image and
 steps)
 the kernels' launch
 counters are zeroed just before it
@@ -354,8 +381,9 @@ loop's validations, K5 through both entry points in its check, K1-K4 in
 training; behind Mask R-CNN's FCN head, which runs no DCN, K2 at
 inference and K2 and K4 in training; phase 6 and phases 8-20 hold each
 drive to its exact counts, every other kernel at 0 (the RPN's eval drive,
-every phase-14 drive, phase 15's FCOS and RetinaNet drives and phase
-16's FCOS drives launch none).
+every phase-14 drive, phase 15's FCOS and RetinaNet drives, phase 16's
+FCOS drives and phase 21's RPN, deform pool and CornerNet drives launch
+none).
 
 Standard output ends with the ``kernels`` JSON line, the card's name and
 power limit as ``nvidia-smi`` reports them, and the ``{"ok": true, ...}``
@@ -706,9 +734,13 @@ HEAD_CROPS = 'heads'
 # PISA Faster R-CNN's Score-HLR pass over a step's candidates and its test
 # crop of 2000 proposals (phase 20)
 PISA_CROPS = 'pisa'
+# the C4 detectors' crops: one stride-16 level at 1024 channels into 14x14
+# bins (phase 21)
+C4_CROPS = 'c4'
+C4_CHANNELS = 1024
 OFF_ROW = (CLUSTERED, PORTRAIT, CONFIG, REFINE, HTC,
            TWO_STAGE, HRFPN_CROPS, WHOLE_MAP, HEAD_CROPS,
-           PISA_CROPS)  # out of the sums
+           PISA_CROPS, C4_CROPS)  # out of the sums
 PISA_PROPOSALS = 2000       # PISA Faster R-CNN's proposals an image
 PISA_SCORE_ROIS = TRAIN_IMAGES * (PISA_PROPOSALS + TRAIN_GTS)   # 8080
 # the whole maps phase 17 gives K1 (an image and a step's 4 images) and K3 (a
@@ -1004,6 +1036,34 @@ def pisa_crops(dev):
         del feats
 
 
+def c4_crops(dev, infer=True):
+    """K2's arguments at the C4 detectors' crops (phase 21): RoIAlign of
+    the 50x84 stride-16 layer3 of 800x1344 images at 1024 channels into
+    14x14 bins at ratio 2, an image's 1000 proposals and 100 dets (with
+    ``infer``) and a step's 2048 sampled RoIs and 512 positive slots over 4
+    images, placed as the training step places them
+    (:func:`clustered_place`), from a generator of their own."""
+    import torch
+    from dynamask_torch.ops import roi_align as ra
+    gen = torch.Generator(device=dev).manual_seed(25)
+    h, w = IMAGE_HW
+    drives = (((1, 1000, 'infer box'), (1, N_DETS, 'infer mask'))
+              if infer else ()) + ((TRAIN_IMAGES, N_BOX_TRAIN, 'train box'),
+                                   (TRAIN_IMAGES, N_POS_TRAIN, 'train mask'))
+    for images, n, what in drives:
+        feat = torch.randn(images, h // 16, w // 16, C4_CHANNELS,
+                           generator=gen, device=dev)
+        if images == 1:
+            rois, img = synthetic_rois(gen, dev, n, 1, IMAGE_HW)
+        else:
+            rois, img = clustered_place(gen, dev, images, N_POS_TRAIN)(
+                n, lambda k: synthetic_rois(gen, dev, k, images, IMAGE_HW))
+        yield (f'{C4_CROPS} {what} {n}x14x14x{C4_CHANNELS} r2',
+               ra.multilevel_crop_args([feat], rois, img, (16,)),
+               dict(out_size=14, sampling_ratio=2))
+        del feat
+
+
 def config_crops(dev, train=False):
     """The crops of the other configurations where they differ from the
     flagship's: LVIS inference (300 dets), Cityscapes inference on the
@@ -1074,6 +1134,7 @@ def k2_cases(gen, dev):
     yield from hrfpn_crops(dev)
     yield from head_crops(dev)
     yield from pisa_crops(dev)
+    yield from c4_crops(dev)
 
 
 def k4_args(gen, args, kw):
@@ -1092,8 +1153,9 @@ def k4_cases(gen, dev):
     slots), with a random crop gradient, then with clustered RoIs, at the
     Cityscapes step's crops, at RefineMask's P2 crops of a step, at HTC's
     semantic crops of a step, at GRoIE's and Double-Head's crops of a
-    step, at HRFPN's crops of a step and at item 9's heads' crops of a
-    step (PointRend's P2 crop, Grid R-CNN's jittered positives)."""
+    step, at HRFPN's crops of a step, at item 9's heads' crops of a
+    step (PointRend's P2 crop, Grid R-CNN's jittered positives) and at
+    the C4 detectors' crops of a step."""
     import torch
     for case, args, kw in _crops(gen, dev, TRAIN_IMAGES, N_BOX_TRAIN,
                                  N_POS_TRAIN):
@@ -1125,6 +1187,10 @@ def k4_cases(gen, dev):
         del args
     cgen = torch.Generator(device=dev).manual_seed(23)
     for case, args, kw in head_crops(dev, infer=False):
+        yield case, k4_args(cgen, args, kw), kw
+        del args
+    cgen = torch.Generator(device=dev).manual_seed(26)
+    for case, args, kw in c4_crops(dev, infer=False):
         yield case, k4_args(cgen, args, kw), kw
         del args
 
@@ -1757,7 +1823,12 @@ TOY_CONFIGS = {'dynamask': FLAGSHIP, 'mask_rcnn': MASK_RCNN,
                    ROOT, 'configs/pisa/pisa_mask_rcnn_r50_fpn_1x_coco.py'),
                'libra_faster_rcnn': os.path.join(
                    ROOT, 'configs/libra_rcnn/'
-                   'libra_faster_rcnn_r50_fpn_1x_coco.py')}
+                   'libra_faster_rcnn_r50_fpn_1x_coco.py'),
+               # phase 21's: C4 and the modulated DeformRoIPool
+               'c4': os.path.join(ROOT, 'configs/mask_rcnn/'
+                                  'mask_rcnn_r50_caffe_c4_1x_coco.py'),
+               'mdpool': os.path.join(ROOT, 'configs/dcn/'
+                                      'faster_rcnn_r50_fpn_mdpool_1x_coco.py')}
 # the toys whose RoI head is a cascade of stages (phase 12)
 CASCADE_TOYS = ('cascade', 'htc')
 # phase 17's: the GA-Faster R-CNN's guided anchors (a square a location)
@@ -1805,6 +1876,8 @@ def toy_cfg(kind='dynamask'):
     cfg = Config.fromfile(TOY_CONFIGS[kind] if kind in TOY_CONFIGS
                           else ITEM7_TOYS[kind][0])
     m = cfg.model
+    if kind == 'c4':
+        return c4_toy_cfg(cfg)
     if kind in ITEM7_TOYS:
         m.backbone.update(ITEM7_TOYS[kind][1])
     # Libra's FPN, then its BFP (a list of necks)
@@ -1825,6 +1898,8 @@ def toy_cfg(kind='dynamask'):
     for ext in (rh.bbox_roi_extractor, rh.get('mask_roi_extractor')):
         if ext:
             ext.out_channels = 32
+            if 'output_channels' in ext.roi_layer:    # DeformRoIPool's
+                ext.roi_layer.output_channels = 32
     cascade = kind in CASCADE_TOYS or kind == 'detectors'
     for head in (rh.bbox_head if cascade else [rh.bbox_head]):
         head.in_channels = 32
@@ -1834,7 +1909,7 @@ def toy_cfg(kind='dynamask'):
             head.conv_out_channels = 64 if kind == 'double_head' else 32
     mh = rh.get('mask_head')
     if kind in ('faster_rcnn', 'double_head', 'dynamic_rcnn',
-                'libra_faster_rcnn', *GA_TOYS):
+                'libra_faster_rcnn', 'mdpool', *GA_TOYS):
         pass
     elif kind == 'grid_rcnn':
         rh.grid_roi_extractor.out_channels = 32
@@ -1871,6 +1946,21 @@ def toy_cfg(kind='dynamask'):
         cfg.test_cfg.rpn.max_num = 32
     for stage in (cfg.train_cfg.rcnn if cascade else [cfg.train_cfg.rcnn]):
         stage.sampler.num = 64
+    cfg.test_cfg.rcnn.max_per_img = 8
+    return cfg
+
+
+def c4_toy_cfg(cfg):
+    """The C4 Mask R-CNN toy: the file's model at its widths (the caffe
+    ResNet-50 to layer3, the res5 shared head), 8 classes, the mask head's
+    deconv at 32 channels; phase 3's toy test settings, 32 RoIs an image
+    (res5 on every RoI is the CPU's cost)."""
+    rh = cfg.model.roi_head
+    rh.bbox_head.num_classes = rh.mask_head.num_classes = 8
+    rh.mask_head.conv_out_channels = 32
+    cfg.test_cfg.rpn.nms_pre = 64
+    cfg.train_cfg.rpn_proposal.max_num = 32
+    cfg.train_cfg.rcnn.sampler.num = 32
     cfg.test_cfg.rcnn.max_per_img = 8
     return cfg
 
@@ -2072,7 +2162,8 @@ def toy_train_case(kind='dynamask'):
     image perturbed by INPUT_NOISE (relative), and the random draws
     (sampler priorities, each cascade stage's among them, GA's shape
     sampler's, Gumbel uniforms, PointRend's points, Grid R-CNN's second
-    sampling and jitter). SAC's offset convs start off zero too."""
+    sampling and jitter). SAC's offset convs start off zero too, and the C4
+    toy's zero BatchNorm scales at 0.5."""
     import numpy as np
     import torch
     from dynamask_torch.apis import semantic_seg_shape, synthetic_batch
@@ -2087,6 +2178,11 @@ def toy_train_case(kind='dynamask'):
                                        'offset_l')):
                 p.copy_(torch.randn(p.shape, generator=torch.Generator(
                 ).manual_seed(2)) * 0.05)
+            # the C4 toy's residual branches, whose last BatchNorm scale
+            # starts at 0, get a gradient through a scale of 0.5
+            if kind == 'c4' and name.endswith('.weight') and p.dim() == 1 \
+                    and not p.any():
+                p.fill_(0.5)
     model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
                            device=DEVICE).train()
     model.load_state_dict(ref.state_dict())
@@ -2099,9 +2195,12 @@ def toy_train_case(kind='dynamask'):
     noisy = dict(batch, image=batch['image'] * (1 + INPUT_NOISE * torch.randn(
         batch['image'].shape, generator=torch.Generator().manual_seed(5))))
     rng = np.random.RandomState(4)
-    # a GA-RPN samples the squares, one a location
+    # a GA-RPN samples the squares, one a location; C4's RPN 15 anchors a
+    # cell of its stride-16 map
     n_anchors = (1 if kind in GA_TOYS else 3) * sum(
         (hw // s) ** 2 for s in (4, 8, 16, 32, 64))
+    if kind == 'c4':
+        n_anchors = 15 * (hw // 16) ** 2
     cascade = kind in CASCADE_TOYS or kind == 'detectors'
     rcnn = cfg.train_cfg.rcnn
     sampler = (rcnn[0] if cascade else rcnn).sampler
@@ -3183,13 +3282,16 @@ def num_classes(model) -> int:
 def mask_side(rh):
     """The side of a RoI head's mask probabilities, None without a mask
     head: 28 from the FCN heads (Mask R-CNN's, Mask Scoring R-CNN's, the
-    cascades' stage heads), PointRend's coarse side doubled at each
-    subdivision step (224), 112 from the DynaMask, RefineMask and
-    PointRefine heads."""
+    cascades' stage heads), 14 behind the C4 shared head, PointRend's
+    coarse side doubled at each subdivision step (224), 112 from the
+    DynaMask, RefineMask and PointRefine heads."""
     import torch
     from dynamask_torch.models.fcn_mask_head import FCNMaskHead
     if rh is None or rh.mask_head is None:
         return None
+    shared = getattr(rh, 'shared_head', None)
+    if shared is not None:     # C4: the shared head halves the 14x14 crop
+        return 2 * rh.mask_roi_out // shared.stride
     if isinstance(rh.mask_head, (FCNMaskHead, torch.nn.ModuleList)):
         return 28
     if hasattr(rh, 'subdivision_steps'):
@@ -3205,7 +3307,6 @@ def device_busy(fn):
     device-side spans of the ``record_function`` ranges are not work:
     they are left out by their flag and by their names."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(DEVICE)
     with profile(activities=[ProfilerActivity.CPU,
@@ -3214,7 +3315,13 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize(DEVICE)
         wall = time.perf_counter() - t
-    events = prof.events()
+    return busy_of(prof.events(), wall)
+
+
+def busy_of(events, wall):
+    """The busy share of a profiled call of ``wall`` seconds from its
+    ``events`` (:func:`device_busy`)."""
+    from torch.autograd import DeviceType
     ranges = {e.name for e in events if e.device_type == DeviceType.CPU}
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.device_type == DeviceType.CUDA and e.name not in
@@ -5746,6 +5853,279 @@ def run_item20(report, card):
     return launches
 
 
+ITEM21_CONFIGS = {name: os.path.join(ROOT, rel) for name, rel in {
+    'faster_rcnn_c4':
+        'configs/faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py',
+    'mask_rcnn_c4': 'configs/mask_rcnn/mask_rcnn_r50_caffe_c4_1x_coco.py',
+    'rpn_c4': 'configs/rpn/rpn_r50_caffe_c4_1x_coco.py',
+    'dpool_faster_rcnn': 'configs/dcn/faster_rcnn_r50_fpn_dpool_1x_coco.py',
+    'mdpool_faster_rcnn':
+        'configs/dcn/faster_rcnn_r50_fpn_mdpool_1x_coco.py',
+    'cornernet':
+        'configs/cornernet/cornernet_hourglass104_mstest_8x6_210e_coco.py',
+}.items()}
+# CornerNet's canvases: its test pipeline resizes a 640x480 image to
+# 383x511 with no pad, and its train pipeline's crop is 511x511; at both
+# the stride-4 map halves evenly five times, as JAX's Hourglass needs (3bq)
+CORNER_IMAGE_HW = (383, 511)
+CORNER_TRAIN_HW = (511, 511)
+# (name, an image's canvas, a step's, an image's launches, a step's): the
+# C4 box crop one K2 launch (K4 in the step), Mask R-CNN's mask crop a
+# second; the deform pool's box crop, the RPN and CornerNet run no hand
+# kernel
+ITEM21_CELLS = (
+    ('faster_rcnn_c4', IMAGE_HW, IMAGE_HW, {ROI_FWD: 1},
+     {ROI_FWD: 1, ROI_BWD: 1}),
+    ('mask_rcnn_c4', IMAGE_HW, IMAGE_HW, {ROI_FWD: 2},
+     {ROI_FWD: 2, ROI_BWD: 2}),
+    ('rpn_c4', IMAGE_HW, IMAGE_HW, {}, {}),
+    ('dpool_faster_rcnn', IMAGE_HW, IMAGE_HW, {}, {}),
+    ('mdpool_faster_rcnn', IMAGE_HW, IMAGE_HW, {}, {}),
+    ('cornernet', CORNER_IMAGE_HW, CORNER_TRAIN_HW, {}, {}),
+)
+ITEM21_TWO_STAGE_TOYS = ('c4', 'mdpool')
+
+
+def time_plain_dpool(report, card):
+    """The plain deform pool (``ops.roi_pool``, the dpool and mdpool
+    extractors' two passes and offset fcs) at the FPN's P2-P5 of 800x1344
+    images at 256 channels, with CUDA events: an image's 1000 proposals
+    forward, a step's 2048 RoIs over 4 images forward and forward +
+    backward (``plain dpool ...`` lines). Plain PyTorch by design: the JAX
+    package computes it in XLA."""
+    import torch
+    from dynamask_torch.models.deform_roi_pool import DeformRoIPoolPack
+    gen = torch.Generator(device=DEVICE).manual_seed(27)
+    h, w = IMAGE_HW
+    report['item21']['plain_dpool'] = []
+    for modulated in (False, True):
+        ext = DeformRoIPoolPack(modulated=modulated).to(DEVICE)
+        with torch.no_grad():
+            for p in ext.parameters():
+                p.normal_(0.0, 0.01, generator=gen)
+        for images, n, grad in ((1, 1000, False), (TRAIN_IMAGES, N_BOX_TRAIN,
+                                                   False),
+                                (TRAIN_IMAGES, N_BOX_TRAIN, True)):
+            feats = [torch.randn(images, h // s, w // s, 256, generator=gen,
+                                 device=DEVICE).requires_grad_(grad)
+                     for s in (4, 8, 16, 32)]
+            rois, img = synthetic_rois(gen, DEVICE, n, images, IMAGE_HW)
+
+            def run():
+                with torch.set_grad_enabled(grad):
+                    out = ext(feats, rois, img)
+                    if grad:
+                        out.sum().backward()
+
+            torch.cuda.reset_peak_memory_stats(DEVICE)
+            ms = cuda_ms(run, iters=3, warmup=1)
+            peak = torch.cuda.max_memory_allocated(DEVICE)
+            what = 'fwd+bwd' if grad else 'fwd'
+            name = 'mdpool' if modulated else 'dpool'
+            print(f'  plain {name} {n} RoIs over {images}x{h}x{w} P2-P5 x256 '
+                  f'{what}: {ms:.2f} ms, peak memory {peak / 2 ** 30:.2f} GiB '
+                  f'[{card}]')
+            report['item21']['plain_dpool'].append(dict(
+                extractor=name, rois=n, images=images, pass_=what, ms=ms,
+                peak_memory_bytes=peak))
+            del feats
+        del ext
+    torch.cuda.empty_cache()
+
+
+def profile_cornernet_step(report, card, rec):
+    """CornerNet's step (4x511x511 from the JAX initialisation, its shapes
+    warmed by the timed drive) once more under ``torch.profiler``: the
+    drive's device-busy share (into ``rec``, its record) and the ten
+    kernels that take the most device time, by name (``cornernet step,
+    profiled``). One pass gives both, tracing the device alone: its ~264 k
+    launches make a trace that takes the host a while to read."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from dynamask_torch.apis import init_trainer, synthetic_batch, train_steps
+    model, opt = init_trainer(ITEM21_CONFIGS['cornernet'],
+                              steps_per_epoch=COCO_STEPS_PER_EPOCH,
+                              device=DEVICE, seed=0)
+    h, w = CORNER_TRAIN_HW
+    batch = synthetic_batch(0, b=TRAIN_IMAGES, h=h, w=w, num_gts=TRAIN_GTS,
+                            crop_size=128, num_classes=80, device='cpu')
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    torch.cuda.synchronize(DEVICE)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        train_steps(model, opt, [batch], generator=gen)
+        torch.cuda.synchronize(DEVICE)
+        wall = time.perf_counter() - t
+    events = prof.events()
+    rec['busy'] = busy_of(events, wall)
+    # the kernels by name, the record_function ranges' device spans left out
+    ranges = {e.name for e in events if e.device_type == DeviceType.CPU}
+    by_name = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in ranges and \
+                not getattr(e, 'is_user_annotation', False):
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = [dict(kernel=k, ms=ms, calls=n) for k, (ms, n) in sorted(
+        by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:10]]
+    total = sum(ms for ms, _ in by_name.values())
+    print(f'  cornernet_train: {busy_text(rec["busy"])}; cornernet step, '
+          f'profiled: {1e3 * wall:.1f} ms wall, {total:.1f} device ms in '
+          f'{sum(n for _, n in by_name.values())} kernel launches '
+          f'[{card}]; the ten costliest: ' + '; '.join(
+              f'{k["kernel"][:70]} {k["ms"]:.1f} ms x{k["calls"]}'
+              for k in top))
+    report['item21']['cornernet_profile'] = dict(wall_ms=1e3 * wall,
+                                                 device_ms=total, top=top)
+    del model, opt, prof, events
+    torch.cuda.empty_cache()
+
+
+def check_hourglass_3bq(report, card):
+    """CornerNet on the 800x1344 canvas: its Hourglass halves the 200x336
+    stride-4 map to 13x21 and cannot add that level's upsampled 7x11 branch
+    (14x22), where JAX's sum fails; the port raises the ValueError naming
+    3bq (ROADMAP.md queue 3), which this check requires."""
+    import torch
+    from dynamask_torch.apis import inference_detector, init_detector
+    model = init_detector(ITEM21_CONFIGS['cornernet'], device=DEVICE, seed=0,
+                          init_std=0.05)
+    h, w = IMAGE_HW
+    batch = {'image': torch.zeros(1, h, w, 3, device=DEVICE),
+             'img_shape': torch.tensor([[h, w]], dtype=torch.float32,
+                                       device=DEVICE),
+             'scale_factor': torch.ones(1, 4, device=DEVICE)}
+    try:
+        inference_detector(model, batch)
+    except ValueError as e:
+        if '3bq' not in str(e):
+            raise
+        print(f'  cornernet at {h}x{w}: raises the 3bq error, as required: '
+              f'{e} [{card}]')
+        report['item21']['hourglass_3bq'] = str(e)
+        return
+    finally:
+        del model
+        torch.cuda.empty_cache()
+    raise RuntimeError(f'cornernet at {h}x{w}: no 3bq error')
+
+
+def corner_toy_cfg():
+    """The CornerNet toy of the JAX package's tests (an Hourglass of
+    ``downsample_times=2``, ``stage_channels=[16, 16, 32]``,
+    ``stage_blocks=[1, 1, 1]``, 16-channel maps) from the config file, 8
+    classes, 20 corners and 50 pairs, 10 dets."""
+    from dynamask_torch.utils import Config
+    cfg = Config.fromfile(ITEM21_CONFIGS['cornernet'])
+    cfg.model.backbone.update(downsample_times=2, stage_channels=[16, 16, 32],
+                              stage_blocks=[1, 1, 1], feat_channel=16)
+    cfg.model.bbox_head.update(num_classes=8, in_channels=16)
+    cfg.test_cfg.update(corner_topk=20, num_dets=50, max_per_img=10)
+    return cfg
+
+
+def pair_corners(model):
+    """The toy's heatmap biases at their init but class 0's at 1, its
+    embeddings scaled to a twentieth: the top corners pair up within the
+    distance threshold, so the decode keeps dets."""
+    head = model.bbox_head
+    for heat in (*head.tl_heat, *head.br_heat):
+        heat[1].conv.bias[0] = 1.0
+    for emb in (*head.tl_emb, *head.br_emb):
+        emb[1].conv.weight.mul_(0.05)
+        emb[1].conv.bias.zero_()
+
+
+def check_item21_toys(report):
+    """Phase 21's toys on the card against the CPU: C4 Mask R-CNN and the
+    mdpool Faster R-CNN as phase 18's (``simple_test``, then phase 3's
+    training step with every draw given), and the CornerNet toy as phase
+    19's dense toys (its step in fp32)."""
+    import copy
+    import torch
+    from dynamask_torch.models import build_detector
+    gen = torch.Generator().manual_seed(1)
+    batch = {'image': torch.randn(1, 128, 128, 3, generator=gen),
+             'img_shape': torch.tensor([[128., 128.]]),
+             'scale_factor': torch.ones(1, 4)}
+    for kind in ITEM21_TWO_STAGE_TOYS:
+        cfg = toy_cfg(kind)
+        ref = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                             device='cpu', seed=0)
+        model = copy.deepcopy(ref).to(DEVICE)
+        sides = KinkSides()
+        with torch.no_grad():
+            with sides.patched(follow=False):
+                b = {k: v.cpu() for k, v in model.simple_test(
+                    {k: v.to(DEVICE) for k, v in batch.items()}).items()}
+            with sides.patched(follow=True):
+                a = ref.simple_test(batch)
+        same = all(torch.equal(a[k], b[k]) for k in ('labels', 'det_valid'))
+        valid = a['det_valid'].bool()
+        errs = {k: (a[k].double() - b[k].double())[valid].abs().max().item()
+                for k in ('dets', 'mask_probs') if k in a}
+        print(f'  toy {kind}: {int(valid.sum())} dets, GPU vs CPU max abs '
+              'err ' + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()) +
+              f', labels/valid equal {same}; ReLU inputs put on the GPU '
+              f'run\'s side of a kink: {sides.moved}')
+        report['toy'].append(dict(model=f'item21_{kind}',
+                                  same_labels_valid=same, **errs))
+        if not (same and int(valid.sum()) > 0 and errs['dets'] < 1e-3 and
+                errs.get('mask_probs', 0.0) < HEAD_TOY_MASK_TOL):
+            raise RuntimeError(f'toy {kind}: GPU result disagrees with the '
+                               'CPU reference')
+        del ref, model
+        check_toy_train_against_cpu(report, kind)
+    # its step in fp32: the losses take the head's outputs in fp32 on
+    # both devices, as JAX's do (a float64 model computes them in fp32)
+    check_dense_toy(report, 'cornernet', corner_toy_cfg(), 0, hw=(96, 128),
+                    init_std=None, prepare=pair_corners)
+
+
+def run_item21(report, card):
+    """Phase 21: the C4 Faster R-CNN, Mask R-CNN and RPN, the dpool and
+    mdpool Faster R-CNNs and CornerNet, each from its config file,
+    unchanged, at full width: an image with phase 4's weights protocol and
+    a step of 4 images (20 GTs each) from the JAX initialisation, at
+    800x1344 (CornerNet at 383x511 and 511x511); each a counted warm-up
+    held to its exact launches of every kernel, a timed repeat and a
+    profiled pass (the device-busy share; CornerNet's that of a step split
+    by kernel). Then the plain deform pool timed, CornerNet's 3bq raise at
+    800x1344 and the toys on the card against the CPU."""
+    import torch
+    launches = {}
+    report['item21'] = {'inference': [], 'train': []}
+    t = time.perf_counter()
+    for name, infer_hw, train_hw, infer, step in ITEM21_CELLS:
+        path = ITEM21_CONFIGS[name]
+        got, recs = run_config_inference(
+            report, card, name, path, infer_hw, (('infer', None, infer),),
+            repeats=1, busy=True)
+        launches.update(got)
+        report['item21']['inference'] += recs
+        # CornerNet's profiled step is profile_cornernet_step's
+        got, rec = run_config_train(report, card, name, path, TRAIN_IMAGES,
+                                    train_hw, step, repeats=1,
+                                    busy=name != 'cornernet')
+        launches.update(got)
+        report['item21']['train'].append(rec)
+        torch.cuda.empty_cache()
+    parts = {'drives': time.perf_counter() - t}
+    for part, fn in (('cornernet profile', lambda: profile_cornernet_step(
+            report, card, report['item21']['train'][-1])),
+                     ('plain dpool', lambda: time_plain_dpool(report, card)),
+                     ('3bq', lambda: check_hourglass_3bq(report, card)),
+                     ('toys', lambda: check_item21_toys(report))):
+        t = time.perf_counter()
+        fn()
+        parts[part] = time.perf_counter() - t
+    report['item21']['parts_s'] = parts
+    print('  phase 21 parts: ' + ', '.join(f'{k} {v:.1f} s'
+                                           for k, v in parts.items()))
+    return launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -5888,8 +6268,14 @@ def main() -> int:
     t20 = time.perf_counter()
     launches.update(run_item20(report, card))
     report['phase20_s'] = time.perf_counter() - t20
+    print(f'  phase 20: {report["phase20_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 21: C4, DeformRoIPool and CornerNet [{card}]')
+    t21 = time.perf_counter()
+    launches.update(run_item21(report, card))
+    report['phase21_s'] = time.perf_counter() - t21
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 20: {report["phase20_s"]:.1f} s; the whole run '
+    print(f'  phase 21: {report["phase21_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s [{card}]')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}

@@ -45,7 +45,8 @@ def init_trainer(config: Union[str, Config], *, steps_per_epoch: int,
     optimizer (``optimizer``, ``optimizer_config``, ``lr_config``). The lr
     steps down at the epochs of ``lr_config.step``, counted in
     ``steps_per_epoch`` optimizer steps (the JAX trainer takes it from its
-    loader's length)."""
+    loader's length). Every file trains with JAX's SGD recipe, CornerNet's
+    ``Adam`` too (``engine.optimizer.build_optimizer``, 3br)."""
     model = init_detector(config, device=device, seed=seed,
                           init_std=init_std)
     cfg = model.cfg

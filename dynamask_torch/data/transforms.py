@@ -2,7 +2,11 @@
 of ``dynamask_tpu/data/transforms.py`` that the COCO instance and VOC
 pipelines use: ``configs/_base_/datasets/coco_instance.py``, and
 ``LoadProposals`` :63-82 for Fast R-CNN's precomputed proposals, which
-``Resize`` and ``RandomFlip`` move with the image).
+``Resize`` and ``RandomFlip`` move with the image; CornerNet's
+``PhotoMetricDistortion`` :291-327 and ``RandomCenterCropPad`` :654-762,
+and the reference's formatting transforms ``DefaultFormatBundle``,
+``Collect`` and ``ImageToTensor`` :772-799, which leave the results as
+they are: static formatting collects a fixed set of fields later).
 
 Each transform maps a results dict to a results dict; masks stay polygon
 lists (or RLE dicts with pending ``_scale``/``_flip`` flags) until static
@@ -240,6 +244,185 @@ class Pad:
         out[:h, :w] = img
         results['img'] = out
         results['pad_shape'] = out.shape
+        return results
+
+
+def _shift_segm(segm, dx: float, dy: float):
+    if isinstance(segm, dict):
+        out = dict(segm)
+        sx, sy = out.get('_shift', (0.0, 0.0))
+        out['_shift'] = (sx + dx, sy + dy)
+        return out
+    return [p + np.array([dx, dy], np.float32) for p in segm]
+
+
+@PIPELINES.register_module()
+class PhotoMetricDistortion:
+    """Brightness, contrast, saturation and hue jitter of the BGR image
+    before ``Normalize``, each applied on a coin flip of
+    ``results['_rng']`` in the JAX package's order of draws."""
+
+    def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
+                 saturation_range=(0.5, 1.5), hue_delta=18):
+        self.brightness_delta = brightness_delta
+        self.contrast_range = contrast_range
+        self.saturation_range = saturation_range
+        self.hue_delta = hue_delta
+
+    def __call__(self, results: Dict) -> Dict:
+        import cv2
+        rng = results.setdefault('_rng', np.random.RandomState())
+        img = results['img'].astype(np.float32)
+        if rng.randint(2):
+            img += rng.uniform(-self.brightness_delta, self.brightness_delta)
+        contrast_last = rng.randint(2)
+        if not contrast_last and rng.randint(2):
+            img *= rng.uniform(*self.contrast_range)
+        hsv = cv2.cvtColor(np.clip(img, 0, 255).astype(np.uint8),
+                           cv2.COLOR_BGR2HSV).astype(np.float32)
+        if rng.randint(2):
+            hsv[..., 1] *= rng.uniform(*self.saturation_range)
+        if rng.randint(2):
+            hsv[..., 0] = (hsv[..., 0] + rng.uniform(-self.hue_delta,
+                                                     self.hue_delta)) % 180
+        img = cv2.cvtColor(np.clip(hsv, 0, 255).astype(np.uint8),
+                           cv2.COLOR_HSV2BGR).astype(np.float32)
+        if contrast_last and rng.randint(2):
+            img *= rng.uniform(*self.contrast_range)
+        results['img'] = np.clip(img, 0, 255)
+        return results
+
+
+@PIPELINES.register_module()
+class RandomCenterCropPad:
+    """CornerNet's crop. Training: a crop of ``crop_size`` times a ratio
+    drawn from ``ratios``, centred at a random point at least the (shrunk)
+    ``border`` inside the image, pasted onto a mean-filled canvas; the GTs
+    whose centres fall in the crop are kept (100 draws at most, then the
+    results as they came). Test: the image mean-padded around its centre
+    to ``h | 127`` x ``w | 127`` (``test_pad_mode``), or to a multiple."""
+
+    def __init__(self, crop_size=None, ratios=(0.9, 1.0, 1.1), border=128,
+                 mean=None, std=None, to_rgb=None, test_mode=False,
+                 test_pad_mode=('logical_or', 127)):
+        if mean is None or std is None or to_rgb is None:
+            raise ValueError('RandomCenterCropPad needs mean, std and '
+                             'to_rgb')
+        self.crop_size = crop_size
+        self.ratios = ratios
+        self.border = border
+        self.mean = list(mean[::-1]) if to_rgb else list(mean)
+        self.test_mode = test_mode
+        self.test_pad_mode = test_pad_mode
+
+    @staticmethod
+    def _get_border(border, size):
+        k = 2 * border / size
+        i = pow(2, np.ceil(np.log2(np.ceil(k))) + (k == int(k)))
+        return int(border // i)
+
+    def _crop_paste(self, image, center_y, center_x, th, tw):
+        h, w, c = image.shape
+        x0 = max(0, center_x - tw // 2)
+        x1 = min(center_x + tw // 2, w)
+        y0 = max(0, center_y - th // 2)
+        y1 = min(center_y + th // 2, h)
+        patch = np.array((int(x0), int(y0), int(x1), int(y1)))
+        left, right = center_x - x0, x1 - center_x
+        top, bottom = center_y - y0, y1 - center_y
+        cy, cx = th // 2, tw // 2
+        canvas = np.empty((th, tw, c), dtype=image.dtype)
+        canvas[...] = np.asarray(self.mean, dtype=image.dtype)
+        canvas[cy - top:cy + bottom, cx - left:cx + right] = \
+            image[y0:y1, x0:x1]
+        return canvas, (cx - left - x0, cy - top - y0), patch
+
+    def __call__(self, results: Dict) -> Dict:
+        img = results['img']
+        h, w = img.shape[:2]
+        if self.test_mode:
+            mode, value = self.test_pad_mode
+            if mode == 'logical_or':
+                th, tw = h | value, w | value
+            else:
+                th = int(np.ceil(h / value) * value)
+                tw = int(np.ceil(w / value) * value)
+            canvas, (dx, dy), _ = self._crop_paste(img, h // 2, w // 2,
+                                                   th, tw)
+            results['img'] = canvas
+            results['img_shape'] = canvas.shape
+            if 'gt_bboxes' in results and len(results['gt_bboxes']):
+                results['gt_bboxes'] = results['gt_bboxes'] + np.array(
+                    [dx, dy, dx, dy], np.float32)
+            return results
+        rng = results.setdefault('_rng', np.random.RandomState())
+        boxes = results.get('gt_bboxes', np.zeros((0, 4), np.float32))
+        for _ in range(100):
+            scale = self.ratios[rng.randint(len(self.ratios))]
+            th = int(self.crop_size[0] * scale)
+            tw = int(self.crop_size[1] * scale)
+            hb = self._get_border(self.border, h)
+            wb = self._get_border(self.border, w)
+            cx = rng.randint(wb, max(w - wb, wb + 1))
+            cy = rng.randint(hb, max(h - hb, hb + 1))
+            canvas, (dx, dy), patch = self._crop_paste(img, cy, cx, th, tw)
+            if len(boxes):
+                centers = (boxes[:, :2] + boxes[:, 2:]) / 2
+                keep = ((centers[:, 0] > patch[0]) &
+                        (centers[:, 1] > patch[1]) &
+                        (centers[:, 0] < patch[2]) &
+                        (centers[:, 1] < patch[3]))
+                if not keep.any():
+                    continue
+            else:
+                keep = np.zeros((0,), bool)
+            results['img'] = canvas
+            results['img_shape'] = canvas.shape
+            if len(boxes):
+                new = boxes[keep] + np.array([dx, dy, dx, dy], np.float32)
+                new[:, 0::2] = np.clip(new[:, 0::2], 0, tw)
+                new[:, 1::2] = np.clip(new[:, 1::2], 0, th)
+                results['gt_bboxes'] = new
+                if 'gt_labels' in results:
+                    results['gt_labels'] = results['gt_labels'][keep]
+                if 'gt_masks' in results:
+                    results['gt_masks'] = [
+                        _shift_segm(m, dx, dy)
+                        for m, k in zip(results['gt_masks'], keep) if k]
+            return results
+        return results
+
+
+@PIPELINES.register_module()
+class DefaultFormatBundle:
+    """Leaves the results as they are: the tensors are packed by
+    ``formatting.format_sample``."""
+
+    def __call__(self, results: Dict) -> Dict:
+        return results
+
+
+@PIPELINES.register_module()
+class Collect:
+    """Records the reference's key selection and drops nothing: static
+    formatting collects a fixed set of fields later."""
+
+    def __init__(self, keys=(), meta_keys=()):
+        self.keys = tuple(keys)
+        self.meta_keys = tuple(meta_keys)
+
+    def __call__(self, results: Dict) -> Dict:
+        return results
+
+
+@PIPELINES.register_module()
+class ImageToTensor:
+    """Leaves the results as they are (the image stays numpy HWC)."""
+
+    def __init__(self, keys=('img',)):
+        self.keys = tuple(keys)
+
+    def __call__(self, results: Dict) -> Dict:
         return results
 
 

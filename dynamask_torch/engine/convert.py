@@ -75,6 +75,20 @@ that importer skips (ROADMAP.md queue 3, 3d, 3o, 3t, 3aa, 3ah):
   (``adapt_convs.{i}`` -> ``adapt_conv_{i}`` / ``adapt_bn_{i}``, each cell
   ``fpn.<cell>`` -> ``<cell>`` with its ``out_conv.bn`` JAX's ``out_bn``,
   ``extra_downsamples.{i}`` -> ``extra_conv_{i}`` / ``extra_bn_{i}``).
+* item 9's last modules, which the JAX importer skips (ROADMAP.md queue 3,
+  3bs): the C4 shared head ``roi_head.shared_head.layer4.{i}`` (JAX's
+  ``shared_head/layer4_block{i}``, a ResNet stage's rules); the
+  DeformRoIPool extractor's ``offset_fc.{0,2,4}`` and ``mask_fc`` (JAX's
+  ``bbox_extractor_obj/offset_fc1``, ``offset_fc2``, ``offset_out``,
+  ``mask_out``; the first fc's input reordered as the box head's);
+  HourglassNet (``stem.0`` -> ``stem_conv``, ``stem.1.{b}`` ->
+  ``stem_res/block_{b}``, ``hourglass_modules.{i}`` -> ``hourglass_{i}``
+  with its nested ``up1`` / ``low1`` / ``low2`` / ``low3`` layers,
+  ``out_convs``, ``conv1x1s``, ``remap_convs``, ``inters.{i}`` ->
+  ``out_conv_{i}``, ``conv1x1_{i}``, ``remap_{i}``, ``inter_{i}/block_0``)
+  and the ``CornerHead`` (``{tl,br}_pool.{i}`` -> ``{tl,br}_pool_{i}``,
+  each branch's ``{tl,br}_{heat,emb,off}.{i}.{0,1}.conv`` ->
+  ``{tl,br}_{heat,emb,off}_{i}/{feat,out}``).
 """
 
 from __future__ import annotations
@@ -167,6 +181,46 @@ def _res2net_key(key: str) -> Optional[Tuple[List[str], str]]:
     return _resnet_key(key)
 
 
+def _res_block(rest: str) -> Optional[Tuple[List[str], str]]:
+    """A BasicBlock's own key (``conv1.weight``, ``downsample.1.bias``...)
+    -> its JAX module and leaf."""
+    m = re.match(r'^(conv\d|bn\d)\.(.+)$', rest)
+    if m:
+        return [m[1]], m[2]
+    m = re.match(r'^downsample\.([01])\.(.+)$', rest)
+    if m:
+        return [('downsample_conv', 'downsample_bn')[int(m[1])]], m[2]
+    return None
+
+
+def _hourglass_key(key: str) -> Optional[Tuple[List[str], str]]:
+    """An HourglassNet key's JAX path (``dynamask_tpu/models/
+    hourglass.py``)."""
+    m = re.match(r'^stem\.0\.(conv|bn)\.(.+)$', key)
+    if m:
+        return ['stem_conv', m[1]], m[2]
+    m = re.match(r'^(?:stem\.1|inters)\.(\d+)\.(.+)$', key)
+    if m:
+        r = _res_block(m[2])
+        root = (['stem_res', f'block_{m[1]}'] if key.startswith('stem')
+                else [f'inter_{m[1]}', 'block_0'])
+        return None if r is None else (root + r[0], r[1])
+    m = re.match(r'^(out_convs|conv1x1s|remap_convs)\.(\d+)\.(conv|bn)\.(.+)$',
+                 key)
+    if m:
+        name = {'out_convs': 'out_conv', 'conv1x1s': 'conv1x1',
+                'remap_convs': 'remap'}[m[1]]
+        return [f'{name}_{m[2]}', m[3]], m[4]
+    m = re.match(r'^hourglass_modules\.(\d+)\.((?:(?:up1|low1|low2|low3)\.)+)'
+                 r'(\d+)\.(.+)$', key)
+    if m:
+        r = _res_block(m[4])
+        path = [f'hourglass_{m[1]}'] + m[2].rstrip('.').split('.') + [
+            f'block_{m[3]}']
+        return None if r is None else (path + r[0], r[1])
+    return None
+
+
 # the backbones whose keys differ from a ResNet's, by class name
 # SSDVGG's ``features`` Sequential: each conv's index -> JAX's name (the
 # JAX importer's ``_VGG16_FEATURE_MAP`` of ``pretrained.py:84-91``, and
@@ -193,7 +247,7 @@ def _ssd_vgg_key(key: str) -> Optional[Tuple[List[str], str]]:
 
 
 _BACKBONE_KEYS = {'HRNet': _hrnet_key, 'Res2Net': _res2net_key,
-                  'SSDVGG': _ssd_vgg_key}
+                  'SSDVGG': _ssd_vgg_key, 'HourglassNet': _hourglass_key}
 
 # a plugin's keys below its module: (JAX module, leaf, hints)
 _PLUGIN_KEYS = (
@@ -302,6 +356,16 @@ _HEAD_RULES = {
         (r'^bbox_head\.moment_transfer$',
          lambda m: (['moment_transfer'], 'raw', {})),
     ),
+    'CornerHead': (
+        (r'^bbox_head\.(tl|br)_pool\.(\d+)\.(direction1_conv|direction2_conv|'
+         r'aftpool_conv|conv1|conv2)\.(conv|bn)\.' + _BN_LEAF + '$',
+         lambda m: (['bbox_head', f'{m[1]}_pool_{m[2]}', m[3], m[4]], m[5],
+                    {})),
+        (r'^bbox_head\.(tl|br)_(heat|emb|off)\.(\d+)\.([01])\.conv\.'
+         r'(weight|bias)$',
+         lambda m: (['bbox_head', f'{m[1]}_{m[2]}_{m[3]}',
+                     ('feat', 'out')[int(m[4])]], m[5], {})),
+    ),
     'NASFCOSHead': (
         (r'^bbox_head\.(cls|reg)_convs\.([02])\.conv\.conv_offset\.'
          r'(weight|bias)$',
@@ -370,8 +434,21 @@ def mmdet_key(key: str, num_laterals: Optional[int] = None,
     if m:
         r = _resnet_key(m[2])
         return None if r is None else (_rfp_root(m[1]) + r[0], r[1], {})
+    m = re.match(r'^roi_head\.shared_head\.(.+)$', key)
+    if m:
+        r = _resnet_key(m[1])
+        return None if r is None else (['roi_head', 'shared_head'] + r[0],
+                                       r[1], {})
     fpn = list(fpn)
     rules = [
+        # the DeformRoIPool extractor (JAX roi_head.py:33-80)
+        (r'^roi_head\.bbox_roi_extractor\.offset_fc\.([024])\.(weight|bias)$',
+         lambda m: (['roi_head', 'bbox_extractor_obj',
+                     {'0': 'offset_fc1', '2': 'offset_fc2',
+                      '4': 'offset_out'}[m[1]]], m[2],
+                    {'flatten_chw': 7} if m[1] == '0' else {})),
+        (r'^roi_head\.bbox_roi_extractor\.mask_fc\.(weight|bias)$',
+         lambda m: (['roi_head', 'bbox_extractor_obj', 'mask_out'], m[1], {})),
         # DetectoRS' RFP: the ASPP's convs and the fusion gate
         (r'^neck\.rfp_aspp\.aspp\.(\d+)\.(weight|bias)$',
          lambda m: (['neck', 'rfp_aspp', f'aspp_{m[1]}'], m[2], {})),

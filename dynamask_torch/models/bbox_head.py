@@ -1,6 +1,7 @@
 """The conv/fc box heads, their training targets and loss, and test-time
 decode (port of ``dynamask_tpu/models/bbox_head.py``: ``ConvFCBBoxHead``
-and its ``Shared2FCBBoxHead`` / ``Shared4Conv1FCBBoxHead`` :26-90,
+and its ``Shared2FCBBoxHead`` / ``Shared4Conv1FCBBoxHead`` :26-90 and
+the plain ``BBoxHead`` :92 of the C4 configs,
 ``bbox_targets_from_sample`` :107, ``bbox_head_loss`` :127-188 with its
 L1, SmoothL1 and IoU-family regression, ``bbox_head_get_dets`` :190-226
 with greedy or Soft-NMS). ``num_classes`` foreground classes, softmax
@@ -39,17 +40,20 @@ class ConvFCBBoxHead(nn.Module):
     fcs with ReLU, then the class scores and the deltas (JAX
     ``bbox_head.py:26-97``). The shared convs emit ``in_channels``, as
     JAX's do (its builder drops ``conv_out_channels``, ROADMAP.md queue 3,
-    3w). ``with_reg=False`` builds no ``fc_reg``. mmdet's names:
-    ``shared_convs.{i}.conv`` / ``.gn``, ``shared_fcs.{i}``, ``fc_cls``,
-    ``fc_reg``."""
+    3w). ``with_reg=False`` builds no ``fc_reg``; ``with_avg_pool``
+    averages each RoI's map over its bins before the fcs (JAX
+    ``bbox_head.py:60-61``). mmdet's names: ``shared_convs.{i}.conv`` /
+    ``.gn``, ``shared_fcs.{i}``, ``fc_cls``, ``fc_reg``."""
 
     def __init__(self, num_classes: int = 80, in_channels: int = 256,
                  roi_feat_size: int = 7, fc_out_channels: int = 1024,
                  reg_class_agnostic: bool = False, num_shared_convs: int = 0,
                  num_shared_fcs: int = 2, norm: Optional[str] = None,
-                 gn_groups: int = 32, with_reg: bool = True):
+                 gn_groups: int = 32, with_reg: bool = True,
+                 with_avg_pool: bool = False):
         super().__init__()
         self.num_classes = num_classes
+        self.with_avg_pool = with_avg_pool
         self.reg_class_agnostic = reg_class_agnostic
         if norm not in (None, 'gn'):
             raise NotImplementedError(f'ConvFCBBoxHead norm {norm!r}')
@@ -58,7 +62,8 @@ class ConvFCBBoxHead(nn.Module):
                 ConvModule(in_channels, in_channels, 3, padding=1,
                            gn_groups=gn_groups if norm else None)
                 for _ in range(num_shared_convs))
-        fcs, width = [], in_channels * roi_feat_size ** 2
+        fcs, width = [], in_channels * (1 if with_avg_pool else
+                                        roi_feat_size ** 2)
         for _ in range(num_shared_fcs):
             fcs.append(nn.Linear(width, fc_out_channels))
             width = fc_out_channels
@@ -76,6 +81,8 @@ class ConvFCBBoxHead(nn.Module):
         x = x.permute(0, 3, 1, 2)
         for conv in getattr(self, 'shared_convs', ()):
             x = F.relu(conv(x))
+        if self.with_avg_pool:
+            x = x.mean((2, 3))
         x = x.reshape(x.shape[0], -1)
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
@@ -97,6 +104,16 @@ class Shared4Conv1FCBBoxHead(ConvFCBBoxHead):
 
     def __init__(self, **kw):
         super().__init__(num_shared_convs=4, num_shared_fcs=1, **kw)
+
+
+@HEADS.register_module()
+class BBoxHead(ConvFCBBoxHead):
+    """The plain head behind the C4 shared head: the RoI map averaged,
+    then the class scores and the deltas, no fc between."""
+
+    def __init__(self, **kw):
+        super().__init__(num_shared_convs=0, num_shared_fcs=0,
+                         with_avg_pool=True, **kw)
 
 
 class BBoxTargets(NamedTuple):

@@ -11,8 +11,10 @@ dynamask_roi_head.py:build_dynamask_roi_head`` (:422-464) and
 Mask R-CNN, Faster / Fast R-CNN, RPN, GA-RPN / GA-Faster R-CNN,
 DynaMask, RefineMask, Cascade R-CNN, HTC and the two-stage option configs
 use, and Mask Scoring R-CNN, PointRend, PointRefine, Grid R-CNN and
-Dynamic R-CNN); the single-stage detectors (RetinaNet, FreeAnchor,
-GA-RetinaNet,
+Dynamic R-CNN, the C4 detectors' shared head :355-361 with the neck-less
+backbone :149-153 and the DeformRoIPool extractor :341-351, and
+CornerNet :1026-1048 on HourglassNet :132-140); the single-stage
+detectors (RetinaNet, FreeAnchor, GA-RetinaNet,
 ATSS, FCOS) come from ``single_stage_builder.py`` over the backbone and
 neck built here.
 
@@ -35,7 +37,7 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.registry import BACKBONES, DETECTORS, NECKS
-from .bbox_head import (ConvFCBBoxHead, Shared2FCBBoxHead,
+from .bbox_head import (BBoxHead, ConvFCBBoxHead, Shared2FCBBoxHead,
                         Shared4Conv1FCBBoxHead)
 from .carafe import FPN_CARAFE
 from .cascade_roi_head import CascadeRoIHead
@@ -79,9 +81,8 @@ def not_ported(what: str, item) -> NotImplementedError:
 # the legacy v1 keys that JAX's two-stage builder drops (ROADMAP.md queue
 # 3, 3c): refused here rather than dropped
 LEGACY = 'ROADMAP.md queue 3, 3c: the JAX package drops it'
-BACKBONE_ITEMS = {'HourglassNet': 9}
-DETECTOR_ITEMS = {'CornerNet': 9}
-ROI_HEAD_ITEMS = {'TridentRoIHead': 9}
+# what no config file names and no ROADMAP.md item queues: refused by name
+UNQUEUED = 'no config names it'
 
 
 def _check_keys(what: str, cfg: dict, read, defaults=None,
@@ -114,14 +115,14 @@ def _check_sampling(stage: str, assigner: dict, sampler: dict,
     drops (3bn); refuse others, naming their item."""
     t = sampler.get('type', 'RandomSampler')
     if t not in typed:
-        raise not_ported(f'{stage} sampler {t}', 9)
+        raise not_ported(f'{stage} sampler {t}', UNQUEUED)
     if sampler.get('neg_pos_ub', -1) != -1 and t not in capped and \
             stage != 'rpn':
         raise not_ported(f'{stage} sampler {t} neg_pos_ub (JAX samples '
                          'without it)', DROPPED)
     if (not assigner.get('gt_max_assign_all', True) or
             assigner.get('ignore_iof_thr', -1) > 0):
-        raise not_ported(f'{stage} assigner {assigner}', 9)
+        raise not_ported(f'{stage} assigner {assigner}', UNQUEUED)
 
 
 # the norm_cfg and style the JAX builder drops for HRNet, RegNet and
@@ -247,15 +248,34 @@ def build_backbone(cfg: dict):
     cfg = _cfg(cfg)
     t = cfg.get('type')
     built = {'HRNet': build_hrnet, 'RegNet': build_regnet,
-             'Res2Net': build_res2net,
+             'Res2Net': build_res2net, 'HourglassNet': build_hourglass,
              'DetectoRS_ResNet': build_detectors_resnet,
              'DetectoRS_ResNeXt': build_detectors_resnet}.get(t)
     if built:
         return built(cfg)
     if t not in BACKBONES:
-        raise not_ported(f'backbone {t}', BACKBONE_ITEMS.get(t, 'no item'))
+        raise not_ported(f'backbone {t}', 'no item')
     cfg['out_indices'] = tuple(cfg.get('out_indices', (0, 1, 2, 3)))
+    for k in ('strides', 'dilations'):
+        if k in cfg:
+            cfg[k] = tuple(cfg[k])
     return BACKBONES.build(cfg)
+
+
+# the HourglassNet keys JAX reads (``builder.py:132-140``); its norm_cfg
+# popped, taken at BN
+HOURGLASS_KEYS = ('downsample_times', 'num_stacks', 'stage_channels',
+                  'stage_blocks', 'feat_channel')
+
+
+def build_hourglass(cfg: dict):
+    """CornerNet's ``HourglassNet`` (``models/hourglass.py``)."""
+    from .hourglass import HourglassNet
+    cfg.pop('pretrained', None)
+    _check_keys('HourglassNet', cfg, ('type',) + HOURGLASS_KEYS,
+                dict(norm_cfg=dict(type='BN', requires_grad=True)), DROPPED)
+    return HourglassNet(**{k: tuple(v) if isinstance(v, list) else v
+                           for k, v in cfg.items() if k in HOURGLASS_KEYS})
 
 
 # the FPN keys the port reads (JAX ``fpn.py:22-35``)
@@ -267,7 +287,9 @@ FPN_KEYS = ('type', 'in_channels', 'out_channels', 'num_outs',
 
 def build_neck(cfg: dict):
     if not cfg:
-        raise not_ported('a detector without a neck (the C4 backbone)', 9)
+        # the C4 detectors take the backbone's stride-16 map as it is (JAX
+        # ``IdentityNeck``, builder.py:149-153)
+        return torch.nn.Identity()
     if isinstance(cfg, (list, tuple)):
         # Libra R-CNN's FPN then BFP (JAX ``ChainedNeck``)
         from .necks_extra import NeckChain
@@ -317,7 +339,7 @@ def build_neck(cfg: dict):
                            cfg.get('out_channels', 256),
                            cfg.get('num_outs', 5), cfg.get('start_level', 1))
     if t != 'FPN':
-        raise not_ported(f'neck {t}', 9)
+        raise not_ported(f'neck {t}', 'no item')
     fpn = {k: cfg.pop(k) for k in FPN_KEYS if k in cfg}
     if fpn.get('add_extra_convs') not in (None, False, True, 'on_input',
                                           'on_output'):
@@ -328,7 +350,7 @@ def build_neck(cfg: dict):
     if norm_cfg:
         nt = norm_cfg.get('type')
         if nt not in ('GN', 'BN', 'SyncBN'):
-            raise not_ported(f'FPN norm_cfg {nt}', 9)
+            raise not_ported(f'FPN norm_cfg {nt}', UNQUEUED)
         _check_keys('FPN norm_cfg', norm_cfg, ('type', 'num_groups'),
                     {'requires_grad': True}, DROPPED)
         fpn['norm'] = 'gn' if nt == 'GN' else 'bn'
@@ -464,7 +486,8 @@ def _gn_groups(what: str, norm_cfg) -> Optional[int]:
     if not norm_cfg:
         return None
     if norm_cfg.get('type') != 'GN':
-        raise not_ported(f'{what} norm_cfg {norm_cfg.get("type")}', 9)
+        raise not_ported(f'{what} norm_cfg {norm_cfg.get("type")}',
+                         UNQUEUED)
     _check_keys(f'{what} norm_cfg', norm_cfg, ('type', 'num_groups'),
                 {'requires_grad': True}, DROPPED)
     return norm_cfg.get('num_groups', 32)
@@ -590,32 +613,89 @@ TYPED_SAMPLERS = {'StandardRoIHead': ('CombinedSampler',),
                   'PISARoIHead': ('ScoreHLRSampler',)}
 
 
-def _extractor(cfg: dict, what: str) -> dict:
+# DeformRoIPool's layer types (JAX ``builder.py:341-344``) and the keys
+# JAX reads of them
+DEFORM_POOLS = ('DeformRoIPoolPack', 'ModulatedDeformRoIPoolPack',
+                'DeformRoIPoolingPack', 'ModulatedDeformRoIPoolingPack')
+DEFORM_POOL_KEYS = ('type', 'output_size', 'output_channels', 'trans_std',
+                    'sample_per_part')
+
+
+def _extractor(cfg: dict, what: str, deform: bool = False) -> dict:
     """A ``SingleRoIExtractor`` over ``RoIAlign`` (mmcv ``aligned=True``;
     the JAX package's static ``sampling_ratio`` 2 whatever the config's),
     or GRoIE's ``GenericRoIExtractor`` with its ``aggregation`` over the
-    same (without its ``pre_cfg`` / ``post_cfg`` modules, item 9); refused
-    otherwise."""
+    same (its ``pre_cfg`` / ``post_cfg`` modules, which JAX drops,
+    refused), or with ``deform`` a ``SingleRoIExtractor`` over a
+    DeformRoIPool layer (its ``output_channels`` the extractor's
+    ``out_channels``: JAX's offset branch reads the pyramid's width);
+    refused otherwise."""
     cfg = _cfg(cfg)
     t = cfg.get('type', 'SingleRoIExtractor')
     if t not in ('SingleRoIExtractor', 'GenericRoIExtractor'):
-        raise not_ported(f'{what} {t}', 9)
+        raise not_ported(f'{what} {t}', UNQUEUED)
     layer = _cfg(cfg.get('roi_layer'))
     lt = layer.get('type', 'RoIAlign')
-    if lt != 'RoIAlign':
-        raise not_ported(f'{what} roi_layer {lt}', 9)
-    if not layer.get('aligned', True):
-        raise not_ported(f'{what} RoIAlign aligned=False', LEGACY)
-    _check_keys(f'{what} roi_layer', layer, ('type', 'output_size',
-                                             'sampling_ratio', 'aligned'))
+    if deform and lt in DEFORM_POOLS and t == 'SingleRoIExtractor':
+        _check_keys(f'{what} {lt}', layer, DEFORM_POOL_KEYS, item=DROPPED)
+        if layer.get('output_channels', cfg.get('out_channels', 256)) != \
+                cfg.get('out_channels', 256):
+            raise not_ported(f'{what} {lt} output_channels other than the '
+                             'pyramid\'s', DROPPED)
+    elif lt != 'RoIAlign':
+        raise not_ported(f'{what} roi_layer {lt}', UNQUEUED)
+    else:
+        if not layer.get('aligned', True):
+            raise not_ported(f'{what} RoIAlign aligned=False', LEGACY)
+        _check_keys(f'{what} roi_layer', layer, ('type', 'output_size',
+                                                 'sampling_ratio',
+                                                 'aligned'))
     if t == 'GenericRoIExtractor':
         _check_keys(f'{what} GenericRoIExtractor', cfg, (
             'type', 'roi_layer', 'out_channels', 'featmap_strides',
-            'aggregation'), item=9)
+            'aggregation'), item=DROPPED)
     else:
         _check_keys(what, cfg, ('type', 'roi_layer', 'out_channels',
                                 'featmap_strides'), {'finest_scale': 56})
     return cfg
+
+
+def build_deform_roi_pool(extractor: dict):
+    """The DeformRoIPool configs' box extractor (JAX ``builder.py:
+    341-351``), or None over RoIAlign."""
+    layer = _cfg(extractor.get('roi_layer'))
+    if layer.get('type') not in DEFORM_POOLS:
+        return None
+    from .deform_roi_pool import DeformRoIPoolPack
+    return DeformRoIPoolPack(
+        in_channels=extractor.get('out_channels', 256),
+        out_size=layer.get('output_size', 7),
+        featmap_strides=tuple(extractor.get('featmap_strides',
+                                            (4, 8, 16, 32))),
+        trans_std=layer.get('trans_std', 0.1),
+        sample_per_part=layer.get('sample_per_part', 4),
+        modulated=layer['type'].startswith('Modulated'))
+
+
+# the ResLayer shared head's keys (JAX ``builder.py:355-361``, shared_head.
+# py:20-28); its norm_cfg popped, taken at BN (3j: the affine trains)
+SHARED_HEAD_KEYS = ('type', 'depth', 'stage', 'stride', 'dilation', 'style',
+                    'norm_eval')
+
+
+def build_shared_head(cfg: dict, in_channels: int):
+    """The C4 configs' ``ResLayer`` shared head."""
+    from .shared_head import ResLayerSharedHead
+    cfg = _cfg(cfg)
+    cfg.pop('pretrained', None)
+    if cfg.get('type') != 'ResLayer':
+        raise not_ported(f'shared head {cfg.get("type")}', UNQUEUED)
+    norm = _cfg(cfg.pop('norm_cfg', None))
+    if norm.get('type', 'BN') != 'BN':
+        raise not_ported(f'ResLayer norm_cfg {norm}', DROPPED)
+    _check_keys('ResLayer', cfg, SHARED_HEAD_KEYS, item=DROPPED)
+    return ResLayerSharedHead(in_channels, **{k: v for k, v in cfg.items()
+                                              if k != 'type'})
 
 
 def _extract_mode(bbox_extractor: dict, mask_extractor: dict) -> str:
@@ -682,6 +762,9 @@ def _box_losses(head_cfg: dict) -> dict:
 BOX_HEADS = {'Shared2FCBBoxHead': Shared2FCBBoxHead,
              'Shared4Conv1FCBBoxHead': Shared4Conv1FCBBoxHead,
              'ConvFCBBoxHead': ConvFCBBoxHead}
+# the C4 head's fixed keys (JAX ``bbox_head.py:92-98``: no conv, no fc, the
+# average pool)
+PLAIN_BOX_HEAD = dict(with_avg_pool=True, with_cls=True)
 BOX_HEAD_KEYS = ('num_classes', 'in_channels', 'roi_feat_size',
                  'fc_out_channels', 'reg_class_agnostic', 'reg_decoded_bbox',
                  'bbox_coder', 'loss_cls', 'loss_bbox')
@@ -711,12 +794,16 @@ def _box_head(head_cfg: dict, with_reg: bool = True):
                   reg_class_agnostic=bool(head_cfg.get('reg_class_agnostic',
                                                        False)))
     if ht == 'DoubleConvFCBBoxHead':
-        _check_keys(ht, head_cfg, BOX_HEAD_KEYS + DOUBLE_HEAD_KEYS, item=9)
+        _check_keys(ht, head_cfg, BOX_HEAD_KEYS + DOUBLE_HEAD_KEYS,
+                    item=DROPPED)
         head = DoubleConvFCBBoxHead(
             num_convs=head_cfg.get('num_convs', 4),
             num_fcs=head_cfg.get('num_fcs', 2),
             conv_out_channels=head_cfg.get('conv_out_channels', 1024),
             **common)
+    elif ht == 'BBoxHead':
+        _check_keys(ht, head_cfg, BOX_HEAD_KEYS, PLAIN_BOX_HEAD, DROPPED)
+        head = BBoxHead(with_reg=with_reg, **common)
     elif ht in BOX_HEADS:
         _check_keys(ht, head_cfg, BOX_HEAD_KEYS + ('norm_cfg',), dict(
             conv_out_channels=common['in_channels'], num_shared_convs=0,
@@ -728,7 +815,7 @@ def _box_head(head_cfg: dict, with_reg: bool = True):
                              gn_groups=groups or 32, with_reg=with_reg,
                              **common)
     else:
-        raise not_ported(f'bbox head {ht}', 9)
+        raise not_ported(f'bbox head {ht}', 'no item')
     coder = _cfg(head_cfg.get('bbox_coder'))
     _check_coder('bbox head coder', coder)
     return head, coder, head_cfg
@@ -750,9 +837,7 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     cfg = _cfg(cfg)
     t = cfg.pop('type')
     if t not in ROI_HEADS:
-        raise not_ported(f'roi head {t}', ROI_HEAD_ITEMS.get(t, 'no item'))
-    if cfg.get('shared_head'):
-        raise not_ported('the shared head of the C4 backbone', 9)
+        raise not_ported(f'roi head {t}', 'no item')
     cascade = t in CASCADE_HEADS
     stage_cfgs = cfg['bbox_head']
     if isinstance(stage_cfgs, (list, tuple)) != cascade:
@@ -779,7 +864,18 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
                         ('RandomSampler', 'OHEMSampler') +
                         TYPED_SAMPLERS.get(t, ()), ('ScoreHLRSampler',))
     bbox_extractor = _extractor(cfg.get('bbox_roi_extractor'),
-                                'bbox_roi_extractor')
+                                'bbox_roi_extractor', deform=True)
+    # the C4 shared head and the DeformRoIPool extractor, under
+    # StandardRoIHead, the one head of the configs that name them
+    roi_parts = {}
+    if cfg.get('shared_head'):
+        roi_parts['shared_head'] = build_shared_head(
+            cfg['shared_head'], bbox_extractor.get('out_channels', 256))
+    deform_pool = build_deform_roi_pool(bbox_extractor)
+    if deform_pool is not None:
+        roi_parts['bbox_roi_extractor'] = deform_pool
+    if roi_parts and t != 'StandardRoIHead':
+        raise not_ported(f'{sorted(roi_parts)} under {t}', UNQUEUED)
     point_rend = t == 'PointRendRoIHead'
     mask_extractor = (_point_rend_extractor if point_rend else _extractor)(
         cfg.get('mask_roi_extractor'), 'mask_roi_extractor')
@@ -816,7 +912,7 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     if (t == 'DoubleHeadRoIHead') != any(
             isinstance(h, DoubleConvFCBBoxHead) for h, _, _ in stages):
         raise not_ported(f'{t} over {type(bbox_head).__name__} (the '
-                         'Double-Head pair goes together)', 9)
+                         'Double-Head pair goes together)', UNQUEUED)
     if cascade:
         return build_cascade_roi_head(t, cfg, stages, stage_train, common,
                                       bbox_extractor)
@@ -847,24 +943,26 @@ def build_roi_head(cfg: dict, train_cfg: dict, test_cfg: dict):
     if t == 'DoubleHeadRoIHead' and mt is None:
         _check_keys(t, cfg, ('reg_roi_scale_factor', 'bbox_head',
                              'bbox_roi_extractor'),
-                    {'mask_head': None, 'mask_roi_extractor': None}, 9)
+                    {'mask_head': None, 'mask_roi_extractor': None},
+                    DROPPED)
         return DoubleHeadRoIHead(reg_roi_scale_factor=cfg.get(
             'reg_roi_scale_factor', 1.3), mask_head=None, **common)
     if t == 'StandardRoIHead' and mt is None:
-        return StandardRoIHead(mask_head=None, **common)
+        return StandardRoIHead(mask_head=None, **common, **roi_parts)
     if (t, mt) == ('DynaMaskRoIHead', 'DynaMaskHead'):
         return build_dynamask_roi_head(cfg, mhc, common, rcnn_train)
     if (t, mt) == ('StandardRoIHead', 'FCNMaskHead'):
         return StandardRoIHead(
             mask_head=build_fcn_mask_head(mhc), loss_mask_weight=_cfg(
-                mhc.get('loss_mask')).get('loss_weight', 1.0), **common)
+                mhc.get('loss_mask')).get('loss_weight', 1.0), **common,
+            **roi_parts)
     if t in REFINE_HEADS and mt in REFINE_MASK_HEADS:
         return build_refine_roi_head(t, mt, mhc, common, in_channels)
     raise not_ported(
         f'mask head {mt} under {t} (the port has none or FCNMaskHead under '
         'StandardRoIHead, DynaMaskHead under DynaMaskRoIHead, and '
         'RefineMaskHead or SimpleRefineMaskHead under RefineRoIHead or '
-        'SimpleRefineRoIHead)', 9)
+        'SimpleRefineRoIHead)', UNQUEUED)
 
 
 def build_sampler(sampler: dict):
@@ -1206,7 +1304,7 @@ def _test_nms(nms_cfg: dict) -> dict:
     if t == 'nms':
         return {}
     if t != 'soft_nms':
-        raise not_ported(f'test nms type {t}', 9)
+        raise not_ported(f'test nms type {t}', UNQUEUED)
     _check_keys('soft_nms', nms_cfg, ('type', 'iou_threshold', 'sigma',
                                       'min_score'), {'method': 'linear'},
                 DROPPED)
@@ -1296,7 +1394,8 @@ def build_cascade_roi_head(t: str, cfg: dict, stages, stage_train,
         if not isinstance(mhc, dict) or mhc.pop('type', None) != \
                 'FCNMaskHead':
             raise not_ported(f'{t} mask head {mhc} (the port has one '
-                             'FCNMaskHead, as the JAX builder)', 9)
+                             'FCNMaskHead, as the JAX builder)',
+                             UNQUEUED)
         if _cfg(mhc.get('loss_mask')).get('loss_weight', 1.0) != 1.0:
             raise not_ported(f'{t} mask loss weight (JAX applies 1)',
                              'no item')
@@ -1325,7 +1424,7 @@ def build_htc_roi_head(cfg: dict, mhc, n: int, stage_train,
     mask_heads, mask_weights = [], set()
     for mc in map(_cfg, mask_cfgs):
         if mc.get('type') != 'HTCMaskHead':
-            raise not_ported(f'{t} mask head {mc.get("type")}', 9)
+            raise not_ported(f'{t} mask head {mc.get("type")}', UNQUEUED)
         _check_keys('HTCMaskHead', mc, HTC_MASK_KEYS)
         loss = _check_loss('HTCMaskHead loss_mask', mc.get('loss_mask'),
                            ('CrossEntropyLoss',))
@@ -1584,6 +1683,10 @@ def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
         with torch.device('meta'):
             det = build_ssd(cfg, train_cfg, test_cfg)
         return _materialise(det, dev, seed, init_std)
+    if t == 'CornerNet':
+        with torch.device('meta'):
+            det = build_cornernet(cfg, train_cfg, test_cfg)
+        return _materialise(det, dev, seed, init_std)
     if t in SINGLE_STAGE:
         with torch.device('meta'):
             det = build_single_stage(t, cfg, train_cfg, test_cfg, dict(
@@ -1591,13 +1694,14 @@ def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
                 neck=build_neck(cfg.get('neck'))))
         return _materialise(det, dev, seed, init_std)
     if t not in DETECTOR_TYPES + TWO_STAGE_DETECTORS:
-        raise not_ported(f'detector {t}', DETECTOR_ITEMS.get(t, 6))
+        raise not_ported(f'detector {t}', 'no item')
     parts = {'backbone', 'neck'} | (set() if t == 'RPN' else {'roi_head'}) | \
         (set() if t == 'FastRCNN' else {'rpn_head'})
     with torch.device('meta'):
         modules = dict(backbone=build_backbone(cfg['backbone']),
                        neck=build_neck(cfg.get('neck')))
-        _check_keys(t, cfg, parts)
+        # the proposal files name ``roi_head=None`` (rpn_r50_caffe_c4)
+        _check_keys(t, cfg, parts, {'roi_head': None})
         if _cfg(cfg.get('rpn_head')).get('type') == 'GARPNHead':
             if t not in ('RPN', 'FasterRCNN'):
                 raise not_ported(f'a GARPNHead under {t} (the port has GA-RPN '
@@ -1638,6 +1742,62 @@ def build_detector(model_cfg: dict, train_cfg: Optional[dict] = None,
             'MaskRCNN'
     return _materialise(DETECTORS.build(dict(type=t, **modules)), dev, seed,
                         init_std)
+
+
+# CornerNet's keys as the JAX builder reads them (``builder.py:1026-1048``):
+# the head's loss types and weights fixed (its heatmap loss is the Gaussian
+# focal loss at alpha 2 and gamma 4, its offset loss SmoothL1, each of
+# weight 1), the test NMS a Gaussian Soft-NMS of sigma 0.5
+CORNER_HEAD_KEYS = ('type', 'num_classes', 'in_channels', 'num_feat_levels',
+                    'corner_emb_channels', 'loss_heatmap', 'loss_embedding',
+                    'loss_offset')
+CORNER_TEST_KEYS = ('corner_topk', 'local_maximum_kernel',
+                    'distance_threshold', 'num_dets', 'score_thr',
+                    'max_per_img', 'nms_cfg')
+
+
+def build_cornernet(cfg: dict, train_cfg, test_cfg):
+    """``CornerNet`` over ``HourglassNet`` and ``CornerHead``, no neck."""
+    from .cornernet import CornerHead, CornerNet
+    _check_keys('CornerNet', cfg, ('backbone', 'bbox_head'), {'neck': None},
+                DROPPED)
+    if _cfg(train_cfg):
+        raise not_ported(f'CornerNet train_cfg {train_cfg}', DROPPED)
+    hc = _cfg(cfg['bbox_head'])
+    if hc.get('type') != 'CornerHead':
+        raise not_ported(f'CornerNet head {hc.get("type")}', UNQUEUED)
+    _check_keys('CornerHead', hc, CORNER_HEAD_KEYS, item=DROPPED)
+    _check_keys('CornerHead loss_heatmap', _cfg(hc.get('loss_heatmap')), (),
+                dict(type='GaussianFocalLoss', alpha=2.0, gamma=4.0,
+                     loss_weight=1), DROPPED)
+    emb = _cfg(hc.get('loss_embedding'))
+    _check_keys('CornerHead loss_embedding', emb, (
+        'pull_weight', 'push_weight'), {'type': 'AssociativeEmbeddingLoss'},
+                DROPPED)
+    off = _cfg(hc.get('loss_offset'))
+    _check_keys('CornerHead loss_offset', off, ('beta',),
+                dict(type='SmoothL1Loss', loss_weight=1), DROPPED)
+    tc = _cfg(test_cfg)
+    _check_keys('CornerNet test_cfg', tc, CORNER_TEST_KEYS, item=DROPPED)
+    nms = _cfg(tc.get('nms_cfg'))
+    _check_keys('CornerNet test_cfg.nms_cfg', nms, ('iou_threshold',), dict(
+        type='soft_nms', method='gaussian', sigma=0.5), DROPPED)
+    num_classes = hc.get('num_classes', 80)
+    head = CornerHead(num_classes=num_classes,
+                      in_channels=hc.get('in_channels', 256),
+                      num_feat_levels=hc.get('num_feat_levels', 2),
+                      corner_emb_channels=hc.get('corner_emb_channels', 1))
+    return CornerNet(
+        build_backbone(cfg['backbone']), head, num_classes=num_classes,
+        pull_weight=emb.get('pull_weight', 0.25),
+        push_weight=emb.get('push_weight', 0.25),
+        offset_beta=off.get('beta', 1.0),
+        corner_topk=tc.get('corner_topk', 100),
+        local_maximum_kernel=tc.get('local_maximum_kernel', 3),
+        distance_threshold=tc.get('distance_threshold', 0.5),
+        num_dets=tc.get('num_dets', 1000), score_thr=tc.get('score_thr', 0.05),
+        nms_iou_thr=nms.get('iou_threshold', 0.5),
+        max_per_img=tc.get('max_per_img', 100))
 
 
 def _materialise(det, dev: torch.device, seed: int,

@@ -3,12 +3,14 @@
 ``select_class_channel`` and ``fcn_mask_loss``).
 
 Four 3x3 convs with ReLU (bias-free, each with a GroupNorm, under
-``norm='gn'``), a 2x2 stride-2 transposed conv (or, with
-``upsample_type='carafe'``, a 2x ``CARAFEPack`` at JAX's defaults) with
-ReLU, and a 1x1 conv to one logit map per class (one map when
-``class_agnostic``); BCE on each positive RoI's own class channel. The
-modules keep mmdet's names (``convs.{i}.conv`` / ``.gn``, ``upsample``,
-``conv_logits``), so the reference's ``state_dict`` keys read as they are.
+``norm='gn'``; ``num_convs`` of them, none in the C4 head, where the
+transposed conv reads the shared head's ``in_channels``), a 2x2 stride-2
+transposed conv (or, with ``upsample_type='carafe'``, a 2x
+``CARAFEPack`` at JAX's defaults) with ReLU, and a 1x1 conv to one logit
+map per class (one map when ``class_agnostic``); BCE on each positive
+RoI's own class channel. The modules keep mmdet's names
+(``convs.{i}.conv`` / ``.gn``, ``upsample``, ``conv_logits``), so the
+reference's ``state_dict`` keys read as they are.
 """
 
 from __future__ import annotations
@@ -43,10 +45,11 @@ class FCNMaskHead(nn.Module):
                        conv_out_channels, 3, padding=1,
                        gn_groups=gn_groups if norm else None)
             for i in range(num_convs))
-        self.upsample = (CARAFEPack(conv_out_channels, 2)
+        up_in = conv_out_channels if num_convs else in_channels
+        self.upsample = (CARAFEPack(up_in, 2)
                          if upsample_type == 'carafe' else
-                         nn.ConvTranspose2d(conv_out_channels,
-                                            conv_out_channels, 2, stride=2))
+                         nn.ConvTranspose2d(up_in, conv_out_channels, 2,
+                                            stride=2))
         self.conv_logits = nn.Conv2d(conv_out_channels,
                                      1 if class_agnostic else num_classes, 1)
 

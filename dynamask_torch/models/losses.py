@@ -5,7 +5,8 @@
 ``accuracy`` :160, ``ghm_c_loss`` :296-320, ``ghm_r_loss`` :410-432,
 ``bounded_iou_loss`` :456-485, GFL's ``quality_focal_loss`` :335-361
 and ``distribution_focal_loss`` :398-418, Libra R-CNN's
-``balanced_l1_loss`` :282-295, and the focal loss of ``dynamask_tpu/
+``balanced_l1_loss`` :282-295, CornerNet's ``gaussian_focal_loss`` :322,
+and the focal loss of ``dynamask_tpu/
 models/single_stage.py:253-259``). Dense padded inputs with elementwise
 weights and an ``avg_factor``, as in the JAX package."""
 
@@ -162,6 +163,24 @@ def smooth_l1_loss(pred, target, beta: float = 1.0, weight=None,
                    avg_factor=None) -> torch.Tensor:
     return weight_reduce_loss(smooth_l1_elementwise(pred, target, beta),
                               weight, avg_factor)
+
+
+def gaussian_focal_loss(pred_sigmoid: torch.Tensor,
+                        gaussian_target: torch.Tensor, alpha: float = 2.0,
+                        gamma: float = 4.0, weight=None,
+                        avg_factor=None) -> torch.Tensor:
+    """CornerNet's heatmap focal loss: the peak cells (target 1) weigh
+    ``(1 - p) ** alpha``, the others ``p ** alpha (1 - t) ** gamma``;
+    reduced as :func:`weight_reduce_loss` reduces (a mean without weight
+    or ``avg_factor``)."""
+    eps = 1e-12
+    pos = (gaussian_target == 1).to(pred_sigmoid.dtype)
+    neg_w = torch.pow(1 - gaussian_target, gamma)
+    pos_loss = -torch.log(pred_sigmoid.clamp(min=eps)) * \
+        torch.pow(1 - pred_sigmoid, alpha) * pos
+    neg_loss = -torch.log((1 - pred_sigmoid).clamp(min=eps)) * \
+        torch.pow(pred_sigmoid, alpha) * neg_w * (1 - pos)
+    return weight_reduce_loss(pos_loss + neg_loss, weight, avg_factor)
 
 
 def balanced_l1_loss(pred, target, beta: float = 1.0, alpha: float = 0.5,

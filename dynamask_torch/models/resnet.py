@@ -30,7 +30,12 @@ variants the JAX ``ResNet`` takes (``:286-405``) and its builder registers
   ``after_conv2`` (before the ReLU, as JAX places them, where mmdet puts
   them after it: 3ap) or ``after_conv3``, named as mmdet's
   ``make_block_plugins`` names them (``context_block``,
-  ``gen_attention_block``, and the plugin's ``postfix``).
+  ``gen_attention_block``, and the plugin's ``postfix``);
+* ``strides`` / ``dilations``: each stage's first-block stride and its
+  3x3s' dilation (padding = dilation), as JAX reads them (``:307-308,
+  :372-373``); the C4 configs' ``num_stages=3``, ``strides=(1, 2, 2)``
+  stop at the stride-16 ``layer3``. A deformable 3x3 at a dilation other
+  than 1 is refused (no config names one).
 
 Module names follow mmdet, so the state dict reads
 ``backbone.layer1.0.conv1.weight``, ``...bn1`` (``gn1`` under GN), and
@@ -57,8 +62,6 @@ from .layers import (BatchNorm2d, ConvWS2d, DeformConv2dPack, GroupNorm,
                      WeightFaults)
 from .plugins import build_plugin
 
-# where the ResNet options the port lacks are queued (ROADMAP.md §1)
-NOT_PORTED = {'strides': 9, 'dilations': 9}
 # the keys the JAX package drops or fixes (ROADMAP.md queue 3, 3w): refused
 # at any other value than the one it computes with
 DROPPED = 'ROADMAP.md queue 3, 3w: the JAX package drops it'
@@ -185,13 +188,15 @@ class BasicBlock(_Block):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, norm: Norm = None, conv=nn.Conv2d,
                  zero_init_residual: bool = True, dcn: Optional[dict] = None,
-                 plugins=(), **_):
+                 plugins=(), dilation: int = 1, **_):
         super().__init__()
         norm = norm or Norm()
+        d = dilation
         self.conv1 = (self._dcn(inplanes, planes, stride, dcn) if dcn else
-                      conv(inplanes, planes, 3, stride, 1, bias=False))
+                      conv(inplanes, planes, 3, stride, d, dilation=d,
+                           bias=False))
         self.n1 = self._add_norm(1, norm, planes)
-        self.conv2 = conv(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = conv(planes, planes, 3, 1, d, dilation=d, bias=False)
         self.n2 = self._add_norm(2, norm, planes, zero_init_residual)
         self.downsample = (self._projection(inplanes, planes, stride, norm)
                            if downsample else None)
@@ -214,7 +219,7 @@ class Bottleneck(_Block):
                  downsample: bool = False, norm: Norm = None, conv=nn.Conv2d,
                  zero_init_residual: bool = True, style: str = 'pytorch',
                  groups: int = 1, base_width: int = 64,
-                 dcn: Optional[dict] = None, plugins=()):
+                 dcn: Optional[dict] = None, plugins=(), dilation: int = 1):
         super().__init__()
         norm = norm or Norm()
         s1, s2 = (1, stride) if style == 'pytorch' else (stride, 1)
@@ -222,8 +227,8 @@ class Bottleneck(_Block):
         self.conv1 = conv(inplanes, width, 1, s1, bias=False)
         self.n1 = self._add_norm(1, norm, width)
         self.conv2 = (self._dcn(width, width, s2, dcn) if dcn else
-                      conv(width, width, 3, s2, 1, groups=groups,
-                           bias=False))
+                      conv(width, width, 3, s2, dilation, dilation=dilation,
+                           groups=groups, bias=False))
         self.n2 = self._add_norm(2, norm, width)
         self.conv3 = conv(width, planes * 4, 1, bias=False)
         self.n3 = self._add_norm(3, norm, planes * 4, zero_init_residual)
@@ -307,12 +312,12 @@ class ResNet(Backbone):
                  zero_init_residual: bool = True,
                  dcn: Optional[dict] = None,
                  stage_with_dcn: Optional[Tuple[bool, ...]] = None,
-                 plugins=None, **unported):
+                 plugins=None, strides: Tuple[int, ...] = (1, 2, 2, 2),
+                 dilations: Tuple[int, ...] = (1, 1, 1, 1), **unported):
         super().__init__()
         if unported:
-            raise NotImplementedError('ResNet keys not ported: ' + ', '.join(
-                k + (f' (ROADMAP.md §1, item {NOT_PORTED[k]})'
-                     if k in NOT_PORTED else '') for k in sorted(unported)))
+            raise NotImplementedError('ResNet keys not ported: ' +
+                                      ', '.join(sorted(unported)))
         if depth not in ARCH_SETTINGS:
             raise KeyError(f'ResNet depth {depth} is not ported')
         if style not in ('pytorch', 'caffe'):
@@ -335,8 +340,15 @@ class ResNet(Backbone):
             self.add_module(self.stem_norm, norm.make(stem_channels))
         inplanes, planes = stem_channels, 64
         self.num_stages = num_stages
+        if len(strides) < num_stages or len(dilations) < num_stages:
+            raise ValueError(f'ResNet strides {strides} / dilations '
+                             f'{dilations} for {num_stages} stages')
         for i, n in enumerate(stage_blocks[:num_stages]):
-            stride = 1 if i == 0 else 2
+            stride, dilation = strides[i], dilations[i]
+            if dcn and with_dcn[i] and dilation != 1:
+                raise NotImplementedError(
+                    f'ResNet stage {i + 1}: a deformable 3x3 at dilation '
+                    f'{dilation} is not ported (no config names one)')
             blocks = []
             for b in range(n):
                 first = b == 0
@@ -349,7 +361,7 @@ class ResNet(Backbone):
                     zero_init_residual=zero_init_residual, style=style,
                     groups=groups, base_width=base_width,
                     dcn=dcn if with_dcn[i] else None,
-                    plugins=per_stage[i]))
+                    plugins=per_stage[i], dilation=dilation))
                 inplanes = planes * block.expansion
             setattr(self, f'layer{i + 1}', nn.Sequential(*blocks))
             planes *= 2

@@ -15,7 +15,14 @@ mask branch reads the first ``max_pos`` slots of each image. The mask
 branch here is Mask R-CNN's: a 14x14 crop through the FCN mask head to
 28x28 logits, each RoI's class channel; ``DynaMaskRoIHead`` overrides
 it. With ``mask_head=None`` (Faster and Fast R-CNN) the head is the box
-branch alone: box losses in training, boxes at inference."""
+branch alone: box losses in training, boxes at inference.
+
+The C4 detectors put a ``shared_head`` (``models/shared_head.py``, res5)
+between each extract and its head, the box crop's and the mask crop's
+alike (JAX ``roi_head.py:162, :213, :272, :326``). The DeformRoIPool
+files extract the box crop with a ``bbox_roi_extractor`` module of their
+own (``models/deform_roi_pool.py``: plain PyTorch, no kernel) in place of
+RoIAlign (JAX ``bbox_extractor_obj``, :155-158)."""
 
 from __future__ import annotations
 
@@ -90,10 +97,14 @@ class StandardRoIHead(nn.Module):
                  reg_decoded_bbox: bool = False,
                  roi_extract_mode: str = 'single',
                  nms_cfg: Optional[dict] = None,
-                 sampler: Optional[RandomSampler] = None):
+                 sampler: Optional[RandomSampler] = None,
+                 shared_head: Optional[nn.Module] = None,
+                 bbox_roi_extractor: Optional[nn.Module] = None):
         super().__init__()
         self.bbox_head = bbox_head
         self.mask_head = mask_head
+        self.shared_head = shared_head
+        self.bbox_roi_extractor = bbox_roi_extractor
         self.num_classes = num_classes
         self.featmap_strides = tuple(featmap_strides)
         self.bbox_roi_out = bbox_roi_out
@@ -140,9 +151,22 @@ class StandardRoIHead(nn.Module):
                                     sampling_ratio=ROI_SAMPLING_RATIO,
                                     finest_scale=FINEST_SCALE)
 
+    def _shared(self, crops: torch.Tensor) -> torch.Tensor:
+        """(N, P, P, C) NHWC crops -> NCHW: through the shared head, where
+        there is one."""
+        x = to_nchw(crops)
+        return x if self.shared_head is None else self.shared_head(x)
+
     def _bbox_forward(self, feats, rois, roi_batch):
-        return self.bbox_head(self._extract(feats, rois, roi_batch,
-                                            self.bbox_roi_out))
+        if self.bbox_roi_extractor is not None:
+            crops = self.bbox_roi_extractor(
+                [to_nhwc(f) for f in feats[:len(self.featmap_strides)]],
+                rois, roi_batch)
+        else:
+            crops = self._extract(feats, rois, roi_batch, self.bbox_roi_out)
+        if self.shared_head is None:
+            return self.bbox_head(crops)
+        return self.bbox_head(to_nhwc(self._shared(crops)))
 
     def _sample_rois(self, proposals, proposal_valid, batch,
                      priorities=None, generator=None, assigner=None,
@@ -236,7 +260,7 @@ class StandardRoIHead(nn.Module):
         ``mask_roi_out`` crop (K2; K4 in the backward), the mask head, and
         each RoI's targets at the logits' size from its GT's crop."""
         boxes, valid, labels, gt, roi_batch = self._pos_rois(sample)
-        logits = self.mask_head(to_nchw(self._extract(
+        logits = self.mask_head(self._shared(self._extract(
             feats, boxes, roi_batch, self.mask_roi_out)))
         targets = mask_targets_from_crops(
             batch['gt_crops'], batch['gt_windows'], boxes, roi_batch, gt,
@@ -297,7 +321,7 @@ class StandardRoIHead(nn.Module):
         mask head, its class channel, a sigmoid."""
         b, d = dets.shape[:2]
         rois, roi_batch = self._rois(dets, batch, rescale)
-        logits = self.mask_head(to_nchw(self._extract(
+        logits = self.mask_head(self._shared(self._extract(
             feats, rois, roi_batch, self.mask_roi_out)))
         probs = torch.sigmoid(select_class_channel(logits,
                                                    labels.reshape(b * d)))

@@ -24,8 +24,9 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 from .atss import ATSS, ATSSHead
-from .builder import (DROPPED, GA_HEAD_KEYS, _cfg, _check_keys, ga_anchor_cfg,
-                      ga_losses, ga_train_cfg, not_ported, pisa_cfg)
+from .builder import (DROPPED, GA_HEAD_KEYS, UNQUEUED, _cfg, _check_keys,
+                      ga_anchor_cfg, ga_losses, ga_train_cfg, not_ported,
+                      pisa_cfg)
 from .fcos import FCOS, FCOSHead, INF
 from .freeanchor import FreeAnchor
 from .single_stage import RetinaHead, RetinaNet, RetinaSepBNHead
@@ -66,7 +67,8 @@ def _train_cfg(train_cfg: dict, assigner_type: Optional[str] = None,
                 DROPPED)
     a = _cfg(tr.get('assigner'))
     if a.get('type', assigner_type) != assigner_type:
-        raise not_ported(f'assigner {a["type"]} of a single-stage head', 9)
+        raise not_ported(f'assigner {a["type"]} of a single-stage head',
+                         UNQUEUED)
     _check_keys(assigner_type, a, ('type',) + tuple(assigner_keys),
                 {'ignore_iof_thr': -1, 'gt_max_assign_all': True}, DROPPED)
     return a

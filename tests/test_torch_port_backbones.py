@@ -190,7 +190,8 @@ def test_caffe_stride_on_the_first_1x1():
           stage_with_dcn=(False, True, True, True)), '3w'),
     (dict(plugins=[dict(cfg=dict(type='ContextBlock',
                                  fusion_types=('channel_mul',)))]), '3w'),
-    (dict(strides=(1, 2, 2, 1), dilations=(1, 1, 1, 2)), 'item 9'),
+    (dict(dcn=dict(type='DCN'), strides=(1, 2, 2, 1),
+          dilations=(1, 1, 1, 2)), 'dilation 2'),
     (dict(norm_cfg=dict(type='BN', eps=1e-3)), 'GN(num_groups)'),
     (dict(conv_cfg=dict(type='ConvAWS')), 'Conv and ConvWS')])
 def test_unported_keys_refused(cfg, what):

@@ -263,8 +263,8 @@ def test_groie_refused():
     """Fault 3a stays fixed: the GRoIE config's ``GenericRoIExtractor``
     (every level pooled and summed in JAX) is not built with FPN routing:
     it builds with the all-level extract as JAX builds it, and a GRoIE
-    extractor with the ``pre_cfg`` / ``post_cfg`` modules the port lacks
-    is refused, naming item 9."""
+    extractor with the ``pre_cfg`` / ``post_cfg`` modules, which the JAX
+    builder drops, is refused, naming 3w."""
     from dynamask_tpu.models import build_detector as jax_build
     from dynamask_torch.apis import init_detector
     from dynamask_torch.utils.config import Config
@@ -284,7 +284,7 @@ def test_groie_refused():
     d['model']['roi_head']['bbox_roi_extractor']['pre_cfg'] = dict(
         type='ConvModule', in_channels=256, out_channels=256, kernel_size=5,
         padding=2, inplace=False)
-    with pytest.raises(NotImplementedError, match='item 9'):
+    with pytest.raises(NotImplementedError, match='3w'):
         build_detector(d['model'], d['train_cfg'], d['test_cfg'],
                        device='meta')
 

@@ -173,14 +173,17 @@ def test_inside_is_the_product_of_the_axes():
 # dets; the dynamic mode's last SFM stage may hold one RoI), then training
 # (2048 sampled RoIs, 512 positive slots); HTC's box-branch semantic crops
 # at ratio 1 (its mask-branch ones are the SFM 14x14 shapes); GRoIE's
-# all-level crops last, 4 levels x the RoIs: an image's box extract, a
-# step's box and mask extracts
+# all-level crops, 4 levels x the RoIs: an image's box extract, a step's
+# box and mask extracts; the C4 detectors' 14x14 crops at 1024 channels
+# last: an image's 1000 proposals and 100 dets, a step's 2048 and 512
 MAIN_SHAPES = [(1000, 7, 2, 256), (100, 14, 2, 256), (100, 14, 1, 256),
                (100, 28, 1, 128), (100, 56, 1, 64), (100, 56, 1, 128),
                (1, 56, 1, 64), (2048, 7, 2, 256), (512, 14, 2, 256),
                (512, 14, 1, 256), (512, 28, 1, 128), (512, 56, 1, 64),
                (512, 56, 1, 128), (1000, 7, 1, 256), (2048, 7, 1, 256),
-               (4000, 7, 2, 256), (8192, 7, 2, 256), (2048, 14, 2, 256)]
+               (4000, 7, 2, 256), (8192, 7, 2, 256), (2048, 14, 2, 256),
+               (1000, 14, 2, 1024), (100, 14, 2, 1024), (2048, 14, 2, 1024),
+               (512, 14, 2, 1024)]
 # the edge shapes of chip_smoke.py (ROI_EDGE_SHAPES)
 EDGE_SHAPES = [(9, 7, 2, 3), (9, 14, 1, 10), (9, 1, 2, 16), (9, 7, 3, 16),
                (1, 7, 2, 16), (9, 7, 2, 16), (9, 56, 1, 8), (9, 14, 2, 32)]
