@@ -323,9 +323,9 @@ before the last line is printed:
    launches (PISA Faster R-CNN: K2 1 an image, K2 2 and K4 1 a step, its
    Score-HLR pass over every candidate one K2 launch without K4; PISA
    Mask R-CNN 2, 3 and 2; Libra's two-stage files 1, 1 and 1; 0 on the
-   others), with its device-busy share. Then PISA Faster R-CNN's step
-   split into its sampler's host and device ms, Libra Faster R-CNN at
-   800x1344 required to raise the 3bj ``ValueError``, and toy SSD300 and
+   others) (their device-busy shares stand in PERF.md). Then PISA
+   Faster R-CNN's step split into its sampler's host and device ms, Libra
+   Faster R-CNN at 800x1344 required to raise the 3bj ``ValueError``, and toy SSD300 and
    NAS-FPN RetinaNet (float64 steps), PISA Mask R-CNN and Libra Faster
    R-CNN on the card against the CPU; phase 2's ``pisa ...`` lines time K2
    at the Score-HLR pass's 8080 RoIs and the 2000-proposal test crop. It
@@ -346,17 +346,42 @@ before the last line is printed:
    4 each, with phase 4's and phase 5's weights; each held to its exact
    K1-K5 launches (K2 1 an image and K2 1 + K4 1 a step on C4 Faster
    R-CNN, 2 and 2 + 2 on C4 Mask R-CNN, 0 on the RPN, the two deform pool
-   files and CornerNet), with its device-busy share (CornerNet's from a
-   profiled step that also gives its ten costliest kernels by name,
-   ``cornernet step, profiled``); then the plain deform pool timed at an
-   image's and a step's box crops (``plain dpool ...`` lines), CornerNet
+   files and CornerNet) (their device-busy shares stand in PERF.md);
+   then the plain deform pool timed at an image's and a step's box
+   crops (``plain dpool ...`` lines), CornerNet
    at 800x1344 required to raise the 3bq ``ValueError`` (its Hourglass
    cannot halve that canvas evenly), and toy C4 Mask R-CNN, mdpool
    Faster R-CNN and CornerNet on the card against the CPU; phase
    2's ``c4 ...`` lines time K2 at the C4 crops of an image (1000
    proposals, 100 dets, 14x14 at 1024 channels on the 50x84 stride-16
    map) and K2 and K4 at a step's (2048 box RoIs and 512 mask slots of 4
-   images). It prints the phase's seconds and the whole run's.
+   images). It prints the phase's seconds;
+22. run item 2's bf16 on the families that run the hand kernels, each
+   file from its config, unchanged, at full width, as its fp32 cell of
+   phases 8-21 drives it (``ITEM22_CELLS``, ``run_item22``): DynaMask
+   R101 3x, LVIS (an image) and Cityscapes (1024x2048, batch 1) in both
+   MSM modes, RefineMask R50, the C4 Mask R-CNN, Cascade Mask R-CNN, HTC
+   (its step with ``gt_semantic_seg``), the X101-32x4d Mask R-CNN (an
+   image), GRoIE, HRNet-W32 (its step from N(0, 0.05) weights),
+   GA-Faster R-CNN, GA-RetinaNet, the SAC Cascade R-CNN and PointRefine:
+   an image through ``make_test_fn(..., bf16=True)`` and a step through
+   ``train_steps(..., compute_dtype=torch.bfloat16)``, each a counted
+   warm-up, a timed repeat and a profiled pass; each drive launches the
+   bf16 instance of each kernel exactly as often as the same file's fp32
+   drive launched the fp32 one earlier in this run, no fp32 instance and
+   no K5, and step 0's loss is finite and within 5% of the fp32 cell's
+   step 0 (on the DynaMask files, where both steps route every RoI alike,
+   with the mask loss taken on the bf16 step's logits cast to fp32: in
+   bf16 JAX's detail loss saturates, 3by; where the routing differs,
+   without the MSM-routed terms). Each file's ``<name>
+   <mode>:`` and ``<name> step:`` lines put bf16 beside the fp32 drive:
+   ms, peak memory, the ratios. Phase 2's
+   bf16 lines hold K1 and K3 ``_bf16`` on every map of ``WHOLE_MAPS``
+   (K3's offset gradient exactly 0 from zero offsets) and K2 and K4
+   ``_bf16`` at RefineMask's P2 crops (C = 1 among them), HTC's semantic
+   crops, GRoIE's and Double-Head's crops and the C4 crops, each timed
+   beside its bound at 2 B an element, out of the ``kernels`` line's
+   sums. It prints the phase's seconds and the whole run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
@@ -370,7 +395,7 @@ loader-batch step, in phase 13 each config's image and steps and
 GRoIE's eval drive and loader-batch step, in phase 14 each config's
 image and steps and RetinaNet's eval drive, in phase 15 each config's
 image and steps and the HRNet-W18 Mask R-CNN's eval drive and
-loader-batch step, and in phases 16-21 each config's image and
+loader-batch step, and in phases 16-22 each config's image and
 steps)
 the kernels' launch
 counters are zeroed just before it
@@ -379,7 +404,7 @@ steps and its validations in turns), and every kernel of that path must
 have launched in it: K1 and K2 at inference, in the eval loops and in the
 loop's validations, K5 through both entry points in its check, K1-K4 in
 training; behind Mask R-CNN's FCN head, which runs no DCN, K2 at
-inference and K2 and K4 in training; phase 6 and phases 8-20 hold each
+inference and K2 and K4 in training; phase 6 and phases 8-22 hold each
 drive to its exact counts, every other kernel at 0 (the RPN's eval drive,
 every phase-14 drive, phase 15's FCOS and RetinaNet drives, phase 16's
 FCOS drives and phase 21's RPN, deform pool and CornerNet drives launch
@@ -390,6 +415,7 @@ power limit as ``nvidia-smi`` reports them, and the ``{"ok": true, ...}``
 line. Details go to ``chiprun_out/chip_smoke.json``.
 """
 
+import collections
 import contextlib
 import functools
 import itertools
@@ -616,28 +642,41 @@ def clustered_place(gen, dev, images, n_pos):
 
 def k1_bf16_cases(gen, dev):
     """K1's bf16 instance at the flagship's inference (n = 100) and
-    training (n = 512) shapes: K1's cases with x and the offsets in bf16."""
+    training (n = 512) shapes and on every whole map of ``WHOLE_MAPS``
+    (phase 22's guided-anchoring and SAC drives): K1's cases with x and the
+    offsets in bf16."""
     for case, (x, off), kw in k1_cases(gen, dev):
-        if case.startswith(WHOLE_MAP):     # the last ones, fp32 only
-            break
-        if case.startswith(('infer', 'train')):
+        if case.startswith(('infer', 'train', WHOLE_MAP)):
             yield case, (x.bfloat16(), off.bfloat16()), kw
         del x, off
 
 
 def k3_bf16_cases(gen, dev):
-    """K3's bf16 instance at the flagship's training shapes: K3's cases
+    """K3's bf16 instance at the flagship's training shapes and on a
+    step's whole maps (the SAC maps from zero offsets too): K3's cases
     with x, the offsets and the column gradient in bf16."""
     for case, args, kw in k3_cases(gen, dev):
-        if case.startswith(WHOLE_MAP):     # the last ones, fp32 only
-            break
-        if case.startswith('train'):
+        if case.startswith(('train', WHOLE_MAP)):
             yield case, tuple(a.bfloat16() for a in args), kw
         del args
 
 
+# the crops phase 22's bf16 drives give K2 and K4 beside the flagship's:
+# RefineMask's P2 crops (C = 256/128/64 and the one-channel semantic mask)
+# of a step and of an R50 image, HTC's stride-8 semantic crops of a step,
+# GRoIE's all-level and Double-Head's crops, the C4 level at 1024 channels
+def bf16_family_crops(dev, infer=True):
+    yield from refine_crops(dev, *REFINE_DRIVES[0])
+    if infer:
+        yield from refine_crops(dev, *REFINE_DRIVES[1])
+    yield from htc_crops(dev)
+    yield from two_stage_crops(dev, infer)
+    yield from c4_crops(dev, infer)
+
+
 def k2_bf16_cases(gen, dev):
-    """K2's bf16 instance at the flagship's inference and training crops:
+    """K2's bf16 instance at the flagship's inference and training crops
+    and at the families' crops of phase 22 (:func:`bf16_family_crops`):
     K2's with the flat features in bf16 (RoIs, scales and plane indices as
     they are)."""
     for path, images, n_box, n_mask in (('infer', 1, 1000, N_DETS),
@@ -646,15 +685,25 @@ def k2_bf16_cases(gen, dev):
         for case, args, kw in _crops(gen, dev, images, n_box, n_mask):
             yield f'{path} {case}', (args[0].bfloat16(), *args[1:]), kw
             del args
+    for case, args, kw in bf16_family_crops(dev):
+        yield case, (args[0].bfloat16(), *args[1:]), kw
+        del args
 
 
 def k4_bf16_cases(gen, dev):
-    """K4's bf16 instance at the flagship's training crops: K4's with the
+    """K4's bf16 instance at the flagship's training crops and at the
+    families' crops of a step (:func:`bf16_family_crops`): K4's with the
     crop gradient in bf16; the result is its fp32 sum."""
+    import torch
     for case, args, kw in k4_cases(gen, dev):
         if case.startswith('train '):
             yield case, (args[0].bfloat16(), *args[1:]), kw
         del args
+    cgen = torch.Generator(device=dev).manual_seed(27)
+    for case, args, kw in bf16_family_crops(dev, infer=False):
+        d_out, *rest = k4_args(cgen, args, kw)
+        yield case, (d_out.bfloat16(), *rest), kw
+        del args, d_out, rest
 
 
 def k5_cases(gen, dev):
@@ -1293,12 +1342,22 @@ def bins_read(args, kw):
                 in_x.reshape(-1, p, s).any(2).sum(1)).sum())
 
 
+# the operations of one sample's four bilinear weights from its fractional
+# position (ly, lx): hy = 1 - ly, hx = 1 - lx, then the four products
+BILINEAR_WEIGHT_OPS = 6
+
+
 def k2_bound(args, kw, out):
     # the features each crop reads (not the whole pyramid), once
     flat, rois, base, hs, ws, sc = args
     feat_bytes = rows_read(args, kw) * flat.shape[1] * flat.element_size()
+    # per sample and channel: four products with the corner weights, added
+    # (4 FMAs); per bin and channel: the mean's one scale; the four weights
+    # are the sample's, shared by its channels (BILINEAR_WEIGHT_OPS each)
+    s2 = kw['sampling_ratio'] ** 2
     return (feat_bytes + _nbytes(rois, base, hs, ws, sc, out),
-            {'fp32': out.numel() * (kw['sampling_ratio'] ** 2 * 16 + 1)})
+            {'fp32': out.numel() * (s2 * 8 + 1) +
+             out[..., 0].numel() * s2 * BILINEAR_WEIGHT_OPS})
 
 
 def k4_bound(args, kw, out):
@@ -1306,9 +1365,13 @@ def k4_bound(args, kw, out):
     # wrapper's output, written once
     d_out, _, rois, base, hs, ws, sc = args
     d_out_bytes = bins_read(args, kw) * d_out.shape[-1] * d_out.element_size()
-    # per sample: four weights, four products with the gradient, four adds
+    # per bin and channel: the mean's one scale; per sample and channel:
+    # four products of the corner weights with it, four adds into d_flat;
+    # the four weights per sample, shared by its channels
+    s2 = kw['sampling_ratio'] ** 2
     return (d_out_bytes + _nbytes(rois, base, hs, ws, sc, out),
-            {'fp32': d_out.numel() * (kw['sampling_ratio'] ** 2 * 12 + 1)})
+            {'fp32': d_out.numel() * (s2 * 8 + 1) +
+             d_out[..., 0].numel() * s2 * BILINEAR_WEIGHT_OPS})
 
 
 def k3_zeros(got, ref, args, kw):
@@ -1728,6 +1791,11 @@ def check_kernels(report):
                 raise RuntimeError(f'{name} [{case}] gives an offset '
                                    'gradient where the tent and clip rules '
                                    'give exactly 0')
+            if zeros is not None and case.endswith(' zero') and \
+                    got[1].any():
+                raise RuntimeError(f'{name} [{case}]: an offset gradient '
+                                   'from zero offsets, where it must be '
+                                   'exactly 0 (3f)')
             del ref
             ms = cuda_ms(lambda: kernel(*args, **kw))
             plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=5)
@@ -3373,8 +3441,7 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
           f'{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, '
           f'{classes} classes, {d} det slots, canvas {h}x{w}')
     launches, recs = {}, []
-    fn = (make_test_fn(model, hw, bf16=True) if bf16 else
-          functools.partial(inference_detector, model))
+    fn = None if bf16 else functools.partial(inference_detector, model)
     side = mask_side(rh)
 
     def drive(dynamic):
@@ -3385,6 +3452,13 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
         return out
 
     for mode, dyn, counts in modes:
+        if bf16:
+            # the bf16 copy drives the mode its fp32 model has when it is
+            # made: one copy per mode, the last one dropped first
+            if dyn is not None:
+                rh.dynamic_inference = dyn
+            fn = None
+            fn = make_test_fn(model, hw, bf16=True)
         torch.cuda.synchronize(DEVICE)
         torch.cuda.reset_peak_memory_stats(DEVICE)
         ops.reset_kernel_launches()
@@ -3454,6 +3528,43 @@ def run_config_inference(report, card, name, path, hw, modes, repeats=5,
     return launches, recs
 
 
+@contextlib.contextmanager
+def msm_step_of(model, store):
+    """While active, a DynaMask model's training step appends to ``store``
+    (given) what its mask loss saw, as tensors on the card read after the
+    step (no synchronisation inside it): 'routing', the stage each
+    positive RoI's straight-through Gumbel argmax picks (-1 on a padding
+    RoI); 'saturated', the share of the detail logits whose sigmoid is
+    exactly 0 or 1 in their own type; 'loss_masks_f32', the same
+    ``dyna_mask_loss`` on the same logits cast to fp32 first."""
+    import torch
+    import dynamask_torch.models.dynamask_roi_head as drh
+    if store is None or not hasattr(getattr(model, 'roi_head', None),
+                                    '_msm_labels'):
+        yield
+        return
+    saved = drh.dyna_mask_loss
+
+    def record(preds, details, targets, mask_labels, valid, *args, **kw):
+        with torch.no_grad():
+            stage = mask_labels.argmax(1).masked_fill(~valid.bool(), -1)
+            sig = [torch.sigmoid(d) for d in details]
+            n_sat = sum(((g == 0) | (g == 1)).sum() for g in sig)
+            f32 = saved([p.float() for p in preds],
+                        [d.float() for d in details], targets,
+                        mask_labels.float(), valid, *args, **kw)
+            store.append(dict(
+                routing=stage, loss_masks_f32=f32['loss_masks'],
+                saturated=n_sat / sum(g.numel() for g in sig)))
+        return saved(preds, details, targets, mask_labels, valid, *args,
+                     **kw)
+    drh.dyna_mask_loss = record
+    try:
+        yield
+    finally:
+        drh.dyna_mask_loss = saved
+
+
 def run_config_train(report, card, name, path, images, hw, counts,
                      repeats=TIMED_STEPS, compute_dtype=None, init_std=None,
                      busy=False):
@@ -3494,11 +3605,12 @@ def run_config_train(report, card, name, path, images, hw, counts,
     torch.cuda.synchronize(DEVICE)
     torch.cuda.reset_peak_memory_stats(DEVICE)
     ops.reset_kernel_launches()
-    times, logs = [], []
+    times, logs, msm = [], [], []
     for i in range(1 + repeats):
         t = time.perf_counter()
-        log, = train_steps(model, opt, [batch], generator=gen,
-                           compute_dtype=compute_dtype)
+        with msm_step_of(model, msm if i == 0 else None):
+            log, = train_steps(model, opt, [batch], generator=gen,
+                               compute_dtype=compute_dtype)
         torch.cuda.synchronize(DEVICE)
         times.append(1e3 * (time.perf_counter() - t))
         log = {k: float(v) for k, v in log.items()}
@@ -3529,6 +3641,8 @@ def run_config_train(report, card, name, path, images, hw, counts,
                launches=launches[key], bf16=bool(prec))
     if busy:
         rec['busy'] = shares
+    if msm:
+        rec['msm'] = {k: v.tolist() for k, v in msm[0].items()}
     del model, opt, batch
     torch.cuda.empty_cache()
     return launches, rec
@@ -5429,9 +5543,9 @@ def run_item6(report, card):
     the config's test canvas with phase 4's weights protocol and steps at
     its train batch (20 GTs an image) from the JAX initialisation, each a
     counted warm-up held to 0 launches of every kernel and to its exact
-    DCN forms, then a timed repeat and a profiled pass (the device-busy
-    share); then GFL through phase 6's eval drive, the plain DCNs timed by
-    level, and the toys on the card against the CPU."""
+    DCN forms, then a timed repeat (their device-busy shares stand in
+    PERF.md); then GFL through phase 6's eval drive, the plain DCNs
+    timed by level, and the toys on the card against the CPU."""
     import torch
     from dynamask_torch.apis import config_shapes
     launches = {}
@@ -5447,15 +5561,14 @@ def run_item6(report, card):
         with counted_dcn_forms() as counts:
             got, recs = run_config_inference(
                 report, card, name, path, test_hw, (('infer', None, {}),),
-                repeats=n_inf, busy=True)
+                repeats=n_inf)
         check_dcn_forms(report, f'{name}_infer', counts, forms, 'item6')
         launches.update(got)
         report['item6']['inference'] += recs
         if n_steps:
             with counted_dcn_forms() as counts:
                 got, rec = run_config_train(report, card, name, path, images,
-                                            train_hw, {}, repeats=n_steps,
-                                            busy=True)
+                                            train_hw, {}, repeats=n_steps)
             check_dcn_forms(report, f'{name}_train', counts, forms, 'item6')
             launches.update(got)
             report['item6']['train'].append(rec)
@@ -5824,10 +5937,10 @@ def run_item20(report, card):
     protocol and a step of 4 images (20 GTs each) from the JAX
     initialisation, on SSD's 300x300, 800x1344, the canvases where JAX's
     BFP is defined (768x1344, 768x1280) and NAS-FPN's 640x640; each a
-    counted warm-up held to its exact launches of every kernel, a timed
-    repeat and a profiled pass (the device-busy share). Then PISA Faster
-    R-CNN's sampler split, Libra's 3bj raise at 800x1344 and the toys on
-    the card against the CPU."""
+    counted warm-up held to its exact launches of every kernel and a timed
+    repeat (the device-busy shares stand in PERF.md). Then PISA
+    Faster R-CNN's sampler split, Libra's 3bj raise at 800x1344 and the
+    toys on the card against the CPU."""
     import torch
     from dynamask_torch.apis import config_shapes
     launches = {}
@@ -5837,12 +5950,12 @@ def run_item20(report, card):
         images = config_shapes(path)[1]
         got, recs = run_config_inference(
             report, card, name, path, infer_hw, (('infer', None, infer),),
-            repeats=1, busy=True)
+            repeats=1)
         launches.update(got)
         report['item20']['inference'] += recs
         if train_hw is not None:
             got, rec = run_config_train(report, card, name, path, images,
-                                        train_hw, step, repeats=1, busy=True)
+                                        train_hw, step, repeats=1)
             launches.update(got)
             report['item20']['train'].append(rec)
         torch.cuda.empty_cache()
@@ -5930,55 +6043,6 @@ def time_plain_dpool(report, card):
                 peak_memory_bytes=peak))
             del feats
         del ext
-    torch.cuda.empty_cache()
-
-
-def profile_cornernet_step(report, card, rec):
-    """CornerNet's step (4x511x511 from the JAX initialisation, its shapes
-    warmed by the timed drive) once more under ``torch.profiler``: the
-    drive's device-busy share (into ``rec``, its record) and the ten
-    kernels that take the most device time, by name (``cornernet step,
-    profiled``). One pass gives both, tracing the device alone: its ~264 k
-    launches make a trace that takes the host a while to read."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from dynamask_torch.apis import init_trainer, synthetic_batch, train_steps
-    model, opt = init_trainer(ITEM21_CONFIGS['cornernet'],
-                              steps_per_epoch=COCO_STEPS_PER_EPOCH,
-                              device=DEVICE, seed=0)
-    h, w = CORNER_TRAIN_HW
-    batch = synthetic_batch(0, b=TRAIN_IMAGES, h=h, w=w, num_gts=TRAIN_GTS,
-                            crop_size=128, num_classes=80, device='cpu')
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-    torch.cuda.synchronize(DEVICE)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        train_steps(model, opt, [batch], generator=gen)
-        torch.cuda.synchronize(DEVICE)
-        wall = time.perf_counter() - t
-    events = prof.events()
-    rec['busy'] = busy_of(events, wall)
-    # the kernels by name, the record_function ranges' device spans left out
-    ranges = {e.name for e in events if e.device_type == DeviceType.CPU}
-    by_name = {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA and e.name not in ranges and \
-                not getattr(e, 'is_user_annotation', False):
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    top = [dict(kernel=k, ms=ms, calls=n) for k, (ms, n) in sorted(
-        by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:10]]
-    total = sum(ms for ms, _ in by_name.values())
-    print(f'  cornernet_train: {busy_text(rec["busy"])}; cornernet step, '
-          f'profiled: {1e3 * wall:.1f} ms wall, {total:.1f} device ms in '
-          f'{sum(n for _, n in by_name.values())} kernel launches '
-          f'[{card}]; the ten costliest: ' + '; '.join(
-              f'{k["kernel"][:70]} {k["ms"]:.1f} ms x{k["calls"]}'
-              for k in top))
-    report['item21']['cornernet_profile'] = dict(wall_ms=1e3 * wall,
-                                                 device_ms=total, top=top)
-    del model, opt, prof, events
     torch.cuda.empty_cache()
 
 
@@ -6089,10 +6153,10 @@ def run_item21(report, card):
     unchanged, at full width: an image with phase 4's weights protocol and
     a step of 4 images (20 GTs each) from the JAX initialisation, at
     800x1344 (CornerNet at 383x511 and 511x511); each a counted warm-up
-    held to its exact launches of every kernel, a timed repeat and a
-    profiled pass (the device-busy share; CornerNet's that of a step split
-    by kernel). Then the plain deform pool timed, CornerNet's 3bq raise at
-    800x1344 and the toys on the card against the CPU."""
+    held to its exact launches of every kernel and a timed repeat (the
+    device-busy shares stand in PERF.md). Then the plain deform
+    pool timed, CornerNet's 3bq raise at 800x1344 and the toys on the card
+    against the CPU."""
     import torch
     launches = {}
     report['item21'] = {'inference': [], 'train': []}
@@ -6101,20 +6165,16 @@ def run_item21(report, card):
         path = ITEM21_CONFIGS[name]
         got, recs = run_config_inference(
             report, card, name, path, infer_hw, (('infer', None, infer),),
-            repeats=1, busy=True)
+            repeats=1)
         launches.update(got)
         report['item21']['inference'] += recs
-        # CornerNet's profiled step is profile_cornernet_step's
         got, rec = run_config_train(report, card, name, path, TRAIN_IMAGES,
-                                    train_hw, step, repeats=1,
-                                    busy=name != 'cornernet')
+                                    train_hw, step, repeats=1)
         launches.update(got)
         report['item21']['train'].append(rec)
         torch.cuda.empty_cache()
     parts = {'drives': time.perf_counter() - t}
-    for part, fn in (('cornernet profile', lambda: profile_cornernet_step(
-            report, card, report['item21']['train'][-1])),
-                     ('plain dpool', lambda: time_plain_dpool(report, card)),
+    for part, fn in (('plain dpool', lambda: time_plain_dpool(report, card)),
                      ('3bq', lambda: check_hourglass_3bq(report, card)),
                      ('toys', lambda: check_item21_toys(report))):
         t = time.perf_counter()
@@ -6123,6 +6183,200 @@ def run_item21(report, card):
     report['item21']['parts_s'] = parts
     print('  phase 21 parts: ' + ', '.join(f'{k} {v:.1f} s'
                                            for k, v in parts.items()))
+    return launches
+
+
+# -- phase 22: item 2, bf16 on the families that run the hand kernels -------
+
+# (name of the file's fp32 cell in phases 8-21, config, a step too); each
+# file is driven as its fp32 cell drives it: phase 8's DynaMask files in
+# both MSM modes, the HRNet step from N(0, HRNET_STEP_STD) weights (3aj)
+ITEM22_CELLS = (
+    ('r101', dict(CONFIG_CELLS)['r101'], True),
+    ('lvis', dict(CONFIG_CELLS)['lvis'], False),
+    ('cityscapes', dict(CONFIG_CELLS)['cityscapes'], True),
+    ('refine_r50', REFINEMASK, True),
+    ('mask_rcnn_c4', ITEM21_CONFIGS['mask_rcnn_c4'], True),
+    ('cascade_mask_rcnn', CASCADE_CONFIG, True),
+    ('htc', HTC_CONFIG, True),
+    ('x101', X101, False),
+    ('groie', GROIE_CONFIG, True),
+    ('hrnet_w32', os.path.join(HRNET_DIR, 'mask_rcnn_hrnetv2p_w32_1x_coco.py'),
+     True),
+    ('ga_faster', os.path.join(GA_DIR, 'ga_faster_r50_fpn_1x_coco.py'), True),
+    ('ga_retinanet', os.path.join(GA_DIR, 'ga_retinanet_r50_fpn_1x_coco.py'),
+     True),
+    ('sac_cascade_rcnn', os.path.join(DETECTORS_DIR,
+                                      'cascade_rcnn_r50_sac_1x_coco.py'), True),
+    ('point_refine', TOY_CONFIGS['point_refine'], True),
+)
+
+
+# DynaMask's mask loss weighs each stage's detail loss by the MSM's
+# straight-through Gumbel argmax and divides it by the stage's routed count;
+# the flops loss is the routed stages' mean cost. Step 0's routing is
+# recorded on both sides (:func:`msm_step_of`). Where it agrees RoI for
+# RoI, the whole loss is held to BF16_LOSS_RTOL, its mask loss taken on the
+# bf16 step's own logits cast to fp32: in bf16, JAX's detail loss takes the
+# log of 1 - sigmoid in the logits' type, which is exactly 0 past |x| ~ 6.9
+# and then clamps to log(1e-10) (3by; the port keeps JAX's function), so
+# random full-width weights move it by tens of percent. Where the routing
+# differs, the loss without these terms is held, and the routing of both is
+# printed beside them.
+ROUTED_LOSSES = ('loss_masks', 'loss_flops')
+
+
+def held_loss(log, msm, routing_agrees):
+    """Step 0's loss as the step-0 rule holds it (``msm``: the step's
+    :func:`msm_step_of` record, None off DynaMask)."""
+    if msm is None:
+        return log['loss']
+    if routing_agrees:
+        return log['loss'] - log['loss_masks'] + msm['loss_masks_f32']
+    return log['loss'] - sum(log.get(k, 0.0) for k in ROUTED_LOSSES)
+
+
+def routing_text(r16, r32):
+    """Both steps' routed counts per stage (valid RoIs) and how many RoIs
+    the two route differently."""
+    def hist(r):
+        return dict(sorted(collections.Counter(v for v in r if v >= 0
+                                               ).items()))
+    moved = (sum(a != b for a, b in zip(r16, r32)) if len(r16) == len(r32)
+             else 'all (RoI counts differ)')
+    return (f'routed per stage bf16 {hist(r16)}, fp32 {hist(r32)}, '
+            f'{moved} of {len(r16)} RoIs routed differently')
+
+
+def fp32_records(report, name):
+    """The fp32 drives of config cell ``name`` in this run's earlier
+    phases: ({mode: an image's record}, the steps' record)."""
+    infer, train = {}, None
+    for section in report.values():
+        if not isinstance(section, dict):
+            continue
+        for rec in section.get('inference') or ():
+            if isinstance(rec, dict) and rec.get('config') == name and \
+                    not rec.get('bf16'):
+                infer[rec['mode']] = rec
+        for rec in section.get('train') or ():
+            if isinstance(rec, dict) and rec.get('config') == name and \
+                    not rec.get('bf16'):
+                train = rec
+    if not infer:
+        raise RuntimeError(f'{name}: no fp32 drive in this run to hold '
+                           'its bf16 drive to')
+    return infer, train
+
+
+def per_drive(rec):
+    """One drive's launches of an fp32 record (a step's: its total over
+    the warm-up and the timed steps, divided by their number)."""
+    n = len(rec['times_ms']) if 'ms_per_step' in rec else 1
+    counts = {k: v // n for k, v in rec['launches'].items() if v}
+    if any(v % n for v in rec['launches'].values()):
+        raise RuntimeError(f'{rec["config"]}: {rec["launches"]} over {n} '
+                           'steps')
+    return counts
+
+
+def run_item22(report, card):
+    """Phase 22: item 2's bf16 on the files of the families that run the
+    hand kernels (``ITEM22_CELLS``), each from its config file, unchanged,
+    at full width, as its fp32 cell in phases 8-21 drives it: an image
+    through ``make_test_fn(..., bf16=True)`` at the config's test canvas
+    (both MSM modes on the DynaMask files) and a step of the config's
+    batch (4 at 800x1344; Cityscapes 1 at 1024x2048; HTC's with
+    ``gt_semantic_seg``) through ``train_steps(..., compute_dtype=
+    torch.bfloat16)``, each a counted warm-up, a timed repeat and a
+    profiled pass. Each drive must launch the bf16 instance of each kernel
+    exactly as often as the same file's fp32 drive in this run launched
+    the fp32 one, and no fp32 instance and no K5; step 0's loss finite and
+    within BF16_LOSS_RTOL of the fp32 cell's step 0 (DynaMask's as
+    :func:`held_loss` holds it). Each file's line beside its
+    fp32 drive: ms, peak memory, the ratios."""
+    import torch
+    from dynamask_torch.apis import config_shapes
+    launches = {}
+    report['item22'] = {'inference': [], 'train': [], 'pairs': []}
+    for name, path, step in ITEM22_CELLS:
+        test_hw, images, train_hw = config_shapes(path)
+        infer32, train32 = fp32_records(report, name)
+        key = f'{name}_bf16'
+        modes = tuple((mode, None if mode == 'infer' else mode == 'dynamic',
+                       in_precision(per_drive(rec), 'bf16'))
+                      for mode, rec in infer32.items())
+        got, recs = run_config_inference(report, card, key, path, test_hw,
+                                         modes, repeats=1, bf16=True,
+                                         busy=True)
+        launches.update(got)
+        report['item22']['inference'] += recs
+        pair = dict(config=name, infer={})
+        for rec in recs:
+            r32 = infer32[rec['mode']]
+            pair['infer'][rec['mode']] = dict(
+                bf16_ms=rec['ms_per_img'], fp32_ms=r32['ms_per_img'],
+                bf16_peak=rec['peak_memory_bytes'],
+                fp32_peak=r32['peak_memory_bytes'])
+            print(f'  {name} {rec["mode"]}: bf16 {rec["ms_per_img"]:.1f} '
+                  f'ms/img, fp32 {r32["ms_per_img"]:.1f} (phase 8-21 cell, '
+                  f'this run), ratio '
+                  f'{rec["ms_per_img"] / r32["ms_per_img"]:.2f}; peak '
+                  f'memory bf16 {rec["peak_memory_bytes"] / 2 ** 30:.2f} '
+                  f'GiB, fp32 {r32["peak_memory_bytes"] / 2 ** 30:.2f} '
+                  f'[{card}]')
+        if step:
+            got, rec = run_config_train(
+                report, card, key, path, images, train_hw,
+                in_precision(per_drive(train32), 'bf16'), repeats=1,
+                compute_dtype=torch.bfloat16, busy=True,
+                init_std=HRNET_STEP_STD if 'hrnet' in name else None)
+            launches.update(got)
+            report['item22']['train'].append(rec)
+            m16, m32 = rec.get('msm'), train32.get('msm')
+            if (m16 is None) != (m32 is None):
+                raise RuntimeError(f'{name}: the MSM recorded on one step '
+                                   'of the two')
+            agrees = m16 is None or m16['routing'] == m32['routing']
+            l16 = held_loss(rec['losses'][0], m16, agrees)
+            l32 = held_loss(train32['losses'][0], m32, agrees)
+            rel = abs(l16 - l32) / max(abs(l32), 1e-6)
+            routed = '' if agrees else (', '.join(
+                f'{k} bf16 {rec["losses"][0][k]:.4g}, fp32 '
+                f'{train32["losses"][0][k]:.4g}' for k in ROUTED_LOSSES) +
+                '; ' + routing_text(m16['routing'], m32['routing']))
+            pair['train'] = dict(
+                bf16_ms=rec['ms_per_step'], fp32_ms=train32['ms_per_step'],
+                bf16_peak=rec['peak_memory_bytes'],
+                fp32_peak=train32['peak_memory_bytes'], loss_bf16=l16,
+                loss_fp32=l32, loss_rel=rel, routing_agrees=agrees)
+            routed_note = ''
+            if m16 is not None and agrees:
+                routed_note = (
+                    f'; the MSM routing the same on all '
+                    f'{len(m16["routing"])} RoIs; loss_masks bf16 '
+                    f'{rec["losses"][0]["loss_masks"]:.4g} on its own '
+                    f'logits, {m16["loss_masks_f32"]:.4g} on them cast to '
+                    f'fp32, fp32 {train32["losses"][0]["loss_masks"]:.4g} '
+                    f'({m32["loss_masks_f32"]:.4g}); detail sigmoids '
+                    f'saturated bf16 {m16["saturated"]:.3%}, fp32 '
+                    f'{m32["saturated"]:.3%} (3by)')
+                pair['train'].update(msm_bf16=m16, msm_fp32=m32)
+            print(f'  {name} step: bf16 {rec["ms_per_step"]:.1f} ms/step, '
+                  f'fp32 {train32["ms_per_step"]:.1f} (this run), ratio '
+                  f'{rec["ms_per_step"] / train32["ms_per_step"]:.2f}; peak '
+                  f'memory bf16 {rec["peak_memory_bytes"] / 2 ** 30:.2f} '
+                  f'GiB, fp32 {train32["peak_memory_bytes"] / 2 ** 30:.2f}; '
+                  f'step-0 loss bf16 {l16:.5g}, fp32 {l32:.5g} (rel '
+                  f'{rel:.3e}, tol {BF16_LOSS_RTOL}' + routed_note +
+                  (f'; without the routed {routed}' if routed else '') +
+                  f') [{card}]')
+            if not rel <= BF16_LOSS_RTOL:
+                raise RuntimeError(f'{name}: bf16 step-0 loss {l16} not '
+                                   f'within {BF16_LOSS_RTOL} of fp32\'s '
+                                   f'{l32}')
+        report['item22']['pairs'].append(pair)
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -6274,8 +6528,15 @@ def main() -> int:
     t21 = time.perf_counter()
     launches.update(run_item21(report, card))
     report['phase21_s'] = time.perf_counter() - t21
+    print(f'  phase 21: {report["phase21_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 22: bf16 on the families that run the hand kernels '
+          f'[{card}]')
+    t22 = time.perf_counter()
+    launches.update(run_item22(report, card))
+    report['phase22_s'] = time.perf_counter() - t22
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 21: {report["phase21_s"]:.1f} s; the whole run '
+    print(f'  phase 22: {report["phase22_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s [{card}]')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}

@@ -267,6 +267,28 @@ def test_launch_config_on_whole_maps(shape, kernel):
         assert n * h * w * 9 * c == 619_315_200
 
 
+@pytest.mark.parametrize('kernel', ['k1', 'k3'])
+@pytest.mark.parametrize('shape', WHOLE_MAPS,
+                         ids=lambda s: 'n{}_{}x{}_C{}_g{}_p{}_d{}'.format(*s))
+def test_launch_config_on_whole_maps_bf16(shape, kernel):
+    """The bf16 instances' grid (``elem_bytes=2``) on the whole maps, as
+    the bf16 drives of guided anchoring and DetectoRS launch them: bands,
+    table and shared memory those of the fp32 instance; K1's lanes read 8
+    bf16 channels at once (cg 64-512 come in runs of 8), K3's reduce 4 in
+    either type, up to 32 lanes."""
+    n, h, w, c, g, pad, dil = shape
+    cg = c // g
+    cfg = dc.dcn_launch_config(kernel, n, h, w, c, g, 3, elem_bytes=2)
+    f32 = dc.dcn_launch_config(kernel, n, h, w, c, g, 3)
+    for key in ('band_rows', 'n_bands', 'table_entries', 'smem_bytes'):
+        assert cfg[key] == f32[key], key
+    vec = 8 if kernel == 'k1' else 4
+    assert cfg['vec'] == vec
+    assert (1 << cfg['lanes_log2']) == min(32, cg // vec)
+    assert dc.dcn_launch_config(kernel, n, h, w, c, g, 3, aligned=False,
+                                elem_bytes=2)['vec'] == 1
+
+
 @pytest.mark.parametrize('band', [1, 4])
 def test_k3_band_emulation_at_dilation_3(band):
     """SAC's large branch: K3 band by band at padding and dilation 3 on a

@@ -221,6 +221,44 @@ def test_launch_config(shape, kernel):
         assert n * n_bands >= min(ra.MIN_BLOCKS, n * p)
 
 
+# the crops K2/K4 take in bf16 on the families the bf16 drives run, (n, P,
+# s, C): RefineMask's one-channel semantic crops at 14, 28 and 56 (an
+# image's 100 and LVIS's 300 dets, a step's 512 slots), HTC's stride-8
+# semantic crops of a step, GRoIE's all-level crops and the C4 detectors'
+# 1024-channel crops
+BF16_SHAPES = [(n, p, 2, 1) for n in (100, 300, 512) for p in (14, 28, 56)] + [
+    (2048, 7, 1, 256), (512, 14, 1, 256), (4000, 7, 2, 256),
+    (8192, 7, 2, 256), (2048, 14, 2, 256), (1000, 14, 2, 1024),
+    (100, 14, 2, 1024), (2048, 14, 2, 1024), (512, 14, 2, 1024)]
+
+
+@pytest.mark.parametrize('kernel', ['k2', 'k4'])
+@pytest.mark.parametrize('shape', BF16_SHAPES,
+                         ids=lambda s: 'n{}_P{}_s{}_C{}'.format(*s))
+def test_launch_config_bf16(shape, kernel):
+    """The bf16 instances' grid (``elem_bytes=2``) at the bf16 drives'
+    crops: the bands and tables those of the fp32 instance (the type
+    changes only the lane's width); K2's lanes read 8 bf16 elements at once
+    where C comes in runs of 8 (C = 1024), one at C = 1; K4's reduce 4 in
+    either type; the bands cover every output row once and, where the RoIs
+    are fewer than MIN_BLOCKS, narrow to fill the card."""
+    n, p, s, c = shape
+    cfg = ra.roi_align_launch_config(kernel, n, p, s, c, elem_bytes=2)
+    f32 = ra.roi_align_launch_config(kernel, n, p, s, c)
+    for key in ('band_rows', 'n_bands', 'smem_bytes'):
+        assert cfg[key] == f32[key], key
+    band, n_bands = cfg['band_rows'], cfg['n_bands']
+    covered = np.zeros(p, int)
+    for b in range(n_bands):
+        covered[b * band:b * band + min(band, p - b * band)] += 1
+    assert (covered == 1).all()
+    assert 0 < cfg['smem_bytes'] <= 232_448
+    wide = 8 if kernel == 'k2' else 4
+    assert cfg['vec'] == (wide if c % wide == 0 else 1)
+    assert (1 << cfg['lanes_log2']) == min(32, max(1, c // cfg['vec']))
+    assert n * n_bands >= min(ra.MIN_BLOCKS, n * p)
+
+
 # -- band-by-band replays ----------------------------------------------------
 
 def _k2_by_bands(args, p, s, band):
