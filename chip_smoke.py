@@ -13,14 +13,18 @@ before the last line is printed:
    whole windowed-DCN forward behind the entry points
    ``deform_conv2d_windowed_fused`` and ``deform_conv2d_frame``) from
    ``dynamask_torch/ops/csrc`` (one ``nvcc`` per source, started together;
-   each of K1-K4 with an fp32 and a bf16 instance);
+   each of K1-K4 with an fp32 and a bf16 instance), and count the
+   tensor-core instructions (``HMMA``, ``HGMMA``) of K5's three instances
+   in ``cuobjdump -sass`` of its library: the frame rule on bf16 must have
+   some, the two fp32-rule instances none;
 2. hold each kernel against its plain PyTorch version at the shapes the
    flagship's inference and training paths give it, and time both with CUDA
    events; the bf16 instances of K1-K4 (``<name>_bf16``) at the flagship's
    inference (n = 100) and training (n = 512) shapes on bf16 inputs, K1
    and K2 within one bf16 ulp of max|ref|, K3 within the fp32 rule plus
-   that ulp, K4 (an fp32 sum) within the fp32 rule; K5 at the SFM shapes in fp32 (n = 100 and 512) and bf16
-   (n = 100), through each entry point with its rounding rule, timed beside
+   that ulp, K4 (an fp32 sum) within the fp32 rule; K5 at the SFM shapes
+   in fp32 and bf16 (n = 100 and 512), through each entry point with its
+   rounding rule, timed beside
    the port's own form of the same function (K1 + ``torch.matmul``); K2
    and K4 also at the training crops with RoIs clustered as the training
    step makes them, and K2 at the inference crops on the 1344x800 portrait
@@ -455,7 +459,11 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 # H100 SXM peak operation rates (data sheet, dense), by the type the
 # operations run in: fp32 outside the tensor cores, and bf16 x bf16 products
 # summed in fp32 on the tensor cores
-PEAK_OPS_PER_S = {'fp32': 67e12, 'bf16': 989e12}
+# (and the Hopper white paper's 133.8 TFLOP/s of packed bf16 pairs outside
+# them, ``bf16x2``: K5's frame-rule sampler). An FMA counts two operations
+# there and a product or a sum one, so a count of products and sums at
+# these rates is a least time, never more than the card needs
+PEAK_OPS_PER_S = {'fp32': 67e12, 'bf16': 989e12, 'bf16x2': 133.8e12}
 # Tolerances, each against the kernel's plain version on the same inputs:
 K1_TOL = 1e-4   # absolute; same arithmetic as the plain form, fma only
 K2_TOL = 1e-4   # absolute; same samples; summation order and fma only
@@ -708,11 +716,12 @@ def k4_bf16_cases(gen, dev):
 
 def k5_cases(gen, dev):
     """K5 at the three SFM stages (C_out = C, HWIO weights N(0, 1/(9C))),
-    offsets as K1's: fp32 at n = 100 and 512, bf16 at n = 100."""
+    offsets as K1's: fp32 and bf16 at n = 100 and 512."""
     import torch
     for path, n, dtype in (('infer', N_DETS, torch.float32),
                            ('train', N_POS_TRAIN, torch.float32),
-                           ('infer bf16', N_DETS, torch.bfloat16)):
+                           ('infer bf16', N_DETS, torch.bfloat16),
+                           ('train bf16', N_POS_TRAIN, torch.bfloat16)):
         for s, c in SFM_STAGES:
             x = torch.randn(n, s, s, c, generator=gen, device=dev).to(dtype)
             off = (torch.rand(n, s, s, 36, generator=gen, device=dev) - 0.5) \
@@ -1272,17 +1281,22 @@ def k1_bound(args, kw, out):
 def k5_bound(args, kw, out, round_to_input):
     import torch
     x, off, w = args
-    # the contraction, plus K1's 13 fp32 operations per sampled column
-    # element. The frame rule on a bf16 x rounds the sample and the weight
-    # to bf16 before the product and sums in fp32: a bf16 tensor-core
-    # product. Otherwise its operands are fp32.
+    # the contraction, plus the sampling: a blend of 6 products and 3 sums
+    # a column element, and the 4 tent weights once a sample (pixel, group,
+    # tap), shared by the group's channels, in fp32. The frame rule on a
+    # bf16 x rounds the sample and the weight to bf16 before the product
+    # and sums in fp32: a bf16 tensor-core product, and its blend, each
+    # step rounded to bf16, runs as packed bf16 pairs (``bf16x2``).
+    # Otherwise the operands, the blend and the product are fp32.
     n, s, _, c = x.shape
+    taps = off.shape[-1] // 2
     cols = n * s * s * 9 * c
     mma = 2 * cols * w.shape[-1]
+    tents = 4 * n * s * s * taps
     if round_to_input and x.dtype == torch.bfloat16:
-        ops = {'fp32': 13 * cols, 'bf16': mma}
+        ops = {'fp32': tents, 'bf16x2': 9 * cols, 'bf16': mma}
     else:
-        ops = {'fp32': 13 * cols + mma}
+        ops = {'fp32': 9 * cols + tents + mma}
     return _nbytes(x, off, w, out), ops
 
 
@@ -1477,6 +1491,66 @@ def kernel_specs():
              source='dynamask_torch/ops/csrc/roi_align_bwd.cu',
              replaces='dynamask_tpu/ops/roi_align.py:46',
              library_null='no PyTorch call computes the RoIAlign backward'))
+
+
+# K5's instances by the C symbol the wrapper calls, each with the name its
+# kernel functions' mangled names begin with in the library's SASS
+K5_INSTANCES = {'deform_conv_fused_f32': 'k5_fma_kernelIf',
+                'deform_conv_fused_bf16': 'k5_fma_kernelI13__nv_bfloat16',
+                'deform_conv_fused_bf16_round': 'k5_mma_kernel'}
+TENSOR_CORE_OPCODES = ('HMMA', 'HGMMA')
+
+
+def cuobjdump_path():
+    for cand in (os.path.join(os.environ.get('CUDA_HOME', ''), 'bin',
+                              'cuobjdump'),
+                 shutil.which('cuobjdump'), '/usr/local/cuda/bin/cuobjdump'):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError('cuobjdump not found: the CUDA toolkit has it')
+
+
+def check_k5_sass(lib):
+    """Phase 1: the tensor-core instructions of K5's three instances in
+    ``cuobjdump -sass`` of its library ``lib``, summed over each
+    instance's kernel functions (its tiles and vector widths). The frame
+    rule on bf16 must run its product on the tensor cores, the fp32-rule
+    instances must not."""
+    import re
+    sass = subprocess.run([cuobjdump_path(), '-sass', lib], check=True,
+                          capture_output=True, text=True).stdout
+    counts = {sym: dict.fromkeys(TENSOR_CORE_OPCODES, 0)
+              for sym in K5_INSTANCES}
+    functions = dict.fromkeys(K5_INSTANCES, 0)
+    into = None
+    for line in sass.splitlines():
+        head = re.match(r'\s*Function : (\S+)', line)
+        if head:
+            into = next((sym for sym, stem in K5_INSTANCES.items()
+                         if stem in head.group(1)), None)
+            if into:
+                functions[into] += 1
+            continue
+        op = re.match(r'\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)',
+                      line)
+        if into and op and op.group(1) in TENSOR_CORE_OPCODES:
+            counts[into][op.group(1)] += 1
+    print(f'  K5 SASS, tensor-core instructions per instance (kernel '
+          f'functions): ' + '; '.join(
+              f'{sym} {functions[sym]} fn, ' + ', '.join(
+                  f'{op} {n}' for op, n in counts[sym].items())
+              for sym in K5_INSTANCES))
+    if min(functions.values()) == 0:
+        raise RuntimeError(f'K5 SASS: an instance with no kernel function '
+                           f'{functions}')
+    if sum(counts['deform_conv_fused_bf16_round'].values()) == 0:
+        raise RuntimeError('K5 SASS: the bf16 frame-rule instance has no '
+                           'tensor-core instruction')
+    for sym in ('deform_conv_fused_f32', 'deform_conv_fused_bf16'):
+        if sum(counts[sym].values()):
+            raise RuntimeError(f'K5 SASS: the fp32-rule instance {sym} has '
+                               f'tensor-core instructions {counts[sym]}')
+    return dict(counts=counts, functions=functions)
 
 
 # K5 off the SFM shapes, as the entry points' contract allows: ragged pixel,
@@ -6409,6 +6483,8 @@ def main() -> int:
         for ln in ptxas:
             print(f'  {name}: {ln}')
         report['build'][name] = dict(seconds=info['seconds'], ptxas=ptxas)
+    report['k5_sass'] = check_k5_sass(_build.library_path(
+        'deform_conv_fused'))
 
     print(f'phase 2: kernels against their plain versions [{card}]')
     rows = check_kernels(report)

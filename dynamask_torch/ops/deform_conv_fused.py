@@ -21,10 +21,12 @@ forward-only, as the JAX functions are (``deform_conv_pallas.py:27``),
 and keep their contract: square planes, stride 1, a bounded window.
 
 On a CUDA tensor both launch kernel K5 (``csrc/deform_conv_fused.cu``), one
-launch per call, which never writes the 9x column tensor; on a CPU tensor
-they run :func:`deform_conv2d_fused_plain`. The flagship's ``DCNPack``
-keeps K1 + ``torch.matmul`` (:func:`.deform_conv.deform_conv2d`), as the
-JAX main path keeps ``deform_conv2d_rowmm``.
+launch per call, which never writes the 9x column tensor: the frame rule on
+a bf16 ``x`` on the tensor cores, every other instance on the fp32 FMAs,
+configured by :func:`k5_launch_config`; on a CPU tensor they run
+:func:`deform_conv2d_fused_plain`. The flagship's ``DCNPack`` keeps K1 +
+``torch.matmul`` (:func:`.deform_conv.deform_conv2d`), as the JAX main path
+keeps ``deform_conv2d_rowmm``.
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ import ctypes
 import torch
 
 from . import _build
-from .deform_conv import (_corner_index, _geometry, _padded, _refuse_grad,
-                          im2col_weight)
+from .deform_conv import (_aligned, _corner_index, _geometry, _padded,
+                          _refuse_grad, im2col_weight)
 
 
 def _hwio_to_rows(weights: torch.Tensor, deform_groups: int) -> torch.Tensor:
@@ -90,6 +92,78 @@ _SYMBOLS = {(torch.float32, False): 'deform_conv_fused_f32',
             (torch.bfloat16, False): 'deform_conv_fused_bf16',
             (torch.bfloat16, True): 'deform_conv_fused_bf16_round'}
 
+# K5's launch configuration. The constants mirror csrc/deform_conv_fused.cu,
+# which checks what it is given and refuses a configuration it cannot run.
+# Both kernels: a ring of 4 shared-memory stages that sampler warps fill
+# and compute warps drain. The frame rule on a bf16 x, on the tensor cores:
+# 32-channel chunks, 8 sampler and 8 MMA warps; (pixels, output channels)
+# of a block by tile index, 64 x 256 where C_out > 128 so that no pixel is
+# sampled twice there
+K5_STAGES = 4
+K5_MMA_BK = 32
+K5_MMA_TILES = ((128, 128), (128, 64), (64, 256))
+# the fp32 rule on the FMAs: (pixels, output channels, chunk channels) of a
+# block by tile index; 4 sampler warps and 128 threads of 8 x 16 outputs
+K5_FMA_TILES = ((128, 128, 32), (256, 64, 16))
+K5_APAD = 4              # floats of pad on each sample row of the FMA kernel
+
+
+def k5_launch_config(n: int, s: int, c: int, c_out: int, g: int,
+                     dtype: torch.dtype, round_to_input: bool, k: int = 3,
+                     aligned: bool = True) -> dict:
+    """How K5 is launched on an (n, s, s, c) input with ``g`` deform groups,
+    a k x k kernel and ``c_out`` output channels, in ``dtype`` under the
+    frame rule (``round_to_input``) or the plane rule. ``kernel``: 'mma'
+    for the frame rule on a bf16 input (tensor cores), else 'fma' (fp32
+    FMAs); ``tile`` the C function's tile index, ``bm`` x ``bn`` outputs a
+    block over ``bk``-channel chunks in ``stages`` shared-memory stages;
+    ``grid`` (pixel tiles, output-channel tiles);
+    ``smem_bytes`` of dynamic shared memory; ``vec``: the corner loads are
+    16 bytes (8 bf16 channels under the frame rule, else 4 channels), where
+    the group's channels come in such runs and ``x`` is 16-byte
+    ``aligned``, else one channel at a time; ``cg_pad`` and ``c_out_pad``,
+    the padded weight matrix's rows per (group, tap) and columns, and
+    ``chunks``, the K chunks a block walks."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'k5_launch_config: float32 or bfloat16, got {dtype}')
+    cg = c // g
+    narrow = c_out <= 64
+    if dtype == torch.bfloat16 and round_to_input:
+        kernel, tile = 'mma', 2 if c_out > 128 else int(narrow)
+        (bm, bn), bk = K5_MMA_TILES[tile], K5_MMA_BK
+        vec = aligned and cg % 8 == 0
+        smem = K5_STAGES * (bm * bk + bk * bn) * 2
+    else:
+        kernel, tile = 'fma', int(narrow)
+        bm, bn, bk = K5_FMA_TILES[tile]
+        vec = aligned and cg % 4 == 0
+        smem = K5_STAGES * (bk * (bm + K5_APAD) + bk * bn) * 4
+    grid = (-(-(n * s * s) // bm), -(-c_out // bn))
+    cg_pad = -(-cg // bk) * bk
+    return dict(kernel=kernel, tile=tile, bm=bm, bn=bn, bk=bk,
+                stages=K5_STAGES, grid=grid, smem_bytes=smem,
+                vec=vec, cg_pad=cg_pad, c_out_pad=grid[1] * bn,
+                chunks=g * k * k * cg_pad // bk)
+
+
+def k5_weight_matrix(weights: torch.Tensor, deform_groups: int,
+                     cfg: dict) -> torch.Tensor:
+    """HWIO ``weights`` as K5 reads them under :func:`k5_launch_config`'s
+    ``cfg``: the (group, tap, channel) rows of :func:`_hwio_to_rows`, each
+    (group, tap) padded with zero rows to ``cfg['cg_pad']`` and the columns
+    with zeros to ``cfg['c_out_pad']``; bf16 for the tensor-core kernel,
+    rounded once a call to the values the plain version's ``rnd(w2)``
+    gives, else fp32."""
+    dtype = torch.bfloat16 if cfg['kernel'] == 'mma' else torch.float32
+    k, c_out = weights.shape[0], weights.shape[3]
+    w2 = _hwio_to_rows(weights, deform_groups)
+    cg = w2.shape[0] // (deform_groups * k * k)
+    w2 = w2.to(dtype).reshape(deform_groups * k * k, cg, c_out)
+    out = torch.zeros(deform_groups * k * k, cfg['cg_pad'], cfg['c_out_pad'],
+                      dtype=dtype, device=weights.device)
+    out[:, :cg, :c_out] = w2
+    return out.reshape(-1, cfg['c_out_pad'])
+
 
 def _check_contract(name, x, offsets, weights, kernel_size, deform_groups,
                     window):
@@ -132,21 +206,24 @@ def _fused(name, counter, x, offsets, weights, kernel_size, padding,
     k, g = kernel_size, deform_groups
     x = x.contiguous()
     offsets = offsets.contiguous().float()
-    w2 = _hwio_to_rows(weights, g).contiguous()
-    c_out = w2.shape[1]
+    c_out = weights.shape[3]
     out = torch.empty((n, s, s, c_out), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     if n * s * s >= 2 ** 31:
         raise ValueError(f'{name}: {n}x{s}x{s} pixels exceed the kernel\'s '
                          '32-bit pixel index')
+    cfg = k5_launch_config(n, s, c, c_out, g, x.dtype, round_to_input, k,
+                           _aligned(x))
+    w = k5_weight_matrix(weights, g, cfg)
     fn = getattr(_build.load('deform_conv_fused'), symbol)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [
         ctypes.c_void_p]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), offsets.data_ptr(), w2.data_ptr(), out.data_ptr(),
-            n, s, s, c, c_out, g, k, padding, dilation, window, stream)
+    rc = fn(x.data_ptr(), offsets.data_ptr(), w.data_ptr(), out.data_ptr(),
+            n, s, s, c, c_out, g, k, padding, dilation, window, cfg['tile'],
+            int(cfg['vec']), *cfg['grid'], cfg['smem_bytes'], stream)
     if rc != 0:
         raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
                            f'{rc}')

@@ -56,18 +56,38 @@ VARIANTS = {
 }
 
 
-def _pair(name, frozen_stages=1):
+@pytest.fixture(scope='module')
+def jax_side():
+    """``jax_side(name)``: a variant's randomised JAX variables and its
+    eval-mode outputs on the input, computed once for the module's three
+    tests of the variant. ``frozen_stages`` only stops gradients, so
+    neither depends on it."""
+    from dynamask_tpu.models.builder import build_backbone as jbuild
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            x = np.random.RandomState(7).randn(2, 64, 64, 3).astype(
+                np.float32)
+            jb = jbuild(dict(VARIANTS[name], frozen_stages=1,
+                             block_remat=False))
+            v = randomize_variables(jb.init(jax.random.PRNGKey(0),
+                                            jnp.asarray(x)), seed=3)
+            cache[name] = (v, x, jb.apply(v, jnp.asarray(x)))
+        return cache[name]
+    return get
+
+
+def _pair(jax_side, name, frozen_stages=1):
     """(JAX backbone, its randomised variables, the port backbone under
-    ``backbone.`` with them, the input)."""
+    ``backbone.`` with them, the input, JAX's eval-mode outputs)."""
     from dynamask_tpu.models.builder import build_backbone as jbuild
     from dynamask_torch.engine import load_jax_variables
     from dynamask_torch.models.builder import build_backbone
     cfg = dict(VARIANTS[name], frozen_stages=frozen_stages)
-    x = np.random.RandomState(7).randn(2, 64, 64, 3).astype(np.float32)
+    v, x, ref = jax_side(name)
     # no per-block rematerialisation: the same function, a smaller graph
     jb = jbuild(dict(cfg, block_remat=False))
-    v = randomize_variables(jb.init(jax.random.PRNGKey(0), jnp.asarray(x)),
-                            seed=3)
     root = torch.nn.Module()
     with torch.device('meta'):
         root.backbone = build_backbone(cfg)
@@ -76,7 +96,7 @@ def _pair(name, frozen_stages=1):
                               'batch_stats': {'backbone':
                                               v.get('batch_stats', {})}})
     root.backbone.freeze_stages()
-    return jb, v, root.backbone, x
+    return jb, v, root.backbone, x, ref
 
 
 def _cotangents(outs):
@@ -85,9 +105,8 @@ def _cotangents(outs):
 
 
 @pytest.mark.parametrize('name', sorted(VARIANTS))
-def test_backbone_eval(name):
-    jb, v, port, x = _pair(name)
-    ref = jb.apply(v, jnp.asarray(x))
+def test_backbone_eval(jax_side, name):
+    jb, v, port, x, ref = _pair(jax_side, name)
     with torch.no_grad():
         got = port.eval()(nchw(x))
     assert len(got) == len(ref) == 4
@@ -122,12 +141,11 @@ def _port_train(port, x, cots):
 
 
 @pytest.mark.parametrize('name', sorted(VARIANTS))
-def test_backbone_train_parameter_gradients(name):
+def test_backbone_train_parameter_gradients(jax_side, name):
     """Train mode at ``frozen_stages=1``: outputs and every parameter's
     gradient (the JAX leaf in the port's layout through the key map)."""
     from dynamask_torch.engine.convert import _torch_layout, mmdet_key
-    jb, v, port, x = _pair(name)
-    probe = jb.apply(v, jnp.asarray(x))
+    jb, v, port, x, probe = _pair(jax_side, name)
     cots = _cotangents(probe)
     ref, (jgrads, _) = _jax_train(jb, v, x, cots)
     got, _ = _port_train(port, x, cots)
@@ -149,9 +167,9 @@ def test_backbone_train_parameter_gradients(name):
 
 
 @pytest.mark.parametrize('name', sorted(VARIANTS))
-def test_backbone_train_input_gradient(name):
-    jb, v, port, x = _pair(name, frozen_stages=-1)
-    cots = _cotangents(jb.apply(v, jnp.asarray(x)))
+def test_backbone_train_input_gradient(jax_side, name):
+    jb, v, port, x, probe = _pair(jax_side, name, frozen_stages=-1)
+    cots = _cotangents(probe)
     _, (_, jx) = _jax_train(jb, v, x, cots)
     _, gx = _port_train(port, x, cots)
     d = rel_l2(gx.permute(0, 2, 3, 1).numpy(), np.asarray(jx))

@@ -46,6 +46,7 @@ import jax.numpy as jnp                      # noqa: E402
 torch.set_num_threads(2)
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_port_modules import fast_jit  # noqa: E402
 from test_torch_port_modules import _toy_variables, toy_pair  # noqa: E402
 
 G, WINDOW = 2, 3
@@ -607,7 +608,7 @@ def test_bf16_step_against_fp32():
     from dynamask_torch.models import build_detector
     cfg = _captured_tiny_cfg()
     batch = _batch(2)
-    variables = jax.jit(jax_build(*cfg).init)(
+    variables = fast_jit(jax_build(*cfg).init)(
         {'params': jax.random.PRNGKey(0)}, batch)
     base = build_detector(*cfg, device='cpu')
     load_jax_variables(base, variables)

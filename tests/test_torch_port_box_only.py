@@ -35,7 +35,7 @@ import jax.numpy as jnp                      # noqa: E402
 torch.set_num_threads(2)
 sys.path.insert(0, os.path.dirname(__file__))
 
-from test_torch_port_modules import randomize_variables  # noqa: E402
+from test_torch_port_modules import fast_jit, randomize_variables  # noqa: E402
 from test_torch_port_train_slice import jax_draws        # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -113,7 +113,7 @@ def twin(kind):
         cfg = box_cfg(kind)
         det = jax_build(*cfg)
         batch = {k: jnp.asarray(v) for k, v in _batch(kind).items()}
-        variables = randomize_variables(jax.jit(det.init)(
+        variables = randomize_variables(fast_jit(det.init)(
             {'params': jax.random.PRNGKey(0)}, batch))
         port = build_detector(*cfg, device='cpu')
         load_jax_variables(port, variables)

@@ -49,7 +49,7 @@ import jax.numpy as jnp                      # noqa: E402
 torch.set_num_threads(2)
 sys.path.insert(0, os.path.dirname(__file__))
 
-from test_torch_port_modules import randomize_variables  # noqa: E402
+from test_torch_port_modules import fast_jit, randomize_variables  # noqa: E402
 from test_torch_port_train_modules import jax_sampler_priorities  # noqa
 from test_torch_port_train_slice import rel_l2  # noqa: E402
 
@@ -284,7 +284,7 @@ def cascade_pair(kind):
     det = jax_build(*cfg)
     batch = {k: jnp.asarray(v) for k, v in _demo().items()}
     variables = randomize_variables(
-        jax.jit(det.init)({'params': jax.random.PRNGKey(0)}, batch))
+        fast_jit(det.init)({'params': jax.random.PRNGKey(0)}, batch))
     port = build_detector(*cfg, device='cpu')
     load_jax_variables(port, variables)
     return det, variables, port

@@ -37,6 +37,7 @@ import jax.numpy as jnp                      # noqa: E402
 torch.set_num_threads(2)
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_port_modules import fast_jit  # noqa: E402
 from test_torch_port_modules import nchw, randomize_variables  # noqa: E402
 from test_torch_port_train_slice import (leaves, rel_l2,  # noqa: E402
                                          jax_draws)
@@ -214,7 +215,7 @@ def mask_rcnn_pair():
     det = jax_build(model, train_cfg, test_cfg)
     batch = demo_batch(0, b=1, h=64, w=64, g=3, s=16)
     variables = randomize_variables(
-        jax.jit(det.init)({'params': jax.random.PRNGKey(0)}, batch))
+        fast_jit(det.init)({'params': jax.random.PRNGKey(0)}, batch))
     port = build_detector(model, train_cfg, test_cfg, device='cpu')
     load_jax_variables(port, variables)
     return det, variables, port, (model, train_cfg, test_cfg)
@@ -358,7 +359,8 @@ def mrcnn_step(mrcnn):
         return total, log
 
     with jax_draws(noise):
-        (_, jax_log), jax_grads = jax.value_and_grad(loss_fn, has_aux=True)(
+        (_, jax_log), jax_grads = jax.jit(jax.value_and_grad(
+            loss_fn, has_aux=True))(
             variables['params'], variables['batch_stats'],
             {k: jnp.asarray(x) for k, x in batch.items()})
     total, log = parse_losses(port.forward_train(

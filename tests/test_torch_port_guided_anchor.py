@@ -41,7 +41,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 
 from test_guided_anchor import ga_faster_toy_cfg, ga_toy_cfg  # noqa: E402
 from test_torch_port_cascade import _port_grads  # noqa: E402
-from test_torch_port_modules import randomize_variables  # noqa: E402
+from test_torch_port_modules import fast_jit, randomize_variables  # noqa: E402
 from test_torch_port_train_modules import jax_sampler_priorities  # noqa
 from test_torch_port_train_slice import rel_l2  # noqa: E402
 
@@ -92,7 +92,7 @@ def twin(kind):
     det = jax_build(*cfg)
     batch = {k: jnp.asarray(v) for k, v in _demo().items()}
     variables = randomize_variables(
-        jax.jit(det.init)({'params': jax.random.PRNGKey(0)}, batch))
+        fast_jit(det.init)({'params': jax.random.PRNGKey(0)}, batch))
     head = variables['params']['bbox_head' if kind == 'retina' else
                                'rpn_head']
     head['conv_loc']['bias'] = np.full((1,), -4.6, np.float32)

@@ -32,7 +32,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 
 from test_torch_port_item7_ops import (_jax_exact, _port,  # noqa: E402
                                        _reference)
-from test_torch_port_modules import randomize_variables  # noqa: E402
+from test_torch_port_modules import fast_jit, randomize_variables  # noqa: E402
 from test_torch_port_single_stage_modules import (  # noqa: E402
     _boxes, _level_feats, _load, _nchw, _nhwc, _rng)
 from test_torch_port_train_slice import rel_l2  # noqa: E402
@@ -342,7 +342,7 @@ def test_heads_match_jax(kind):
     # NAS-FCOS' head on one level: JAX compiles its DCNv2 towers a level
     feats = _level_feats()[:1 if kind == 'nas_fcos' else 3]
     jin = [jnp.asarray(f) for f in feats]
-    variables = randomize_variables(jax.jit(jhead.init)(jax.random.PRNGKey(0),
+    variables = randomize_variables(fast_jit(jhead.init)(jax.random.PRNGKey(0),
                                                         jin))
     params = variables['params']
     if 'scales' in params:
@@ -358,7 +358,7 @@ def test_heads_match_jax(kind):
     _load('bbox_head', port, holder_vars)
     if kind == 'nas_fcos':
         return check_nas_head_gradients(jhead, variables, port, feats)
-    ref = jax.jit(jhead.apply)(variables, jin)
+    ref = fast_jit(jhead.apply)(variables, jin)
     got = port([_nchw(f) for f in feats])
     assert len(got) == len(ref)
     for gs, rs in zip(got, ref):
@@ -431,10 +431,10 @@ def test_nasfcos_neck_matches_jax():
     feats = [_rng(30 + i, 2, h, w, c) for i, ((h, w), c) in
              enumerate(zip(sizes, chans))]
     jin = [jnp.asarray(f) for f in feats]
-    variables = randomize_variables(jax.jit(jneck.init)(jax.random.PRNGKey(0),
+    variables = randomize_variables(fast_jit(jneck.init)(jax.random.PRNGKey(0),
                                                         jin))
     _load('neck', port, variables)
-    ref = jax.jit(jneck.apply)(variables, jin)
+    ref = fast_jit(jneck.apply)(variables, jin)
     got = port.eval()([_nchw(f) for f in feats])
     assert [g.shape[-2:] for g in got] == [(16, 24), (8, 12), (4, 6),
                                            (2, 3), (1, 2)]

@@ -39,6 +39,7 @@ import pytest
 torch = pytest.importorskip('torch')
 import jax                                   # noqa: E402
 import jax.numpy as jnp                      # noqa: E402
+from test_torch_port_modules import fast_jit  # noqa: E402
 
 torch.set_num_threads(2)
 sys.path.insert(0, os.path.dirname(__file__))
@@ -298,7 +299,7 @@ def test_ssdvgg_full_width_300():
         return rng.normal(0, 0.1, s.shape).astype(np.float32)
 
     variables = jax.tree_util.tree_map_with_path(fill, shapes)
-    ref = jax.device_get(jax.jit(jvgg.apply)(variables, jnp.asarray(x)))
+    ref = jax.device_get(fast_jit(jvgg.apply)(variables, jnp.asarray(x)))
     port = SSDVGG(SIDE)
     with torch.no_grad():
         for k, t in port.state_dict().items():

@@ -45,7 +45,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_port_item8_backbones import (TOY_REGNET,  # noqa: E402
                                              _cotangents, _jax_train,
                                              _port_train)
-from test_torch_port_modules import nchw                        # noqa: E402
+from test_torch_port_modules import fast_jit, nchw  # noqa: E402
 from test_torch_port_train_slice import rel_l2                 # noqa: E402
 
 RL2 = 1e-4
@@ -137,7 +137,7 @@ EVAL = [('dcn', (48, 64)), ('mdcn4', (48, 48)), ('mdcn4', (48, 64)),
 @pytest.mark.parametrize('name,hw', EVAL)
 def test_backbone_eval(name, hw):
     jb, v, root, x = pair(name, hw)
-    ref = jax.jit(jb.apply)(v, jnp.asarray(x))
+    ref = fast_jit(jb.apply)(v, jnp.asarray(x))
     with torch.no_grad():
         got = root.backbone.eval()(nchw(x))
     assert len(got) == len(ref)
@@ -239,7 +239,7 @@ def plugin_pair(name):
 @pytest.mark.parametrize('name', sorted(PLUGINS))
 def test_plugin_eval(name):
     jm, v, holder, x = plugin_pair(name)
-    ref = np.asarray(jax.jit(jm.apply)(v, jnp.asarray(x)))
+    ref = np.asarray(fast_jit(jm.apply)(v, jnp.asarray(x)))
     with torch.no_grad():
         got = holder.backbone.layer1[0].get_submodule(
             PLUGIN_ABBR[PLUGINS[name][0]['type']])(nchw(x))

@@ -41,7 +41,7 @@ import jax.numpy as jnp                      # noqa: E402
 torch.set_num_threads(2)
 sys.path.insert(0, os.path.dirname(__file__))
 
-from test_torch_port_modules import nchw                        # noqa: E402
+from test_torch_port_modules import fast_jit, nchw  # noqa: E402
 from test_torch_port_train_slice import rel_l2                 # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -126,7 +126,7 @@ def pair(name, frozen_stages=1, hw=64):
 @pytest.mark.parametrize('name', sorted(BACKBONES))
 def test_backbone_eval(name):
     jb, v, port, x = pair(name)
-    ref = jax.jit(jb.apply)(v, jnp.asarray(x))
+    ref = fast_jit(jb.apply)(v, jnp.asarray(x))
     with torch.no_grad():
         got = port.eval()(nchw(x))
     assert len(got) == len(ref) == 4
@@ -143,18 +143,22 @@ def _cotangents(outs):
 
 def _jax_train(jb, v, x, cots):
     """Train-mode outputs and the gradients of sum(outputs * cots) in the
-    parameters and the input, in float64."""
+    parameters and the input, in float64 (the variables besides the
+    parameters and the cotangents arguments of the compiled program, not
+    constants folded into it)."""
     with jax.enable_x64(True):
         v64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
                                      v)
 
-        def loss(params, xx):
-            outs, _ = jb.apply({**v64, 'params': params}, xx, train=True,
+        def loss(params, xx, rest, cs):
+            outs, _ = jb.apply({**rest, 'params': params}, xx, train=True,
                                mutable=['batch_stats'])
-            return sum(jnp.sum(o * c) for o, c in zip(outs, cots)), outs
+            return sum(jnp.sum(o * c) for o, c in zip(outs, cs)), outs
         (_, outs), grads = jax.jit(jax.value_and_grad(
             loss, argnums=(0, 1), has_aux=True))(
-            v64['params'], jnp.asarray(x, jnp.float64))
+            v64['params'], jnp.asarray(x, jnp.float64),
+            {k: a for k, a in v64.items() if k != 'params'},
+            [jnp.asarray(c, jnp.float64) for c in cots])
         return jax.device_get((outs, grads))
 
 

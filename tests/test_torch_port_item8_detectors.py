@@ -39,7 +39,7 @@ from test_torch_port_cascade import (_demo, _port_grads,  # noqa: E402
                                      counted_crops)
 from test_torch_port_item8_backbones import (TOY_HRNET,  # noqa: E402
                                              TOY_REGNET)
-from test_torch_port_modules import randomize_variables  # noqa: E402
+from test_torch_port_modules import fast_jit, randomize_variables  # noqa: E402
 from test_torch_port_train_modules import jax_sampler_priorities  # noqa
 from test_torch_port_train_slice import rel_l2  # noqa: E402
 from test_torch_port_two_stage_twins import G, N_ANCHORS, P  # noqa: E402
@@ -98,7 +98,7 @@ def twin(kind):
     det = jax_build(*jcfg)
     batch = {k: jnp.asarray(v) for k, v in _demo().items()}
     variables = randomize_variables(
-        jax.jit(det.init)({'params': jax.random.PRNGKey(0)}, batch))
+        fast_jit(det.init)({'params': jax.random.PRNGKey(0)}, batch))
     if kind == 'res2net':
         # each residual branch's last BN scale at a tenth (the init's is 0,
         # zero_init_residual): 16 blocks of random weights at full scale
@@ -296,7 +296,7 @@ def fcos_twin():
     cfg = fcos_cfg()
     assert cfg[0]['neck']['stride'] == 2
     det = jax_build(*cfg)
-    variables = randomize_variables(jax.jit(det.init)(
+    variables = randomize_variables(fast_jit(det.init)(
         {'params': jax.random.PRNGKey(0)},
         {k: jnp.asarray(v) for k, v in demo().items()}))
     variables['params']['bbox_head']['scales'] = SCALES.copy()

@@ -40,7 +40,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 
 from test_torch_port_cascade import _demo, _port_grads  # noqa: E402
 from test_torch_port_item9_heads import dynamic_toy_cfg  # noqa: E402
-from test_torch_port_modules import randomize_variables  # noqa: E402
+from test_torch_port_modules import fast_jit, randomize_variables  # noqa: E402
 from test_torch_port_train_modules import jax_sampler_priorities  # noqa
 from test_torch_port_train_slice import rel_l2  # noqa: E402
 
@@ -119,7 +119,7 @@ def twin(kind):
     batch = {k: jnp.asarray(v) for k, v in _batch(
         semantic=kind == 'point_refine').items()}
     variables = randomize_variables(
-        jax.jit(det.init)({'params': jax.random.PRNGKey(0)}, batch))
+        fast_jit(det.init)({'params': jax.random.PRNGKey(0)}, batch))
     rh = variables['params']['roi_head']
     if kind.startswith('grid'):
         rng = np.random.RandomState(16)

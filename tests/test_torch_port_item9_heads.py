@@ -37,7 +37,7 @@ import jax.numpy as jnp                      # noqa: E402
 torch.set_num_threads(2)
 sys.path.insert(0, os.path.dirname(__file__))
 
-from test_torch_port_modules import randomize_variables  # noqa: E402
+from test_torch_port_modules import fast_jit, randomize_variables  # noqa: E402
 from test_torch_port_train_modules import jax_sampler_priorities  # noqa
 from test_torch_port_train_slice import rel_l2  # noqa: E402
 
@@ -319,7 +319,7 @@ def _coarse_case():
     m = J(num_convs=1, num_fcs=2, in_channels=12, conv_out_channels=10,
           fc_out_channels=24, downsample_factor=2, roi_feat_size=14,
           num_classes=5)
-    v = randomize_variables(jax.jit(m.init)(jax.random.PRNGKey(0),
+    v = randomize_variables(fast_jit(m.init)(jax.random.PRNGKey(0),
                                             jnp.asarray(x)))
     port = CoarseMaskHead(1, 2, 12, 10, 24, 2, 14, 5)
     holder = load(port, 'roi_head.mask_head', ['roi_head', 'mask_head'], v)
@@ -330,7 +330,7 @@ def test_coarse_mask_head():
     """The (N, 7, 7, classes) JAX logits are the port's (N, classes, 7, 7)
     (its ``fc_logits`` rows reordered); float64 gradients."""
     m, v, port, holder, x = _coarse_case()
-    ref = np.asarray(jax.jit(m.apply)(v, jnp.asarray(x)))
+    ref = np.asarray(fast_jit(m.apply)(v, jnp.asarray(x)))
     with torch.no_grad():
         got = port(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert got.shape == (4, 5, 7, 7)
@@ -400,13 +400,13 @@ def test_mask_iou_head():
     probs = rng.uniform(0, 1, (3, 28, 28)).astype(np.float32)
     m = J(num_convs=4, num_fcs=2, conv_out_channels=8, fc_out_channels=16,
           num_classes=5)
-    v = randomize_variables(jax.jit(m.init)(jax.random.PRNGKey(0),
+    v = randomize_variables(fast_jit(m.init)(jax.random.PRNGKey(0),
                                             jnp.asarray(feats),
                                             jnp.asarray(probs)))
     port = MaskIoUHead(4, 2, 12, 8, 16, 14, 5)
     holder = load(port, 'roi_head.mask_iou_head',
                   ['roi_head', 'mask_iou_head'], v)
-    ref = np.asarray(jax.jit(m.apply)(v, jnp.asarray(feats),
+    ref = np.asarray(fast_jit(m.apply)(v, jnp.asarray(feats),
                                       jnp.asarray(probs)))
     with torch.no_grad():
         got = port(torch.from_numpy(feats).permute(0, 3, 1, 2),
@@ -455,7 +455,7 @@ def _grid_case():
     x = rng.randn(3, 14, 14, 12).astype(np.float32)
     m = J(grid_points=9, num_convs=2, roi_feat_size=14, in_channels=12,
           point_feat_channels=4, gn_groups=6)
-    v = randomize_variables(jax.jit(functools.partial(m.init, train=True))(
+    v = randomize_variables(fast_jit(functools.partial(m.init, train=True))(
         jax.random.PRNGKey(0), jnp.asarray(x)))
     p = v['params']
     for k in ('deconv1_kernel', 'deconv2_kernel'):
@@ -471,7 +471,7 @@ def test_grid_head_forward(train):
     """The fused heatmaps (and with ``train`` the unfused ones), (N, 9,
     28, 28) against JAX's NHWC maps."""
     m, v, port, _, x = _grid_case()
-    ref = jax.jit(functools.partial(m.apply, train=train))(v, jnp.asarray(x))
+    ref = fast_jit(functools.partial(m.apply, train=train))(v, jnp.asarray(x))
     with torch.no_grad():
         got = port(torch.from_numpy(x).permute(0, 3, 1, 2), train)
     for k in ('fused', 'unfused'):
@@ -584,7 +584,7 @@ def test_dynamic_rcnn_state_update():
     det = jax_build(*cfg)
     batch = _demo(2)
     jb = {k: jnp.asarray(x) for k, x in batch.items()}
-    v = randomize_variables(jax.jit(det.init)({'params': jax.random.PRNGKey(
+    v = randomize_variables(fast_jit(det.init)({'params': jax.random.PRNGKey(
         0)}, {k: jb[k][:1] for k in jb}))
     port = build_detector(*cfg, device='cpu')
     load_jax_variables(port, v)

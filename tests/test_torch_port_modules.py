@@ -30,6 +30,14 @@ torch.set_num_threads(2)
 sys.path.insert(0, os.path.dirname(__file__))
 
 ATOL = 1e-4
+# jax.jit without LLVM's optimisation, which takes most of a toy program's
+# compile; its results differ from the default compile's in the last bits.
+# Only for parameter inits (both sides then load the same draws) and for
+# forward passes of dense layers, which move by about as much; every
+# gradient, and every program that thresholds, sorts, ranks, assigns,
+# samples or suppresses, stays at jax.jit, where an ulp can flip a decision
+fast_jit = functools.partial(
+    jax.jit, compiler_options={'xla_backend_optimization_level': 0})
 # off-grid coordinates: a sample that lands exactly on a plane's inclusion
 # edge (y == extent) is decided by the last ulp of its coordinate, which
 # XLA (fma-contracted) and ATen round differently; see ROADMAP queue 3

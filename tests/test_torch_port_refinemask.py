@@ -48,6 +48,7 @@ import jax.numpy as jnp                      # noqa: E402
 torch.set_num_threads(2)
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_port_modules import fast_jit  # noqa: E402
 from test_torch_port_configs import _wrap  # noqa: E402
 from test_torch_port_modules import nchw, randomize_variables  # noqa: E402
 from test_torch_port_train_slice import jax_draws, rel_l2  # noqa: E402
@@ -553,7 +554,7 @@ def refine_pair(kind):
     det = jax_build(model, train_cfg, test_cfg)
     batch = {k: jnp.asarray(v) for k, v in _demo().items()}
     variables = randomize_variables(
-        jax.jit(det.init)({'params': jax.random.PRNGKey(0)}, batch))
+        fast_jit(det.init)({'params': jax.random.PRNGKey(0)}, batch))
     if kind == 'simple':
         # these draws put its stage logits at -48 +- 17 (28x28) and every
         # mask probability under 1e-7; a twentieth of each logit kernel
@@ -948,7 +949,7 @@ def test_init_draws_from_the_jax_initialisers(kind):
     model, train_cfg, test_cfg = toy_cfg(kind)
     det = jax_build(model, train_cfg, test_cfg)
     ref = build_detector(model, train_cfg, test_cfg, device='cpu', seed=1)
-    load_jax_variables(ref, jax.device_get(jax.jit(det.init)(
+    load_jax_variables(ref, jax.device_get(fast_jit(det.init)(
         {'params': jax.random.PRNGKey(0)},
         {k: jnp.asarray(v) for k, v in _demo().items()})))
     want = ref.state_dict()

@@ -20,6 +20,7 @@ import jax.numpy as jnp                      # noqa: E402
 torch.set_num_threads(2)
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_port_modules import fast_jit  # noqa: E402
 from test_torch_port_single_stage import (CONFIGS, demo,  # noqa: E402
                                           toy_cfg)
 
@@ -407,7 +408,7 @@ def test_fp16_retinanet_in_bf16_matches_jax():
     det = jax_build(*cfg)
     batch = demo(2)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    variables = randomize_variables(jax.jit(det.init)(
+    variables = randomize_variables(fast_jit(det.init)(
         {'params': jax.random.PRNGKey(0)}, jb))
     port = build_detector(*cfg, device='cpu')
     load_jax_variables(port, variables)

@@ -32,6 +32,7 @@ import pytest
 torch = pytest.importorskip('torch')
 import jax                                   # noqa: E402
 import jax.numpy as jnp                      # noqa: E402
+from test_torch_port_modules import fast_jit  # noqa: E402
 
 torch.set_num_threads(2)
 sys.path.insert(0, os.path.dirname(__file__))
@@ -474,7 +475,7 @@ def test_init_draws_from_the_jax_initialisers(jax_det, coco):
     batch = {k: jnp.asarray(v.numpy()) for k, v in _test_batch(coco).items()
              if k != 'img_id'}
     ref = build(1)
-    load_jax_variables(ref, jax.device_get(jax.jit(jax_det.init)(
+    load_jax_variables(ref, jax.device_get(fast_jit(jax_det.init)(
         {'params': jax.random.PRNGKey(0)}, batch)))
     want, got = ref.state_dict(), build(0).state_dict()
     zero_scales = [k for k in want if k.startswith('backbone.layer') and

@@ -31,7 +31,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 
 from test_torch_port_cascade import (_close, _load, _nchw,  # noqa: E402
                                      _wrap)
-from test_torch_port_modules import randomize_variables  # noqa: E402
+from test_torch_port_modules import fast_jit, randomize_variables  # noqa: E402
 from test_torch_port_train_slice import rel_l2  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -56,11 +56,11 @@ def test_convfc_bbox_head(kind):
     else:
         jm = jb.Shared4Conv1FCBBoxHead(norm='gn', gn_groups=4, **kw)
         port = tb.Shared4Conv1FCBBoxHead(norm='gn', gn_groups=4, **kw)
-    v = randomize_variables(jax.jit(jm.init)(jax.random.PRNGKey(0),
+    v = randomize_variables(fast_jit(jm.init)(jax.random.PRNGKey(0),
                                             jnp.asarray(x)))
     _load(_wrap(**{'roi_head.bbox_head': port}), ['roi_head', 'bbox_head'],
           v['params'])
-    ref = jax.jit(jm.apply)(v, jnp.asarray(x))
+    ref = fast_jit(jm.apply)(v, jnp.asarray(x))
     with torch.no_grad():
         got = port(torch.from_numpy(x))
     keys = set(port.state_dict())
@@ -89,12 +89,12 @@ def test_fpn_gn(no_norm_on_lateral):
              for i, c in enumerate(ins)]
     jm = J(in_channels=ins, out_channels=16, num_outs=5, norm='gn',
            gn_groups=4, no_norm_on_lateral=no_norm_on_lateral)
-    v = randomize_variables(jax.jit(jm.init)(
+    v = randomize_variables(fast_jit(jm.init)(
         jax.random.PRNGKey(0), [jnp.asarray(f) for f in feats]))
     port = FPN(ins, 16, 5, norm='gn', gn_groups=4,
                no_norm_on_lateral=no_norm_on_lateral)
     _load(_wrap(neck=port), ['neck'], v['params'])
-    ref = jax.jit(jm.apply)(v, [jnp.asarray(f) for f in feats])
+    ref = fast_jit(jm.apply)(v, [jnp.asarray(f) for f in feats])
     with torch.no_grad():
         got = port([_nchw(f) for f in feats])
     assert len(got) == 5
@@ -120,14 +120,14 @@ def test_fcn_mask_head(kind):
     else:
         jm, port = (J(upsample_type='carafe', **kw),
                     FCNMaskHead(upsample_type='carafe', **kw))
-    v = randomize_variables(jax.jit(jm.init)(jax.random.PRNGKey(0),
+    v = randomize_variables(fast_jit(jm.init)(jax.random.PRNGKey(0),
                                             jnp.asarray(x)))
     if kind == 'carafe':     # kernels far from uniform
         enc = v['params']['upsample']['content_encoder']
         enc['kernel'] = np.asarray(enc['kernel']) * 50
     _load(_wrap(**{'roi_head.mask_head': port}), ['roi_head', 'mask_head'],
           v['params'])
-    ref = jax.jit(jm.apply)(v, jnp.asarray(x))
+    ref = fast_jit(jm.apply)(v, jnp.asarray(x))
     with torch.no_grad():
         got = port(_nchw(x))
     assert got.shape == (5, 6, 28, 28)
@@ -144,11 +144,11 @@ def test_fpn_carafe():
              for i, c in enumerate(ins)]
     jm = J(in_channels=ins, out_channels=16, num_outs=5,
            compressed_channels=8)
-    v = randomize_variables(jax.jit(jm.init)(
+    v = randomize_variables(fast_jit(jm.init)(
         jax.random.PRNGKey(0), [jnp.asarray(f) for f in feats]))
     port = FPN_CARAFE(ins, 16, 5, compressed_channels=8)
     _load(_wrap(neck=port), ['neck'], v['params'])
-    ref = jax.jit(jm.apply)(v, [jnp.asarray(f) for f in feats])
+    ref = fast_jit(jm.apply)(v, [jnp.asarray(f) for f in feats])
     with torch.no_grad():
         got = port([_nchw(f) for f in feats])
     assert [tuple(g.shape[2:]) for g in got] == [(34, 42), (17, 21), (9, 11),
@@ -170,7 +170,7 @@ def test_double_conv_fc_bbox_head_and_3v():
     kw = dict(num_classes=5, in_channels=16, num_convs=2,
               conv_out_channels=32, fc_out_channels=32)
     jm = J(**kw)
-    v = randomize_variables(jax.jit(jm.init)(
+    v = randomize_variables(fast_jit(jm.init)(
         jax.random.PRNGKey(0), jnp.asarray(xc), jnp.asarray(xr)))
     port = DoubleConvFCBBoxHead(**kw)
     load_jax_variables(_wrap(**{'roi_head.bbox_head': port}), {
