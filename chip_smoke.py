@@ -370,7 +370,8 @@ before the last line is printed:
    GA-Faster R-CNN, GA-RetinaNet, the SAC Cascade R-CNN and PointRefine:
    an image through ``make_test_fn(..., bf16=True)`` and a step through
    ``train_steps(..., compute_dtype=torch.bfloat16)``, each a counted
-   warm-up, a timed repeat and a profiled pass; each drive launches the
+   warm-up and a timed repeat (their profiled passes cut in PR 24 for
+   phase 23's time); each drive launches the
    bf16 instance of each kernel exactly as often as the same file's fp32
    drive launched the fp32 one earlier in this run, no fp32 instance and
    no K5, and step 0's loss is finite and within 5% of the fp32 cell's
@@ -385,7 +386,26 @@ before the last line is printed:
    ``_bf16`` at RefineMask's P2 crops (C = 1 among them), HTC's semantic
    crops, GRoIE's and Double-Head's crops and the C4 crops, each timed
    beside its bound at 2 B an element, out of the ``kernels`` line's
-   sums. It prints the phase's seconds and the whole run's.
+   sums. It prints the phase's seconds;
+23. run test-time augmentation and conv+BN folding (``run_tta``): the
+   flagship at full width from random N(0, 0.05) weights with its
+   BatchNorms' statistics drawn (means N(0, 0.1), variances U(0.5, 1.5)),
+   saved and read back by the eval CLI (``tools.test.main``) with
+   ``--tta --tta-scales 800 1333 1000 1333 --eval bbox segm`` over a
+   seeded COCO set of one image at each COCO size in
+   ``build/chip_smoke_tta/``, in the faithful and the dynamic mode, each
+   without and with ``--fuse-conv-bn`` (4 augmentations an image, the
+   second scale on the 1344x1344 canvas; K1 3 x 4 and K2 5 x 4 an image
+   faithful, 6 x 4 dynamic, exact, and 55 folded pairs, JAX's count), then
+   ``aug_device_test`` in bf16 unfolded and folded (the same counts on
+   the ``_bf16`` instances), the device ms an image of TTA and of the
+   single scale (``make_test_fn``), unfolded and folded, fp32 and bf16,
+   each beside its busy share, the folded fp32 drive's dets against the
+   unfolded one's, and toy DynaMask (both modes) and Mask R-CNN
+   ``aug_test`` on the card against the CPU; phase 2's ``tta ...`` lines
+   hold K2 and its bf16 instance at each augmentation's crops on the
+   1344x1344 canvas and in a flipped frame. It prints the phase's seconds
+   and the whole run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
@@ -399,8 +419,8 @@ loader-batch step, in phase 13 each config's image and steps and
 GRoIE's eval drive and loader-batch step, in phase 14 each config's
 image and steps and RetinaNet's eval drive, in phase 15 each config's
 image and steps and the HRNet-W18 Mask R-CNN's eval drive and
-loader-batch step, and in phases 16-22 each config's image and
-steps)
+loader-batch step, in phases 16-22 each config's image and
+steps, and in phase 23 each eval CLI drive and each bf16 TTA drive)
 the kernels' launch
 counters are zeroed just before it
 and read just after (the loop's
@@ -696,6 +716,9 @@ def k2_bf16_cases(gen, dev):
     for case, args, kw in bf16_family_crops(dev):
         yield case, (args[0].bfloat16(), *args[1:]), kw
         del args
+    for case, args, kw in tta_crops(dev):      # phase 23's bf16 drives
+        yield case, (args[0].bfloat16(), *args[1:]), kw
+        del args
 
 
 def k4_bf16_cases(gen, dev):
@@ -796,9 +819,12 @@ PISA_CROPS = 'pisa'
 # bins (phase 21)
 C4_CROPS = 'c4'
 C4_CHANNELS = 1024
+# test-time augmentation's crops: each augmentation's on the 1344x1344
+# canvas of the second scale and in a flipped frame (phase 23)
+TTA_CROPS = 'tta'
 OFF_ROW = (CLUSTERED, PORTRAIT, CONFIG, REFINE, HTC,
            TWO_STAGE, HRFPN_CROPS, WHOLE_MAP, HEAD_CROPS,
-           PISA_CROPS, C4_CROPS)  # out of the sums
+           PISA_CROPS, C4_CROPS, TTA_CROPS)  # out of the sums
 PISA_PROPOSALS = 2000       # PISA Faster R-CNN's proposals an image
 PISA_SCORE_ROIS = TRAIN_IMAGES * (PISA_PROPOSALS + TRAIN_GTS)   # 8080
 # the whole maps phase 17 gives K1 (an image and a step's 4 images) and K3 (a
@@ -1122,6 +1148,44 @@ def c4_crops(dev, infer=True):
         del feat
 
 
+# phase 23's frames of a 640x427 COCO image: at the second scale (1000,
+# 1333) its 889x1333 region on the 1344x1344 canvas; at the first (800,
+# 1333) its 800x1199 region on the 800x1344 canvas, flipped
+TTA_CANVAS = (1344, 1344)
+TTA_REGION = (889, 1333)
+FLIP_REGION = (800, 1199)
+
+
+def tta_crops(dev):
+    """K2's arguments at test-time augmentation's new crops (phase 23),
+    each augmentation's (:func:`_crops`: the box extract of the shared
+    1000 proposals, the mask, SFM and MSM crops of 100 dets): on the
+    1344x1344 canvas of the second scale, P2 336x336, the RoIs over the
+    889x1333 image region; and on the 800x1344 canvas in the flipped
+    800x1199 region of the first scale, the RoIs mirrored about its width
+    (those partly off its left edge now past its right one, those at its
+    left edge at its right), from generators of their own."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def in_region(n, _):
+        return synthetic_rois(gen, dev, n, 1, TTA_REGION)
+
+    for case, args, kw in _crops(gen, dev, 1, 1000, N_DETS, in_region,
+                                 TTA_CANVAS):
+        yield f'{TTA_CROPS} 1344x1344 {case}', args, kw
+    fgen = torch.Generator(device=dev).manual_seed(30)
+
+    def flipped(n, _):
+        r, b = synthetic_rois(fgen, dev, n, 1, FLIP_REGION)
+        w = FLIP_REGION[1]
+        return torch.stack([w - r[:, 2], r[:, 1], w - r[:, 0], r[:, 3]],
+                           1).contiguous(), b
+
+    for case, args, kw in _crops(fgen, dev, 1, 1000, N_DETS, flipped):
+        yield f'{TTA_CROPS} flipped {case}', args, kw
+
+
 def config_crops(dev, train=False):
     """The crops of the other configurations where they differ from the
     flagship's: LVIS inference (300 dets), Cityscapes inference on the
@@ -1170,8 +1234,9 @@ def k2_cases(gen, dev):
     RefineMask's P2 crops (phase 10) of its training step and of each
     config's inference, at HTC's semantic crops of a step (phase 12), at
     GRoIE's and Double-Head's crops (phase 13), at HRFPN's (phase 15), at
-    item 9's heads' (phase 18) and at PISA's (phase 20), each from a
-    generator of its own so the other cases keep their inputs."""
+    item 9's heads' (phase 18), at PISA's (phase 20), at C4's (phase 21)
+    and at test-time augmentation's (phase 23), each from a generator of
+    its own so the other cases keep their inputs."""
     import torch
     for case, args, kw in _crops(gen, dev, 1, 1000, N_DETS):
         yield 'infer ' + case, args, kw
@@ -1193,6 +1258,7 @@ def k2_cases(gen, dev):
     yield from head_crops(dev)
     yield from pisa_crops(dev)
     yield from c4_crops(dev)
+    yield from tta_crops(dev)
 
 
 def k4_args(gen, args, kw):
@@ -6362,13 +6428,13 @@ def run_item22(report, card):
     (both MSM modes on the DynaMask files) and a step of the config's
     batch (4 at 800x1344; Cityscapes 1 at 1024x2048; HTC's with
     ``gt_semantic_seg``) through ``train_steps(..., compute_dtype=
-    torch.bfloat16)``, each a counted warm-up, a timed repeat and a
-    profiled pass. Each drive must launch the bf16 instance of each kernel
-    exactly as often as the same file's fp32 drive in this run launched
-    the fp32 one, and no fp32 instance and no K5; step 0's loss finite and
-    within BF16_LOSS_RTOL of the fp32 cell's step 0 (DynaMask's as
-    :func:`held_loss` holds it). Each file's line beside its
-    fp32 drive: ms, peak memory, the ratios."""
+    torch.bfloat16)``, each a counted warm-up and a timed repeat (no
+    profiled pass since PR 24). Each drive must launch the bf16 instance of
+    each kernel exactly as often as the same file's fp32 drive in this run
+    launched the fp32 one, and no fp32 instance and no K5; step 0's loss
+    finite and within BF16_LOSS_RTOL of the fp32 cell's step 0
+    (DynaMask's as :func:`held_loss` holds it). Each file's line beside
+    its fp32 drive: ms, peak memory, the ratios."""
     import torch
     from dynamask_torch.apis import config_shapes
     launches = {}
@@ -6380,9 +6446,10 @@ def run_item22(report, card):
         modes = tuple((mode, None if mode == 'infer' else mode == 'dynamic',
                        in_precision(per_drive(rec), 'bf16'))
                       for mode, rec in infer32.items())
+        # the drives' profiled passes are cut (PR 24, for phase 23's time;
+        # PERF.md keeps PR 22's busy shares)
         got, recs = run_config_inference(report, card, key, path, test_hw,
-                                         modes, repeats=1, bf16=True,
-                                         busy=True)
+                                         modes, repeats=1, bf16=True)
         launches.update(got)
         report['item22']['inference'] += recs
         pair = dict(config=name, infer={})
@@ -6403,7 +6470,7 @@ def run_item22(report, card):
             got, rec = run_config_train(
                 report, card, key, path, images, train_hw,
                 in_precision(per_drive(train32), 'bf16'), repeats=1,
-                compute_dtype=torch.bfloat16, busy=True,
+                compute_dtype=torch.bfloat16,
                 init_std=HRNET_STEP_STD if 'hrnet' in name else None)
             launches.update(got)
             report['item22']['train'].append(rec)
@@ -6451,6 +6518,358 @@ def run_item22(report, card):
                                    f'{l32}')
         report['item22']['pairs'].append(pair)
         torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 23: test-time augmentation and conv+BN folding ---------------------
+
+TTA_SET = os.path.join(ROOT, 'build', 'chip_smoke_tta')
+# the eval CLI's --tta-scales (h w pairs): Resize(keep_ratio) fits each
+# image into 1333x800, then 1333x1000 (the 1344x1344 canvas), flipped and
+# not: 4 augmentations an image
+TTA_SCALES = ('800', '1333', '1000', '1333')
+TTA_AUGS = 4
+TTA_INFER = {mode: {k: n * TTA_AUGS for k, n in counts.items()}
+             for mode, counts in INFER_COUNTS.items()}
+# the folded fp32 TTA drive against the unfolded one. At random weights
+# the RPN's objectness ties by the hundred: one rounding apart, the two
+# models keep other proposals (7-20% of the 1000 in their slots, a
+# builder's chip run), so a det is either the same det (FOLD_BOX_ATOL)
+# or another one. Held: each image's FPN levels within FOLD_FEAT_RL2
+# (relative L2; the fold itself), the same number of valid dets, and at
+# least FOLD_MATCH_SHARE of the folded dets the unfolded ones
+FOLD_FEAT_RL2 = 1e-5
+FOLD_BOX_ATOL = 0.01    # px, on boxes in original-image coordinates
+FOLD_MATCH_SHARE = 0.5
+FLAGSHIP_PAIRS = 55     # JAX's count (tests/test_torch_port_fuse.py)
+
+
+def draw_bn_stats(model, gen):
+    """Every BatchNorm's running statistics drawn from ``gen``: means
+    N(0, 0.1), variances U(0.5, 1.5), so that folding is not an
+    identity."""
+    import torch
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d) and \
+                    m.running_mean is not None:
+                n = m.running_mean.numel()
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+
+
+def tta_toy_batches(device):
+    """Two augmentations of a seeded 100x120 image for the toys: as it is
+    on a 128x128 canvas, and resized to 125x150 and flipped in that region
+    on a 160x160 canvas."""
+    import torch
+    import torch.nn.functional as F
+    img = torch.randn(1, 3, 100, 120,
+                      generator=torch.Generator().manual_seed(2))
+    out = []
+    for (h, w), canvas, flip in (((100, 120), 128, False),
+                                 ((125, 150), 160, True)):
+        region = F.interpolate(img, size=(h, w), mode='bilinear',
+                               align_corners=False)
+        if flip:
+            region = region.flip(-1)
+        image = torch.zeros(1, canvas, canvas, 3)
+        image[0, :h, :w] = region[0].permute(1, 2, 0)
+        sf = torch.tensor([[w / 120, h / 100] * 2])
+        out.append({k: v.to(device) for k, v in dict(
+            image=image, img_shape=torch.tensor([[float(h), float(w)]]),
+            ori_shape=torch.tensor([[100., 120.]]), scale_factor=sf).items()})
+    return out
+
+
+def check_tta_toys(report):
+    """Phase 23: a toy DynaMask in both modes and a toy Mask R-CNN
+    (phase 3's) through ``aug_test`` on the card (the kernels) against the
+    same models on the CPU (the plain versions), on two augmentations, the
+    second rescaled and flipped."""
+    import torch
+    from dynamask_torch.models import build_detector
+    flips = [False, True]
+    for name, dynamic in (('faithful', False), ('dynamic', True),
+                          ('mask_rcnn', False)):
+        cfg = toy_cfg('mask_rcnn' if name == 'mask_rcnn' else 'dynamask')
+        if name != 'mask_rcnn':
+            cfg.model.roi_head.dynamic_inference = dynamic
+        ref = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                             device='cpu', seed=0)
+        model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                               device=DEVICE)
+        model.load_state_dict(ref.state_dict())
+        a = ref.aug_test(tta_toy_batches('cpu'), flips)
+        b = {k: v.cpu() for k, v in model.aug_test(
+            tta_toy_batches(DEVICE), flips).items()}
+        errs = {k: (a[k].double() - b[k].double()).abs().max().item()
+                for k in ('dets', 'mask_probs')}
+        same = all(torch.equal(a[k], b[k]) for k in ('labels', 'det_valid'))
+        print(f'  toy tta {name}: {int(a["det_valid"].sum())} dets, '
+              f'mask_probs {tuple(a["mask_probs"].shape)}, GPU vs CPU max '
+              'abs err ' + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+              + f', labels/valid equal {same}')
+        report['toy'].append(dict(model=f'tta_{name}', dynamic=dynamic,
+                                  same_labels_valid=same, **errs))
+        # phase 3's rule for simple_test
+        if not (same and max(errs.values()) < 1e-3):
+            raise RuntimeError(f'toy tta {name}: GPU result disagrees with '
+                               'the CPU reference')
+
+
+def _ms(values) -> str:
+    return ' / '.join(f'{v:.1f}' for v in values)
+
+
+def fold_agreement(folded, unfolded):
+    """The folded drive's results against the unfolded drive's, image by
+    image: the same number of valid dets, and the share of the folded
+    ones within FOLD_BOX_ATOL (every coordinate) of an unfolded det of
+    their label -> the least share over the images."""
+    import numpy as np
+    least = 1.0
+    for f, u in zip(folded, unfolded):
+        fv, uv = f['valid'], u['valid']
+        if f['img_id'] != u['img_id'] or fv.sum() != uv.sum():
+            raise RuntimeError(f'fold: image {f["img_id"]}: {int(fv.sum())} '
+                               f'valid dets folded, {int(uv.sum())} '
+                               'unfolded')
+        ub, ul = u['dets'][uv, :4], u['labels'][uv]
+        near = [len(ub[ul == label]) and np.abs(
+            ub[ul == label] - box).max(1).min() <= FOLD_BOX_ATOL
+            for box, label in zip(f['dets'][fv, :4], f['labels'][fv])]
+        least = min(least, float(np.mean(near)) if near else 1.0)
+    if least < FOLD_MATCH_SHARE:
+        raise RuntimeError(f'fold: {least:.3f} of an image\'s folded dets '
+                           f'are unfolded ones (least {FOLD_MATCH_SHARE})')
+    return least
+
+
+def fold_features(model, folded, dataset):
+    """The largest relative L2 distance of the folded model's FPN levels
+    from the unfolded model's, over each image of ``dataset`` at its own
+    pipeline's scale, and the share of the RPN's proposals the two keep in
+    the same slot (within FOLD_BOX_ATOL)."""
+    import torch
+    worst, same = 0.0, []
+    with torch.no_grad():
+        for i in range(len(dataset)):
+            s = dataset[i]
+            b = {k: torch.from_numpy(s[k])[None].to(DEVICE)
+                 for k in ('image', 'img_shape', 'scale_factor')}
+            fa = model.extract_feat(model.images(b))
+            fb = folded.extract_feat(folded.images(b))
+            worst = max([worst] + [((a - c).norm() / a.norm()).item()
+                                   for a, c in zip(fa, fb)])
+            pa, pb = model.rpn_proposals(fa, b), folded.rpn_proposals(fb, b)
+            same.append(((pa.boxes - pb.boxes).abs().amax(-1) <=
+                         FOLD_BOX_ATOL).float().mean().item())
+    if worst > FOLD_FEAT_RL2:
+        raise RuntimeError(f'fold: FPN levels {worst:.3e} apart (relative '
+                           f'L2; limit {FOLD_FEAT_RL2})')
+    return worst, same
+
+
+def run_tta(report, card):
+    """Phase 23: test-time augmentation and conv+BN folding on the
+    flagship at full width, random N(0, 0.05) weights from seed 0 and its
+    BatchNorms' statistics drawn (:func:`draw_bn_stats`), saved as a
+    ``state_dict`` and read back by the eval CLI, over a seeded COCO set
+    of one image at each of ``COCO_SIZES``. (a) The eval CLI
+    (``tools.test.main`` in-process) with ``--tta --tta-scales 800 1333
+    1000 1333 --eval bbox segm``, in the faithful and the dynamic mode,
+    each without and with ``--fuse-conv-bn``: 4 augmentations an image,
+    the second scale on the 1344x1344 canvas; each drive held to its
+    exact launches (K1 3 x 4 and K2 5 x 4 an image faithful, 6 x 4
+    dynamic, the fp32 instances). (b) ``aug_device_test`` in bf16 (a bf16
+    copy of the model, folded in fp32 first for the folded drive), faithful,
+    each held to the same counts on the ``_bf16`` instances. (c) The
+    device ms an image of ``aug_device_test`` against ``make_test_fn`` at
+    the single scale (``simple_test`` + the paste) over the same images,
+    unfolded and folded, fp32 and bf16, each beside the device's busy
+    share of a profiled pass over the first image, timed in turns (after
+    a counted warm-up drive each in bf16), each held to its launches; the folded model's FPN levels and its
+    fp32 TTA drive's dets against the unfolded ones
+    (:func:`fold_features`, :func:`fold_agreement`). (d) The toys'
+    ``aug_test`` on the card against the CPU (:func:`check_tta_toys`)."""
+    import io
+    import re
+    import torch
+    import dynamask_torch.ops as ops
+    from dynamask_torch.apis import (aug_device_test, dataset_mask_canvas,
+                                     init_detector, make_test_fn)
+    from dynamask_torch.data import build_dataset
+    from dynamask_torch.engine import fuse_conv_bn
+    from dynamask_torch.tools.test import main as test_main
+    rec = report.setdefault('tta', {'cli': [], 'timed': [], 'seconds': {}})
+    t_part = time.perf_counter()
+
+    def part(name):         # the phase's seconds by part, in the report
+        nonlocal t_part
+        now = time.perf_counter()
+        rec['seconds'][name] = now - t_part
+        t_part = now
+    ann_file, img_dir, n_gts = write_coco_set(TTA_SET, per_size=1)
+    model = init_detector(FLAGSHIP, device=DEVICE, seed=0, init_std=0.05)
+    draw_bn_stats(model, torch.Generator().manual_seed(0))
+    ckpt = os.path.join(TTA_SET, 'flagship_random_bn.pth')
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+    scales = [tuple(int(v) for v in TTA_SCALES[i:i + 2])
+              for i in range(0, len(TTA_SCALES), 2)]
+    paths = [f'data.test.ann_file={ann_file}',
+             f'data.test.img_prefix={img_dir}', 'data.test.data_root=None']
+    n = len(COCO_SIZES)
+    print(f'  set: {n} images at COCO sizes {COCO_SIZES} (w x h), {n_gts} '
+          f'polygon GTs; --tta-scales {" ".join(TTA_SCALES)}: '
+          f'{TTA_AUGS} augmentations an image')
+    launches = {}
+    n_fused = None
+    for mode, dyn in (('faithful', False), ('dynamic', True)):
+        for fused in (False, True):
+            argv = [FLAGSHIP, ckpt, '--tta', '--tta-scales', *TTA_SCALES,
+                    '--eval', 'bbox', 'segm', '--device', DEVICE,
+                    '--options', *paths,
+                    f'model.roi_head.dynamic_inference={dyn}']
+            if fused:
+                argv.insert(3, '--fuse-conv-bn')
+            key = f'tta_{mode}' + ('_fused' if fused else '')
+            out = io.StringIO()
+            ops.reset_kernel_launches()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = test_main(argv)
+            torch.cuda.synchronize(DEVICE)
+            wall = time.perf_counter() - t
+            launches[key] = ops.kernel_launches()
+            text = out.getvalue()
+            if rc != 0:
+                raise RuntimeError(f'{key}: the eval CLI exited {rc}: '
+                                   f'{text[-2000:]}')
+            check_exact_launches(key, launches[key], TTA_INFER[mode],
+                                 times=n)
+            metrics = dict(re.findall(r'^(\w+_mAP): ([0-9.]+)$', text,
+                                      re.M))
+            if set(metrics) != {'bbox_mAP', 'segm_mAP'}:
+                raise RuntimeError(f'{key}: metrics {metrics}: {text}')
+            m = re.search(r'^fused (\d+) conv\+bn pairs$', text, re.M)
+            if fused != bool(m):
+                raise RuntimeError(f'{key}: fold line {m}: {text}')
+            if m:
+                if n_fused not in (None, int(m[1])):
+                    raise RuntimeError(f'{key}: {m[1]} pairs, {n_fused} '
+                                       'before')
+                n_fused = int(m[1])
+            print(f'  {key}: the eval CLI in {wall:.1f} s (build, {n} '
+                  f'images x {TTA_AUGS} augmentations, evaluate) [{card}]; '
+                  f'bbox_mAP {metrics["bbox_mAP"]}, segm_mAP '
+                  f'{metrics["segm_mAP"]} (random weights)'
+                  + (f'; fused {n_fused} conv+bn pairs' if m else ''))
+            rec['cli'].append(dict(mode=mode, fused=fused, seconds=wall,
+                                   metrics=metrics, launches=launches[key]))
+    part('cli')
+    if n_fused != FLAGSHIP_PAIRS:
+        raise RuntimeError(f'fold: {n_fused} pairs, JAX folds '
+                           f'{FLAGSHIP_PAIRS}')
+    rec['fused_pairs'] = n_fused
+
+    dataset = build_dataset(dict(model.cfg.data['test'],
+                                 ann_file=ann_file, img_prefix=img_dir,
+                                 data_root=None),
+                            default_args=dict(test_mode=True))
+    folded, _ = fuse_conv_bn(model)
+    results = {}
+    for prec in ('fp32', 'bf16'):
+        bf16 = prec == 'bf16'
+        nets = (('unfolded', model), ('folded', folded))
+        counts = in_precision(TTA_INFER['faithful'], prec)
+        # bf16: a counted warm-up drive each, the bf16 paths (the CLI's
+        # drives above warmed the fp32 ones up)
+        for label, net in nets if bf16 else ():
+            key = f'tta_{prec}_{label}'
+            ops.reset_kernel_launches()
+            results[key] = aug_device_test(net, dataset, scales=scales,
+                                           bf16=bf16, progress=False)
+            launches[key] = ops.kernel_launches()
+            check_exact_launches(key, launches[key], counts, times=n)
+        fns = {label: make_test_fn(net, dataset_mask_canvas(dataset),
+                                   bf16=bf16) for label, net in nets}
+        batches = [{k: torch.from_numpy(dataset[i][k])[None].to(DEVICE)
+                    for k in ('image', 'img_shape', 'ori_shape',
+                              'scale_factor')} for i in range(n)]
+
+        def single_scale(label):
+            for b in batches:
+                fns[label](b)
+            torch.cuda.synchronize(DEVICE)
+
+        # timed in turns, unfolded then folded
+        tta_ms = collections.defaultdict(list)
+        single_ms = collections.defaultdict(list)
+        for label in ('unfolded', 'folded'):
+            net = dict(nets)[label]
+            timings = {}
+            ops.reset_kernel_launches()
+            got = aug_device_test(net, dataset, scales=scales, bf16=bf16,
+                                  progress=False, timings=timings)
+            check_exact_launches(f'tta_{prec}_{label} (timed)',
+                                 ops.kernel_launches(), counts, times=n)
+            results.setdefault(f'tta_{prec}_{label}', got)
+            tta_ms[label].append(1e3 * timings['device'] / n)
+            single_scale(label)
+            t = time.perf_counter()
+            single_scale(label)
+            single_ms[label].append(1e3 * (time.perf_counter() - t) / n)
+        for label, net in nets:
+            # the busy shares over the first image: a profiled pass over
+            # all four costs the host seconds of trace processing
+            row = dict(precision=prec, folded=label == 'folded',
+                       tta_ms=statistics.mean(tta_ms[label]),
+                       tta_ms_turns=tta_ms[label],
+                       single_ms=statistics.mean(single_ms[label]),
+                       single_ms_turns=single_ms[label],
+                       tta_busy=device_busy(lambda: aug_device_test(
+                           net, dataset, scales=scales, bf16=bf16,
+                           progress=False, max_images=1)),
+                       single_busy=device_busy(
+                           lambda: fns[label](batches[0])))
+            print(f'  tta_{prec}_{label}: TTA x{TTA_AUGS} '
+                  f'{row["tta_ms"]:.1f} device ms/img (aug_test + paste, '
+                  f'synchronised; turns {_ms(row["tta_ms_turns"])}), '
+                  f'{busy_text(row["tta_busy"])}; single scale '
+                  f'{row["single_ms"]:.1f} device ms/img (simple_test + '
+                  f'paste; turns {_ms(row["single_ms_turns"])}), '
+                  f'{busy_text(row["single_busy"])}; TTA / single '
+                  f'{row["tta_ms"] / row["single_ms"]:.2f} [{card}]')
+            rec['timed'].append(row)
+        del fns, batches
+        part(f'timed_{prec}')
+    for prec in ('fp32', 'bf16'):
+        a, b = (next(r for r in rec['timed'] if r['precision'] == prec and
+                     r['folded'] == f) for f in (True, False))
+        print(f'  tta {prec}: folded / unfolded device ms/img, TTA '
+              f'{a["tta_ms"] / b["tta_ms"]:.3f}, single scale '
+              f'{a["single_ms"] / b["single_ms"]:.3f} [{card}]')
+    feat, same = fold_features(model, folded, dataset)
+    least = fold_agreement(results['tta_fp32_folded'],
+                           results['tta_fp32_unfolded'])
+    print(f'  tta fold: FPN levels within {feat:.3e} of the unfolded '
+          f'model\'s (relative L2, limit {FOLD_FEAT_RL2}); the RPN keeps '
+          f'{_ms([100 * v for v in same])} % of its proposals in their '
+          f'slots; the folded fp32 TTA drive has the unfolded one\'s '
+          f'valid count on every image, and at least {100 * least:.1f}% '
+          f'of its dets within {FOLD_BOX_ATOL} px of an unfolded det of '
+          f'their label (limit {100 * FOLD_MATCH_SHARE:.0f}%; the others '
+          'follow other proposals)')
+    rec['fold'] = dict(feature_rl2=feat, proposals_same_slot=same,
+                       least_matched_share=least)
+    part('fold')
+    del model, folded, results
+    torch.cuda.empty_cache()
+    check_tta_toys(report)
+    part('toys')
+    print('  phase 23 by part: ' + ', '.join(
+        f'{k} {v:.1f} s' for k, v in rec['seconds'].items()))
     return launches
 
 
@@ -6611,8 +7030,14 @@ def main() -> int:
     t22 = time.perf_counter()
     launches.update(run_item22(report, card))
     report['phase22_s'] = time.perf_counter() - t22
+    print(f'  phase 22: {report["phase22_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 23: test-time augmentation and conv+BN folding [{card}]')
+    t23 = time.perf_counter()
+    launches.update(run_tta(report, card))
+    report['phase23_s'] = time.perf_counter() - t23
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 22: {report["phase22_s"]:.1f} s; the whole run '
+    print(f'  phase 23: {report["phase23_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s [{card}]')
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}

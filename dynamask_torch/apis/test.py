@@ -10,7 +10,7 @@ neither)."""
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -158,12 +158,7 @@ def single_device_test(model: torch.nn.Module, dataset,
             res = {'img_id': img_id, 'dets': dets[i], 'labels': labels[i],
                    'valid': valid[i]}
             if 'masks' in out:
-                oh, ow = ori[i]
-                # one copy per image, (D, w, h): each det's mask is then a
-                # column-major (h, w) view, the order the RLE codec reads
-                masks = out['masks'][i, :, :oh, :ow].transpose(1, 2) \
-                    .contiguous().cpu().numpy()
-                res['masks'] = [m.T for m in masks]
+                res['masks'] = fetch_masks(out['masks'][i], ori[i])
             if proposals:
                 res['proposals'] = dets[i][valid[i]]
             results.append(res)
@@ -179,6 +174,146 @@ def single_device_test(model: torch.nn.Module, dataset,
     return results
 
 
+def fetch_masks(masks: torch.Tensor, ori_hw) -> List[np.ndarray]:
+    """One image's (D, ch, cw) bool masks cropped to its original (h, w)
+    and copied to the host once, (D, w, h): each det's mask is then a
+    column-major (h, w) view, the order the RLE codec reads."""
+    oh, ow = ori_hw
+    host = masks[:, :oh, :ow].transpose(1, 2).contiguous().cpu().numpy()
+    return [m.T for m in host]
+
+
+def check_aug_test(model: torch.nn.Module) -> None:
+    """Raise ``NotImplementedError``, naming why, where the JAX package
+    cannot augment ``model``: a detector without ``aug_test`` (the
+    single-stage ones, ``RPN``, ``FastRCNN``, guided anchoring's), or an
+    RoI head its ``aug_test`` fails on (``StandardRoIHead.
+    check_aug_test``)."""
+    if not hasattr(model, 'aug_test'):
+        raise NotImplementedError(
+            f'{type(model).__name__} has no test-time augmentation, as in '
+            f'the JAX package (aug_test is the two-stage detectors\')')
+    model.roi_head.check_aug_test()
+
+
+def tta_specs(scales: Optional[Sequence[Tuple[int, int]]], flip: bool
+              ) -> List[Tuple[Optional[Tuple[int, int]], bool]]:
+    """The (scale, flip) of each augmentation: every scale (None: the
+    pipeline's own ``Resize``) unflipped, then flipped where ``flip``."""
+    return [(s, f) for s in ([tuple(s) for s in scales] if scales else
+                             [None])
+            for f in ([False, True] if flip else [False])]
+
+
+def tta_pipelines(dataset, specs) -> List[List]:
+    """Each augmentation's pipeline: the dataset's own, its ``Resize``
+    swapped for ``Resize(img_scale=s, keep_ratio=<the original's>)`` where
+    the augmentation has a scale."""
+    from ..data.transforms import Resize
+    return [[Resize(img_scale=s, keep_ratio=t.keep_ratio)
+             if s is not None and isinstance(t, Resize) else t
+             for t in dataset.pipeline.transforms] for s, _ in specs]
+
+
+def tta_samples(dataset, idx: int, specs, pipes) -> List[Dict]:
+    """Image ``idx`` through each augmentation's pipeline from a fresh
+    ``pre_pipeline(idx)``: flipped in its resized region after the
+    pipeline where the augmentation flips (the region is where ``Pad``
+    put it, so this is the flip before ``Pad``), then ``format_sample``
+    onto the dataset's canvases (``ValueError`` where none fits)."""
+    from ..data.formatting import format_sample
+    samples = []
+    for (_, f), ts in zip(specs, pipes):
+        r = dataset.pre_pipeline(idx)
+        for t in ts:
+            r = t(r)
+        if f:
+            fh, fw = (np.asarray(r['img_shape'][:2]).astype(int)
+                      if 'img_shape' in r else r['img'].shape[:2])
+            r['img'] = np.ascontiguousarray(r['img'])
+            r['img'][:fh, :fw] = r['img'][:fh, :fw][:, ::-1]
+            r['flip'] = True
+        samples.append(format_sample(
+            r, dataset.canvases, dataset.max_gts, dataset.mask_crop_size,
+            with_semantic=getattr(dataset, 'with_semantic', False),
+            max_proposals=getattr(dataset, 'max_proposals', 1000)))
+    return samples
+
+
+def aug_device_test(model: torch.nn.Module, dataset,
+                    scales: Optional[Sequence[Tuple[int, int]]] = None,
+                    flip: bool = True,
+                    mask_canvas: Optional[Tuple[int, int]] = None,
+                    mask_thr: float = 0.5,
+                    max_images: Optional[int] = None,
+                    bf16: bool = False, progress: bool = True,
+                    timings: Optional[Dict[str, float]] = None
+                    ) -> List[Dict]:
+    """The test-time augmentation loop (port of ``aug_device_test``,
+    ``dynamask_tpu/apis/test.py:124-224``), the eval CLI's ``--tta``: one
+    image at a time, in this process. Each (scale, flip) of
+    :func:`tta_specs` runs the dataset's pipeline with its scale
+    (:func:`tta_pipelines`, :func:`tta_samples`: a scale whose image fits
+    no canvas raises ``ValueError``, as in JAX); the model's ``aug_test``
+    merges the augmentations, then the paste of :func:`paste_epilogue`.
+    ``bf16`` as in :func:`make_test_fn`: a bf16 copy of the model on a
+    bf16 image, the decode in fp32. Results as
+    :func:`single_device_test`'s, in the dataset's order. A detector the
+    JAX package cannot augment raises ``NotImplementedError``
+    (:func:`check_aug_test`).
+
+    ``timings``, given, receives the seconds of the pipelines
+    ('pipeline'), of ``aug_test`` and the paste up to a device
+    synchronise ('device') and of the copies to the host ('fetch')."""
+    check_aug_test(model)
+    ch, cw = mask_canvas or dataset_mask_canvas(dataset)
+    specs = tta_specs(scales, flip)
+    flips = [f for _, f in specs]
+    pipes = tta_pipelines(dataset, specs)
+    net = to_bf16(model) if bf16 else model
+    dev = net.device
+    clock = dict(pipeline=0.0, device=0.0, fetch=0.0)
+    n = len(dataset) if max_images is None else min(len(dataset),
+                                                    max_images)
+    results: List[Dict] = []
+    t_start = time.perf_counter()
+    for idx in range(n):
+        t = time.perf_counter()
+        samples = tta_samples(dataset, idx, specs, pipes)
+        batches = [{k: torch.from_numpy(s[k])[None].to(dev)
+                    for k in ('image', 'img_shape', 'ori_shape',
+                              'scale_factor')} for s in samples]
+        if bf16:
+            for b in batches:
+                b['image'] = b['image'].to(torch.bfloat16)
+        clock['pipeline'] += time.perf_counter() - t
+        t = time.perf_counter()
+        with torch.no_grad():
+            out = paste_epilogue(net.aug_test(batches, flips), ch, cw,
+                                 mask_thr)
+        if timings is not None and dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+        clock['device'] += time.perf_counter() - t
+        t = time.perf_counter()
+        res = {'img_id': dataset.sample_id(idx)}
+        res.update({k: out[k][0].cpu().numpy()
+                    for k in ('dets', 'labels', 'valid')})
+        if 'masks' in out:
+            res['masks'] = fetch_masks(
+                out['masks'][0], samples[0]['ori_shape'].astype(int).tolist())
+        results.append(res)
+        clock['fetch'] += time.perf_counter() - t
+        if progress and (idx + 1) % 20 == 0:
+            fps = (idx + 1) / max(time.perf_counter() - t_start, 1e-6)
+            print(f'\r{idx + 1} imgs (x{len(specs)} augs), {fps:.1f} img/s',
+                  end='', flush=True)
+    if progress:
+        print()
+    if timings is not None:
+        timings.update(clock)
+    return results
+
+
 def proposal_lists(results: List[Dict]) -> List:
     """An RPN's results as a ``proposal_file``'s list: per image its (k, 5)
     float32 proposals, in the results' order (the test set's, which the
@@ -187,16 +322,31 @@ def proposal_lists(results: List[Dict]) -> List:
 
 
 def run_test(cfg, checkpoint: Optional[str] = None,
-             max_images: Optional[int] = None, device=None
+             max_images: Optional[int] = None, device=None,
+             fuse_conv_bn: bool = False, tta: bool = False,
+             tta_scales: Optional[Sequence[Tuple[int, int]]] = None
              ) -> Tuple[object, List[Dict]]:
     """Build the config's detector and test dataset and run the test loop
-    with the config's loader workers -> (dataset, results)."""
+    with the config's loader workers -> (dataset, results). With
+    ``fuse_conv_bn`` the detector's conv+BN pairs are folded first
+    (``engine.fuse_conv_bn``; the count is printed); with ``tta`` the loop
+    is :func:`aug_device_test` at ``tta_scales`` (None: the pipeline's
+    own scale) with flips."""
     from ..data import build_dataset
     from .inference import init_detector
     model = init_detector(cfg, checkpoint, device=device)
+    if tta:
+        check_aug_test(model)
+    if fuse_conv_bn:
+        from ..engine.fuse import fuse_conv_bn as fuse
+        model, n = fuse(model)
+        print(f'fused {n} conv+bn pairs')
     data = model.cfg.data
     dataset = build_dataset(dict(data['test']),
                             default_args=dict(test_mode=True))
+    if tta:
+        return dataset, aug_device_test(model, dataset, scales=tta_scales,
+                                        max_images=max_images)
     return dataset, single_device_test(
         model, dataset, max_images=max_images,
         workers_per_gpu=data.get('workers_per_gpu', 4))

@@ -125,3 +125,41 @@ def clip_boxes(boxes: torch.Tensor, img_shape: torch.Tensor) -> torch.Tensor:
         torch.minimum(torch.maximum(boxes[..., 1], zero), h),
         torch.minimum(torch.maximum(boxes[..., 2], zero), w),
         torch.minimum(torch.maximum(boxes[..., 3], zero), h)], dim=-1)
+
+
+def bbox_flip(boxes: torch.Tensor, img_shape,
+              direction: str = 'horizontal') -> torch.Tensor:
+    """Flip ``(..., 4)`` boxes inside an ``(h, w)`` image (JAX
+    ``bbox_flip``, reference ``bbox/transforms.py:bbox_flip``):
+    ``x1' = w - x2``, no ``- 1``. ``img_shape`` is the resized region,
+    not the padded canvas; a tensor's leading dims broadcast against
+    ``boxes[..., 0]``."""
+    img_shape = torch.as_tensor(img_shape, dtype=boxes.dtype,
+                                device=boxes.device)
+    h, w = img_shape[..., 0], img_shape[..., 1]
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    if direction == 'horizontal':
+        return torch.stack([w - x2, y1, w - x1, y2], dim=-1)
+    if direction == 'vertical':
+        return torch.stack([x1, h - y2, x2, h - y1], dim=-1)
+    raise ValueError(direction)
+
+
+def bbox_mapping(boxes: torch.Tensor, img_shape, scale_factor, flip: bool,
+                 direction: str = 'horizontal') -> torch.Tensor:
+    """Original-image boxes -> an augmentation's frame: times the 4-vector
+    ``scale_factor``, then flipped in the resized region."""
+    boxes = boxes * torch.as_tensor(scale_factor, dtype=boxes.dtype,
+                                    device=boxes.device)
+    return bbox_flip(boxes, img_shape, direction) if flip else boxes
+
+
+def bbox_mapping_back(boxes: torch.Tensor, img_shape, scale_factor,
+                      flip: bool, direction: str = 'horizontal'
+                      ) -> torch.Tensor:
+    """The inverse of :func:`bbox_mapping`: flipped back in the
+    augmentation's frame, then divided by ``scale_factor``."""
+    if flip:
+        boxes = bbox_flip(boxes, img_shape, direction)
+    return boxes / torch.as_tensor(scale_factor, dtype=boxes.dtype,
+                                   device=boxes.device)

@@ -8,8 +8,8 @@ from .transforms import (LoadImageFromFile, LoadAnnotations, LoadProposals,
                          Resize, RandomFlip, Normalize, Pad, Compose)
 from .formatting import (format_sample, collate, canvas_for,
                          rasterize_semantic)
-from .coco import (CocoDataset, CocoIndex, build_dataset, dataset_spec,
-                   COCO_CLASSES)
+from .coco import (CocoDataset, CocoIndex, DeepFashionDataset, build_dataset,
+                   dataset_spec, COCO_CLASSES)
 from .lvis import (LVISV1Dataset, LVISV05Dataset, LvisEvaluator)
 from .cityscapes import (CityscapesDataset, CITYSCAPES_CLASSES,
                          CITYSCAPES_LABEL_IDS)
@@ -29,7 +29,8 @@ __all__ = [
     'RandomFlip',
     'Normalize', 'Pad', 'Compose', 'format_sample', 'collate', 'canvas_for',
     'rasterize_semantic',
-    'CocoDataset', 'CocoIndex', 'build_dataset', 'dataset_spec',
+    'CocoDataset', 'CocoIndex', 'DeepFashionDataset', 'build_dataset',
+    'dataset_spec',
     'COCO_CLASSES',
     'LVISV1Dataset', 'LVISV05Dataset', 'LvisEvaluator',
     'CityscapesDataset', 'CITYSCAPES_CLASSES', 'CITYSCAPES_LABEL_IDS',

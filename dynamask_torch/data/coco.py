@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..core.class_names import DEEPFASHION_CLASSES
 from ..core.mean_ap import eval_recalls
 from ..utils.registry import DATASETS
 from .cocoeval import CocoEvaluator
@@ -358,6 +359,13 @@ class CocoDataset:
             out.update(ev.evaluate([dict(d, category_id=0)
                                     for d in det_json]))
         return out
+
+
+@DATASETS.register_module()
+class DeepFashionDataset(CocoDataset):
+    """DeepFashion in COCO format, its 15 classes (JAX
+    ``data/coco.py:339-347``, reference ``datasets/deepfashion.py``)."""
+    CLASSES = DEEPFASHION_CLASSES
 
 
 def dataset_spec(cfg: dict) -> Tuple[Optional[Tuple[str, ...]],

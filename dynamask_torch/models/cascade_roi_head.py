@@ -49,6 +49,9 @@ class CascadeRoIHead(StandardRoIHead):
     options (sampler, extractors, test NMS, stage 0's target stds) are
     the standard head's."""
 
+    aug_test_refusal = ('its box head is a tuple of stage heads, which '
+                        'JAX\'s aug_test calls as one (a TypeError)')
+
     def __init__(self, bbox_head: Sequence[nn.Module],
                  mask_head: Optional[nn.Module],
                  stage_loss_weights: Tuple[float, ...] = (1.0, 0.5, 0.25),

@@ -12,7 +12,7 @@ inference, and ``rpn_loss``, ``proposals``, ``box_branch`` and
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -20,7 +20,11 @@ from torch.profiler import record_function
 
 from ..core.anchors import AnchorGenerator
 from ..core.assigners import MaxIoUAssigner
+from ..core.bbox_transforms import delta2bbox
+from ..core.merge_augs import (merge_aug_bboxes, merge_aug_masks,
+                               recover_boxes, to_aug_frame)
 from ..core.samplers import RandomSampler
+from ..ops.nms import multiclass_nms
 from ..utils.registry import DETECTORS
 from .rpn_head import rpn_get_proposals, rpn_loss
 
@@ -211,6 +215,77 @@ class MaskRCNN(RPN):
         return self.roi_head.simple_test(feats, proposals.boxes,
                                          proposals.valid, batch,
                                          rescale=rescale)
+
+    @torch.no_grad()
+    def aug_test(self, batches: Sequence[Dict[str, torch.Tensor]],
+                 flips: Sequence[bool]) -> Dict[str, torch.Tensor]:
+        """Test-time augmentation (JAX ``TwoStageDetector.aug_test``,
+        ``dynamask_tpu/models/detectors.py:147-226``): ``batches`` are one
+        batch per augmentation, each image resized (and, where
+        ``flips[i]``, flipped in its resized region) on its canvas.
+
+        The proposals come from the first augmentation alone (3bz),
+        recovered to original coordinates and mapped into each
+        augmentation's frame. Each augmentation runs its own backbone and
+        FPN and the box branch over all of them (its extract and box
+        head; the boxes not clipped, 3ca); its boxes are recovered, its
+        softmax scores averaged. One ``multiclass_nms`` an image (greedy,
+        whatever the config's ``nms``, 3cb) runs over the merged boxes
+        with the first augmentation's validity. The mask branch runs in
+        each frame on the merged dets mapped there (``simple_test_mask(...,
+        rescale=False)``), and the probabilities average after the flip
+        back. Returns what ``simple_test`` returns, in original-image
+        coordinates. The labels are JAX's departures from mmdet, kept
+        (ROADMAP.md queue 3)."""
+        rh = self.roi_head
+        rh.check_aug_test()
+        b0 = batches[0]
+        feats0 = self.extract_feat(self.images(b0))
+        props = self.rpn_proposals(feats0, b0)
+
+        def frame(batch):
+            return batch['img_shape'][:, None], batch['scale_factor'][:, None]
+
+        ori = recover_boxes(props.boxes, *frame(b0), flips[0])
+        bsz, p = ori.shape[:2]
+        aug_boxes, aug_scores, feats_list = [], [], []
+        with record_function('box_head_and_nms'):
+            for ai, (batch, flip) in enumerate(zip(batches, flips)):
+                feats = feats0 if ai == 0 else self.extract_feat(
+                    self.images(batch))
+                feats_list.append(feats)
+                rois = to_aug_frame(ori, *frame(batch), flip).reshape(
+                    bsz * p, 4)
+                roi_batch = torch.arange(
+                    bsz, device=rois.device).repeat_interleave(p)
+                cls, deltas = rh.bbox_head(rh._extract(feats, rois, roi_batch,
+                                                       rh.bbox_roi_out))
+                boxes = delta2bbox(rois, deltas.float(), rh.target_means,
+                                   rh.target_stds).reshape(bsz, p, -1, 4)
+                aug_boxes.append(recover_boxes(
+                    boxes.reshape(bsz, -1, 4), *frame(batch), flip
+                ).reshape(bsz, p, -1, 4))
+                aug_scores.append(torch.softmax(cls.float(), -1).reshape(
+                    bsz, p, -1))
+            boxes, scores = merge_aug_bboxes(aug_boxes, aug_scores)
+            outs = [multiclass_nms(
+                boxes[i].reshape(p, -1), scores[i, :, :rh.num_classes],
+                rh.score_thr, rh.nms_iou_thr, rh.max_per_img,
+                valid=props.valid[i]) for i in range(bsz)]
+            dets, labels, det_valid = (torch.stack([o[j] for o in outs])
+                                       for j in range(3))
+        result = {'dets': dets, 'labels': labels, 'det_valid': det_valid}
+        if rh.mask_head is None:
+            return result
+        with record_function('mask_branch'):
+            aug_masks = []
+            for feats, batch, flip in zip(feats_list, batches, flips):
+                aug_dets = torch.cat([to_aug_frame(
+                    dets[..., :4], *frame(batch), flip), dets[..., 4:]], -1)
+                aug_masks.append(rh.simple_test_mask(
+                    feats, aug_dets, labels, batch, rescale=False).float())
+            result['mask_probs'] = merge_aug_masks(aug_masks, flips)
+        return result
 
 
 @DETECTORS.register_module()

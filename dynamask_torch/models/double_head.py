@@ -116,6 +116,9 @@ def scale_rois(rois: torch.Tensor, factor: float) -> torch.Tensor:
 class DoubleHeadRoIHead(StandardRoIHead):
     """The standard head whose box forward pulls the two crops."""
 
+    aug_test_refusal = ('its box head takes two crops, and JAX\'s aug_test '
+                        'gives it one (a TypeError)')
+
     def __init__(self, bbox_head: nn.Module, mask_head=None,
                  reg_roi_scale_factor: float = 1.3, **common):
         super().__init__(bbox_head, mask_head, **common)

@@ -251,6 +251,9 @@ class GridRoIHead(StandardRoIHead):
     'grid_jitter' (B * max_pos, 4), uniform in ±``JITTER``), drawing from
     the generator what is not given."""
 
+    aug_test_refusal = ('its box head has no regression, and JAX\'s '
+                        'aug_test decodes its deltas (None)')
+
     def __init__(self, bbox_head, grid_head: GridHead, grid_roi_out: int = 14,
                  pos_radius: int = 1, **common):
         super().__init__(bbox_head, None, **dict(common, loss_bbox_weight=0.0))

@@ -77,6 +77,9 @@ class StandardRoIHead(nn.Module):
     # whether a training batch must carry ``gt_semantic`` (RefineMask's
     # heads say so)
     with_semantic = False
+    # why the JAX package's ``aug_test`` cannot run this head (None: it
+    # runs; ``check_aug_test``)
+    aug_test_refusal: Optional[str] = None
 
     def __init__(self, bbox_head: nn.Module, mask_head: Optional[nn.Module],
                  num_classes: int = 80,
@@ -135,6 +138,24 @@ class StandardRoIHead(nn.Module):
         self.roi_extract_mode = roi_extract_mode
         # multiclass_nms's nms_type / sigma / min_score (Soft-NMS)
         self.nms_cfg = dict(nms_cfg or {})
+
+    def check_aug_test(self) -> None:
+        """Raise ``NotImplementedError`` where the JAX package's
+        ``aug_test`` (``dynamask_tpu/models/detectors.py:147-226``) raises
+        on this head: it calls ``bbox_head`` on the raw box crop, so a
+        head of stages, of two crops or without regression fails there,
+        and so does a C4 head, whose box head reads the shared head's
+        output. A DeformRoIPool head runs, its box crop RoIAlign's, as in
+        JAX (ROADMAP.md queue 3, 3cc)."""
+        why = self.aug_test_refusal
+        if why is None and self.shared_head is not None:
+            why = ('the C4 shared head: JAX\'s aug_test feeds the box head '
+                   'the raw crop, without the shared head (a shape error '
+                   'in flax)')
+        if why is not None:
+            raise NotImplementedError(
+                f'{type(self).__name__}: no test-time augmentation, as in '
+                f'the JAX package: {why}')
 
     def _extract(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
                  roi_batch: torch.Tensor, out_size: int) -> torch.Tensor:

@@ -2,16 +2,21 @@
 
     python -m dynamask_torch.tools.test <config> [checkpoint] --eval bbox segm
 
-The flags of the JAX package's ``test.py`` that the port has: the config's
-test set through the test loop on one device (``--device``, default
-``cuda``), its dataset's metrics (COCO's ``bbox``, ``segm``, ``proposal``
-and ``proposal_fast``, VOC's ``mAP`` and ``recall``), the results as json
+The flags of the JAX package's ``test.py``: the config's test set through
+the test loop on one device (``--device``, default ``cuda``), its
+dataset's metrics (COCO's ``bbox``, ``segm``, ``proposal`` and
+``proposal_fast``, VOC's ``mAP`` and ``recall``), the results as json
 (``--out r.json``, ``--format-only``) or, for ``--out r.pkl``, pickled: an
 RPN's then as the ``proposal_file`` a Fast R-CNN config reads, and
-rendered detections (``--show-dir``). A checkpoint
-is a port or mmdet ``state_dict`` file; without one the weights are random
-from seed 0. ``--tta``, ``--devices`` above 1 and ``--fuse-conv-bn`` are
-not ported: each exits non-zero, naming its ROADMAP item.
+rendered detections (``--show-dir``; ``--show`` renders only with it).
+``--fuse-conv-bn`` folds the conv+BN pairs before the loop
+(``engine.fuse_conv_bn``) and prints their count. ``--tta`` runs the
+test-time augmentation loop (``apis.aug_device_test``): each scale of
+``--tta-scales`` (flat h w pairs; without them the config's own), unflipped
+and flipped; a detector the JAX package cannot augment exits non-zero,
+naming why. A checkpoint is a port or mmdet ``state_dict`` file; without
+one the weights are random from seed 0. ``--devices`` above 1 is not
+ported: it exits non-zero, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,12 +30,8 @@ from typing import List, Optional
 
 # flags of the JAX CLI the port has not got, and where they are queued
 NOT_PORTED = {
-    'tta': 'test-time augmentation (aug_device_test, core/merge_augs.py) '
-           'is not ported: ROADMAP.md §1, item 10',
     'devices': 'multi-device eval (multi_device_test) is not ported: '
                'ROADMAP.md §1, item 11',
-    'fuse_conv_bn': 'conv+BN folding (engine/fuse.py) is not ported: '
-                    'ROADMAP.md §1, item 1',
 }
 
 
@@ -46,6 +47,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    'pickle for a .pkl path (an RPN\'s: its proposal_file)')
     p.add_argument('--format-only', action='store_true',
                    help='write the results json without evaluating')
+    p.add_argument('--show', action='store_true',
+                   help='render detections (headless: needs --show-dir)')
     p.add_argument('--show-dir',
                    help='directory to save rendered detection images')
     p.add_argument('--show-score-thr', type=float, default=0.3)
@@ -57,14 +60,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument('--device', default=None,
                    help='torch device (default cuda; cpu runs the plain '
                         'PyTorch versions of the kernels)')
-    p.add_argument('--tta', action='store_true', help=NOT_PORTED['tta'])
+    p.add_argument('--tta', action='store_true',
+                   help='test-time augmentation: each scale unflipped and '
+                        'flipped, merged by the detector\'s aug_test')
     p.add_argument('--tta-scales', type=int, nargs='+', default=None,
-                   help=NOT_PORTED['tta'])
+                   help='the TTA scales as flat h w pairs, e.g. '
+                        '--tta-scales 800 1333 1000 1333')
+    p.add_argument('--fuse-conv-bn', action='store_true',
+                   help='fold the BatchNorms into their convs before the '
+                        'test loop')
     p.add_argument('--devices', type=int, default=1,
                    help=NOT_PORTED['devices'])
-    p.add_argument('--fuse-conv-bn', action='store_true',
-                   help=NOT_PORTED['fuse_conv_bn'])
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.tta_scales and len(args.tta_scales) % 2:
+        p.error('--tta-scales wants h w pairs')
+    return args
 
 
 def render_results(out_dir: str, dataset, results, classes,
@@ -97,12 +107,8 @@ def render_results(out_dir: str, dataset, results, classes,
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    refused = [NOT_PORTED[k] for k, on in (
-        ('tta', args.tta or args.tta_scales), ('devices', args.devices > 1),
-        ('fuse_conv_bn', args.fuse_conv_bn)) if on]
-    if refused:
-        for msg in refused:
-            print(f'error: {msg}', file=sys.stderr)
+    if args.devices > 1:
+        print(f'error: {NOT_PORTED["devices"]}', file=sys.stderr)
         return 2
     from ..apis import run_test
     from ..apis.test import proposal_lists
@@ -111,8 +117,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = Config.fromfile(args.config)
     if args.options:
         cfg.merge_from_options(dict(kv.split('=', 1) for kv in args.options))
-    dataset, results = run_test(cfg, args.checkpoint, args.max_images,
-                                args.device)
+    scales = args.tta_scales and [tuple(args.tta_scales[i:i + 2]) for i in
+                                  range(0, len(args.tta_scales), 2)]
+    try:
+        dataset, results = run_test(cfg, args.checkpoint, args.max_images,
+                                    args.device, args.fuse_conv_bn, args.tta,
+                                    scales)
+    except NotImplementedError as e:
+        print(f'error: {e}', file=sys.stderr)
+        return 2
     if args.out and args.out.endswith('.pkl'):
         with open(args.out, 'wb') as f:
             pickle.dump(proposal_lists(results) if 'proposals' in results[0]
@@ -127,6 +140,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.show_dir:
         render_results(args.show_dir, dataset, results, dataset.CLASSES,
                        args.show_score_thr)
+    elif args.show:
+        print('warning: headless environment, --show requires --show-dir; '
+              'skipping display', file=sys.stderr)
     if args.format_only:
         return 0
     metrics = dataset.evaluate(results, metric=args.eval,

@@ -28,6 +28,9 @@ NAS-FPN (1) to 350, and with the rest of item 9 (the C4 Faster R-CNN,
 Mask R-CNN and RPN, the two DeformRoIPool files, the three CornerNet
 files) to 358. The three SSD512 files are refused for the JAX fault 3bi
 (6 VGG levels against 7 anchor levels), the other 3 refusals name 3c.
+Past the model, ``DATA_FILES`` reach their data as JAX's do (item 10):
+DeepFashion's sets build, the InstaBoost and Albu train pipelines raise
+``ImportError`` without their external packages.
 """
 
 import glob
@@ -414,6 +417,20 @@ REFUSED = {
 }
 
 
+# the files whose data the port refused until item 10 closed: DeepFashion's
+# sets build; the train pipelines of the InstaBoost and Albu files stop at
+# their external package, absent here and on the card, with ImportError,
+# as JAX's do (tests/test_torch_port_data_extra.py holds JAX's raise)
+DATA_FILES = {
+    'deepfashion/mask_rcnn_r50_fpn_15e_deepfashion.py': None,
+    'albu_example/mask_rcnn_r50_fpn_albu_1x_coco.py': 'albumentations',
+    **{f'instaboost/{name}_fpn_instaboost_4x_coco.py': 'instaboostfast'
+       for name in ('cascade_mask_rcnn_r101', 'cascade_mask_rcnn_r50',
+                    'cascade_mask_rcnn_x101_64x4d', 'mask_rcnn_r101',
+                    'mask_rcnn_r50', 'mask_rcnn_x101_64x4d')},
+}
+
+
 def _build(rel):
     from dynamask_torch.models import build_detector
     from dynamask_torch.utils.config import Config
@@ -453,3 +470,37 @@ def test_census_is_the_whole_set():
     assert not wrong, wrong
     assert built == sorted(BUILDS)
     assert len(files) == 364
+
+
+@pytest.mark.parametrize('rel,package', sorted(DATA_FILES.items()))
+def test_item10_files_reach_their_data(rel, package, tmp_path):
+    """DeepFashion's file builds its three sets through ``build_dataset``
+    (its annotation files replaced by a synthetic one); each InstaBoost
+    and Albu file's train pipeline raises ``ImportError`` naming its
+    package."""
+    import json
+    from dynamask_torch.core.class_names import DEEPFASHION_CLASSES
+    from dynamask_torch.data import build_dataset
+    from dynamask_torch.data.transforms import Compose
+    from dynamask_torch.utils.config import Config
+    cfg = Config.fromfile(os.path.join(ROOT, 'configs', rel))
+    if package is not None:
+        with pytest.raises(ImportError, match=package):
+            Compose(cfg.data['train']['pipeline'])
+        return
+    ann = tmp_path / 'ann.json'
+    ann.write_text(json.dumps({
+        'images': [{'id': 1, 'file_name': 'a.jpg', 'height': 64,
+                    'width': 48}],
+        'annotations': [{'id': 1, 'image_id': 1, 'category_id': 3,
+                         'bbox': [4.0, 5.0, 20.0, 30.0], 'area': 600.0,
+                         'iscrowd': 0, 'segmentation': [[4, 5, 24, 5, 24,
+                                                         35, 4, 35]]}],
+        'categories': [{'id': i + 1, 'name': n}
+                       for i, n in enumerate(DEEPFASHION_CLASSES)]}))
+    for split in ('train', 'val', 'test'):
+        d = dict(cfg.data[split], ann_file=str(ann), data_root=None,
+                 img_prefix=str(tmp_path))
+        ds = build_dataset(d, dict(test_mode=split != 'train'))
+        assert type(ds).__name__ == 'DeepFashionDataset'
+        assert len(ds) == 1 and len(ds.CLASSES) == 15

@@ -401,9 +401,9 @@ def test_evaluate_equal_and_gt_predictions(coco_set, capsys):
 def test_not_ported_parts_raise(coco_set):
     """The proposal metrics, refused here until they were ported, give the
     JAX package's values (on no results: every GT missed); a metric no COCO
-    set has and a dataset type the port lacks (DeepFashion's) still raise;
-    WIDER Face, refused until SSD was ported, is an XML set of one
-    class."""
+    set has still raises; DeepFashion's set, refused until item 10 ported
+    it, is registered, COCO's of 15 classes; WIDER Face, refused until SSD
+    was ported, is an XML set of one class."""
     from dynamask_torch.data import build_dataset
     ref_ds, ds = _pair(coco_set, 'test')
     for metric in ('proposal', 'proposal_fast'):
@@ -413,11 +413,12 @@ def test_not_ported_parts_raise(coco_set):
                                   ref_ds.fast_eval_recall([]))
     with pytest.raises(KeyError, match='mAP'):
         ds.evaluate([], metric=['mAP'])
-    with pytest.raises(KeyError, match='DeepFashionDataset'):
-        build_dataset(dict(type='DeepFashionDataset', ann_file='x.json',
-                           pipeline=[]))
-    from dynamask_torch.data import WIDERFaceDataset, XMLDataset
+    from dynamask_torch.data import (CocoDataset, DeepFashionDataset,
+                                     WIDERFaceDataset, XMLDataset)
     from dynamask_torch.utils.registry import DATASETS
+    assert DATASETS.get('DeepFashionDataset') is DeepFashionDataset
+    assert issubclass(DeepFashionDataset, CocoDataset)
+    assert len(DeepFashionDataset.CLASSES) == 15
     assert DATASETS.get('WIDERFaceDataset') is WIDERFaceDataset
     assert issubclass(WIDERFaceDataset, XMLDataset)
     assert WIDERFaceDataset.CLASSES == ('face',)
