@@ -109,12 +109,13 @@ before the last line is printed:
    seeded initialisation, over a seeded 16-image COCO-format set in
    ``build/chip_smoke_coco_train/`` (four at each of phase 6's sizes: three
    landscape batches of 4 and one portrait an epoch), validating on phase
-   6's set after each epoch, with ``total_epochs=2``, ``lr_config.step=
-   [1]`` and logs, checkpoints and validation every epoch. Run A trains two
-   epochs into ``build/chip_smoke_train/A``; run B resumes from A's
+   6's set after epoch 2 (epoch 1's was cut to pay for phase 24), with
+   ``total_epochs=2``, ``lr_config.step=[1]`` and logs and checkpoints
+   every epoch. Run A trains two epochs
+   into ``build/chip_smoke_train/A``; run B resumes from A's
    ``epoch_1.pth``. Checks: finite train rows; ``epoch_1.pth``,
    ``epoch_2.pth`` and ``latest`` in A; a ``val`` row with finite bbox and
-   segm mAP for each epoch of each run; B just after its load holds A's
+   segm mAP for epoch 2 of each run; B just after its load holds A's
    epoch-1 model and optimizer state bit for bit; B's epoch-2 rows carry
    A's step and lr; B's first step's losses within LOSS_RTOL of A's (the
    same forward on the same state, data and draws); B's final parameters
@@ -404,8 +405,31 @@ before the last line is printed:
    unfolded one's, and toy DynaMask (both modes) and Mask R-CNN
    ``aug_test`` on the card against the CPU; phase 2's ``tta ...`` lines
    hold K2 and its bf16 instance at each augmentation's crops on the
-   1344x1344 canvas and in a flipped frame. It prints the phase's seconds
-   and the whole run's.
+   1344x1344 canvas and in a flipped frame. It prints the phase's seconds;
+24. run data parallelism on the one card (``run_ddp``): (a) in this
+   process a process group of one over NCCL, the flagship's DDP step
+   (``make_train_step(group=)``: one all-reduce of one flat fp32 vector
+   of the gradients, the log scalars and the running statistics) against
+   the plain step on phase 5's trainer, batch and draws (step 0's losses
+   equal bit for bit, the parameters within K3's and K4's atomic-order
+   tolerance, the update within phase 3's gradient rule), then timed in
+   turns, K1-K4 exactly ``STEP_COUNTS`` a step and one all-reduce a step;
+   (b) NCCL's answer to two ranks on one card (it refuses them, and the
+   line records what it says), then two ranks spawned over gloo sharing
+   the card, each on 2 of phase 5's 4 images: an fp32 step, a bf16 step
+   and a warm fp32 step, each rank's launches exactly ``STEP_COUNTS`` of
+   the step's precision (K5 0), the ranks' states equal bit for bit
+   after each step and, after the first two, within that tolerance of a
+   one-process emulation of the DDP step from the rank's own state before
+   it (both halves' gradients and statistics averaged, then SGD); (c) ``torchrun --standalone
+   --nproc_per_node 1 -m dynamask_torch.tools.train <flagship> --launcher
+   pytorch`` over phase 7's set, one epoch of 2 steps, validating on
+   phase 6's set through ``multi_device_test``; (d) in (b)'s ranks,
+   ``multi_device_test`` over phase 6's set with phase 6's weights: phase
+   6's results in its order (dets within K2_TOL, the same mAPs) on every
+   rank, K1 and K2 summed over the ranks phase 6's counts. The gloo
+   step's ms is host-staged and both ranks share one card: no figure of
+   multi-GPU scaling. It prints the phase's seconds and the whole run's.
 
 For each drive (faithful, dynamic, the K5 check on the captured DCN
 inputs, train, eval, loader_train, in phase 7 the loop's steps, its
@@ -420,7 +444,9 @@ GRoIE's eval drive and loader-batch step, in phase 14 each config's
 image and steps and RetinaNet's eval drive, in phase 15 each config's
 image and steps and the HRNet-W18 Mask R-CNN's eval drive and
 loader-batch step, in phases 16-22 each config's image and
-steps, and in phase 23 each eval CLI drive and each bf16 TTA drive)
+steps, in phase 23 each eval CLI drive and each bf16 TTA drive, and in
+phase 24 the DDP steps at world size 1, each gloo rank's steps and its
+``multi_device_test`` drive, read in the rank's process)
 the kernels' launch
 counters are zeroed just before it
 and read just after (the loop's
@@ -2923,6 +2949,8 @@ def run_eval_path(report, card, config=FLAGSHIP,
     if gt['bbox_mAP'] != 1.0 or gt['segm_mAP'] != 1.0:
         raise RuntimeError(f'{key}: GT as predictions must score exactly '
                            f'1.0')
+    if not prefix:      # phase 24's multi_device_test is held to them
+        report['_eval_results'] = results
     report[key] = dict(images=n, seconds=total, img_per_s=n / total,
                        img_per_s_without_startup=n / warm, ms_per_img=ms,
                        metrics=metrics, gt_as_predictions=gt,
@@ -3106,9 +3134,9 @@ def check_loop_rows(name, rows, epochs):
 def run_train_loop(report, card, phase5_ms):
     """Phase 7(a): ``python -m dynamask_torch.tools.train`` in-process on
     the flagship at full width. Run A: two epochs of 4 steps on a 16-image
-    set, validating on phase 6's set after each; run B: resumed from A's
-    ``epoch_1.pth``. Returns the launches of the loop's steps and of its
-    validations."""
+    set, validating on phase 6's set after the second; run B: resumed from
+    A's ``epoch_1.pth``. Returns the launches of the loop's steps and of
+    its validations."""
     import torch
     import dynamask_torch.ops as ops
     from dynamask_torch.tools.train import main as train_main
@@ -3120,7 +3148,7 @@ def run_train_loop(report, card, phase5_ms):
                'data.train.data_root=None', f'data.val.ann_file={val_ann}',
                f'data.val.img_prefix={val_img}', 'data.val.data_root=None',
                'total_epochs=2', 'lr_config.step=[1]',
-               'evaluation.interval=1', 'evaluation.classwise=False',
+               'evaluation.interval=2', 'evaluation.classwise=False',
                'log_config.interval=1', 'checkpoint_config.interval=1']
     print(f'  train set: {4 * len(COCO_SIZES)} images at COCO sizes, '
           f'{n_gts} GTs; val set: phase 6\'s; options {options[6:]}')
@@ -3151,7 +3179,7 @@ def run_train_loop(report, card, phase5_ms):
     for f in ('epoch_1.pth', 'epoch_2.pth', 'latest'):
         if not os.path.isfile(os.path.join(dirs['A'], f)):
             raise RuntimeError(f'train loop A: no {f}')
-    check_loop_rows('A', rows['A'], (1, 2))
+    check_loop_rows('A', rows['A'], (2,))
     check_loop_rows('B', rows['B'], (2,))
     for path, names in (('train_loop', TRAIN_KERNELS),
                         ('val_loop', INFER_KERNELS)):
@@ -3199,14 +3227,14 @@ def run_train_loop(report, card, phase5_ms):
 
     epochs = records.epochs
     for run, e in zip('AAB', epochs):
+        val = (f'; validation {e["val_s"]:.2f} s ({VAL_IMAGES / e["val_s"]:.2f}'
+               ' img/s, loader start-up included)' if 'val_s' in e else '')
         print(f'  epoch {e["epoch"]} of {run}: {e["train_s"]:.2f} s for its '
               f'4 steps, first batch {e["first_batch_s"]:.2f} s (the '
               f'loader\'s start-up in a run\'s first epoch), data wait after '
               f'it {e["data_s"]:.3f} s; checkpoint '
               f'{e["checkpoint_bytes"] / 1e9:.3f} GB saved in '
-              f'{e["save_s"]:.2f} s; validation {e["val_s"]:.2f} s '
-              f'({VAL_IMAGES / e["val_s"]:.2f} img/s, loader start-up '
-              f'included) [{card}]')
+              f'{e["save_s"]:.2f} s{val} [{card}]')
     ms = {r: 1e3 * train[r][-1]['time'] for r in 'AB'}
     print(f'  in-loop ms/step (the log\'s time over epoch 2): A {ms["A"]:.1f}'
           f', B {ms["B"]:.1f}, against phase 5\'s {phase5_ms:.1f}; '
@@ -6873,6 +6901,563 @@ def run_tta(report, card):
     return launches
 
 
+# -- phase 24: data parallelism ----------------------------------------------
+
+DDP_DIR = os.path.join(ROOT, 'build', 'chip_smoke_ddp')
+DDP_RANKS = 2            # gloo ranks sharing the one card
+DDP_TURNS = 3            # timed (plain, DDP) step pairs at world size 1
+# the ranks' steps: step 0 fp32, step 1 bf16 (both held against the
+# one-process emulation), step 2 fp32 again, warm, for its time
+DDP_STEPS = (('fp32', False), ('bf16', True), ('fp32', False))
+DDP_EMULATED = 2
+# a step's update (parameters after less before) against another run's
+# of the same step: phase 3's gradient rule; the parameters themselves at
+# K3's and K4's atomic-order tolerance
+DDP_UPDATE_RTOL = 1e-3
+DDP_PARAM_RTOL = max(K3_RTOL, K4_RTOL)
+NCCL_PROBE_S = 120
+RANK_TIMEOUT_S = 600
+LAUNCHER_TIMEOUT_S = 400
+
+
+def state_rel_l2(a, b, keys):
+    """Relative L2 distance of ``a`` from ``b`` over ``keys`` (dicts of
+    tensors), in float64."""
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum())
+              for k in keys)
+    den = sum(float((b[k].double() ** 2).sum()) for k in keys)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def state_digest(model) -> str:
+    """sha256 of every floating tensor of ``model``'s state, in order: two
+    ranks' states are equal bit for bit where their digests are."""
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        if v.is_floating_point():
+            h.update(k.encode())
+            h.update(v.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def nccl_probe_rank(rank, world, init, out, device):
+    """Two NCCL ranks on the one card: what ``init_process_group`` (which
+    builds the communicator at once) and a first all-reduce say."""
+    import torch
+    import torch.distributed as dist
+    from dynamask_torch.engine import init_group
+    try:
+        init_group(device, rank=rank, world_size=world, init_method=init,
+                   local_rank=0)
+        t = torch.ones(1, device=device)
+        dist.all_reduce(t)
+        said = f'accepted: all_reduce gave {t.item()}'
+    except Exception as e:    # the answer is what this probe records
+        said = f'{type(e).__name__}: {e}'
+    with open(os.path.join(out, f'rank{rank}.json'), 'w') as f:
+        json.dump({'said': said}, f)
+    # no tear-down: a communicator that failed to start may hang in it
+    os._exit(0)
+
+
+def gloo_rank(rank, world, init, out, config, device, hw, ann_file,
+              img_dir):
+    """One of phase 24's gloo ranks on the card (``device``): the DDP
+    steps of ``DDP_STEPS`` on its share of phase 5's batch (of ``hw``
+    images of ``config``, the flagship), then ``multi_device_test`` over
+    phase 6's set with phase 6's weights."""
+    import pickle
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import dynamask_torch.ops as ops
+    from dynamask_torch.apis import (init_detector, init_trainer,
+                                     multi_device_test, synthetic_batch)
+    from dynamask_torch.apis.train import step_generator
+    from dynamask_torch.data import build_dataset
+    from dynamask_torch.engine import (active_group, destroy_group,
+                                       make_train_step)
+    # both ranks on the one card, over gloo (NCCL refuses two ranks on
+    # one device)
+    dev = torch.device(device)
+    if dev.type == 'cuda':
+        dev = torch.device('cuda', 0)
+        torch.cuda.set_device(dev)
+    torch.distributed.init_process_group('gloo', init_method=init,
+                                         rank=rank, world_size=world)
+    sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda d: d)
+    rec = {'steps': []}
+    try:
+        model, opt = init_trainer(config,
+                                  steps_per_epoch=COCO_STEPS_PER_EPOCH,
+                                  device=dev, seed=0)
+        h, w = hw
+        full = synthetic_batch(0, b=TRAIN_IMAGES, h=h, w=w,
+                               num_gts=TRAIN_GTS, crop_size=128,
+                               num_classes=model.roi_head.num_classes,
+                               device='cpu')
+        n = TRAIN_IMAGES // world
+        half = {k: v[rank * n:(rank + 1) * n].to(dev)
+                for k, v in full.items()}
+        rec['initial'] = state_digest(model)
+        for i, (prec, bf16) in enumerate(DDP_STEPS):
+            step = make_train_step(model, opt, torch.bfloat16 if bf16
+                                   else None, active_group())
+            gen = step_generator(0, 0, i, dev, rank)
+            sync(dev)
+            # both ranks start the clock together (rank 0 saves a state
+            # between steps)
+            torch.distributed.barrier()
+            ops.reset_kernel_launches()
+            t = time.perf_counter()
+            log = step(half, generator=gen)
+            sync(dev)
+            ms = 1e3 * (time.perf_counter() - t)
+            rec['steps'].append(dict(
+                precision=prec, ms=ms, launches=ops.kernel_launches(),
+                log={k: float(v) for k, v in log.items()},
+                calls=step.reduce.calls, nbytes=step.reduce.nbytes,
+                digest=state_digest(model)))
+            if rank == 0 and i < DDP_EMULATED:
+                torch.save({k: v.detach().cpu() for k, v in
+                            model.state_dict().items()},
+                           os.path.join(out, f'rank0_step{i}.pt'))
+                torch.save(opt.state_dict(),
+                           os.path.join(out, f'rank0_opt{i}.pt'))
+        del model, opt, half
+        model = init_detector(config, device=dev, seed=0, init_std=0.05)
+        dataset = build_dataset(
+            dict(model.cfg.data['test'], ann_file=ann_file,
+                 img_prefix=img_dir, data_root=None),
+            default_args=dict(test_mode=True))
+        sync(dev)
+        ops.reset_kernel_launches()
+        t = time.perf_counter()
+        results = multi_device_test(model, dataset, workers_per_gpu=0,
+                                    group=active_group())
+        rec['eval'] = dict(
+            seconds=time.perf_counter() - t, launches=ops.kernel_launches(),
+            results=[{k: r[k] for k in ('img_id', 'dets', 'labels',
+                                        'valid')} for r in results],
+            metrics=dataset.evaluate(results, metric=['bbox', 'segm'])
+            if rank == 0 else None)
+    finally:
+        destroy_group()
+    with open(os.path.join(out, f'rank{rank}.pkl'), 'wb') as f:
+        pickle.dump(rec, f)
+
+
+class CapturedGrads:
+    """An optimizer stand-in for ``make_train_step``: ``step()`` keeps a
+    copy of the gradients (zero where one got none) and moves nothing."""
+
+    def __init__(self, params):
+        self.params, self.grads = params, None
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def step(self):
+        import torch
+        self.grads = [torch.zeros_like(p) if p.grad is None else
+                      p.grad.clone() for p in self.params]
+        return torch.zeros(())
+
+
+def emulated_ddp_step(model, opt, halves, generators, compute_dtype):
+    """``jit_train_step_ddp`` in one process: each half's forward and
+    backward from the same state (BatchNorm statistics reset between
+    them), then the mean of the gradients and of the statistics, then
+    ``opt.step()``."""
+    import torch
+    from dynamask_torch.engine import make_train_step
+    stats = [b for b in model.buffers() if b.is_floating_point()]
+    start = [b.clone() for b in stats]
+    captured = CapturedGrads(opt.params)
+    step = make_train_step(model, captured, compute_dtype)
+    grads, ends = [], []
+    for half, gen in zip(halves, generators):
+        with torch.no_grad():
+            for b, s in zip(stats, start):
+                b.copy_(s)
+        step(half, generator=gen)
+        grads.append(captured.grads)
+        ends.append([b.clone() for b in stats])
+    n = len(halves)
+    for p, *g in zip(opt.params, *grads):
+        p.grad = sum(g) / n
+    with torch.no_grad():
+        for b, *e in zip(stats, *ends):
+            b.copy_(sum(e) / n)
+    opt.step()
+
+
+def run_ddp_world1(report, card):
+    """Phase 24(a): the DDP step in this process over NCCL at world size
+    1 against the step without a group, on phase 5's trainer and batch:
+    step 0 from the same state and draws (losses bit for bit; parameters
+    within ``DDP_PARAM_RTOL``, the update within ``DDP_UPDATE_RTOL``),
+    then ``DDP_TURNS`` timed pairs in turns; the DDP steps held to
+    ``STEP_COUNTS`` exactly and to one all-reduce each."""
+    import copy
+    import torch
+    import dynamask_torch.ops as ops
+    from dynamask_torch.apis import init_trainer, synthetic_batch
+    from dynamask_torch.engine import (active_group, destroy_group,
+                                       init_group, make_train_step)
+    model, opt = init_trainer(FLAGSHIP, steps_per_epoch=COCO_STEPS_PER_EPOCH,
+                              device=DEVICE, seed=0)
+    h, w = IMAGE_HW
+    batch = synthetic_batch(0, b=TRAIN_IMAGES, h=h, w=w, num_gts=TRAIN_GTS,
+                            crop_size=128,
+                            num_classes=model.roi_head.num_classes,
+                            device=DEVICE)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    opt0 = copy.deepcopy(opt.state_dict())
+    names = [k for k, p in model.named_parameters() if p.requires_grad]
+    counts = dict.fromkeys(ops.kernel_launches(), 0)
+
+    def counted(step):
+        ops.reset_kernel_launches()
+        torch.cuda.synchronize(DEVICE)
+        t = time.perf_counter()
+        log = step(batch, generator=torch.Generator(device=DEVICE)
+                   .manual_seed(0))
+        torch.cuda.synchronize(DEVICE)
+        ms = 1e3 * (time.perf_counter() - t)
+        if step.reduce is not None:
+            for k, v in ops.kernel_launches().items():
+                counts[k] += v
+        return {k: float(v) for k, v in log.items()}, ms
+
+    init_group(DEVICE, rank=0, world_size=1, init_method='file://' +
+               os.path.join(DDP_DIR, 'world1'))
+    try:
+        plain = make_train_step(model, opt)
+        ddp = make_train_step(model, opt, group=active_group())
+        logs, after = {}, {}
+        for name, step in (('plain', plain), ('ddp', ddp)):
+            model.load_state_dict(state0)
+            opt.load_state_dict(copy.deepcopy(opt0))
+            logs[name], _ = counted(step)
+            after[name] = {k: v.detach().clone() for k, v in
+                           model.state_dict().items()}
+        ms = {'plain': [], 'ddp': []}
+        for _ in range(DDP_TURNS):
+            for name, step in (('plain', plain), ('ddp', ddp)):
+                ms[name].append(counted(step)[1])
+        backend = torch.distributed.get_backend()
+    finally:
+        destroy_group()
+    steps = 1 + DDP_TURNS
+    check_exact_launches('ddp_world1', counts, STEP_COUNTS, times=steps)
+    if ddp.reduce.calls != steps:
+        raise RuntimeError(f'ddp_world1: {ddp.reduce.calls} all-reduces in '
+                           f'{steps} steps')
+    losses = [k for k in logs['plain'] if k != 'grad_norm']
+    differ = {k: (logs['plain'][k], logs['ddp'][k]) for k in losses
+              if logs['plain'][k] != logs['ddp'][k]}
+    if differ:
+        raise RuntimeError(f'ddp_world1: step 0 losses differ from the '
+                           f'plain step\'s: {differ}')
+    params = state_rel_l2(after['ddp'], after['plain'], names)
+    update = state_rel_l2({k: after['ddp'][k] - state0[k] for k in names},
+                          {k: after['plain'][k] - state0[k] for k in names},
+                          names)
+    if not (params <= DDP_PARAM_RTOL and update <= DDP_UPDATE_RTOL):
+        raise RuntimeError(f'ddp_world1: parameters {params:.3e} (limit '
+                           f'{DDP_PARAM_RTOL}), update {update:.3e} (limit '
+                           f'{DDP_UPDATE_RTOL}) from the plain step\'s')
+    nbytes = ddp.reduce.nbytes
+    row = dict(backend=backend, losses=logs, params_rel_l2=params,
+               update_rel_l2=update, plain_ms=ms['plain'], ddp_ms=ms['ddp'],
+               all_reduce_bytes=nbytes, all_reduces=ddp.reduce.calls,
+               launches=dict(counts))
+    print(f'  ddp_world1 ({backend}, one process): step 0 losses equal the '
+          f'plain step\'s bit for bit ({len(losses)} scalars); parameters '
+          f'after it {params:.3e} apart (relative L2, limit '
+          f'{DDP_PARAM_RTOL}), its update {update:.3e} (limit '
+          f'{DDP_UPDATE_RTOL}); {ddp.reduce.calls} all-reduces in {steps} '
+          f'steps, one flat fp32 vector of {nbytes} bytes '
+          f'({nbytes / 2 ** 20:.1f} MiB) [{card}]')
+    print(f'  ddp_world1: ms/step in turns, plain {_ms(ms["plain"])}, DDP '
+          f'{_ms(ms["ddp"])}; medians {statistics.median(ms["plain"]):.1f} '
+          f'and {statistics.median(ms["ddp"]):.1f} '
+          f'(4x800x1344, 20 GTs an image) [{card}]')
+    report['ddp']['world1'] = row
+    del model, opt, batch, state0, after
+    torch.cuda.empty_cache()
+    return dict(counts)
+
+
+def run_ddp_gloo(report, card, launches):
+    """Phase 24(b) and (d): NCCL's answer to two ranks on the one card,
+    then ``DDP_RANKS`` gloo ranks on it (:func:`gloo_rank`): each rank's
+    launches of each step exactly ``STEP_COUNTS`` in its precision, one
+    all-reduce a step, the ranks' states equal bit for bit after each step
+    and, after the first two, within ``DDP_PARAM_RTOL`` of this process's
+    emulation (:func:`emulated_ddp_step`) from rank 0's state (parameters,
+    statistics and optimizer) before the step, the update within
+    ``DDP_UPDATE_RTOL``; then ``multi_device_test``'s results against
+    phase 6's ``single_device_test`` (image order, validity and labels
+    equal, dets within K2_TOL, bbox and segm mAP equal, K1 and K2
+    launches summed over the ranks phase 6's)."""
+    import pickle
+    import numpy as np
+    import torch
+    from dynamask_torch.apis import init_trainer, synthetic_batch
+    from dynamask_torch.apis.train import step_generator
+    from dynamask_torch.tools.train import spawn_ranks
+    rec = report['ddp']
+    out = os.path.join(DDP_DIR, 'nccl_probe')
+    t = time.perf_counter()
+    os.makedirs(out, exist_ok=True)
+    rc = spawn_ranks(nccl_probe_rank, DDP_RANKS, (out, DEVICE),
+                     timeout=NCCL_PROBE_S)
+    said = []
+    for r in range(DDP_RANKS):
+        path = os.path.join(out, f'rank{r}.json')
+        if not os.path.isfile(path):
+            said.append(f'no answer in {NCCL_PROBE_S} s (exit {rc})')
+            continue
+        with open(path) as f:
+            said.append(json.load(f)['said'])
+    rec['nccl_two_ranks_one_card'] = dict(said=said, exit_code=rc,
+                                          seconds=time.perf_counter() - t)
+    refused = not any(s.startswith('accepted') for s in said)
+    print(f'  NCCL, {DDP_RANKS} ranks on the one card: '
+          f'{"refused" if refused else "NOT refused"} in '
+          f'{time.perf_counter() - t:.1f} s; rank 0 says: {said[0][:400]}')
+
+    ann_file, img_dir, _ = write_coco_set(COCO_SET)
+    out = os.path.join(DDP_DIR, 'gloo')
+    shutil.rmtree(out, ignore_errors=True)
+    t = time.perf_counter()
+    os.makedirs(out)
+    rc = spawn_ranks(gloo_rank, DDP_RANKS,
+                     (out, FLAGSHIP, DEVICE, IMAGE_HW, ann_file, img_dir),
+                     timeout=RANK_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    if rc:
+        raise RuntimeError(f'ddp gloo ranks: exit code {rc}')
+    ranks = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(out, f'rank{r}.pkl'), 'rb') as f:
+            ranks.append(pickle.load(f))
+    if len({r['initial'] for r in ranks}) != 1:
+        raise RuntimeError('ddp gloo: the ranks built different models')
+    for i, (prec, _) in enumerate(DDP_STEPS):
+        key = f'ddp_gloo_step{i}_{prec}'
+        for r, rk in enumerate(ranks):
+            s = rk['steps'][i]
+            check_exact_launches(f'{key} rank {r}', s['launches'],
+                                 in_precision(STEP_COUNTS, prec))
+            if s['calls'] != 1:
+                raise RuntimeError(f'{key} rank {r}: {s["calls"]} '
+                                   'all-reduces')
+        if len({rk['steps'][i]['digest'] for rk in ranks}) != 1:
+            raise RuntimeError(f'{key}: the ranks\' states differ')
+        launches[key] = {k: sum(rk['steps'][i]['launches'][k] for rk in ranks)
+                         for k in ranks[0]['steps'][i]['launches']}
+
+    # the one-process emulation of the first DDP_EMULATED steps
+    model, opt = init_trainer(FLAGSHIP, steps_per_epoch=COCO_STEPS_PER_EPOCH,
+                              device=DEVICE, seed=0)
+    if state_digest(model) != ranks[0]['initial']:
+        raise RuntimeError('ddp gloo: the ranks\' model is not this one')
+    h, w = IMAGE_HW
+    full = synthetic_batch(0, b=TRAIN_IMAGES, h=h, w=w, num_gts=TRAIN_GTS,
+                           crop_size=128,
+                           num_classes=model.roi_head.num_classes,
+                           device=DEVICE)
+    n = TRAIN_IMAGES // DDP_RANKS
+    halves = [{k: v[r * n:(r + 1) * n] for k, v in full.items()}
+              for r in range(DDP_RANKS)]
+    names = [k for k, p in model.named_parameters() if p.requires_grad]
+    stats = [k for k, v in model.state_dict().items()
+             if k.endswith(('running_mean', 'running_var'))]
+    agree = []
+
+    def rank0(what, i):
+        return torch.load(os.path.join(out, f'rank0_{what}{i}.pt'),
+                          map_location=DEVICE, weights_only=True)
+
+    for i, (prec, bf16) in enumerate(DDP_STEPS[:DDP_EMULATED]):
+        if i:
+            # each step from the rank's own state: the previous step's
+            # atomic-order differences (~1e-11) would otherwise move a bf16
+            # cast of a weight now and then, and with it the whole step
+            model.load_state_dict(rank0('step', i - 1))
+            opt.load_state_dict(rank0('opt', i - 1))
+        before = {k: v.detach().clone() for k, v in
+                  model.state_dict().items()}
+        emulated_ddp_step(model, opt, halves,
+                          [step_generator(0, 0, i, DEVICE, r)
+                           for r in range(DDP_RANKS)],
+                          torch.bfloat16 if bf16 else None)
+        mine = {k: v.detach() for k, v in model.state_dict().items()}
+        got = rank0('step', i)
+        params = state_rel_l2(got, mine, names)
+        update = state_rel_l2({k: got[k] - before[k] for k in names},
+                              {k: mine[k] - before[k] for k in names}, names)
+        stat = state_rel_l2(got, mine, stats)
+        agree.append(dict(step=i, precision=prec, params_rel_l2=params,
+                          update_rel_l2=update, stats_rel_l2=stat))
+        if not (params <= DDP_PARAM_RTOL and stat <= DDP_PARAM_RTOL and
+                update <= DDP_UPDATE_RTOL):
+            raise RuntimeError(f'ddp gloo step {i} ({prec}): against the '
+                               f'emulation, parameters {params:.3e} and '
+                               f'statistics {stat:.3e} (limit '
+                               f'{DDP_PARAM_RTOL}), update {update:.3e} '
+                               f'(limit {DDP_UPDATE_RTOL})')
+    del model, opt, full, halves
+    torch.cuda.empty_cache()
+    steps = [dict(precision=p, ms=[rk['steps'][i]['ms'] for rk in ranks],
+                  nbytes=ranks[0]['steps'][i]['nbytes'],
+                  loss=ranks[0]['steps'][i]['log']['loss'])
+             for i, (p, _) in enumerate(DDP_STEPS)]
+    rec['gloo'] = dict(ranks=DDP_RANKS, steps=steps, emulation=agree,
+                       wall_s=wall)
+    for i, s in enumerate(steps):
+        cold = '; the ranks\' first step, cold' if i == 0 else ''
+        emulated = (f'; against the emulation: parameters '
+                    f'{agree[i]["params_rel_l2"]:.3e}, statistics '
+                    f'{agree[i]["stats_rel_l2"]:.3e}, update '
+                    f'{agree[i]["update_rel_l2"]:.3e}' if i < len(agree)
+                    else '')
+        print(f'  ddp_gloo step {i} ({s["precision"]}, {n} images a rank): '
+              f'rank ms {_ms(s["ms"])} (host-staged gloo all-reduce of '
+              f'{s["nbytes"]} bytes, both ranks on one card: not a figure '
+              f'of multi-GPU scaling{cold}) [{card}]; loss '
+              f'{s["loss"]:.5g}; launches exact on every rank, states '
+              f'equal bit for bit{emulated}')
+
+    # (d) multi_device_test against phase 6
+    want = report.get('_eval_results')
+    evals = [rk['eval'] for rk in ranks]
+    got = evals[0]['results']
+    if want is None:
+        raise RuntimeError('multi_device_test: phase 6 has not run')
+    if [r['img_id'] for r in got] != [r['img_id'] for r in want]:
+        raise RuntimeError(f'multi_device_test: images '
+                           f'{[r["img_id"] for r in got]}, phase 6 '
+                           f'{[r["img_id"] for r in want]}')
+    worst = 0.0
+    for g, r in zip(got, want):
+        if not (np.array_equal(g['valid'], r['valid']) and
+                np.array_equal(g['labels'], r['labels'])):
+            raise RuntimeError(f'multi_device_test: image {g["img_id"]}\'s '
+                               'valid dets or labels differ from phase 6\'s')
+        worst = max(worst, float(np.abs(g['dets'] - r['dets']).max()))
+    for e in evals[1:]:
+        if any(not np.array_equal(a['dets'], b['dets'])
+               for a, b in zip(e['results'], got)):
+            raise RuntimeError('multi_device_test: the ranks\' results '
+                               'differ')
+    metrics = {k: evals[0]['metrics'][k] for k in ('bbox_mAP', 'segm_mAP')}
+    phase6 = {k: report['eval']['metrics'][k] for k in metrics}
+    sums = {k: sum(e['launches'][k] for e in evals)
+            for k in evals[0]['launches']}
+    launches['multi_device_test'] = sums
+    check_exact_launches('multi_device_test (summed over the ranks)', sums,
+                         report['eval']['launches'])
+    if worst > K2_TOL or metrics != phase6:
+        raise RuntimeError(f'multi_device_test: dets {worst:.3e} from phase '
+                           f'6\'s (limit {K2_TOL}), mAP {metrics} against '
+                           f'{phase6}')
+    print(f'  multi_device_test, {DDP_RANKS} gloo ranks on the card: '
+          f'{len(got)} results in phase 6\'s order, valid dets and labels '
+          f'equal, dets within {worst:.3e} (limit {K2_TOL}); {metrics} '
+          f'equal to phase 6\'s; every rank holds them; '
+          f'{max(e["seconds"] for e in evals):.1f} s [{card}]')
+    print(f'  ddp gloo ranks: {wall:.1f} s from spawn to exit')
+    rec['multi_device_test'] = dict(images=len(got), dets_max_abs=worst,
+                                    metrics=metrics, launches=sums)
+
+
+def run_ddp_launcher(report, card):
+    """Phase 24(c): ``torchrun --standalone --nproc_per_node 1 -m
+    dynamask_torch.tools.train <flagship> --launcher pytorch`` over phase
+    7's 16-image set, one epoch of 2 steps, validating on phase 6's set
+    (the loaders in the rank's process: no worker start-up to wait for):
+    exit 0, finite train rows, one ``epoch_1.pth``, a ``val`` row with
+    finite mAPs from ``multi_device_test`` (the log names it)."""
+    train_ann, train_img, _ = write_coco_set(TRAIN_SET, seed=1, per_size=4)
+    val_ann, val_img, _ = write_coco_set(COCO_SET)
+    work = os.path.join(DDP_DIR, 'launcher')
+    shutil.rmtree(work, ignore_errors=True)
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           '--nproc_per_node', '1', '-m', 'dynamask_torch.tools.train',
+           FLAGSHIP, '--launcher', 'pytorch', '--device', DEVICE,
+           '--work-dir', work,
+           '--max-steps-per-epoch', '2', '--options',
+           f'data.train.ann_file={train_ann}',
+           f'data.train.img_prefix={train_img}', 'data.train.data_root=None',
+           f'data.val.ann_file={val_ann}', f'data.val.img_prefix={val_img}',
+           'data.val.data_root=None', 'data.workers_per_gpu=0',
+           'total_epochs=1', 'evaluation.interval=1',
+           'evaluation.classwise=False', 'log_config.interval=1',
+           'checkpoint_config.interval=1']
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=LAUNCHER_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise RuntimeError(f'torchrun: exit {proc.returncode}: '
+                           f'{proc.stderr[-4000:]}')
+    rows = loop_rows(work)
+    check_loop_rows('launcher', rows, (1,))
+    train = [r for r in rows if r['mode'] == 'train']
+    ckpts = sorted(f for f in os.listdir(work) if f.endswith('.pth'))
+    text = ''.join(open(os.path.join(work, f)).read()
+                   for f in os.listdir(work) if f.endswith('.log'))
+    if ckpts != ['epoch_1.pth'] or len(train) != 2:
+        raise RuntimeError(f'torchrun: checkpoints {ckpts}, {len(train)} '
+                           'train rows')
+    backend = 'nccl' if DEVICE == 'cuda' else 'gloo'
+    for needed in (f'1 data-parallel rank(s) over {backend}',
+                   'multi_device_test over 1 rank(s)'):
+        if needed not in text:
+            raise RuntimeError(f'torchrun: the log lacks "{needed}"')
+    val = next(r for r in rows if r['mode'] == 'val')
+    print(f'  torchrun --standalone --nproc_per_node 1 ... --launcher '
+          f'pytorch: exit 0 in {wall:.1f} s (start-up, build, 2 steps, '
+          f'checkpoint, validation); losses {_ms([r["loss"] for r in train])}'
+          f'; epoch_1.pth; val row through multi_device_test over '
+          f'{backend}: '
+          f'bbox_mAP {val["bbox_mAP"]:.4f}, segm_mAP {val["segm_mAP"]:.4f} '
+          f'(random weights) [{card}]')
+    report['ddp']['launcher'] = dict(seconds=wall, rows=rows)
+
+
+def run_ddp(report, card):
+    """Phase 24: data parallelism on the one card. (a) the DDP step at
+    world size 1 over NCCL in this process (:func:`run_ddp_world1`); (b)
+    NCCL's answer to two ranks on one card, then two gloo ranks spawned
+    on it, their DDP steps and (d) ``multi_device_test``
+    (:func:`run_ddp_gloo`); (c) the launcher end to end
+    (:func:`run_ddp_launcher`). Returns the launches of (a)'s DDP steps,
+    (b)'s steps and (d)'s drive (summed over the ranks)."""
+    report['ddp'] = {'seconds': {}}
+    shutil.rmtree(DDP_DIR, ignore_errors=True)
+    os.makedirs(DDP_DIR)
+    launches = {}
+    t = time.perf_counter()
+    launches['ddp_world1'] = run_ddp_world1(report, card)
+    report['ddp']['seconds']['world1'] = time.perf_counter() - t
+    t = time.perf_counter()
+    run_ddp_gloo(report, card, launches)
+    report['ddp']['seconds']['gloo'] = time.perf_counter() - t
+    t = time.perf_counter()
+    run_ddp_launcher(report, card)
+    report['ddp']['seconds']['launcher'] = time.perf_counter() - t
+    print('  phase 24 by part: ' + ', '.join(
+        f'{k} {v:.1f} s' for k, v in report['ddp']['seconds'].items()))
+    return launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -7036,9 +7621,16 @@ def main() -> int:
     t23 = time.perf_counter()
     launches.update(run_tta(report, card))
     report['phase23_s'] = time.perf_counter() - t23
+    print(f'  phase 23: {report["phase23_s"]:.1f} s')
+    torch.cuda.empty_cache()
+    print(f'phase 24: data parallelism on the one card [{card}]')
+    t24 = time.perf_counter()
+    launches.update(run_ddp(report, card))
+    report['phase24_s'] = time.perf_counter() - t24
     report['run_s'] = time.perf_counter() - t_run
-    print(f'  phase 23: {report["phase23_s"]:.1f} s; the whole run '
+    print(f'  phase 24: {report["phase24_s"]:.1f} s; the whole run '
           f'{report["run_s"]:.1f} s [{card}]')
+    report.pop('_eval_results', None)
     for row in rows:   # each path's count from its own zeroed drive
         by_path = {path: n[row['name']] for path, n in launches.items()}
         row['launches'] = sum(by_path.values())

@@ -99,6 +99,45 @@ def dataset_mask_canvas(dataset, multiple: int = 32) -> Tuple[int, int]:
     return (rnd(max_h), rnd(max_w))
 
 
+def first_of_each(max_images: Optional[int] = None) -> Callable[[int], bool]:
+    """``take(img_id)``: True the first time an image comes, while fewer
+    than ``max_images`` are taken; an image the sampler repeats to fill a
+    batch is taken once."""
+    seen = set()
+
+    def take(img_id: int) -> bool:
+        if img_id in seen or (max_images is not None and
+                              len(seen) >= max_images):
+            return False
+        seen.add(img_id)
+        return True
+
+    return take
+
+
+def batch_results(out: Dict, batch: Dict, proposals: bool,
+                  take: Callable[[int], bool]) -> List[Dict]:
+    """The result dicts of one batch's images that ``take(img_id)`` keeps,
+    in the batch's order, from the test step's padded outputs ``out``
+    (:func:`single_device_test` says what they hold); the masks of the
+    others are not copied to the host."""
+    dets, labels, valid = (out[k].cpu().numpy()
+                           for k in ('dets', 'labels', 'valid'))
+    ori = batch['ori_shape'].long().tolist()
+    results = []
+    for i, img_id in enumerate(batch['img_id'].tolist()):
+        if not take(img_id):
+            continue
+        res = {'img_id': img_id, 'dets': dets[i], 'labels': labels[i],
+               'valid': valid[i]}
+        if 'masks' in out:
+            res['masks'] = fetch_masks(out['masks'][i], ori[i])
+        if proposals:
+            res['proposals'] = dets[i][valid[i]]
+        results.append(res)
+    return results
+
+
 def single_device_test(model: torch.nn.Module, dataset,
                        samples_per_gpu: int = 1,
                        mask_canvas: Optional[Tuple[int, int]] = None,
@@ -130,15 +169,15 @@ def single_device_test(model: torch.nn.Module, dataset,
     dev = model.device
     step = make_test_fn(model, (ch, cw), mask_thr)
     proposals = is_proposal_model(model)
+    take = first_of_each(max_images)
     clock = dict(startup=0.0, pipeline=0.0, device=0.0, fetch=0.0)
     results: List[Dict] = []
-    seen = set()
     t_start = time.perf_counter()
     batches = iter(loader)
     while max_images is None or len(results) < max_images:
         t = time.perf_counter()
         batch = next(batches, None)
-        clock['pipeline' if seen else 'startup'] += time.perf_counter() - t
+        clock['pipeline' if results else 'startup'] += time.perf_counter() - t
         if batch is None:
             break
         t = time.perf_counter()
@@ -147,21 +186,7 @@ def single_device_test(model: torch.nn.Module, dataset,
             torch.cuda.synchronize(dev)
         clock['device'] += time.perf_counter() - t
         t = time.perf_counter()
-        dets, labels, valid = (out[k].cpu().numpy()
-                               for k in ('dets', 'labels', 'valid'))
-        ori = batch['ori_shape'].long().tolist()
-        for i, img_id in enumerate(batch['img_id'].tolist()):
-            if img_id in seen or (max_images is not None and
-                                  len(results) >= max_images):
-                continue
-            seen.add(img_id)
-            res = {'img_id': img_id, 'dets': dets[i], 'labels': labels[i],
-                   'valid': valid[i]}
-            if 'masks' in out:
-                res['masks'] = fetch_masks(out['masks'][i], ori[i])
-            if proposals:
-                res['proposals'] = dets[i][valid[i]]
-            results.append(res)
+        results += batch_results(out, batch, proposals, take)
         clock['fetch'] += time.perf_counter() - t
         if progress and len(results) % 50 == 0:
             fps = len(results) / max(time.perf_counter() - t_start, 1e-6)
@@ -171,6 +196,60 @@ def single_device_test(model: torch.nn.Module, dataset,
         print()
     if timings is not None:
         timings.update(clock)
+    return results
+
+
+def multi_device_test(model: torch.nn.Module, dataset,
+                      samples_per_device: int = 1,
+                      mask_canvas: Optional[Tuple[int, int]] = None,
+                      mask_thr: float = 0.5,
+                      max_images: Optional[int] = None,
+                      workers_per_gpu: int = 4, progress: bool = False,
+                      group=None) -> List[Dict]:
+    """The data-parallel test loop (port of ``multi_device_test``,
+    ``dynamask_tpu/apis/test.py:227-316``; reference multi_gpu_test), run
+    by every rank of ``group`` (default: the default process group) with
+    its copy of the model. Each rank loads its share of each global batch
+    of ``samples_per_device`` x world size images
+    (``build_dataloader(num_shards=, shard_index=)``; the sampler wraps
+    the last batch of each orientation group around to fill it) and runs
+    :func:`make_test_fn` on it; the batch's per-image results are gathered
+    to every rank (``all_gather_object``) and put back in the global
+    batch's order, rank ``r``'s ``j``-th image at ``r + W * j``; repeats
+    are dropped by ``img_id``. So every rank returns
+    :func:`single_device_test`'s results, in its order."""
+    import torch.distributed as dist
+    from ..data import build_dataloader
+    group = group or dist.group.WORLD
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    ch, cw = mask_canvas or dataset_mask_canvas(dataset)
+    loader = build_dataloader(dataset, samples_per_gpu=samples_per_device,
+                              workers_per_gpu=workers_per_gpu, shuffle=False,
+                              drop_last=False, num_shards=world,
+                              shard_index=rank)
+    step = make_test_fn(model, (ch, cw), mask_thr)
+    proposals = is_proposal_model(model)
+    take = first_of_each(max_images)
+    results: List[Dict] = []
+    t_start = time.perf_counter()
+    # every rank has the same number of batches and, after each gather,
+    # the same results: the ranks leave the loop together
+    for batch in loader:
+        if max_images is not None and len(results) >= max_images:
+            break
+        out = step(simple_test_inputs(batch))
+        local = batch_results(out, batch, proposals, lambda _: True)
+        gathered = [None] * world
+        dist.all_gather_object(gathered, local, group=group)
+        results += [res for j in range(samples_per_device)
+                    for res in (part[j] for part in gathered)
+                    if take(res['img_id'])]
+        if progress and rank == 0 and len(results) % 50 == 0:
+            fps = len(results) / max(time.perf_counter() - t_start, 1e-6)
+            print(f'\r{len(results)} imgs, {fps:.1f} img/s', end='',
+                  flush=True)
+    if progress and rank == 0:
+        print()
     return results
 
 
@@ -324,14 +403,16 @@ def proposal_lists(results: List[Dict]) -> List:
 def run_test(cfg, checkpoint: Optional[str] = None,
              max_images: Optional[int] = None, device=None,
              fuse_conv_bn: bool = False, tta: bool = False,
-             tta_scales: Optional[Sequence[Tuple[int, int]]] = None
-             ) -> Tuple[object, List[Dict]]:
+             tta_scales: Optional[Sequence[Tuple[int, int]]] = None,
+             group=None) -> Tuple[object, List[Dict]]:
     """Build the config's detector and test dataset and run the test loop
     with the config's loader workers -> (dataset, results). With
     ``fuse_conv_bn`` the detector's conv+BN pairs are folded first
     (``engine.fuse_conv_bn``; the count is printed); with ``tta`` the loop
     is :func:`aug_device_test` at ``tta_scales`` (None: the pipeline's
-    own scale) with flips."""
+    own scale) with flips; else, given a process ``group``, the loop is
+    :func:`multi_device_test` over its ranks (each calls ``run_test`` with
+    its own ``device``)."""
     from ..data import build_dataset
     from .inference import init_detector
     model = init_detector(cfg, checkpoint, device=device)
@@ -347,6 +428,10 @@ def run_test(cfg, checkpoint: Optional[str] = None,
     if tta:
         return dataset, aug_device_test(model, dataset, scales=tta_scales,
                                         max_images=max_images)
+    if group is not None:
+        return dataset, multi_device_test(
+            model, dataset, max_images=max_images,
+            workers_per_gpu=data.get('workers_per_gpu', 4), group=group)
     return dataset, single_device_test(
         model, dataset, max_images=max_images,
         workers_per_gpu=data.get('workers_per_gpu', 4))

@@ -1,6 +1,7 @@
 """Training entry points (port of ``dynamask_tpu/apis/train.py``):
 ``train_detector``, the epoch loop of the config's recipe with text and
-json logs, checkpoints, resume and validation; ``init_trainer`` (the
+json logs, checkpoints, resume and validation, on one device or on each
+rank of a process group; ``init_trainer`` (the
 detector and its optimizer from a config) and ``train_steps`` (optimizer
 steps on given batches: a ``build_dataloader`` batch, or the seeded
 synthetic batch here, in the JAX package's training batch contract).
@@ -9,6 +10,7 @@ synthetic batch here, in the JAX package's training batch contract).
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import os
@@ -19,6 +21,7 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import (build_dataloader, build_dataset, dataset_spec,
                     rasterize_semantic)
@@ -27,11 +30,12 @@ from ..engine.checkpoint import (load_checkpoint, load_params_only,
 from ..engine.optimizer import DetectorSGD, build_optimizer
 from ..engine.pretrained import apply_pretrained
 from ..engine.train import make_train_step
+from ..engine.train_state import active_group
 from ..utils.config import Config
 from ..utils.device import resolve_device
 from ..utils.env import collect_env
 from .inference import init_detector
-from .test import single_device_test
+from .test import multi_device_test, single_device_test
 
 
 
@@ -59,26 +63,32 @@ def init_trainer(config: Union[str, Config], *, steps_per_epoch: int,
 def train_steps(model: torch.nn.Module, optimizer: DetectorSGD,
                 batches: Iterable[Dict[str, torch.Tensor]],
                 generator: Optional[torch.Generator] = None,
-                compute_dtype: Optional[torch.dtype] = None
+                compute_dtype: Optional[torch.dtype] = None, group=None
                 ) -> List[Dict[str, torch.Tensor]]:
     """One optimizer step per batch; returns each step's log (losses,
     ``loss``, ``grad_norm``). Random draws come from ``generator``;
-    ``compute_dtype`` as :func:`engine.train.make_train_step` (bf16 compute
-    on fp32 master weights, or None for fp32)."""
-    step = make_train_step(model, optimizer, compute_dtype)
+    ``compute_dtype`` and ``group`` as :func:`engine.train.make_train_step`
+    (bf16 compute on fp32 master weights, or None for fp32; the
+    data-parallel step over a process group, each rank on its own
+    batches)."""
+    step = make_train_step(model, optimizer, compute_dtype, group)
     dev = model.device
     return [step({k: v.to(dev) for k, v in b.items()}, generator=generator)
             for b in batches]
 
 
 def step_generator(seed: int, epoch: int, it: int,
-                   device: torch.device) -> torch.Generator:
+                   device: torch.device, rank: int = 0) -> torch.Generator:
     """The generator of one loop step's draws (sampler priorities, Gumbel
     uniforms), seeded from ``(seed, epoch, it)``: the counterpart of
     ``fold_in(train_rng, epoch * 10**6 + it)``
     (``dynamask_tpu/apis/train.py:201``), so a resumed run draws what the
-    straight run drew."""
-    ss = np.random.SeedSequence(seed, spawn_key=(epoch * 10 ** 6 + it,))
+    straight run drew. A data-parallel rank other than 0 draws from
+    ``(seed, epoch, it, rank)``, independently, as JAX's DDP step folds in
+    the device's index (``engine/train_state.py:186``); rank 0 draws what
+    one device draws."""
+    key = (epoch * 10 ** 6 + it,) + ((rank,) if rank else ())
+    ss = np.random.SeedSequence(seed, spawn_key=key)
     return torch.Generator(device=device).manual_seed(
         int(ss.generate_state(1, np.uint64)[0]))
 
@@ -132,7 +142,23 @@ def _run_logs(work_dir: str):
             h.close()
 
 
+@contextlib.contextmanager
+def _rank_logs(work_dir: str, rank: int):
+    """Rank 0's :func:`_run_logs`; another rank writes no file, and its
+    logger (a child of the root logger) passes on warnings only."""
+    if rank == 0:
+        with _run_logs(work_dir) as logs:
+            yield logs
+        return
+    logger = logging.getLogger('dynamask_torch').getChild(f'rank{rank}')
+    logger.setLevel(logging.WARNING)
+    yield logger, None
+
+
 def _write_row(json_log, row: dict) -> None:
+    """One json log row (none on a rank without the log)."""
+    if json_log is None:
+        return
     json_log.write(json.dumps(row) + '\n')
     json_log.flush()
 
@@ -144,8 +170,21 @@ def train_detector(cfg: Config, work_dir: Optional[str] = None,
                    device=None, validate: bool = True
                    ) -> Tuple[torch.nn.Module, DetectorSGD]:
     """Train per the config's recipe (port of ``train_detector``,
-    ``dynamask_tpu/apis/train.py:58-238``, on one device: ``device``,
-    default ``cuda``). Returns the model and its optimizer.
+    ``dynamask_tpu/apis/train.py:58-238``) on one device: ``device``,
+    default ``cuda``. Returns the model and its optimizer.
+
+    Where a process group is up (``engine.init_group``; the train CLI's
+    ``--devices N`` and ``--launcher pytorch``), each rank runs this with
+    its own ``device`` and the loop is data-parallel, as JAX's is over
+    its devices: each rank loads its shard of each global batch
+    (``samples_per_gpu`` images a rank, ``build_dataloader(num_shards=,
+    shard_index=)``), every rank builds the same model from ``seed`` and
+    reads the same ``resume_from`` / ``load_from``, each step is the DDP
+    step (``make_train_step(group=)``: one fused all-reduce of the
+    gradients, the log and the running statistics) on the rank's own draws
+    (:func:`step_generator`), only rank 0 writes the logs and checkpoints
+    (all ranks wait for each save), and validation runs
+    :func:`multi_device_test`, rank 0 evaluating and logging the row.
 
     The train set and its loader (the config's ``samples_per_gpu`` and
     ``workers_per_gpu``; workers kept across epochs), epochs of
@@ -158,7 +197,7 @@ def train_detector(cfg: Config, work_dir: Optional[str] = None,
     and at the epoch's last, a checkpoint every
     ``checkpoint_config.interval`` epochs, and unless ``validate`` is
     False validation every ``evaluation.interval`` epochs (a failure is
-    logged, as in the JAX loop). Text log ``{timestamp}.log`` and json rows
+    logged, as in the JAX loop; under a process group it raises). Text log ``{timestamp}.log`` and json rows
     ``{timestamp}.log.json`` in ``work_dir``; each epoch's timings go to the
     logger as the record's ``epoch_timing``. A ``bf16 = True`` or an
     mmdet-style ``fp16 = dict(...)`` config key trains in bf16 on fp32
@@ -166,15 +205,20 @@ def train_detector(cfg: Config, work_dir: Optional[str] = None,
     loss scale, so the fp16 options are not read); checkpoints and
     validation stay fp32."""
     dev = resolve_device(device)
+    group = active_group()
+    rank, world = ((0, 1) if group is None else
+                   (dist.get_rank(group), dist.get_world_size(group)))
     compute_dtype = (torch.bfloat16 if cfg.get('bf16') or
                      cfg.get('fp16') is not None else None)
     work_dir = work_dir or cfg.get('work_dir') or './work_dirs/default'
     os.makedirs(work_dir, exist_ok=True)
-    with _run_logs(work_dir) as (logger, json_log):
+    with _rank_logs(work_dir, rank) as (logger, json_log):
         env = '\n'.join(f'{k}: {v}' for k, v in collect_env().items())
         logger.info('Environment info:\n' + '-' * 60 + f'\n{env}\n' +
                     '-' * 60)
-        logger.info(f'device: {dev}')
+        logger.info(f'device: {dev}' + ('' if group is None else
+                    f'; {world} data-parallel rank(s) over '
+                    f'{dist.get_backend(group)}'))
         set_random_seed(seed)
         data = cfg.data
         dataset = build_dataset(dict(data['train']), default_args=dict(
@@ -182,16 +226,18 @@ def train_detector(cfg: Config, work_dir: Optional[str] = None,
             mask_crop_size=data.get('mask_crop_size', 128)))
         loader = build_dataloader(dataset, data['samples_per_gpu'],
                                   workers_per_gpu=data.get('workers_per_gpu',
-                                                           4), seed=seed)
+                                                           4), seed=seed,
+                                  num_shards=world, shard_index=rank)
         steps_per_epoch = len(loader)
         if max_steps_per_epoch:
             steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
         logger.info(f'{len(dataset)} images, {steps_per_epoch} steps/epoch')
         if steps_per_epoch == 0:
             raise ValueError(
-                f'the batch (samples_per_gpu={data["samples_per_gpu"]} on '
-                f'one device) exceeds the dataset ({len(dataset)} images) '
-                f'- no full batch can form. Reduce samples_per_gpu.')
+                f'the global batch (samples_per_gpu='
+                f'{data["samples_per_gpu"]} x {world} device(s)) exceeds '
+                f'the dataset ({len(dataset)} images) - no full batch can '
+                f'form. Reduce samples_per_gpu or the number of devices.')
         model, optimizer = init_trainer(cfg, steps_per_epoch=steps_per_epoch,
                                         device=dev, seed=seed)
         logger.info(f'model built: '
@@ -233,8 +279,8 @@ def train_detector(cfg: Config, work_dir: Optional[str] = None,
                 timing['data_s' if it else 'first_batch_s'] += \
                     time.perf_counter() - t
                 log, = train_steps(model, optimizer, [batch],
-                                   step_generator(seed, epoch, it, dev),
-                                   compute_dtype)
+                                   step_generator(seed, epoch, it, dev, rank),
+                                   compute_dtype, group)
                 if (it + 1) % log_interval == 0 or it + 1 == steps_per_epoch:
                     log = {k: float(v) for k, v in log.items()}
                     step = optimizer.steps
@@ -251,22 +297,34 @@ def train_detector(cfg: Config, work_dir: Optional[str] = None,
             timing['train_s'] = time.time() - t_start
             if (epoch + 1) % ckpt_interval == 0:
                 t = time.perf_counter()
-                path = save_checkpoint(work_dir, model, optimizer, epoch + 1,
-                                       meta)
+                if rank == 0:
+                    path = save_checkpoint(work_dir, model, optimizer,
+                                           epoch + 1, meta)
+                if group is not None:
+                    dist.barrier(group)
                 timing['save_s'] = time.perf_counter() - t
-                timing['checkpoint_bytes'] = os.path.getsize(path)
-                logger.info(f'checkpoint saved: {path}')
+                if rank == 0:
+                    timing['checkpoint_bytes'] = os.path.getsize(path)
+                    logger.info(f'checkpoint saved: {path}')
             if eval_interval and (epoch + 1) % eval_interval == 0:
                 # the EvalHook (reference core/evaluation/eval_hooks.py:
                 # 7-80): the val split through the test loop and evaluate
                 t = time.perf_counter()
                 try:
-                    metrics = _run_validation(cfg, model, eval_cfg, logger)
-                except Exception:   # validation must never stop training
+                    metrics = _run_validation(cfg, model, eval_cfg, logger,
+                                              group)
+                except Exception:
+                    # validation never stops training on one device; a
+                    # rank that failed alone would leave the others in
+                    # multi_device_test's gather, so under a group it
+                    # fails the run (the launcher then ends the others)
+                    if group is not None:
+                        raise
                     logger.warning('validation failed', exc_info=True)
                 else:
-                    _write_row(json_log, {'mode': 'val', 'epoch': epoch + 1,
-                                          **metrics})
+                    if metrics is not None:
+                        _write_row(json_log, {'mode': 'val',
+                                              'epoch': epoch + 1, **metrics})
                 timing['val_s'] = time.perf_counter() - t
             logger.info(f'epoch {epoch + 1} timings: ' + ', '.join(
                 f'{k} {v:.3f}' for k, v in timing.items() if k != 'epoch'),
@@ -275,28 +333,36 @@ def train_detector(cfg: Config, work_dir: Optional[str] = None,
 
 
 def _run_validation(cfg: Config, model: torch.nn.Module, eval_cfg: dict,
-                    logger: logging.Logger) -> Dict[str, float]:
+                    logger: logging.Logger, group=None
+                    ) -> Optional[Dict[str, float]]:
     """The val (else test) split through :func:`single_device_test` on the
     live model (``evaluation.max_images``; the config's loader workers),
-    then ``evaluate`` with ``evaluation.metric`` and ``classwise``. The
-    model goes back to its training state: ``train()`` keeps ``norm_eval``
-    BatchNorms on running statistics, and ``requires_grad`` is not
-    touched."""
+    or with a process ``group`` through :func:`multi_device_test` on every
+    rank, then ``evaluate`` with ``evaluation.metric`` and ``classwise``
+    (rank 0 alone: the others return None). The model goes back to its
+    training state: ``train()`` keeps ``norm_eval`` BatchNorms on running
+    statistics, and ``requires_grad`` is not touched."""
     val_cfg = dict(cfg.data.get('val') or cfg.data.get('test'))
     dataset = build_dataset(val_cfg, default_args=dict(test_mode=True))
+    loop = (single_device_test if group is None else
+            functools.partial(multi_device_test, group=group))
     model.eval()
     try:
-        results = single_device_test(
-            model, dataset, max_images=eval_cfg.get('max_images'),
-            workers_per_gpu=cfg.data.get('workers_per_gpu', 4),
-            progress=False)
+        results = loop(model, dataset,
+                       max_images=eval_cfg.get('max_images'),
+                       workers_per_gpu=cfg.data.get('workers_per_gpu', 4),
+                       progress=False)
     finally:
         model.train()
+    if group is not None and dist.get_rank(group) != 0:
+        return None
     metric = eval_cfg.get('metric', ['bbox', 'segm'])
     metrics = dataset.evaluate(
         results, metric=[metric] if isinstance(metric, str) else metric,
         classwise=eval_cfg.get('classwise', False))
-    logger.info(f'validation ({len(results)} images): ' + ', '.join(
+    where = ('' if group is None else f', multi_device_test over '
+             f'{dist.get_world_size(group)} rank(s)')
+    logger.info(f'validation ({len(results)} images{where}): ' + ', '.join(
         f'{k}: {v:.4f}' for k, v in metrics.items()))
     return {k: float(v) for k, v in metrics.items()}
 

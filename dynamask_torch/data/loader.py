@@ -130,19 +130,31 @@ class SeededItems(Dataset):
 
 def build_dataloader(dataset, samples_per_gpu: int, workers_per_gpu: int = 4,
                      shuffle: bool = True, seed: int = 0,
-                     drop_last: Optional[bool] = None) -> DataLoader:
+                     drop_last: Optional[bool] = None, num_shards: int = 1,
+                     shard_index: int = 0) -> DataLoader:
     """A ``DataLoader`` over ``dataset`` in ``GroupedBatchSampler`` batches,
     collated into torch tensors by ``workers_per_gpu`` worker processes
     (started with ``spawn`` at the first epoch and kept for the next ones;
     0 loads in the calling process). Each sample's pipeline draws are
-    seeded from ``seed``, the epoch and its index (:class:`SeededBatches`).
-    ``loader.batch_sampler.set_epoch(e)`` reseeds the shuffle and the
-    draws."""
+    seeded from ``seed``, the epoch and its index (:class:`SeededBatches`),
+    whichever shard loads it. ``loader.batch_sampler.set_epoch(e)``
+    reseeds the shuffle and the draws.
+
+    ``num_shards`` / ``shard_index``: one rank's share of each global batch
+    of ``samples_per_gpu * num_shards`` images, the rule of the JAX
+    package's multi-process loader (``dynamask_tpu/data/loader.py:62-64``):
+    rank ``r`` takes ``chunk[r::num_shards]`` of each global chunk, and
+    every rank sees the same number of batches. At ``samples_per_gpu > 1``
+    this pairs images with ranks otherwise than JAX's single-process mesh,
+    which splits each chunk into contiguous blocks; the set of images in
+    each global batch is the same."""
     if drop_last is None:
         drop_last = shuffle  # train drops ragged tails; eval keeps all
     flags = getattr(dataset, 'flags', np.zeros(len(dataset), np.int64))
     sampler = GroupedBatchSampler(flags, samples_per_gpu, shuffle=shuffle,
-                                  seed=seed, drop_last=drop_last)
+                                  seed=seed, num_shards=num_shards,
+                                  shard_index=shard_index,
+                                  drop_last=drop_last)
     workers = dict(num_workers=workers_per_gpu, worker_init_fn=_worker_init,
                    multiprocessing_context='spawn',
                    persistent_workers=True) if workers_per_gpu else {}

@@ -15,8 +15,11 @@ test-time augmentation loop (``apis.aug_device_test``): each scale of
 ``--tta-scales`` (flat h w pairs; without them the config's own), unflipped
 and flipped; a detector the JAX package cannot augment exits non-zero,
 naming why. A checkpoint is a port or mmdet ``state_dict`` file; without
-one the weights are random from seed 0. ``--devices`` above 1 is not
-ported: it exits non-zero, naming its ROADMAP item.
+one the weights are random from seed 0. ``--devices N`` runs
+``apis.multi_device_test`` over N spawned ranks, one a GPU over NCCL (exit
+2 where fewer are visible), or with ``--device cpu`` on the CPU over gloo;
+rank 0 evaluates and writes the outputs. ``--tta`` takes precedence over
+``--devices``, as in the JAX CLI: it runs in this process.
 """
 
 from __future__ import annotations
@@ -27,13 +30,6 @@ import os
 import pickle
 import sys
 from typing import List, Optional
-
-# flags of the JAX CLI the port has not got, and where they are queued
-NOT_PORTED = {
-    'devices': 'multi-device eval (multi_device_test) is not ported: '
-               'ROADMAP.md §1, item 11',
-}
-
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description='Test a detector (PyTorch port)')
@@ -70,7 +66,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help='fold the BatchNorms into their convs before the '
                         'test loop')
     p.add_argument('--devices', type=int, default=1,
-                   help=NOT_PORTED['devices'])
+                   help='data-parallel evaluation over N spawned ranks, '
+                        'one a GPU (with --device cpu, N ranks on the CPU)')
     args = p.parse_args(argv)
     if args.tta_scales and len(args.tta_scales) % 2:
         p.error('--tta-scales wants h w pairs')
@@ -107,25 +104,44 @@ def render_results(out_dir: str, dataset, results, classes,
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    if args.devices > 1:
-        print(f'error: {NOT_PORTED["devices"]}', file=sys.stderr)
+    if args.tta:
+        return evaluate(args, args.device)
+    from .train import _rank, check_devices, spawn_ranks
+    why = check_devices(args.device or 'cuda', args.devices)
+    if why:
+        print(f'error: {why}', file=sys.stderr)
         return 2
+    if args.devices > 1:
+        import torch
+        return spawn_ranks(_rank, args.devices,
+                           (evaluate, args, torch.get_num_threads()))
+    return evaluate(args, args.device)
+
+
+def evaluate(args, device) -> int:
+    """The test loop on ``device`` (over the process group's ranks, where
+    one is up), then on rank 0 the outputs and metrics -> the exit code."""
+    import torch
     from ..apis import run_test
     from ..apis.test import proposal_lists
+    from ..engine.train_state import active_group
     from ..utils.config import Config
 
     cfg = Config.fromfile(args.config)
     if args.options:
         cfg.merge_from_options(dict(kv.split('=', 1) for kv in args.options))
+    group = active_group()
     scales = args.tta_scales and [tuple(args.tta_scales[i:i + 2]) for i in
                                   range(0, len(args.tta_scales), 2)]
     try:
         dataset, results = run_test(cfg, args.checkpoint, args.max_images,
-                                    args.device, args.fuse_conv_bn, args.tta,
-                                    scales)
+                                    device, args.fuse_conv_bn, args.tta,
+                                    scales, group)
     except NotImplementedError as e:
         print(f'error: {e}', file=sys.stderr)
         return 2
+    if group is not None and torch.distributed.get_rank(group) != 0:
+        return 0
     if args.out and args.out.endswith('.pkl'):
         with open(args.out, 'wb') as f:
             pickle.dump(proposal_lists(results) if 'proposals' in results[0]

@@ -307,18 +307,34 @@ def test_run_eval(slice_run, pair, coco_set, tmp_path):
 @pytest.mark.parametrize('flags,item', [
     (['--tta'], 'test-time augmentation'),
     (['--devices', '2'], 'multi-device')])
-def test_cli_refuses_unported_flags(flags, item, capsys):
-    """``--devices`` above 1 exits non-zero, naming its ROADMAP item;
-    ``--tta``, ported, exits non-zero on a detector the JAX package cannot
-    augment (RetinaNet), naming why, before it reads a dataset."""
+def test_cli_refuses_unported_flags(flags, item, coco_set, pair, tmp_path,
+                                    capsys):
+    """``--tta`` exits non-zero on a detector the JAX package cannot
+    augment (RetinaNet), naming why, before it reads a dataset.
+    ``--devices 2 --device cpu`` (the multi-device eval, two ranks spawned
+    over gloo, ``multi_device_test``) exits 0 and writes the results
+    ``--devices 1`` writes, byte for byte."""
     from dynamask_torch.tools.test import main
-    tta = '--tta' in flags
-    cfg = os.path.join(os.path.dirname(os.path.dirname(__file__)), 'configs',
-                       'retinanet', 'retinanet_r50_fpn_1x_coco.py') \
-        if tta else 'unused.py'
-    assert main([cfg, *flags, '--device', 'cpu']) != 0
-    err = capsys.readouterr().err
-    assert item in err and ('RetinaNet' if tta else 'ROADMAP') in err
+    if '--tta' in flags:
+        cfg = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                           'configs', 'retinanet',
+                           'retinanet_r50_fpn_1x_coco.py')
+        assert main([cfg, *flags, '--device', 'cpu']) != 0
+        err = capsys.readouterr().err
+        assert item in err and 'RetinaNet' in err
+        return
+    _, _, _, (model, train_cfg, test_cfg) = pair
+    cfg = _write_cfg(tmp_path / 'cfg.py', dict(
+        model=model, train_cfg=train_cfg, test_cfg=test_cfg,
+        data=dict(workers_per_gpu=0,
+                  test=data_cfg(*coco_set, TEST_PIPELINE))))
+    outs = {n: tmp_path / f'results{n}.json' for n in ('1', '2')}
+    for n, out in outs.items():
+        assert main([cfg, '--devices', n, '--device', 'cpu', '--eval',
+                     'bbox', 'segm', '--out', str(out)]) == 0
+    assert outs['2'].read_bytes() == outs['1'].read_bytes()
+    res = json.loads(outs['2'].read_text())
+    assert res['bbox'] and len(res['segm']) == len(res['bbox'])
 
 
 def test_train_step_from_loader(coco_set):

@@ -402,9 +402,12 @@ def test_cli(runs, coco, tmp_path, monkeypatch, capsys):
     """``python -m dynamask_torch.tools.train cfg --device cpu`` in a
     subprocess, with 2 loader workers and ``--load-from`` the straight
     run's checkpoint: exits 0, writes ``epoch_1.pth``, ``latest``, train
-    rows that start the progress afresh and a val row. ``--devices 2`` and
-    ``--launcher pytorch`` exit 2 naming the DDP item; without a GPU the
-    default device exits 1; a ``bf16`` config trains its epoch in bf16,
+    rows that start the progress afresh and a val row. ``--devices 2
+    --device cpu`` trains one epoch of one step on two ranks spawned over
+    gloo: rank 0 alone writes the logs and the one checkpoint, and the val
+    row comes from ``multi_device_test``; ``--launcher slurm`` exits 2;
+    without a GPU ``--devices 2`` exits 2 naming the count and the default
+    device exits 1; a ``bf16`` config trains its epoch in bf16,
     logs the mixed-precision line and saves fp32 weights; a batch no group
     can fill raises."""
     from dynamask_torch.apis import train_detector
@@ -428,11 +431,31 @@ def test_cli(runs, coco, tmp_path, monkeypatch, capsys):
     assert got[0]['step'] == 1 and np.isfinite(got[1]['bbox_mAP'])
     assert 'loaded weights from' in proc.stderr
 
-    for flags in (['--devices', '2'], ['--launcher', 'pytorch']):
-        assert main([path, *flags]) == 2
-        err = capsys.readouterr().err
-        assert 'DDP' in err and 'ROADMAP' in err
+    ddp = tmp_path / 'ddp'
+    assert main([path, '--devices', '2', '--device', 'cpu', '--work-dir',
+                 str(ddp), '--max-steps-per-epoch', '1', '--options',
+                 'total_epochs=1', 'data.workers_per_gpu=0']) == 0
+    names = os.listdir(ddp)
+    assert sorted(n for n in names if not n.endswith('.log')
+                  and not n.endswith('.log.json')) == ['epoch_1.pth',
+                                                        'latest']
+    assert sum(n.endswith('.log') for n in names) == 1
+    assert sum(n.endswith('.log.json') for n in names) == 1
+    got = rows(ddp)
+    assert [(r['mode'], r['epoch']) for r in got] == [('train', 1),
+                                                      ('val', 1)]
+    assert got[0]['step'] == 1 and np.isfinite(got[0]['loss'])
+    assert np.isfinite(got[1]['bbox_mAP'])
+    text = ''.join(open(ddp / n).read() for n in names if n.endswith('.log'))
+    assert '2 data-parallel rank(s) over gloo' in text
+    capsys.readouterr()
+    assert main([path, '--launcher', 'slurm']) == 2
+    err = capsys.readouterr().err
+    assert 'slurm' in err and 'JAX package has no such launcher' in err
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 0)
+    assert main([path, '--devices', '2']) == 2
+    assert 'device_count() is 0' in capsys.readouterr().err
     assert main([path]) == 1
     assert 'CUDA' in capsys.readouterr().err
     from dynamask_torch.utils import Config
@@ -456,6 +479,34 @@ def test_cli(runs, coco, tmp_path, monkeypatch, capsys):
     with pytest.raises(ValueError, match='samples_per_gpu'):
         train_detector(Config(big), work_dir=str(tmp_path / 'big'),
                        device='cpu')
+
+
+def test_ddp_validation_failure_ends_the_run(coco, tmp_path, capsys):
+    """``--devices 2 --device cpu``'s ranks (``tools.train.spawn_ranks``,
+    gloo) on a validation set that lacks the image of rank 1's shard: rank
+    1 fails in ``multi_device_test`` alone, while rank 0 waits in the
+    results' gather. Under a group that failure fails the run and the
+    other rank is ended: exit 1, naming the missing file, inside the
+    limit (a rank that logged the failure and went on would leave rank 0
+    in the gather, or in a collective paired with another)."""
+    from test_data import make_synthetic_coco
+    from dynamask_torch.tools.train import (_rank, parse_args, spawn_ranks,
+                                            train)
+    val_ann, val_img = make_synthetic_coco(tmp_path, num_imgs=4)
+    # each orientation group's batch is images (0, 2) or (1, 3); rank r
+    # takes the r-th of each
+    os.remove(os.path.join(val_img, '0002.jpg'))
+    cfg = toy_config(*coco).to_dict()
+    cfg['data']['test'].update(ann_file=val_ann, img_prefix=val_img)
+    path = _write_cfg(tmp_path / 'cfg.py', cfg)
+    args = parse_args([path, '--devices', '2', '--device', 'cpu',
+                       '--work-dir', str(tmp_path / 'work'),
+                       '--max-steps-per-epoch', '1', '--options',
+                       'total_epochs=1'])
+    assert spawn_ranks(_rank, 2, (train, args, 1), timeout=300) == 1
+    err = capsys.readouterr().err
+    assert 'a rank raised' in err and '0002.jpg' in err
+    assert [r['mode'] for r in rows(tmp_path / 'work')] == ['train']
 
 
 def test_init_draws_from_the_jax_initialisers(jax_det, coco):
